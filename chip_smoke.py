@@ -1,0 +1,793 @@
+#!/usr/bin/env python3
+"""GPU smoke run of the PyTorch/CUDA port (``src/repro_torch``).
+
+Run from the root of a checkout on a machine with one NVIDIA GPU (written
+for an H100) and the CUDA toolkit:
+
+    python3 chip_smoke.py            # everything, as described below
+    python3 chip_smoke.py --steps 300 --big-steps 16   # a shorter run
+    python3 chip_smoke.py --profile build/profile.txt  # + a profiler table
+
+It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
+
+1. prints the environment (torch / CUDA / nvcc, the card and its power limit);
+2. holds every kernel against its plain PyTorch version on the card at the
+   shapes of the ``dhash-paper`` configuration, exact equality, on inputs
+   chosen to hurt (tombstones, migrated slots, wrap-around, one hot start
+   slot, duplicates, ragged batch sizes, a partial last chunk, killed hazard
+   entries, a new table 4x the old), and times kernel and plain version;
+3. drives the main path — ``dhash.make("linear", fused=True)`` at the
+   unreduced ``dhash-paper`` size under ``DHashEngine`` with continuous
+   rebuild — for at least two complete live hash-function swaps, checking
+   every step's outputs against a dense numpy oracle and the kernel launch
+   counts of every step;
+4. runs the same engine in lock step with the port's own plain
+   (``fused=False``) path on the card for one epoch at a smaller table;
+5. repeats a short stretch of the main path on a table far larger than the
+   L2 cache (2**25 slots).
+
+Any failed check raises, so the process exits non-zero and prints no result
+line.  The last line of a good run is
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
+the line before it is one JSON object describing every kernel.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
+# one 32-bit integer operation a float32 lane a clock: half of the data
+# sheet's 67 TFLOP/s (which counts a fused multiply-add as two)
+INT_OPS_PER_S = 33.5e12
+
+KERNEL_INFO = {
+    "probe_lookup": ("src/repro_torch/kernels/csrc/probe_lookup.cu",
+                     "src/repro/kernels/probe.py:163"),
+    "probe2": ("src/repro_torch/kernels/csrc/probe2.cu",
+               "src/repro/kernels/probe.py:178"),
+    "probe_insert": ("src/repro_torch/kernels/csrc/probe_insert.cu",
+                     "src/repro/kernels/probe.py:244"),
+    "extract": ("src/repro_torch/kernels/csrc/extract.cu",
+                "src/repro/kernels/probe.py:463"),
+}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.stdout.strip() \
+        else "nvidia-smi gave no output"
+
+
+def check(cond, what):
+    if not cond:
+        raise AssertionError(what)
+
+
+def same(a: torch.Tensor, b: torch.Tensor, what: str) -> int:
+    """Exact equality of two tensors; returns the max abs difference (0)."""
+    check(a.shape == b.shape and a.dtype == b.dtype,
+          f"{what}: shape/dtype {a.shape}/{a.dtype} vs {b.shape}/{b.dtype}")
+    err = int((a.long() - b.long()).abs().max()) if a.numel() else 0
+    check(err == 0, f"{what}: kernel and plain version differ (max abs {err},"
+                    f" {int((a != b).sum())} of {a.numel()} elements)")
+    return err
+
+
+def time_ms(fn, reps: int, setup=None, queue_ahead: bool = True) -> float:
+    """Median device time of ``fn`` over ``reps`` calls: a CUDA event before
+    and after each call, read after one synchronise at the end.  The stream
+    is first kept busy for some tens of milliseconds so that the host queues
+    all the calls ahead of the device: the events then bracket the kernel's
+    own time, not the host's time to enqueue it.  ``setup`` (restoring mutated
+    inputs) runs before each call, outside its events.  ``queue_ahead=False``
+    is for the plain versions, which synchronise inside."""
+    for _ in range(2):          # warm-up
+        if setup is not None:
+            setup()
+        fn()
+    torch.cuda.synchronize()
+    if queue_ahead:
+        torch.cuda._sleep(60_000_000)
+    evs = []
+    for _ in range(reps):
+        if setup is not None:
+            setup()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        evs.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in evs)
+
+
+def profile_steps(eng, oracle, cfg, n_steps: int, step0: int, path: str):
+    """``n_steps`` more engine steps under torch.profiler; writes the kernel
+    table and the device's busy share to ``path``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    batches = [oracle.batch(cfg.lookups_per_step, cfg.updates_per_step,
+                            step0 + s) for s in range(n_steps)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for s, (look, ins, vals, dele) in enumerate(batches):
+            mask = ~oracle.present[ins]
+            out = eng.step(oracle.key(look), oracle.key(ins), vals,
+                           oracle.key(dele), ins_mask=mask)
+            oracle.step(look, ins, vals, mask, dele, out, f"profile step {s}")
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    ka = prof.key_averages()
+    # kernel and memcpy rows only: an op row repeats its kernels' time
+    dev_us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+                 for e in ka if e.device_type == DeviceType.CUDA)
+    cpu_us = sum(e.self_cpu_time_total for e in ka)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(f"{n_steps} steps, wall {wall_ms:.1f} ms (with the host "
+                f"oracle), device busy {dev_us / 1e3:.1f} ms, host in "
+                f"PyTorch ops {cpu_us / 1e3:.1f} ms\n")
+        f.write(ka.table(sort_by="self_cuda_time_total", row_limit=40))
+    log(f"  profile of {n_steps} steps: device busy "
+        f"{dev_us / 1e3 / n_steps:.3f} ms a step, host time in PyTorch ops "
+        f"{cpu_us / 1e3 / n_steps:.3f} ms a step -> {path}")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def count_visits(tstate, h0, found, loc, max_probes: int) -> int:
+    """Slots a lookup batch has to read: to the hit, else to the first EMPTY
+    slot, else ``max_probes``."""
+    c = tstate.shape[0]
+    pos = h0.long()
+    active = torch.ones_like(found)
+    visits = torch.zeros((), dtype=torch.int64, device=h0.device)
+    for _ in range(max_probes):
+        visits += active.sum()
+        active &= (tstate[pos] != 0) & ~(found & (loc.long() == pos))
+        pos = (pos + 1) % c
+    return int(visits)
+
+
+def build_table(probe, hashing, c: int, n_live: int, rng, device, seed: int,
+                max_probes: int):
+    """A table of ``c`` slots with ``n_live`` random keys placed by the PLAIN
+    insert, then a share of them tombstoned and a share marked MIGRATED."""
+    hfn = hashing.fresh("mix32", seed, device)
+    tk, tv, ts = (torch.zeros(c, dtype=torch.int32, device=device)
+                  for _ in range(3))
+    uniq = np.unique(rng.integers(-(1 << 30), 1 << 30, n_live + n_live // 4))
+    check(uniq.size >= n_live, "not enough distinct keys drawn")
+    keys = torch.as_tensor(rng.permutation(uniq)[:n_live].astype(np.int32),
+                           device=device)
+    vals = keys * 3 + 1
+    for i in range(0, n_live, 1 << 17):
+        k, v = keys[i:i + (1 << 17)], vals[i:i + (1 << 17)]
+        probe.probe_insert_plain(
+            tk, tv, ts, hashing.bucket_of(hfn, k, c), k, v,
+            torch.ones_like(k, dtype=torch.bool), max_probes)
+    live = (ts == 1).nonzero().squeeze(1)
+    pick = torch.as_tensor(rng.permutation(live.numel()), device=device)
+    n = live.numel() // 10
+    ts[live[pick[:n]]] = 2           # TOMB
+    ts[live[pick[n:2 * n]]] = 3      # MIGRATED
+    return hfn, tk, tv, ts, keys
+
+
+def phase_kernels(device, cfg, reps: int) -> dict:
+    from repro_torch.core import buckets, hashing
+    from repro_torch.kernels import probe
+    rng = np.random.default_rng(11)
+    C = 1 << 21
+    P = 64
+    Q, QU, CH = cfg.lookups_per_step, cfg.updates_per_step, cfg.chunk
+    res = {}
+    i32 = torch.int32
+
+    hfn, tk, tv, ts, keys = build_table(probe, hashing, C, 1 << 20, rng,
+                                        device, 21, P)
+    log(f"  table: C={C} live={int((ts == 1).sum())} "
+        f"tomb={int((ts == 2).sum())} migrated={int((ts == 3).sum())}")
+
+    # -- probe_lookup: ragged Q, hits, misses, tombstoned keys, wrap-around
+    def lookup_inputs(q):
+        hit = keys[torch.as_tensor(rng.integers(0, keys.numel(), q // 2),
+                                   device=device)]
+        miss = torch.as_tensor(
+            rng.integers(1 << 30, (1 << 31) - 1, q - q // 2).astype(np.int32),
+            device=device)
+        qk = torch.cat([hit, miss])[torch.as_tensor(rng.permutation(q),
+                                                    device=device)]
+        h0 = hashing.bucket_of(hfn, qk, C)
+        h0[: q // 16] = C - 1 - torch.arange(q // 16, device=device,
+                                             dtype=i32) % 40   # wrap
+        return h0.contiguous(), qk.contiguous()
+
+    err = 0
+    for q in (Q + 77, Q):
+        h0, qk = lookup_inputs(q)
+        out_k = probe.probe_lookup(tk, tv, ts, h0, qk, P)
+        torch.cuda.synchronize()
+        out_p = probe.probe_lookup_plain(tk, tv, ts, h0, qk, P)
+        for a, b, n in zip(out_k, out_p, ("found", "val", "loc")):
+            err = max(err, same(a, b, f"probe_lookup Q={q} {n}"))
+    check(bool(out_k[0].any()) and not bool(out_k[0].all()),
+          "probe_lookup: inputs must mix hits and misses")
+    visits = count_visits(ts, h0, out_k[0], out_k[2], P)
+    nbytes = Q * 8 + visits * 8 + int(out_k[0].sum()) * 4 + Q * 9
+    res["probe_lookup"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: probe.probe_lookup(tk, tv, ts, h0, qk, P), reps),
+        plain_ms=time_ms(
+            lambda: probe.probe_lookup_plain(tk, tv, ts, h0, qk, P), 3,
+            queue_ahead=False),
+        bound_ms=max(nbytes / HBM_BYTES_PER_S, 2 * visits / INT_OPS_PER_S)
+        * 1e3,
+        bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+        >= 2 * visits / INT_OPS_PER_S else "operations")
+    log(f"  probe_lookup ok: Q={Q} visits={visits} "
+        f"hits={int(out_k[0].sum())}")
+
+    # -- probe_insert: hot start slot past max_probes, wrap, duplicates,
+    #    keys already live, ragged Q
+    def insert_inputs(q):
+        fresh = torch.as_tensor(
+            rng.integers(-(1 << 31), -(1 << 30), q).astype(np.int32),
+            device=device)
+        k = fresh.clone()
+        k[: q // 8] = keys[: q // 8]                 # already live (or dead)
+        k[q // 8: q // 4] = k[q // 4: q // 4 + (q // 4 - q // 8)]  # duplicates
+        h0 = hashing.bucket_of(hfn, k, C)
+        hot = slice(q // 2, q // 2 + 3000)
+        h0[hot] = C - 5                              # one start slot, wraps
+        mask = torch.as_tensor(rng.random(q) < 0.9, device=device)
+        return (h0.contiguous(), k.contiguous(), (k * 5 + 2).contiguous(),
+                buckets.batch_winners(k, mask))
+
+    err = 0
+    claim = probe.new_claim(C, device)
+    for q in (QU + 5, QU):
+        h0, k, v, m = insert_inputs(q)
+        a = [t.clone() for t in (tk, tv, ts)]
+        b = [t.clone() for t in (tk, tv, ts)]
+        ok_k, pr_k = probe.probe_insert(*a, h0, k, v, m, P, claim)
+        torch.cuda.synchronize()
+        ok_p, pr_p = probe.probe_insert_plain(*b, h0, k, v, m, P)
+        err = max(err, same(ok_k, ok_p, f"probe_insert Q={q} ok"),
+                  same(pr_k, pr_p, f"probe_insert Q={q} present"))
+        for x, y, n in zip(a, b, ("key", "val", "state")):
+            err = max(err, same(x, y, f"probe_insert Q={q} table {n}"))
+        check(bool((claim == probe.CLAIM_FREE).all()),
+              "probe_insert left claim words behind")
+        failed = m & ~ok_k & ~pr_k
+        check(int(failed.sum()) > 0, "probe_insert: the hot slot must "
+              "overflow max_probes")
+    log(f"  probe_insert ok: Q={QU} placed={int(ok_k.sum())} "
+        f"present={int(pr_k.sum())} no-slot={int(failed.sum())}")
+    # timed on the main path's kind of batch: fresh keys, hashed start slots
+    k = torch.as_tensor(rng.integers(-(1 << 31), -(1 << 30), QU)
+                        .astype(np.int32), device=device)
+    h0, v = hashing.bucket_of(hfn, k, C), k * 5 + 2
+    m = buckets.batch_winners(k, torch.ones_like(k, dtype=torch.bool))
+    a = [t.clone() for t in (tk, tv, ts)]
+
+    def restore():
+        for x, y in zip(a, (tk, tv, ts)):
+            x.copy_(y)
+    restore()
+    ok_t, pr_t = probe.probe_insert(*a, h0, k, v, m, P, claim)
+    visits = count_visits(ts, h0, pr_t, torch.full_like(h0, -1), P)
+    nbytes = QU * 13 + visits * 8 + int(ok_t.sum()) * 12 + QU * 2
+    res["probe_insert"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: probe.probe_insert(*a, h0, k, v, m, P, claim),
+                   reps, restore),
+        plain_ms=time_ms(
+            lambda: probe.probe_insert_plain(*a, h0, k, v, m, P), 3, restore,
+            queue_ahead=False),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+
+    # -- extract: first chunk, a middle one, the partial last one, the end
+    err = 0
+    for cur in (0, 5 * CH + 123, C - 1000, C):
+        cursor = torch.tensor(cur, dtype=i32, device=device)
+        sa, sb = ts.clone(), ts.clone()
+        out_k = probe.extract(tk, tv, sa, cursor, CH)
+        torch.cuda.synchronize()
+        out_p = probe.extract_plain(tk, tv, sb, cursor, CH)
+        for x, y, n in zip((*out_k, sa), (*out_p, sb),
+                           ("hkey", "hval", "hlive", "cursor", "state")):
+            err = max(err, same(x, y, f"extract cursor={cur} {n}"))
+    cursor = torch.tensor(5 * CH, dtype=i32, device=device)
+    sa = ts.clone()
+    n_live = int(probe.extract(tk, tv, sa, cursor, CH)[2].sum())
+    # in: every slot's state, key and value of the live slots, the cursor;
+    # out: the hazard buffer, the MIGRATED marks, the cursor
+    nbytes = CH * 4 + n_live * 8 + 4 + CH * 9 + n_live * 4 + 4
+    res["extract"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: probe.extract(tk, tv, sa, cursor, CH), reps,
+                   lambda: sa.copy_(ts)),
+        plain_ms=time_ms(lambda: probe.extract_plain(tk, tv, sa, cursor, CH),
+                         3, lambda: sa.copy_(ts), queue_ahead=False),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    log(f"  extract ok: chunk={CH} live in the timed chunk={n_live}")
+
+    # -- probe2: old table mid-rebuild, hazard buffer with killed entries,
+    #    new table 4x the old (and one of the same size)
+    err = 0
+    so = ts.clone()
+    cursor = torch.tensor(7 * CH, dtype=i32, device=device)
+    hk, hv, hl, _ = probe.extract_plain(tk, tv, so, cursor, CH)
+    hz_live = int(hl.sum())
+    hl = hl & torch.as_tensor(rng.random(CH) < 0.8, device=device)  # kills
+    for c_new, seed in ((4 * C, 31), (C, 32)):
+        hfn2, nk, nv, ns, nkeys = build_table(probe, hashing, c_new, 1 << 18,
+                                              rng, device, seed, P)
+        for q in (Q + 77, Q):
+            n4 = q // 4
+            qk = torch.cat([
+                keys[torch.as_tensor(rng.integers(0, keys.numel(), n4),
+                                     device=device)],
+                hk[torch.as_tensor(rng.integers(0, max(hz_live, 1), n4),
+                                   device=device)],
+                nkeys[torch.as_tensor(rng.integers(0, nkeys.numel(), n4),
+                                      device=device)],
+                torch.as_tensor(rng.integers(1 << 30, (1 << 31) - 1,
+                                             q - 3 * n4).astype(np.int32),
+                                device=device)])
+            qk = qk[torch.as_tensor(rng.permutation(q),
+                                    device=device)].contiguous()
+            h0o = hashing.bucket_of(hfn, qk, C)
+            h0n = hashing.bucket_of(hfn2, qk, c_new)
+            args = ((tk, tv, so), (nk, nv, ns), hk, hv, hl, h0o, h0n, qk, P)
+            out_k = probe.probe2(*args)
+            torch.cuda.synchronize()
+            out_p = probe.probe2_plain(*args)
+            for x, y, n in zip(out_k, out_p, ("found", "val", "f_old",
+                                              "loc_old", "hz_idx", "loc_new")):
+                err = max(err, same(x, y, f"probe2 Cnew={c_new} Q={q} {n}"))
+            check(bool(out_k[2].any()) and bool((out_k[4] >= 0).any())
+                  and bool((out_k[5] >= 0).any()) and not bool(out_k[0].all()),
+                  "probe2: inputs must hit old, hazard, new and nothing")
+    found, _, f_old, loc_old, hz_idx, loc_new = out_k
+    n_hz = int(hl.nonzero().max()) + 1
+    compares = int(torch.where(hz_idx >= 0, hz_idx + 1, n_hz)[~f_old].sum())
+    v_old = count_visits(so, h0o, f_old, loc_old, P)
+    unres = ~f_old & (hz_idx < 0)
+    v_new = count_visits(ns, h0n[unres], (loc_new >= 0)[unres],
+                         loc_new[unres], P)
+    nbytes = Q * 12 + (v_old + v_new) * 8 + CH * 9 + Q * 18
+    ops = compares + 2 * (v_old + v_new)
+    res["probe2"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: probe.probe2(*args), reps),
+        plain_ms=time_ms(lambda: probe.probe2_plain(*args), 3,
+                         queue_ahead=False),
+        bound_ms=max(nbytes / HBM_BYTES_PER_S, ops / INT_OPS_PER_S) * 1e3,
+        bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops / INT_OPS_PER_S
+        else "operations")
+    log(f"  probe2 ok: Q={Q} hazard compares={compares} "
+        f"visits old={v_old} new={v_new}")
+
+    # -- the chunk contract: above 4096 a table on the card is refused, by
+    #    the wrappers and by the backend adapter; nothing runs the plain scan
+    from repro_torch.core import backend
+    big = 2 * probe.EXTRACT_MAX_CHUNK
+    zk, zl = torch.zeros(big, dtype=i32, device=device), torch.zeros(
+        big, dtype=torch.bool, device=device)
+    table = backend.get("linear").make(1 << 14, 0, device=device)
+    before = probe.launch_counts()
+    for what, call in (
+            ("extract", lambda: probe.extract(tk, tv, ts.clone(), cursor, big)),
+            ("probe2", lambda: probe.probe2(
+                (tk, tv, so), (nk, nv, ns), zk, zk, zl, h0o, h0n, qk, P)),
+            ("linear_extract_chunk_fused",
+             lambda: backend.linear_extract_chunk_fused(
+                 table, torch.zeros((), dtype=i32, device=device), big))):
+        try:
+            call()
+        except ValueError:
+            continue
+        check(False, f"{what}: a chunk of {big} on the card must raise")
+    check(probe.launch_counts() == before, "a refused chunk was launched")
+    log(f"  chunk contract ok: chunk {big} on the card raises in extract, "
+        f"probe2 and the backend adapter")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the op stream and its dense oracle (phases 3 and 5)
+# ---------------------------------------------------------------------------
+
+class Oracle:
+    """Dense ``present[]`` / ``value[]`` arrays over a key universe
+    ``[-U/2, U/2)``; first occurrence wins for duplicates in a batch; the op
+    order of a step is lookup, insert, delete."""
+
+    def __init__(self, universe: int, seed: int):
+        self.u = universe
+        self.present = np.zeros(universe, bool)
+        self.value = np.zeros(universe, np.int32)
+        self.rng = np.random.default_rng(seed)
+        self.no_slot = 0          # inserts the table refused for want of a slot
+
+    def _sample(self, n: int, want_present: bool) -> np.ndarray:
+        """``n`` key indices that are (not) present, best effort."""
+        out = np.empty(0, np.int64)
+        for _ in range(8):
+            cand = self.rng.integers(0, self.u, 4 * n)
+            out = np.concatenate([out, cand[self.present[cand] == want_present]])
+            if out.size >= n:
+                break
+        if out.size < n:
+            out = np.concatenate([out, self.rng.integers(0, self.u,
+                                                         n - out.size)])
+        return out[:n]
+
+    def key(self, idx: np.ndarray) -> np.ndarray:
+        return (idx - self.u // 2).astype(np.int32)
+
+    def batch(self, n_look: int, n_upd: int, step: int):
+        look = np.concatenate([self._sample(n_look // 2, True),
+                               self._sample(n_look - n_look // 2, False)])
+        self.rng.shuffle(look)
+        ins = self._sample(n_upd, False)
+        ins[: n_upd // 64] = ins[n_upd // 64: 2 * (n_upd // 64)]  # duplicates
+        dele = self._sample(n_upd, True)
+        vals = (ins * 3 + step).astype(np.int32)
+        return look, ins, vals, dele
+
+    @staticmethod
+    def _first(idx: np.ndarray, mask: np.ndarray) -> np.ndarray:
+        """mask & first masked occurrence of each index."""
+        win = np.zeros(idx.size, bool)
+        pos = np.flatnonzero(mask)
+        _, first = np.unique(idx[pos], return_index=True)
+        win[pos[first]] = True
+        return win
+
+    def step(self, look, ins, vals, ins_mask, dele, out, where: str):
+        found, got, ok_i, ok_d = (np.asarray(t.cpu()) for t in out)
+        exp_f = self.present[look]
+        check(np.array_equal(found, exp_f),
+              f"{where}: lookup found differs from the oracle in "
+              f"{int((found != exp_f).sum())} places")
+        check(np.array_equal(got, np.where(exp_f, self.value[look], 0)),
+              f"{where}: lookup values differ from the oracle")
+        win = self._first(ins, ins_mask)
+        check(not (ok_i & ~win).any(), f"{where}: an insert the oracle "
+              f"forbids was acknowledged")
+        self.no_slot += int((win & ~ok_i).sum())
+        self.present[ins[ok_i]] = True
+        self.value[ins[ok_i]] = vals[ok_i]
+        exp_d = self._first(dele, self.present[dele])
+        check(np.array_equal(ok_d, exp_d), f"{where}: delete ok differs from "
+              f"the oracle in {int((ok_d != exp_d).sum())} places")
+        self.present[dele[exp_d]] = False
+        return int(found.sum())
+
+
+def expected_launches(before: dict, after: dict,
+                      was_rebuilding: bool) -> str | None:
+    """None if the step's launches are the stated ones, else what was seen."""
+    d = {k: after[k] - before[k] for k in after}
+    if not was_rebuilding:
+        want = [dict(probe_lookup=2, probe_insert=1, probe2=0, extract=0)]
+    else:
+        want = [dict(probe_lookup=0, probe_insert=1, probe2=2, extract=1),
+                dict(probe_lookup=0, probe_insert=2, probe2=2, extract=0)]
+    return None if d in want else f"{d} (rebuilding={was_rebuilding})"
+
+
+def drive(eng, oracle, n_steps: int, n_look: int, n_upd: int, where: str,
+          step0: int = 0):
+    """``n_steps`` engine steps checked against the oracle; returns per-step
+    wall times (ms, each ended by a synchronise) and bookkeeping."""
+    from repro_torch.kernels import probe
+    times, in_rebuild, hits = [], 0, 0
+    seeds = []
+    completed = eng.stats.rebuilds_completed
+    for s in range(n_steps):
+        look, ins, vals, dele = oracle.batch(n_look, n_upd, step0 + s)
+        ins_mask = ~oracle.present[ins]
+        was_rb = eng.rebuilding
+        before = probe.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.step(oracle.key(look), oracle.key(ins), vals,
+                       oracle.key(dele), ins_mask=ins_mask)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        bad = expected_launches(before, probe.launch_counts(), was_rb)
+        check(bad is None, f"{where} step {s}: unexpected launches {bad}")
+        in_rebuild += was_rb
+        hits += oracle.step(look, ins, vals, ins_mask, dele, out,
+                            f"{where} step {s}")
+        if eng.stats.rebuilds_completed != completed:
+            completed = eng.stats.rebuilds_completed
+            # quiescence: the swap has just happened, nothing is in flight
+            n = eng.count()
+            check(n == int(oracle.present.sum()),
+                  f"{where} step {s}: count {n} != oracle "
+                  f"{int(oracle.present.sum())} after epoch swap")
+            seeds.append(eng.state.old.hfn.seeds.cpu().numpy().copy())
+    return times, in_rebuild, hits, seeds
+
+
+def populate(eng, oracle, n_keys: int, batch: int, where: str):
+    """Fill the table to ``n_keys`` live keys through the engine's inserts."""
+    empty = np.zeros(0, np.int32)
+    step = 0
+    while int(oracle.present.sum()) < n_keys:
+        n = min(batch, n_keys - int(oracle.present.sum()))
+        ins = oracle._sample(n, False)
+        vals = (ins * 3 - 1).astype(np.int32)
+        mask = np.ones(n, bool)
+        out = eng.step(empty, oracle.key(ins), vals, empty, ins_mask=mask)
+        oracle.step(empty.astype(np.int64), ins, vals, mask,
+                    empty.astype(np.int64), out, f"{where} populate {step}")
+        step += 1
+    return step
+
+
+def phase_main(device, cfg, n_steps: int, profile_to: str = "") -> dict:
+    from repro_torch.core import dhash
+    from repro_torch.core.engine import DHashEngine
+    from repro_torch.kernels import probe
+    state = dhash.make(cfg.backend, capacity=cfg.capacity_per_shard,
+                       chunk=cfg.chunk, fused=True, seed=0, device=device)
+    slots = state.old.capacity
+    oracle = Oracle(4 * cfg.capacity_per_shard, seed=3)
+    eng = DHashEngine(state, continuous_rebuild=False)
+    n_pop = populate(eng, oracle, cfg.capacity_per_shard,
+                     cfg.lookups_per_step, "main")
+    log(f"  populated {int(oracle.present.sum())} keys in {n_pop} engine "
+        f"steps; {slots} slots a table, {oracle.no_slot} inserts found no slot")
+    seed0 = eng.state.old.hfn.seeds.cpu().numpy().copy()
+
+    # -------- the main path: counts set to 0 here, read right after --------
+    probe.reset_launches()
+    syncs0 = eng.stats.host_syncs
+    steady = 16
+    t_steady, _, hits_a, _ = drive(eng, oracle, steady, cfg.lookups_per_step,
+                                   cfg.updates_per_step, "main/steady")
+    steady_syncs = eng.stats.host_syncs - syncs0
+    eng.continuous_rebuild = True
+    t0 = time.perf_counter()
+    times, in_rb, hits_b, seeds = drive(
+        eng, oracle, n_steps, cfg.lookups_per_step, cfg.updates_per_step,
+        "main/rebuild", step0=steady)
+    wall = time.perf_counter() - t0
+    launches = probe.launch_counts()
+    # ------------------------------------------------------------------------
+    syncs = eng.stats.host_syncs - syncs0 - steady_syncs - len(seeds)
+    check(all(launches[k] > 0 for k in probe.KERNELS),
+          f"main path did not launch every kernel: {launches}")
+    epochs = eng.stats.rebuilds_completed
+    check(epochs >= 2 or n_steps < 2100,
+          f"only {epochs} complete rebuild epochs in {n_steps} steps")
+    allseeds = [seed0] + seeds
+    check(all(not np.array_equal(a, b)
+              for a, b in zip(allseeds, allseeds[1:])),
+          "the hash seeds did not change across an epoch swap")
+    ops_step = cfg.lookups_per_step + 2 * cfg.updates_per_step
+    ts = sorted(times)
+    dev_ops = ops_step * len(times) / (sum(times) / 1e3)
+    log(f"  steady state: {steady} steps, median "
+        f"{statistics.median(t_steady):.3f} ms a step, "
+        f"{steady_syncs / steady:.3f} host syncs a step")
+    log(f"  continuous rebuild: {n_steps} steps, {epochs} complete epochs "
+        f"(hash function swapped live {epochs} times), "
+        f"{ops_step * n_steps} operations")
+    log(f"  step ms: median {statistics.median(ts):.3f} "
+        f"p99 {ts[int(0.99 * (len(ts) - 1))]:.3f} max {ts[-1]:.3f}; "
+        f"{dev_ops / 1e6:.2f} M operations/s over the steps' own time "
+        f"({ops_step * n_steps / wall / 1e6:.2f} M/s with the host oracle)")
+    log(f"  host syncs a step: {syncs / n_steps:.4f}; share of steps in a "
+        f"rebuild epoch: {in_rb / n_steps:.4f}; lookup hit rate "
+        f"{(hits_a + hits_b) / ((steady + n_steps) * cfg.lookups_per_step):.3f}"
+        f"; inserts that found no slot: {oracle.no_slot}")
+    check(oracle.no_slot <= 64, "too many inserts found no slot")
+    log(f"  launches on the main path: {launches}")
+    if profile_to:
+        profile_steps(eng, oracle, cfg, 40, steady + n_steps, profile_to)
+    return launches
+
+
+def phase_lockstep(device, max_steps: int):
+    """fused=True against the port's plain path, same ops, one epoch."""
+    from repro_torch import convert
+    from repro_torch.core import dhash
+    from repro_torch.core.engine import DHashEngine
+    cap, chunk, nl, nu = 1 << 16, 4096, 8192, 1024
+    engs = [DHashEngine(dhash.make("linear", capacity=cap, chunk=chunk,
+                                   fused=f, seed=5, device=device),
+                        continuous_rebuild=True) for f in (True, False)]
+    oracle = Oracle(4 * cap, seed=9)
+    empty = np.zeros(0, np.int32)
+    ins = oracle._sample(cap // 2, False)
+    oracle.present[ins] = True
+    for e in engs:
+        e.step(empty, oracle.key(ins), (ins * 3).astype(np.int32), empty)
+    steps = 0
+    while steps < max_steps and engs[0].stats.rebuilds_completed < 1:
+        look, ins, vals, dele = oracle.batch(nl, nu, steps)
+        mask = ~oracle.present[ins]
+        outs = [e.step(oracle.key(look), oracle.key(ins), vals,
+                       oracle.key(dele), ins_mask=mask) for e in engs]
+        for a, b, n in zip(*outs, ("found", "vals", "ok_i", "ok_d")):
+            check(torch.equal(a, b), f"lockstep step {steps}: {n} differs "
+                                     f"between fused and plain")
+        ok_i = np.asarray(outs[0][2].cpu())
+        oracle.present[ins[ok_i]] = True
+        ok_d = np.asarray(outs[0][3].cpu())
+        oracle.present[dele[ok_d]] = False
+        steps += 1
+    check(all(e.stats.rebuilds_completed >= 1 for e in engs),
+          f"lockstep: no epoch completed in {steps} steps")
+    a, b = (convert.state_to_numpy(e.state) for e in engs)
+    for side in ("old", "new"):
+        for f in ("key", "val", "state"):
+            check(np.array_equal(a[side][f], b[side][f]),
+                  f"lockstep: {side}.{f} differs at the end")
+        check(np.array_equal(a[side]["hfn"]["seeds"], b[side]["hfn"]["seeds"]),
+              f"lockstep: {side} seeds differ")
+    for f in ("cursor", "rebuilding", "epoch"):
+        check(a[f] == b[f], f"lockstep: {f} differs")
+    log(f"  {steps} steps in lock step, outputs equal every step, both "
+        f"tables slot for slot, seeds, cursor, epoch equal at the end "
+        f"(capacity {cap}, chunk {chunk})")
+
+
+def phase_big(device, cfg, n_steps: int, reps: int, cap: int = 1 << 24):
+    from repro_torch.core import dhash, hashing
+    from repro_torch.core.engine import DHashEngine
+    from repro_torch.kernels import probe
+    state = dhash.make("linear", capacity=cap, chunk=cfg.chunk, fused=True,
+                       seed=2, device=device)
+    oracle = Oracle(4 * cap, seed=4)
+    eng = DHashEngine(state, continuous_rebuild=False)
+    n_pop = populate(eng, oracle, cap, min(cap, 1 << 20), "big")
+    log(f"  populated {int(oracle.present.sum())} keys in {n_pop} steps; "
+        f"{state.old.capacity} slots a table "
+        f"({state.old.capacity * 12 / 2**20:.0f} MiB a table)")
+    eng.continuous_rebuild = True
+    times, in_rb, _, _ = drive(eng, oracle, n_steps, cfg.lookups_per_step,
+                               cfg.updates_per_step, "big")
+    check(in_rb >= n_steps - 1, "big: the steps must lie in a rebuild epoch")
+    ts = sorted(times)
+    ops_step = cfg.lookups_per_step + 2 * cfg.updates_per_step
+    log(f"  {n_steps} steps ({in_rb} in a rebuild epoch): step ms median "
+        f"{statistics.median(ts):.3f} max {ts[-1]:.3f}; "
+        f"{ops_step * len(ts) / (sum(ts) / 1e3) / 1e6:.2f} M operations/s; "
+        f"inserts that found no slot: {oracle.no_slot}")
+    check(oracle.no_slot <= 256, "big: too many inserts found no slot")
+    # the two read kernels on this table, a fresh batch of keys every launch
+    # so that the slots they touch are not in L2 from the launch before
+    d = eng.state
+    old = (d.old.key, d.old.val, d.old.state)
+    new = (d.new.key, d.new.val, d.new.state)
+    batches = []
+    for s in range(reps + 2):
+        k = torch.as_tensor(oracle.key(oracle.batch(
+            cfg.lookups_per_step, cfg.updates_per_step, s)[0]), device=device)
+        batches.append((hashing.bucket_of(d.old.hfn, k, d.old.capacity),
+                        hashing.bucket_of(d.new.hfn, k, d.new.capacity), k))
+    it = iter(batches)
+
+    def lookup():
+        h0o, _, k = next(it)
+        probe.probe_lookup(*old, h0o, k, d.old.max_probes)
+    t_lookup = time_ms(lookup, reps)
+    it = iter(batches)
+
+    def ordered():
+        h0o, h0n, k = next(it)
+        probe.probe2(old, new, d.hazard_key, d.hazard_val, d.hazard_live,
+                     h0o, h0n, k, d.old.max_probes)
+    t_probe2 = time_ms(ordered, reps)
+    log(f"  kernels on this table, Q={cfg.lookups_per_step}, new keys every "
+        f"launch: probe_lookup {t_lookup:.4f} ms, probe2 {t_probe2:.4f} ms "
+        f"({int(d.hazard_live.sum())} live hazard entries)")
+
+
+# ---------------------------------------------------------------------------
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--steps", type=int, default=2200,
+                    help="continuous-rebuild steps of the main path")
+    ap.add_argument("--big-steps", type=int, default=64,
+                    help="steps on the table larger than L2")
+    ap.add_argument("--reps", type=int, default=50,
+                    help="timed launches a kernel")
+    ap.add_argument("--profile", default="", metavar="FILE",
+                    help="also run 40 main-path steps under torch.profiler "
+                    "and write the kernel table to FILE")
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False); this script runs on the GPU only", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                    "src"))
+    from repro_torch.configs.dhash_paper import CONFIG
+    from repro_torch.kernels import build, probe
+
+    t_start = time.perf_counter()
+    device = torch.device("cuda", 0)
+    log("== 1. environment")
+    card = card_line()
+    log(f"  python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+    nvcc = subprocess.run([build.find_nvcc(), "--version"],
+                          capture_output=True, text=True).stdout.strip()
+    log("  nvcc: " + next((ln.strip() for ln in nvcc.splitlines()
+                           if "release" in ln), "unknown"))
+    log(f"  card: {card}")
+    build.load()
+    log(f"  kernels built in {build.build_seconds:.1f} s -> "
+        f"{build.build_dir()}")
+    for line in build.build_log.splitlines():
+        if "registers" in line or "error" in line or "warning" in line:
+            log("   ", line.strip())
+
+    log("== 2. kernels against their plain versions (C=2^21, "
+        f"Q={CONFIG.lookups_per_step}/{CONFIG.updates_per_step}, "
+        f"chunk={CONFIG.chunk}, max_probes=64; tolerance 0)")
+    kres = phase_kernels(device, CONFIG, args.reps)
+
+    log(f"== 3. main path: {CONFIG.arch_id} unreduced, capacity "
+        f"{CONFIG.capacity_per_shard}, chunk {CONFIG.chunk}, "
+        f"{CONFIG.lookups_per_step}+{CONFIG.updates_per_step}+"
+        f"{CONFIG.updates_per_step} operations a step")
+    launches = phase_main(device, CONFIG, args.steps, args.profile)
+
+    log("== 4. fused engine against the plain path in lock step")
+    phase_lockstep(device, 200)
+    log("== 5. a table larger than L2 (capacity 2^24, 2^25 slots)")
+    phase_big(device, CONFIG, args.big_steps, args.reps)
+
+    kernels = []
+    for name in probe.KERNELS:
+        src, rep = KERNEL_INFO[name]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": rep, "launches": launches[name],
+                        **kres[name], "library_ms": None})
+    log(f"  no single PyTorch call computes any of these four functions, so "
+        f"library_ms is null; times are medians of {args.reps} launches, "
+        f"tables warm in L2")
+    log(f"  total {time.perf_counter() - t_start:.0f} s")
+    log(card)
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

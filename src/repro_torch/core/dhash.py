@@ -1,0 +1,479 @@
+"""DHash: a dynamic hash table whose hash function can be rebuilt live.
+
+This is the paper's core contribution (§3-§4) in batched form:
+
+* The table state carries the *old* table, the *new* table (pre-allocated
+  with the replacement hash function), and a **hazard buffer** — the batched
+  analogue of the paper's ``rebuild_cur`` global pointer.  A rebuild migrates
+  a *chunk* of entries per transition instead of one node.
+
+* ``rebuild_extract`` removes a chunk from the old table into the hazard
+  buffer (entries are then in *neither* table — the hazard period, Fig 1c);
+  ``rebuild_land`` inserts the hazard entries into the new table and clears
+  the buffer (Fig 1d).  The engine interleaves full-rate lookup/insert/delete
+  batches between these transitions, which is exactly the concurrency
+  structure of the paper; stream order plays the role of the paper's
+  smp_wmb/smp_rmb pairs.
+
+* Every operation performs the paper's **ordered check** (Lemma 4.1/4.2):
+      old table  →  hazard buffer  →  new table.
+  Lookup priority is old > hazard > new; delete tries old, then marks hazard
+  entries dead (the LOGICALLY_REMOVED bit on an in-flight node, Alg. 5 line
+  75 — a killed hazard entry is silently dropped at landing), then tries new.
+  Insert targets the new table iff a rebuild is in progress (Lemma 4.3/4.4);
+  duplicate keys discovered at landing are dropped in favour of the new
+  table's copy (Alg. 3 lines 34-36).
+
+* The epoch swap (Alg. 3 lines 41-46) exchanges the two table REFERENCES on
+  the host — no table data moves.  The paper's ``synchronize_rcu`` grace
+  periods are step boundaries.
+
+* **Backend dispatch is the descriptor registry** (core/backend.py): this
+  module contains zero per-backend branches.
+
+Where the reference branches on a device scalar with ``lax.cond``
+(``rebuilding``, ``hazard_live.any()``, ``done``), eager PyTorch has to
+branch on the host.  Every function that does so takes the flag as an
+optional keyword HINT: ``None`` (the default) reads it from the device — a
+host synchronisation — and keeps the reference's semantics whatever the flag
+is; a caller that already knows the flag (the engine reads one small flags
+tensor a step) passes it and the function never synchronises.
+
+Mutation: with ``fused=True`` the ops update the table tensors IN PLACE (the
+counterpart of the reference's buffer donation) and return a state container
+over the same tensors — a state passed to ``insert``/``delete``/
+``rebuild_*`` must not be used again afterwards.  With ``fused=False``
+every op is functional.  ``lookup`` never writes.
+
+Table stacks (``make_stack`` and the ``stack_*`` ops of the reference) are
+not ported yet.
+"""
+from __future__ import annotations
+
+import os
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core import backend as backends
+from repro_torch.core import buckets
+from repro_torch.core.struct_utils import replace, state_dataclass
+
+I32 = torch.int32
+
+
+@state_dataclass
+class DHashState:
+    backend: str                # registry key (core/backend.py)
+    chunk: int                  # hazard buffer capacity (entries per rebuild chunk)
+    fwd_hazard: bool            # backends with a lookup_fwd hook (linear):
+                                # resolve hazard hits via MIGRATED-slot
+                                # forwarding (zero extra passes)
+    fused: bool                 # route the FULL op surface (lookup/insert/
+                                # delete + rebuild extract and land) through
+                                # the descriptor's CUDA-kernel adapters
+    nres_cap: int               # kept for parity with the reference's API;
+                                # unused by the Hopper linear kernels (they
+                                # gather the new table in place, whatever its
+                                # size)
+    old: Any                    # active table (backend container)
+    new: Any                    # target table; meaningful only while rebuilding
+    hazard_key: torch.Tensor    # [chunk] i32
+    hazard_val: torch.Tensor    # [chunk] i32
+    hazard_live: torch.Tensor   # [chunk] bool
+    cursor: torch.Tensor        # scalar i32 - scan position in old table
+    rebuilding: torch.Tensor    # scalar bool
+    epoch: torch.Tensor         # scalar i32
+    lookups: torch.Tensor       # scalar i32 - queries sampled by
+                                # lookup_counted since the last epoch swap
+    expensive: torch.Tensor     # scalar i32 - sampled queries whose probe
+                                # cost crossed the threshold
+
+    @property
+    def device(self) -> torch.device:
+        return self.cursor.device
+
+
+def _be(d: DHashState) -> backends.BucketBackend:
+    """The descriptor every op dispatches through."""
+    return backends.get(d.backend)
+
+
+def _flag(x: torch.Tensor, hint: bool | None) -> bool:
+    """A host branch condition: the caller's hint, else a device read."""
+    return bool(x) if hint is None else bool(hint)
+
+
+def _scalar(value, dtype, device) -> torch.Tensor:
+    return torch.full((), value, dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# construction
+# ---------------------------------------------------------------------------
+
+def _make_table(backend: str, capacity: int, seed, **kw):
+    """Build an empty backend table sized for ``capacity`` live entries
+    (the descriptor's sizing policy)."""
+    return backends.get(backend).make(capacity, seed, **kw)
+
+
+def _fused_default(backend: str) -> bool:
+    """Resolve ``fused=None``: the DHASH_FUSED env var (``on``/``1``/``true``)
+    turns the kernels on for every backend whose descriptor carries the
+    fused op set."""
+    flag = os.environ.get("DHASH_FUSED", "off").lower()
+    return flag in ("1", "on", "true") and backends.get(backend).fused
+
+
+def make(backend: str = "linear", capacity: int = 1024, *, chunk: int = 256,
+         seed: int = 0, fwd_hazard: bool = False, fused: bool | None = None,
+         nres_cap: int | None = None,
+         device: torch.device | str = "cuda", **kw) -> DHashState:
+    """An empty DHash on ``device`` (the GPU unless the caller asks for the
+    CPU).  ``nres_cap`` is accepted for parity with the reference and unused
+    by the Hopper linear kernels."""
+    be = backends.get(backend)
+    if fused is None:
+        # fwd_hazard is the alternative (plain) hazard-resolution strategy;
+        # the env default must not silently shadow it with the fused branch
+        fused = _fused_default(backend) and not fwd_hazard
+    if fused and not be.fused:
+        raise ValueError(
+            f"fused kernels are not implemented for backend {backend!r}; "
+            f"fused-capable: "
+            f"{tuple(n for n in backends.names() if backends.get(n).fused)}")
+    if nres_cap is None:
+        nres_cap = be.nres_cap
+    old = be.make(capacity, seed, device=device, **kw)
+    new = be.make(capacity, seed + 1, device=device, **kw)
+    return DHashState(backend=backend, chunk=chunk, fwd_hazard=fwd_hazard,
+                      fused=fused, nres_cap=nres_cap, old=old, new=new,
+                      hazard_key=torch.zeros(chunk, dtype=I32, device=device),
+                      hazard_val=torch.zeros(chunk, dtype=I32, device=device),
+                      hazard_live=torch.zeros(chunk, dtype=torch.bool,
+                                              device=device),
+                      cursor=_scalar(0, I32, device),
+                      rebuilding=_scalar(False, torch.bool, device),
+                      epoch=_scalar(0, I32, device),
+                      lookups=_scalar(0, I32, device),
+                      expensive=_scalar(0, I32, device))
+
+
+# ---------------------------------------------------------------------------
+# the ordered check: old -> hazard -> new (Lemma 4.1)
+# ---------------------------------------------------------------------------
+
+def _hazard_probe(d: DHashState, keys: torch.Tensor):
+    eq = (keys[:, None] == d.hazard_key[None, :]) & d.hazard_live[None, :]
+    found = eq.any(-1)
+    val, _ = buckets._argpick(eq, d.hazard_val[None, :].expand(eq.shape))
+    return found, torch.where(found, val, 0).to(I32)
+
+
+def _slow_lookup(dd: DHashState, keys: torch.Tensor):
+    """Rebuild-epoch lookup body: the full old -> hazard -> new ordered
+    check (shared by ``lookup`` and ``lookup_counted``)."""
+    be = _be(dd)
+    if dd.fused:
+        return be.ordered_lookup_fused(
+            dd.old, dd.new, dd.hazard_key, dd.hazard_val,
+            dd.hazard_live, keys, nres_cap=dd.nres_cap)
+    if dd.fwd_hazard and be.lookup_fwd is not None:
+        # beyond-paper: the old-table probe already passes over the
+        # MIGRATED slots of the in-flight chunk, so the hazard check is
+        # a forwarding index, not a second pass
+        f_old, v_old, _, mig = be.lookup_fwd(dd.old, keys)
+        base = dd.cursor - dd.chunk
+        hz_idx = mig - base
+        inwin = (mig >= 0) & (hz_idx >= 0) & (hz_idx < dd.chunk)
+        safe = torch.clamp(hz_idx, 0, dd.chunk - 1).long()
+        f_hz = inwin & dd.hazard_live[safe] & (dd.hazard_key[safe] == keys)
+        v_hz = dd.hazard_val[safe]
+    else:
+        f_old, v_old, _ = be.lookup(dd.old, keys)        # (1) old table
+        f_hz, v_hz = _hazard_probe(dd, keys)             # (2) rebuild_cur
+    f_new, v_new, _ = be.lookup(dd.new, keys)            # (3) new table
+    found = f_old | f_hz | f_new
+    val = torch.where(f_old, v_old, torch.where(f_hz, v_hz, v_new))
+    return found, val
+
+
+@torch.no_grad()
+def lookup(d: DHashState, keys: torch.Tensor, *,
+           rebuilding: bool | None = None):
+    """Batched lookup honouring the rebuild protocol. Returns (found, vals).
+
+    With ``fused`` both branches are one kernel launch: ``probe_lookup`` in
+    the steady state, ``probe2`` (the whole old -> hazard -> new ordered
+    check) during a rebuild epoch.  Never writes ``d``."""
+    be = _be(d)
+    if _flag(d.rebuilding, rebuilding):
+        return _slow_lookup(d, keys)
+    if d.fused:
+        return be.lookup_fused(d.old, keys)
+    f, v, _ = be.lookup(d.old, keys)
+    return f, v
+
+
+@torch.no_grad()
+def lookup_counted(d: DHashState, keys: torch.Tensor, *, probe_hi: int = 7,
+                   rebuilding: bool | None = None):
+    """Lookup that also feeds the probe telemetry.
+    Returns ``(state', (found, vals))``.
+
+    The steady-state branch runs the backend's loc-emitting probe (the same
+    single kernel launch — ``loc`` is an extra output, not an extra pass),
+    converts ``loc`` to a probe cost through the descriptor's
+    ``probe_cost``, and bumps ``DHashState.lookups`` / ``.expensive``
+    (queries whose cost crossed ``probe_hi``).  The rebuild-epoch branch
+    answers through the ordered check WITHOUT sampling."""
+    be = _be(d)
+    if _flag(d.rebuilding, rebuilding):
+        return d, _slow_lookup(d, keys)
+    if d.fused and be.lookup_fused_loc is not None:
+        f, v, loc = be.lookup_fused_loc(d.old, keys)
+    else:
+        f, v, loc = be.lookup(d.old, keys)
+    cost = be.probe_cost(d.old, keys, f, loc)
+    exp = (f & (cost >= probe_hi)).sum().to(I32)
+    d = replace(d, lookups=d.lookups + keys.numel(),
+                expensive=d.expensive + exp)
+    return d, (f, v)
+
+
+def _ins_table(dd: DHashState, t, kk, vv, mm):
+    """Descriptor-dispatched insert (shared by user inserts and hazard
+    landing, so a fused state's rebuild landing runs the claim kernel)."""
+    be = _be(dd)
+    if dd.fused:
+        return be.insert_fused(t, kk, vv, mm)
+    return be.insert(t, kk, vv, mm)
+
+
+@torch.no_grad()
+def insert(d: DHashState, keys: torch.Tensor, vals: torch.Tensor,
+           mask: torch.Tensor | None = None, *,
+           rebuilding: bool | None = None):
+    """Batched insert (set semantics: ok=False if key already present in the
+    *target* table — Alg. 6). Returns (state', ok).  A fused state's target
+    table is written in place."""
+    if mask is None:
+        mask = torch.ones(keys.shape, dtype=torch.bool, device=keys.device)
+    if _flag(d.rebuilding, rebuilding):
+        t, ok = _ins_table(d, d.new, keys, vals, mask)
+        return replace(d, new=t), ok
+    t, ok = _ins_table(d, d.old, keys, vals, mask)
+    return replace(d, old=t), ok
+
+
+@torch.no_grad()
+def delete(d: DHashState, keys: torch.Tensor,
+           mask: torch.Tensor | None = None, *,
+           rebuilding: bool | None = None):
+    """Batched delete honouring the ordered check (Alg. 5). Returns (state', ok).
+
+    With ``fused`` the write path is kernel-backed end to end: the steady
+    state tombstones via the location-emitting ``probe_lookup`` launch, and
+    the rebuild epoch is one ``probe2`` launch whose slot/hazard-index
+    outputs drive the old tombstone, the hazard kill, and the new tombstone.
+    A fused state's state arrays are written in place."""
+    if mask is None:
+        mask = torch.ones(keys.shape, dtype=torch.bool, device=keys.device)
+    be = _be(d)
+
+    def _del(t, kk, mm):
+        if d.fused:
+            return be.delete_fused(t, kk, mm)
+        return be.delete(t, kk, mm)
+
+    if not _flag(d.rebuilding, rebuilding):
+        t, ok = _del(d.old, keys, mask)
+        return replace(d, old=t), ok
+
+    if d.fused:
+        os_, ns_, hl, ok = be.ordered_delete_fused(
+            d.old, d.new, d.hazard_key, d.hazard_val, d.hazard_live,
+            keys, mask, nres_cap=d.nres_cap)
+        return replace(d, old=be.with_state(d.old, os_),
+                       new=be.with_state(d.new, ns_), hazard_live=hl), ok
+
+    t_old, ok_old = _del(d.old, keys, mask)                        # (1) old
+    pending = mask & ~ok_old
+    # (2) hazard buffer: clear the live bit (LOGICALLY_REMOVED on the
+    # in-flight node) - landing will drop it.
+    eq = (keys[:, None] == d.hazard_key[None, :]) & d.hazard_live[None, :]
+    hit_hz = eq.any(-1) & pending
+    win_hz = buckets.batch_winners(keys, hit_hz) & hit_hz
+    kill = (eq & win_hz[:, None]).any(0)
+    hazard_live = d.hazard_live & ~kill
+    pending2 = pending & ~hit_hz
+    t_new, ok_new = _del(d.new, keys, pending2)                    # (3) new
+    ok = ok_old | win_hz | ok_new
+    return replace(d, old=t_old, new=t_new, hazard_live=hazard_live), ok
+
+
+# ---------------------------------------------------------------------------
+# rebuild protocol
+# ---------------------------------------------------------------------------
+
+def rebuild_start(d: DHashState, new_table=None, *,
+                  seed: int | None = None) -> DHashState:
+    """Host-level: begin a rebuild into ``new_table`` (fresh hash function).
+
+    Caller contract (paper's rebuild_lock): no rebuild may be in progress.
+    """
+    be = _be(d)
+    if new_table is None:
+        if seed is None:
+            seed = int(np.random.default_rng().integers(1 << 31))
+        new_table = be.fresh_like(d.old, seed)
+    if d.fused and be.freeze_old is not None:
+        d = replace(d, old=be.freeze_old(d.old))
+    return replace(d, new=new_table, cursor=_scalar(0, I32, d.device),
+                   rebuilding=_scalar(True, torch.bool, d.device))
+
+
+@torch.no_grad()
+def rebuild_extract(d: DHashState, *, can: bool | None = None) -> DHashState:
+    """Pull the next chunk out of the old table into the hazard buffer.
+
+    No-op unless rebuilding with an empty hazard buffer (``can`` is the host
+    hint for exactly that condition).  With ``fused`` the scan is ONE launch
+    of the extract kernel, which compacts the hazard entries, marks the
+    slots MIGRATED in place and advances the cursor on the device."""
+    be = _be(d)
+    if can is None:
+        can = bool(d.rebuilding & ~d.hazard_live.any())
+    if not can:
+        return d
+    if d.fused:
+        t, hk, hv, hl, cur = be.extract_chunk_fused(d.old, d.cursor, d.chunk)
+    else:
+        t, hk, hv, hl, cur = be.extract_chunk(d.old, d.cursor, d.chunk)
+    return replace(d, old=t, hazard_key=hk, hazard_val=hv, hazard_live=hl,
+                   cursor=cur)
+
+
+@torch.no_grad()
+def rebuild_land(d: DHashState, *,
+                 rebuilding: bool | None = None) -> DHashState:
+    """Insert hazard entries into the new table; duplicates lose to the copy
+    already in the new table (Alg. 3 lines 34-36); entries killed while in
+    hazard (delete during the hazard period) are dropped.
+
+    With ``fused`` the landing runs through the SAME claim kernel as user
+    inserts.
+
+    A landing insert can fail two ways and they MUST be told apart: the key
+    is already in the new table (a user re-inserted it during the hazard
+    window — the new copy wins, drop the hazard entry), or the new table
+    had no slot within the probe bound (the hazard entry is the ONLY copy of
+    an acknowledged insert, so it stays live and the next transition
+    retries).  The reference tells them apart with a presence lookup behind
+    a ``cond`` on ``failed.any()``; a host branch there would cost a second
+    synchronisation, so the check runs unconditionally: the claim kernel
+    already proves presence and hands it back (fused), or a chunk-sized
+    plain lookup follows the insert (plain)."""
+    be = _be(d)
+    if not _flag(d.rebuilding, rebuilding):
+        return d
+    if d.fused:
+        t, ok, present = be.insert_fused(d.new, d.hazard_key, d.hazard_val,
+                                         d.hazard_live, with_present=True)
+    else:
+        t, ok = be.insert(d.new, d.hazard_key, d.hazard_val, d.hazard_live)
+        present, _, _ = be.lookup(t, d.hazard_key)
+    keep = d.hazard_live & ~ok & ~present      # keep only the capacity fails
+    return replace(d, new=t, hazard_live=keep)
+
+
+def rebuild_chunk(d: DHashState) -> DHashState:
+    """extract + land in one transition (hazard window not externally visible).
+    Engines that want the observable hazard period call the two halves."""
+    return rebuild_land(rebuild_extract(d))
+
+
+def rebuild_done(d: DHashState) -> torch.Tensor:
+    """Scalar bool tensor: all chunks migrated and landed."""
+    return d.rebuilding & (d.cursor >= _be(d).capacity_of(d.old)) \
+        & ~d.hazard_live.any()
+
+
+def _swap(d: DHashState) -> DHashState:
+    # probe telemetry is per-table-generation: a fresh epoch samples afresh
+    dev = d.device
+    return replace(d, old=d.new, new=d.old, cursor=_scalar(0, I32, dev),
+                   rebuilding=_scalar(False, torch.bool, dev),
+                   epoch=d.epoch + 1, lookups=_scalar(0, I32, dev),
+                   expensive=_scalar(0, I32, dev))
+
+
+def rebuild_finish(d: DHashState, *, done: bool | None = None) -> DHashState:
+    """Host-level epoch swap (Alg. 3 lines 41-46); old/new may differ in
+    shape.  O(1): the two table references change places."""
+    assert _flag(rebuild_done(d), done), "rebuild not complete"
+    return _swap(d)
+
+
+def finish_same_shape(d: DHashState, *,
+                      done: bool | None = None) -> DHashState:
+    """Epoch swap if the rebuild is done, else ``d`` unchanged.  The
+    reference selects every leaf of both tables on the device; here the two
+    table REFERENCES change places on the host, so no table data moves."""
+    if not _flag(rebuild_done(d), done):
+        return d
+    return _swap(d)
+
+
+def rebuild_step(d: DHashState, *, hazard_pending: bool | None = None,
+                 rebuilding: bool | None = None) -> DHashState:
+    """One rebuild transition per call: land if hazard pending, else extract.
+    Interleave with op batches for concurrent-rebuild execution."""
+    if _flag(d.hazard_live.any(), hazard_pending):
+        return rebuild_land(d, rebuilding=rebuilding)
+    return rebuild_extract(
+        d, can=None if rebuilding is None else bool(rebuilding))
+
+
+@torch.no_grad()
+def rebuild_autostart(d: DHashState, *,
+                      rebuilding: bool | None = None) -> DHashState:
+    """Device-side rebuild start: when NOT rebuilding, clear the (drained)
+    standby table (an O(C) memset, once an epoch), reseed its hash function
+    on the device from the device-side epoch counter (hashing.reseed — no
+    host RNG, no host read), and raise ``rebuilding``.  Valid when old/new
+    share shapes (same-capacity rebuilds)."""
+    be = _be(d)
+    if _flag(d.rebuilding, rebuilding):
+        return d
+    new = be.clear(d.new)
+    new = be.reseed(new, d.epoch + 1)
+    old = d.old
+    if d.fused and be.freeze_old is not None:
+        old = be.freeze_old(old)
+    return replace(d, old=old, new=new, cursor=_scalar(0, I32, d.device),
+                   rebuilding=_scalar(True, torch.bool, d.device))
+
+
+# ---------------------------------------------------------------------------
+# convenience loops
+# ---------------------------------------------------------------------------
+
+def rebuild_all(d: DHashState, *, finish: bool = True) -> DHashState:
+    """Run a complete rebuild to quiescence (host loop; used by tests that
+    don't care about interleaving)."""
+    cap = _be(d).capacity_of(d.old)
+    steps = -(-cap // d.chunk) + 1  # +1 in case a hazard chunk is already pending
+    for _ in range(steps):
+        if bool(rebuild_done(d)):
+            break
+        d = rebuild_chunk(d)
+    return rebuild_finish(d) if finish else d
+
+
+def count_items(d: DHashState) -> torch.Tensor:
+    be = _be(d)
+    return (be.count_live(d.old) + be.count_live(d.new)
+            + d.hazard_live.sum()).to(I32)

@@ -1,0 +1,329 @@
+"""The four linear-backend kernels: wrappers, launch counters, plain versions.
+
+Each public function here is the wrapper of one hand-written CUDA kernel
+(``csrc/<name>.cu``, compiled for sm_90a at first use by ``build.py``):
+
+====================  =========================================  ============
+wrapper               replaces (src/repro/kernels/probe.py)      source
+====================  =========================================  ============
+``probe_lookup``      ``_probe_kernel``                          probe_lookup.cu
+``probe2``            ``_probe2_kernel``                         probe2.cu
+``probe_insert``      ``_probe_insert_kernel`` + the wrapper's   probe_insert.cu
+                      cross-tile claim resolution
+``extract``           ``_extract_kernel`` + the MIGRATED         extract.cu
+                      scatter
+====================  =========================================  ============
+
+What bounds each kernel on an H100 and what its design does about it is
+written at the top of its ``.cu`` file; in short: ``probe_lookup`` — bytes
+(dependent scattered gathers; one query a thread, early exit); ``probe2`` —
+operations (the query x hazard compare; skipped for queries the old table
+resolved, stopped at the first match and at the last live entry, buffer
+staged in shared memory); ``probe_insert`` — grid-wide barriers (two a
+claim round; small co-resident grid, early end of rounds); ``extract`` —
+launch latency (one block, one shuffle scan).
+
+What the TPU design needed and these kernels do not have: a padded copy of
+the table (a thread wraps its own probe), a query sort, query tiles, a
+resident-block map, a ``complete`` output and a fallback pass.  Results come
+back in query order, and ``loc`` is the physical slot in ``[0, C)``.
+
+Beside each wrapper stands ``<name>_plain``: the same function with the same
+signature and the same in-place behaviour in plain PyTorch.  A wrapper takes
+the plain version only when the tensors it was given lie on the CPU; for CUDA
+tensors it launches the kernel or raises.  ``<wrapper>.launches`` counts the
+kernel launches (and nothing else); ``reset_launches`` / ``launch_counts``
+set and read all four.
+
+Data types: tables, keys, values, start slots and locations are ``int32``;
+masks and flags are ``torch.bool`` (one byte, read by the kernels as
+``uint8_t``).
+"""
+from __future__ import annotations
+
+import torch
+
+I32 = torch.int32
+EMPTY, LIVE, TOMB, MIGRATED = 0, 1, 2, 3
+CLAIM_FREE = 2**31 - 1      # value of every claim word between launches
+# contract of the extract kernel (one block) and of probe2 (the hazard buffer
+# staged in shared memory): the largest chunk either takes
+EXTRACT_MAX_CHUNK = 4096
+
+KERNELS = ("probe_lookup", "probe2", "probe_insert", "extract")
+
+
+# ---------------------------------------------------------------------------
+# launch plumbing
+# ---------------------------------------------------------------------------
+
+def _check(*tensors_and_types):
+    """Every tensor on one CUDA device, contiguous, of the stated dtype."""
+    dev = tensors_and_types[0][0].device
+    for t, dt in tensors_and_types:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"kernel operands must share one CUDA device; "
+                             f"got {t.device} and {dev}")
+        if t.dtype != dt:
+            raise TypeError(f"kernel operand has dtype {t.dtype}, wants {dt}")
+        if not t.is_contiguous():
+            raise ValueError("kernel operands must be contiguous")
+
+
+def _launch(name: str, counter, dev: torch.device, *args):
+    """Call the C entry point on PyTorch's current stream of ``dev``; raise
+    if the launch was refused.  Outputs and scratch come from PyTorch's
+    caching allocator on that same stream, so a tensor the caller drops
+    while the kernel still runs is only reused by work queued behind it."""
+    from repro_torch.kernels import build
+    fn = build.load()[name]
+    argv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    if dev.index == torch.cuda.current_device():
+        err = fn(*argv, torch.cuda.current_stream().cuda_stream)
+    else:   # the C side launches on the calling thread's current device
+        with torch.cuda.device(dev):
+            err = fn(*argv, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} was not launched: "
+                           f"cudaError {err}")
+    counter.launches += 1
+
+
+def reset_launches() -> None:
+    for f in (probe_lookup, probe2, probe_insert, extract):
+        f.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {f.__name__: f.launches
+            for f in (probe_lookup, probe2, probe_insert, extract)}
+
+
+def new_claim(capacity: int, device) -> torch.Tensor:
+    """The claim scratch of ``probe_insert`` for a table of ``capacity``
+    slots: allocated once with the table, restored by every launch."""
+    return torch.full((capacity,), CLAIM_FREE, dtype=I32, device=device)
+
+
+# ---------------------------------------------------------------------------
+# probe_lookup
+# ---------------------------------------------------------------------------
+
+def probe_lookup_plain(tkey, tval, tstate, h0, qkey, max_probes: int):
+    """Plain version of ``probe_lookup``: lock-step probe rounds over the
+    whole batch.  Returns (found[Q] bool, val[Q] i32, loc[Q] i32)."""
+    c, q, dev = tkey.shape[0], qkey.shape[0], tkey.device
+    active = torch.ones(q, dtype=torch.bool, device=dev)
+    found = torch.zeros(q, dtype=torch.bool, device=dev)
+    val = torch.zeros(q, dtype=I32, device=dev)
+    loc = torch.full((q,), -1, dtype=I32, device=dev)
+    pos = h0.long()
+    for _ in range(max_probes):
+        st = tstate[pos]
+        hit = active & (st == LIVE) & (tkey[pos] == qkey)
+        val = torch.where(hit, tval[pos], val)
+        loc = torch.where(hit, pos.to(I32), loc)
+        found |= hit
+        active &= ~hit & (st != EMPTY)
+        pos = (pos + 1) % c
+    return found, val, loc
+
+
+def probe_lookup(tkey, tval, tstate, h0, qkey, max_probes: int):
+    """Batched linear-probe lookup: from ``h0`` walk at most ``max_probes``
+    slots (wrapping at C), stop at EMPTY, hit on LIVE with an equal key.
+    Returns (found[Q] bool, val[Q] i32 — 0 on a miss, loc[Q] i32 — the
+    hit's slot in [0, C), -1 on a miss)."""
+    if tkey.device.type == "cpu":
+        return probe_lookup_plain(tkey, tval, tstate, h0, qkey, max_probes)
+    _check((tkey, I32), (tval, I32), (tstate, I32), (h0, I32), (qkey, I32))
+    q, dev = qkey.shape[0], tkey.device
+    found = torch.empty(q, dtype=torch.bool, device=dev)
+    val = torch.empty(q, dtype=I32, device=dev)
+    loc = torch.empty(q, dtype=I32, device=dev)
+    if q:
+        _launch("probe_lookup", probe_lookup, dev, tkey, tval, tstate,
+                tkey.shape[0], h0, qkey, q, max_probes, found, val, loc)
+    return found, val, loc
+
+
+# ---------------------------------------------------------------------------
+# probe2
+# ---------------------------------------------------------------------------
+
+def probe2_plain(old_t, new_t, hazard_key, hazard_val, hazard_live,
+                 h0_old, h0_new, qkey, max_probes: int):
+    """Plain version of ``probe2`` (dense [Q, chunk] hazard compare)."""
+    f_old, v_old, loc_old = probe_lookup_plain(*old_t, h0_old, qkey,
+                                               max_probes)
+    eq = (qkey[:, None] == hazard_key[None, :]) & hazard_live[None, :]
+    hz_i = eq.to(torch.uint8).argmax(dim=1)     # first (lowest) match
+    f_hz = eq.any(dim=1) & ~f_old
+    resolved = f_old | f_hz
+    f_new, v_new, loc_new = probe_lookup_plain(*new_t, h0_new, qkey,
+                                               max_probes)
+    f_new = f_new & ~resolved
+    found = resolved | f_new
+    val = torch.where(f_old, v_old, torch.where(
+        f_hz, hazard_val[hz_i], torch.where(f_new, v_new, 0)))
+    minus1 = torch.full_like(loc_old, -1)
+    return (found, val.to(I32), f_old, loc_old,
+            torch.where(f_hz, hz_i.to(I32), minus1),
+            torch.where(f_new, loc_new, minus1))
+
+
+def probe2(old_t, new_t, hazard_key, hazard_val, hazard_live,
+           h0_old, h0_new, qkey, max_probes: int):
+    """Rebuild-epoch ordered check in one pass: old table, hazard buffer,
+    new table, priority old > hazard > new.
+
+    ``old_t`` / ``new_t`` are (key, val, state) triples (sizes may differ).
+    Returns (found, val, f_old, loc_old, hz_idx, loc_new): ``loc_old`` is the
+    old-table slot of a hit; ``hz_idx`` the lowest live hazard index holding
+    the key, reported only where the old table did not resolve the query;
+    ``loc_new`` the new-table slot, reported only where neither of the
+    others resolved it; -1 = none.  Contract: a hazard buffer of at most
+    4096 entries, what ``extract`` fills."""
+    if qkey.device.type == "cpu":
+        return probe2_plain(old_t, new_t, hazard_key, hazard_val,
+                            hazard_live, h0_old, h0_new, qkey, max_probes)
+    if hazard_key.shape[0] > EXTRACT_MAX_CHUNK:
+        raise ValueError(f"hazard buffer of {hazard_key.shape[0]} entries "
+                         f"exceeds the probe2 kernel's {EXTRACT_MAX_CHUNK}")
+    _check(*[(t, I32) for t in (*old_t, *new_t, hazard_key, hazard_val,
+                                h0_old, h0_new, qkey)],
+           (hazard_live, torch.bool))
+    q, dev = qkey.shape[0], qkey.device
+    found = torch.empty(q, dtype=torch.bool, device=dev)
+    f_old = torch.empty(q, dtype=torch.bool, device=dev)
+    val, loc_old, hz_idx, loc_new = (
+        torch.empty(q, dtype=I32, device=dev) for _ in range(4))
+    if q:
+        _launch("probe2", probe2, dev, *old_t, old_t[0].shape[0],
+                *new_t, new_t[0].shape[0], hazard_key, hazard_val,
+                hazard_live, hazard_key.shape[0], h0_old, h0_new, qkey, q,
+                max_probes, found, val, f_old, loc_old, hz_idx, loc_new)
+    return found, val, f_old, loc_old, hz_idx, loc_new
+
+
+# ---------------------------------------------------------------------------
+# probe_insert
+# ---------------------------------------------------------------------------
+
+def probe_insert_plain(tkey, tval, tstate, h0, keys, vals, mask,
+                       max_probes: int, claim=None):
+    """Plain version of ``probe_insert``; mutates tkey/tval/tstate in place.
+    ``claim`` is accepted for signature parity and not used."""
+    c, q, dev = tkey.shape[0], keys.shape[0], tkey.device
+    present, _, _ = probe_lookup_plain(tkey, tval, tstate, h0, keys,
+                                       max_probes)
+    present &= mask
+    pending = mask & ~present
+    ok = torch.zeros(q, dtype=torch.bool, device=dev)
+    idx = torch.arange(q, dtype=torch.int64, device=dev)
+    # bids of a round go into word `slot`; word c takes those of idle queries
+    bid = torch.full((c + 1,), q, dtype=torch.int64, device=dev)
+    pos = h0.long()
+    for _ in range(max_probes):
+        free = pending & (tstate[pos] != LIVE)
+        wpos = torch.where(free, pos, c)
+        bid.scatter_reduce_(0, wpos, idx, "amin")
+        won = free & (bid[pos] == idx)
+        bid[wpos] = q                       # restore only what was touched
+        w = won.nonzero().squeeze(1)
+        wp = pos[w]
+        tkey[wp] = keys[w]
+        tval[wp] = vals[w]
+        tstate[wp] = LIVE
+        ok |= won
+        pending &= ~won
+        pos = (pos + 1) % c
+    return ok, present
+
+
+def probe_insert(tkey, tval, tstate, h0, keys, vals, mask, max_probes: int,
+                 claim=None):
+    """Batched claim-first-non-LIVE insert; MUTATES tkey/tval/tstate.
+
+    Presence is proved on the table as it was before the batch; then
+    ``max_probes`` rounds run in lock step, round ``p`` looking at slot
+    ``(h0 + p) mod C``; a slot that is not LIVE at the start of a round goes
+    to the lowest batch index that wants it.  The placement is that of
+    ``ref.probe_insert_ref`` slot for slot.
+
+    Caller contract: ``mask`` is winner-filtered (at most one True per
+    distinct key).  ``claim`` is the table's claim scratch (``new_claim``);
+    without one a fresh scratch is allocated for this call (an O(C) fill).
+    Returns (ok[Q] bool, present[Q] bool): ``present`` marks masked keys
+    that were already LIVE, which tells a duplicate from a full window."""
+    if tkey.device.type == "cpu":
+        return probe_insert_plain(tkey, tval, tstate, h0, keys, vals, mask,
+                                  max_probes)
+    c, q, dev = tkey.shape[0], keys.shape[0], tkey.device
+    if claim is None:
+        claim = new_claim(c, dev)
+    _check((tkey, I32), (tval, I32), (tstate, I32), (claim, I32), (h0, I32),
+           (keys, I32), (vals, I32), (mask, torch.bool))
+    if claim.shape[0] != c:
+        raise ValueError("claim scratch does not match the table size")
+    ok = torch.empty(q, dtype=torch.bool, device=dev)
+    present = torch.empty(q, dtype=torch.bool, device=dev)
+    if q:
+        pend = torch.empty(q, dtype=torch.bool, device=dev)
+        remaining = torch.zeros(1, dtype=I32, device=dev)
+        _launch("probe_insert", probe_insert, dev, tkey, tval, tstate, claim,
+                c, h0, keys, vals, mask, q, max_probes, ok, present, pend,
+                remaining)
+    return ok, present
+
+
+# ---------------------------------------------------------------------------
+# extract
+# ---------------------------------------------------------------------------
+
+def extract_plain(tkey, tval, tstate, cursor, chunk: int):
+    """Plain version of ``extract``; marks the migrated slots in ``tstate``
+    in place."""
+    c, dev = tkey.shape[0], tkey.device
+    lane = torch.arange(chunk, dtype=torch.int64, device=dev)
+    pos = cursor.long() + lane
+    valid = pos < c
+    cpos = torch.where(valid, pos, 0)
+    live = valid & (tstate[cpos] == LIVE)
+    rank = torch.cumsum(live, 0) - 1
+    dest = torch.where(live, rank, chunk)       # word `chunk` is discarded
+    hk = torch.zeros(chunk + 1, dtype=I32, device=dev)
+    hv = torch.zeros(chunk + 1, dtype=I32, device=dev)
+    hk[dest] = torch.where(live, tkey[cpos], 0)
+    hv[dest] = torch.where(live, tval[cpos], 0)
+    hl = lane < live.sum()
+    # MIGRATED is the largest state, so a max leaves every other slot as is
+    tstate.scatter_reduce_(0, cpos, torch.where(live, MIGRATED, 0).to(I32),
+                           "amax")
+    new_cursor = torch.clamp(cursor.long() + chunk, max=c).to(I32)
+    return hk[:chunk].contiguous(), hv[:chunk].contiguous(), hl, new_cursor
+
+
+def extract(tkey, tval, tstate, cursor, chunk: int):
+    """Rebuild chunk scan: the ``chunk`` slots at ``cursor`` (a 0-dim int32
+    tensor, read on the device), LIVE ones compacted in slot order to the
+    front of the hazard outputs and marked MIGRATED in ``tstate`` IN PLACE.
+    Slots at or past C never migrate.  Contract: ``chunk <= 4096``.
+    Returns (hkeys[chunk], hvals[chunk], hlive[chunk] bool, new_cursor)."""
+    if tkey.device.type == "cpu":
+        return extract_plain(tkey, tval, tstate, cursor, chunk)
+    if chunk > EXTRACT_MAX_CHUNK:
+        raise ValueError(f"chunk {chunk} exceeds the extract kernel's "
+                         f"{EXTRACT_MAX_CHUNK}")
+    _check((tkey, I32), (tval, I32), (tstate, I32), (cursor, I32))
+    dev = tkey.device
+    hk = torch.empty(chunk, dtype=I32, device=dev)
+    hv = torch.empty(chunk, dtype=I32, device=dev)
+    hl = torch.empty(chunk, dtype=torch.bool, device=dev)
+    new_cursor = torch.empty((), dtype=I32, device=dev)
+    _launch("extract", extract, dev, tkey, tval, tstate, tkey.shape[0],
+            cursor, chunk, hk, hv, hl, new_cursor)
+    return hk, hv, hl, new_cursor
+
+
+reset_launches()

@@ -1,0 +1,179 @@
+"""Port vs reference: the ported main path as a whole — ``DHashEngine`` of
+both packages in lock step.
+
+Both engines start from the same converted initial state and take the same
+numpy op stream in continuous-rebuild mode for at least three rebuild epochs
+on a small table.  Every step's four outputs are equal; ``epoch``,
+``rebuilding`` and the cursor are equal after every step; at the end the
+state is equal slot for slot against the reference's ``fused=False`` engine
+and as live key -> value maps plus scalars against its ``fused=True`` engine.
+A dict oracle checks the answers themselves.  Tolerance 0.
+"""
+from __future__ import annotations
+
+import jax
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from repro.core import dhash as jdhash  # noqa: E402
+from repro.core.engine import DHashEngine as JEngine  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.core import dhash as tdhash  # noqa: E402
+from repro_torch.core.engine import DHashEngine as TEngine  # noqa: E402
+from test_torch_convert import jax_state_tree  # noqa: E402
+from test_torch_dhash import compare_states  # noqa: E402
+
+NL, NU = 32, 8          # lookups / updates a step (fixed widths, masked)
+
+
+def stream(seed: int, steps: int, universe: int = 200):
+    """Yields (look, ins, ins_vals, ins_mask, dels, del_mask) and keeps the
+    dict oracle; never re-inserts a live key (as the reference's own fuzz)."""
+    rng = np.random.default_rng(seed)
+    oracle: dict[int, int] = {}
+    keys = np.arange(-universe // 2, universe // 2)
+    for step in range(steps):
+        ins = rng.choice(keys, NU).astype(np.int32)          # may repeat
+        ins_mask = np.array([int(k) not in oracle for k in ins])
+        live = list(oracle) or [0]
+        dels = rng.choice(live, NU).astype(np.int32)
+        del_mask = rng.random(NU) < 0.6
+        look = rng.choice(keys, NL).astype(np.int32)
+        vals = (ins * 3 + step).astype(np.int32)
+        yield step, dict(oracle), (look, ins, vals, ins_mask, dels, del_mask)
+        seen = set()
+        for k, v, m in zip(ins.tolist(), vals.tolist(), ins_mask.tolist()):
+            if m and k not in seen:     # first MASKED occurrence wins
+                oracle[k] = v
+                seen.add(k)
+        seen = set()
+        for k, m in zip(dels.tolist(), del_mask.tolist()):
+            if m and k not in seen:
+                oracle.pop(k, None)
+                seen.add(k)
+    yield None, oracle, None
+
+
+def scalars_equal(port, *refs):
+    for f in ("epoch", "rebuilding", "cursor"):
+        got = getattr(port.state, f).item()
+        for r in refs:
+            assert got == np.asarray(getattr(r.state, f)).item(), f
+
+
+@pytest.mark.parametrize("port_fused", [False, True])
+def test_engines_in_lock_step_three_epochs(port_fused):
+    d0 = jdhash.make("linear", capacity=96, chunk=32, seed=4)
+    tree = jax_state_tree(d0)
+    port_state = convert.state_from_numpy({**tree, "fused": port_fused},
+                                          device="cpu")
+    port = TEngine(port_state, continuous_rebuild=True, poll_every=8)
+    plain = JEngine(jdhash.make("linear", capacity=96, chunk=32, seed=4,
+                                fused=False),
+                    continuous_rebuild=True, poll_every=8)
+    fused = JEngine(jdhash.make("linear", capacity=96, chunk=32, seed=4,
+                                fused=True),
+                    continuous_rebuild=True, poll_every=8)
+    seeds0 = port.state.old.hfn.seeds.clone()
+    steps = 60
+    for step, pre, batch in stream(7, steps):
+        if step is None:
+            final = pre
+            break
+        look, ins, vals, im, dels, dm = batch
+        out = port.step(look, ins, vals, dels, ins_mask=im, del_mask=dm)
+        for ref in (plain, fused):
+            rout = ref.step(look, ins, vals, dels, ins_mask=im, del_mask=dm)
+            for a, b, n in zip(out, rout, ("found", "vals", "ok_i", "ok_d")):
+                assert np.array_equal(a.numpy(), np.asarray(b)), (step, n)
+        scalars_equal(port, plain, fused)
+        f, v = out[0].numpy(), out[1].numpy()
+        for i, k in enumerate(look.tolist()):
+            assert f[i] == (k in pre), (step, k)
+            if k in pre:
+                assert v[i] == pre[k], (step, k)
+    assert port.stats.rebuilds_completed >= 3
+    assert port.stats.rebuilds_completed == plain.stats.rebuilds_completed \
+        == fused.stats.rebuilds_completed
+    compare_states(port.state, plain.state, fused.state, "end")
+    assert not torch.equal(seeds0, port.state.old.hfn.seeds), "no reseed"
+    # counts at quiescence only: drain the epoch in flight without traffic
+    z, off = np.zeros(1, np.int32), np.zeros(1, bool)
+    epoch = port.stats.rebuilds_completed
+    for _ in range(40):
+        if port.stats.rebuilds_completed > epoch:
+            break
+        for e in (port, plain, fused):
+            e.step(z, z, z, z, ins_mask=off, del_mask=off)
+    assert port.count() == plain.count() == fused.count() == len(final)
+    # host reads: one a step in a rebuild epoch plus the few done checks
+    assert port.stats.steps < port.stats.host_syncs \
+        <= port.stats.steps + 4 * (port.stats.rebuilds_completed + 1) + 1
+
+
+def test_growing_rebuild_finishes_at_the_poll_like_the_reference():
+    """A shape-changing rebuild (new table 4x) is swapped by the K-step poll,
+    on the same step in both packages; then the engine keeps working."""
+    kw = dict(capacity=48, chunk=16, seed=2)
+    port = TEngine(tdhash.make("linear", fused=True, device="cpu", **kw),
+                   poll_every=4)
+    ref = JEngine(jdhash.make("linear", fused=False, **kw), poll_every=4)
+    keys = np.arange(1, 41, dtype=np.int32)
+    z, off = np.zeros(1, np.int32), np.zeros(1, bool)
+    for e in (port, ref):
+        e.step(keys, keys, keys * 2, z, del_mask=off)
+    assert port.request_rebuild(
+        new_table=tdhash._make_table("linear", 192, 9, device="cpu"))
+    assert ref.request_rebuild(new_table=jdhash._make_table("linear", 192, 9))
+    assert port.request_rebuild() is False          # -EBUSY
+    for step in range(24):
+        outs = [e.step(keys, z, z, keys[step:step + 1], ins_mask=off)
+                for e in (port, ref)]
+        for a, b in zip(*outs):
+            assert np.array_equal(a.numpy(), np.asarray(b)), step
+        scalars_equal(port, ref)
+    assert port.stats.rebuilds_completed == ref.stats.rebuilds_completed == 1
+    assert port.state.old.capacity == 512 and not port.rebuilding
+    compare_states(port.state, ref.state, ref.state, "after growth")
+    assert port.count() == ref.count() == 40 - 24
+
+
+def test_steady_state_steps_read_nothing_and_engine_owns_its_state():
+    d = tdhash.make("linear", capacity=64, chunk=16, seed=1, fused=True,
+                    device="cpu")
+    eng = TEngine(d)
+    keys = np.arange(1, 33, dtype=np.int32)
+    z, off = np.zeros(1, np.int32), np.zeros(1, bool)
+    for _ in range(5):
+        eng.step(keys, keys, keys * 2, z, del_mask=off)
+    assert eng.stats.host_syncs == 0 and eng.stats.steps == 5
+    assert eng.stats.ops == 5 * (32 + 32 + 1)
+    # the engine cloned the state: the caller's tensors are untouched
+    assert int((d.old.state != 0).sum()) == 0
+    assert int((eng.state.old.state == 1).sum()) == 32
+    f, v = eng.lookup(keys)
+    assert f.all() and torch.equal(v, torch.as_tensor(keys * 2))
+
+
+def test_policy_is_not_ported_yet():
+    d = tdhash.make("linear", capacity=16, chunk=4, device="cpu")
+    with pytest.raises(NotImplementedError, match="policy"):
+        TEngine(d, policy=object())
+    assert TEngine(d, policy=None).policy is None
+
+
+def test_request_rebuild_declines_while_rebuilding():
+    eng = TEngine(tdhash.make("linear", capacity=64, chunk=16, seed=1,
+                              device="cpu"))
+    assert eng.request_rebuild(seed=5) is True
+    assert eng.rebuilding and bool(eng.state.rebuilding)
+    assert eng.request_rebuild(seed=6) is False
+    # same seed -> the reference's new hash function
+    ref = jdhash.rebuild_start(jdhash.make("linear", capacity=64, chunk=16,
+                                           seed=1), seed=5)
+    assert np.array_equal(np.asarray(ref.new.hfn.seeds),
+                          eng.state.new.hfn.seeds.numpy().astype(np.uint32))
+    assert jax.device_get(ref.rebuilding)

@@ -1,0 +1,119 @@
+"""The port stands alone: it imports neither ``jax`` nor the reference
+package, builds nothing when imported, refuses to carry on on the CPU when
+asked for the GPU, and its GPU smoke script fails cleanly without a GPU."""
+from __future__ import annotations
+
+import ast
+import os
+import pathlib
+import py_compile
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+SMOKE = ROOT / "chip_smoke.py"
+FORBIDDEN = {"jax", "jaxlib", "repro", "flax", "optax"}
+MODULES = ["repro_torch", "repro_torch.convert",
+           "repro_torch.configs.dhash_paper"] + [
+    f"repro_torch.core.{m}" for m in
+    ("struct_utils", "hashing", "buckets", "backend", "dhash", "engine")] + [
+    f"repro_torch.kernels.{m}" for m in ("ref", "probe", "ops", "build")]
+
+
+def _sources():
+    return sorted(PKG.rglob("*.py")) + [SMOKE]
+
+
+def _imports(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_neither_jax_nor_the_reference(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_the_eleven_modules_and_four_kernel_sources_exist():
+    for m in MODULES:
+        rel = m.replace(".", "/")
+        assert (ROOT / "src" / f"{rel}.py").is_file() or \
+            (ROOT / "src" / rel / "__init__.py").is_file(), m
+    for k in ("probe_lookup", "probe2", "probe_insert", "extract"):
+        src = (PKG / "kernels" / "csrc" / f"{k}.cu").read_text()
+        assert "__global__" in src and 'extern "C"' in src, k
+        assert "cudaGetLastError" in src, k
+
+
+def _run(code: str, **env):
+    e = {**os.environ, "PYTHONPATH": str(ROOT / "src"), **env}
+    return subprocess.run([sys.executable, "-c", code], env=e, cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_import_leaves_jax_out_and_builds_nothing(tmp_path):
+    code = (
+        "import sys, importlib\n"
+        f"mods = {MODULES!r}\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{sorted(FORBIDDEN)!r}]\n"
+        "assert not bad, bad\n"
+        "from repro_torch.kernels import build\n"
+        "assert build._LIB is None and build.build_seconds is None\n"
+        "print('clean')\n")
+    r = _run(code, REPRO_TORCH_BUILD_DIR=str(tmp_path / "kbuild"))
+    assert r.returncode == 0 and "clean" in r.stdout, r.stderr
+    assert not (tmp_path / "kbuild").exists(), "import built something"
+
+
+def test_asking_for_the_gpu_without_one_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU")
+    from repro_torch.core import dhash, hashing
+    with pytest.raises((RuntimeError, AssertionError)):
+        dhash.make("linear", capacity=16, chunk=4)          # device="cuda"
+    with pytest.raises((RuntimeError, AssertionError)):
+        hashing.fresh("mix32", 0)                           # device="cuda"
+    from repro_torch import convert
+    tree = convert.state_to_numpy(dhash.make("linear", capacity=16, chunk=4,
+                                             device="cpu"))
+    with pytest.raises((RuntimeError, AssertionError)):
+        convert.state_from_numpy(tree)                      # device="cuda"
+
+
+def test_kernel_build_needs_nvcc_and_says_so(tmp_path, monkeypatch):
+    from repro_torch.kernels import build
+    if build._LIB is not None:
+        pytest.skip("kernels already built in this process")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "b"))
+    if pathlib.Path("/usr/local/cuda/bin/nvcc").is_file():
+        pytest.skip("this machine has the CUDA toolkit")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.load()
+    assert len(build.source_hash()) == 16
+
+
+def test_chip_smoke_compiles_and_fails_without_a_gpu(tmp_path):
+    py_compile.compile(str(SMOKE), cfile=str(tmp_path / "s.pyc"), doraise=True)
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU")
+    r = subprocess.run([sys.executable, str(SMOKE)], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout and "kernels" not in r.stdout
