@@ -5,8 +5,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU (written
 for an H100) and the CUDA toolkit:
 
     python3 chip_smoke.py            # everything, as described below
-    python3 chip_smoke.py --steps 300 --big-steps 16   # a shorter run
-    python3 chip_smoke.py --profile build/profile.txt  # + a profiler table
+    python3 chip_smoke.py --steps 300 --tc-steps 300 --big-steps 16  # shorter
+    python3 chip_smoke.py --profile build/profile.txt  # + profiler tables
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
 
@@ -14,17 +14,23 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
 2. holds every kernel against its plain PyTorch version on the card at the
    shapes of the ``dhash-paper`` configuration, exact equality, on inputs
    chosen to hurt (tombstones, migrated slots, wrap-around, one hot start
-   slot, duplicates, ragged batch sizes, a partial last chunk, killed hazard
-   entries, a new table 4x the old), and times kernel and plain version;
-3. drives the main path — ``dhash.make("linear", fused=True)`` at the
-   unreduced ``dhash-paper`` size under ``DHashEngine`` with continuous
-   rebuild — for at least two complete live hash-function swaps, checking
-   every step's outputs against a dense numpy oracle and the kernel launch
-   counts of every step;
-4. runs the same engine in lock step with the port's own plain
+   slot or row pair, full rows, rows a == b, duplicates, ragged batch sizes,
+   a partial last chunk, killed hazard entries, a new table 4x the old with
+   a bucket count that is not a power of two), and times kernel and plain
+   version;
+3. drives the main path of each backend — ``dhash.make(backend,
+   fused=True)`` with ``backend`` linear (a), twochoice (b) and cuckoo (c)
+   at the unreduced ``dhash-paper`` size under ``DHashEngine`` with
+   continuous rebuild — through complete live hash-function swaps (one for
+   linear by default, two for the others), checking every step's outputs
+   against a dense numpy oracle, the kernel launch counts of every step and,
+   on a two-row table, that every refused insert found both its rows full;
+   the cuckoo path also takes a collision flood mid-epoch (2048 keys to one
+   row) and must keep every acknowledged key through the next swap;
+4. runs the same engines in lock step with the port's own plain
    (``fused=False``) path on the card for one epoch at a smaller table;
-5. repeats a short stretch of the main path on a table far larger than the
-   L2 cache (2**25 slots).
+5. repeats a short stretch of the linear main path on a table far larger
+   than the L2 cache (2**25 slots).
 
 Any failed check raises, so the process exits non-zero and prints no result
 line.  The last line of a good run is
@@ -34,6 +40,7 @@ the line before it is one JSON object describing every kernel.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -58,7 +65,22 @@ KERNEL_INFO = {
                      "src/repro/kernels/probe.py:244"),
     "extract": ("src/repro_torch/kernels/csrc/extract.cu",
                 "src/repro/kernels/probe.py:463"),
+    "tc_lookup": ("src/repro_torch/kernels/csrc/tc_lookup.cu",
+                  "src/repro/kernels/probe.py:574"),
+    "tc_insert": ("src/repro_torch/kernels/csrc/tc_insert.cu",
+                  "src/repro/kernels/probe.py:592"),
+    "tc_probe2": ("src/repro_torch/kernels/csrc/tc_probe2.cu",
+                  "src/repro/kernels/probe.py:732"),
 }
+BACKENDS = ("linear", "twochoice", "cuckoo")
+
+
+def bound(nbytes: int, ops: int) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    integer operations over the peak rate, whichever is larger."""
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / INT_OPS_PER_S
+    return dict(bound_ms=max(tb, to) * 1e3,
+                bound_by="bytes" if tb >= to else "operations")
 
 
 def log(*a):
@@ -403,8 +425,8 @@ def phase_kernels(device, cfg, reps: int) -> dict:
             ("extract", lambda: probe.extract(tk, tv, ts.clone(), cursor, big)),
             ("probe2", lambda: probe.probe2(
                 (tk, tv, so), (nk, nv, ns), zk, zk, zl, h0o, h0n, qk, P)),
-            ("linear_extract_chunk_fused",
-             lambda: backend.linear_extract_chunk_fused(
+            ("backend.extract_chunk_fused",
+             lambda: backend.extract_chunk_fused(
                  table, torch.zeros((), dtype=i32, device=device), big))):
         try:
             call()
@@ -414,6 +436,254 @@ def phase_kernels(device, cfg, reps: int) -> dict:
     check(probe.launch_counts() == before, "a refused chunk was launched")
     log(f"  chunk contract ok: chunk {big} on the card raises in extract, "
         f"probe2 and the backend adapter")
+    return res
+
+
+def build_rows_table(probe, hashing, b: int, w: int, n_live: int, rng,
+                     device, seed: int):
+    """A [b, w] two-row table with ``n_live`` random keys placed by the PLAIN
+    insert, then a share of them tombstoned and a share marked MIGRATED.
+    Returns (hfn_a, hfn_b, key, val, state, keys)."""
+    hfa = hashing.fresh("mix32", seed, device)
+    hfb = hashing.fresh("mix32", seed + 1000, device)
+    tk, tv, ts = (torch.zeros((b, w), dtype=torch.int32, device=device)
+                  for _ in range(3))
+    uniq = np.unique(rng.integers(-(1 << 30), 1 << 30, n_live + n_live // 4))
+    check(uniq.size >= n_live, "not enough distinct keys drawn")
+    keys = torch.as_tensor(rng.permutation(uniq)[:n_live].astype(np.int32),
+                           device=device)
+    for i in range(0, n_live, 1 << 17):
+        k = keys[i:i + (1 << 17)]
+        probe.tc_insert_plain(tk, tv, ts, hashing.bucket_of(hfa, k, b),
+                              hashing.bucket_of(hfb, k, b), k, k * 3 + 1,
+                              torch.ones_like(k, dtype=torch.bool), 8)
+    flat = ts.view(-1)
+    live = (flat == 1).nonzero().squeeze(1)
+    pick = torch.as_tensor(rng.permutation(live.numel()), device=device)
+    n = live.numel() // 10
+    flat[live[pick[:n]]] = 2          # TOMB
+    flat[live[pick[n:2 * n]]] = 3     # MIGRATED
+    return hfa, hfb, tk, tv, ts, keys
+
+
+def rows_read(probe_ref, tk, tv, ts, ra, qk, need=None) -> int:
+    """Rows a two-row probe reads: row a, and row b where row a missed (of
+    the queries in ``need``)."""
+    fa = probe_ref.tc_row_lookup_ref(tk, tv, ts, ra, qk)[0]
+    if need is None:
+        need = torch.ones_like(fa)
+    return int(need.sum()) + int((need & ~fa).sum())
+
+
+def phase_tc_kernels(device, cfg, reps: int) -> dict:
+    """The three two-row kernels against their plain versions at the
+    twochoice shapes of the main path (2^18 rows x 8 lanes)."""
+    from repro_torch.core import backend, buckets, hashing
+    from repro_torch.kernels import probe, ref
+    rng = np.random.default_rng(12)
+    B, W = 1 << 18, 8
+    Q, QU, CH = cfg.lookups_per_step, cfg.updates_per_step, cfg.chunk
+    res = {}
+    i32 = torch.int32
+
+    hfa, hfb, tk, tv, ts, keys = build_rows_table(probe, hashing, B, W,
+                                                  1 << 20, rng, device, 41)
+    log(f"  two-row table: {B} x {W} live={int((ts == 1).sum())} "
+        f"tomb={int((ts == 2).sum())} migrated={int((ts == 3).sum())} "
+        f"full rows={int(((ts == 1).sum(1) == W).sum())}")
+
+    def rows(k, nb=B, fa=hfa, fb=hfb):
+        return (hashing.bucket_of(fa, k, nb).contiguous(),
+                hashing.bucket_of(fb, k, nb).contiguous())
+
+    # -- tc_lookup: ragged Q, hits in row a and b, misses, dead keys, a == b
+    def lookup_inputs(q):
+        hit = keys[torch.as_tensor(rng.integers(0, keys.numel(), q // 2),
+                                   device=device)]
+        miss = torch.as_tensor(
+            rng.integers(1 << 30, (1 << 31) - 1, q - q // 2).astype(np.int32),
+            device=device)
+        qk = torch.cat([hit, miss])[torch.as_tensor(rng.permutation(q),
+                                                    device=device)]
+        ra, rb = rows(qk)
+        rb[: q // 16] = ra[: q // 16]                  # both choices one row
+        return ra, rb, qk.contiguous()
+
+    err = 0
+    for q in (Q + 77, Q):
+        ra, rb, qk = lookup_inputs(q)
+        out_k = probe.tc_lookup(tk, tv, ts, ra, rb, qk)
+        torch.cuda.synchronize()
+        out_p = probe.tc_lookup_plain(tk, tv, ts, ra, rb, qk)
+        for a, b, n in zip(out_k, out_p, ("found", "val", "loc")):
+            err = max(err, same(a, b, f"tc_lookup Q={q} {n}"))
+    f, _, loc = out_k
+    check(bool(f.any()) and not bool(f.all())
+          and bool((f & (loc.long() // W == rb.long())
+                    & (ra != rb)).any()),
+          "tc_lookup: inputs must mix hits in row a, in row b and misses")
+    nrows = rows_read(ref, tk, tv, ts, ra, qk)
+    hits = int(f.sum())
+    res["tc_lookup"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: probe.tc_lookup(tk, tv, ts, ra, rb, qk), reps),
+        plain_ms=time_ms(lambda: probe.tc_lookup_plain(tk, tv, ts, ra, rb,
+                                                       qk), 3,
+                         queue_ahead=False),
+        # in: key and state of each row read, val of a hit, rows + key a
+        # query; out: found, val, loc
+        **bound(nrows * W * 8 + hits * 4 + Q * 12 + Q * 9, nrows * W * 2))
+    log(f"  tc_lookup ok: Q={Q} rows read={nrows} hits={hits}")
+
+    # -- tc_insert: a hot row pair, duplicates, keys already live or dead,
+    #    rows a == b, ragged Q; twochoice's 8 rounds and cuckoo's 2
+    def insert_inputs(q):
+        k = torch.as_tensor(
+            rng.integers(-(1 << 31), -(1 << 30), q).astype(np.int32),
+            device=device)
+        k[: q // 8] = keys[: q // 8]                 # already live (or dead)
+        k[q // 8: q // 4] = k[q // 4: q // 4 + (q // 4 - q // 8)]  # dups
+        ra, rb = rows(k)
+        hot = slice(q // 2, q // 2 + 3000)
+        ra[hot], rb[hot] = 7, 11                     # one hot row pair
+        rb[q // 4: q // 4 + 200] = ra[q // 4: q // 4 + 200]
+        mask = torch.as_tensor(rng.random(q) < 0.9, device=device)
+        return (ra, rb, k.contiguous(), (k * 5 + 2).contiguous(),
+                buckets.batch_winners(k, mask))
+
+    err = 0
+    claim = probe.new_claim(B * W, device)
+    for q, rounds in ((QU + 5, 8), (QU, 8), (QU, 2)):
+        ra, rb, k, v, m = insert_inputs(q)
+        a = [t.clone() for t in (tk, tv, ts)]
+        b = [t.clone() for t in (tk, tv, ts)]
+        ok_k, pr_k = probe.tc_insert(*a, ra, rb, k, v, m, rounds, claim)
+        torch.cuda.synchronize()
+        ok_p, pr_p = probe.tc_insert_plain(*b, ra, rb, k, v, m, rounds)
+        err = max(err, same(ok_k, ok_p, f"tc_insert Q={q} r={rounds} ok"),
+                  same(pr_k, pr_p, f"tc_insert Q={q} r={rounds} present"))
+        for x, y, n in zip(a, b, ("key", "val", "state")):
+            err = max(err, same(x, y, f"tc_insert Q={q} r={rounds} {n}"))
+        check(bool((claim == probe.CLAIM_FREE).all()),
+              "tc_insert left claim words behind")
+        failed = m & ~ok_k & ~pr_k
+        check(int(failed.sum()) > 2000, "tc_insert: most of the hot row "
+              "pair's inserts must find no lane")
+        log(f"  tc_insert ok: Q={q} max_rounds={rounds} "
+            f"placed={int(ok_k.sum())} present={int(pr_k.sum())} "
+            f"no-lane={int(failed.sum())}")
+    # timed on the main path's kind of batch: fresh keys, hashed rows
+    k = torch.as_tensor(rng.integers(-(1 << 31), -(1 << 30), QU)
+                        .astype(np.int32), device=device)
+    (ra, rb), v = rows(k), k * 5 + 2
+    m = buckets.batch_winners(k, torch.ones_like(k, dtype=torch.bool))
+    a = [t.clone() for t in (tk, tv, ts)]
+
+    def restore():
+        for x, y in zip(a, (tk, tv, ts)):
+            x.copy_(y)
+    restore()
+    ok_t, pr_t = probe.tc_insert(*a, ra, rb, k, v, m, 8, claim)
+    nrows = rows_read(ref, tk, tv, ts, ra, k, m)
+    pend = int((m & ~pr_t).sum())
+    res["tc_insert"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: probe.tc_insert(*a, ra, rb, k, v, m, 8, claim),
+                   reps, restore),
+        plain_ms=time_ms(
+            lambda: probe.tc_insert_plain(*a, ra, rb, k, v, m, 8), 3, restore,
+            queue_ahead=False),
+        # in: rows, key, val, mask; the presence rows (key + state); one
+        # state row a pending query; out: the winners' slots, ok, present
+        **bound(QU * 17 + nrows * W * 8 + pend * W * 4
+                + int(ok_t.sum()) * 12 + QU * 2,
+                nrows * W * 2 + pend * W))
+
+    # -- tc_probe2: old table mid-rebuild, hazard buffer with killed
+    #    entries, new tables 4x (+3 rows, not a power of two) and 1x
+    err = 0
+    so = ts.clone()
+    cursor = torch.tensor(7 * CH, dtype=i32, device=device)
+    hk, hv, hl, _ = probe.extract_plain(tk.view(-1), tv.view(-1), so.view(-1),
+                                        cursor, CH)
+    hz_live = int(hl.sum())
+    hl = hl & torch.as_tensor(rng.random(CH) < 0.8, device=device)  # kills
+    for b_new, seed in ((4 * B + 3, 51), (B, 52)):
+        nfa, nfb, nk, nv, ns, nkeys = build_rows_table(
+            probe, hashing, b_new, W, 1 << 18, rng, device, seed)
+        for q in (Q + 77, Q):
+            n4 = q // 4
+            qk = torch.cat([
+                keys[torch.as_tensor(rng.integers(0, keys.numel(), n4),
+                                     device=device)],
+                hk[torch.as_tensor(rng.integers(0, max(hz_live, 1), n4),
+                                   device=device)],
+                nkeys[torch.as_tensor(rng.integers(0, nkeys.numel(), n4),
+                                      device=device)],
+                torch.as_tensor(rng.integers(1 << 30, (1 << 31) - 1,
+                                             q - 3 * n4).astype(np.int32),
+                                device=device)])
+            qk = qk[torch.as_tensor(rng.permutation(q),
+                                    device=device)].contiguous()
+            rao, rbo = rows(qk)
+            ran, rbn = rows(qk, b_new, nfa, nfb)
+            args = ((tk, tv, so), (nk, nv, ns), hk, hv, hl, rao, rbo, ran,
+                    rbn, qk)
+            out_k = probe.tc_probe2(*args)
+            torch.cuda.synchronize()
+            out_p = probe.tc_probe2_plain(*args)
+            for x, y, n in zip(out_k, out_p, ("found", "val", "f_old",
+                                              "loc_old", "hz_idx", "loc_new")):
+                err = max(err, same(x, y, f"tc_probe2 Bnew={b_new} Q={q} {n}"))
+            check(bool(out_k[2].any()) and bool((out_k[4] >= 0).any())
+                  and bool((out_k[5] >= 0).any()) and not bool(out_k[0].all()),
+                  "tc_probe2: inputs must hit old, hazard, new and nothing")
+    found, _, f_old, _, hz_idx, loc_new = out_k
+    n_hz = int(hl.nonzero().max()) + 1
+    compares = int(torch.where(hz_idx >= 0, hz_idx + 1, n_hz)[~f_old].sum())
+    unres = ~f_old & (hz_idx < 0)
+    r_old = rows_read(ref, tk, tv, so, rao, qk)
+    r_new = rows_read(ref, nk, nv, ns, ran, qk, unres)
+    res["tc_probe2"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: probe.tc_probe2(*args), reps),
+        plain_ms=time_ms(lambda: probe.tc_probe2_plain(*args), 3,
+                         queue_ahead=False),
+        # in: four rows and a key a query, the rows read, the hazard
+        # buffer, the value of a hit; out: six outputs
+        **bound(Q * 20 + (r_old + r_new) * W * 8 + CH * 9
+                + int(found.sum()) * 4 + Q * 18,
+                compares + (r_old + r_new) * W * 2))
+    log(f"  tc_probe2 ok: Q={Q} hazard compares={compares} rows read "
+        f"old={r_old} new={r_new}")
+
+    # -- the chunk contract of the two-row path: above 4096 a table on the
+    #    card is refused by tc_probe2 and by both adapters; nothing launches
+    big = 2 * probe.EXTRACT_MAX_CHUNK
+    zk = torch.zeros(big, dtype=i32, device=device)
+    zl = torch.zeros(big, dtype=torch.bool, device=device)
+    zero = torch.zeros((), dtype=i32, device=device)
+    tables = {n: backend.get(n).make(1 << 14, 0, device=device)
+              for n in ("twochoice", "cuckoo")}
+    before = probe.launch_counts()
+    for what, call in (
+            ("tc_probe2", lambda: probe.tc_probe2(
+                (tk, tv, so), (nk, nv, ns), zk, zk, zl, rao, rbo, ran, rbn,
+                qk)),
+            ("backend.extract_chunk_fused, twochoice",
+             lambda: backend.extract_chunk_fused(
+                 tables["twochoice"], zero, big)),
+            ("backend.extract_chunk_fused, cuckoo",
+             lambda: backend.extract_chunk_fused(
+                 tables["cuckoo"], zero, big))):
+        try:
+            call()
+        except ValueError:
+            continue
+        check(False, f"{what}: a chunk of {big} on the card must raise")
+    check(probe.launch_counts() == before, "a refused chunk was launched")
+    log(f"  chunk contract ok: chunk {big} on the card raises in tc_probe2 "
+        f"and both two-row adapters")
     return res
 
 
@@ -489,30 +759,153 @@ class Oracle:
         return int(found.sum())
 
 
-def expected_launches(before: dict, after: dict,
-                      was_rebuilding: bool) -> str | None:
-    """None if the step's launches are the stated ones, else what was seen."""
+def expected_launches(before: dict, after: dict, was_rebuilding: bool,
+                      backend: str) -> str | None:
+    """None if the step's launches are the stated ones, else what was seen.
+    A step launches only its backend's kernels (the extract kernel is
+    shared): steady state two lookup-kernel launches (lookup, delete) and one
+    insert; in a rebuild epoch two probe2 launches, one insert and one
+    extract or one landing insert."""
     d = {k: after[k] - before[k] for k in after}
+    look, ins, p2 = (("probe_lookup", "probe_insert", "probe2")
+                     if backend == "linear" else
+                     ("tc_lookup", "tc_insert", "tc_probe2"))
+    zero = dict.fromkeys(after, 0)
     if not was_rebuilding:
-        want = [dict(probe_lookup=2, probe_insert=1, probe2=0, extract=0)]
+        want = [{**zero, look: 2, ins: 1}]
     else:
-        want = [dict(probe_lookup=0, probe_insert=1, probe2=2, extract=1),
-                dict(probe_lookup=0, probe_insert=2, probe2=2, extract=0)]
+        want = [{**zero, p2: 2, ins: 1, "extract": 1},
+                {**zero, p2: 2, ins: 2}]
     return None if d in want else f"{d} (rebuilding={was_rebuilding})"
 
 
+def seeds_of(eng) -> list:
+    """The seeds of each hash function of the active table."""
+    from repro_torch.core import backend
+    be = backend.get(eng.state.backend)
+    return [h.seeds.cpu().numpy().copy() for h in be.hash_fns(eng.state.old)]
+
+
+def insert_target(eng, was_rebuilding: bool, swapped: bool):
+    """The table a step's inserts went to, as the state holds it after the
+    step: the new one in a rebuild epoch (the old one once the step's swap
+    has happened), else the old one."""
+    return eng.state.new if was_rebuilding and not swapped else eng.state.old
+
+
+def check_refusals(backend: str, table, before, keys, refused, ok_keys,
+                   where: str) -> int:
+    """A two-row table refuses an insert only when both of the key's rows
+    have no lane left to it (the reference's bounded placement).  Checked
+    for each refused key: every lane of its two rows that was not LIVE
+    before the step (``before``: the insert target's states then) is LIVE
+    now, holding on twochoice a key that this step's insert acknowledged
+    (on cuckoo any key: the kick-out also moves residents into free lanes).
+    Returns the number of refused keys."""
+    from repro_torch.core import buckets
+    n = int(refused.sum())
+    if not n:
+        return 0
+    rows = buckets._tc_rows if backend == "twochoice" else buckets._ck_rows
+    k = torch.as_tensor(keys[refused], device=before.device)
+    r = torch.stack(rows(table, k), 1).long()               # [n, 2]
+    was_free = before[r] != buckets.LIVE                    # [n, 2, W]
+    filled = table.state[r] == buckets.LIVE
+    if backend == "twochoice":
+        filled &= torch.isin(table.key[r], torch.as_tensor(
+            ok_keys, device=before.device))
+    bad = int((was_free & ~filled).any(-1).any(-1).sum())
+    check(bad == 0, f"{where}: {bad} of {n} refused inserts had a lane left "
+                    f"in their rows")
+    return n
+
+
+class Flood:
+    """The cuckoo arm of the collision-flood benchmark: mid-epoch, ``n``
+    keys that all hash to side-A row 0 of the insert target under its live
+    ``hfn_a`` go in through the engine in one step.  Every acknowledged flood
+    key must then be found, and the count must hold, through the next
+    complete swap."""
+
+    def __init__(self, n: int, after_swap: int, delay: int):
+        self.n, self.after_swap, self.delay = n, after_swap, delay
+        self.keys = self.vals = None
+        self.step_ms = None
+        self.kick_runs = 0
+        self.swap_checked = False
+
+    def colliders(self, t, device) -> torch.Tensor:
+        from repro_torch.core import hashing
+        gen = torch.Generator(device=device)
+        gen.manual_seed(99)
+        got = torch.empty(0, dtype=torch.int32, device=device)
+        while got.numel() < self.n:
+            # keys far outside the oracle's universe, so they are all fresh
+            cand = torch.randint(1 << 24, (1 << 31) - 1, (1 << 24,),
+                                 generator=gen, device=device,
+                                 dtype=torch.int32)
+            hit = cand[hashing.bucket_of(t.hfn_a, cand, t.nbuckets) == 0]
+            got = torch.unique(torch.cat([got, hit]))
+        return got[torch.randperm(got.numel(), generator=gen,
+                                  device=device)[: self.n]]
+
+    def maybe(self, eng, swaps: int, steps_since_swap: int):
+        """Inject the flood once, ``delay`` steps into the epoch after swap
+        number ``after_swap``."""
+        from repro_torch.kernels import probe
+        if self.keys is not None or swaps < self.after_swap or \
+                steps_since_swap < self.delay or not eng.rebuilding:
+            return
+        keys = self.colliders(eng.state.new, eng.device)
+        vals = keys * 7 + 3
+        empty = np.zeros(0, np.int32)
+        runs0 = probe.kick_counts()["runs"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.step(empty, keys, vals, empty)
+        torch.cuda.synchronize()
+        self.step_ms = (time.perf_counter() - t0) * 1e3
+        self.kick_runs = probe.kick_counts()["runs"] - runs0
+        check(self.kick_runs >= 1, "flood: the kick-out did not run")
+        ok = out[2]
+        self.keys, self.vals = keys[ok], vals[ok]
+        check(self.keys.numel() >= self.n - 64,
+              f"flood: only {self.keys.numel()} of {self.n} acknowledged")
+        log(f"  flood: {self.n} keys to side-A row 0 of the insert target, "
+            f"{self.keys.numel()} acknowledged, kick-out ran "
+            f"{self.kick_runs} time(s), step {self.step_ms:.3f} ms")
+        self.verify(eng, "right after the flood")
+
+    def verify(self, eng, when: str):
+        if self.keys is None:
+            return
+        f, v = eng.lookup(self.keys)
+        check(bool(f.all()) and torch.equal(v, self.vals),
+              f"flood: {int((~f).sum())} acknowledged flood keys lost "
+              f"{when}")
+
+    def extra(self) -> int:
+        return 0 if self.keys is None else self.keys.numel()
+
+
 def drive(eng, oracle, n_steps: int, n_look: int, n_upd: int, where: str,
-          step0: int = 0):
+          step0: int = 0, flood: Flood | None = None):
     """``n_steps`` engine steps checked against the oracle; returns per-step
     wall times (ms, each ended by a synchronise) and bookkeeping."""
     from repro_torch.kernels import probe
     times, in_rebuild, hits = [], 0, 0
     seeds = []
     completed = eng.stats.rebuilds_completed
+    since_swap = 0
+    two_row = eng.state.backend != "linear"
     for s in range(n_steps):
+        if flood is not None:
+            flood.maybe(eng, len(seeds), since_swap)
         look, ins, vals, dele = oracle.batch(n_look, n_upd, step0 + s)
         ins_mask = ~oracle.present[ins]
         was_rb = eng.rebuilding
+        if two_row:
+            states = insert_target(eng, was_rb, False).state.clone()
         before = probe.launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -520,19 +913,45 @@ def drive(eng, oracle, n_steps: int, n_look: int, n_upd: int, where: str,
                        oracle.key(dele), ins_mask=ins_mask)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        bad = expected_launches(before, probe.launch_counts(), was_rb)
+        bad = expected_launches(before, probe.launch_counts(), was_rb,
+                                eng.state.backend)
         check(bad is None, f"{where} step {s}: unexpected launches {bad}")
         in_rebuild += was_rb
         hits += oracle.step(look, ins, vals, ins_mask, dele, out,
                             f"{where} step {s}")
+        if two_row:
+            ok_i = np.asarray(out[2].cpu())
+            check_refusals(
+                eng.state.backend,
+                insert_target(eng, was_rb,
+                              eng.stats.rebuilds_completed != completed),
+                states, oracle.key(ins), oracle._first(ins, ins_mask) & ~ok_i,
+                oracle.key(ins[ok_i]), f"{where} step {s}")
+        since_swap += 1
         if eng.stats.rebuilds_completed != completed:
             completed = eng.stats.rebuilds_completed
+            since_swap = 0
             # quiescence: the swap has just happened, nothing is in flight
             n = eng.count()
-            check(n == int(oracle.present.sum()),
+            extra = flood.extra() if flood is not None else 0
+            check(n == int(oracle.present.sum()) + extra,
                   f"{where} step {s}: count {n} != oracle "
-                  f"{int(oracle.present.sum())} after epoch swap")
-            seeds.append(eng.state.old.hfn.seeds.cpu().numpy().copy())
+                  f"{int(oracle.present.sum())} + {extra} after epoch swap")
+            seeds.append(seeds_of(eng))
+            if flood is not None and flood.keys is not None \
+                    and not flood.swap_checked:
+                flood.verify(eng, f"after the swap at step {s}")
+                live = np.flatnonzero(oracle.present)
+                f, v = eng.lookup(oracle.key(live))
+                check(bool(f.all()) and np.array_equal(
+                    np.asarray(v.cpu()), oracle.value[live]),
+                    f"{where}: residents lost after the flood's swap")
+                flood.swap_checked = True
+                log(f"  flood: all {flood.extra()} acknowledged flood keys "
+                    f"and all {live.size} other residents found after the "
+                    f"next complete swap (step {s})")
+        elif flood is not None and s % 128 == 0:
+            flood.verify(eng, f"at step {s}")
     return times, in_rebuild, hits, seeds
 
 
@@ -540,89 +959,151 @@ def populate(eng, oracle, n_keys: int, batch: int, where: str):
     """Fill the table to ``n_keys`` live keys through the engine's inserts."""
     empty = np.zeros(0, np.int32)
     step = 0
+    two_row = eng.state.backend != "linear"
     while int(oracle.present.sum()) < n_keys:
         n = min(batch, n_keys - int(oracle.present.sum()))
         ins = oracle._sample(n, False)
         vals = (ins * 3 - 1).astype(np.int32)
         mask = np.ones(n, bool)
+        states = eng.state.old.state.clone() if two_row else None
         out = eng.step(empty, oracle.key(ins), vals, empty, ins_mask=mask)
         oracle.step(empty.astype(np.int64), ins, vals, mask,
                     empty.astype(np.int64), out, f"{where} populate {step}")
+        if two_row:
+            ok_i = np.asarray(out[2].cpu())
+            check_refusals(eng.state.backend, eng.state.old, states,
+                           oracle.key(ins), oracle._first(ins, mask) & ~ok_i,
+                           oracle.key(ins[ok_i]), f"{where} populate {step}")
         step += 1
     return step
 
 
-def phase_main(device, cfg, n_steps: int, profile_to: str = "") -> dict:
-    from repro_torch.core import dhash
+def phase_main(device, cfg, n_steps: int, min_epochs: int,
+               profile_to: str = "", flood: Flood | None = None) -> dict:
+    """The main path of ``cfg.backend``: populate, 16 steady-state steps,
+    then ``n_steps`` in continuous rebuild; the launch counts are set to 0
+    just before and read just after.  Returns the launch counts."""
+    from repro_torch.core import backend, dhash
     from repro_torch.core.engine import DHashEngine
     from repro_torch.kernels import probe
     state = dhash.make(cfg.backend, capacity=cfg.capacity_per_shard,
                        chunk=cfg.chunk, fused=True, seed=0, device=device)
-    slots = state.old.capacity
+    slots = backend.get(cfg.backend).capacity_of(state.old)
     oracle = Oracle(4 * cfg.capacity_per_shard, seed=3)
     eng = DHashEngine(state, continuous_rebuild=False)
     n_pop = populate(eng, oracle, cfg.capacity_per_shard,
-                     cfg.lookups_per_step, "main")
+                     cfg.lookups_per_step, f"{cfg.backend}")
     log(f"  populated {int(oracle.present.sum())} keys in {n_pop} engine "
-        f"steps; {slots} slots a table, {oracle.no_slot} inserts found no slot")
-    seed0 = eng.state.old.hfn.seeds.cpu().numpy().copy()
+        f"steps; {slots} slots a table ({tuple(state.old.key.shape)}), "
+        f"{oracle.no_slot} inserts found no slot")
+    seed0 = seeds_of(eng)
 
     # -------- the main path: counts set to 0 here, read right after --------
     probe.reset_launches()
     syncs0 = eng.stats.host_syncs
     steady = 16
     t_steady, _, hits_a, _ = drive(eng, oracle, steady, cfg.lookups_per_step,
-                                   cfg.updates_per_step, "main/steady")
-    steady_syncs = eng.stats.host_syncs - syncs0
+                                   cfg.updates_per_step,
+                                   f"{cfg.backend}/steady")
+    steady_eng = eng.stats.host_syncs - syncs0
+    kicks_steady = probe.kick_counts()
+    steady_syncs = steady_eng + kicks_steady["reads"]
     eng.continuous_rebuild = True
     t0 = time.perf_counter()
     times, in_rb, hits_b, seeds = drive(
         eng, oracle, n_steps, cfg.lookups_per_step, cfg.updates_per_step,
-        "main/rebuild", step0=steady)
+        f"{cfg.backend}/rebuild", step0=steady, flood=flood)
     wall = time.perf_counter() - t0
     launches = probe.launch_counts()
+    kicks = probe.kick_counts()
     # ------------------------------------------------------------------------
-    syncs = eng.stats.host_syncs - syncs0 - steady_syncs - len(seeds)
-    check(all(launches[k] > 0 for k in probe.KERNELS),
-          f"main path did not launch every kernel: {launches}")
+    kick_reads = kicks["reads"] - kicks_steady["reads"]
+    # the engine's own reads, less the count() at each swap
+    eng_syncs = eng.stats.host_syncs - syncs0 - steady_eng - len(seeds)
+    used = [k for k in probe.KERNELS
+            if k == "extract" or (k.startswith("tc_") ==
+                                  (cfg.backend != "linear"))]
+    check(all(launches[k] > 0 for k in used),
+          f"main path did not launch every kernel of its backend: {launches}")
+    check(all(launches[k] == 0 for k in probe.KERNELS if k not in used),
+          f"main path launched another backend's kernels: {launches}")
     epochs = eng.stats.rebuilds_completed
-    check(epochs >= 2 or n_steps < 2100,
+    check(epochs >= min_epochs,
           f"only {epochs} complete rebuild epochs in {n_steps} steps")
     allseeds = [seed0] + seeds
-    check(all(not np.array_equal(a, b)
-              for a, b in zip(allseeds, allseeds[1:])),
-          "the hash seeds did not change across an epoch swap")
+    check(all(not np.array_equal(x, y) for a, b in zip(allseeds, allseeds[1:])
+              for x, y in zip(a, b)),
+          "a hash function's seeds did not change across an epoch swap")
+    if flood is not None:
+        check(flood.swap_checked, "flood: no complete swap after the flood")
     ops_step = cfg.lookups_per_step + 2 * cfg.updates_per_step
     ts = sorted(times)
     dev_ops = ops_step * len(times) / (sum(times) / 1e3)
     log(f"  steady state: {steady} steps, median "
         f"{statistics.median(t_steady):.3f} ms a step, "
-        f"{steady_syncs / steady:.3f} host syncs a step")
+        f"{steady_syncs / steady:.3f} host syncs a step (kick-out reads "
+        f"{kicks_steady['reads']})")
     log(f"  continuous rebuild: {n_steps} steps, {epochs} complete epochs "
-        f"(hash function swapped live {epochs} times), "
+        f"(hash functions swapped live {epochs} times, every seed changed), "
         f"{ops_step * n_steps} operations")
     log(f"  step ms: median {statistics.median(ts):.3f} "
         f"p99 {ts[int(0.99 * (len(ts) - 1))]:.3f} max {ts[-1]:.3f}; "
         f"{dev_ops / 1e6:.2f} M operations/s over the steps' own time "
         f"({ops_step * n_steps / wall / 1e6:.2f} M/s with the host oracle)")
-    log(f"  host syncs a step: {syncs / n_steps:.4f}; share of steps in a "
-        f"rebuild epoch: {in_rb / n_steps:.4f}; lookup hit rate "
-        f"{(hits_a + hits_b) / ((steady + n_steps) * cfg.lookups_per_step):.3f}"
-        f"; inserts that found no slot: {oracle.no_slot}")
-    check(oracle.no_slot <= 64, "too many inserts found no slot")
-    log(f"  launches on the main path: {launches}")
+    log(f"  host syncs a step: {(eng_syncs + kick_reads) / n_steps:.4f} "
+        f"(engine {eng_syncs / n_steps:.4f}, cuckoo kick-out gate and "
+        f"stage checks {kick_reads / n_steps:.4f}; kick-out ran "
+        f"{kicks['runs'] - kicks_steady['runs']} times); "
+        f"share of steps in a rebuild epoch: {in_rb / n_steps:.4f}; lookup "
+        f"hit rate "
+        f"{(hits_a + hits_b) / ((steady + n_steps) * cfg.lookups_per_step):.3f}")
+    if flood is not None:
+        log(f"  flood step {flood.step_ms:.3f} ms against a median step of "
+            f"{statistics.median(ts):.3f} ms")
+    # a refused insert is not acknowledged, so never lost.  Linear: a few a
+    # run at most; a two-row table refuses a key whose two rows are full
+    # (the reference's bounded placement), each refusal checked to be one
+    n_ins = cfg.updates_per_step * (steady + n_steps)
+    if cfg.backend == "linear":
+        log(f"  inserts refused for want of a slot: {oracle.no_slot} of "
+            f"{n_ins} (limit 64)")
+        check(oracle.no_slot <= 64, "too many inserts found no slot")
+    else:
+        log(f"  inserts refused for want of a slot: {oracle.no_slot} of "
+            f"{n_ins} (populate included), each with both rows full")
+    log(f"  launches on the main path: "
+        f"{ {k: v for k, v in launches.items() if v} }")
     if profile_to:
         profile_steps(eng, oracle, cfg, 40, steady + n_steps, profile_to)
     return launches
 
 
-def phase_lockstep(device, max_steps: int):
-    """fused=True against the port's plain path, same ops, one epoch."""
+def _content(tree: dict) -> dict:
+    """A state's key -> value map as a lookup sees it: old > hazard > new."""
+    def live(t):
+        s = t["state"].reshape(-1) == 1
+        return dict(zip(t["key"].reshape(-1)[s].tolist(),
+                        t["val"].reshape(-1)[s].tolist()))
+    out = live(tree["new"])
+    hl = tree["hazard_live"]
+    out.update(zip(tree["hazard_key"][hl].tolist(),
+                   tree["hazard_val"][hl].tolist()))
+    out.update(live(tree["old"]))
+    return out
+
+
+def phase_lockstep(device, backend: str, max_steps: int):
+    """fused=True against the port's plain path, same ops, one epoch.  The
+    fused cuckoo insert (claim kernel, then kick-out) is a linearisation of
+    its own, so for cuckoo the whole key -> value map is compared at the end;
+    otherwise both tables slot for slot.  A lookup's value is compared where
+    found: the plain two-row lookup's value of a miss is unspecified."""
     from repro_torch import convert
     from repro_torch.core import dhash
     from repro_torch.core.engine import DHashEngine
+    exact = backend != "cuckoo"
     cap, chunk, nl, nu = 1 << 16, 4096, 8192, 1024
-    engs = [DHashEngine(dhash.make("linear", capacity=cap, chunk=chunk,
+    engs = [DHashEngine(dhash.make(backend, capacity=cap, chunk=chunk,
                                    fused=f, seed=5, device=device),
                         continuous_rebuild=True) for f in (True, False)]
     oracle = Oracle(4 * cap, seed=9)
@@ -632,33 +1113,46 @@ def phase_lockstep(device, max_steps: int):
     for e in engs:
         e.step(empty, oracle.key(ins), (ins * 3).astype(np.int32), empty)
     steps = 0
-    while steps < max_steps and engs[0].stats.rebuilds_completed < 1:
+    while steps < max_steps and min(e.stats.rebuilds_completed
+                                    for e in engs) < 1:
         look, ins, vals, dele = oracle.batch(nl, nu, steps)
         mask = ~oracle.present[ins]
         outs = [e.step(oracle.key(look), oracle.key(ins), vals,
                        oracle.key(dele), ins_mask=mask) for e in engs]
-        for a, b, n in zip(*outs, ("found", "vals", "ok_i", "ok_d")):
-            check(torch.equal(a, b), f"lockstep step {steps}: {n} differs "
-                                     f"between fused and plain")
-        ok_i = np.asarray(outs[0][2].cpu())
+        (fa, va, ia, da), (fb, vb, ib, db) = outs
+        if backend != "linear":
+            va, vb = torch.where(fa, va, 0), torch.where(fb, vb, 0)
+        for a, b, n in ((fa, fb, "found"), (va, vb, "vals"),
+                        (ia, ib, "ok_i"), (da, db, "ok_d")):
+            check(torch.equal(a, b), f"lockstep {backend} step {steps}: {n} "
+                                     f"differs between fused and plain")
+        ok_i = np.asarray(ia.cpu())
         oracle.present[ins[ok_i]] = True
-        ok_d = np.asarray(outs[0][3].cpu())
+        ok_d = np.asarray(da.cpu())
         oracle.present[dele[ok_d]] = False
         steps += 1
     check(all(e.stats.rebuilds_completed >= 1 for e in engs),
-          f"lockstep: no epoch completed in {steps} steps")
+          f"lockstep {backend}: no epoch completed in {steps} steps")
     a, b = (convert.state_to_numpy(e.state) for e in engs)
-    for side in ("old", "new"):
-        for f in ("key", "val", "state"):
-            check(np.array_equal(a[side][f], b[side][f]),
-                  f"lockstep: {side}.{f} differs at the end")
-        check(np.array_equal(a[side]["hfn"]["seeds"], b[side]["hfn"]["seeds"]),
-              f"lockstep: {side} seeds differ")
-    for f in ("cursor", "rebuilding", "epoch"):
-        check(a[f] == b[f], f"lockstep: {f} differs")
-    log(f"  {steps} steps in lock step, outputs equal every step, both "
-        f"tables slot for slot, seeds, cursor, epoch equal at the end "
-        f"(capacity {cap}, chunk {chunk})")
+    check(_content(a) == _content(b), f"lockstep {backend}: the key -> "
+          f"value maps differ at the end")
+    check(set(_content(a)) == set(oracle.key(np.flatnonzero(
+        oracle.present)).tolist()), f"lockstep {backend}: keys differ from "
+        f"the oracle at the end")
+    if exact:
+        for side in ("old", "new"):
+            for f in a[side]:
+                x, y = a[side][f], b[side][f]
+                if isinstance(x, dict):
+                    x, y = x["seeds"], y["seeds"]
+                check(np.array_equal(x, y),
+                      f"lockstep {backend}: {side}.{f} differs at the end")
+        for f in ("cursor", "rebuilding", "epoch"):
+            check(a[f] == b[f], f"lockstep {backend}: {f} differs")
+    log(f"  {backend}: {steps} steps in lock step, outputs equal every step, "
+        + ("both tables slot for slot, seeds, cursor, epoch" if exact else
+           "the key -> value map (and the oracle's keys)")
+        + f" equal at the end (capacity {cap}, chunk {chunk})")
 
 
 def phase_big(device, cfg, n_steps: int, reps: int, cap: int = 1 << 24):
@@ -717,15 +1211,20 @@ def phase_big(device, cfg, n_steps: int, reps: int, cap: int = 1 << 24):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--steps", type=int, default=2200,
-                    help="continuous-rebuild steps of the main path")
+    ap.add_argument("--steps", type=int, default=1200,
+                    help="continuous-rebuild steps of the linear main path")
+    ap.add_argument("--tc-steps", type=int, default=2200,
+                    help="continuous-rebuild steps of the twochoice and "
+                    "cuckoo main paths")
     ap.add_argument("--big-steps", type=int, default=64,
                     help="steps on the table larger than L2")
     ap.add_argument("--reps", type=int, default=50,
                     help="timed launches a kernel")
     ap.add_argument("--profile", default="", metavar="FILE",
-                    help="also run 40 main-path steps under torch.profiler "
-                    "and write the kernel table to FILE")
+                    help="also run 40 steps of each main path under "
+                    "torch.profiler and write the kernel tables to FILE "
+                    "(linear) and FILE with _twochoice / _cuckoo before its "
+                    "extension")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -752,34 +1251,56 @@ def main() -> int:
     log(f"  kernels built in {build.build_seconds:.1f} s -> "
         f"{build.build_dir()}")
     for line in build.build_log.splitlines():
-        if "registers" in line or "error" in line or "warning" in line:
+        if "registers" in line or "error" in line or "warning" in line \
+                or line.startswith("=="):
             log("   ", line.strip())
 
-    log("== 2. kernels against their plain versions (C=2^21, "
+    log("== 2. kernels against their plain versions (tolerance 0): linear "
+        f"C=2^21, max_probes=64; two-row 2^18 x 8; "
         f"Q={CONFIG.lookups_per_step}/{CONFIG.updates_per_step}, "
-        f"chunk={CONFIG.chunk}, max_probes=64; tolerance 0)")
+        f"chunk={CONFIG.chunk}")
     kres = phase_kernels(device, CONFIG, args.reps)
+    kres.update(phase_tc_kernels(device, CONFIG, args.reps))
 
-    log(f"== 3. main path: {CONFIG.arch_id} unreduced, capacity "
-        f"{CONFIG.capacity_per_shard}, chunk {CONFIG.chunk}, "
-        f"{CONFIG.lookups_per_step}+{CONFIG.updates_per_step}+"
-        f"{CONFIG.updates_per_step} operations a step")
-    launches = phase_main(device, CONFIG, args.steps, args.profile)
+    by_path = {}
+    for i, name in enumerate(BACKENDS):
+        cfg = dataclasses.replace(CONFIG, backend=name)
+        linear = name == "linear"
+        log(f"== 3{'abc'[i]}. main path, {name}: {cfg.arch_id} unreduced, "
+            f"capacity {cfg.capacity_per_shard}, chunk {cfg.chunk}, "
+            f"{cfg.lookups_per_step}+{cfg.updates_per_step}+"
+            f"{cfg.updates_per_step} operations a step")
+        prof = args.profile
+        if prof and not linear:
+            root, ext = os.path.splitext(prof)
+            prof = f"{root}_{name}{ext}"
+        steps = args.steps if linear else args.tc_steps
+        by_path[name] = phase_main(device, cfg, steps,
+                                   min_epochs=2 if steps >= 2100 else 1,
+                                   profile_to=prof,
+                                   flood=Flood(2048, after_swap=1, delay=400)
+                                   if name == "cuckoo" else None)
 
     log("== 4. fused engine against the plain path in lock step")
-    phase_lockstep(device, 200)
-    log("== 5. a table larger than L2 (capacity 2^24, 2^25 slots)")
+    for name in BACKENDS:
+        phase_lockstep(device, name, 200)
+    log("== 5. a table larger than L2 (linear, capacity 2^24, 2^25 slots)")
     phase_big(device, CONFIG, args.big_steps, args.reps)
 
     kernels = []
     for name in probe.KERNELS:
         src, rep = KERNEL_INFO[name]
+        paths = {b: by_path[b][name] for b in BACKENDS}
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": rep, "launches": launches[name],
-                        **kres[name], "library_ms": None})
-    log(f"  no single PyTorch call computes any of these four functions, so "
-        f"library_ms is null; times are medians of {args.reps} launches, "
-        f"tables warm in L2")
+                        "replaces": rep, "launches": sum(paths.values()),
+                        "launches_by_path": paths, **kres[name],
+                        "library_ms": None})
+    log(f"  no single PyTorch call computes any of these seven functions (a "
+        f"probe sequence, a two-row lane match, a lock-step claim, an ordered "
+        f"three-way check, a compacting scan), so library_ms is null; times "
+        f"are medians of {args.reps} launches, tables warm in L2; launches "
+        f"are summed over the three main paths (launches_by_path: each "
+        f"path's own count)")
     log(f"  total {time.perf_counter() - t_start:.0f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,8 +1,9 @@
 """State to and from nested dicts of numpy arrays.
 
 The layout mirrors the field names of the reference's ``DHashState`` /
-``LinearTable`` / ``HashFn``, so a state of either package flattens to the
-same tree and both can start from — and be compared on — the same bytes:
+``LinearTable`` / ``TwoChoiceTable`` / ``CuckooTable`` / ``HashFn``, so a
+state of either package flattens to the same tree and both can start from —
+and be compared on — the same bytes:
 
     {"backend": str, "chunk": int, "fwd_hazard": bool, "fused": bool,
      "nres_cap": int,
@@ -14,6 +15,14 @@ same tree and both can start from — and be compared on — the same bytes:
      "hazard_live": bool[chunk],
      "cursor": int32[], "rebuilding": bool[], "epoch": int32[],
      "lookups": int32[], "expensive": int32[]}
+
+with a two-row table (``backend`` twochoice or cuckoo) as
+
+    {"nbuckets": int, "width": int, "max_rounds" | "max_kick": int,
+     "hfn_a": {...}, "hfn_b": {...},
+     "key": int32[R, W], "val": int32[R, W], "state": int32[R, W]}
+
+(R = nbuckets for twochoice, 2 * nbuckets for cuckoo).
 
 Hash seeds are ``uint32`` in the tree and int64 words in ``[0, 2**32)`` in
 the port.  The insert kernel's claim scratch is not part of a table's
@@ -38,31 +47,52 @@ def _to_dev(a, dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.array(a, dtype=dtype), device=device)
 
 
-def table_from_numpy(tree: dict, device: torch.device | str = "cuda"
-                     ) -> buckets.LinearTable:
-    """One ``LinearTable`` on ``device`` from its tree."""
+# the configuration fields of each table type, in the reference's order
+_META = {buckets.LinearTable: ("capacity", "max_probes"),
+         buckets.TwoChoiceTable: ("nbuckets", "width", "max_rounds"),
+         buckets.CuckooTable: ("nbuckets", "width", "max_kick")}
+_HFNS = {buckets.LinearTable: ("hfn",),
+         buckets.TwoChoiceTable: ("hfn_a", "hfn_b"),
+         buckets.CuckooTable: ("hfn_a", "hfn_b")}
+_BY_BACKEND = {"linear": buckets.LinearTable,
+               "twochoice": buckets.TwoChoiceTable,
+               "cuckoo": buckets.CuckooTable}
+
+
+def _hfn_from(tree: dict, dev) -> hashing.HashFn:
+    seeds = np.asarray(tree["seeds"]).astype(np.uint32)
+    return hashing.HashFn(kind=str(tree["kind"]),
+                          seeds=_to_dev(seeds.astype(np.int64), np.int64, dev))
+
+
+def table_from_numpy(tree: dict, device: torch.device | str = "cuda",
+                     backend: str | None = None):
+    """One table on ``device`` from its tree; its type is ``backend``'s, or
+    read from the tree's configuration fields when ``backend`` is None."""
     dev = torch.device(device)
-    seeds = np.asarray(tree["hfn"]["seeds"]).astype(np.uint32)
-    hfn = hashing.HashFn(kind=str(tree["hfn"]["kind"]),
-                         seeds=_to_dev(seeds.astype(np.int64), np.int64, dev))
-    capacity = int(tree["capacity"])
-    claim = None
+    if backend is not None:
+        cls = _BY_BACKEND[backend]
+    else:
+        cls = next(c for c, meta in _META.items() if meta[-1] in tree)
+    kw = {m: int(tree[m]) for m in _META[cls]}
+    kw.update({h: _hfn_from(tree[h], dev) for h in _HFNS[cls]})
+    kw.update({f: _to_dev(tree[f], np.int32, dev)
+               for f in ("key", "val", "state")})
     if dev.type == "cuda":
         from repro_torch.kernels.probe import new_claim
-        claim = new_claim(capacity, dev)
-    return buckets.LinearTable(
-        capacity=capacity, max_probes=int(tree["max_probes"]), hfn=hfn,
-        key=_to_dev(tree["key"], np.int32, dev),
-        val=_to_dev(tree["val"], np.int32, dev),
-        state=_to_dev(tree["state"], np.int32, dev), claim=claim)
+        kw["claim"] = new_claim(kw["key"].numel(), dev)
+    return cls(**kw)
 
 
-def table_to_numpy(t: buckets.LinearTable) -> dict:
-    return {"capacity": t.capacity, "max_probes": t.max_probes,
-            "hfn": {"kind": t.hfn.kind,
-                    "seeds": t.hfn.seeds.cpu().numpy().astype(np.uint32)},
-            "key": t.key.cpu().numpy(), "val": t.val.cpu().numpy(),
-            "state": t.state.cpu().numpy()}
+def table_to_numpy(t) -> dict:
+    tree = {m: getattr(t, m) for m in _META[type(t)]}
+    for h in _HFNS[type(t)]:
+        fn = getattr(t, h)
+        tree[h] = {"kind": fn.kind,
+                   "seeds": fn.seeds.cpu().numpy().astype(np.uint32)}
+    for f in ("key", "val", "state"):
+        tree[f] = getattr(t, f).cpu().numpy()
+    return tree
 
 
 def state_from_numpy(tree: dict, device: torch.device | str = "cuda"
@@ -76,8 +106,8 @@ def state_from_numpy(tree: dict, device: torch.device | str = "cuda"
         kw[name] = _to_dev(np.asarray(tree[name], dtype=dt).reshape(()), dt,
                            device)
     return DHashState(
-        old=table_from_numpy(tree["old"], device),
-        new=table_from_numpy(tree["new"], device),
+        old=table_from_numpy(tree["old"], device, kw["backend"]),
+        new=table_from_numpy(tree["new"], device, kw["backend"]),
         hazard_key=_to_dev(tree["hazard_key"], np.int32, device),
         hazard_val=_to_dev(tree["hazard_val"], np.int32, device),
         hazard_live=_to_dev(tree["hazard_live"], np.bool_, device), **kw)

@@ -16,17 +16,21 @@ descriptor bundling everything the DHash layer needs to drive it:
   backend has no kernel path).  These UPDATE THE TABLE'S TENSORS IN PLACE
   and return a container over the same tensors;
 * layout metadata kept for API parity with the reference (``nres_cap``,
-  ``dirty_cap``), unused by the Hopper linear kernels;
-* the optional ``lookup_fwd`` hook (MIGRATED-slot hazard forwarding).
+  ``dirty_cap``), unused by the Hopper kernels;
+* the optional ``lookup_fwd`` hook (MIGRATED-slot hazard forwarding);
+* ``hash_fns``: the table's hash functions (one for linear, a and b for the
+  two-row backends), so that a caller can see every seed change at a swap.
 
 ``core/dhash.py`` contains ZERO per-backend branches: every public op
 dispatches through the descriptor looked up by ``DHashState.backend``.
-Only ``linear`` is registered so far; ``get`` of any other name raises the
-reference's ``ValueError``.
+``linear``, ``twochoice`` and ``cuckoo`` are registered; ``get`` of any other
+name (``chain`` is not ported yet) raises the reference's ``ValueError``.
 
 The ``*_fused`` adapters in this module are the thin descriptor-bound glue
 over ``kernels/ops.py``: hash the keys (``hashing.bucket_of``, outside the
-kernels as in the reference), call the op, hand back the table.
+kernels as in the reference), call the op, hand back the table.  Cuckoo
+drives the twochoice kernels unchanged with side-offset rows; only its
+insert adds the bounded kick-out, behind counted host reads.
 """
 from __future__ import annotations
 
@@ -37,7 +41,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import buckets, hashing
-from repro_torch.core.buckets import LinearTable, batch_winners
+from repro_torch.core.buckets import (CuckooTable, LinearTable,
+                                     TwoChoiceTable, _ck_rows, _tc_rows,
+                                     batch_winners)
 from repro_torch.core.struct_utils import replace
 from repro_torch.kernels.ops import NRES_CAP
 
@@ -69,6 +75,7 @@ class BucketBackend:
       probe_cost(t, keys, found, loc) -> i32[Q]  probe-length cost of each hit
       slots_for(capacity) -> int               slot count make(capacity)
                                                would allocate
+      hash_fns(t) -> tuple[HashFn, ...]        the table's hash functions
 
     Fused set (``None`` = no kernel path; all-or-none per backend; each
     writes the table's tensors in place):
@@ -117,6 +124,7 @@ class BucketBackend:
     # optional hooks
     freeze_old: Callable[..., Any] | None = None
     lookup_fwd: Callable[..., Any] | None = None
+    hash_fns: Callable[[Any], tuple] | None = None
 
     @property
     def fused(self) -> bool:
@@ -212,25 +220,27 @@ def linear_delete_fused(t: LinearTable, keys: torch.Tensor,
     return t, ok
 
 
-def linear_extract_chunk_fused(t: LinearTable, cursor: torch.Tensor, n: int):
-    """Kernel-backed rebuild chunk scan: one launch; hazard entries come back
-    COMPACTED (live entries first) — identical as a set, which is all the
-    hazard protocol observes.  Writes ``t.state`` in place.
+def extract_chunk_fused(t, cursor: torch.Tensor, n: int):
+    """Kernel-backed rebuild chunk scan of any backend: one ``extract``
+    launch on the row-major flattened slot arrays (the scan order of the
+    plain scan); hazard entries come back COMPACTED (live entries first) —
+    identical as a set, which is all the hazard protocol observes.  Writes
+    ``t.state`` in place.
 
     Contract: ``n <= ops.EXTRACT_MAX_CHUNK`` for a table on a CUDA device —
-    the kernels (``extract``, ``probe2``) take no larger chunk and a larger
-    one raises.  A table on the CPU, where no kernel runs anyway, takes the
-    plain position-aligned scan above that size, as the reference does."""
+    the kernels (``extract``, ``probe2``, ``tc_probe2``) take no larger chunk
+    and a larger one raises.  A table on the CPU, where no kernel runs
+    anyway, takes the plain position-aligned scan above that size, as the
+    reference does."""
     from repro_torch.kernels import ops
     if n > ops.EXTRACT_MAX_CHUNK:
         if t.key.is_cuda:
             raise ValueError(
-                f"fused linear rebuild takes chunk <= {ops.EXTRACT_MAX_CHUNK}"
-                f" on a CUDA device, got {n}; use a smaller chunk or "
-                f"fused=False")
-        return buckets.linear_extract_chunk(t, cursor, n)
+                f"fused rebuild takes chunk <= {ops.EXTRACT_MAX_CHUNK} on a "
+                f"CUDA device, got {n}; use a smaller chunk or fused=False")
+        return buckets.extract_chunk(t, cursor, n)
     _, hk, hv, hl, cur = ops.extract_chunk_fused(
-        t.key, t.val, t.state, cursor, chunk=n)
+        t.key.view(-1), t.val.view(-1), t.state.view(-1), cursor, chunk=n)
     return t, hk, hv, hl, cur
 
 
@@ -275,6 +285,133 @@ def linear_ordered_delete_fused(t_old: LinearTable, t_new: LinearTable,
 
 
 # ---------------------------------------------------------------------------
+# twochoice and cuckoo: fused adapters (the tc_* kernels; cuckoo feeds them
+# side-offset rows of its [2B, W] table).  One kernel launch an op; the
+# cuckoo insert adds the kick-out behind counted host reads.
+# ---------------------------------------------------------------------------
+
+def _two_row_fused(rows) -> dict:
+    """The descriptor's fused ops, but the insert, of a two-row backend;
+    ``rows(t, keys)`` gives each key's two candidate rows.  Each op is ONE
+    ``tc_lookup`` or ``tc_probe2`` launch (a delete adds its scatters); the
+    chunk scan is the shared ``extract_chunk_fused``."""
+    from repro_torch.kernels import ops
+
+    def lookup_fused_loc(t, keys):
+        """Returns (found, vals, loc)."""
+        return ops.twochoice_lookup(t.key, t.val, t.state, *rows(t, keys),
+                                    keys)
+
+    def lookup_fused(t, keys):
+        """The same launch.  Returns (found, vals)."""
+        return lookup_fused_loc(t, keys)[:2]
+
+    def delete_fused(t, keys, mask):
+        winner = batch_winners(keys, mask)
+        _, ok = ops.twochoice_delete(t.key, t.val, t.state, *rows(t, keys),
+                                     keys, winner)
+        return t, ok
+
+    def ordered(op, t_old, t_new, hazard, keys, *extra, nres_cap):
+        return op((t_old.key, t_old.val, t_old.state),
+                  (t_new.key, t_new.val, t_new.state), *hazard,
+                  *rows(t_old, keys), *rows(t_new, keys), keys, *extra,
+                  nres_cap=nres_cap)
+
+    def ordered_lookup_fused(t_old, t_new, hazard_key, hazard_val,
+                             hazard_live, keys, *, nres_cap=NRES_CAP):
+        return ordered(ops.twochoice_ordered_lookup, t_old, t_new,
+                       (hazard_key, hazard_val, hazard_live), keys,
+                       nres_cap=nres_cap)
+
+    def ordered_delete_fused(t_old, t_new, hazard_key, hazard_val,
+                             hazard_live, keys, mask, *, nres_cap=NRES_CAP):
+        return ordered(ops.twochoice_ordered_delete, t_old, t_new,
+                       (hazard_key, hazard_val, hazard_live), keys,
+                       batch_winners(keys, mask), nres_cap=nres_cap)
+
+    return dict(lookup_fused=lookup_fused, lookup_fused_loc=lookup_fused_loc,
+                delete_fused=delete_fused,
+                extract_chunk_fused=extract_chunk_fused,
+                ordered_lookup_fused=ordered_lookup_fused,
+                ordered_delete_fused=ordered_delete_fused)
+
+
+def twochoice_insert_fused(t: TwoChoiceTable, keys: torch.Tensor,
+                           vals: torch.Tensor, mask: torch.Tensor, *,
+                           with_present: bool = False):
+    """Kernel-backed two-choice insert: batch_winners dedup, then ONE
+    ``tc_insert`` launch (``max_rounds`` alternating rounds).  Writes ``t``'s
+    tensors in place.  Returns (t, ok), or (t, ok, present)."""
+    from repro_torch.kernels import ops
+    winner = batch_winners(keys, mask)
+    *_, ok, present = ops.twochoice_insert(
+        t.key, t.val, t.state, *_tc_rows(t, keys), keys, vals, winner,
+        max_rounds=t.max_rounds, claim=t.claim, with_present=True)
+    return (t, ok, present) if with_present else (t, ok)
+
+
+# iteration counts after which a running kick-out reads whether any key is
+# still unplaced (most resolve in an iteration or two; the bound is max_kick)
+KICK_STAGES = (1, 2, 4, 8, 16)
+
+
+def _kick_out(t: CuckooTable, ra, rb, keys, vals, pend):
+    """The bounded kick-out on the pending keys only, written into ``t``'s
+    tensors; returns (indices, done) or None when nothing is pending.
+
+    The gate (``probe.kick_gate``) is one counted read that also yields the
+    indices; the kick-out then runs in stages of iterations, reading after
+    each stage whether a key is still unplaced.  Both are exact: a query
+    that is not pending takes no part in an iteration, the subset keeps the
+    batch order (so the row locks' lowest-index winners), and the stages
+    carry the iteration number — the result is ``ref.cuckoo_kick_ref`` over
+    the whole batch for ``max_kick`` iterations, slot for slot."""
+    from repro_torch.kernels import probe, ref
+    sel = probe.kick_gate(pend)
+    if not sel.numel():
+        return None
+    ra, rb, keys, vals = ra[sel], rb[sel], keys[sel], vals[sel]
+    left = torch.ones(sel.numel(), dtype=torch.bool, device=sel.device)
+    done = torch.zeros_like(left)
+    it = 0
+    for stop in (*[n for n in KICK_STAGES if n < t.max_kick], t.max_kick):
+        k, v, s, d = ref.cuckoo_kick_ref(
+            t.key, t.val, t.state, ra, rb, t.hfn_a, t.hfn_b, t.nbuckets,
+            keys, vals, left, stop - it, first_iter=it)
+        for dst, src in ((t.key, k), (t.val, v), (t.state, s)):
+            dst.copy_(src)
+        done |= d
+        left &= ~d
+        it = stop
+        if it == t.max_kick or not probe.kick_pending(left):
+            break
+    return sel, done
+
+
+def cuckoo_insert_fused(t: CuckooTable, keys: torch.Tensor,
+                        vals: torch.Tensor, mask: torch.Tensor, *,
+                        with_present: bool = False):
+    """Kernel-backed cuckoo insert: the ``tc_insert`` launch places every
+    key whose candidate rows have room (``max_rounds=2`` — one try a side);
+    then the bounded kick-out (``_kick_out``: plain tensor code as in the
+    reference, behind counted host reads) relocates for the winners left
+    unplaced and absent from both rows.  Writes ``t``'s tensors in place.
+    Returns (t, ok), or (t, ok, present)."""
+    from repro_torch.kernels import ops
+    winner = batch_winners(keys, mask)
+    ra, rb = _ck_rows(t, keys)
+    *_, ok, present = ops.twochoice_insert(
+        t.key, t.val, t.state, ra, rb, keys, vals, winner, max_rounds=2,
+        claim=t.claim, with_present=True)
+    kicked = _kick_out(t, ra, rb, keys, vals, winner & ~ok & ~present)
+    if kicked is not None:
+        sel, done = kicked
+        ok[sel] |= done
+    return (t, ok, present) if with_present else (t, ok)
+
+
+# ---------------------------------------------------------------------------
 # construction / maintenance adapters
 # ---------------------------------------------------------------------------
 
@@ -291,21 +428,65 @@ def _make_linear(capacity: int, seed, *, load_factor: float = 0.75,
                                max_probes=max_probes, device=device)
 
 
+def _make_twochoice(capacity: int, seed, *, load_factor: float = 0.75,
+                    bucket_width: int = 8,
+                    device: torch.device | str = "cuda") -> TwoChoiceTable:
+    rng = np.random.default_rng(seed)
+    nb = _next_pow2(int(capacity / (load_factor * bucket_width)) + 1)
+    return buckets.twochoice_make(nb, hashing.fresh("mix32", rng, device),
+                                  hashing.fresh("mix32", rng, device),
+                                  width=bucket_width, device=device)
+
+
+def _make_cuckoo(capacity: int, seed, *, load_factor: float = 0.75,
+                 bucket_width: int = 8, max_kick: int = 32,
+                 device: torch.device | str = "cuda") -> CuckooTable:
+    rng = np.random.default_rng(seed)
+    nb = _next_pow2(int(capacity / (load_factor * 2 * bucket_width)) + 1)
+    return buckets.cuckoo_make(nb, hashing.fresh("mix32", rng, device),
+                               hashing.fresh("mix32", rng, device),
+                               width=bucket_width, max_kick=max_kick,
+                               device=device)
+
+
 def _fresh_linear(t: LinearTable, seed) -> LinearTable:
     dev = t.key.device
     return buckets.linear_make(t.capacity, hashing.fresh("mix32", seed, dev),
                                t.max_probes, device=dev)
 
 
+def _fresh_twochoice(t: TwoChoiceTable, seed) -> TwoChoiceTable:
+    rng, dev = np.random.default_rng(seed), t.key.device
+    return buckets.twochoice_make(t.nbuckets, hashing.fresh("mix32", rng, dev),
+                                  hashing.fresh("mix32", rng, dev),
+                                  width=t.width, max_rounds=t.max_rounds,
+                                  device=dev)
+
+
+def _fresh_cuckoo(t: CuckooTable, seed) -> CuckooTable:
+    rng, dev = np.random.default_rng(seed), t.key.device
+    return buckets.cuckoo_make(t.nbuckets, hashing.fresh("mix32", rng, dev),
+                               hashing.fresh("mix32", rng, dev),
+                               width=t.width, max_kick=t.max_kick,
+                               device=dev)
+
+
 def _reseed_one(t, salt):
     return replace(t, hfn=hashing.reseed(t.hfn, salt))
+
+
+def _reseed_two(t, salt):
+    """Both functions of a two-row table; b's salt is offset as in the
+    reference, so the reseeded seeds are the reference's."""
+    return replace(t, hfn_a=hashing.reseed(t.hfn_a, salt),
+                   hfn_b=hashing.reseed(t.hfn_b, salt + 0x5851F42))
 
 
 # ---------------------------------------------------------------------------
 # occupancy / probe telemetry
 # ---------------------------------------------------------------------------
 
-def _linear_count_tomb(t: LinearTable) -> torch.Tensor:
+def _count_tomb(t) -> torch.Tensor:
     return (t.state == buckets.TOMB).sum().to(torch.int32)
 
 
@@ -317,8 +498,31 @@ def _linear_probe_cost(t: LinearTable, keys, found, loc) -> torch.Tensor:
     return torch.where(found & (loc >= 0), dist, 0).to(torch.int32)
 
 
+def _rows_probe_cost(t, keys, found, loc) -> torch.Tensor:
+    """Cost = lane depth within the hit's row (loc = row * width + lane).
+    For cuckoo it is also the worst case: a key lives in one of its two
+    candidate rows, so no lookup costs more than ``width - 1``."""
+    return torch.where(found & (loc >= 0), loc % t.width, 0).to(torch.int32)
+
+
 def _linear_slots_for(capacity: int) -> int:
     return _next_pow2(int(capacity / 0.75) + 1)          # mirrors _make_linear
+
+
+def _twochoice_slots_for(capacity: int) -> int:
+    return _next_pow2(int(capacity / (0.75 * 8)) + 1) * 8   # _make_twochoice
+
+
+def _cuckoo_slots_for(capacity: int) -> int:
+    return 2 * _next_pow2(int(capacity / (0.75 * 2 * 8)) + 1) * 8  # cuckoo
+
+
+def _hash_fns_one(t) -> tuple:
+    return (t.hfn,)
+
+
+def _hash_fns_two(t) -> tuple:
+    return (t.hfn_a, t.hfn_b)
 
 
 # ---------------------------------------------------------------------------
@@ -338,18 +542,69 @@ LINEAR = register(BucketBackend(
     lookup=buckets.linear_lookup,
     insert=buckets.linear_insert,
     delete=buckets.linear_delete,
-    extract_chunk=buckets.linear_extract_chunk,
-    count_live=buckets.linear_count_live,
-    clear=buckets.linear_clear,
-    count_tomb=_linear_count_tomb,
+    extract_chunk=buckets.extract_chunk,
+    count_live=buckets.count_live,
+    clear=buckets.clear,
+    count_tomb=_count_tomb,
     probe_cost=_linear_probe_cost,
     slots_for=_linear_slots_for,
     lookup_fused=linear_lookup_fused,
     lookup_fused_loc=linear_lookup_fused_loc,
     insert_fused=linear_insert_fused,
     delete_fused=linear_delete_fused,
-    extract_chunk_fused=linear_extract_chunk_fused,
+    extract_chunk_fused=extract_chunk_fused,
     ordered_lookup_fused=linear_ordered_lookup_fused,
     ordered_delete_fused=linear_ordered_delete_fused,
     lookup_fwd=buckets.linear_lookup_fwd,
+    hash_fns=_hash_fns_one,
+))
+
+TWOCHOICE = register(BucketBackend(
+    name="twochoice",
+    table_cls=TwoChoiceTable,
+    nres_cap=NRES_CAP,
+    dirty_cap=0,
+    make=_make_twochoice,
+    fresh_like=_fresh_twochoice,
+    reseed=_reseed_two,
+    capacity_of=lambda t: t.nbuckets * t.width,
+    with_state=lambda t, s: replace(t, state=s),
+    lookup=buckets.twochoice_lookup,
+    insert=buckets.twochoice_insert,
+    delete=buckets.twochoice_delete,
+    extract_chunk=buckets.extract_chunk,
+    count_live=buckets.count_live,
+    clear=buckets.clear,
+    count_tomb=_count_tomb,
+    probe_cost=_rows_probe_cost,
+    slots_for=_twochoice_slots_for,
+    bounded_placement=True,
+    insert_fused=twochoice_insert_fused,
+    **_two_row_fused(_tc_rows),
+    hash_fns=_hash_fns_two,
+))
+
+CUCKOO = register(BucketBackend(
+    name="cuckoo",
+    table_cls=CuckooTable,
+    nres_cap=NRES_CAP,
+    dirty_cap=0,
+    make=_make_cuckoo,
+    fresh_like=_fresh_cuckoo,
+    reseed=_reseed_two,
+    capacity_of=lambda t: 2 * t.nbuckets * t.width,
+    with_state=lambda t, s: replace(t, state=s),
+    lookup=buckets.cuckoo_lookup,
+    insert=buckets.cuckoo_insert,
+    delete=buckets.cuckoo_delete,
+    extract_chunk=buckets.extract_chunk,
+    count_live=buckets.count_live,
+    clear=buckets.clear,
+    count_tomb=_count_tomb,
+    probe_cost=_rows_probe_cost,
+    slots_for=_cuckoo_slots_for,
+    bounded_placement=True,
+    insert_fused=cuckoo_insert_fused,
+    **_two_row_fused(_ck_rows),
+    hash_fns=_hash_fns_two,
 ))

@@ -1,13 +1,19 @@
-"""The linear bucket table and its plain PyTorch ops.
+"""The bucket tables and their plain PyTorch ops.
 
 The paper chains nodes in lock-free linked lists; pointer chasing is hostile
-to wide SIMT hardware, so the backend here is an *array-native* reformulation
-with the same observable set semantics:
+to wide SIMT hardware, so each backend here is an *array-native*
+reformulation with the same observable set semantics:
 
-* ``linear`` — open addressing, linear probing: bounded vectorised probe
-               sequences, no pointers at all.
+* ``linear``    — open addressing, linear probing: bounded vectorised probe
+                  sequences, no pointers at all.
+* ``twochoice`` — bucketed 2-choice hashing (cuckoo family without
+                  eviction): exactly two W-wide row reads per lookup.
+* ``cuckoo``    — the twochoice layout split into two hash-function sides
+                  ([2B, W]: side A rows [0, B), side B rows [B, 2B)) plus an
+                  insert-side kick-out bounded by ``max_kick``: probe depth
+                  <= W - 1 whatever the key set.
 
-(``twochoice``, ``cuckoo`` and ``chain`` of the reference are not ported yet.)
+(``chain`` of the reference is not ported yet.)
 
 Slot states mirror the paper's two flag bits:
   LIVE                ~ reachable node
@@ -19,7 +25,7 @@ analogue of Q concurrent threads.  Intra-batch conflicts are resolved
 deterministically (lowest original index wins), which is one legal
 linearization of the paper's concurrent execution.
 
-The backend exposes:
+Every backend exposes:
   make(...) -> Table
   lookup(t, keys)                -> (found[Q], vals[Q], loc[Q])
   insert(t, keys, vals, mask)    -> (t', ok[Q])     # ok=False if present/full
@@ -42,7 +48,7 @@ from repro_torch.core.struct_utils import replace, state_dataclass
 I32 = torch.int32
 EMPTY, LIVE, TOMB, MIGRATED = 0, 1, 2, 3
 
-BACKENDS = ("linear",)
+BACKENDS = ("linear", "twochoice", "cuckoo")
 
 
 # ---------------------------------------------------------------------------
@@ -73,6 +79,66 @@ def _argpick(hit: torch.Tensor, vals: torch.Tensor, dim: int = -1):
     return torch.gather(vals, dim, i.unsqueeze(dim)).squeeze(dim), i
 
 
+def _empty(shape: tuple, hfns: dict, device) -> dict:
+    """The fields of an empty table of ``shape`` on ``device`` (default:
+    where the first hash function's seeds live): the hash functions moved
+    there, zeroed key / val / state, and on a CUDA device the insert
+    kernel's claim scratch (not part of the table's contents, never
+    converted, restored by every launch)."""
+    first = next(iter(hfns.values()))
+    dev = torch.device(device) if device is not None else first.seeds.device
+    out = {n: h if h.seeds.device == dev else replace(h, seeds=h.seeds.to(dev))
+           for n, h in hfns.items()}
+    for f in ("key", "val", "state"):
+        out[f] = torch.zeros(shape, dtype=I32, device=dev)
+    if dev.type == "cuda":
+        from repro_torch.kernels.probe import new_claim
+        out["claim"] = new_claim(out["key"].numel(), dev)
+    return out
+
+
+def _delete_via(t, keys: torch.Tensor, mask: torch.Tensor, lookup):
+    """Tombstone the LIVE slot of each winning masked key that ``lookup``
+    finds (its ``loc`` is a flat slot of the row-major table)."""
+    winner = batch_winners(keys, mask)
+    found, _, loc = lookup(t, keys)
+    ok = winner & found
+    # TOMB outranks LIVE, so a max over the hit slots tombstones exactly them
+    state = t.state.reshape(-1).scatter_reduce(
+        0, torch.where(ok, loc, 0).long(),
+        torch.where(ok, TOMB, 0).to(I32), "amax").reshape(t.state.shape)
+    return replace(t, state=state), ok
+
+
+def extract_chunk(t, cursor: torch.Tensor, n: int):
+    """The rebuild chunk scan of every backend, on the row-major flattened
+    slot arrays."""
+    nslots = t.key.numel()
+    dev = t.key.device
+    pos = cursor.long() + torch.arange(n, dtype=torch.int64, device=dev)
+    valid = pos < nslots
+    cpos = torch.where(valid, pos, 0)
+    ks, vs, ss = t.key.reshape(-1), t.val.reshape(-1), t.state.reshape(-1)
+    live = valid & (ss[cpos] == LIVE)
+    hkeys = torch.where(live, ks[cpos], 0).to(I32)
+    hvals = torch.where(live, vs[cpos], 0).to(I32)
+    ss = ss.scatter_reduce(0, cpos, torch.where(live, MIGRATED, 0).to(I32),
+                           "amax")
+    new_cursor = torch.clamp(cursor.long() + n, max=nslots).to(I32)
+    return replace(t, state=ss.reshape(t.state.shape)), hkeys, hvals, live, \
+        new_cursor
+
+
+def count_live(t):
+    return (t.state == LIVE).sum()
+
+
+def clear(t):
+    def z():
+        return torch.zeros_like(t.key)
+    return replace(t, key=z(), val=z(), state=z())
+
+
 # ---------------------------------------------------------------------------
 # linear: open addressing with linear probing
 # ---------------------------------------------------------------------------
@@ -85,26 +151,14 @@ class LinearTable:
     key: torch.Tensor    # [C] i32
     val: torch.Tensor    # [C] i32
     state: torch.Tensor  # [C] i32 (EMPTY/LIVE/TOMB/MIGRATED)
-    # claim scratch of the insert kernel ([C] i32, CUDA tables only): not
-    # part of the table's contents, never converted, restored by every launch
-    claim: torch.Tensor | None = None
+    claim: torch.Tensor | None = None   # [C] i32, CUDA tables only (_empty)
 
 
 def linear_make(capacity: int, hfn: hashing.HashFn, max_probes: int = 64,
                 device: torch.device | str | None = None) -> LinearTable:
     """Empty table on ``device`` (default: where the hash seeds live)."""
-    dev = torch.device(device) if device is not None else hfn.seeds.device
-    if hfn.seeds.device != dev:
-        hfn = replace(hfn, seeds=hfn.seeds.to(dev))
-
-    def z():
-        return torch.zeros(capacity, dtype=I32, device=dev)
-    claim = None
-    if dev.type == "cuda":
-        from repro_torch.kernels.probe import new_claim
-        claim = new_claim(capacity, dev)
-    return LinearTable(capacity=capacity, max_probes=max_probes, hfn=hfn,
-                       key=z(), val=z(), state=z(), claim=claim)
+    return LinearTable(capacity=capacity, max_probes=max_probes,
+                       **_empty((capacity,), {"hfn": hfn}, device))
 
 
 def linear_lookup(t: LinearTable, keys: torch.Tensor):
@@ -174,35 +228,147 @@ def linear_insert(t: LinearTable, keys: torch.Tensor, vals: torch.Tensor,
 
 
 def linear_delete(t: LinearTable, keys: torch.Tensor, mask: torch.Tensor):
+    return _delete_via(t, keys, mask, linear_lookup)
+
+
+linear_extract_chunk = extract_chunk
+linear_count_live = count_live
+linear_clear = clear
+
+
+# ---------------------------------------------------------------------------
+# twochoice: bucketed 2-choice hashing (W-wide vector buckets)
+# ---------------------------------------------------------------------------
+
+@state_dataclass
+class TwoChoiceTable:
+    nbuckets: int
+    width: int
+    max_rounds: int
+    hfn_a: hashing.HashFn
+    hfn_b: hashing.HashFn
+    key: torch.Tensor    # [B, W] i32
+    val: torch.Tensor    # [B, W] i32
+    state: torch.Tensor  # [B, W] i32
+    claim: torch.Tensor | None = None   # [B*W] i32, CUDA tables only
+
+
+def twochoice_make(nbuckets: int, hfn_a: hashing.HashFn,
+                   hfn_b: hashing.HashFn, width: int = 8, max_rounds: int = 8,
+                   device: torch.device | str | None = None) -> TwoChoiceTable:
+    return TwoChoiceTable(
+        nbuckets=nbuckets, width=width, max_rounds=max_rounds,
+        **_empty((nbuckets, width), {"hfn_a": hfn_a, "hfn_b": hfn_b}, device))
+
+
+def _tc_rows(t: TwoChoiceTable, keys: torch.Tensor):
+    ba = hashing.bucket_of(t.hfn_a, keys, t.nbuckets)
+    bb = hashing.bucket_of(t.hfn_b, keys, t.nbuckets)
+    return ba, bb
+
+
+def _two_row_lookup(t, ra: torch.Tensor, rb: torch.Tensor,
+                    keys: torch.Tensor):
+    """The reference's plain two-row lookup, a-row priority.  As there, the
+    value of a miss is that of lane 0 of row b (unspecified): only the
+    kernel-backed lookup reports 0."""
+    ra, rb = ra.long(), rb.long()
+    hit_a = (t.key[ra] == keys[:, None]) & (t.state[ra] == LIVE)   # [Q, W]
+    hit_b = (t.key[rb] == keys[:, None]) & (t.state[rb] == LIVE)
+    fa, fb = hit_a.any(-1), hit_b.any(-1)
+    va, sa = _argpick(hit_a, t.val[ra])
+    vb, sb = _argpick(hit_b, t.val[rb])
+    found = fa | fb
+    val = torch.where(fa, va, vb)
+    loc = torch.where(fa, ra * t.width + sa,
+                      torch.where(fb, rb * t.width + sb, -1))
+    return found, val, loc.to(I32)
+
+
+def twochoice_lookup(t: TwoChoiceTable, keys: torch.Tensor):
+    return _two_row_lookup(t, *_tc_rows(t, keys), keys)
+
+
+def twochoice_insert(t: TwoChoiceTable, keys: torch.Tensor,
+                     vals: torch.Tensor, mask: torch.Tensor):
+    """Alternate the two row choices a round, claim the row's first
+    non-LIVE lane, lowest batch index wins (``ref.tc_insert_ref``)."""
+    from repro_torch.kernels import ref
     winner = batch_winners(keys, mask)
-    found, _, loc = linear_lookup(t, keys)
-    ok = winner & found
-    # TOMB outranks LIVE, so a max over the hit slots tombstones exactly them
-    state = t.state.scatter_reduce(
-        0, torch.where(ok, loc, 0).long(),
-        torch.where(ok, TOMB, 0).to(I32), "amax")
-    return replace(t, state=state), ok
+    ba, bb = _tc_rows(t, keys)
+    key, val, state, done = ref.tc_insert_ref(
+        t.key, t.val, t.state, ba, bb, keys, vals, winner, t.max_rounds)
+    return replace(t, key=key, val=val, state=state), done
 
 
-def linear_extract_chunk(t: LinearTable, cursor: torch.Tensor, n: int):
-    dev = t.key.device
-    pos = cursor.long() + torch.arange(n, dtype=torch.int64, device=dev)
-    valid = pos < t.capacity
-    cpos = torch.where(valid, pos, 0)
-    live = valid & (t.state[cpos] == LIVE)
-    hkeys = torch.where(live, t.key[cpos], 0).to(I32)
-    hvals = torch.where(live, t.val[cpos], 0).to(I32)
-    state = t.state.scatter_reduce(
-        0, cpos, torch.where(live, MIGRATED, 0).to(I32), "amax")
-    new_cursor = torch.clamp(cursor.long() + n, max=t.capacity).to(I32)
-    return replace(t, state=state), hkeys, hvals, live, new_cursor
+def twochoice_delete(t: TwoChoiceTable, keys: torch.Tensor,
+                     mask: torch.Tensor):
+    return _delete_via(t, keys, mask, twochoice_lookup)
 
 
-def linear_count_live(t: LinearTable):
-    return (t.state == LIVE).sum()
+# ---------------------------------------------------------------------------
+# cuckoo: two-table multilevel double hashing with bounded kick-out
+# ---------------------------------------------------------------------------
+#
+# One [2B, W] slot array split into side A (rows [0, B), addressed by hfn_a)
+# and side B (rows [B, 2B), addressed by hfn_b).  A key lives in exactly one
+# of its two candidate rows, so every lookup is two W-wide row reads, however
+# adversarial the key set.  The candidate rows are plain row indices, so the
+# kernel-backed path drives the twochoice row kernels unchanged with
+# side-offset rows.
+
+@state_dataclass
+class CuckooTable:
+    nbuckets: int     # rows PER SIDE: the slot arrays are [2 * nbuckets, W]
+    width: int
+    max_kick: int     # bounded kick-out iterations (insert relocation)
+    hfn_a: hashing.HashFn
+    hfn_b: hashing.HashFn
+    key: torch.Tensor    # [2B, W] i32
+    val: torch.Tensor    # [2B, W] i32
+    state: torch.Tensor  # [2B, W] i32
+    claim: torch.Tensor | None = None   # [2B*W] i32, CUDA tables only
 
 
-def linear_clear(t: LinearTable) -> LinearTable:
-    def z():
-        return torch.zeros_like(t.key)
-    return replace(t, key=z(), val=z(), state=z())
+def cuckoo_make(nbuckets: int, hfn_a: hashing.HashFn, hfn_b: hashing.HashFn,
+                width: int = 8, max_kick: int = 32,
+                device: torch.device | str | None = None) -> CuckooTable:
+    return CuckooTable(
+        nbuckets=nbuckets, width=width, max_kick=max_kick,
+        **_empty((2 * nbuckets, width), {"hfn_a": hfn_a, "hfn_b": hfn_b},
+                 device))
+
+
+def _ck_rows(t: CuckooTable, keys: torch.Tensor):
+    """The two candidate rows of each key, side-offset into the [2B, W]
+    array: a-rows in [0, B), b-rows in [B, 2B)."""
+    ra = hashing.bucket_of(t.hfn_a, keys, t.nbuckets)
+    rb = t.nbuckets + hashing.bucket_of(t.hfn_b, keys, t.nbuckets)
+    return ra, rb
+
+
+def cuckoo_lookup(t: CuckooTable, keys: torch.Tensor):
+    return _two_row_lookup(t, *_ck_rows(t, keys), keys)
+
+
+def cuckoo_insert(t: CuckooTable, keys: torch.Tensor, vals: torch.Tensor,
+                  mask: torch.Tensor):
+    """Set-semantic insert: the bounded kick-out loop IS the whole placement
+    (``ref.cuckoo_kick_ref``), run only when some key is pending, as the
+    reference's ``lax.cond``.  ok=False iff present or the kick budget
+    exhausts."""
+    from repro_torch.kernels import ref
+    winner = batch_winners(keys, mask)
+    present, _, _ = cuckoo_lookup(t, keys)
+    pending = winner & ~present
+    if not bool(pending.any()):
+        return t, torch.zeros_like(pending)
+    ra, rb = _ck_rows(t, keys)
+    key, val, state, done = ref.cuckoo_kick_ref(
+        t.key, t.val, t.state, ra, rb, t.hfn_a, t.hfn_b, t.nbuckets,
+        keys, vals, pending, t.max_kick)
+    return replace(t, key=key, val=val, state=state), done
+
+
+def cuckoo_delete(t: CuckooTable, keys: torch.Tensor, mask: torch.Tensor):
+    return _delete_via(t, keys, mask, cuckoo_lookup)

@@ -19,7 +19,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("probe_lookup", "probe2", "probe_insert", "extract")
+SOURCES = ("probe_lookup", "probe2", "probe_insert", "extract", "tc_lookup",
+           "tc_insert", "tc_probe2")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -32,9 +33,13 @@ _ARGTYPES = {
     "dhash_probe_insert": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
                            _P, _P, _P, _P, _P],
     "dhash_extract": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P],
+    "dhash_tc_lookup": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P],
+    "dhash_tc_insert": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
+                        _P, _P, _P, _P, _P],
+    "dhash_tc_probe2": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I,
+                        _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
 }
-_ENTRY = {"probe_lookup": "dhash_probe_lookup", "probe2": "dhash_probe2",
-          "probe_insert": "dhash_probe_insert", "extract": "dhash_extract"}
+_ENTRY = {s: f"dhash_{s}" for s in SOURCES}
 
 _LIB: dict | None = None
 build_seconds: float | None = None    # wall time of the last build (0 = cached)

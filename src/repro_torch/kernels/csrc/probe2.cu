@@ -14,20 +14,16 @@
 // resolved skips the scan; the scan stops at the first live match (lowest
 // hazard index, as argmax over the match mask gives); and it ends at the
 // last live entry of the buffer, which the block finds while it stages the
-// buffer (key, val, live: 9 bytes an entry, 36 KiB at chunk = 4096) into
-// shared memory once.  All threads of a warp read the same hazard entry at
-// the same time, which shared memory serves as a broadcast.  Contract:
-// chunk <= 4096 (the staged buffer fits the 48 KiB of shared memory a block
-// gets without opting in), the same limit as the extract kernel that fills
-// the buffer; a larger chunk is refused.
+// buffer into shared memory once (dhash_hazard_stage, shared with
+// tc_probe2.cu).  Contract: chunk <= 4096 (the staged buffer fits the 48 KiB
+// of shared memory a block gets without opting in), the same limit as the
+// extract kernel that fills the buffer; a larger chunk is refused.
 //
 // Outputs: found, val, and the ordered-delete components f_old, loc_old
 // (slot in the old table), hz_idx (hazard index, only where the old table
 // did not resolve the query), loc_new (slot in the new table, only where
 // neither the old table nor the hazard buffer resolved it); -1 = none.
 #include "dhash_common.cuh"
-
-#define PROBE2_MAX_CHUNK 4096
 
 __global__ void probe2_kernel(
     const int* __restrict__ ok, const int* __restrict__ ov,
@@ -41,22 +37,7 @@ __global__ void probe2_kernel(
     int* __restrict__ hz_idx, int* __restrict__ loc_new) {
   extern __shared__ int smem[];
   __shared__ int hz_end;   // 1 + index of the last live hazard entry
-  int* shk = smem;
-  int* shv = smem + chunk;
-  uint8_t* shl = (uint8_t*)(smem + 2 * chunk);
-  if (threadIdx.x == 0) hz_end = 0;
-  __syncthreads();
-  int my_end = 0;
-  for (int j = threadIdx.x; j < chunk; j += blockDim.x) {
-    uint8_t l = hl[j];
-    shk[j] = hk[j];
-    shv[j] = hv[j];
-    shl[j] = l;
-    if (l) my_end = j + 1;
-  }
-  if (my_end) atomicMax(&hz_end, my_end);
-  __syncthreads();
-  const int n_hz = hz_end;
+  const int n_hz = dhash_hazard_stage(hk, hv, hl, chunk, smem, &hz_end);
 
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= Q) return;
@@ -65,14 +46,8 @@ __global__ void probe2_kernel(
   bool fo = dhash_probe_one(ok, ov, os, Co, h0o[i], key, max_probes, &v, &lo);
   bool f = fo;
   if (!f) {
-    for (int j = 0; j < n_hz; ++j) {
-      if (shl[j] && shk[j] == key) {
-        hz = j;
-        v = shv[j];
-        f = true;
-        break;
-      }
-    }
+    hz = dhash_hazard_find(smem, chunk, n_hz, key, &v);
+    f = hz >= 0;
   }
   if (!f) f = dhash_probe_one(nk, nv, ns, Cn, h0n[i], key, max_probes, &v, &ln);
   found[i] = f ? 1 : 0;
@@ -91,10 +66,9 @@ extern "C" int dhash_probe2(
     uint8_t* f_old, int* loc_old, int* hz_idx, int* loc_new, void* stream) {
   const int threads = 256;
   int blocks = (Q + threads - 1) / threads;
-  // key + val as int32 and live as bytes, rounded up to whole words
-  size_t bytes = (size_t)chunk * 8 + (((size_t)chunk + 3) / 4) * 4;
-  if (chunk > PROBE2_MAX_CHUNK) return (int)cudaErrorInvalidValue;
-  probe2_kernel<<<blocks, threads, bytes, (cudaStream_t)stream>>>(
+  if (chunk > DHASH_MAX_CHUNK) return (int)cudaErrorInvalidValue;
+  probe2_kernel<<<blocks, threads, dhash_hazard_smem_bytes(chunk),
+                  (cudaStream_t)stream>>>(
       ok, ov, os, Co, nk, nv, ns, Cn, hk, hv, hl, chunk, h0o, h0n, qk, Q,
       max_probes, found, val, f_old, loc_old, hz_idx, loc_new);
   return (int)cudaGetLastError();

@@ -1,13 +1,20 @@
-"""The op layer over the linear kernels.
+"""The op layer over the kernels.
 
-``probe_lookup`` is the accelerated equivalent of ``ref.probe_lookup_ref``
-(and of ``buckets.linear_lookup``'s inner loop); ``ordered_lookup_fused`` is
-the rebuild-epoch path (one ``probe2`` launch for the whole old -> hazard ->
-new ordered check); ``probe_insert`` / ``probe_delete`` are the write paths
-(the claim kernel; the location-emitting lookup + one scatter);
-``ordered_delete_fused`` is the rebuild-epoch delete (the same ``probe2``
-launch's location outputs drive the old/new tombstones and the hazard kill);
-``extract_chunk_fused`` is the rebuild chunk scan.
+Linear: ``probe_lookup`` is the accelerated equivalent of
+``ref.probe_lookup_ref`` (and of ``buckets.linear_lookup``'s inner loop);
+``ordered_lookup_fused`` is the rebuild-epoch path (one ``probe2`` launch for
+the whole old -> hazard -> new ordered check); ``probe_insert`` /
+``probe_delete`` are the write paths (the claim kernel; the location-emitting
+lookup + one scatter); ``ordered_delete_fused`` is the rebuild-epoch delete
+(the same ``probe2`` launch's location outputs drive the old/new tombstones
+and the hazard kill); ``extract_chunk_fused`` is the rebuild chunk scan,
+which the two-row backends run on their flattened arrays.
+
+Twochoice and cuckoo (two candidate rows a key, [B, W] tables):
+``twochoice_lookup`` / ``twochoice_insert`` / ``twochoice_delete`` over the
+``tc_lookup`` and ``tc_insert`` kernels, and ``twochoice_ordered_lookup`` /
+``twochoice_ordered_delete`` over ``tc_probe2``, whose outputs have the
+meaning of ``probe2``'s, so both ordered deletes land through one helper.
 
 Each op is one kernel launch plus, for the deletes, the scatters that the
 reference also runs outside its kernels.  There is no padding, no sort, no
@@ -140,6 +147,28 @@ def probe_delete(tkey: torch.Tensor, tval: torch.Tensor, tstate: torch.Tensor,
     return _tombstone_(tstate, ok, loc), ok
 
 
+def _land_ordered_delete(old_state, new_state, hazard_live, mask, f_old,
+                         loc_old, hz_idx, loc_new):
+    """Land a rebuild-epoch delete from the location outputs of ``probe2`` /
+    ``tc_probe2``: tombstone the old-table slot, or clear the hazard live
+    bit, or tombstone the new-table slot (old > hazard > new; at most one
+    fires — the kernels report hz_idx / loc_new only where nothing earlier
+    resolved).  Writes both state arrays IN PLACE (row-major [B, W] arrays
+    through their flat view).  Returns (old_state, new_state, hazard_live',
+    ok)."""
+    ok_old = mask & f_old
+    ok_hz = mask & (hz_idx >= 0)
+    ok_new = mask & (loc_new >= 0)
+    _tombstone_(old_state.view(-1), ok_old, loc_old)
+    _tombstone_(new_state.view(-1), ok_new, loc_new)
+    kill = torch.zeros(hazard_live.shape[0], dtype=I32,
+                       device=hazard_live.device)
+    kill.scatter_reduce_(0, torch.where(ok_hz, hz_idx, 0).long(),
+                         ok_hz.to(I32), "amax")
+    return old_state, new_state, hazard_live & (kill == 0), \
+        ok_old | ok_hz | ok_new
+
+
 @torch.no_grad()
 def ordered_delete_fused(old_tables, new_tables, hazard_key, hazard_val,
                          hazard_live, h0_old, h0_new, keys, mask, *,
@@ -154,22 +183,11 @@ def ordered_delete_fused(old_tables, new_tables, hazard_key, hazard_val,
     (old_state, new_state, hazard_live', ok[Q]); ``hazard_live'`` is a new
     tensor.
     """
-    _f, _v, f_old, loc_old, hz_idx, loc_new = probe.probe2(
-        old_tables, new_tables, hazard_key, hazard_val, hazard_live,
-        h0_old, h0_new, keys, max_probes)
-    # ordered landing: old hit > hazard hit > new hit (at most one fires;
-    # probe2 reports hz_idx / loc_new only where nothing earlier resolved)
-    ok_old = mask & f_old
-    ok_hz = mask & (hz_idx >= 0)
-    ok_new = mask & (loc_new >= 0)
-    old_state = _tombstone_(old_tables[2], ok_old, loc_old)
-    new_state = _tombstone_(new_tables[2], ok_new, loc_new)
-    kill = torch.zeros(hazard_live.shape[0], dtype=I32,
-                       device=hazard_live.device)
-    kill.scatter_reduce_(0, torch.where(ok_hz, hz_idx, 0).long(),
-                         ok_hz.to(I32), "amax")
-    return old_state, new_state, hazard_live & (kill == 0), \
-        ok_old | ok_hz | ok_new
+    _f, _v, *locs = probe.probe2(old_tables, new_tables, hazard_key,
+                                 hazard_val, hazard_live, h0_old, h0_new,
+                                 keys, max_probes)
+    return _land_ordered_delete(old_tables[2], new_tables[2], hazard_live,
+                                mask, *locs)
 
 
 @torch.no_grad()
@@ -190,3 +208,92 @@ def extract_chunk_fused(tkey: torch.Tensor, tval: torch.Tensor,
                          f"{EXTRACT_MAX_CHUNK}")
     hk, hv, hl, new_cursor = probe.extract(tkey, tval, tstate, cursor, chunk)
     return tstate, hk, hv, hl, new_cursor
+
+
+# ---------------------------------------------------------------------------
+# twochoice / cuckoo: two candidate rows a key
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def twochoice_lookup(tkey: torch.Tensor, tval: torch.Tensor,
+                     tstate: torch.Tensor, rows_a: torch.Tensor,
+                     rows_b: torch.Tensor, qkey: torch.Tensor):
+    """Batched two-row lookup on a [B, W] table: ONE ``tc_lookup`` launch,
+    a-row priority (the tie-break of ``buckets.twochoice_lookup``).
+
+    Returns (found[Q], val[Q] — 0 on a miss, loc[Q] flat slot or -1) —
+    ``loc`` is reused by ``twochoice_delete`` so deleting never probes
+    twice."""
+    return probe.tc_lookup(tkey, tval, tstate, rows_a, rows_b, qkey)
+
+
+@torch.no_grad()
+def twochoice_insert(tkey: torch.Tensor, tval: torch.Tensor,
+                     tstate: torch.Tensor, rows_a: torch.Tensor,
+                     rows_b: torch.Tensor, keys: torch.Tensor,
+                     vals: torch.Tensor, mask: torch.Tensor, *,
+                     max_rounds: int = 8, claim: torch.Tensor | None = None,
+                     with_present: bool = False):
+    """Batched two-row INSERT via the ``tc_insert`` claim kernel; writes
+    ``tkey/tval/tstate`` IN PLACE.
+
+    Caller contract: ``mask`` is winner-filtered.  Set semantics: ok=False
+    if the key is LIVE in either row or no round found a lane.  The placement
+    is ``ref.tc_insert_ref``'s, slot for slot.
+
+    Returns (tkey, tval, tstate, ok[Q]) and, when ``with_present``, also
+    ``present[Q]`` (masked keys LIVE in either row before the batch)."""
+    ok, present = probe.tc_insert(tkey, tval, tstate, rows_a, rows_b, keys,
+                                  vals, mask, max_rounds, claim)
+    if with_present:
+        return tkey, tval, tstate, ok, present
+    return tkey, tval, tstate, ok
+
+
+@torch.no_grad()
+def twochoice_delete(tkey: torch.Tensor, tval: torch.Tensor,
+                     tstate: torch.Tensor, rows_a: torch.Tensor,
+                     rows_b: torch.Tensor, keys: torch.Tensor,
+                     mask: torch.Tensor):
+    """Batched two-row DELETE: the ``tc_lookup`` launch's location output +
+    ONE tombstone scatter; writes ``tstate`` IN PLACE.
+
+    Caller contract: ``mask`` is winner-filtered.  Returns (tstate, ok[Q])."""
+    found, _val, loc = probe.tc_lookup(tkey, tval, tstate, rows_a, rows_b,
+                                       keys)
+    ok = mask & found
+    _tombstone_(tstate.view(-1), ok, loc)
+    return tstate, ok
+
+
+@torch.no_grad()
+def twochoice_ordered_lookup(old_tables, new_tables, hazard_key, hazard_val,
+                             hazard_live, rows_a_old, rows_b_old, rows_a_new,
+                             rows_b_new, qkey, *, nres_cap: int = NRES_CAP):
+    """Two-row rebuild-epoch lookup: ONE ``tc_probe2`` launch emits the
+    Lemma-4.1-ordered result for both tables plus the hazard buffer.
+    ``nres_cap`` is accepted and unused.  Returns (found[Q], val[Q])."""
+    found, val, *_ = probe.tc_probe2(old_tables, new_tables, hazard_key,
+                                     hazard_val, hazard_live, rows_a_old,
+                                     rows_b_old, rows_a_new, rows_b_new,
+                                     qkey)
+    return found, val
+
+
+@torch.no_grad()
+def twochoice_ordered_delete(old_tables, new_tables, hazard_key, hazard_val,
+                             hazard_live, rows_a_old, rows_b_old, rows_a_new,
+                             rows_b_new, keys, mask, *,
+                             nres_cap: int = NRES_CAP):
+    """Two-row rebuild-epoch delete (paper Alg. 5): the SAME single
+    ``tc_probe2`` launch resolves old slot / hazard index / new slot, and
+    the three scatters of the linear ordered delete land the result.  Writes
+    both state arrays IN PLACE.
+
+    Caller contract: ``mask`` is winner-filtered.  Returns
+    (old_state, new_state, hazard_live', ok[Q])."""
+    _f, _v, *locs = probe.tc_probe2(old_tables, new_tables, hazard_key,
+                                    hazard_val, hazard_live, rows_a_old,
+                                    rows_b_old, rows_a_new, rows_b_new, keys)
+    return _land_ordered_delete(old_tables[2], new_tables[2], hazard_live,
+                                mask, *locs)

@@ -1,4 +1,4 @@
-"""The four linear-backend kernels: wrappers, launch counters, plain versions.
+"""The kernels: wrappers, launch counters, plain versions.
 
 Each public function here is the wrapper of one hand-written CUDA kernel
 (``csrc/<name>.cu``, compiled for sm_90a at first use by ``build.py``):
@@ -12,7 +12,17 @@ wrapper               replaces (src/repro/kernels/probe.py)      source
                       cross-tile claim resolution
 ``extract``           ``_extract_kernel`` + the MIGRATED         extract.cu
                       scatter
+``tc_lookup``         ``_tc_lookup_kernel`` + the wrapper's      tc_lookup.cu
+                      a-row-priority recombine
+``tc_insert``         ``_tc_insert_kernel`` + the wrapper's      tc_insert.cu
+                      shadowing, cross-tile resolution and
+                      fallback
+``tc_probe2``         ``_tc_probe2_kernel`` +                    tc_probe2.cu
+                      ``_tc_ordered_combine``
 ====================  =========================================  ============
+
+The first four serve the linear backend; the three ``tc_*`` kernels serve
+twochoice and cuckoo (cuckoo passes side-offset rows of its [2B, W] table).
 
 What bounds each kernel on an H100 and what its design does about it is
 written at the top of its ``.cu`` file; in short: ``probe_lookup`` — bytes
@@ -21,19 +31,25 @@ operations (the query x hazard compare; skipped for queries the old table
 resolved, stopped at the first match and at the last live entry, buffer
 staged in shared memory); ``probe_insert`` — grid-wide barriers (two a
 claim round; small co-resident grid, early end of rounds); ``extract`` —
-launch latency (one block, one shuffle scan).
+launch latency (one block, one shuffle scan); ``tc_lookup`` — bytes (two
+rows a query, each as 16-byte loads); ``tc_probe2`` — operations (the hazard
+stage of ``probe2``); ``tc_insert`` — grid-wide barriers (the design of
+``probe_insert``).
 
 What the TPU design needed and these kernels do not have: a padded copy of
 the table (a thread wraps its own probe), a query sort, query tiles, a
 resident-block map, a ``complete`` output and a fallback pass.  Results come
-back in query order, and ``loc`` is the physical slot in ``[0, C)``.
+back in query order, one a query, and ``loc`` is the physical slot in
+``[0, C)`` (for a [B, W] table the flat slot ``row * W + lane``).
 
 Beside each wrapper stands ``<name>_plain``: the same function with the same
 signature and the same in-place behaviour in plain PyTorch.  A wrapper takes
 the plain version only when the tensors it was given lie on the CPU; for CUDA
 tensors it launches the kernel or raises.  ``<wrapper>.launches`` counts the
 kernel launches (and nothing else); ``reset_launches`` / ``launch_counts``
-set and read all four.
+set and read all seven.  ``kick_gate`` / ``kick_pending`` count the
+device-to-host reads of the cuckoo kick-out gate (``kick_counts``; reset
+with the launch counts).
 
 Data types: tables, keys, values, start slots and locations are ``int32``;
 masks and flags are ``torch.bool`` (one byte, read by the kernels as
@@ -43,6 +59,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import ref
+
 I32 = torch.int32
 EMPTY, LIVE, TOMB, MIGRATED = 0, 1, 2, 3
 CLAIM_FREE = 2**31 - 1      # value of every claim word between launches
@@ -50,7 +68,9 @@ CLAIM_FREE = 2**31 - 1      # value of every claim word between launches
 # staged in shared memory): the largest chunk either takes
 EXTRACT_MAX_CHUNK = 4096
 
-KERNELS = ("probe_lookup", "probe2", "probe_insert", "extract")
+KERNELS = ("probe_lookup", "probe2", "probe_insert", "extract", "tc_lookup",
+           "tc_insert", "tc_probe2")
+MAX_WIDTH = 32              # widest row the tc_* kernels take
 
 
 # ---------------------------------------------------------------------------
@@ -89,14 +109,41 @@ def _launch(name: str, counter, dev: torch.device, *args):
     counter.launches += 1
 
 
+def _wrappers():
+    return [globals()[k] for k in KERNELS]
+
+
 def reset_launches() -> None:
-    for f in (probe_lookup, probe2, probe_insert, extract):
+    for f in _wrappers():
         f.launches = 0
+    kick_gate.reads = kick_gate.runs = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {f.__name__: f.launches
-            for f in (probe_lookup, probe2, probe_insert, extract)}
+    return {f.__name__: f.launches for f in _wrappers()}
+
+
+def kick_gate(pending: torch.Tensor) -> torch.Tensor:
+    """The cuckoo inserts still unplaced after the claim kernel, as indices:
+    ONE counted device-to-host read (``kick_gate.reads``).  The reference
+    gates its kick-out behind ``lax.cond(pending.any())``; eager PyTorch
+    branches on the host.  ``kick_gate.runs`` counts the reads that found
+    work."""
+    kick_gate.reads += 1
+    sel = pending.nonzero().squeeze(1)
+    kick_gate.runs += bool(sel.numel())
+    return sel
+
+
+def kick_pending(pending: torch.Tensor) -> bool:
+    """Whether a kick-out stage left a key unplaced: one more counted read
+    (in ``kick_gate.reads``)."""
+    kick_gate.reads += 1
+    return bool(pending.any())
+
+
+def kick_counts() -> dict[str, int]:
+    return {"reads": kick_gate.reads, "runs": kick_gate.runs}
 
 
 def new_claim(capacity: int, device) -> torch.Tensor:
@@ -154,14 +201,21 @@ def probe_lookup(tkey, tval, tstate, h0, qkey, max_probes: int):
 def probe2_plain(old_t, new_t, hazard_key, hazard_val, hazard_live,
                  h0_old, h0_new, qkey, max_probes: int):
     """Plain version of ``probe2`` (dense [Q, chunk] hazard compare)."""
-    f_old, v_old, loc_old = probe_lookup_plain(*old_t, h0_old, qkey,
-                                               max_probes)
+    return _ordered(
+        probe_lookup_plain(*old_t, h0_old, qkey, max_probes),
+        hazard_key, hazard_val, hazard_live, qkey,
+        probe_lookup_plain(*new_t, h0_new, qkey, max_probes))
+
+
+def _ordered(old, hazard_key, hazard_val, hazard_live, qkey, new):
+    """The ordered combine of both plain probe2 versions: the old table's
+    (found, val, loc), the dense hazard compare, the new table's."""
+    f_old, v_old, loc_old = old
     eq = (qkey[:, None] == hazard_key[None, :]) & hazard_live[None, :]
     hz_i = eq.to(torch.uint8).argmax(dim=1)     # first (lowest) match
     f_hz = eq.any(dim=1) & ~f_old
     resolved = f_old | f_hz
-    f_new, v_new, loc_new = probe_lookup_plain(*new_t, h0_new, qkey,
-                                               max_probes)
+    f_new, v_new, loc_new = new
     f_new = f_new & ~resolved
     found = resolved | f_new
     val = torch.where(f_old, v_old, torch.where(
@@ -324,6 +378,154 @@ def extract(tkey, tval, tstate, cursor, chunk: int):
     _launch("extract", extract, dev, tkey, tval, tstate, tkey.shape[0],
             cursor, chunk, hk, hv, hl, new_cursor)
     return hk, hv, hl, new_cursor
+
+
+# ---------------------------------------------------------------------------
+# tc_lookup
+# ---------------------------------------------------------------------------
+
+def _check_rows(*tables):
+    """[rows, W] tables of one width the tc_* kernels take."""
+    w = tables[0].shape[1] if tables[0].dim() == 2 else -1
+    for t in tables:
+        if t.dim() != 2 or t.shape[1] != w:
+            raise ValueError(f"two-row kernels take [rows, W] tables of one "
+                             f"width, got {tuple(t.shape)}")
+    if not 1 <= w <= MAX_WIDTH:
+        raise ValueError(f"two-row kernels take widths 1..{MAX_WIDTH}, "
+                         f"got {w}")
+    return w
+
+
+def tc_lookup_plain(tkey, tval, tstate, rows_a, rows_b, qkey):
+    """Plain version of ``tc_lookup``: both rows gathered whole, a-row
+    priority."""
+    fa, va, la = ref.tc_row_lookup_ref(tkey, tval, tstate, rows_a, qkey)
+    fb, vb, lb = ref.tc_row_lookup_ref(tkey, tval, tstate, rows_b, qkey)
+    return fa | fb, torch.where(fa, va, vb), torch.where(fa, la, lb)
+
+
+def tc_lookup(tkey, tval, tstate, rows_a, rows_b, qkey):
+    """Batched two-row lookup on a [B, W] table: the LIVE lane holding the
+    key in row ``rows_a``, else in row ``rows_b``.  Returns (found[Q] bool,
+    val[Q] i32 — 0 on a miss, loc[Q] i32 — the flat slot row * W + lane,
+    -1 on a miss)."""
+    if tkey.device.type == "cpu":
+        return tc_lookup_plain(tkey, tval, tstate, rows_a, rows_b, qkey)
+    w = _check_rows(tkey, tval, tstate)
+    _check((tkey, I32), (tval, I32), (tstate, I32), (rows_a, I32),
+           (rows_b, I32), (qkey, I32))
+    q, dev = qkey.shape[0], tkey.device
+    found = torch.empty(q, dtype=torch.bool, device=dev)
+    val = torch.empty(q, dtype=I32, device=dev)
+    loc = torch.empty(q, dtype=I32, device=dev)
+    if q:
+        _launch("tc_lookup", tc_lookup, dev, tkey, tval, tstate, w, rows_a,
+                rows_b, qkey, q, found, val, loc)
+    return found, val, loc
+
+
+# ---------------------------------------------------------------------------
+# tc_insert
+# ---------------------------------------------------------------------------
+
+def tc_insert_plain(tkey, tval, tstate, rows_a, rows_b, keys, vals, mask,
+                    max_rounds: int, claim=None):
+    """Plain version of ``tc_insert`` (``ref.tc_insert_ref`` written back);
+    mutates tkey/tval/tstate in place.  ``claim`` is accepted for signature
+    parity and not used."""
+    fa, _, _ = ref.tc_row_lookup_ref(tkey, tval, tstate, rows_a, keys)
+    fb, _, _ = ref.tc_row_lookup_ref(tkey, tval, tstate, rows_b, keys)
+    k, v, s, ok = ref.tc_insert_ref(tkey, tval, tstate, rows_a, rows_b, keys,
+                                    vals, mask, max_rounds)
+    tkey.copy_(k)
+    tval.copy_(v)
+    tstate.copy_(s)
+    return ok, mask & (fa | fb)
+
+
+def tc_insert(tkey, tval, tstate, rows_a, rows_b, keys, vals, mask,
+              max_rounds: int, claim=None):
+    """Batched claim-a-lane two-row insert on a [B, W] table; MUTATES
+    tkey/tval/tstate.
+
+    Presence is proved in both rows on the table as it was before the batch;
+    then ``max_rounds`` rounds run in lock step, round ``r`` looking at row
+    ``rows_a`` if ``r`` is even, else ``rows_b``, and taking the row's first
+    lane that is not LIVE at the start of the round; the lowest batch index
+    wins a contested lane.  The placement is ``ref.tc_insert_ref``'s, slot
+    for slot.
+
+    Caller contract: ``mask`` is winner-filtered.  ``claim`` is the table's
+    claim scratch (``new_claim(B * W)``); without one a fresh scratch is
+    allocated for this call.  Returns (ok[Q] bool, present[Q] bool)."""
+    if tkey.device.type == "cpu":
+        return tc_insert_plain(tkey, tval, tstate, rows_a, rows_b, keys, vals,
+                               mask, max_rounds)
+    w = _check_rows(tkey, tval, tstate)
+    q, dev = keys.shape[0], tkey.device
+    if claim is None:
+        claim = new_claim(tkey.numel(), dev)
+    _check((tkey, I32), (tval, I32), (tstate, I32), (claim, I32),
+           (rows_a, I32), (rows_b, I32), (keys, I32), (vals, I32),
+           (mask, torch.bool))
+    if claim.shape[0] != tkey.numel():
+        raise ValueError("claim scratch does not match the table size")
+    ok = torch.empty(q, dtype=torch.bool, device=dev)
+    present = torch.empty(q, dtype=torch.bool, device=dev)
+    if q:
+        slot = torch.empty(q, dtype=I32, device=dev)
+        remaining = torch.zeros(1, dtype=I32, device=dev)
+        _launch("tc_insert", tc_insert, dev, tkey, tval, tstate, claim, w,
+                rows_a, rows_b, keys, vals, mask, q, max_rounds, ok, present,
+                slot, remaining)
+    return ok, present
+
+
+# ---------------------------------------------------------------------------
+# tc_probe2
+# ---------------------------------------------------------------------------
+
+def tc_probe2_plain(old_t, new_t, hazard_key, hazard_val, hazard_live,
+                    rows_a_old, rows_b_old, rows_a_new, rows_b_new, qkey):
+    """Plain version of ``tc_probe2`` (dense [Q, chunk] hazard compare)."""
+    return _ordered(tc_lookup_plain(*old_t, rows_a_old, rows_b_old, qkey),
+                    hazard_key, hazard_val, hazard_live, qkey,
+                    tc_lookup_plain(*new_t, rows_a_new, rows_b_new, qkey))
+
+
+def tc_probe2(old_t, new_t, hazard_key, hazard_val, hazard_live,
+              rows_a_old, rows_b_old, rows_a_new, rows_b_new, qkey):
+    """Two-row rebuild-epoch ordered check in one pass: old rows a then b,
+    the hazard buffer, new rows a then b; priority old > hazard > new.
+
+    ``old_t`` / ``new_t`` are (key, val, state) triples of [B, W] tables
+    (same W; row counts may differ).  Returns (found, val, f_old, loc_old,
+    hz_idx, loc_new) with the meaning of ``probe2``'s, locations as flat
+    slots.  Contract: a hazard buffer of at most 4096 entries."""
+    if qkey.device.type == "cpu":
+        return tc_probe2_plain(old_t, new_t, hazard_key, hazard_val,
+                               hazard_live, rows_a_old, rows_b_old,
+                               rows_a_new, rows_b_new, qkey)
+    if hazard_key.shape[0] > EXTRACT_MAX_CHUNK:
+        raise ValueError(f"hazard buffer of {hazard_key.shape[0]} entries "
+                         f"exceeds the tc_probe2 kernel's {EXTRACT_MAX_CHUNK}")
+    w = _check_rows(*old_t, *new_t)
+    _check(*[(t, I32) for t in (*old_t, *new_t, hazard_key, hazard_val,
+                                rows_a_old, rows_b_old, rows_a_new,
+                                rows_b_new, qkey)],
+           (hazard_live, torch.bool))
+    q, dev = qkey.shape[0], qkey.device
+    found = torch.empty(q, dtype=torch.bool, device=dev)
+    f_old = torch.empty(q, dtype=torch.bool, device=dev)
+    val, loc_old, hz_idx, loc_new = (
+        torch.empty(q, dtype=I32, device=dev) for _ in range(4))
+    if q:
+        _launch("tc_probe2", tc_probe2, dev, *old_t, *new_t, w, hazard_key,
+                hazard_val, hazard_live, hazard_key.shape[0], rows_a_old,
+                rows_b_old, rows_a_new, rows_b_new, qkey, q, found, val,
+                f_old, loc_old, hz_idx, loc_new)
+    return found, val, f_old, loc_old, hz_idx, loc_new
 
 
 reset_launches()

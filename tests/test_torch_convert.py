@@ -19,16 +19,28 @@ SCALARS = ("cursor", "rebuilding", "epoch", "lookups", "expensive")
 STATIC = ("backend", "chunk", "fwd_hazard", "fused", "nres_cap")
 
 
+def _hfn_tree(fn) -> dict:
+    return {"kind": fn.kind, "seeds": np.asarray(fn.seeds)}
+
+
 def jax_table_tree(t) -> dict:
-    return {"capacity": t.capacity, "max_probes": t.max_probes,
-            "hfn": {"kind": t.hfn.kind, "seeds": np.asarray(t.hfn.seeds)},
-            "key": np.asarray(t.key), "val": np.asarray(t.val),
-            "state": np.asarray(t.state)}
+    """Flatten a reference table (linear, twochoice or cuckoo)."""
+    if hasattr(t, "hfn"):
+        tree = {"capacity": t.capacity, "max_probes": t.max_probes,
+                "hfn": _hfn_tree(t.hfn)}
+    else:
+        last = "max_rounds" if hasattr(t, "max_rounds") else "max_kick"
+        tree = {"nbuckets": t.nbuckets, "width": t.width,
+                last: getattr(t, last), "hfn_a": _hfn_tree(t.hfn_a),
+                "hfn_b": _hfn_tree(t.hfn_b)}
+    tree.update(key=np.asarray(t.key), val=np.asarray(t.val),
+                state=np.asarray(t.state))
+    return tree
 
 
 def jax_state_tree(d) -> dict:
-    """Flatten a reference ``DHashState`` (linear backend) to the tree layout
-    of ``repro_torch.convert``."""
+    """Flatten a reference ``DHashState`` (linear, twochoice or cuckoo
+    backend) to the tree layout of ``repro_torch.convert``."""
     tree = {k: getattr(d, k) for k in STATIC}
     tree["old"], tree["new"] = jax_table_tree(d.old), jax_table_tree(d.new)
     for k in ("hazard_key", "hazard_val", "hazard_live") + SCALARS:
@@ -51,8 +63,8 @@ def assert_tree_equal(a, b, path=""):
         assert a == b, (path, a, b)
 
 
-def _mid_rebuild_state(fused: bool):
-    d = jdhash.make("linear", capacity=96, chunk=32, seed=3, fused=fused)
+def _mid_rebuild_state(fused: bool, backend: str = "linear"):
+    d = jdhash.make(backend, capacity=96, chunk=32, seed=3, fused=fused)
     keys = jnp.arange(-40, 40, dtype=jnp.int32)
     d, _ = jdhash.insert(d, keys, keys * 11)
     d = jdhash.rebuild_start(d, seed=77)
@@ -105,5 +117,31 @@ def test_converted_state_answers_like_the_reference():
     jf, jv = jdhash.lookup(d, jnp.asarray(q))
     tf, tv = tdhash.lookup(port, torch.as_tensor(q))
     assert np.array_equal(np.asarray(jf), tf.numpy())
+    assert np.array_equal(np.asarray(jv), tv.numpy())
+    assert int(jdhash.count_items(d)) == int(tdhash.count_items(port))
+
+
+@pytest.mark.parametrize("backend", ["twochoice", "cuckoo"])
+def test_two_row_tables_round_trip(backend):
+    """A twochoice / cuckoo state mid-rebuild: JAX -> tree -> port -> tree
+    is the identity, the port's tables are [R, W] of the reference's type
+    and field names, and the converted state answers like the reference."""
+    from repro_torch.core import buckets as tb
+    d = _mid_rebuild_state(False, backend)
+    tree = jax_state_tree(d)
+    port = convert.state_from_numpy(tree, device="cpu")
+    cls = {"twochoice": tb.TwoChoiceTable, "cuckoo": tb.CuckooTable}[backend]
+    assert isinstance(port.old, cls) and isinstance(port.new, cls)
+    rows = port.old.nbuckets * (2 if backend == "cuckoo" else 1)
+    assert port.old.key.shape == (rows, port.old.width)
+    assert port.old.claim is None
+    assert_tree_equal(tree, convert.state_to_numpy(port))
+    t = convert.table_from_numpy(tree["new"], device="cpu")
+    assert isinstance(t, cls)
+    assert_tree_equal(tree["new"], convert.table_to_numpy(t))
+    q = np.arange(-60, 60, dtype=np.int32)
+    jf, jv = jdhash.lookup(d, jnp.asarray(q))
+    tf, tv = tdhash.lookup(port, torch.as_tensor(q))
+    assert np.array_equal(np.asarray(jf), tf.numpy()) and tf.any()
     assert np.array_equal(np.asarray(jv), tv.numpy())
     assert int(jdhash.count_items(d)) == int(tdhash.count_items(port))

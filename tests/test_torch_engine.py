@@ -114,6 +114,63 @@ def test_engines_in_lock_step_three_epochs(port_fused):
         <= port.stats.steps + 4 * (port.stats.rebuilds_completed + 1) + 1
 
 
+@pytest.mark.parametrize("backend", ["twochoice", "cuckoo"])
+def test_fused_two_row_engine_matches_dict_oracle_and_reference(backend):
+    """The two-row backends on the fused path end to end, as the reference's
+    ``test_fused_twochoice_engine_matches_dict_oracle``: the port's fused
+    engine and the reference's fused and plain engines take one op stream in
+    continuous-rebuild mode.  Every step's answers are equal (values where
+    found: the plain two-row lookup's value of a miss is unspecified) and
+    right by a dict oracle; the twochoice state is the reference plain
+    engine's slot for slot after every step (the fused cuckoo insert is a
+    linearisation of its own: its whole key -> value map is compared)."""
+    kw = dict(capacity=96, chunk=32, seed=4)
+    tree = jax_state_tree(jdhash.make(backend, **kw))
+    port = TEngine(convert.state_from_numpy({**tree, "fused": True},
+                                            device="cpu"),
+                   continuous_rebuild=True, poll_every=8)
+    refs = [JEngine(jdhash.make(backend, fused=f, **kw),
+                    continuous_rebuild=True, poll_every=8)
+            for f in (False, True)]
+    exact = backend == "twochoice"
+    seeds0 = [h.seeds.clone() for h in (port.state.old.hfn_a,
+                                        port.state.old.hfn_b)]
+    for step, pre, batch in stream(11, 60):
+        if step is None:
+            final = pre
+            break
+        look, ins, vals, im, dels, dm = batch
+        out = [x.numpy() for x in port.step(look, ins, vals, dels,
+                                            ins_mask=im, del_mask=dm)]
+        for ref in refs:
+            rout = [np.asarray(x) for x in ref.step(look, ins, vals, dels,
+                                                    ins_mask=im, del_mask=dm)]
+            assert np.array_equal(out[0], rout[0]), step
+            assert np.array_equal(np.where(out[0], out[1], 0),
+                                  np.where(rout[0], rout[1], 0)), step
+            assert np.array_equal(out[2], rout[2]), step
+            assert np.array_equal(out[3], rout[3]), step
+        for i, k in enumerate(look.tolist()):
+            assert out[0][i] == (k in pre), (step, k)
+            if k in pre:
+                assert out[1][i] == pre[k], (step, k)
+        if exact:
+            scalars_equal(port, refs[0])
+        compare_states(port.state, refs[0].state, refs[1].state, step,
+                       exact=exact, in_step=False)
+    assert port.stats.rebuilds_completed >= 3
+    assert all(not torch.equal(a, b) for a, b in zip(
+        seeds0, (port.state.old.hfn_a.seeds, port.state.old.hfn_b.seeds)))
+    z, off = np.zeros(1, np.int32), np.zeros(1, bool)
+    for e in (port, *refs):
+        epoch = e.stats.rebuilds_completed
+        for _ in range(40):
+            if e.stats.rebuilds_completed > epoch:
+                break
+            e.step(z, z, z, z, ins_mask=off, del_mask=off)
+    assert port.count() == refs[0].count() == refs[1].count() == len(final)
+
+
 def test_growing_rebuild_finishes_at_the_poll_like_the_reference():
     """A shape-changing rebuild (new table 4x) is swapped by the K-step poll,
     on the same step in both packages; then the engine keeps working."""

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither ``jax`` nor the reference
-package, builds nothing when imported, refuses to carry on on the CPU when
-asked for the GPU, and its GPU smoke script fails cleanly without a GPU."""
+package (its CUDA sources include only CUDA and C++ headers and their own),
+builds nothing when imported, refuses to carry on on the CPU when asked for
+the GPU, and its GPU smoke script fails cleanly without a GPU."""
 from __future__ import annotations
 
 import ast
@@ -30,6 +31,13 @@ def _sources():
     return sorted(PKG.rglob("*.py")) + [SMOKE]
 
 
+CSRC = PKG / "kernels" / "csrc"
+# what a kernel source may include: the CUDA runtime and cooperative groups,
+# the C/C++ standard library, and its own headers
+CUDA_HEADERS = {"cuda_runtime.h", "cooperative_groups.h", "stdint.h",
+                "limits.h"}
+
+
 def _imports(path: pathlib.Path):
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
@@ -44,6 +52,31 @@ def _imports(path: pathlib.Path):
 def test_source_imports_neither_jax_nor_the_reference(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("path", sorted(CSRC.glob("*.cu*")),
+                         ids=lambda p: p.name)
+def test_kernel_source_includes_only_cuda_and_its_own_headers(path):
+    import re
+    incs = re.findall(r'^\s*#\s*include\s*[<"]([^>"]+)[>"]',
+                      path.read_text(), re.M)
+    own = {p.name for p in CSRC.glob("*.cuh")}
+    bad = [h for h in incs if h not in CUDA_HEADERS | own]
+    assert not bad, f"{path.name} includes {bad}"
+    assert not re.search(r"\b(jax|repro|torch)\b", " ".join(incs))
+
+
+def test_the_two_row_kernel_sources_exist_and_share_the_hazard_stage():
+    for k in ("tc_lookup", "tc_insert", "tc_probe2"):
+        src = (CSRC / f"{k}.cu").read_text()
+        assert "__global__" in src and f'extern "C" int dhash_{k}(' in src, k
+        assert "cudaGetLastError" in src and "DHASH_MAX_WIDTH" in src, k
+    for k in ("probe2", "tc_probe2"):
+        src = (CSRC / f"{k}.cu").read_text()
+        assert "dhash_hazard_stage(" in src and "dhash_hazard_find(" in src
+        assert "atomicMax" not in src, f"{k} stages the hazard buffer itself"
+    from repro_torch.kernels import build, probe
+    assert set(probe.KERNELS) == set(build.SOURCES)
 
 
 def test_the_eleven_modules_and_four_kernel_sources_exist():
