@@ -16,17 +16,22 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
    chosen to hurt (tombstones, migrated slots, wrap-around, one hot start
    slot or row pair, full rows, rows a == b, duplicates, ragged batch sizes,
    a partial last chunk, killed hazard entries, a new table 4x the old with
-   a bucket count that is not a power of two), and times kernel and plain
+   a bucket count that is not a power of two; for chain hits in the sorted
+   segments and the dirty tail, a segment longer than max_chain, a tail
+   longer than the window, empty buckets), and times kernel and plain
    version;
 3. drives the main path of each backend — ``dhash.make(backend,
-   fused=True)`` with ``backend`` linear (a), twochoice (b) and cuckoo (c)
-   at the unreduced ``dhash-paper`` size under ``DHashEngine`` with
-   continuous rebuild — through complete live hash-function swaps (one for
-   linear by default, two for the others), checking every step's outputs
-   against a dense numpy oracle, the kernel launch counts of every step and,
-   on a two-row table, that every refused insert found both its rows full;
-   the cuckoo path also takes a collision flood mid-epoch (2048 keys to one
-   row) and must keep every acknowledged key through the next swap;
+   fused=True)`` with ``backend`` linear (a), twochoice (b), cuckoo (c) and
+   chain (d) at the unreduced ``dhash-paper`` size under ``DHashEngine``
+   with continuous rebuild — through complete live hash-function swaps (one
+   for linear by default, two or more for the others), checking every
+   step's outputs against a dense numpy oracle, the kernel launch counts of
+   every step and, on a two-row table, that every refused insert found both
+   its rows full (on chain: that the free stack was empty); the cuckoo path
+   also takes a collision flood mid-epoch (2048 keys to one row) and must
+   keep every acknowledged key through the next swap; (e) runs the chain
+   arm of the collision-flood benchmark (2048 keys into one bucket, then a
+   live swap) and reports its four lookup rates;
 4. runs the same engines in lock step with the port's own plain
    (``fused=False``) path on the card for one epoch at a smaller table;
 5. repeats a short stretch of the linear main path on a table far larger
@@ -71,8 +76,18 @@ KERNEL_INFO = {
                   "src/repro/kernels/probe.py:592"),
     "tc_probe2": ("src/repro_torch/kernels/csrc/tc_probe2.cu",
                   "src/repro/kernels/probe.py:732"),
+    "chain_probe": ("src/repro_torch/kernels/csrc/chain_probe.cu",
+                    "src/repro/kernels/probe.py:906"),
+    "chain_probe2": ("src/repro_torch/kernels/csrc/chain_probe2.cu",
+                     "src/repro/kernels/probe.py:925"),
 }
-BACKENDS = ("linear", "twochoice", "cuckoo")
+BACKENDS = ("linear", "twochoice", "cuckoo", "chain")
+# the kernels each backend's main path runs: (lookup, insert, rebuild-epoch
+# probe); the extract kernel is shared
+PATH_KERNELS = {"linear": ("probe_lookup", "probe_insert", "probe2"),
+                "twochoice": ("tc_lookup", "tc_insert", "tc_probe2"),
+                "cuckoo": ("tc_lookup", "tc_insert", "tc_probe2"),
+                "chain": ("chain_probe", "chain_probe", "chain_probe2")}
 
 
 def bound(nbytes: int, ops: int) -> dict:
@@ -113,18 +128,23 @@ def same(a: torch.Tensor, b: torch.Tensor, what: str) -> int:
 def time_ms(fn, reps: int, setup=None, queue_ahead: bool = True) -> float:
     """Median device time of ``fn`` over ``reps`` calls: a CUDA event before
     and after each call, read after one synchronise at the end.  The stream
-    is first kept busy for some tens of milliseconds so that the host queues
-    all the calls ahead of the device: the events then bracket the kernel's
-    own time, not the host's time to enqueue it.  ``setup`` (restoring mutated
-    inputs) runs before each call, outside its events.  ``queue_ahead=False``
-    is for the plain versions, which synchronise inside."""
+    is first kept busy long enough for the host to queue all the calls ahead
+    of the device (at least 60M clocks, and 2.5x the host's own time for
+    ``reps`` calls, measured on a warm-up call): the events then bracket the
+    device's own time, not the host's time to enqueue the work.  ``setup``
+    (restoring mutated inputs) runs before each call, outside its events.
+    ``queue_ahead=False`` is for the plain versions, which synchronise
+    inside."""
     for _ in range(2):          # warm-up
         if setup is not None:
             setup()
+        t0 = time.perf_counter()
         fn()
+        host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     if queue_ahead:
-        torch.cuda._sleep(60_000_000)
+        # clock rate of the card: about 2e9 cycles a second
+        torch.cuda._sleep(int(max(6e7, 2.5 * reps * host_s * 2e9)))
     evs = []
     for _ in range(reps):
         if setup is not None:
@@ -163,15 +183,20 @@ def profile_steps(eng, oracle, cfg, n_steps: int, step0: int, path: str):
                          getattr(e, "self_cuda_time_total", 0))
                  for e in ka if e.device_type == DeviceType.CUDA)
     cpu_us = sum(e.self_cpu_time_total for e in ka)
+    # device-to-host copies: the engine's reads and the oracle's four
+    # outputs a step; anything more is a read the engine does not count
+    d2h = sum(e.count for e in ka if e.key.startswith("Memcpy DtoH"))
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         f.write(f"{n_steps} steps, wall {wall_ms:.1f} ms (with the host "
                 f"oracle), device busy {dev_us / 1e3:.1f} ms, host in "
-                f"PyTorch ops {cpu_us / 1e3:.1f} ms\n")
+                f"PyTorch ops {cpu_us / 1e3:.1f} ms, {d2h} device-to-host "
+                f"copies\n")
         f.write(ka.table(sort_by="self_cuda_time_total", row_limit=40))
     log(f"  profile of {n_steps} steps: device busy "
         f"{dev_us / 1e3 / n_steps:.3f} ms a step, host time in PyTorch ops "
-        f"{cpu_us / 1e3 / n_steps:.3f} ms a step -> {path}")
+        f"{cpu_us / 1e3 / n_steps:.3f} ms a step, device-to-host copies "
+        f"{d2h / n_steps:.2f} a step (the oracle's 4 included) -> {path}")
 
 
 # ---------------------------------------------------------------------------
@@ -687,6 +712,261 @@ def phase_tc_kernels(device, cfg, reps: int) -> dict:
     return res
 
 
+def build_chain(device, nb: int, n: int, n_live: int, rng, seed: int,
+                hot: int = 0, tail: int = 0):
+    """A chain arena of ``n`` nodes and ``nb`` buckets: ``n_live`` random
+    keys (and ``hot`` more, all in bucket 5; none in buckets 1 to 3, which
+    stay empty) packed into sorted segments by the compaction, a dirty tail
+    of ``tail`` keys placed by the PLAIN insert, then a share of the sorted
+    nodes tombstoned and a share marked MIGRATED.  Returns (table, keys)."""
+    from repro_torch.core import backend, buckets, hashing
+    t = buckets.chain_make(nb, n, hashing.fresh("mix32", seed, device),
+                           device=device)
+    total = n_live + tail
+    uniq = np.unique(rng.integers(-(1 << 30), 1 << 30, total + total // 4))
+    keys = torch.as_tensor(rng.permutation(uniq).astype(np.int32),
+                           device=device)
+    b = hashing.bucket_of(t.hfn, keys, nb)
+    keys = keys[(b < 1) | (b > 3)][:total]
+    check(keys.numel() == total, "not enough distinct keys drawn")
+    if hot:
+        cand = torch.empty(0, dtype=torch.int32, device=device)
+        while cand.numel() < hot:
+            more = torch.as_tensor(rng.integers(1 << 30, (1 << 31) - 1,
+                                                1 << 22).astype(np.int32),
+                                   device=device)
+            more = more[hashing.bucket_of(t.hfn, more, nb) == 5]
+            cand = torch.cat([cand, more]).unique()
+        cand = cand[:hot]
+        keys = torch.cat([keys[:n_live], cand, keys[n_live:]])
+    m = keys.numel() - tail
+    t.akey[:m] = keys[:m]
+    t.aval[:m] = keys[:m] * 3 + 1
+    t.astate[:m] = buckets.LIVE
+    backend.chain_compact_fused(t)
+    live = (t.astate == buckets.LIVE).nonzero().squeeze(1)
+    pick = live[torch.as_tensor(rng.permutation(live.numel()),
+                                device=device)]
+    k = live.numel() // 10
+    t.astate[pick[:k]] = buckets.TOMB
+    t.astate[pick[k:2 * k]] = buckets.MIGRATED
+    if tail:
+        kt = keys[m:]
+        t, ok = buckets.chain_insert(t, kt, kt * 3 + 1,
+                                     torch.ones_like(kt, dtype=torch.bool))
+        check(bool(ok.all()), "the dirty tail did not go in")
+    return t, keys
+
+
+def chain_work(t, bq, qk, sel=None) -> tuple[int, int, torch.Tensor]:
+    """What a chain kernel reads for the queries in ``sel`` of one arena:
+    (nodes — segment nodes up to the hit or the segment's end, and the
+    hops of the bounded walks; tail compares — the staged dirty window
+    scanned up to the hit or its last live node; the queries that walked)."""
+    from repro_torch.core import buckets
+    from repro_torch.kernels import probe
+    if sel is None:
+        sel = torch.ones_like(qk, dtype=torch.bool)
+    arena, links, seg = buckets._chain_parts(t)
+    f, _, loc, complete = probe._chain_fast_plain(
+        arena, seg, bq, qk, t.max_chain, t.dirty_cap)
+    b = bq.long()
+    h0, ln = t.bstart[b], t.blen[b]
+    seg_hit = f & (loc < t.sorted_upto)
+    nodes = torch.where(ln <= t.max_chain,
+                        torch.where(seg_hit, loc - h0 + 1, ln), 0)
+    size = min(t.dirty_cap, t.arena)
+    base = min(int(t.sorted_upto), t.arena - size)
+    pos = torch.arange(base, base + size, device=qk.device)
+    wlive = (t.astate[pos] == buckets.LIVE) & (pos >= t.sorted_upto)
+    n_end = int(wlive.nonzero().max()) + 1 if bool(wlive.any()) else 0
+    compares = torch.where(seg_hit, 0, torch.where(f, loc - base + 1, n_end))
+    need = sel & ~f & ~complete
+    cur = t.heads[b[need]].long()
+    key = qk[need]
+    hops = 0
+    for _ in range(t.max_chain):
+        act = cur >= 0
+        if not bool(act.any()):
+            break
+        hops += int(act.sum())
+        c = torch.where(act, cur, 0)
+        hit = act & (t.astate[c] == buckets.LIVE) & (t.akey[c] == key)
+        cur = torch.where(act & ~hit, t.anext[c].long(), -1)
+    return (int(nodes[sel].sum()) + hops, int(compares[sel].sum()), need)
+
+
+def phase_chain_kernels(device, cfg, reps: int) -> dict:
+    """The two chain kernels against their plain versions at the chain
+    shapes of the main path: an arena of 2^20 nodes, 2^16 buckets."""
+    from repro_torch.core import backend, buckets, hashing
+    from repro_torch.kernels import probe
+    rng = np.random.default_rng(13)
+    n, nb = cfg.capacity_per_shard, cfg.capacity_per_shard // 16
+    Q, CH = cfg.lookups_per_step, cfg.chunk
+    i32 = torch.int32
+    res = {}
+
+    t, keys = build_chain(device, nb, n, n // 2, rng, 61, hot=100, tail=300)
+    hot, tail = keys[n // 2:n // 2 + 100], keys[-300:]
+    # the old arena mid-rebuild: a chunk extracted into the hazard buffer
+    # (its nodes MIGRATED), some hazard entries killed; and a copy of it
+    # whose dirty tail outgrew the window
+    so = t.astate.clone()
+    old = dataclasses.replace(t, astate=so)
+    cursor = torch.tensor(7 * CH, dtype=i32, device=device)
+    hk, hv, hl, _ = probe.extract_plain(t.akey, t.aval, so, cursor, CH)
+    hz_live = hk[hl]
+    hl = hl & torch.as_tensor(rng.random(CH) < 0.8, device=device)
+    extra = torch.as_tensor(rng.integers(-(1 << 31), -(1 << 30), 700)
+                            .astype(np.int32), device=device).unique()
+    stale, _ = buckets.chain_insert(old, extra, extra * 3 + 1,
+                                    torch.ones_like(extra, dtype=torch.bool))
+    cand = torch.as_tensor(rng.integers(1 << 30, (1 << 31) - 1, 1 << 20)
+                           .astype(np.int32), device=device)
+    bc = hashing.bucket_of(t.hfn, cand, nb)
+    empty = cand[(bc >= 1) & (bc <= 3)][:64]           # buckets left empty
+    blen = t.blen
+    log(f"  chain arena: N={n} buckets={nb} live={int((so == 1).sum())}"
+        f" tomb={int((so == 2).sum())} migrated={int((so == 3).sum())} "
+        f"sorted={int(t.sorted_upto)} dirty={int(buckets.chain_dirty(t))} "
+        f"(stale copy {int(buckets.chain_dirty(stale))}); longest segment "
+        f"{int(blen.max())}, empty buckets {int((blen == 0).sum())}")
+    check(empty.numel() > 0, "the arena must have empty buckets")
+
+    def chain_queries(q, *key_sets):
+        """``q`` queries: equal shares of each key set, the rest misses."""
+        share = q // (len(key_sets) + 1)
+        parts = [ks[torch.as_tensor(rng.integers(0, ks.numel(), share),
+                                    device=device)] for ks in key_sets]
+        parts.append(torch.as_tensor(
+            rng.integers(1 << 30, (1 << 31) - 1, q - share * len(key_sets))
+            .astype(np.int32), device=device))
+        qk = torch.cat(parts)
+        return qk[torch.as_tensor(rng.permutation(q), device=device)]
+
+    # -- chain_probe: hits in the segments and the tail, dead nodes, the hot
+    #    segment past max_chain, empty buckets, a tail past the window
+    err = 0
+    for table, what in ((old, "tail in window"), (stale, "tail past window")):
+        for q in (Q + 77, Q):
+            qk = chain_queries(q, keys, hot, tail, empty).contiguous()
+            bq = hashing.bucket_of(table.hfn, qk, nb)
+            args = (*buckets._chain_parts(table), bq, qk, table.max_chain,
+                    table.dirty_cap)
+            out_k = probe.chain_probe(*args)
+            torch.cuda.synchronize()
+            out_p = probe.chain_probe_plain(*args)
+            for a, b, nm in zip(out_k, out_p, ("found", "val", "loc")):
+                err = max(err, same(a, b, f"chain_probe {what} Q={q} {nm}"))
+        f, _, loc = out_k
+        nodes, compares, need = chain_work(table, bq, qk)
+        check(bool(f.any()) and not bool(f.all()), "chain_probe: inputs "
+              "must mix hits and misses")
+        check(bool((f & (loc >= table.sorted_upto)).any()),
+              "chain_probe: some hits must lie in the dirty tail")
+        check(bool(need.any()) and bool((table.blen[bq.long()] == 0).any())
+              and bool((table.blen[bq.long()] > table.max_chain).any()),
+              "chain_probe: some queries must walk, meet an empty bucket "
+              "and a segment past max_chain")
+        log(f"  chain_probe ok ({what}): Q={Q} hits={int(f.sum())} "
+            f"nodes read={nodes} tail compares={compares} "
+            f"walked={int(need.sum())}")
+    qk = chain_queries(Q, keys).contiguous()
+    bq = hashing.bucket_of(t.hfn, qk, nb)
+    args = (*buckets._chain_parts(old), bq, qk, t.max_chain, t.dirty_cap)
+    f = probe.chain_probe(*args)[0]
+    nodes, compares, need = chain_work(old, bq, qk)
+    hits = int(f.sum())
+    res["chain_probe"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: probe.chain_probe(*args), reps),
+        plain_ms=time_ms(lambda: probe.chain_probe_plain(*args), 3,
+                         queue_ahead=False),
+        # in: key and bucket, the bucket's (start, len), 8 bytes a node read
+        # (key, state; a walk hop also its link), the value of a hit; out:
+        # found, val, loc
+        **bound(Q * 16 + nodes * 8 + int(need.sum()) * 4 + hits * 4 + Q * 9,
+                2 * nodes + compares))
+
+    # -- chain_probe2: the old arena mid-rebuild, a new arena 4x the old
+    #    with its own tail, and the stale old arena whose misses walk
+    new, nkeys = build_chain(device, 4 * nb, 4 * n, n // 2, rng, 62,
+                             tail=120)
+    err = 0
+    for o, what in ((old, "old in window"), (stale, "old past window")):
+        for q in (Q + 77, Q):
+            qk = chain_queries(q, keys, hz_live, nkeys, hot).contiguous()
+            bo = hashing.bucket_of(o.hfn, qk, nb)
+            bn = hashing.bucket_of(new.hfn, qk, 4 * nb)
+            args = (buckets._chain_parts(o), buckets._chain_parts(new), hk,
+                    hv, hl, bo, bn, qk, o.max_chain, o.dirty_cap)
+            out_k = probe.chain_probe2(*args)
+            torch.cuda.synchronize()
+            out_p = probe.chain_probe2_plain(*args)
+            for x, y, nm in zip(out_k, out_p, ("found", "val", "f_old",
+                                               "loc_old", "hz_idx",
+                                               "loc_new")):
+                err = max(err, same(x, y, f"chain_probe2 {what} Q={q} {nm}"))
+            check(bool(out_k[2].any()) and bool((out_k[4] >= 0).any())
+                  and bool((out_k[5] >= 0).any()) and not bool(out_k[0].all()),
+                  "chain_probe2: inputs must hit old, hazard, new and "
+                  "nothing")
+        log(f"  chain_probe2 ok ({what}): Q={Q} old={int(out_k[2].sum())} "
+            f"hazard={int((out_k[4] >= 0).sum())} "
+            f"new={int((out_k[5] >= 0).sum())} found={int(out_k[0].sum())}")
+    qk = chain_queries(Q, keys, hz_live, nkeys).contiguous()
+    bo = hashing.bucket_of(old.hfn, qk, nb)
+    bn = hashing.bucket_of(new.hfn, qk, 4 * nb)
+    args = (buckets._chain_parts(old), buckets._chain_parts(new), hk, hv, hl,
+            bo, bn, qk, old.max_chain, old.dirty_cap)
+    found, _, f_old, _, hz_idx, _ = probe.chain_probe2(*args)
+    n_hz = int(hl.nonzero().max()) + 1
+    hz_cmp = int(torch.where(hz_idx >= 0, hz_idx + 1, n_hz)[~f_old].sum())
+    n_old, c_old, w_old = chain_work(old, bo, qk)
+    n_new, c_new, w_new = chain_work(new, bn, qk, ~f_old & (hz_idx < 0))
+    res["chain_probe2"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: probe.chain_probe2(*args), reps),
+        plain_ms=time_ms(lambda: probe.chain_probe2_plain(*args), 3,
+                         queue_ahead=False),
+        # in: key and two buckets, each arena's (start, len) of the bucket,
+        # the nodes read, the hazard buffer, the value of a hit; out: six
+        # outputs
+        **bound(Q * 12 + Q * 8 + int((~f_old).sum()) * 8
+                + (n_old + n_new) * 8 + CH * 9 + int(found.sum()) * 4
+                + Q * 18,
+                2 * (n_old + n_new) + c_old + c_new + hz_cmp))
+    log(f"  chain_probe2 timed: hazard compares={hz_cmp} nodes read "
+        f"old={n_old} new={n_new}")
+
+    # -- the contracts of the chain path on the card: a chunk above 4096 and
+    #    a dirty window above 512 are refused; nothing launches
+    big = 2 * probe.EXTRACT_MAX_CHUNK
+    zk = torch.zeros(big, dtype=i32, device=device)
+    zl = torch.zeros(big, dtype=torch.bool, device=device)
+    zero = torch.zeros((), dtype=i32, device=device)
+    table = backend.get("chain").make(1 << 14, 0, device=device)
+    before = probe.launch_counts()
+    for what, call in (
+            ("chain_probe2, chunk", lambda: probe.chain_probe2(
+                buckets._chain_parts(old), buckets._chain_parts(new), zk, zk,
+                zl, bo, bn, qk, 64, 512)),
+            ("chain_probe, window", lambda: probe.chain_probe(
+                *buckets._chain_parts(t), bq, qk, 64, 1024)),
+            ("backend.chain_extract_chunk_fused",
+             lambda: backend.chain_extract_chunk_fused(table, zero, big))):
+        try:
+            call()
+        except ValueError:
+            continue
+        check(False, f"{what}: must raise on the card")
+    check(probe.launch_counts() == before, "a refused call was launched")
+    log(f"  contracts ok: chunk {big} raises in chain_probe2 and the chain "
+        f"adapter, a 1024-node window in chain_probe")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # the op stream and its dense oracle (phases 3 and 5)
 # ---------------------------------------------------------------------------
@@ -765,17 +1045,21 @@ def expected_launches(before: dict, after: dict, was_rebuilding: bool,
     A step launches only its backend's kernels (the extract kernel is
     shared): steady state two lookup-kernel launches (lookup, delete) and one
     insert; in a rebuild epoch two probe2 launches, one insert and one
-    extract or one landing insert."""
+    extract or one landing insert.  (Chain's insert kernel is its lookup
+    kernel, the presence probe.)"""
     d = {k: after[k] - before[k] for k in after}
-    look, ins, p2 = (("probe_lookup", "probe_insert", "probe2")
-                     if backend == "linear" else
-                     ("tc_lookup", "tc_insert", "tc_probe2"))
-    zero = dict.fromkeys(after, 0)
+    look, ins, p2 = PATH_KERNELS[backend]
+
+    def launches(*pairs):
+        out = dict.fromkeys(after, 0)
+        for k, n in pairs:
+            out[k] += n
+        return out
     if not was_rebuilding:
-        want = [{**zero, look: 2, ins: 1}]
+        want = [launches((look, 2), (ins, 1))]
     else:
-        want = [{**zero, p2: 2, ins: 1, "extract": 1},
-                {**zero, p2: 2, ins: 2}]
+        want = [launches((p2, 2), (ins, 1), ("extract", 1)),
+                launches((p2, 2), (ins, 2))]
     return None if d in want else f"{d} (rebuilding={was_rebuilding})"
 
 
@@ -818,6 +1102,24 @@ def check_refusals(backend: str, table, before, keys, refused, ok_keys,
     check(bad == 0, f"{where}: {bad} of {n} refused inserts had a lane left "
                     f"in their rows")
     return n
+
+
+def check_chain_step(eng, free0: int, win, ok_i, where: str) -> int:
+    """A chain arena refuses an insert only when its free stack is empty: a
+    step that refused a winner placed exactly the ``free0`` nodes the stack
+    held before it.  And the compaction keeps both arenas' dirty tails
+    within the window.  Returns the number of refused inserts."""
+    from repro_torch.core import buckets
+    refused = int((win & ~ok_i).sum())
+    if refused:
+        check(int(ok_i.sum()) == free0, f"{where}: {refused} inserts refused"
+              f" with {free0} free nodes and {int(ok_i.sum())} placed")
+    d = eng.state
+    dirty = torch.stack([buckets.chain_dirty(d.old),
+                         buckets.chain_dirty(d.new)]).tolist()
+    check(max(dirty) <= d.old.dirty_cap, f"{where}: dirty tails {dirty} "
+          f"past the window of {d.old.dirty_cap}")
+    return refused
 
 
 class Flood:
@@ -897,7 +1199,8 @@ def drive(eng, oracle, n_steps: int, n_look: int, n_upd: int, where: str,
     seeds = []
     completed = eng.stats.rebuilds_completed
     since_swap = 0
-    two_row = eng.state.backend != "linear"
+    two_row = eng.state.backend in ("twochoice", "cuckoo")
+    chain = eng.state.backend == "chain"
     for s in range(n_steps):
         if flood is not None:
             flood.maybe(eng, len(seeds), since_swap)
@@ -906,6 +1209,8 @@ def drive(eng, oracle, n_steps: int, n_look: int, n_upd: int, where: str,
         was_rb = eng.rebuilding
         if two_row:
             states = insert_target(eng, was_rb, False).state.clone()
+        if chain:
+            free0 = int(insert_target(eng, was_rb, False).free_top)
         before = probe.launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -927,6 +1232,9 @@ def drive(eng, oracle, n_steps: int, n_look: int, n_upd: int, where: str,
                               eng.stats.rebuilds_completed != completed),
                 states, oracle.key(ins), oracle._first(ins, ins_mask) & ~ok_i,
                 oracle.key(ins[ok_i]), f"{where} step {s}")
+        if chain:
+            check_chain_step(eng, free0, oracle._first(ins, ins_mask),
+                             np.asarray(out[2].cpu()), f"{where} step {s}")
         since_swap += 1
         if eng.stats.rebuilds_completed != completed:
             completed = eng.stats.rebuilds_completed
@@ -959,7 +1267,7 @@ def populate(eng, oracle, n_keys: int, batch: int, where: str):
     """Fill the table to ``n_keys`` live keys through the engine's inserts."""
     empty = np.zeros(0, np.int32)
     step = 0
-    two_row = eng.state.backend != "linear"
+    two_row = eng.state.backend in ("twochoice", "cuckoo")
     while int(oracle.present.sum()) < n_keys:
         n = min(batch, n_keys - int(oracle.present.sum()))
         ins = oracle._sample(n, False)
@@ -980,21 +1288,27 @@ def populate(eng, oracle, n_keys: int, batch: int, where: str):
 
 def phase_main(device, cfg, n_steps: int, min_epochs: int,
                profile_to: str = "", flood: Flood | None = None) -> dict:
-    """The main path of ``cfg.backend``: populate, 16 steady-state steps,
-    then ``n_steps`` in continuous rebuild; the launch counts are set to 0
-    just before and read just after.  Returns the launch counts."""
+    """The main path of ``cfg.backend``: populate to half the table's slots
+    (``capacity_per_shard`` keys on the slot tables, which are twice that
+    size; half the arena on chain, whose arena IS ``capacity_per_shard``
+    nodes), 16 steady-state steps, then ``n_steps`` in continuous rebuild;
+    the launch counts are set to 0 just before and read just after.
+    Returns the launch counts."""
     from repro_torch.core import backend, dhash
     from repro_torch.core.engine import DHashEngine
     from repro_torch.kernels import probe
     state = dhash.make(cfg.backend, capacity=cfg.capacity_per_shard,
                        chunk=cfg.chunk, fused=True, seed=0, device=device)
     slots = backend.get(cfg.backend).capacity_of(state.old)
+    chain = cfg.backend == "chain"
+    shape = (f"{state.old.nbuckets} buckets" if chain
+             else tuple(state.old.key.shape))
     oracle = Oracle(4 * cfg.capacity_per_shard, seed=3)
     eng = DHashEngine(state, continuous_rebuild=False)
-    n_pop = populate(eng, oracle, cfg.capacity_per_shard,
+    n_pop = populate(eng, oracle, min(cfg.capacity_per_shard, slots // 2),
                      cfg.lookups_per_step, f"{cfg.backend}")
     log(f"  populated {int(oracle.present.sum())} keys in {n_pop} engine "
-        f"steps; {slots} slots a table ({tuple(state.old.key.shape)}), "
+        f"steps; {slots} {'nodes' if chain else 'slots'} a table ({shape}), "
         f"{oracle.no_slot} inserts found no slot")
     seed0 = seeds_of(eng)
 
@@ -1020,9 +1334,7 @@ def phase_main(device, cfg, n_steps: int, min_epochs: int,
     kick_reads = kicks["reads"] - kicks_steady["reads"]
     # the engine's own reads, less the count() at each swap
     eng_syncs = eng.stats.host_syncs - syncs0 - steady_eng - len(seeds)
-    used = [k for k in probe.KERNELS
-            if k == "extract" or (k.startswith("tc_") ==
-                                  (cfg.backend != "linear"))]
+    used = {*PATH_KERNELS[cfg.backend], "extract"}
     check(all(launches[k] > 0 for k in used),
           f"main path did not launch every kernel of its backend: {launches}")
     check(all(launches[k] == 0 for k in probe.KERNELS if k not in used),
@@ -1068,6 +1380,16 @@ def phase_main(device, cfg, n_steps: int, min_epochs: int,
         log(f"  inserts refused for want of a slot: {oracle.no_slot} of "
             f"{n_ins} (limit 64)")
         check(oracle.no_slot <= 64, "too many inserts found no slot")
+    elif chain:
+        # chain_probe serves the steady lookups and deletes (two a step)
+        # and every insert's presence probe (user inserts and landings)
+        ins_calls = launches["chain_probe"] - 2 * steady
+        log(f"  inserts refused for want of a node: {oracle.no_slot} of "
+            f"{n_ins} (populate included), each with the free stack empty; "
+            f"the compaction ran (computed, then selected on the device: no "
+            f"host read) on each of the {ins_calls} insert calls, "
+            f"{ins_calls / (steady + n_steps):.3f} a step, and left no dirty "
+            f"tail past the window")
     else:
         log(f"  inserts refused for want of a slot: {oracle.no_slot} of "
             f"{n_ins} (populate included), each with both rows full")
@@ -1078,12 +1400,145 @@ def phase_main(device, cfg, n_steps: int, min_epochs: int,
     return launches
 
 
+def mid_rebuild_split(eng, keys, reps: int) -> None:
+    """Where the mid-rebuild flood lookup's device time goes: the whole
+    engine lookup, its two bucket hashes alone and its ``chain_probe2``
+    launch alone on the same state and batch, each timed three times (a
+    median of ``reps`` each), and how many queries the kernel's hazard
+    compare must run to the buffer's last live entry."""
+    from repro_torch.core import backend as be
+    from repro_torch.kernels import probe
+    d = eng.state
+    old, new = d.old, d.new
+    hz = (d.hazard_key, d.hazard_val, d.hazard_live)
+    bq_old, bq_new = be._chain_bq(old, keys), be._chain_bq(new, keys)
+    mc = max(old.max_chain, new.max_chain)
+    dc = max(old.dirty_cap, new.dirty_cap)
+
+    def kernel():
+        probe.chain_probe2(be._chain_parts(old), be._chain_parts(new), *hz,
+                           bq_old, bq_new, keys, mc, dc)
+
+    def hashes():
+        be._chain_bq(old, keys), be._chain_bq(new, keys)
+
+    times = {name: [time_ms(fn, reps) for _ in range(3)] for name, fn in
+             (("lookup", lambda: eng.lookup(keys)), ("hashes", hashes),
+              ("chain_probe2", kernel))}
+    f_old = probe.chain_probe2(be._chain_parts(old), be._chain_parts(new),
+                               *hz, bq_old, bq_new, keys, mc, dc)[2]
+    log(f"  mid-rebuild split, ms (3 medians of {reps} each): " + "; ".join(
+        f"{k} " + " / ".join(f"{t:.4f}" for t in v)
+        for k, v in times.items()) +
+        f"; hazard live {int(d.hazard_live.sum())} of {d.hazard_live.numel()}"
+        f", queries the old arena resolved {int(f_old.sum())} of "
+        f"{keys.numel()}, old segment of bucket 0 {int(old.blen[0])} nodes")
+
+
+def phase_chain_flood(device, cfg, reps: int, n_attack: int = 2048) -> dict:
+    """The chain arm of the collision-flood benchmark
+    (``benchmarks/bench_attack.py``) at the main path's size, on a table of
+    its own with ``max_chain = n_attack + 64`` as there: populate half the
+    arena, time a batch of resident lookups, insert ``n_attack`` keys that
+    all hash to bucket 0 under the live hash function, time a batch half of
+    flood keys, run a live hash-function swap through the engine with that
+    batch looked up and checked on every step (timed once mid-epoch), and
+    time it again after the swap.  Every flood key and every resident must
+    be found with its value, and the count must be exact.  Returns the four
+    lookup rates (M lookups/s)."""
+    from repro_torch.core import dhash, hashing
+    from repro_torch.core.engine import DHashEngine
+    cap, Q = cfg.capacity_per_shard, cfg.lookups_per_step
+    state = dhash.make("chain", capacity=cap, chunk=cfg.chunk, fused=True,
+                       seed=7, device=device, max_chain=n_attack + 64)
+    oracle = Oracle(4 * cap, seed=17)
+    eng = DHashEngine(state, continuous_rebuild=False)
+    populate(eng, oracle, cap // 2, Q, "flood")
+    live = np.flatnonzero(oracle.present)
+    rng = np.random.default_rng(23)
+    pick = rng.choice(live, Q)
+    resident = torch.as_tensor(oracle.key(pick), device=device)
+    res_vals = torch.as_tensor(oracle.value[pick], device=device)
+    rates = {}
+
+    def rate(name, keys, expect_vals):
+        f, v = eng.lookup(keys)
+        check(bool(f.all()) and torch.equal(v, expect_vals),
+              f"flood: {int((~f).sum())} lookups missed ({name})")
+        ms = time_ms(lambda: eng.lookup(keys), reps)
+        rates[name] = keys.numel() / ms / 1e3
+        return ms
+
+    ms = rate("before", resident, res_vals)
+    log(f"  populated {live.size} keys; {Q} resident lookups {ms:.4f} ms")
+
+    t = eng.state.old
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    got = torch.empty(0, dtype=torch.int32, device=device)
+    while got.numel() < n_attack:
+        cand = torch.randint(1 << 24, (1 << 31) - 1, (1 << 24,),
+                             generator=gen, device=device, dtype=torch.int32)
+        hit = cand[hashing.bucket_of(t.hfn, cand, t.nbuckets) == 0]
+        got = torch.unique(torch.cat([got, hit]))
+    atk = got[torch.randperm(got.numel(), generator=gen,
+                             device=device)[:n_attack]]
+    empty = np.zeros(0, np.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ok = eng.step(empty, atk, atk * 7 + 3, empty)[2]
+    torch.cuda.synchronize()
+    ins_ms = (time.perf_counter() - t0) * 1e3
+    check(bool(ok.all()), f"flood: {int((~ok).sum())} flood keys refused")
+    seg0 = int(eng.state.old.blen[0])
+    check(seg0 >= n_attack, f"flood: bucket 0's segment holds {seg0} nodes")
+    pick = torch.as_tensor(rng.integers(0, n_attack, Q // 2), device=device)
+    mixed = torch.cat([resident[: Q - Q // 2], atk[pick]])
+    mixed_vals = torch.cat([res_vals[: Q - Q // 2], atk[pick] * 7 + 3])
+    ms = rate("under_attack", mixed, mixed_vals)
+    log(f"  flood: {n_attack} keys into bucket 0 in one step ({ins_ms:.3f} "
+        f"ms), its segment now {seg0} nodes; mixed lookups (half flood "
+        f"keys) {ms:.4f} ms")
+
+    eng.request_rebuild(seed=20260714)
+    steps = 0
+    while eng.stats.rebuilds_completed == 0:
+        out = eng.step(mixed, empty, empty, empty)
+        check(bool(out[0].all()) and torch.equal(out[1], mixed_vals),
+              f"flood: lookups lost during the swap at step {steps}")
+        steps += 1
+        if steps == cap // cfg.chunk:          # half way through the epoch
+            rate("mid_rebuild", mixed, mixed_vals)
+            mid_rebuild_split(eng, mixed, reps)
+        check(steps < 4 * cap // cfg.chunk, "flood: the swap did not finish")
+    ms = rate("after_rebuild", mixed, mixed_vals)
+    n = eng.count()
+    check(n == live.size + n_attack, f"flood: count {n} != {live.size} + "
+          f"{n_attack} after the swap")
+    f, v = eng.lookup(torch.as_tensor(oracle.key(live), device=device))
+    check(bool(f.all()) and np.array_equal(
+        np.asarray(v.cpu()), oracle.value[live]),
+        "flood: residents lost across the swap")
+    f, v = eng.lookup(atk)
+    check(bool(f.all()) and torch.equal(v, atk * 7 + 3),
+          "flood: flood keys lost across the swap")
+    longest = int(eng.state.old.blen.max())
+    log(f"  live swap: {steps} engine steps, every lookup answered; after "
+        f"it all {n_attack} flood keys and all {live.size} residents found, "
+        f"count {n} exact, longest segment {longest}; mixed lookups "
+        f"{ms:.4f} ms")
+    log("  lookup rates, M lookups/s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in rates.items()))
+    return rates
+
+
 def _content(tree: dict) -> dict:
     """A state's key -> value map as a lookup sees it: old > hazard > new."""
     def live(t):
-        s = t["state"].reshape(-1) == 1
-        return dict(zip(t["key"].reshape(-1)[s].tolist(),
-                        t["val"].reshape(-1)[s].tolist()))
+        a = "a" if "astate" in t else ""          # a chain arena's fields
+        s = t[a + "state"].reshape(-1) == 1
+        return dict(zip(t[a + "key"].reshape(-1)[s].tolist(),
+                        t[a + "val"].reshape(-1)[s].tolist()))
     out = live(tree["new"])
     hl = tree["hazard_live"]
     out.update(zip(tree["hazard_key"][hl].tolist(),
@@ -1095,20 +1550,24 @@ def _content(tree: dict) -> dict:
 def phase_lockstep(device, backend: str, max_steps: int):
     """fused=True against the port's plain path, same ops, one epoch.  The
     fused cuckoo insert (claim kernel, then kick-out) is a linearisation of
-    its own, so for cuckoo the whole key -> value map is compared at the end;
-    otherwise both tables slot for slot.  A lookup's value is compared where
-    found: the plain two-row lookup's value of a miss is unspecified."""
+    its own, and the fused chain compacts its arena where the plain path
+    never does, so for those two the whole key -> value map is compared at
+    the end; otherwise both tables slot for slot.  A two-row lookup's value
+    is compared where found: the plain two-row lookup's value of a miss is
+    unspecified.  Chain starts a quarter full (a half elsewhere): the plain
+    path reclaims no tombstone within an epoch, and its new arena must not
+    run out of nodes before the fused one does."""
     from repro_torch import convert
     from repro_torch.core import dhash
     from repro_torch.core.engine import DHashEngine
-    exact = backend != "cuckoo"
+    exact = backend in ("linear", "twochoice")
     cap, chunk, nl, nu = 1 << 16, 4096, 8192, 1024
     engs = [DHashEngine(dhash.make(backend, capacity=cap, chunk=chunk,
                                    fused=f, seed=5, device=device),
                         continuous_rebuild=True) for f in (True, False)]
     oracle = Oracle(4 * cap, seed=9)
     empty = np.zeros(0, np.int32)
-    ins = oracle._sample(cap // 2, False)
+    ins = oracle._sample(cap // 4 if backend == "chain" else cap // 2, False)
     oracle.present[ins] = True
     for e in engs:
         e.step(empty, oracle.key(ins), (ins * 3).astype(np.int32), empty)
@@ -1120,7 +1579,7 @@ def phase_lockstep(device, backend: str, max_steps: int):
         outs = [e.step(oracle.key(look), oracle.key(ins), vals,
                        oracle.key(dele), ins_mask=mask) for e in engs]
         (fa, va, ia, da), (fb, vb, ib, db) = outs
-        if backend != "linear":
+        if backend in ("twochoice", "cuckoo"):
             va, vb = torch.where(fa, va, 0), torch.where(fb, vb, 0)
         for a, b, n in ((fa, fb, "found"), (va, vb, "vals"),
                         (ia, ib, "ok_i"), (da, db, "ok_d")):
@@ -1214,8 +1673,8 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=1200,
                     help="continuous-rebuild steps of the linear main path")
     ap.add_argument("--tc-steps", type=int, default=2200,
-                    help="continuous-rebuild steps of the twochoice and "
-                    "cuckoo main paths")
+                    help="continuous-rebuild steps of the twochoice, cuckoo "
+                    "and chain main paths")
     ap.add_argument("--big-steps", type=int, default=64,
                     help="steps on the table larger than L2")
     ap.add_argument("--reps", type=int, default=50,
@@ -1223,8 +1682,8 @@ def main() -> int:
     ap.add_argument("--profile", default="", metavar="FILE",
                     help="also run 40 steps of each main path under "
                     "torch.profiler and write the kernel tables to FILE "
-                    "(linear) and FILE with _twochoice / _cuckoo before its "
-                    "extension")
+                    "(linear) and FILE with _twochoice / _cuckoo / _chain "
+                    "before its extension")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1256,17 +1715,19 @@ def main() -> int:
             log("   ", line.strip())
 
     log("== 2. kernels against their plain versions (tolerance 0): linear "
-        f"C=2^21, max_probes=64; two-row 2^18 x 8; "
+        f"C=2^21, max_probes=64; two-row 2^18 x 8; chain arena 2^20 nodes, "
+        f"2^16 buckets, max_chain=64; "
         f"Q={CONFIG.lookups_per_step}/{CONFIG.updates_per_step}, "
         f"chunk={CONFIG.chunk}")
     kres = phase_kernels(device, CONFIG, args.reps)
     kres.update(phase_tc_kernels(device, CONFIG, args.reps))
+    kres.update(phase_chain_kernels(device, CONFIG, args.reps))
 
     by_path = {}
     for i, name in enumerate(BACKENDS):
         cfg = dataclasses.replace(CONFIG, backend=name)
         linear = name == "linear"
-        log(f"== 3{'abc'[i]}. main path, {name}: {cfg.arch_id} unreduced, "
+        log(f"== 3{'abcd'[i]}. main path, {name}: {cfg.arch_id} unreduced, "
             f"capacity {cfg.capacity_per_shard}, chunk {cfg.chunk}, "
             f"{cfg.lookups_per_step}+{cfg.updates_per_step}+"
             f"{cfg.updates_per_step} operations a step")
@@ -1280,6 +1741,10 @@ def main() -> int:
                                    profile_to=prof,
                                    flood=Flood(2048, after_swap=1, delay=400)
                                    if name == "cuckoo" else None)
+    log(f"== 3e. collision flood, chain: {CONFIG.arch_id} unreduced (arena "
+        f"{CONFIG.capacity_per_shard} nodes), 2048 keys into one bucket, "
+        f"max_chain 2112")
+    phase_chain_flood(device, CONFIG, args.reps)
 
     log("== 4. fused engine against the plain path in lock step")
     for name in BACKENDS:
@@ -1295,12 +1760,12 @@ def main() -> int:
                         "replaces": rep, "launches": sum(paths.values()),
                         "launches_by_path": paths, **kres[name],
                         "library_ms": None})
-    log(f"  no single PyTorch call computes any of these seven functions (a "
+    log(f"  no single PyTorch call computes any of these nine functions (a "
         f"probe sequence, a two-row lane match, a lock-step claim, an ordered "
-        f"three-way check, a compacting scan), so library_ms is null; times "
-        f"are medians of {args.reps} launches, tables warm in L2; launches "
-        f"are summed over the three main paths (launches_by_path: each "
-        f"path's own count)")
+        f"three-way check, a compacting scan, a segment scan with a bounded "
+        f"walk), so library_ms is null; times are medians of {args.reps} "
+        f"launches, tables warm in L2; launches are summed over the four "
+        f"main paths (launches_by_path: each path's own count)")
     log(f"  total {time.perf_counter() - t_start:.0f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,9 +1,9 @@
 """State to and from nested dicts of numpy arrays.
 
 The layout mirrors the field names of the reference's ``DHashState`` /
-``LinearTable`` / ``TwoChoiceTable`` / ``CuckooTable`` / ``HashFn``, so a
-state of either package flattens to the same tree and both can start from —
-and be compared on — the same bytes:
+``LinearTable`` / ``TwoChoiceTable`` / ``CuckooTable`` / ``ChainTable`` /
+``HashFn``, so a state of either package flattens to the same tree and both
+can start from — and be compared on — the same bytes:
 
     {"backend": str, "chunk": int, "fwd_hazard": bool, "fused": bool,
      "nres_cap": int,
@@ -22,11 +22,19 @@ with a two-row table (``backend`` twochoice or cuckoo) as
      "hfn_a": {...}, "hfn_b": {...},
      "key": int32[R, W], "val": int32[R, W], "state": int32[R, W]}
 
-(R = nbuckets for twochoice, 2 * nbuckets for cuckoo).
+(R = nbuckets for twochoice, 2 * nbuckets for cuckoo), and a chain table
+as
+
+    {"nbuckets": int, "arena": int, "max_chain": int, "dirty_cap": int,
+     "hfn": {...}, "akey": int32[N], "aval": int32[N], "anext": int32[N],
+     "astate": int32[N], "heads": int32[B], "free_stack": int32[N],
+     "free_top": int32[], "bstart": int32[B], "blen": int32[B],
+     "sorted_upto": int32[]}.
 
 Hash seeds are ``uint32`` in the tree and int64 words in ``[0, 2**32)`` in
-the port.  The insert kernel's claim scratch is not part of a table's
-contents: it is made anew on the way in and left out on the way back.
+the port.  The insert kernels' claim scratch (slot tables only) is not part
+of a table's contents: it is made anew on the way in and left out on the way
+back.
 """
 from __future__ import annotations
 
@@ -50,13 +58,20 @@ def _to_dev(a, dtype, device) -> torch.Tensor:
 # the configuration fields of each table type, in the reference's order
 _META = {buckets.LinearTable: ("capacity", "max_probes"),
          buckets.TwoChoiceTable: ("nbuckets", "width", "max_rounds"),
-         buckets.CuckooTable: ("nbuckets", "width", "max_kick")}
+         buckets.CuckooTable: ("nbuckets", "width", "max_kick"),
+         buckets.ChainTable: ("nbuckets", "arena", "max_chain", "dirty_cap")}
 _HFNS = {buckets.LinearTable: ("hfn",),
          buckets.TwoChoiceTable: ("hfn_a", "hfn_b"),
-         buckets.CuckooTable: ("hfn_a", "hfn_b")}
+         buckets.CuckooTable: ("hfn_a", "hfn_b"),
+         buckets.ChainTable: ("hfn",)}
+_SLOTS = ("key", "val", "state")
+_ARRAYS = {buckets.ChainTable: ("akey", "aval", "anext", "astate", "heads",
+                                "free_stack", "free_top", "bstart", "blen",
+                                "sorted_upto")}
 _BY_BACKEND = {"linear": buckets.LinearTable,
                "twochoice": buckets.TwoChoiceTable,
-               "cuckoo": buckets.CuckooTable}
+               "cuckoo": buckets.CuckooTable,
+               "chain": buckets.ChainTable}
 
 
 def _hfn_from(tree: dict, dev) -> hashing.HashFn:
@@ -77,8 +92,8 @@ def table_from_numpy(tree: dict, device: torch.device | str = "cuda",
     kw = {m: int(tree[m]) for m in _META[cls]}
     kw.update({h: _hfn_from(tree[h], dev) for h in _HFNS[cls]})
     kw.update({f: _to_dev(tree[f], np.int32, dev)
-               for f in ("key", "val", "state")})
-    if dev.type == "cuda":
+               for f in _ARRAYS.get(cls, _SLOTS)})
+    if dev.type == "cuda" and cls not in _ARRAYS:
         from repro_torch.kernels.probe import new_claim
         kw["claim"] = new_claim(kw["key"].numel(), dev)
     return cls(**kw)
@@ -90,7 +105,7 @@ def table_to_numpy(t) -> dict:
         fn = getattr(t, h)
         tree[h] = {"kind": fn.kind,
                    "seeds": fn.seeds.cpu().numpy().astype(np.uint32)}
-    for f in ("key", "val", "state"):
+    for f in _ARRAYS.get(type(t), _SLOTS):
         tree[f] = getattr(t, f).cpu().numpy()
     return tree
 

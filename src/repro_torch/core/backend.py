@@ -15,22 +15,27 @@ descriptor bundling everything the DHash layer needs to drive it:
   ``ordered_lookup_fused``/``ordered_delete_fused`` — ``None`` when the
   backend has no kernel path).  These UPDATE THE TABLE'S TENSORS IN PLACE
   and return a container over the same tensors;
-* layout metadata kept for API parity with the reference (``nres_cap``,
-  ``dirty_cap``), unused by the Hopper kernels;
-* the optional ``lookup_fwd`` hook (MIGRATED-slot hazard forwarding);
-* ``hash_fns``: the table's hash functions (one for linear, a and b for the
-  two-row backends), so that a caller can see every seed change at a swap.
+* layout metadata: ``nres_cap``, kept for API parity with the reference and
+  unused by the Hopper kernels, and ``dirty_cap``, the chain arena's
+  dirty-tail window (the compaction threshold and the window the chain
+  kernels stage);
+* the optional ``lookup_fwd`` hook (MIGRATED-slot hazard forwarding) and
+  ``freeze_old`` hook (chain: compact the old arena at a rebuild's start);
+* ``hash_fns``: the table's hash functions (one for linear and chain, a and
+  b for the two-row backends), so that a caller can see every seed change at
+  a swap.
 
 ``core/dhash.py`` contains ZERO per-backend branches: every public op
 dispatches through the descriptor looked up by ``DHashState.backend``.
-``linear``, ``twochoice`` and ``cuckoo`` are registered; ``get`` of any other
-name (``chain`` is not ported yet) raises the reference's ``ValueError``.
+``linear``, ``twochoice``, ``chain`` and ``cuckoo`` are registered; ``get``
+of any other name raises the reference's ``ValueError``.
 
 The ``*_fused`` adapters in this module are the thin descriptor-bound glue
 over ``kernels/ops.py``: hash the keys (``hashing.bucket_of``, outside the
 kernels as in the reference), call the op, hand back the table.  Cuckoo
 drives the twochoice kernels unchanged with side-offset rows; only its
-insert adds the bounded kick-out, behind counted host reads.
+insert adds the bounded kick-out, behind counted host reads.  Chain's
+insert adds the compaction, selected on the device (no host read).
 """
 from __future__ import annotations
 
@@ -41,11 +46,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import buckets, hashing
-from repro_torch.core.buckets import (CuckooTable, LinearTable,
-                                     TwoChoiceTable, _ck_rows, _tc_rows,
-                                     batch_winners)
+from repro_torch.core.buckets import (ChainTable, CuckooTable, LinearTable,
+                                     TwoChoiceTable, _chain_parts, _ck_rows,
+                                     _tc_rows, batch_winners, chain_dirty)
 from repro_torch.core.struct_utils import replace
-from repro_torch.kernels.ops import NRES_CAP
+from repro_torch.kernels.ops import DIRTY_CAP, NRES_CAP
 
 
 # ---------------------------------------------------------------------------
@@ -220,28 +225,36 @@ def linear_delete_fused(t: LinearTable, keys: torch.Tensor,
     return t, ok
 
 
+def _extract_fused(t, arrays, cursor: torch.Tensor, n: int, plain):
+    """One ``extract`` launch on flat (key, val, state) ``arrays`` of ``t``;
+    above the kernel's chunk a CUDA table raises and a CPU table takes the
+    ``plain`` scan."""
+    from repro_torch.kernels import ops
+    if n > ops.EXTRACT_MAX_CHUNK:
+        if arrays[0].is_cuda:
+            raise ValueError(
+                f"fused rebuild takes chunk <= {ops.EXTRACT_MAX_CHUNK} on a "
+                f"CUDA device, got {n}; use a smaller chunk or fused=False")
+        return plain(t, cursor, n)
+    _, hk, hv, hl, cur = ops.extract_chunk_fused(*arrays, cursor, chunk=n)
+    return t, hk, hv, hl, cur
+
+
 def extract_chunk_fused(t, cursor: torch.Tensor, n: int):
-    """Kernel-backed rebuild chunk scan of any backend: one ``extract``
+    """Kernel-backed rebuild chunk scan of a slot table: one ``extract``
     launch on the row-major flattened slot arrays (the scan order of the
     plain scan); hazard entries come back COMPACTED (live entries first) —
     identical as a set, which is all the hazard protocol observes.  Writes
     ``t.state`` in place.
 
     Contract: ``n <= ops.EXTRACT_MAX_CHUNK`` for a table on a CUDA device —
-    the kernels (``extract``, ``probe2``, ``tc_probe2``) take no larger chunk
+    the kernels (``extract`` and the probe2 kernels) take no larger chunk
     and a larger one raises.  A table on the CPU, where no kernel runs
     anyway, takes the plain position-aligned scan above that size, as the
     reference does."""
-    from repro_torch.kernels import ops
-    if n > ops.EXTRACT_MAX_CHUNK:
-        if t.key.is_cuda:
-            raise ValueError(
-                f"fused rebuild takes chunk <= {ops.EXTRACT_MAX_CHUNK} on a "
-                f"CUDA device, got {n}; use a smaller chunk or fused=False")
-        return buckets.extract_chunk(t, cursor, n)
-    _, hk, hv, hl, cur = ops.extract_chunk_fused(
-        t.key.view(-1), t.val.view(-1), t.state.view(-1), cursor, chunk=n)
-    return t, hk, hv, hl, cur
+    return _extract_fused(
+        t, (t.key.view(-1), t.val.view(-1), t.state.view(-1)), cursor, n,
+        buckets.extract_chunk)
 
 
 def linear_ordered_lookup_fused(t_old: LinearTable, t_new: LinearTable,
@@ -412,6 +425,148 @@ def cuckoo_insert_fused(t: CuckooTable, keys: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# chain: fused adapters over the arena-sorted node layout (the chain_probe
+# and chain_probe2 kernels; the chunk scan is extract on the flat arena)
+# ---------------------------------------------------------------------------
+
+def _chain_bq(t: ChainTable, keys: torch.Tensor) -> torch.Tensor:
+    return hashing.bucket_of(t.hfn, keys, t.nbuckets)
+
+
+def chain_lookup_fused_loc(t: ChainTable, keys: torch.Tensor):
+    """Kernel-backed chain lookup: ONE ``chain_probe`` launch.  Returns
+    (found, vals, loc) — ``loc`` is the node index (-1 if absent)."""
+    from repro_torch.kernels import ops
+    return ops.chain_lookup_fused(*_chain_parts(t), _chain_bq(t, keys), keys,
+                                  max_chain=t.max_chain,
+                                  dirty_cap=t.dirty_cap)
+
+
+def chain_lookup_fused(t: ChainTable, keys: torch.Tensor):
+    """The same launch.  Returns (found, vals)."""
+    return chain_lookup_fused_loc(t, keys)[:2]
+
+
+def chain_insert_fused(t: ChainTable, keys: torch.Tensor, vals: torch.Tensor,
+                       mask: torch.Tensor, *, with_present: bool = False):
+    """Kernel-backed chain insert: batch_winners dedup, the presence launch,
+    then allocation from the free-stack tail and the head relink, written
+    into ``t``'s tensors in place.  New nodes extend the dirty tail;
+    ``chain_maybe_compact`` restores the sorted layout.  Returns (t, ok), or
+    (t, ok, present)."""
+    from repro_torch.kernels import ops
+    winner = batch_winners(keys, mask)
+    *_, ok, present = ops.chain_insert_fused(
+        *_chain_parts(t), t.free_stack, t.free_top, _chain_bq(t, keys), keys,
+        vals, winner, max_chain=t.max_chain, dirty_cap=t.dirty_cap,
+        with_present=True)
+    return (t, ok, present) if with_present else (t, ok)
+
+
+def chain_delete_fused(t: ChainTable, keys: torch.Tensor,
+                       mask: torch.Tensor):
+    """Kernel-backed chain delete: the ``chain_probe`` launch's location +
+    ONE tombstone scatter.  Writes ``t.astate`` in place."""
+    from repro_torch.kernels import ops
+    winner = batch_winners(keys, mask)
+    _, ok = ops.chain_delete_fused(*_chain_parts(t), _chain_bq(t, keys),
+                                   keys, winner, max_chain=t.max_chain,
+                                   dirty_cap=t.dirty_cap)
+    return t, ok
+
+
+def _chain_ordered(op, t_old: ChainTable, t_new: ChainTable, hazard, keys,
+                   *extra, nres_cap: int):
+    """An ordered ``ops.chain_*`` op over two chain tables."""
+    return op(*_chain_parts(t_old), *_chain_parts(t_new), *hazard,
+              _chain_bq(t_old, keys), _chain_bq(t_new, keys), keys, *extra,
+              max_chain=max(t_old.max_chain, t_new.max_chain),
+              nres_cap=nres_cap,
+              dirty_cap=max(t_old.dirty_cap, t_new.dirty_cap))
+
+
+def chain_ordered_lookup_fused(t_old: ChainTable, t_new: ChainTable,
+                               hazard_key: torch.Tensor,
+                               hazard_val: torch.Tensor,
+                               hazard_live: torch.Tensor, keys: torch.Tensor,
+                               *, nres_cap: int = NRES_CAP):
+    """Kernel-backed chain rebuild-epoch lookup: the whole ordered check in
+    ONE ``chain_probe2`` launch.  Returns (found, vals)."""
+    from repro_torch.kernels import ops
+    return _chain_ordered(ops.chain_ordered_lookup, t_old, t_new,
+                          (hazard_key, hazard_val, hazard_live), keys,
+                          nres_cap=nres_cap)
+
+
+def chain_ordered_delete_fused(t_old: ChainTable, t_new: ChainTable,
+                               hazard_key: torch.Tensor,
+                               hazard_val: torch.Tensor,
+                               hazard_live: torch.Tensor, keys: torch.Tensor,
+                               mask: torch.Tensor, *,
+                               nres_cap: int = NRES_CAP):
+    """Kernel-backed chain rebuild-epoch delete (paper Alg. 5): the same
+    single launch and the three landing scatters.  Writes both state arrays
+    in place.  Returns (old_astate, new_astate, hazard_live', ok)."""
+    from repro_torch.kernels import ops
+    return _chain_ordered(ops.chain_ordered_delete, t_old, t_new,
+                          (hazard_key, hazard_val, hazard_live), keys,
+                          batch_winners(keys, mask), nres_cap=nres_cap)
+
+
+def chain_extract_chunk_fused(t: ChainTable, cursor: torch.Tensor, n: int):
+    """Kernel-backed rebuild chunk scan: the arena is a flat array, so the
+    ``extract`` kernel runs on it unchanged (positions are scan order), with
+    the chunk contract of ``extract_chunk_fused``.  Writes ``t.astate`` in
+    place."""
+    return _extract_fused(t, (t.akey, t.aval, t.astate), cursor, n,
+                          buckets.chain_extract_chunk)
+
+
+def _chain_fields(t: ChainTable) -> tuple:
+    """The tensors a compaction rewrites, in ``ops.chain_compact_fused``'s
+    output order."""
+    return (t.akey, t.aval, t.astate, t.anext, t.heads, t.free_stack,
+            t.free_top, t.bstart, t.blen, t.sorted_upto)
+
+
+def _chain_compacted(t: ChainTable) -> tuple:
+    from repro_torch.kernels import ops
+    return ops.chain_compact_fused(t.akey, t.aval, t.astate,
+                                   _chain_bq(t, t.akey), nbuckets=t.nbuckets)
+
+
+def chain_compact_fused(t: ChainTable) -> ChainTable:
+    """Restore the arena-sorted layout (``ops.chain_compact_fused``) IN
+    PLACE: tombstones and migrated nodes are reclaimed, the dirty count
+    drops to 0.  The ``freeze_old`` hook: run at a rebuild's start."""
+    for dst, src in zip(_chain_fields(t), _chain_compacted(t)):
+        dst.copy_(src)
+    return t
+
+
+def chain_maybe_compact(t: ChainTable) -> ChainTable:
+    """Compaction trigger: re-sort the arena iff the dirty tail has outgrown
+    the window (the table's ``dirty_cap``).  The reference gates with
+    ``lax.cond``; here the compaction is computed and selected on the device
+    (``torch.where``) into ``t``'s tensors IN PLACE, so the trigger costs no
+    host read."""
+    fire = chain_dirty(t) > t.dirty_cap
+    for dst, src in zip(_chain_fields(t), _chain_compacted(t)):
+        dst.copy_(torch.where(fire, src, dst))
+    return t
+
+
+def _chain_insert_fused_compacting(t: ChainTable, keys, vals, mask, *,
+                                   with_present: bool = False):
+    """The descriptor-bound chain insert: the fused insert plus the
+    compaction trigger that keeps the next probes on the sorted segments —
+    what the DHash layer (user inserts AND hazard landings) runs."""
+    out = chain_insert_fused(t, keys, vals, mask, with_present=with_present)
+    chain_maybe_compact(t)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # construction / maintenance adapters
 # ---------------------------------------------------------------------------
 
@@ -449,6 +604,23 @@ def _make_cuckoo(capacity: int, seed, *, load_factor: float = 0.75,
                                device=device)
 
 
+def _make_chain(capacity: int, seed, *, load_factor: float = 0.75,
+                max_chain: int = 64, nbuckets: int | None = None,
+                dirty_cap: int | None = None,
+                device: torch.device | str = "cuda") -> ChainTable:
+    """An arena of ``capacity`` nodes and ``capacity // 16`` buckets
+    (rounded up to a power of two).  ``load_factor`` is accepted for the
+    common signature and unused: the arena holds ``capacity`` live nodes.
+    ``dirty_cap=None`` takes the registered chain descriptor's."""
+    rng = np.random.default_rng(seed)
+    nb = nbuckets if nbuckets is not None else _next_pow2(
+        max(capacity // 16, 1))
+    return buckets.chain_make(nb, capacity, hashing.fresh("mix32", rng,
+                                                          device),
+                              max_chain=max_chain, dirty_cap=dirty_cap,
+                              device=device)
+
+
 def _fresh_linear(t: LinearTable, seed) -> LinearTable:
     dev = t.key.device
     return buckets.linear_make(t.capacity, hashing.fresh("mix32", seed, dev),
@@ -471,6 +643,14 @@ def _fresh_cuckoo(t: CuckooTable, seed) -> CuckooTable:
                                device=dev)
 
 
+def _fresh_chain(t: ChainTable, seed) -> ChainTable:
+    dev = t.akey.device
+    return buckets.chain_make(t.nbuckets, t.arena,
+                              hashing.fresh("mix32", seed, dev),
+                              max_chain=t.max_chain, dirty_cap=t.dirty_cap,
+                              device=dev)
+
+
 def _reseed_one(t, salt):
     return replace(t, hfn=hashing.reseed(t.hfn, salt))
 
@@ -490,6 +670,10 @@ def _count_tomb(t) -> torch.Tensor:
     return (t.state == buckets.TOMB).sum().to(torch.int32)
 
 
+def _chain_count_tomb(t: ChainTable) -> torch.Tensor:
+    return (t.astate == buckets.TOMB).sum().to(torch.int32)
+
+
 def _linear_probe_cost(t: LinearTable, keys, found, loc) -> torch.Tensor:
     """Probe distance of each hit: the mod folds the hit's slot back to the
     probe index whether or not the probe wrapped."""
@@ -505,6 +689,16 @@ def _rows_probe_cost(t, keys, found, loc) -> torch.Tensor:
     return torch.where(found & (loc >= 0), loc % t.width, 0).to(torch.int32)
 
 
+def _chain_probe_cost(t: ChainTable, keys, found, loc) -> torch.Tensor:
+    """Chain depth of a hit: its offset in the sorted segment; a dirty-tail
+    hit (inserted since the last compaction) is charged the segment length
+    + 1 — it is at the end of its chain."""
+    b = _chain_bq(t, keys).long()
+    depth = torch.where(loc < t.sorted_upto, loc - t.bstart[b],
+                        t.blen[b] + 1)
+    return torch.where(found & (loc >= 0), depth, 0).to(torch.int32)
+
+
 def _linear_slots_for(capacity: int) -> int:
     return _next_pow2(int(capacity / 0.75) + 1)          # mirrors _make_linear
 
@@ -515,6 +709,10 @@ def _twochoice_slots_for(capacity: int) -> int:
 
 def _cuckoo_slots_for(capacity: int) -> int:
     return 2 * _next_pow2(int(capacity / (0.75 * 2 * 8)) + 1) * 8  # cuckoo
+
+
+def _chain_slots_for(capacity: int) -> int:
+    return int(capacity)                                 # arena = capacity
 
 
 def _hash_fns_one(t) -> tuple:
@@ -607,4 +805,34 @@ CUCKOO = register(BucketBackend(
     insert_fused=cuckoo_insert_fused,
     **_two_row_fused(_ck_rows),
     hash_fns=_hash_fns_two,
+))
+
+CHAIN = register(BucketBackend(
+    name="chain",
+    table_cls=ChainTable,
+    nres_cap=NRES_CAP,
+    dirty_cap=DIRTY_CAP,
+    make=_make_chain,
+    fresh_like=_fresh_chain,
+    reseed=_reseed_one,
+    capacity_of=lambda t: t.arena,
+    with_state=lambda t, s: replace(t, astate=s),
+    lookup=buckets.chain_lookup,
+    insert=buckets.chain_insert,
+    delete=buckets.chain_delete,
+    extract_chunk=buckets.chain_extract_chunk,
+    count_live=buckets.chain_count_live,
+    clear=buckets.chain_clear,
+    count_tomb=_chain_count_tomb,
+    probe_cost=_chain_probe_cost,
+    slots_for=_chain_slots_for,
+    lookup_fused=chain_lookup_fused,
+    lookup_fused_loc=chain_lookup_fused_loc,
+    insert_fused=_chain_insert_fused_compacting,
+    delete_fused=chain_delete_fused,
+    extract_chunk_fused=chain_extract_chunk_fused,
+    ordered_lookup_fused=chain_ordered_lookup_fused,
+    ordered_delete_fused=chain_ordered_delete_fused,
+    freeze_old=chain_compact_fused,
+    hash_fns=_hash_fns_one,
 ))

@@ -12,8 +12,15 @@ reformulation with the same observable set semantics:
                   ([2B, W]: side A rows [0, B), side B rows [B, 2B)) plus an
                   insert-side kick-out bounded by ``max_kick``: probe depth
                   <= W - 1 whatever the key set.
-
-(``chain`` of the reference is not ported yet.)
+* ``chain``     — arena-based chained buckets, the paper's Michael-list
+                  buckets (insert at the head, logical deletion by state,
+                  deferred reclamation): a node arena with ``anext`` links
+                  walked in lock step up to ``max_chain`` hops.  The
+                  kernel-backed path keeps the arena bucket-sorted and
+                  tombstone-free (``ops.chain_compact_fused``), so a probe
+                  is a scan of the bucket's segment ``[bstart[b],
+                  bstart[b] + blen[b])`` plus the dirty tail of nodes
+                  inserted since the last compaction.
 
 Slot states mirror the paper's two flag bits:
   LIVE                ~ reachable node
@@ -48,7 +55,7 @@ from repro_torch.core.struct_utils import replace, state_dataclass
 I32 = torch.int32
 EMPTY, LIVE, TOMB, MIGRATED = 0, 1, 2, 3
 
-BACKENDS = ("linear", "twochoice", "cuckoo")
+BACKENDS = ("linear", "twochoice", "chain", "cuckoo")
 
 
 # ---------------------------------------------------------------------------
@@ -110,23 +117,29 @@ def _delete_via(t, keys: torch.Tensor, mask: torch.Tensor, lookup):
     return replace(t, state=state), ok
 
 
-def extract_chunk(t, cursor: torch.Tensor, n: int):
-    """The rebuild chunk scan of every backend, on the row-major flattened
-    slot arrays."""
-    nslots = t.key.numel()
-    dev = t.key.device
-    pos = cursor.long() + torch.arange(n, dtype=torch.int64, device=dev)
-    valid = pos < nslots
+def _scan_chunk(ks, vs, ss, cursor: torch.Tensor, n: int):
+    """The rebuild chunk scan on flat (key, val, state) arrays: the ``n``
+    positions at ``cursor``, LIVE ones marked MIGRATED in a new state array.
+    Returns (state', hkeys, hvals, hlive, new_cursor)."""
+    size = ks.shape[0]
+    pos = cursor.long() + torch.arange(n, dtype=torch.int64, device=ks.device)
+    valid = pos < size
     cpos = torch.where(valid, pos, 0)
-    ks, vs, ss = t.key.reshape(-1), t.val.reshape(-1), t.state.reshape(-1)
     live = valid & (ss[cpos] == LIVE)
     hkeys = torch.where(live, ks[cpos], 0).to(I32)
     hvals = torch.where(live, vs[cpos], 0).to(I32)
     ss = ss.scatter_reduce(0, cpos, torch.where(live, MIGRATED, 0).to(I32),
                            "amax")
-    new_cursor = torch.clamp(cursor.long() + n, max=nslots).to(I32)
-    return replace(t, state=ss.reshape(t.state.shape)), hkeys, hvals, live, \
-        new_cursor
+    new_cursor = torch.clamp(cursor.long() + n, max=size).to(I32)
+    return ss, hkeys, hvals, live, new_cursor
+
+
+def extract_chunk(t, cursor: torch.Tensor, n: int):
+    """The rebuild chunk scan of every slot backend, on the row-major
+    flattened slot arrays."""
+    ss, *out = _scan_chunk(t.key.reshape(-1), t.val.reshape(-1),
+                           t.state.reshape(-1), cursor, n)
+    return (replace(t, state=ss.reshape(t.state.shape)), *out)
 
 
 def count_live(t):
@@ -372,3 +385,135 @@ def cuckoo_insert(t: CuckooTable, keys: torch.Tensor, vals: torch.Tensor,
 
 def cuckoo_delete(t: CuckooTable, keys: torch.Tensor, mask: torch.Tensor):
     return _delete_via(t, keys, mask, cuckoo_lookup)
+
+
+# ---------------------------------------------------------------------------
+# chain: arena-based chained buckets (paper-faithful Michael-list analogue)
+# ---------------------------------------------------------------------------
+
+@state_dataclass
+class ChainTable:
+    nbuckets: int
+    arena: int        # node capacity N
+    max_chain: int    # traversal bound (>= max expected chain incl. tombstones)
+    dirty_cap: int    # dense-window budget for the post-compaction dirty tail
+    hfn: hashing.HashFn
+    akey: torch.Tensor    # [N] i32
+    aval: torch.Tensor    # [N] i32
+    anext: torch.Tensor   # [N] i32 (-1 terminates)
+    astate: torch.Tensor  # [N] i32
+    heads: torch.Tensor   # [B] i32 (-1 empty)
+    free_stack: torch.Tensor  # [N] i32 - free node indices live at [0, free_top)
+    free_top: torch.Tensor    # 0-dim i32
+    # the bucket-sorted layout of the kernel-backed path: [0, sorted_upto)
+    # holds the compacted segments (bucket b's nodes at [bstart[b],
+    # bstart[b] + blen[b])); nodes allocated since the last compaction are
+    # the "dirty" tail [sorted_upto, arena - free_top)
+    bstart: torch.Tensor      # [B] i32
+    blen: torch.Tensor        # [B] i32
+    sorted_upto: torch.Tensor # 0-dim i32
+
+
+def _chain_arrays(nbuckets: int, n: int, dev) -> dict:
+    """The array fields of an empty arena: the free stack DESCENDS, so pops
+    allocate ascending positions and the allocated region is always the
+    prefix [0, n - free_top) (which keeps the dirty tail one window)."""
+    def full(shape, v):
+        return torch.full(shape, v, dtype=I32, device=dev)
+    return dict(akey=full((n,), 0), aval=full((n,), 0), anext=full((n,), -1),
+                astate=full((n,), EMPTY), heads=full((nbuckets,), -1),
+                free_stack=n - 1 - torch.arange(n, dtype=I32, device=dev),
+                free_top=full((), n), bstart=full((nbuckets,), 0),
+                blen=full((nbuckets,), 0), sorted_upto=full((), 0))
+
+
+def chain_make(nbuckets: int, arena: int, hfn: hashing.HashFn,
+               max_chain: int = 64, dirty_cap: int | None = None,
+               device: torch.device | str | None = None) -> ChainTable:
+    """Empty arena table on ``device`` (default: where the hash seeds live).
+    ``dirty_cap=None`` takes the registered chain backend's value."""
+    if dirty_cap is None:
+        from repro_torch.core import backend
+        dirty_cap = backend.get("chain").dirty_cap
+    dev = torch.device(device) if device is not None else hfn.seeds.device
+    if hfn.seeds.device != dev:
+        hfn = replace(hfn, seeds=hfn.seeds.to(dev))
+    return ChainTable(nbuckets=nbuckets, arena=arena, max_chain=max_chain,
+                      dirty_cap=dirty_cap, hfn=hfn,
+                      **_chain_arrays(nbuckets, arena, dev))
+
+
+def chain_dirty(t: ChainTable) -> torch.Tensor:
+    """0-dim i32: nodes allocated since the last compaction (they live at
+    [sorted_upto, arena - free_top): allocation is always a prefix)."""
+    return (t.arena - t.free_top - t.sorted_upto).to(I32)
+
+
+def chain_lookup(t: ChainTable, keys: torch.Tensor,
+                 bucket: torch.Tensor | None = None):
+    """Lock-step batched walk from ``heads[b]`` along ``anext``, at most
+    ``max_chain`` hops (``ref.chain_lookup_ref``).
+    Returns (found, val, loc node index or -1)."""
+    from repro_torch.kernels import ref
+    b = hashing.bucket_of(t.hfn, keys, t.nbuckets) if bucket is None \
+        else bucket
+    return ref.chain_lookup_ref(t.akey, t.aval, t.astate, t.anext, t.heads,
+                                b, keys, t.max_chain)
+
+
+def chain_insert(t: ChainTable, keys: torch.Tensor, vals: torch.Tensor,
+                 mask: torch.Tensor, bucket: torch.Tensor | None = None):
+    """Set-semantic insert: winners absent from their chains take nodes
+    from the free-stack tail in want-rank order and are linked at their
+    buckets' heads in batch order (``ref.chain_insert_ref``, which also
+    holds the reference's ``_chain_link``).  ok=False iff present or the
+    arena has no free node.  New nodes extend the dirty tail."""
+    from repro_torch.kernels import ref
+    winner = batch_winners(keys, mask)
+    b = hashing.bucket_of(t.hfn, keys, t.nbuckets) if bucket is None \
+        else bucket
+    akey, aval, astate, anext, heads, free_top, can = ref.chain_insert_ref(
+        t.akey, t.aval, t.astate, t.anext, t.heads, t.free_stack, t.free_top,
+        b, keys, vals, winner, t.max_chain)
+    return replace(t, akey=akey, aval=aval, astate=astate, anext=anext,
+                   heads=heads, free_top=free_top), can
+
+
+def chain_delete(t: ChainTable, keys: torch.Tensor, mask: torch.Tensor,
+                 bucket: torch.Tensor | None = None):
+    winner = batch_winners(keys, mask)
+    found, _, loc = chain_lookup(t, keys, bucket)
+    ok = winner & found
+    astate = t.astate.clone()
+    astate[loc[ok].long()] = TOMB
+    return replace(t, astate=astate), ok
+
+
+def chain_extract_chunk(t: ChainTable, cursor: torch.Tensor, n: int):
+    """The rebuild chunk scan on the node arena (positions are scan order)."""
+    ss, *out = _scan_chunk(t.akey, t.aval, t.astate, cursor, n)
+    return (replace(t, astate=ss), *out)
+
+
+def chain_compact(t: ChainTable) -> ChainTable:
+    """Physically reclaim tombstones: rebuild every chain from the live
+    nodes (a fresh arena, the live nodes re-inserted in arena order)."""
+    live = t.astate == LIVE
+    fresh = chain_make(t.nbuckets, t.arena, t.hfn, t.max_chain, t.dirty_cap)
+    t2, _ = chain_insert(fresh, torch.where(live, t.akey, 0), t.aval, live)
+    return t2
+
+
+def chain_count_live(t: ChainTable):
+    return (t.astate == LIVE).sum()
+
+
+def chain_clear(t: ChainTable) -> ChainTable:
+    return replace(t, **_chain_arrays(t.nbuckets, t.arena, t.akey.device))
+
+
+def _chain_parts(t: ChainTable):
+    """The raw-array views the chain ops take: arena triple, link pair
+    (for the bounded walk), segment quad (with the dirty count)."""
+    return ((t.akey, t.aval, t.astate), (t.anext, t.heads),
+            (t.bstart, t.blen, t.sorted_upto, chain_dirty(t)))

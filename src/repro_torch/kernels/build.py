@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("probe_lookup", "probe2", "probe_insert", "extract", "tc_lookup",
-           "tc_insert", "tc_probe2")
+           "tc_insert", "tc_probe2", "chain_probe", "chain_probe2")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,6 +38,9 @@ _ARGTYPES = {
                         _P, _P, _P, _P, _P],
     "dhash_tc_probe2": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I,
                         _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
+    "dhash_chain_probe": [_P] * 5 + [_I] + [_P] * 6 + [_I] * 3 + [_P] * 4,
+    "dhash_chain_probe2": ([_P] * 5 + [_I] + [_P] * 4) * 2 + [_P] * 3 + [_I]
+    + [_P] * 3 + [_I] * 4 + [_P] * 7,
 }
 _ENTRY = {s: f"dhash_{s}" for s in SOURCES}
 

@@ -16,14 +16,22 @@ Twochoice and cuckoo (two candidate rows a key, [B, W] tables):
 ``twochoice_ordered_delete`` over ``tc_probe2``, whose outputs have the
 meaning of ``probe2``'s, so both ordered deletes land through one helper.
 
-Each op is one kernel launch plus, for the deletes, the scatters that the
-reference also runs outside its kernels.  There is no padding, no sort, no
-tile map and no fallback branch: nothing here reads a value back to the host,
-so an op never synchronises.  On CPU tensors the same code runs through the
-kernels' plain versions (``kernels/probe.py``).
+Chain (a bucket-sorted node arena): ``chain_lookup_fused`` /
+``chain_delete_fused`` / ``chain_insert_fused`` over the ``chain_probe``
+kernel, ``chain_ordered_lookup`` / ``chain_ordered_delete`` over
+``chain_probe2`` (outputs with ``probe2``'s meaning, landed by the same
+helper), and ``chain_compact_fused``, the compaction that keeps the arena
+sorted: plain PyTorch, as the reference's is XLA ops and no kernel.
 
-In-place contract: ``probe_insert`` writes the table arrays it is given;
-``probe_delete`` and ``ordered_delete_fused`` write the state arrays;
+Each op is one kernel launch plus the tensor ops that the reference also
+runs outside its kernels (the deletes' scatters; the chain insert's
+allocation and relink, with the one sort that orders it).  There is no
+padding, no query sort, no tile map and no fallback branch: nothing here
+reads a value back to the host, so an op never synchronises.  On CPU tensors
+the same code runs through the kernels' plain versions (``kernels/probe.py``).
+
+In-place contract: ``probe_insert`` and ``chain_insert_fused`` write the
+table arrays they are given; the deletes write the state arrays;
 ``extract_chunk_fused`` writes the state array.  Each returns the arrays it
 wrote, so callers may use them functionally.  All work runs under
 ``torch.no_grad()``: there is no gradient anywhere on this path.
@@ -41,6 +49,14 @@ EMPTY, LIVE, TOMB, MIGRATED = 0, 1, 2, 3
 # the reference's API (resident new-table blocks of its tile map).  The Hopper
 # linear kernels gather both tables in place and do not use it.
 NRES_CAP = 16
+
+# Dirty-tail window of the chain backend: the nodes inserted since the last
+# compaction are found by a dense compare against a window of this many
+# nodes; a tail grown past it can no longer prove absence, so a miss there
+# takes the bounded walk, and ``backend.chain_maybe_compact`` re-sorts the
+# arena at exactly this threshold.  The default of the ``dirty_cap``
+# parameter; the live value is a ``BucketBackend`` descriptor field.
+DIRTY_CAP = 512
 
 # Largest chunk (hazard buffer) the extract and probe2 kernels take.  Above
 # it the backend adapter raises for a table on a CUDA device and uses the
@@ -296,4 +312,190 @@ def twochoice_ordered_delete(old_tables, new_tables, hazard_key, hazard_val,
                                     hazard_val, hazard_live, rows_a_old,
                                     rows_b_old, rows_a_new, rows_b_new, keys)
     return _land_ordered_delete(old_tables[2], new_tables[2], hazard_live,
+                                mask, *locs)
+
+
+# ---------------------------------------------------------------------------
+# chain: the arena-sorted node layout
+# ---------------------------------------------------------------------------
+#
+# After ``chain_compact_fused`` bucket b's nodes occupy [bstart[b],
+# bstart[b] + blen[b]); nodes inserted since then form the contiguous dirty
+# tail.  Argument convention, as the reference's: ``arena = (akey, aval,
+# astate)``, ``links = (anext, heads)``, ``seg = (bstart, blen, sorted_upto,
+# dirty)``.
+
+def _masked_set_(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor,
+                 mask: torch.Tensor) -> None:
+    """``dst[idx[mask]] = src[mask]`` in place without a host read (a
+    boolean index would read the count).  Caller contract: the masked
+    ``idx`` are distinct.  Every unmasked entry writes, to the first masked
+    entry's index, the value that entry writes there (or ``dst[0]`` to 0
+    when nothing is masked), so the duplicate writes agree whatever their
+    order."""
+    if not mask.numel():
+        return
+    # one-element index tensors: indexing with a 0-dim tensor reads it on
+    # the host
+    first = mask.to(torch.uint8).argmax().view(1)
+    some = mask.any()
+    sink = torch.where(some, idx.index_select(0, first).long(), 0)
+    fill = torch.where(some, src.index_select(0, first),
+                       dst.index_select(0, sink))
+    dst.scatter_(0, torch.where(mask, idx.long(), sink),
+                 torch.where(mask, src, fill).to(dst.dtype))
+
+
+@torch.no_grad()
+def chain_lookup_fused(arena, links, seg, bq, qkey, *, max_chain: int = 64,
+                       dirty_cap: int = DIRTY_CAP):
+    """Chain lookup: ONE ``chain_probe`` launch (segment scan, dirty
+    window, and the bounded walk for what they leave open, all in the
+    kernel).  Returns (found[Q], val[Q], loc[Q] node index or -1) — ``loc``
+    is reused by the delete so deleting never probes twice."""
+    return probe.chain_probe(arena, links, seg, bq, qkey, max_chain,
+                             dirty_cap)
+
+
+@torch.no_grad()
+def chain_delete_fused(arena, links, seg, bq, keys, mask, *,
+                       max_chain: int = 64, dirty_cap: int = DIRTY_CAP):
+    """Chain delete: the ``chain_probe`` launch's location + ONE tombstone
+    scatter (logical deletion; the compaction reclaims); writes ``astate``
+    IN PLACE.  Caller contract: ``mask`` is winner-filtered.
+    Returns (astate, ok[Q])."""
+    found, _val, loc = probe.chain_probe(arena, links, seg, bq, keys,
+                                         max_chain, dirty_cap)
+    ok = mask & found
+    return _tombstone_(arena[2], ok, loc), ok
+
+
+@torch.no_grad()
+def chain_insert_fused(arena, links, seg, free_stack, free_top, bq, keys,
+                       vals, mask, *, max_chain: int = 64,
+                       dirty_cap: int = DIRTY_CAP,
+                       with_present: bool = False):
+    """Chain insert: the presence probe (ONE ``chain_probe`` launch), then
+    allocation and relinking as the reference's fused insert does them —
+    new nodes come off the free-stack tail in want-rank order (positions
+    ascend, so they extend the dirty tail) and are linked at their buckets'
+    heads in (bucket, batch index) order: each chains to the next inserted
+    node of its bucket (a suffix-min scan), the last to the old head, and
+    the first becomes the head (a prefix-max scan).  The node placement and
+    pointer structure are ``buckets.chain_insert``'s.  Writes the arena,
+    ``anext``, ``heads`` and the 0-dim ``free_top`` IN PLACE, without a host
+    read.
+
+    Caller contract: ``mask`` is winner-filtered.  Returns (akey, aval,
+    astate, anext, heads, free_top, ok[Q]) — the tensors it was given — and,
+    when ``with_present``, also ``present[Q]`` (masked keys found before the
+    batch)."""
+    akey, aval, astate = arena
+    anext, heads = links
+    q, dev = keys.shape[0], keys.device
+    found, _, _ = probe.chain_probe(arena, links, seg, bq, keys, max_chain,
+                                    dirty_cap)
+    want = mask & ~found
+    rank = torch.cumsum(want.to(I32), 0, dtype=I32) - 1
+    can = want & (rank < free_top)
+    node = free_stack[torch.where(can, free_top - 1 - rank, 0).long()]
+    _masked_set_(akey, node, keys, can)
+    _masked_set_(aval, node, vals, can)
+    _masked_set_(astate, node, torch.full_like(keys, LIVE), can)
+
+    order = torch.sort(bq, stable=True).indices   # (bucket, batch index)
+    can_s, node_s, b_s = can[order], node[order], bq[order].long()
+    pos = torch.arange(q, dtype=torch.int64, device=dev)
+    w = torch.where(can_s, pos, q)
+    nxt = torch.full_like(w, q)
+    nxt[:-1] = w[1:]
+    m = torch.flip(torch.cummin(torch.flip(nxt, [0]), 0).values, [0])
+    nxt_idx = torch.clamp(m, max=q - 1)
+    same_b = (m < q) & (b_s[nxt_idx] == b_s)
+    nxt_node = torch.where(same_b, node_s[nxt_idx], heads[b_s])
+    wp = torch.where(can_s, pos, -1)
+    prev = torch.full_like(wp, -1)
+    prev[1:] = wp[:-1]
+    pm = torch.cummax(prev, 0).values
+    is_first = can_s & ((pm < 0) | (b_s[torch.clamp(pm, min=0)] != b_s))
+    _masked_set_(anext, node_s, nxt_node, can_s)
+    _masked_set_(heads, b_s, node_s, is_first)
+    free_top.sub_(can.sum().to(I32))
+    out = (akey, aval, astate, anext, heads, free_top, can)
+    return (*out, mask & found) if with_present else out
+
+
+@torch.no_grad()
+def chain_compact_fused(akey, aval, astate, bq_nodes, *, nbuckets: int):
+    """The compaction of the arena-sorted layout: ONE stable sort keyed on
+    (bucket, arena index) with dead nodes after every bucket, the gather
+    that packs the live nodes, per-bucket (start, len), and the pointer
+    rebuild (node i chains to i + 1 within its bucket), so the walk stays
+    valid.  Tombstoned and migrated nodes are reclaimed — the batched
+    analogue of the paper's deferred ``call_rcu`` free.  Functional.
+
+    The reference takes (start, len) from a histogram and an exclusive
+    scan; here they are read off the sorted keys with one binary search a
+    bucket (the same numbers: the start of bucket b is the count of live
+    nodes in buckets below b), which spares the histogram's atomic adds —
+    every dead node of the arena adds to the one bin past the last bucket.
+
+    Returns (akey', aval', astate', anext', heads', free_stack', free_top',
+    bstart, blen, sorted_upto)."""
+    n, dev = akey.shape[0], akey.device
+    idx = torch.arange(n, dtype=I32, device=dev)
+    live = astate == LIVE
+    sortkey = torch.where(live, bq_nodes, nbuckets).to(I32)
+    sb, order = torch.sort(sortkey, stable=True)
+    ls = live[order]
+    akey2 = torch.where(ls, akey[order], 0)
+    aval2 = torch.where(ls, aval[order], 0)
+    astate2 = torch.where(ls, LIVE, EMPTY).to(I32)
+    edges = torch.searchsorted(sb, torch.arange(nbuckets + 1, dtype=I32,
+                                                device=dev)).to(I32)
+    bstart, counts, lcount = edges[:-1], edges[1:] - edges[:-1], edges[-1]
+    chain_on = ls.clone()
+    chain_on[:-1] &= sb[1:] == sb[:-1]
+    chain_on[-1:] = False
+    anext2 = torch.where(chain_on, idx + 1, -1).to(I32)
+    heads2 = torch.where(counts > 0, bstart, -1).to(I32)
+    return (akey2, aval2, astate2, anext2, heads2, n - 1 - idx, n - lcount,
+            bstart, counts, lcount)
+
+
+@torch.no_grad()
+def chain_ordered_lookup(old_arena, old_links, old_seg, new_arena, new_links,
+                         new_seg, hazard_key, hazard_val, hazard_live,
+                         bq_old, bq_new, qkey, *, max_chain: int = 64,
+                         nres_cap: int = NRES_CAP,
+                         dirty_cap: int = DIRTY_CAP):
+    """Chain rebuild-epoch lookup: ONE ``chain_probe2`` launch emits the
+    Lemma-4.1-ordered result (old arena -> hazard buffer -> new arena),
+    whatever the size of the new arena, fallback included.  ``nres_cap`` is
+    accepted and unused.  Returns (found[Q], val[Q])."""
+    found, val, *_ = probe.chain_probe2(
+        (old_arena, old_links, old_seg), (new_arena, new_links, new_seg),
+        hazard_key, hazard_val, hazard_live, bq_old, bq_new, qkey, max_chain,
+        dirty_cap)
+    return found, val
+
+
+@torch.no_grad()
+def chain_ordered_delete(old_arena, old_links, old_seg, new_arena, new_links,
+                         new_seg, hazard_key, hazard_val, hazard_live,
+                         bq_old, bq_new, keys, mask, *, max_chain: int = 64,
+                         nres_cap: int = NRES_CAP,
+                         dirty_cap: int = DIRTY_CAP):
+    """Chain rebuild-epoch delete (paper Alg. 5): the SAME single
+    ``chain_probe2`` launch resolves old node / hazard index / new node, and
+    the three scatters of the linear ordered delete land the result.  Writes
+    both state arrays IN PLACE.
+
+    Caller contract: ``mask`` is winner-filtered.  Returns
+    (old_astate, new_astate, hazard_live', ok[Q])."""
+    _f, _v, *locs = probe.chain_probe2(
+        (old_arena, old_links, old_seg), (new_arena, new_links, new_seg),
+        hazard_key, hazard_val, hazard_live, bq_old, bq_new, keys, max_chain,
+        dirty_cap)
+    return _land_ordered_delete(old_arena[2], new_arena[2], hazard_live,
                                 mask, *locs)

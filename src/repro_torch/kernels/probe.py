@@ -19,10 +19,17 @@ wrapper               replaces (src/repro/kernels/probe.py)      source
                       fallback
 ``tc_probe2``         ``_tc_probe2_kernel`` +                    tc_probe2.cu
                       ``_tc_ordered_combine``
+``chain_probe``       ``_chain_probe_kernel`` + the wrapper's    chain_probe.cu
+                      dirty-tail window and bounded-walk
+                      fallback
+``chain_probe2``      ``_chain_probe2_kernel`` + the wrappers'   chain_probe2.cu
+                      windows, ordering and fallbacks
 ====================  =========================================  ============
 
 The first four serve the linear backend; the three ``tc_*`` kernels serve
-twochoice and cuckoo (cuckoo passes side-offset rows of its [2B, W] table).
+twochoice and cuckoo (cuckoo passes side-offset rows of its [2B, W] table);
+the two ``chain_*`` kernels serve chain, whose chunk scan is ``extract`` on
+the flat node arena.
 
 What bounds each kernel on an H100 and what its design does about it is
 written at the top of its ``.cu`` file; in short: ``probe_lookup`` — bytes
@@ -34,20 +41,24 @@ claim round; small co-resident grid, early end of rounds); ``extract`` —
 launch latency (one block, one shuffle scan); ``tc_lookup`` — bytes (two
 rows a query, each as 16-byte loads); ``tc_probe2`` — operations (the hazard
 stage of ``probe2``); ``tc_insert`` — grid-wide barriers (the design of
-``probe_insert``).
+``probe_insert``); ``chain_probe`` — bytes (a segment scan a query, the
+dirty tail staged in shared memory); ``chain_probe2`` — operations (the
+hazard stage of ``probe2``).
 
 What the TPU design needed and these kernels do not have: a padded copy of
 the table (a thread wraps its own probe), a query sort, query tiles, a
-resident-block map, a ``complete`` output and a fallback pass.  Results come
-back in query order, one a query, and ``loc`` is the physical slot in
-``[0, C)`` (for a [B, W] table the flat slot ``row * W + lane``).
+resident-block map, a ``complete`` output and a fallback pass (the chain
+kernels run the reference's bounded walk themselves for the queries their
+segment scan cannot settle).  Results come back in query order, one a query,
+and ``loc`` is the physical slot in ``[0, C)`` (for a [B, W] table the flat
+slot ``row * W + lane``, for a chain arena the node index).
 
 Beside each wrapper stands ``<name>_plain``: the same function with the same
 signature and the same in-place behaviour in plain PyTorch.  A wrapper takes
 the plain version only when the tensors it was given lie on the CPU; for CUDA
 tensors it launches the kernel or raises.  ``<wrapper>.launches`` counts the
 kernel launches (and nothing else); ``reset_launches`` / ``launch_counts``
-set and read all seven.  ``kick_gate`` / ``kick_pending`` count the
+set and read all nine.  ``kick_gate`` / ``kick_pending`` count the
 device-to-host reads of the cuckoo kick-out gate (``kick_counts``; reset
 with the launch counts).
 
@@ -69,8 +80,9 @@ CLAIM_FREE = 2**31 - 1      # value of every claim word between launches
 EXTRACT_MAX_CHUNK = 4096
 
 KERNELS = ("probe_lookup", "probe2", "probe_insert", "extract", "tc_lookup",
-           "tc_insert", "tc_probe2")
+           "tc_insert", "tc_probe2", "chain_probe", "chain_probe2")
 MAX_WIDTH = 32              # widest row the tc_* kernels take
+MAX_DIRTY = 512             # widest dirty-tail window the chain_* kernels stage
 
 
 # ---------------------------------------------------------------------------
@@ -525,6 +537,195 @@ def tc_probe2(old_t, new_t, hazard_key, hazard_val, hazard_live,
                 hazard_val, hazard_live, hazard_key.shape[0], rows_a_old,
                 rows_b_old, rows_a_new, rows_b_new, qkey, q, found, val,
                 f_old, loc_old, hz_idx, loc_new)
+    return found, val, f_old, loc_old, hz_idx, loc_new
+
+
+# ---------------------------------------------------------------------------
+# chain_probe
+# ---------------------------------------------------------------------------
+#
+# Argument convention of the chain kernels, as in the reference's chain ops:
+# ``arena = (akey, aval, astate)``, ``links = (anext, heads)``, ``seg =
+# (bstart, blen, sorted_upto, dirty)`` with the last two 0-dim int32 tensors
+# (read on the device), and ``bq`` each query's bucket.
+
+
+def chain_dirty_window(arena, sorted_upto, dirty, qkey, dirty_cap: int):
+    """Dense compare of the query batch against the arena's dirty tail (the
+    plain form of what the chain kernels stage in shared memory).
+
+    The window is the ``size = min(dirty_cap, N)`` nodes at ``base =
+    min(sorted_upto, N - size)``; positions below ``sorted_upto`` are the
+    segment scan's and do not count.  Returns (found, val, loc, covered):
+    the first LIVE match's value and node, and whether the window holds the
+    whole tail (0-dim), i.e. whether a miss proves absence."""
+    akey, aval, astate = arena
+    n = akey.shape[0]
+    size = min(dirty_cap, n)
+    base = torch.clamp(sorted_upto.long(), max=n - size)
+    pos = base + torch.arange(size, dtype=torch.int64, device=akey.device)
+    valid = (astate[pos] == LIVE) & (pos >= sorted_upto)
+    eq = (qkey[:, None] == akey[pos][None, :]) & valid[None, :]
+    hit = eq.any(-1)
+    i = eq.to(torch.uint8).argmax(dim=-1)
+    val = torch.where(hit, aval[pos][i], 0).to(I32)
+    loc = torch.where(hit, pos[i], -1).to(I32)
+    covered = sorted_upto + dirty <= base + size
+    return hit, val, loc, covered
+
+
+def _chain_fast_plain(arena, seg, bq, qkey, max_chain: int, dirty_cap: int):
+    """The kernels' fast path in plain PyTorch: the bucket's sorted segment
+    (scanned only when at most ``max_chain`` long), then the dirty-tail
+    window.  Returns (found, val, loc, complete); ``complete`` marks the
+    queries whose miss proves absence."""
+    akey, aval, astate = arena
+    bstart, blen, sorted_upto, dirty = seg
+    n, q, dev = akey.shape[0], qkey.shape[0], qkey.device
+    b = bq.long()
+    h0, qlen = bstart[b].long(), blen[b]
+    scan = qlen <= max_chain
+    found = torch.zeros(q, dtype=torch.bool, device=dev)
+    val = torch.zeros(q, dtype=I32, device=dev)
+    loc = torch.full((q,), -1, dtype=I32, device=dev)
+    span = int(torch.where(scan, qlen, 0).max()) if q else 0
+    for p in range(span):
+        pos = torch.clamp(h0 + p, max=n - 1)
+        hit = scan & ~found & (p < qlen) & (astate[pos] == LIVE) & \
+            (akey[pos] == qkey)
+        val = torch.where(hit, aval[pos], val)
+        loc = torch.where(hit, pos.to(I32), loc)
+        found |= hit
+    fw, vw, lw, covered = chain_dirty_window(arena, sorted_upto, dirty, qkey,
+                                             dirty_cap)
+    return (found | fw, torch.where(found, val, vw),
+            torch.where(found, loc, lw), scan & covered)
+
+
+def _chain_walk_where(need, arena, links, bq, qkey, max_chain: int, out):
+    """``out`` = (found, val, loc) with the queries in ``need`` replaced by
+    the reference's bounded walk (``ref.chain_lookup_ref``, run on those
+    queries only)."""
+    sel = need.nonzero().squeeze(1)
+    found, val, loc = (x.clone() for x in out)
+    if sel.numel():
+        f, v, l = ref.chain_lookup_ref(*arena, *links, bq[sel], qkey[sel],
+                                       max_chain)
+        found[sel], val[sel], loc[sel] = f, v, l
+    return found, val, loc
+
+
+def chain_probe_plain(arena, links, seg, bq, qkey, max_chain: int,
+                      dirty_cap: int):
+    """Plain version of ``chain_probe``: the segment scan and the dirty
+    window, then the bounded walk for what they leave open."""
+    f, v, l, complete = _chain_fast_plain(arena, seg, bq, qkey, max_chain,
+                                          dirty_cap)
+    return _chain_walk_where(~f & ~complete, arena, links, bq, qkey,
+                             max_chain, (f, v, l))
+
+
+def _window(dirty_cap: int, arena) -> int:
+    """The dirty window of an arena (``min(dirty_cap, N)`` nodes), within
+    what the chain kernels stage."""
+    size = min(dirty_cap, arena[0].shape[0])
+    if not 1 <= size <= MAX_DIRTY:
+        raise ValueError(f"the chain kernels stage a dirty window of "
+                         f"1..{MAX_DIRTY} nodes, got {size}")
+    return size
+
+
+def chain_probe(arena, links, seg, bq, qkey, max_chain: int,
+                dirty_cap: int):
+    """Batched chain lookup over the bucket-sorted arena: the LIVE node
+    holding the key in bucket ``bq``'s segment (scanned when at most
+    ``max_chain`` long), else in the dirty tail (the window of ``size =
+    min(dirty_cap, N)`` nodes at ``min(sorted_upto, N - size)``); a query
+    found in neither whose absence is not proven takes the bounded walk of
+    ``ref.chain_lookup_ref``.  The result is the reference's fused chain
+    lookup's.  Returns (found[Q] bool, val[Q] i32 — 0 on a miss, loc[Q] i32
+    — the hit's node index, -1 on a miss).  Contract: a dirty window of at
+    most 512 nodes."""
+    if qkey.device.type == "cpu":
+        return chain_probe_plain(arena, links, seg, bq, qkey, max_chain,
+                                 dirty_cap)
+    wsize = _window(dirty_cap, arena)
+    _check(*[(t, I32) for t in (*arena, *links, *seg, bq, qkey)])
+    q, dev = qkey.shape[0], qkey.device
+    found = torch.empty(q, dtype=torch.bool, device=dev)
+    val = torch.empty(q, dtype=I32, device=dev)
+    loc = torch.empty(q, dtype=I32, device=dev)
+    if q:
+        _launch("chain_probe", chain_probe, dev, *arena, *links,
+                arena[0].shape[0], *seg, bq, qkey, q, max_chain, wsize,
+                found, val, loc)
+    return found, val, loc
+
+
+# ---------------------------------------------------------------------------
+# chain_probe2
+# ---------------------------------------------------------------------------
+
+def chain_probe2_plain(old, new, hazard_key, hazard_val, hazard_live,
+                       bq_old, bq_new, qkey, max_chain: int, dirty_cap: int):
+    """Plain version of ``chain_probe2``: both arenas' fast paths and the
+    dense [Q, chunk] hazard compare, the reference's settle rule, then its
+    fallback (old walk, hazard, new walk) for the queries left open."""
+    (oa, ol, os_), (na, nl, ns) = old, new
+    fo, vo, lo, co = _chain_fast_plain(oa, os_, bq_old, qkey, max_chain,
+                                       dirty_cap)
+    fn, vn, ln, cn = _chain_fast_plain(na, ns, bq_new, qkey, max_chain,
+                                       dirty_cap)
+    f_hz = ((qkey[:, None] == hazard_key[None, :])
+            & hazard_live[None, :]).any(-1)
+    need = ~(fo | (co & (f_hz | fn | cn)))
+    return _ordered(
+        _chain_walk_where(need, oa, ol, bq_old, qkey, max_chain,
+                          (fo, vo, lo)),
+        hazard_key, hazard_val, hazard_live, qkey,
+        _chain_walk_where(need, na, nl, bq_new, qkey, max_chain,
+                          (fn, vn, ln)))
+
+
+def chain_probe2(old, new, hazard_key, hazard_val, hazard_live, bq_old,
+                 bq_new, qkey, max_chain: int, dirty_cap: int):
+    """Chain rebuild-epoch ordered check in one pass: old arena, hazard
+    buffer, new arena; priority old > hazard > new.
+
+    ``old`` / ``new`` are (arena, links, seg) triples of the chain kernels'
+    convention (sizes may differ).  A query is settled by the fast paths
+    (segment scan, dirty window, dense hazard compare) as the reference's
+    ``_chain_probe2_run`` settles it, else by its fallback: the old arena's
+    bounded walk, the hazard buffer, the new arena's bounded walk.  Returns
+    (found, val, f_old, loc_old, hz_idx, loc_new) with the meaning of
+    ``probe2``'s, locations as node indices.  Contract: a hazard buffer of at
+    most 4096 entries and a dirty window of at most 512 nodes."""
+    if qkey.device.type == "cpu":
+        return chain_probe2_plain(old, new, hazard_key, hazard_val,
+                                  hazard_live, bq_old, bq_new, qkey,
+                                  max_chain, dirty_cap)
+    if hazard_key.shape[0] > EXTRACT_MAX_CHUNK:
+        raise ValueError(f"hazard buffer of {hazard_key.shape[0]} entries "
+                         f"exceeds the chain_probe2 kernel's "
+                         f"{EXTRACT_MAX_CHUNK}")
+    wsizes = (_window(dirty_cap, old[0]), _window(dirty_cap, new[0]))
+    _check(*[(t, I32) for part in (*old, *new) for t in part],
+           *[(t, I32) for t in (hazard_key, hazard_val, bq_old, bq_new,
+                                qkey)],
+           (hazard_live, torch.bool))
+    q, dev = qkey.shape[0], qkey.device
+    found = torch.empty(q, dtype=torch.bool, device=dev)
+    f_old = torch.empty(q, dtype=torch.bool, device=dev)
+    val, loc_old, hz_idx, loc_new = (
+        torch.empty(q, dtype=I32, device=dev) for _ in range(4))
+    if q:
+        def arena_args(a):
+            (k, v, s), (nx, hd), (bs, bl, su, dt) = a
+            return (k, v, s, nx, hd, k.shape[0], bs, bl, su, dt)
+        _launch("chain_probe2", chain_probe2, dev, *arena_args(old),
+                *arena_args(new), hazard_key, hazard_val, hazard_live,
+                hazard_key.shape[0], bq_old, bq_new, qkey, q, max_chain,
+                *wsizes, found, val, f_old, loc_old, hz_idx, loc_new)
     return found, val, f_old, loc_old, hz_idx, loc_new
 
 

@@ -319,3 +319,102 @@ def cuckoo_kick_ref(tkey: torch.Tensor, tval: torch.Tensor,
         pend = pend & ~won
         done = done | won
     return K, V, S, done
+
+
+def chain_lookup_ref(akey: torch.Tensor, aval: torch.Tensor,
+                     astate: torch.Tensor, anext: torch.Tensor,
+                     heads: torch.Tensor, b: torch.Tensor,
+                     qkey: torch.Tensor, max_chain: int):
+    """Pointer-chasing chain lookup oracle: lock-step batched walk from
+    ``heads[b]`` along ``anext``, at most ``max_chain`` nodes a query.
+    Returns (found[Q], val[Q], loc[Q] node or -1).  The loop ends early once
+    no walk is left (a host read every 8 hops; the result is that of all
+    ``max_chain`` hops)."""
+    q, dev = qkey.shape[0], qkey.device
+    cur = heads[b.long()].long()
+    found = torch.zeros(q, dtype=torch.bool, device=dev)
+    val = torch.zeros(q, dtype=I32, device=dev)
+    loc = torch.full((q,), -1, dtype=I32, device=dev)
+    for hop in range(max_chain):
+        if hop % 8 == 0 and not bool((cur >= 0).any()):
+            break
+        valid = cur >= 0
+        c = torch.where(valid, cur, 0)
+        hit = valid & (astate[c] == LIVE) & (akey[c] == qkey)
+        val = torch.where(hit, aval[c], val)
+        loc = torch.where(hit, c.to(I32), loc)
+        found |= hit
+        cur = torch.where(valid & ~hit, anext[c].long(), -1)
+    return found, val, loc
+
+
+def chain_delete_ref(akey: torch.Tensor, aval: torch.Tensor,
+                     astate: torch.Tensor, anext: torch.Tensor,
+                     heads: torch.Tensor, b: torch.Tensor,
+                     keys: torch.Tensor, mask: torch.Tensor, max_chain: int):
+    """Pointer-chasing chain delete oracle: walk, then tombstone the node
+    holding each masked key (logical deletion; the compaction reclaims).
+    Caller contract: mask winner-filtered.  Returns (astate', ok[Q])."""
+    found, _, loc = chain_lookup_ref(akey, aval, astate, anext, heads, b,
+                                     keys, max_chain)
+    ok = mask & found
+    astate = astate.clone()
+    astate[loc[ok].long()] = TOMB
+    return astate, ok
+
+
+def chain_insert_ref(akey, aval, astate, anext, heads, free_stack, free_top,
+                     b, keys, vals, mask, max_chain: int):
+    """Pointer-chasing chain insert oracle on raw arena arrays: presence by
+    the bounded walk, want-rank allocation from the free-stack tail,
+    insert-at-head linking in original-index order — the linearisation,
+    node placement and pointer structure of ``buckets.chain_insert``.
+
+    Caller contract: ``mask`` is winner-filtered.  Returns
+    (akey', aval', astate', anext', heads', free_top', ok[Q]).
+    """
+    q, dev = keys.shape[0], keys.device
+    nb = heads.shape[0]
+    present, _, _ = chain_lookup_ref(akey, aval, astate, anext, heads, b,
+                                     keys, max_chain)
+    want = mask & ~present
+    rank = torch.cumsum(want.to(I32), 0) - 1
+    can = want & (rank < free_top)
+    node = free_stack[torch.where(can, free_top - 1 - rank, 0).long()]
+    akey, aval, astate = akey.clone(), aval.clone(), astate.clone()
+    w = node[can].long()
+    akey[w], aval[w], astate[w] = keys[can], vals[can], LIVE
+    sortkey = torch.where(can, b, nb)
+    order = torch.sort(sortkey, stable=True).indices    # (bucket, index)
+    sb, snode, scan = sortkey[order], node[order], can[order]
+    same = torch.zeros(q, dtype=torch.bool, device=dev)
+    same[:-1] = sb[1:] == sb[:-1]
+    nxt_same = torch.full((q,), -1, dtype=I32, device=dev)
+    nxt_same[:-1] = snode[1:]
+    old_head = heads[torch.where(scan, sb, 0).long()]
+    nxt = torch.where(same, nxt_same, torch.where(scan, old_head, -1))
+    anext = anext.clone()
+    anext[snode[scan].long()] = nxt[scan].to(I32)
+    first = scan.clone()
+    first[1:] &= sb[1:] != sb[:-1]
+    heads = heads.clone()
+    heads[sb[first].long()] = snode[first]
+    return akey, aval, astate, anext, heads, \
+        (free_top - can.sum()).to(I32), can
+
+
+def chain_ordered_lookup_ref(old_arena, old_links, new_arena, new_links,
+                             hazard_key, hazard_val, hazard_live,
+                             b_old, b_new, qkey, max_chain: int):
+    """The paper's ordered three-way check over chained tables:
+    old chains -> hazard buffer -> new chains."""
+    f_old, v_old, _ = chain_lookup_ref(*old_arena, *old_links, b_old, qkey,
+                                       max_chain)
+    eq = (qkey[:, None] == hazard_key[None, :]) & hazard_live[None, :]
+    f_hz = eq.any(-1)
+    v_hz = hazard_val[eq.to(torch.uint8).argmax(dim=-1)]
+    f_new, v_new, _ = chain_lookup_ref(*new_arena, *new_links, b_new, qkey,
+                                       max_chain)
+    found = f_old | f_hz | f_new
+    val = torch.where(f_old, v_old, torch.where(f_hz, v_hz, v_new))
+    return found, val

@@ -23,8 +23,18 @@ def _hfn_tree(fn) -> dict:
     return {"kind": fn.kind, "seeds": np.asarray(fn.seeds)}
 
 
+CHAIN_ARRAYS = ("akey", "aval", "anext", "astate", "heads", "free_stack",
+                "free_top", "bstart", "blen", "sorted_upto")
+
+
 def jax_table_tree(t) -> dict:
-    """Flatten a reference table (linear, twochoice or cuckoo)."""
+    """Flatten a reference table (linear, twochoice, cuckoo or chain)."""
+    if hasattr(t, "arena"):
+        tree = {"nbuckets": t.nbuckets, "arena": t.arena,
+                "max_chain": t.max_chain, "dirty_cap": t.dirty_cap,
+                "hfn": _hfn_tree(t.hfn)}
+        tree.update({f: np.asarray(getattr(t, f)) for f in CHAIN_ARRAYS})
+        return tree
     if hasattr(t, "hfn"):
         tree = {"capacity": t.capacity, "max_probes": t.max_probes,
                 "hfn": _hfn_tree(t.hfn)}
@@ -39,8 +49,8 @@ def jax_table_tree(t) -> dict:
 
 
 def jax_state_tree(d) -> dict:
-    """Flatten a reference ``DHashState`` (linear, twochoice or cuckoo
-    backend) to the tree layout of ``repro_torch.convert``."""
+    """Flatten a reference ``DHashState`` (any backend) to the tree layout
+    of ``repro_torch.convert``."""
     tree = {k: getattr(d, k) for k in STATIC}
     tree["old"], tree["new"] = jax_table_tree(d.old), jax_table_tree(d.new)
     for k in ("hazard_key", "hazard_val", "hazard_live") + SCALARS:
@@ -145,3 +155,38 @@ def test_two_row_tables_round_trip(backend):
     assert np.array_equal(np.asarray(jf), tf.numpy()) and tf.any()
     assert np.array_equal(np.asarray(jv), tv.numpy())
     assert int(jdhash.count_items(d)) == int(tdhash.count_items(port))
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_chain_tables_round_trip(fused):
+    """A chain state mid-rebuild (hazard buffer open, tombstones, a
+    compacted old arena when fused): JAX -> tree -> port -> tree is the
+    identity with every arena array (free stack, free_top, bstart, blen,
+    sorted_upto included), the port's tables are ``ChainTable``s with the
+    reference's field types, and the converted state answers like the
+    reference.  ``dhash.make`` builds the reference's bytes."""
+    from repro_torch.core import buckets as tb
+    d = _mid_rebuild_state(fused, "chain")
+    tree = jax_state_tree(d)
+    port = convert.state_from_numpy(tree, device="cpu")
+    assert isinstance(port.old, tb.ChainTable)
+    assert port.old.free_top.dim() == 0 and port.old.sorted_upto.dim() == 0
+    assert port.old.heads.shape == (port.old.nbuckets,)
+    assert port.old.akey.dtype == torch.int32
+    assert_tree_equal(tree, convert.state_to_numpy(port))
+    if fused:
+        assert int(tree["old"]["sorted_upto"]) > 0, "compacted at the start"
+    t = convert.table_from_numpy(tree["new"], device="cpu")
+    assert isinstance(t, tb.ChainTable)
+    assert_tree_equal(tree["new"], convert.table_to_numpy(t))
+    q = np.arange(-60, 60, dtype=np.int32)
+    jf, jv = jdhash.lookup(d, jnp.asarray(q))
+    tf, tv = tdhash.lookup(port, torch.as_tensor(q))
+    assert np.array_equal(np.asarray(jf), tf.numpy()) and tf.any()
+    assert np.array_equal(np.asarray(jv), tv.numpy())
+    assert int(jdhash.count_items(d)) == int(tdhash.count_items(port))
+    want = jax_state_tree(jdhash.make("chain", capacity=300, chunk=64,
+                                      seed=8))
+    got = convert.state_to_numpy(tdhash.make("chain", capacity=300,
+                                             chunk=64, seed=8, device="cpu"))
+    assert_tree_equal(want, got)

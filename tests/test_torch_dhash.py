@@ -2,9 +2,9 @@
 
 The pinned regression corpus of ``test_differential.py`` is replayed through
 ``repro.core.dhash`` (fused off — the oracle's linearisation — and fused on)
-and through ``repro_torch.core.dhash`` on the CPU, on the linear, twochoice
-and cuckoo backends, the port's ``fused`` on and off, rebuild targets of 1x
-and 4x the base capacity.
+and through ``repro_torch.core.dhash`` on the CPU, on the linear, twochoice,
+cuckoo and chain backends, the port's ``fused`` on and off, rebuild targets
+of 1x and 4x the base capacity.
 
 After EVERY op: the op's results are equal across all three (a lookup's
 value exactly against both reference paths on linear; on a two-row backend
@@ -12,10 +12,12 @@ exactly against the reference path of the same ``fused`` setting, and where
 found against the other: the plain two-row lookup's value of a miss is
 unspecified); hash seeds, cursor, epoch and flags are equal.  Where the
 port's insert is the reference plain path's linearisation (every backend but
-the port's fused cuckoo), the two tables are equal slot for slot to the
-reference's plain ones and the hazard buffer is equal as a set of live
-(key, value) pairs (the fused extract compacts, the plain one is
-position-aligned).  Against every other path — the reference's fused one,
+the port's fused cuckoo and fused chain), the two tables are equal slot for
+slot to the reference's plain ones and the hazard buffer is equal as a set
+of live (key, value) pairs (the fused extract compacts, the plain one is
+position-aligned).  The port's fused chain (its arena compacted at a
+rebuild's start and past the dirty window) is held so to the reference's
+fused chain instead, every arena array slot for slot.  Against every other path — the reference's fused one,
 whose placement may differ under contention, and for the port's fused cuckoo
 (claim kernel, then kick-out) the plain one too — the live key -> value map
 is equal: per table on linear, of the whole state (old > hazard > new)
@@ -50,9 +52,17 @@ def _pad(keys):
     return ks, mask
 
 
+def _slots(t: dict):
+    """(key, val, state) of a table tree: a slot table's, a chain arena's."""
+    if "astate" in t:
+        return t["akey"], t["aval"], t["astate"]
+    return t["key"], t["val"], t["state"]
+
+
 def _live_map(t: dict) -> dict:
-    s = t["state"] == LIVE
-    return dict(zip(t["key"][s].tolist(), t["val"][s].tolist()))
+    k, v, st = _slots(t)
+    s = st == LIVE
+    return dict(zip(k[s].tolist(), v[s].tolist()))
 
 
 def _hazard_set(tree: dict) -> set:
@@ -72,13 +82,15 @@ def _content(tree: dict) -> dict:
     return out
 
 
-def compare_states(port, ref_plain, ref_fused, where, exact=True,
+def compare_states(port, ref_exact, ref_other, where, exact=True,
                    in_step=True):
-    """``exact``: the port follows the reference plain path's placement
-    (and so its rebuild timing); ``in_step``: all three are also in step
-    with the reference fused path (linear, where its placement agrees)."""
+    """``ref_exact`` is the reference path whose linearisation the port
+    follows (the plain one, the fused one for a fused chain), ``ref_other``
+    the other.  ``exact``: the port follows ``ref_exact``'s placement (and
+    so its rebuild timing); ``in_step``: all three are also in step with
+    ``ref_other`` (linear, where its placement agrees)."""
     p = convert.state_to_numpy(port)
-    a, b = jax_state_tree(ref_plain), jax_state_tree(ref_fused)
+    a, b = jax_state_tree(ref_exact), jax_state_tree(ref_other)
     for f in ("cursor", "rebuilding", "epoch"):
         if exact:
             assert p[f] == a[f], (where, f, p[f], a[f])
@@ -116,10 +128,13 @@ class Trio:
         self.plain = jdhash.make(backend, fused=False, **kw)
         self.fused = jdhash.make(backend, fused=True, **kw)
         # the port's fused cuckoo insert (claim kernel, then kick-out) is a
-        # linearisation of its own; every other port path is the reference
-        # plain path's.  Only on linear does the reference fused path place
-        # (and so rebuild) in step at these loads.
+        # linearisation of its own; the port's fused chain is the reference
+        # fused chain's (both compact the arena); every other port path is
+        # the reference plain path's.  Only on linear does the other
+        # reference path place (and so rebuild) in step at these loads.
         self.exact = not (backend == "cuckoo" and port_fused)
+        self.exact_ref = "fused" if backend == "chain" and port_fused \
+            else "plain"
         self.in_step = backend == "linear"
         self.rebuilding = dict.fromkeys(("port", "plain", "fused"), False)
 
@@ -157,7 +172,8 @@ class Trio:
         for n in ("plain", "fused"):
             rf, rv = (np.asarray(x) for x in
                       _FNS["lookup"](getattr(self, n), jnp.asarray(ks)))
-            if self.backend != "linear" and (n == "fused") != self.port_fused:
+            if self.backend in ("twochoice", "cuckoo") and \
+                    (n == "fused") != self.port_fused:
                 rv = np.where(rf, rv, v)
             outs.append((rf, rv))
         return (f, v), outs
@@ -191,15 +207,17 @@ class Trio:
                 d = jdhash.rebuild_finish(d)
             setattr(self, n, d)
         if self.exact:
-            assert done["port"] == done["plain"], done
+            assert done["port"] == done[self.exact_ref], done
         if self.in_step:
             assert done["port"] == done["fused"], done
         for n, fin in done.items():
             self.rebuilding[n] &= not fin
 
     def check(self, where):
-        compare_states(self.port, self.plain, self.fused, where, self.exact,
-                       self.in_step)
+        refs = (self.plain, self.fused)
+        if self.exact_ref == "fused":
+            refs = refs[::-1]
+        compare_states(self.port, *refs, where, self.exact, self.in_step)
 
 
 def replay(script, backend: str, port_fused: bool, growth: int, seed: int):
@@ -266,7 +284,7 @@ def replay(script, backend: str, port_fused: bool, growth: int, seed: int):
 def _replay_cases():
     """(backend, port_fused, growth, script_no); a linear case keeps the id
     it had before the other backends were ported."""
-    for backend in ("linear", "twochoice", "cuckoo"):
+    for backend in ("linear", "twochoice", "cuckoo", "chain"):
         for port_fused in (False, True):
             for growth in (1, 4):
                 for script_no in range(len(CORPUS)):
@@ -293,16 +311,21 @@ def test_make_fused_default_follows_env(monkeypatch):
     assert not tdhash.make("linear", capacity=8, chunk=4, device="cpu").fused
 
 
-def test_unported_backends_raise_the_reference_error():
+def test_all_four_backends_registered_and_unknown_names_raise():
+    from repro.core import backend as jbackend
     from repro_torch.core import backend
-    assert backend.names() == ("linear", "twochoice", "cuckoo")
+    assert set(backend.names()) == set(jbackend.names()) == {
+        "linear", "twochoice", "cuckoo", "chain"}
     assert all(backend.get(n).fused for n in backend.names())
-    assert backend.get("twochoice").bounded_placement
-    assert backend.get("cuckoo").bounded_placement
-    with pytest.raises(ValueError, match="unknown backend 'chain'"):
-        backend.get("chain")
+    for n in backend.names():
+        assert backend.get(n).bounded_placement == \
+            jbackend.get(n).bounded_placement
+        assert backend.get(n).dirty_cap == jbackend.get(n).dirty_cap
+    assert backend.get("chain").freeze_old is not None
+    with pytest.raises(ValueError, match="unknown backend 'skiplist'"):
+        backend.get("skiplist")
     with pytest.raises(ValueError):
-        tdhash.make("chain", device="cpu")
+        tdhash.make("skiplist", device="cpu")
 
 
 @pytest.mark.parametrize("fused", [False, True])

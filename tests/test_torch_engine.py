@@ -21,6 +21,7 @@ torch.set_num_threads(1)
 from repro.core import dhash as jdhash  # noqa: E402
 from repro.core.engine import DHashEngine as JEngine  # noqa: E402
 from repro_torch import convert  # noqa: E402
+from repro_torch.core import backend as tbe  # noqa: E402
 from repro_torch.core import dhash as tdhash  # noqa: E402
 from repro_torch.core.engine import DHashEngine as TEngine  # noqa: E402
 from test_torch_convert import jax_state_tree  # noqa: E402
@@ -124,6 +125,21 @@ def test_fused_two_row_engine_matches_dict_oracle_and_reference(backend):
     right by a dict oracle; the twochoice state is the reference plain
     engine's slot for slot after every step (the fused cuckoo insert is a
     linearisation of its own: its whole key -> value map is compared)."""
+    _fused_engine_against_references(
+        backend, exact_to="plain" if backend == "twochoice" else None)
+
+
+def test_fused_chain_engine_matches_dict_oracle_and_reference():
+    """The chain backend on the fused path end to end: the same lock step,
+    the port's fused chain engine held slot for slot to the reference's
+    fused one after every step (both compact the arena at each epoch's start
+    and past the dirty window, which the plain path never does: against the
+    reference's plain engine the key -> value maps are compared), through
+    at least three live hash-function swaps."""
+    _fused_engine_against_references("chain", exact_to="fused")
+
+
+def _fused_engine_against_references(backend: str, exact_to: str | None):
     kw = dict(capacity=96, chunk=32, seed=4)
     tree = jax_state_tree(jdhash.make(backend, **kw))
     port = TEngine(convert.state_from_numpy({**tree, "fused": True},
@@ -132,9 +148,10 @@ def test_fused_two_row_engine_matches_dict_oracle_and_reference(backend):
     refs = [JEngine(jdhash.make(backend, fused=f, **kw),
                     continuous_rebuild=True, poll_every=8)
             for f in (False, True)]
-    exact = backend == "twochoice"
-    seeds0 = [h.seeds.clone() for h in (port.state.old.hfn_a,
-                                        port.state.old.hfn_b)]
+    if exact_to == "fused":
+        refs = refs[::-1]            # the reference the port follows first
+    hash_fns = tbe.get(backend).hash_fns
+    seeds0 = [h.seeds.clone() for h in hash_fns(port.state.old)]
     for step, pre, batch in stream(11, 60):
         if step is None:
             final = pre
@@ -154,13 +171,13 @@ def test_fused_two_row_engine_matches_dict_oracle_and_reference(backend):
             assert out[0][i] == (k in pre), (step, k)
             if k in pre:
                 assert out[1][i] == pre[k], (step, k)
-        if exact:
+        if exact_to:
             scalars_equal(port, refs[0])
         compare_states(port.state, refs[0].state, refs[1].state, step,
-                       exact=exact, in_step=False)
+                       exact=exact_to is not None, in_step=False)
     assert port.stats.rebuilds_completed >= 3
-    assert all(not torch.equal(a, b) for a, b in zip(
-        seeds0, (port.state.old.hfn_a.seeds, port.state.old.hfn_b.seeds)))
+    assert all(not torch.equal(a, b.seeds) for a, b in zip(
+        seeds0, hash_fns(port.state.old)))
     z, off = np.zeros(1, np.int32), np.zeros(1, bool)
     for e in (port, *refs):
         epoch = e.stats.rebuilds_completed

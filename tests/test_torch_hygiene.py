@@ -79,6 +79,26 @@ def test_the_two_row_kernel_sources_exist_and_share_the_hazard_stage():
     assert set(probe.KERNELS) == set(build.SOURCES)
 
 
+def test_the_nine_kernels_and_the_chain_sources():
+    """Nine kernels, one source each; the chain kernels resolve every query
+    in the kernel (tail stage, segment scan, bounded walk) and chain_probe2
+    stages the hazard buffer as the other probe2 kernels do."""
+    from repro_torch.kernels import build, probe
+    assert len(probe.KERNELS) == len(set(probe.KERNELS)) == 9
+    assert probe.KERNELS == build.SOURCES
+    assert set(build._ENTRY.values()) == set(build._ARGTYPES)
+    for k in ("chain_probe", "chain_probe2"):
+        src = (CSRC / f"{k}.cu").read_text()
+        assert "__global__" in src and f'extern "C" int dhash_{k}(' in src, k
+        assert "cudaGetLastError" in src and "DHASH_MAX_DIRTY" in src, k
+        for fn in ("dhash_tail_stage(", "dhash_chain_fast(",
+                   "dhash_chain_walk("):
+            assert fn in src, (k, fn)
+        assert "atomicMax" not in src, f"{k} stages its buffers itself"
+    src = (CSRC / "chain_probe2.cu").read_text()
+    assert "dhash_hazard_stage(" in src and "dhash_hazard_find(" in src
+
+
 def test_the_eleven_modules_and_four_kernel_sources_exist():
     for m in MODULES:
         rel = m.replace(".", "/")
