@@ -7,6 +7,8 @@ for an H100) and the CUDA toolkit:
     python3 chip_smoke.py            # everything, as described below
     python3 chip_smoke.py --steps 300 --tc-steps 300 --big-steps 16  # shorter
     python3 chip_smoke.py --profile build/profile.txt  # + profiler tables
+    python3 chip_smoke.py --baseline OTHER/build/repro_torch_kernels
+        # phase 2 also runs another tree's hazard-scanning kernels, in turns
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
 
@@ -18,8 +20,12 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
    a partial last chunk, killed hazard entries, a new table 4x the old with
    a bucket count that is not a power of two; for chain hits in the sorted
    segments and the dirty tail, a segment longer than max_chain, a tail
-   longer than the window, empty buckets), and times kernel and plain
-   version;
+   longer than the window, empty buckets; for the two kernels that stage
+   their buffers as hashed sets, duplicate live hazard keys with dead
+   entries between them, an empty and a full hazard buffer, a buffer whose
+   keys all share one home slot of the index, duplicate live keys and dead
+   nodes in both dirty tails, batches of 1, 33 and 256 queries), and times
+   kernel and plain version;
 3. drives the main path of each backend — ``dhash.make(backend,
    fused=True)`` with ``backend`` linear (a), twochoice (b), cuckoo (c) and
    chain (d) at the unreduced ``dhash-paper`` size under ``DHashEngine``
@@ -100,6 +106,125 @@ def bound(nbytes: int, ops: int) -> dict:
 
 def log(*a):
     print(*a, flush=True)
+
+
+OUTPUTS = ("found", "val", "f_old", "loc_old", "hz_idx", "loc_new")
+SET_LOOKUP_OPS = 4      # a staged-set lookup: hash, probe, compare, select
+
+
+def set_shift(n: int) -> int:
+    """32 - log2 of the index size of an ``n``-entry staged set
+    (``dhash_set_slots`` in ``dhash_common.cuh``)."""
+    slots = 2
+    while slots < 2 * n:
+        slots <<= 1
+    return 33 - slots.bit_length()
+
+
+def set_home(keys: np.ndarray, n: int) -> np.ndarray:
+    """The home slot of each key in the index of an ``n``-entry staged set
+    (``dhash_set_home``: the top bits of key * 0x9E3779B1 mod 2^32)."""
+    k = keys.astype(np.int64).astype(np.uint64) & np.uint64(0xFFFFFFFF)
+    return ((k * np.uint64(0x9E3779B1)) & np.uint64(0xFFFFFFFF)) >> \
+        np.uint64(set_shift(n))
+
+
+def one_run_keys(n: int, rng) -> np.ndarray:
+    """``n`` distinct keys that all have one home slot in the index of an
+    ``n``-entry staged set: every key in one probe run, the worst case."""
+    shift = set_shift(n)
+    inv = pow(0x9E3779B1, -1, 1 << 32)
+    prod = (np.uint64(1234) << np.uint64(shift)) + rng.choice(
+        1 << shift, n, replace=False).astype(np.uint64)
+    keys = ((prod * np.uint64(inv)) & np.uint64(0xFFFFFFFF)).astype(
+        np.uint32).view(np.int32)
+    check(np.unique(set_home(keys, n)).size == 1, "one_run_keys: two homes")
+    return keys
+
+
+def hazard_cases(hk, hv, hl, rng, device) -> dict:
+    """Hazard buffers of the size of ``hk`` for the staged set, each with
+    the keys to query in it: ``duplicates`` (a quarter of the live entries
+    give their key to two more live entries at higher indices, with other
+    values; a third of those lowest copies and another third of the middle
+    ones killed; dead entries between them), ``empty`` (nothing live),
+    ``full`` (every entry live, distinct fresh keys) and ``one_run`` (every
+    entry live, every key with one home slot in the kernels' index)."""
+    ch = hk.numel()
+    live = hl.nonzero().squeeze(1)
+    perm = live[torch.as_tensor(rng.permutation(live.numel()), device=device)]
+    m = live.numel() // 4
+    a, b, c = perm[:3 * m].view(m, 3).sort(dim=1).values.unbind(1)
+    dk, dv, dl = hk.clone(), hv.clone(), hl.clone()
+    dk[b], dk[c] = dk[a], dk[a]
+    dv[b], dv[c] = dv[a] + 1, dv[a] + 2
+    dl[a[: m // 3]] = False
+    dl[b[m // 3: 2 * m // 3]] = False
+    fresh = np.unique(rng.integers(-(1 << 31), -(1 << 30), 2 * ch))
+    fk = torch.as_tensor(rng.permutation(fresh)[:ch].astype(np.int32),
+                         device=device)
+    rk = torch.as_tensor(one_run_keys(ch, rng), device=device)
+    ones = torch.ones_like(hl)
+    return {"duplicates": (dk, dv, dl, dk[a]),
+            "empty": (hk, hv, torch.zeros_like(hl), hk[live]),
+            "full": (fk, fk * 5 + 1, ones, fk),
+            "one_run": (rk, rk * 5 + 1, ones, rk)}
+
+
+def load_baseline(path: str) -> dict:
+    """The C entry points of the four hazard-scanning kernels from another
+    tree's build directory (``--baseline``), with this tree's argument
+    types (the C interface is the same)."""
+    import ctypes
+    import glob
+    from repro_torch.kernels import build
+    out = {}
+    for name in ("probe2", "tc_probe2", "chain_probe", "chain_probe2"):
+        found = glob.glob(os.path.join(path, f"{name}-*.so"))
+        check(len(found) == 1, f"--baseline: {len(found)} builds of {name} "
+                               f"in {path}")
+        fn = getattr(ctypes.CDLL(found[0]), f"dhash_{name}")
+        fn.argtypes = build._ARGTYPES[f"dhash_{name}"]
+        fn.restype = ctypes.c_int
+        out[name] = fn
+    return out
+
+
+def compare_cases(name: str, kernel, plain, cases: dict, reps: int,
+                  baseline: dict | None, outputs=OUTPUTS) -> dict:
+    """Each case's arguments through the kernel and its plain version
+    (exact equality) and timed.  With a baseline the other tree's kernel is
+    held against the plain version too and the two are timed in turns,
+    baseline, this tree, this tree, baseline, on the same inputs."""
+    from repro_torch.kernels import build
+    lib = build.load()
+    out = {}
+    for label, args in cases.items():
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        want = plain(*args)
+        for x, y, n in zip(got, want, outputs):
+            same(x, y, f"{name} {label} {n}")
+        entry = {}
+        if baseline is None:
+            entry["ms"] = time_ms(lambda: kernel(*args), reps)
+        else:
+            mine = lib[name]
+            try:
+                lib[name] = baseline[name]
+                for x, y, n in zip(kernel(*args), want, outputs):
+                    same(x, y, f"{name} (baseline) {label} {n}")
+                t = {"parent": [], "this": []}
+                for who in ("parent", "this", "this", "parent"):
+                    lib[name] = baseline[name] if who == "parent" else mine
+                    t[who].append(time_ms(lambda: kernel(*args), reps))
+            finally:
+                lib[name] = mine
+            entry["ms"], entry["parent_ms"] = t["this"], t["parent"]
+        out[label] = entry
+        log(f"    {name} {label}: equal to the plain version; ms "
+            + json.dumps(entry))
+    return out
 
 
 def card_line() -> str:
@@ -242,7 +367,7 @@ def build_table(probe, hashing, c: int, n_live: int, rng, device, seed: int,
     return hfn, tk, tv, ts, keys
 
 
-def phase_kernels(device, cfg, reps: int) -> dict:
+def phase_kernels(device, cfg, reps: int, baseline=None) -> dict:
     from repro_torch.core import buckets, hashing
     from repro_torch.kernels import probe
     rng = np.random.default_rng(11)
@@ -412,21 +537,22 @@ def phase_kernels(device, cfg, reps: int) -> dict:
             out_k = probe.probe2(*args)
             torch.cuda.synchronize()
             out_p = probe.probe2_plain(*args)
-            for x, y, n in zip(out_k, out_p, ("found", "val", "f_old",
-                                              "loc_old", "hz_idx", "loc_new")):
+            for x, y, n in zip(out_k, out_p, OUTPUTS):
                 err = max(err, same(x, y, f"probe2 Cnew={c_new} Q={q} {n}"))
             check(bool(out_k[2].any()) and bool((out_k[4] >= 0).any())
                   and bool((out_k[5] >= 0).any()) and not bool(out_k[0].all()),
                   "probe2: inputs must hit old, hazard, new and nothing")
     found, _, f_old, loc_old, hz_idx, loc_new = out_k
-    n_hz = int(hl.nonzero().max()) + 1
-    compares = int(torch.where(hz_idx >= 0, hz_idx + 1, n_hz)[~f_old].sum())
+    # the work of the function, whatever implements it: a hazard lookup
+    # (SET_LOOKUP_OPS) for each query the old table did not resolve, two
+    # operations a slot visited
+    hz_lookups = int((~f_old).sum())
     v_old = count_visits(so, h0o, f_old, loc_old, P)
     unres = ~f_old & (hz_idx < 0)
     v_new = count_visits(ns, h0n[unres], (loc_new >= 0)[unres],
                          loc_new[unres], P)
     nbytes = Q * 12 + (v_old + v_new) * 8 + CH * 9 + Q * 18
-    ops = compares + 2 * (v_old + v_new)
+    ops = SET_LOOKUP_OPS * hz_lookups + 2 * (v_old + v_new)
     res["probe2"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: probe.probe2(*args), reps),
@@ -435,8 +561,12 @@ def phase_kernels(device, cfg, reps: int) -> dict:
         bound_ms=max(nbytes / HBM_BYTES_PER_S, ops / INT_OPS_PER_S) * 1e3,
         bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops / INT_OPS_PER_S
         else "operations")
-    log(f"  probe2 ok: Q={Q} hazard compares={compares} "
+    log(f"  probe2 ok: Q={Q} hazard lookups={hz_lookups} "
         f"visits old={v_old} new={v_new}")
+    if baseline is not None:
+        res["probe2"]["cases"] = compare_cases(
+            "probe2", probe.probe2, probe.probe2_plain, {"phase-2": args},
+            reps, baseline)
 
     # -- the chunk contract: above 4096 a table on the card is refused, by
     #    the wrappers and by the backend adapter; nothing runs the plain scan
@@ -500,7 +630,7 @@ def rows_read(probe_ref, tk, tv, ts, ra, qk, need=None) -> int:
     return int(need.sum()) + int((need & ~fa).sum())
 
 
-def phase_tc_kernels(device, cfg, reps: int) -> dict:
+def phase_tc_kernels(device, cfg, reps: int, baseline=None) -> dict:
     """The three two-row kernels against their plain versions at the
     twochoice shapes of the main path (2^18 rows x 8 lanes)."""
     from repro_torch.core import backend, buckets, hashing
@@ -657,15 +787,13 @@ def phase_tc_kernels(device, cfg, reps: int) -> dict:
             out_k = probe.tc_probe2(*args)
             torch.cuda.synchronize()
             out_p = probe.tc_probe2_plain(*args)
-            for x, y, n in zip(out_k, out_p, ("found", "val", "f_old",
-                                              "loc_old", "hz_idx", "loc_new")):
+            for x, y, n in zip(out_k, out_p, OUTPUTS):
                 err = max(err, same(x, y, f"tc_probe2 Bnew={b_new} Q={q} {n}"))
             check(bool(out_k[2].any()) and bool((out_k[4] >= 0).any())
                   and bool((out_k[5] >= 0).any()) and not bool(out_k[0].all()),
                   "tc_probe2: inputs must hit old, hazard, new and nothing")
     found, _, f_old, _, hz_idx, loc_new = out_k
-    n_hz = int(hl.nonzero().max()) + 1
-    compares = int(torch.where(hz_idx >= 0, hz_idx + 1, n_hz)[~f_old].sum())
+    hz_lookups = int((~f_old).sum())
     unres = ~f_old & (hz_idx < 0)
     r_old = rows_read(ref, tk, tv, so, rao, qk)
     r_new = rows_read(ref, nk, nv, ns, ran, qk, unres)
@@ -675,12 +803,51 @@ def phase_tc_kernels(device, cfg, reps: int) -> dict:
         plain_ms=time_ms(lambda: probe.tc_probe2_plain(*args), 3,
                          queue_ahead=False),
         # in: four rows and a key a query, the rows read, the hazard
-        # buffer, the value of a hit; out: six outputs
+        # buffer, the value of a hit; out: six outputs; operations: a
+        # hazard lookup for each query the old table did not resolve, two
+        # a lane of each row read
         **bound(Q * 20 + (r_old + r_new) * W * 8 + CH * 9
                 + int(found.sum()) * 4 + Q * 18,
-                compares + (r_old + r_new) * W * 2))
-    log(f"  tc_probe2 ok: Q={Q} hazard compares={compares} rows read "
+                SET_LOOKUP_OPS * hz_lookups + (r_old + r_new) * W * 2))
+    log(f"  tc_probe2 ok: Q={Q} hazard lookups={hz_lookups} rows read "
         f"old={r_old} new={r_new}")
+
+    # -- tc_probe2 on the staged set's own cases: duplicate live hazard keys
+    #    with dead entries between them, an empty and a full buffer, every
+    #    key in one probe run of the index; small batches (one block's
+    #    staging with a few queries: Q = 256 times the staging)
+    cases = {"phase-2": args}
+    for label, (ck, cv, cl, ckeys) in hazard_cases(hk, hv, hl, rng,
+                                                   device).items():
+        n4 = Q // 4
+        qk = torch.cat([
+            keys[torch.as_tensor(rng.integers(0, keys.numel(), n4),
+                                 device=device)],
+            ckeys[torch.as_tensor(rng.integers(0, ckeys.numel(), n4),
+                                  device=device)],
+            nkeys[torch.as_tensor(rng.integers(0, nkeys.numel(), n4),
+                                  device=device)],
+            torch.as_tensor(rng.integers(1 << 30, (1 << 31) - 1,
+                                         Q - 3 * n4).astype(np.int32),
+                            device=device)])
+        qk = qk[torch.as_tensor(rng.permutation(Q), device=device)]
+        rao, rbo = rows(qk)
+        ran, rbn = rows(qk, B, nfa, nfb)
+        cases[label] = ((tk, tv, so), (nk, nv, ns), ck, cv, cl, rao, rbo, ran,
+                        rbn, qk.contiguous())
+    for q in (1, 33, 256):
+        for label in ("phase-2", "full"):
+            a = cases[label]
+            cases[f"{label} Q={q}"] = (*a[:5], *(t[:q] for t in a[5:]))
+    res["tc_probe2"]["cases"] = compare_cases(
+        "tc_probe2", probe.tc_probe2, probe.tc_probe2_plain, cases, reps,
+        baseline)
+    hits = {k: int((probe.tc_probe2(*a)[4] >= 0).sum())
+            for k, a in cases.items() if "Q=" not in k}
+    check(hits["empty"] == 0 and min(hits["duplicates"], hits["full"],
+                                     hits["one_run"]) > Q // 8,
+          f"tc_probe2: hazard hits of the cases {hits}")
+    log(f"  tc_probe2 cases ok: hazard hits {hits}")
 
     # -- the chunk contract of the two-row path: above 4096 a table on the
     #    card is refused by tc_probe2 and by both adapters; nothing launches
@@ -758,11 +925,12 @@ def build_chain(device, nb: int, n: int, n_live: int, rng, seed: int,
     return t, keys
 
 
-def chain_work(t, bq, qk, sel=None) -> tuple[int, int, torch.Tensor]:
-    """What a chain kernel reads for the queries in ``sel`` of one arena:
-    (nodes — segment nodes up to the hit or the segment's end, and the
-    hops of the bounded walks; tail compares — the staged dirty window
-    scanned up to the hit or its last live node; the queries that walked)."""
+def chain_work(t, bq, qk, sel=None):
+    """What a chain kernel does for the queries in ``sel`` of one arena:
+    (nodes — segment nodes read up to the hit or the segment's end, and the
+    hops of the bounded walks; tail lookups — the queries the segment did
+    not settle, each one lookup in the staged dirty window; the queries
+    that walked; the queries the fast path found)."""
     from repro_torch.core import buckets
     from repro_torch.kernels import probe
     if sel is None:
@@ -775,12 +943,7 @@ def chain_work(t, bq, qk, sel=None) -> tuple[int, int, torch.Tensor]:
     seg_hit = f & (loc < t.sorted_upto)
     nodes = torch.where(ln <= t.max_chain,
                         torch.where(seg_hit, loc - h0 + 1, ln), 0)
-    size = min(t.dirty_cap, t.arena)
-    base = min(int(t.sorted_upto), t.arena - size)
-    pos = torch.arange(base, base + size, device=qk.device)
-    wlive = (t.astate[pos] == buckets.LIVE) & (pos >= t.sorted_upto)
-    n_end = int(wlive.nonzero().max()) + 1 if bool(wlive.any()) else 0
-    compares = torch.where(seg_hit, 0, torch.where(f, loc - base + 1, n_end))
+    tail_lookups = int((sel & ~seg_hit).sum())
     need = sel & ~f & ~complete
     cur = t.heads[b[need]].long()
     key = qk[need]
@@ -793,10 +956,32 @@ def chain_work(t, bq, qk, sel=None) -> tuple[int, int, torch.Tensor]:
         c = torch.where(act, cur, 0)
         hit = act & (t.astate[c] == buckets.LIVE) & (t.akey[c] == key)
         cur = torch.where(act & ~hit, t.anext[c].long(), -1)
-    return (int(nodes[sel].sum()) + hops, int(compares[sel].sum()), need)
+    return int(nodes[sel].sum()) + hops, tail_lookups, need, f
 
 
-def phase_chain_kernels(device, cfg, reps: int) -> dict:
+def tail_duplicates(t, rng, device):
+    """A copy of chain arena ``t`` whose dirty tail holds duplicate live
+    keys: a sixth of the tail nodes give their key to two more tail nodes
+    further on, with other values; a third of those lowest copies TOMB;
+    another sixth of the tail nodes TOMB or MIGRATED.  Returns (table, the
+    duplicated keys)."""
+    from repro_torch.core import buckets
+    su, d = int(t.sorted_upto), int(buckets.chain_dirty(t))
+    pos = su + torch.as_tensor(rng.permutation(d), device=device)
+    m = d // 6
+    a, b, c = pos[:3 * m].view(m, 3).sort(dim=1).values.unbind(1)
+    dead = pos[3 * m:4 * m]
+    ak, av, st = t.akey.clone(), t.aval.clone(), t.astate.clone()
+    ak[b], ak[c] = ak[a], ak[a]
+    av[b], av[c] = av[a] + 1, av[a] + 2
+    st[b], st[c] = buckets.LIVE, buckets.LIVE
+    st[a[: m // 3]] = buckets.TOMB
+    st[dead[: m // 2]] = buckets.TOMB
+    st[dead[m // 2:]] = buckets.MIGRATED
+    return dataclasses.replace(t, akey=ak, aval=av, astate=st), ak[a]
+
+
+def phase_chain_kernels(device, cfg, reps: int, baseline=None) -> dict:
     """The two chain kernels against their plain versions at the chain
     shapes of the main path: an arena of 2^20 nodes, 2^16 buckets."""
     from repro_torch.core import backend, buckets, hashing
@@ -860,7 +1045,7 @@ def phase_chain_kernels(device, cfg, reps: int) -> dict:
             for a, b, nm in zip(out_k, out_p, ("found", "val", "loc")):
                 err = max(err, same(a, b, f"chain_probe {what} Q={q} {nm}"))
         f, _, loc = out_k
-        nodes, compares, need = chain_work(table, bq, qk)
+        nodes, lookups, need, _ = chain_work(table, bq, qk)
         check(bool(f.any()) and not bool(f.all()), "chain_probe: inputs "
               "must mix hits and misses")
         check(bool((f & (loc >= table.sorted_upto)).any()),
@@ -870,13 +1055,13 @@ def phase_chain_kernels(device, cfg, reps: int) -> dict:
               "chain_probe: some queries must walk, meet an empty bucket "
               "and a segment past max_chain")
         log(f"  chain_probe ok ({what}): Q={Q} hits={int(f.sum())} "
-            f"nodes read={nodes} tail compares={compares} "
+            f"nodes read={nodes} tail lookups={lookups} "
             f"walked={int(need.sum())}")
     qk = chain_queries(Q, keys).contiguous()
     bq = hashing.bucket_of(t.hfn, qk, nb)
     args = (*buckets._chain_parts(old), bq, qk, t.max_chain, t.dirty_cap)
     f = probe.chain_probe(*args)[0]
-    nodes, compares, need = chain_work(old, bq, qk)
+    nodes, lookups, need, _ = chain_work(old, bq, qk)
     hits = int(f.sum())
     res["chain_probe"] = dict(
         max_abs_err=err,
@@ -885,9 +1070,14 @@ def phase_chain_kernels(device, cfg, reps: int) -> dict:
                          queue_ahead=False),
         # in: key and bucket, the bucket's (start, len), 8 bytes a node read
         # (key, state; a walk hop also its link), the value of a hit; out:
-        # found, val, loc
+        # found, val, loc; operations: two a node, a tail lookup
+        # (SET_LOOKUP_OPS) for each query its segment did not settle
         **bound(Q * 16 + nodes * 8 + int(need.sum()) * 4 + hits * 4 + Q * 9,
-                2 * nodes + compares))
+                2 * nodes + SET_LOOKUP_OPS * lookups))
+    if baseline is not None:
+        res["chain_probe"]["cases"] = compare_cases(
+            "chain_probe", probe.chain_probe, probe.chain_probe_plain,
+            {"phase-2": args}, reps, baseline, ("found", "val", "loc"))
 
     # -- chain_probe2: the old arena mid-rebuild, a new arena 4x the old
     #    with its own tail, and the stale old arena whose misses walk
@@ -904,9 +1094,7 @@ def phase_chain_kernels(device, cfg, reps: int) -> dict:
             out_k = probe.chain_probe2(*args)
             torch.cuda.synchronize()
             out_p = probe.chain_probe2_plain(*args)
-            for x, y, nm in zip(out_k, out_p, ("found", "val", "f_old",
-                                               "loc_old", "hz_idx",
-                                               "loc_new")):
+            for x, y, nm in zip(out_k, out_p, OUTPUTS):
                 err = max(err, same(x, y, f"chain_probe2 {what} Q={q} {nm}"))
             check(bool(out_k[2].any()) and bool((out_k[4] >= 0).any())
                   and bool((out_k[5] >= 0).any()) and not bool(out_k[0].all()),
@@ -921,10 +1109,9 @@ def phase_chain_kernels(device, cfg, reps: int) -> dict:
     args = (buckets._chain_parts(old), buckets._chain_parts(new), hk, hv, hl,
             bo, bn, qk, old.max_chain, old.dirty_cap)
     found, _, f_old, _, hz_idx, _ = probe.chain_probe2(*args)
-    n_hz = int(hl.nonzero().max()) + 1
-    hz_cmp = int(torch.where(hz_idx >= 0, hz_idx + 1, n_hz)[~f_old].sum())
-    n_old, c_old, w_old = chain_work(old, bo, qk)
-    n_new, c_new, w_new = chain_work(new, bn, qk, ~f_old & (hz_idx < 0))
+    n_old, l_old, _, fast_old = chain_work(old, bo, qk)
+    n_new, l_new, _, _ = chain_work(new, bn, qk, ~f_old & (hz_idx < 0))
+    hz_lookups = int((~fast_old).sum())
     res["chain_probe2"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: probe.chain_probe2(*args), reps),
@@ -932,13 +1119,55 @@ def phase_chain_kernels(device, cfg, reps: int) -> dict:
                          queue_ahead=False),
         # in: key and two buckets, each arena's (start, len) of the bucket,
         # the nodes read, the hazard buffer, the value of a hit; out: six
-        # outputs
+        # outputs; operations: two a node, a lookup (SET_LOOKUP_OPS) in each
+        # tail window and in the hazard buffer that a query consults
         **bound(Q * 12 + Q * 8 + int((~f_old).sum()) * 8
                 + (n_old + n_new) * 8 + CH * 9 + int(found.sum()) * 4
                 + Q * 18,
-                2 * (n_old + n_new) + c_old + c_new + hz_cmp))
-    log(f"  chain_probe2 timed: hazard compares={hz_cmp} nodes read "
-        f"old={n_old} new={n_new}")
+                2 * (n_old + n_new)
+                + SET_LOOKUP_OPS * (l_old + l_new + hz_lookups)))
+    log(f"  chain_probe2 timed: lookups hazard={hz_lookups} tail old={l_old}"
+        f" new={l_new}; nodes read old={n_old} new={n_new}")
+
+    # -- chain_probe2 on the staged set's own cases: the hazard buffers of
+    #    tc_probe2's cases, dirty tails with duplicate live keys and TOMB /
+    #    MIGRATED nodes in both arenas, small batches
+    mc, dc = old.max_chain, old.dirty_cap
+    cases = {"phase-2": args}
+
+    def chain_case(o, n, ck, cv, cl, qk):
+        qk = qk.contiguous()
+        return (buckets._chain_parts(o), buckets._chain_parts(n), ck, cv, cl,
+                hashing.bucket_of(o.hfn, qk, nb),
+                hashing.bucket_of(n.hfn, qk, 4 * nb), qk, mc, dc)
+    for label, (ck, cv, cl, ckeys) in hazard_cases(hk, hv, hl, rng,
+                                                   device).items():
+        cases[label] = chain_case(old, new, ck, cv, cl,
+                                  chain_queries(Q, keys, ckeys, nkeys))
+    o2, okeys = tail_duplicates(old, rng, device)
+    n2, nkeys2 = tail_duplicates(new, rng, device)
+    cases["tail_duplicates"] = chain_case(
+        o2, n2, hk, hv, hl, chain_queries(Q, keys, okeys, nkeys2, hz_live))
+    for q in (1, 33, 256):
+        for label in ("phase-2", "full"):
+            a = cases[label]
+            cases[f"{label} Q={q}"] = (*a[:5], *(t[:q] for t in a[5:8]),
+                                       mc, dc)
+    res["chain_probe2"]["cases"] = compare_cases(
+        "chain_probe2", probe.chain_probe2, probe.chain_probe2_plain, cases,
+        reps, baseline)
+    hits = {k: int((probe.chain_probe2(*a)[4] >= 0).sum())
+            for k, a in cases.items() if "Q=" not in k}
+    check(hits["empty"] == 0 and min(hits["duplicates"], hits["full"],
+                                     hits["one_run"]) > Q // 8,
+          f"chain_probe2: hazard hits of the cases {hits}")
+    out = probe.chain_probe2(*cases["tail_duplicates"])
+    tail_old = int((out[2] & (out[3] >= o2.sorted_upto)).sum())
+    tail_new = int(((out[5] >= 0) & (out[5] >= n2.sorted_upto)).sum())
+    check(tail_old > Q // 16 and tail_new > Q // 16,
+          f"chain_probe2: tail hits old {tail_old}, new {tail_new}")
+    log(f"  chain_probe2 cases ok: hazard hits {hits}; duplicate tails: "
+        f"hits in the old tail {tail_old}, in the new tail {tail_new}")
 
     # -- the contracts of the chain path on the card: a chunk above 4096 and
     #    a dirty window above 512 are refused; nothing launches
@@ -1679,6 +1908,13 @@ def main() -> int:
                     help="steps on the table larger than L2")
     ap.add_argument("--reps", type=int, default=50,
                     help="timed launches a kernel")
+    ap.add_argument("--baseline", default="", metavar="DIR",
+                    help="the build directory of another tree of this repo "
+                    "(build/repro_torch_kernels there, after its own run): "
+                    "phase 2 also holds that tree's probe2, tc_probe2, "
+                    "chain_probe and chain_probe2 against the plain versions "
+                    "on every case and times them in turns with this "
+                    "tree's")
     ap.add_argument("--profile", default="", metavar="FILE",
                     help="also run 40 steps of each main path under "
                     "torch.profiler and write the kernel tables to FILE "
@@ -1719,9 +1955,10 @@ def main() -> int:
         f"2^16 buckets, max_chain=64; "
         f"Q={CONFIG.lookups_per_step}/{CONFIG.updates_per_step}, "
         f"chunk={CONFIG.chunk}")
-    kres = phase_kernels(device, CONFIG, args.reps)
-    kres.update(phase_tc_kernels(device, CONFIG, args.reps))
-    kres.update(phase_chain_kernels(device, CONFIG, args.reps))
+    baseline = load_baseline(args.baseline) if args.baseline else None
+    kres = phase_kernels(device, CONFIG, args.reps, baseline)
+    kres.update(phase_tc_kernels(device, CONFIG, args.reps, baseline))
+    kres.update(phase_chain_kernels(device, CONFIG, args.reps, baseline))
 
     by_path = {}
     for i, name in enumerate(BACKENDS):

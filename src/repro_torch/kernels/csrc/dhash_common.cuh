@@ -245,19 +245,32 @@ __device__ __forceinline__ bool dhash_chain_walk(const DhashArena& a, int b,
   return false;
 }
 
+// The dense tail lookup of chain_probe: the lowest live window node holding
+// `key` (dhash_hazard_find over the staged window); on a hit sets val and loc.
+__device__ __forceinline__ bool dhash_tail_find(const DhashArena&,
+                                                const DhashTail& t, int key,
+                                                int* val, int* loc) {
+  const int j = dhash_hazard_find(t.smem, t.size, t.n_live, key, val);
+  if (j >= 0) *loc = t.base + j;
+  return j >= 0;
+}
+
 // The fast path of one arena: the sorted segment of bucket b (scanned only
-// when it is at most max_chain long), then the staged dirty tail.  On a hit
-// sets val and loc (a node index).  `complete` is whether a miss proves
-// absence: the segment was scanned and the window covers the tail.  A query
-// that is found nowhere and not complete takes the bounded walk.
+// when it is at most max_chain long), then the staged dirty tail, looked up
+// by dhash_tail_find for the tail type Tail (DhashTail: the dense scan;
+// DhashSetTail: the staged set).  On a hit sets val and loc (a node index).
+// `complete` is whether a miss proves absence: the segment was scanned and
+// the window covers the tail.  A query that is found nowhere and not
+// complete takes the bounded walk.
 //
 // The segment scan has ONE exit, so that the warp's lanes, which leave it
-// after different numbers of nodes, meet again before the tail compare: with
+// after different numbers of nodes, meet again before the tail lookup: with
 // a return from inside the scan each group of lanes that left it together
 // ran the whole tail compare on its own (chain_probe on an H100: 0.30 ms
 // instead of 0.042 ms for 65536 queries against a 300-node tail, PERF.md).
+template <class Tail>
 __device__ __forceinline__ bool dhash_chain_fast(const DhashArena& a,
-                                                 const DhashTail& t, int b,
+                                                 const Tail& t, int b,
                                                  int key, int max_chain,
                                                  int* val, int* loc,
                                                  bool* complete) {
@@ -276,12 +289,334 @@ __device__ __forceinline__ bool dhash_chain_fast(const DhashArena& a,
       }
     }
   }
-  if (!found) {
-    const int j = dhash_hazard_find(t.smem, t.size, t.n_live, key, val);
-    if (j >= 0) {
-      *loc = t.base + j;
-      found = true;
+  if (!found) found = dhash_tail_find(a, t, key, val, loc);
+  return found;
+}
+
+// ---------------------------------------------------------------------------
+// the staged set: a buffer's live keys in shared memory behind a hashed index
+// ---------------------------------------------------------------------------
+//
+// The probe2 kernels above look a query up in a staged buffer by a serial
+// scan: one thread compares its key with every live entry up to the first
+// match, up to 4096 compares a query.  A staged set answers the same
+// question -- the LOWEST live index holding the key, as argmax over the
+// match mask gives it -- in a few shared-memory loads.
+//
+// Layout: a set of n entries occupies dhash_set_words(n) words of the
+// kernel's dynamic shared memory (dhash_smem) from a word offset that is a
+// multiple of 4; with n4 = n rounded up to a multiple of 4: one word for
+// 1 + the index of its last flagged entry and three of padding, the keys
+// (int32 [n4], 16-byte aligned), the index (dhash_set_slots(n) = a power of
+// two >= 2n of 16-bit slots, each an entry index or DHASH_SET_EMPTY), the
+// overflow bytes ([n4]), rounded up to 4 words.  No values are staged (a
+// hit reads its value from device memory): 36 KiB at n = 4096, and a
+// 4096-entry hazard set plus two 512-node tail sets take 45 KiB, inside the
+// 48 KiB a block gets without opting in.  A DhashSet holds word offsets,
+// not pointers, and every access forms its address from dhash_smem where it
+// is made: with shared-memory pointers kept in a struct that a function
+// returned, nvcc 12.9 -O3 compiled the index build of chain_probe2's tail
+// sets to global-memory atomics on a null base (an illegal address on the
+// card; -G compiled it right).
+//
+// The index is open addressing with linear probing from a fixed
+// multiplicative hash of the key (dhash_set_home), not from the table's own
+// hash family, so that keys aimed at one bucket of the table do not also
+// collide here.  Building it (dhash_set_index), each live entry j claims
+// the first empty slot of its probe run with a 16-bit compare-and-swap; if
+// it meets its own key first, it lowers that slot to j (a 16-bit atomic
+// min), so a key's slot ends at its lowest live index whatever the order
+// the threads ran in.  Dead entries never enter.  A key takes at most
+// DHASH_SET_RUN slots: one that finds all of them taken by other keys is
+// flagged in the overflow bytes instead (and so are its duplicates, which
+// meet the same full run), and a query whose run is full without an empty
+// slot or a match scans the flagged entries up to the last one, lowest
+// index first, four entries a step (one word of flags, one 16-byte load of
+// keys).  Even a set whose every key has one home slot therefore costs
+// DHASH_SET_RUN probes an entry to build, and DHASH_SET_RUN probes plus a
+// quarter of the dense scan's steps to look up.
+
+#define DHASH_SET_EMPTY 0xFFFFu
+#define DHASH_SET_RUN 32
+// threads of a block that stages a set: one block an SM builds it once for
+// all the SM's queries (dhash_set_grid)
+#define DHASH_SET_THREADS 1024
+
+// the dynamic shared memory of a kernel that stages sets
+extern __shared__ __align__(16) int dhash_smem[];
+
+// Slots of the index of an n-entry set: a power of two, at least 2n and 2.
+__host__ __device__ inline int dhash_set_slots(int n) {
+  int s = 2;
+  while (s < 2 * n) s <<= 1;
+  return s;
+}
+
+// Shared-memory words of an n-entry set, a multiple of 4.
+__host__ __device__ inline int dhash_set_words(int n) {
+  const int n4 = (n + 3) & ~3;
+  return (4 + n4 + dhash_set_slots(n) / 2 + n4 / 4 + 3) & ~3;
+}
+
+// An n-entry set at word `off` of dhash_smem: the word offsets of its
+// parts, and its index's mask and hash shift.
+struct DhashSet {
+  int n, key, slot, ovf;    // entries; offsets of keys, index, flags
+  int mask, shift;          // slots - 1, 32 - log2(slots)
+};
+
+__device__ __forceinline__ DhashSet dhash_set_at(int off, int n) {
+  const int slots = dhash_set_slots(n), n4 = (n + 3) & ~3;
+  DhashSet s;
+  s.n = n;
+  s.key = off + 4;
+  s.slot = off + 4 + n4;
+  s.ovf = off + 4 + n4 + slots / 2;
+  s.mask = slots - 1;
+  s.shift = 33 - __ffs(slots);
+  return s;
+}
+
+// 1 + the index of the set's last flagged entry (the word at its offset).
+__device__ __forceinline__ int* dhash_set_end(const DhashSet& s) {
+  return dhash_smem + s.key - 4;
+}
+
+__device__ __forceinline__ int* dhash_set_keys(const DhashSet& s) {
+  return dhash_smem + s.key;
+}
+
+// the index as words of two 16-bit slots (slot h in the low half of word
+// h / 2 when h is even)
+__device__ __forceinline__ unsigned* dhash_set_index_words(const DhashSet& s) {
+  return (unsigned*)(dhash_smem + s.slot);
+}
+
+__device__ __forceinline__ uint8_t* dhash_set_flags(const DhashSet& s) {
+  return (uint8_t*)(dhash_smem + s.ovf);
+}
+
+// The home slot of a key: Fibonacci hashing, the top bits of key * 2^32/phi.
+__device__ __forceinline__ unsigned dhash_set_home(const DhashSet& s,
+                                                   int key) {
+  return ((unsigned)key * 0x9E3779B1u) >> s.shift;
+}
+
+__device__ __forceinline__ unsigned dhash_set_slot(const DhashSet& s,
+                                                   unsigned h) {
+  return (dhash_set_index_words(s)[h >> 1] >> ((h & 1u) * 16u)) & 0xFFFFu;
+}
+
+// 16-bit compare-and-swap (cmp -> val) and atomic min on slot h, by 32-bit
+// compare-and-swap on the word that holds it; the CAS returns the slot's
+// value before it.
+__device__ __forceinline__ unsigned dhash_set_cas(const DhashSet& s,
+                                                  unsigned h, unsigned cmp,
+                                                  unsigned val) {
+  unsigned* w = dhash_set_index_words(s) + (h >> 1);
+  const unsigned sh = (h & 1u) * 16u;
+  unsigned old = *(volatile unsigned*)w;
+  for (;;) {
+    const unsigned cur = (old >> sh) & 0xFFFFu;
+    if (cur != cmp) return cur;
+    const unsigned prev =
+        atomicCAS(w, old, (old & ~(0xFFFFu << sh)) | (val << sh));
+    if (prev == old) return cmp;
+    old = prev;
+  }
+}
+
+__device__ __forceinline__ void dhash_set_min(const DhashSet& s, unsigned h,
+                                              unsigned val) {
+  unsigned* w = dhash_set_index_words(s) + (h >> 1);
+  const unsigned sh = (h & 1u) * 16u;
+  unsigned old = *(volatile unsigned*)w;
+  for (;;) {
+    if (((old >> sh) & 0xFFFFu) <= val) return;
+    const unsigned prev =
+        atomicCAS(w, old, (old & ~(0xFFFFu << sh)) | (val << sh));
+    if (prev == old) return;
+    old = prev;
+  }
+}
+
+// First half of the stage: clear the index and copy the n entries' keys;
+// `entry(j, &key)` gives entry j's key and returns whether it is live.
+// Every thread of the block calls it; a __syncthreads() must follow before
+// dhash_set_index (several sets may be filled before one barrier).
+template <class Entry>
+__device__ __forceinline__ void dhash_set_fill(const DhashSet& s,
+                                               Entry entry) {
+  unsigned* words = dhash_set_index_words(s);
+  int* keys = dhash_set_keys(s);
+  uint8_t* flags = dhash_set_flags(s);
+  for (int w = threadIdx.x; w <= s.mask >> 1; w += blockDim.x)
+    words[w] = 0xFFFFFFFFu;
+  for (int j = threadIdx.x; j < ((s.n + 3) & ~3); j += blockDim.x) {
+    int k = 0;
+    const bool live = j < s.n && entry(j, &k);
+    keys[j] = k;
+    flags[j] = live ? 1 : 0;    // live and not yet in the index
+  }
+  if (threadIdx.x == 0) *dhash_set_end(s) = 0;
+}
+
+// Second half: every live entry into the index, or flagged.  Every thread
+// of the block calls it; a __syncthreads() must follow before a find.
+__device__ __forceinline__ void dhash_set_index(const DhashSet& s) {
+  const int* keys = dhash_set_keys(s);
+  uint8_t* flags = dhash_set_flags(s);
+  int my_end = 0;
+  for (int j = threadIdx.x; j < s.n; j += blockDim.x) {
+    if (!flags[j]) continue;
+    const int k = keys[j];
+    unsigned h = dhash_set_home(s, k);
+    bool placed = false;
+    for (int p = 0; p < DHASH_SET_RUN && !placed; ++p) {
+      const unsigned e = dhash_set_cas(s, h, DHASH_SET_EMPTY, j);
+      if (e == DHASH_SET_EMPTY) {
+        placed = true;
+      } else if (keys[e] == k) {
+        dhash_set_min(s, h, j);
+        placed = true;
+      }
+      h = (h + 1) & s.mask;
+    }
+    if (placed)
+      flags[j] = 0;
+    else
+      my_end = j + 1;
+  }
+  if (my_end) atomicMax(dhash_set_end(s), my_end);
+}
+
+// Both halves of the stage of one set, with their barriers.
+template <class Entry>
+__device__ __forceinline__ void dhash_set_stage(const DhashSet& s,
+                                                Entry entry) {
+  dhash_set_fill(s, entry);
+  __syncthreads();
+  dhash_set_index(s);
+  __syncthreads();
+}
+
+// The lowest live index of the set holding `key`, or -1.  One exit from
+// each loop, so the warp's lanes meet again after it.
+__device__ __forceinline__ int dhash_set_find(const DhashSet& s, int key) {
+  const int* keys = dhash_set_keys(s);
+  unsigned h = dhash_set_home(s, key);
+  int r = -1;
+  bool open = true;    // the run is full: the key may be flagged
+  for (int p = 0; p < DHASH_SET_RUN; ++p) {
+    const unsigned e = dhash_set_slot(s, h);
+    if (e == DHASH_SET_EMPTY) {
+      open = false;
+      break;
+    }
+    if (keys[e] == key) {
+      r = (int)e;
+      open = false;
+      break;
+    }
+    h = (h + 1) & s.mask;
+  }
+  if (open) {
+    const int end = (*dhash_set_end(s) + 3) >> 2;
+    const unsigned* flags = (const unsigned*)dhash_set_flags(s);
+    const int4* keys4 = (const int4*)keys;
+    for (int w = 0; w < end; ++w) {
+      const unsigned f = flags[w];
+      if (f == 0) continue;
+      const int4 k = keys4[w];
+      const int l = (f & 0xFFu) && k.x == key           ? 0
+                    : (f & 0xFF00u) && k.y == key       ? 1
+                    : (f & 0xFF0000u) && k.z == key     ? 2
+                    : (f & 0xFF000000u) && k.w == key   ? 3
+                                                        : -1;
+      if (l >= 0) {
+        r = 4 * w + l;
+        break;
+      }
     }
   }
-  return found;
+  return r;
+}
+
+// An arena's dirty-tail window (as DhashTail) as a staged set; the value
+// of a hit is read from the arena.
+struct DhashSetTail {
+  DhashSet set;
+  int base;
+  bool covered;
+};
+
+// First half of the stage of a tail set at word `off` (the window of
+// dhash_tail_stage); a __syncthreads() and dhash_set_index(t.set) follow.
+__device__ __forceinline__ DhashSetTail dhash_tail_set_fill(
+    const DhashArena& a, int sorted_upto, int dirty, int size, int off) {
+  DhashSetTail t;
+  t.set = dhash_set_at(off, size);
+  t.base = min(sorted_upto, a.n - size);
+  t.covered = sorted_upto + dirty <= t.base + size;
+  const int base = t.base;
+  dhash_set_fill(t.set, [&](int j, int* k) {
+    const int p = base + j;
+    *k = a.key[p];
+    return p >= sorted_upto && a.state[p] == DHASH_LIVE;
+  });
+  return t;
+}
+
+__device__ __forceinline__ bool dhash_tail_find(const DhashArena& a,
+                                                const DhashSetTail& t,
+                                                int key, int* val,
+                                                int* loc) {
+  const int j = dhash_set_find(t.set, key);
+  if (j >= 0) {
+    *val = a.val[t.base + j];
+    *loc = t.base + j;
+  }
+  return j >= 0;
+}
+
+// Multiprocessors of the calling thread's current device, cached.
+static inline cudaError_t dhash_sm_count(int* sms) {
+  static int cache[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (cache[dev] == 0) {
+    e = cudaDeviceGetAttribute(&cache[dev], cudaDevAttrMultiProcessorCount,
+                               dev);
+    if (e != cudaSuccess) return e;
+  }
+  *sms = cache[dev];
+  return cudaSuccess;
+}
+
+// The grid of a kernel that stages a set: at most one block of
+// DHASH_SET_THREADS an SM, so each SM builds the set once, and no more
+// blocks than runs of 32 queries (dhash_set_first / dhash_set_stride).
+static inline cudaError_t dhash_set_grid(int Q, int* blocks) {
+  int sms = 0;
+  const cudaError_t e = dhash_sm_count(&sms);
+  if (e != cudaSuccess) return e;
+  const int b = (Q + 31) / 32;
+  *blocks = b < 1 ? 1 : (b > sms ? sms : b);
+  return cudaSuccess;
+}
+
+// The queries of a thread under dhash_set_grid: runs of 32 consecutive
+// queries, one a warp (coalesced), dealt round-robin to the blocks, so that
+// a region of the batch that is slow to answer (keys of one flooded bucket)
+// spreads over every SM: for (i = dhash_set_first(); i < Q; i +=
+// dhash_set_stride()).
+__device__ __forceinline__ int dhash_set_first() {
+  return ((threadIdx.x >> 5) * gridDim.x + blockIdx.x) * 32 +
+         (threadIdx.x & 31);
+}
+
+__device__ __forceinline__ int dhash_set_stride() {
+  return (blockDim.x >> 5) * gridDim.x * 32;
 }

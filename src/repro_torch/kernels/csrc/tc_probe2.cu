@@ -10,14 +10,21 @@
 // merged partial results over a second grid axis and flagged escaped rows
 // for a fallback; here both tables are read in place, one result a query.
 //
-// Bound: operations, as for the linear probe2: the hazard check compares a
-// query with every live hazard entry, up to Q x chunk compares, against four
-// rows (a few sectors) a query for the two tables.  The hazard stage is the
-// linear probe2's (dhash_hazard_stage / dhash_hazard_find in
-// dhash_common.cuh): the buffer is staged in shared memory once a block, a
-// query the old table resolved skips the scan, and the scan stops at the
-// first live match and at the last live entry.  The rows are read as 16-byte
-// loads as in tc_lookup.  Contract: chunk <= 4096, refused above.
+// Bound: bytes -- four rows (a few sectors) a query for the two tables, the
+// hazard buffer once, six outputs.  The hazard lookup is a staged set
+// (dhash_set_stage / dhash_set_find in dhash_common.cuh): each block copies
+// the buffer's keys into shared memory once and builds a hashed index over
+// its live entries, so a query the old table did not resolve finds the
+// lowest live hazard index holding its key in a few shared-memory loads
+// (the first design compared it with every live entry, serially: 75 M
+// compares for 65536 queries on chip_smoke.py's phase-2 input).  A hit reads
+// its value from device memory.  The grid is at most one block of 1024
+// threads an SM (dhash_set_grid), so the set is built once an SM and its
+// cost is shared by all the SM's queries, which come as runs of 32 dealt
+// round-robin to the blocks (dhash_set_first); 36 KiB of shared memory at
+// chunk = 4096, no opt-in, one block an SM resident (its threads are the
+// limit).  The rows are read as 16-byte loads as in tc_lookup.  Contract:
+// chunk <= 4096, refused above.
 //
 // Outputs, with the meaning of the linear probe2's: found, val, f_old,
 // loc_old (flat slot in the old table), hz_idx (only where the old table did
@@ -27,7 +34,7 @@
 #include "dhash_common.cuh"
 
 template <bool VEC>
-__global__ void tc_probe2_kernel(
+__global__ void __launch_bounds__(DHASH_SET_THREADS) tc_probe2_kernel(
     const int* __restrict__ ok, const int* __restrict__ ov,
     const int* __restrict__ os, const int* __restrict__ nk,
     const int* __restrict__ nv, const int* __restrict__ ns, int W,
@@ -39,30 +46,33 @@ __global__ void tc_probe2_kernel(
     int* __restrict__ val, uint8_t* __restrict__ f_old,
     int* __restrict__ loc_old, int* __restrict__ hz_idx,
     int* __restrict__ loc_new) {
-  extern __shared__ int smem[];
-  __shared__ int hz_end;   // 1 + index of the last live hazard entry
-  const int n_hz = dhash_hazard_stage(hk, hv, hl, chunk, smem, &hz_end);
+  const DhashSet hz_set = dhash_set_at(0, chunk);
+  dhash_set_stage(hz_set, [&](int j, int* k) {
+    *k = hk[j];
+    return hl[j] != 0;
+  });
 
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= Q) return;
-  const int key = qk[i];
-  int v, lo, hz = -1, ln = -1;
-  bool fo = dhash_two_row_lookup<VEC>(ok, ov, os, W, rao[i], rbo[i], key, &v,
-                                      &lo);
-  bool f = fo;
-  if (!f) {
-    hz = dhash_hazard_find(smem, chunk, n_hz, key, &v);
-    f = hz >= 0;
+  for (int i = dhash_set_first(); i < Q; i += dhash_set_stride()) {
+    const int key = qk[i];
+    int v, lo, hz = -1, ln = -1;
+    bool fo = dhash_two_row_lookup<VEC>(ok, ov, os, W, rao[i], rbo[i], key,
+                                        &v, &lo);
+    bool f = fo;
+    if (!f) {
+      hz = dhash_set_find(hz_set, key);
+      f = hz >= 0;
+      if (f) v = hv[hz];
+    }
+    if (!f)
+      f = dhash_two_row_lookup<VEC>(nk, nv, ns, W, ran[i], rbn[i], key, &v,
+                                    &ln);
+    found[i] = f ? 1 : 0;
+    val[i] = v;
+    f_old[i] = fo ? 1 : 0;
+    loc_old[i] = lo;
+    hz_idx[i] = hz;
+    loc_new[i] = ln;
   }
-  if (!f)
-    f = dhash_two_row_lookup<VEC>(nk, nv, ns, W, ran[i], rbn[i], key, &v,
-                                  &ln);
-  found[i] = f ? 1 : 0;
-  val[i] = v;
-  f_old[i] = fo ? 1 : 0;
-  loc_old[i] = lo;
-  hz_idx[i] = hz;
-  loc_new[i] = ln;
 }
 
 extern "C" int dhash_tc_probe2(
@@ -72,18 +82,19 @@ extern "C" int dhash_tc_probe2(
     const int* ran, const int* rbn, const int* qk, int Q, uint8_t* found,
     int* val, uint8_t* f_old, int* loc_old, int* hz_idx, int* loc_new,
     void* stream) {
-  if (W < 1 || W > DHASH_MAX_WIDTH || chunk > DHASH_MAX_CHUNK)
+  if (W < 1 || W > DHASH_MAX_WIDTH || chunk < 0 || chunk > DHASH_MAX_CHUNK)
     return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  int blocks = (Q + threads - 1) / threads;
-  size_t bytes = dhash_hazard_smem_bytes(chunk);
+  int blocks = 0;
+  const cudaError_t e = dhash_set_grid(Q, &blocks);
+  if (e != cudaSuccess) return (int)e;
+  const size_t bytes = (size_t)dhash_set_words(chunk) * 4;
   cudaStream_t s = (cudaStream_t)stream;
   if (dhash_rows_vec_ok(W, ok, os, nk, ns))
-    tc_probe2_kernel<true><<<blocks, threads, bytes, s>>>(
+    tc_probe2_kernel<true><<<blocks, DHASH_SET_THREADS, bytes, s>>>(
         ok, ov, os, nk, nv, ns, W, hk, hv, hl, chunk, rao, rbo, ran, rbn, qk,
         Q, found, val, f_old, loc_old, hz_idx, loc_new);
   else
-    tc_probe2_kernel<false><<<blocks, threads, bytes, s>>>(
+    tc_probe2_kernel<false><<<blocks, DHASH_SET_THREADS, bytes, s>>>(
         ok, ov, os, nk, nv, ns, W, hk, hv, hl, chunk, rao, rbo, ran, rbn, qk,
         Q, found, val, f_old, loc_old, hz_idx, loc_new);
   return (int)cudaGetLastError();

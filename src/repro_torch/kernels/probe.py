@@ -39,11 +39,13 @@ resolved, stopped at the first match and at the last live entry, buffer
 staged in shared memory); ``probe_insert`` — grid-wide barriers (two a
 claim round; small co-resident grid, early end of rounds); ``extract`` —
 launch latency (one block, one shuffle scan); ``tc_lookup`` — bytes (two
-rows a query, each as 16-byte loads); ``tc_probe2`` — operations (the hazard
-stage of ``probe2``); ``tc_insert`` — grid-wide barriers (the design of
-``probe_insert``); ``chain_probe`` — bytes (a segment scan a query, the
-dirty tail staged in shared memory); ``chain_probe2`` — operations (the
-hazard stage of ``probe2``).
+rows a query, each as 16-byte loads); ``tc_probe2`` — bytes (four rows a
+query; the hazard buffer staged as a hashed set, built once an SM, where a
+lookup is a few shared-memory loads); ``tc_insert`` — grid-wide barriers
+(the design of ``probe_insert``); ``chain_probe`` — bytes (a segment scan a query, the
+dirty tail staged in shared memory); ``chain_probe2`` — bytes (a segment
+of a few nodes in each arena; the hazard buffer and both dirty tails staged
+as hashed sets in shared memory, ``dhash_set_*`` in ``dhash_common.cuh``).
 
 What the TPU design needed and these kernels do not have: a padded copy of
 the table (a thread wraps its own probe), a query sort, query tiles, a

@@ -71,18 +71,27 @@ def test_the_two_row_kernel_sources_exist_and_share_the_hazard_stage():
         src = (CSRC / f"{k}.cu").read_text()
         assert "__global__" in src and f'extern "C" int dhash_{k}(' in src, k
         assert "cudaGetLastError" in src and "DHASH_MAX_WIDTH" in src, k
+    # probe2 keeps the dense hazard stage; tc_probe2 stages the buffer as a
+    # hashed set (dhash_common.cuh); neither stages it by itself
+    src = (CSRC / "probe2.cu").read_text()
+    assert "dhash_hazard_stage(" in src and "dhash_hazard_find(" in src
+    src = (CSRC / "tc_probe2.cu").read_text()
+    assert "dhash_set_stage(" in src and "dhash_set_find(" in src
+    assert "dhash_hazard_stage(" not in src and "dhash_hazard_find(" not in src
+    assert "dhash_set_grid(" in src and "DHASH_SET_THREADS" in src
     for k in ("probe2", "tc_probe2"):
         src = (CSRC / f"{k}.cu").read_text()
-        assert "dhash_hazard_stage(" in src and "dhash_hazard_find(" in src
-        assert "atomicMax" not in src, f"{k} stages the hazard buffer itself"
+        assert "atomicMax" not in src and "atomicCAS" not in src, \
+            f"{k} stages the hazard buffer itself"
     from repro_torch.kernels import build, probe
     assert set(probe.KERNELS) == set(build.SOURCES)
 
 
 def test_the_nine_kernels_and_the_chain_sources():
     """Nine kernels, one source each; the chain kernels resolve every query
-    in the kernel (tail stage, segment scan, bounded walk) and chain_probe2
-    stages the hazard buffer as the other probe2 kernels do."""
+    in the kernel (tail stage, segment scan, bounded walk); chain_probe keeps
+    the dense tail stage, chain_probe2 stages the hazard buffer and both
+    tail windows as hashed sets, as tc_probe2 stages its hazard buffer."""
     from repro_torch.kernels import build, probe
     assert len(probe.KERNELS) == len(set(probe.KERNELS)) == 9
     assert probe.KERNELS == build.SOURCES
@@ -91,12 +100,27 @@ def test_the_nine_kernels_and_the_chain_sources():
         src = (CSRC / f"{k}.cu").read_text()
         assert "__global__" in src and f'extern "C" int dhash_{k}(' in src, k
         assert "cudaGetLastError" in src and "DHASH_MAX_DIRTY" in src, k
-        for fn in ("dhash_tail_stage(", "dhash_chain_fast(",
-                   "dhash_chain_walk("):
+        for fn in ("dhash_chain_fast(", "dhash_chain_walk("):
             assert fn in src, (k, fn)
-        assert "atomicMax" not in src, f"{k} stages its buffers itself"
+        assert "atomicMax" not in src and "atomicCAS" not in src, \
+            f"{k} stages its buffers itself"
+    src = (CSRC / "chain_probe.cu").read_text()
+    assert "dhash_tail_stage(" in src and "dhash_set_" not in src
     src = (CSRC / "chain_probe2.cu").read_text()
-    assert "dhash_hazard_stage(" in src and "dhash_hazard_find(" in src
+    for fn in ("dhash_set_fill(", "dhash_tail_set_fill(", "dhash_set_index(",
+               "dhash_set_find(", "dhash_set_grid("):
+        assert fn in src, fn
+    for fn in ("dhash_hazard_stage(", "dhash_hazard_find(",
+               "dhash_tail_stage("):
+        assert fn not in src, fn
+    # the staged set carries word offsets into one shared array, not
+    # pointers (nvcc lost the shared state space of pointers kept in a
+    # returned struct), and the old stage stays for probe2 and chain_probe
+    common = (CSRC / "dhash_common.cuh").read_text()
+    assert "extern __shared__ __align__(16) int dhash_smem[];" in common
+    for fn in ("dhash_hazard_stage(", "dhash_hazard_find(",
+               "dhash_tail_stage(", "dhash_set_stage(", "DHASH_SET_RUN"):
+        assert fn in common, fn
 
 
 def test_the_eleven_modules_and_four_kernel_sources_exist():
