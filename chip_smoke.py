@@ -8,7 +8,8 @@ for an H100) and the CUDA toolkit:
     python3 chip_smoke.py --steps 300 --tc-steps 300 --big-steps 16  # shorter
     python3 chip_smoke.py --profile build/profile.txt  # + profiler tables
     python3 chip_smoke.py --baseline OTHER/build/repro_torch_kernels
-        # phase 2 also runs another tree's hazard-scanning kernels, in turns
+        # phase 2 also runs another tree's probe2, probe_insert, tc_probe2,
+        # chain_probe and chain_probe2 on its cases, in turns
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
 
@@ -20,12 +21,17 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
    a partial last chunk, killed hazard entries, a new table 4x the old with
    a bucket count that is not a power of two; for chain hits in the sorted
    segments and the dirty tail, a segment longer than max_chain, a tail
-   longer than the window, empty buckets; for the two kernels that stage
+   longer than the window, empty buckets; for the three kernels that stage
    their buffers as hashed sets, duplicate live hazard keys with dead
    entries between them, an empty and a full hazard buffer, a buffer whose
    keys all share one home slot of the index, duplicate live keys and dead
-   nodes in both dirty tails, batches of 1, 33 and 256 queries), and times
-   kernel and plain version;
+   nodes in both dirty tails, batches of 1, 33 and 256 queries; for the
+   linear insert, tables of 64, 100 and 4096 slots, a full table, windows
+   wider than the table or than 64 slots, a group on the last start slot
+   of a block's range, wrapping runs, keys all present, TOMB and MIGRATED
+   slots taken, a landing-shaped batch, one query, 3000 keys on one start
+   slot at the head of a batch of 20000), and times kernel and plain
+   version;
 3. drives the main path of each backend — ``dhash.make(backend,
    fused=True)`` with ``backend`` linear (a), twochoice (b), cuckoo (c) and
    chain (d) at the unreduced ``dhash-paper`` size under ``DHashEngine``
@@ -109,6 +115,9 @@ def log(*a):
 
 
 OUTPUTS = ("found", "val", "f_old", "loc_old", "hz_idx", "loc_new")
+# the kernels --baseline runs from another tree, in turns with this tree's
+BASELINE_KERNELS = ("probe2", "probe_insert", "tc_probe2", "chain_probe",
+                    "chain_probe2")
 SET_LOOKUP_OPS = 4      # a staged-set lookup: hash, probe, compare, select
 
 
@@ -172,22 +181,58 @@ def hazard_cases(hk, hv, hl, rng, device) -> dict:
 
 
 def load_baseline(path: str) -> dict:
-    """The C entry points of the four hazard-scanning kernels from another
-    tree's build directory (``--baseline``), with this tree's argument
-    types (the C interface is the same)."""
+    """The C entry points of the kernels that ``--baseline`` times from
+    another tree's build directory, with the argument types that tree's
+    own ``build.py`` declares (``path`` is ``<tree>/build/repro_torch_kernels``).
+    ``probe_insert`` comes as a function with the arguments of this tree's
+    wrapper, whichever C interface the other tree has: one with claim words
+    and a pending counter (16 arguments), or this one (14)."""
     import ctypes
     import glob
-    from repro_torch.kernels import build
+    import importlib.util
+    root = os.path.dirname(os.path.dirname(os.path.abspath(path)))
+    spec = importlib.util.spec_from_file_location(
+        "baseline_build", os.path.join(root, "src", "repro_torch", "kernels",
+                                       "build.py"))
+    other = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other)
     out = {}
-    for name in ("probe2", "tc_probe2", "chain_probe", "chain_probe2"):
+    for name in BASELINE_KERNELS:
         found = glob.glob(os.path.join(path, f"{name}-*.so"))
         check(len(found) == 1, f"--baseline: {len(found)} builds of {name} "
                                f"in {path}")
         fn = getattr(ctypes.CDLL(found[0]), f"dhash_{name}")
-        fn.argtypes = build._ARGTYPES[f"dhash_{name}"]
+        fn.argtypes = other._ARGTYPES[f"dhash_{name}"]
         fn.restype = ctypes.c_int
         out[name] = fn
+    out["probe_insert"] = baseline_insert(out["probe_insert"])
     return out
+
+
+def baseline_insert(fn):
+    """``probe.probe_insert`` on another tree's C entry point ``fn``."""
+    from repro_torch.kernels import probe
+    claims = {}
+
+    def insert(tk, tv, ts, h0, keys, vals, mask, max_probes):
+        c, q, dev = tk.shape[0], keys.shape[0], tk.device
+        ok = torch.empty(q, dtype=torch.bool, device=dev)
+        present = torch.empty(q, dtype=torch.bool, device=dev)
+        if len(fn.argtypes) == 16:      # claim words and a pending counter
+            if c not in claims:
+                claims[c] = probe.new_claim(c, dev)
+            args = (tk, tv, ts, claims[c], c, h0, keys, vals, mask, q,
+                    max_probes, ok, present,
+                    torch.empty(q, dtype=torch.bool, device=dev),
+                    torch.zeros(1, dtype=torch.int32, device=dev))
+        else:
+            args = (tk, tv, ts, c, h0, keys, vals, mask, q, max_probes, ok,
+                    present, torch.empty(q, dtype=torch.int32, device=dev))
+        err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
+                   for a in args], torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"--baseline probe_insert was not launched: {err}")
+        return ok, present
+    return insert
 
 
 def compare_cases(name: str, kernel, plain, cases: dict, reps: int,
@@ -367,6 +412,165 @@ def build_table(probe, hashing, c: int, n_live: int, rng, device, seed: int,
     return hfn, tk, tv, ts, keys
 
 
+def insert_equal(probe, label, tab, h0, k, v, m, p):
+    """``probe_insert`` and its plain version on copies of ``tab``: the
+    table after the batch, ``ok`` and ``present`` equal (tolerance 0).
+    Returns (max abs err, ok, present, table) of the kernel."""
+    a = [t.clone() for t in tab]
+    b = [t.clone() for t in tab]
+    ok_k, pr_k = probe.probe_insert(*a, h0, k, v, m, p)
+    torch.cuda.synchronize()
+    ok_p, pr_p = probe.probe_insert_plain(*b, h0, k, v, m, p)
+    err = max(same(ok_k, ok_p, f"probe_insert {label} ok"),
+              same(pr_k, pr_p, f"probe_insert {label} present"))
+    for x, y, n in zip(a, b, ("key", "val", "state")):
+        err = max(err, same(x, y, f"probe_insert {label} table {n}"))
+    return err, ok_k, pr_k, a
+
+
+def random_table(c: int, rng, device, live: float = 0.45,
+                 dead: float = 0.2):
+    """``c`` slots at random states (EMPTY, LIVE, TOMB, MIGRATED), each with
+    a distinct positive key."""
+    st = rng.choice(4, c, p=[1 - live - dead, live, dead / 2, dead / 2])
+    key = rng.choice(np.arange(1, 40 * c + 1), c, replace=False)
+    return tuple(torch.as_tensor(x.astype(np.int32), device=device)
+                 for x in (key, key * 3 + 1, st))
+
+
+def fresh_batch(q: int, rng, device, h0=None, c: int = 0):
+    """``q`` distinct fresh (negative) keys, values, a random mask (90 %),
+    and start slots ``h0`` (uniform over ``c`` slots when not given)."""
+    k = -rng.choice(np.arange(1, 1 << 30), q, replace=False).astype(np.int32)
+    if h0 is None:
+        h0 = rng.integers(0, c, q)
+
+    def t(x, dt=torch.int32):
+        return torch.as_tensor(x, dtype=dt, device=device)
+    return (t(h0), t(k), t(k * 5 + 2), t(rng.random(q) < 0.9, torch.bool))
+
+
+def insert_cases(probe, hashing, hfn, tab, QU: int, CH: int, P: int, rng,
+                 device) -> dict:
+    """The probe_insert cases beside phase 2's batches, each (table, h0,
+    keys, values, mask, max_probes): small tables (C = 64 with more queries
+    than slots, C = 100, C = 4096 with clustered start slots, a full table),
+    windows wider than the table or than 64 slots (the lock-step path),
+    and on the main table a group of 100 on the last start slot of a
+    block's range, runs that wrap C - 1 -> 0, keys all present, start slots
+    on TOMB and MIGRATED slots, a landing-shaped batch of ``CH`` keys into
+    a new table, one query, and a batch of 20000 whose first 3000 keys
+    share one start slot."""
+    tk, tv, ts = tab
+    C = tk.numel()
+    out = {}
+    for c, p, q in ((64, 64, 200), (100, 64, 300), (4096, 64, 3000)):
+        t = random_table(c, rng, device)
+        centres = rng.integers(0, c, 5)
+        h0 = (rng.choice(centres, q) + rng.integers(0, 8, q)) % c
+        out[f"C={c} P={p} Q={q}"] = (t, *fresh_batch(q, rng, device, h0), p)
+    full = random_table(4096, rng, device, live=1.0, dead=0.0)
+    out["full table C=4096"] = (full, *fresh_batch(2000, rng, device,
+                                                   c=4096), 64)
+    for c, p, q in ((48, 64, 120), (4096, 100, 2000)):
+        t = random_table(c, rng, device)
+        centres = rng.integers(0, c, 5)
+        h0 = (rng.choice(centres, q) + rng.integers(0, 8, q)) % c
+        out[f"lock-step C={c} P={p} Q={q}"] = (
+            t, *fresh_batch(q, rng, device, h0), p)
+    # the block ranges of the kernel's greedy path at QU queries
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    blocks = max(min((QU + 63) // 64, sms), -(-C // (C - P + 1)))
+    w = -(-C // blocks)
+    h0 = hashing.bucket_of(hfn, torch.as_tensor(
+        -rng.choice(np.arange(1, 1 << 30), QU, replace=False).astype(
+            np.int32), device=device), C).cpu().numpy()
+    hb = h0.copy()
+    hb[:100] = w - 1
+    out["range boundary"] = (tab, *fresh_batch(QU, rng, device, hb), P)
+    hw = h0.copy()
+    hw[:2000] = C - 1 - rng.integers(0, 40, 2000)
+    out["wrap"] = (tab, *fresh_batch(QU, rng, device, hw), P)
+    live = (ts == 1).nonzero().squeeze(1)
+    pk = tk[live[torch.as_tensor(rng.choice(live.numel(), QU, replace=False),
+                                 device=device)]].contiguous()
+    out["all present"] = (tab, hashing.bucket_of(hfn, pk, C), pk, pk * 5 + 2,
+                          torch.ones(QU, dtype=torch.bool, device=device), P)
+    dead = ((ts == 2) | (ts == 3)).nonzero().squeeze(1).cpu().numpy()
+    out["TOMB / MIGRATED"] = (tab, *fresh_batch(
+        QU, rng, device, rng.choice(dead, QU, replace=False)), P)
+    hfn2, nk, nv, ns, _ = build_table(probe, hashing, C, 1 << 18, rng, device,
+                                      33, P)
+    lk = torch.as_tensor(-rng.choice(np.arange(1, 1 << 30), CH,
+                                     replace=False).astype(np.int32),
+                         device=device)
+    out["landing"] = ((nk, nv, ns), hashing.bucket_of(hfn2, lk, C), lk,
+                      lk * 5 + 2, torch.as_tensor(rng.random(CH) < 0.8,
+                                                  device=device), P)
+    out["Q=1"] = (tab, *fresh_batch(1, rng, device, c=C), P)
+    # a batch of several sweeps whose hot start slot comes first: the block
+    # stops listing in the first sweep and must still answer the rest
+    q = 20000
+    hs = hashing.bucket_of(hfn, torch.as_tensor(
+        -rng.choice(np.arange(1, 1 << 30), q, replace=False).astype(np.int32),
+        device=device), C).cpu().numpy()
+    hs[:3000] = C - 5
+    out["hot start slot, Q=20000"] = (tab, *fresh_batch(q, rng, device, hs),
+                                      P)
+    return out
+
+
+def time_insert_cases(probe, cases: dict, reps: int, baseline):
+    """Each insert case held against the plain version (tolerance 0; with a
+    baseline, the other tree's kernel too) and timed on a restored copy of
+    its table; with a baseline in turns, baseline, this tree, this tree,
+    baseline.  Returns (max abs err, {case: times})."""
+    out, err = {}, 0
+    for label, (tab, h0, k, v, m, p) in cases.items():
+        e, ok, pr, after = insert_equal(probe, label, tab, h0, k, v, m, p)
+        err = max(err, e)
+        # slots that were TOMB or MIGRATED and took a key
+        dead = int((((tab[2] == 2) | (tab[2] == 3)) & (after[2] == 1)).sum())
+        a = [t.clone() for t in tab]
+
+        def restore():
+            for x, y in zip(a, tab):
+                x.copy_(y)
+
+        def mine():
+            probe.probe_insert(*a, h0, k, v, m, p)
+        entry = {"placed": int(ok.sum()), "present": int(pr.sum()),
+                 "dead_slots_taken": dead}
+        if baseline is None:
+            entry["ms"] = time_ms(mine, reps, restore)
+        else:
+            other = baseline["probe_insert"]
+            restore()
+            ok_b, pr_b = other(*a, h0, k, v, m, p)
+            b = [t.clone() for t in tab]
+            ok_p, pr_p = probe.probe_insert_plain(*b, h0, k, v, m, p)
+            for x, y, n in zip((ok_b, pr_b, *a), (ok_p, pr_p, *b),
+                               ("ok", "present", "key", "val", "state")):
+                same(x, y, f"probe_insert (baseline) {label} {n}")
+            t = {"parent": [], "this": []}
+            for who in ("parent", "this", "this", "parent"):
+                fn = mine if who == "this" else (
+                    lambda: other(*a, h0, k, v, m, p))
+                t[who].append(time_ms(fn, reps, restore))
+            entry["ms"], entry["parent_ms"] = t["this"], t["parent"]
+        out[label] = entry
+        log(f"    probe_insert {label}: equal to the plain version; "
+            + json.dumps(entry))
+    full = out["full table C=4096"]
+    check(full["placed"] == 0, "probe_insert: a full table placed a key")
+    present = out["all present"]
+    check(present["placed"] == 0 and present["present"] > 0,
+          f"probe_insert: all present {present}")
+    check(out["TOMB / MIGRATED"]["dead_slots_taken"] > 0,
+          "probe_insert: no TOMB or MIGRATED slot was taken")
+    return err, out
+
+
 def phase_kernels(device, cfg, reps: int, baseline=None) -> dict:
     from repro_torch.core import buckets, hashing
     from repro_torch.kernels import probe
@@ -438,25 +642,19 @@ def phase_kernels(device, cfg, reps: int, baseline=None) -> dict:
                 buckets.batch_winners(k, mask))
 
     err = 0
-    claim = probe.new_claim(C, device)
     for q in (QU + 5, QU):
         h0, k, v, m = insert_inputs(q)
-        a = [t.clone() for t in (tk, tv, ts)]
-        b = [t.clone() for t in (tk, tv, ts)]
-        ok_k, pr_k = probe.probe_insert(*a, h0, k, v, m, P, claim)
-        torch.cuda.synchronize()
-        ok_p, pr_p = probe.probe_insert_plain(*b, h0, k, v, m, P)
-        err = max(err, same(ok_k, ok_p, f"probe_insert Q={q} ok"),
-                  same(pr_k, pr_p, f"probe_insert Q={q} present"))
-        for x, y, n in zip(a, b, ("key", "val", "state")):
-            err = max(err, same(x, y, f"probe_insert Q={q} table {n}"))
-        check(bool((claim == probe.CLAIM_FREE).all()),
-              "probe_insert left claim words behind")
+        tab = (tk, tv, ts)
+        e, ok_k, pr_k, _ = insert_equal(probe, f"Q={q}", tab, h0, k, v, m,
+                                        P)
+        err = max(err, e)
         failed = m & ~ok_k & ~pr_k
         check(int(failed.sum()) > 0, "probe_insert: the hot slot must "
               "overflow max_probes")
     log(f"  probe_insert ok: Q={QU} placed={int(ok_k.sum())} "
-        f"present={int(pr_k.sum())} no-slot={int(failed.sum())}")
+        f"present={int(pr_k.sum())} no-slot={int(failed.sum())} (3000 keys "
+        f"on one start slot: more than a block lists, counted)")
+    hot = ((tk, tv, ts), h0, k, v, m, P)
     # timed on the main path's kind of batch: fresh keys, hashed start slots
     k = torch.as_tensor(rng.integers(-(1 << 31), -(1 << 30), QU)
                         .astype(np.int32), device=device)
@@ -468,17 +666,24 @@ def phase_kernels(device, cfg, reps: int, baseline=None) -> dict:
         for x, y in zip(a, (tk, tv, ts)):
             x.copy_(y)
     restore()
-    ok_t, pr_t = probe.probe_insert(*a, h0, k, v, m, P, claim)
+    ok_t, pr_t = probe.probe_insert(*a, h0, k, v, m, P)
     visits = count_visits(ts, h0, pr_t, torch.full_like(h0, -1), P)
     nbytes = QU * 13 + visits * 8 + int(ok_t.sum()) * 12 + QU * 2
     res["probe_insert"] = dict(
         max_abs_err=err,
-        ms=time_ms(lambda: probe.probe_insert(*a, h0, k, v, m, P, claim),
-                   reps, restore),
+        ms=time_ms(lambda: probe.probe_insert(*a, h0, k, v, m, P), reps,
+                   restore),
         plain_ms=time_ms(
             lambda: probe.probe_insert_plain(*a, h0, k, v, m, P), 3, restore,
             queue_ahead=False),
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    cases = {"phase-2": ((tk, tv, ts), h0, k, v, m, P),
+             "hot start slot": hot}
+    cases.update(insert_cases(probe, hashing, hfn, (tk, tv, ts), QU, CH, P,
+                              rng, device))
+    errs, res["probe_insert"]["cases"] = time_insert_cases(
+        probe, cases, reps, baseline)
+    res["probe_insert"]["max_abs_err"] = max(err, errs)
 
     # -- extract: first chunk, a middle one, the partial last one, the end
     err = 0
@@ -563,10 +768,41 @@ def phase_kernels(device, cfg, reps: int, baseline=None) -> dict:
         else "operations")
     log(f"  probe2 ok: Q={Q} hazard lookups={hz_lookups} "
         f"visits old={v_old} new={v_new}")
-    if baseline is not None:
-        res["probe2"]["cases"] = compare_cases(
-            "probe2", probe.probe2, probe.probe2_plain, {"phase-2": args},
-            reps, baseline)
+
+    # -- probe2 on the staged set's own cases (as tc_probe2's below):
+    #    duplicate live hazard keys with dead entries between them, an empty
+    #    and a full buffer, every key in one probe run of the index; batches
+    #    of 1, 33 and 256 queries
+    cases = {"phase-2": args}
+    for label, (ck, cv, cl, ckeys) in hazard_cases(hk, hv, hl, rng,
+                                                   device).items():
+        n4 = Q // 4
+        cq = torch.cat([
+            keys[torch.as_tensor(rng.integers(0, keys.numel(), n4),
+                                 device=device)],
+            ckeys[torch.as_tensor(rng.integers(0, ckeys.numel(), n4),
+                                  device=device)],
+            nkeys[torch.as_tensor(rng.integers(0, nkeys.numel(), n4),
+                                  device=device)],
+            torch.as_tensor(rng.integers(1 << 30, (1 << 31) - 1,
+                                         Q - 3 * n4).astype(np.int32),
+                            device=device)])
+        cq = cq[torch.as_tensor(rng.permutation(Q), device=device)]
+        cases[label] = ((tk, tv, so), (nk, nv, ns), ck, cv, cl,
+                        hashing.bucket_of(hfn, cq, C),
+                        hashing.bucket_of(hfn2, cq, C), cq.contiguous(), P)
+    for q in (1, 33, 256):
+        for label in ("phase-2", "full"):
+            a = cases[label]
+            cases[f"{label} Q={q}"] = (*a[:5], *(t[:q] for t in a[5:8]), P)
+    res["probe2"]["cases"] = compare_cases(
+        "probe2", probe.probe2, probe.probe2_plain, cases, reps, baseline)
+    hits = {k: int((probe.probe2(*a)[4] >= 0).sum())
+            for k, a in cases.items() if "Q=" not in k}
+    check(hits["empty"] == 0 and min(hits["duplicates"], hits["full"],
+                                     hits["one_run"]) > Q // 8,
+          f"probe2: hazard hits of the cases {hits}")
+    log(f"  probe2 cases ok: hazard hits {hits}")
 
     # -- the chunk contract: above 4096 a table on the card is refused, by
     #    the wrappers and by the backend adapter; nothing runs the plain scan
@@ -1911,10 +2147,10 @@ def main() -> int:
     ap.add_argument("--baseline", default="", metavar="DIR",
                     help="the build directory of another tree of this repo "
                     "(build/repro_torch_kernels there, after its own run): "
-                    "phase 2 also holds that tree's probe2, tc_probe2, "
-                    "chain_probe and chain_probe2 against the plain versions "
-                    "on every case and times them in turns with this "
-                    "tree's")
+                    "phase 2 also holds that tree's probe2, probe_insert, "
+                    "tc_probe2, chain_probe and chain_probe2 against the "
+                    "plain versions on every case and times them in turns "
+                    "with this tree's")
     ap.add_argument("--profile", default="", metavar="FILE",
                     help="also run 40 steps of each main path under "
                     "torch.profiler and write the kernel tables to FILE "

@@ -32,9 +32,9 @@ as
      "sorted_upto": int32[]}.
 
 Hash seeds are ``uint32`` in the tree and int64 words in ``[0, 2**32)`` in
-the port.  The insert kernels' claim scratch (slot tables only) is not part
-of a table's contents: it is made anew on the way in and left out on the way
-back.
+the port.  The two-row insert kernel's claim scratch (twochoice and cuckoo
+tables only) is not part of a table's contents: it is made anew on the way
+in and left out on the way back.
 """
 from __future__ import annotations
 
@@ -65,6 +65,8 @@ _HFNS = {buckets.LinearTable: ("hfn",),
          buckets.CuckooTable: ("hfn_a", "hfn_b"),
          buckets.ChainTable: ("hfn",)}
 _SLOTS = ("key", "val", "state")
+# the tables that keep a claim scratch on a CUDA device
+_CLAIMS = (buckets.TwoChoiceTable, buckets.CuckooTable)
 _ARRAYS = {buckets.ChainTable: ("akey", "aval", "anext", "astate", "heads",
                                 "free_stack", "free_top", "bstart", "blen",
                                 "sorted_upto")}
@@ -93,7 +95,7 @@ def table_from_numpy(tree: dict, device: torch.device | str = "cuda",
     kw.update({h: _hfn_from(tree[h], dev) for h in _HFNS[cls]})
     kw.update({f: _to_dev(tree[f], np.int32, dev)
                for f in _ARRAYS.get(cls, _SLOTS)})
-    if dev.type == "cuda" and cls not in _ARRAYS:
+    if dev.type == "cuda" and cls in _CLAIMS:
         from repro_torch.kernels.probe import new_claim
         kw["claim"] = new_claim(kw["key"].numel(), dev)
     return cls(**kw)

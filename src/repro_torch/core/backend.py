@@ -209,7 +209,7 @@ def linear_insert_fused(t: LinearTable, keys: torch.Tensor,
     h0 = hashing.bucket_of(t.hfn, keys, t.capacity)
     *_, ok, present = ops.probe_insert(
         t.key, t.val, t.state, h0, keys, vals, winner,
-        max_probes=t.max_probes, claim=t.claim, with_present=True)
+        max_probes=t.max_probes, with_present=True)
     return (t, ok, present) if with_present else (t, ok)
 
 

@@ -86,19 +86,19 @@ def _argpick(hit: torch.Tensor, vals: torch.Tensor, dim: int = -1):
     return torch.gather(vals, dim, i.unsqueeze(dim)).squeeze(dim), i
 
 
-def _empty(shape: tuple, hfns: dict, device) -> dict:
+def _empty(shape: tuple, hfns: dict, device, claim: bool = True) -> dict:
     """The fields of an empty table of ``shape`` on ``device`` (default:
     where the first hash function's seeds live): the hash functions moved
-    there, zeroed key / val / state, and on a CUDA device the insert
-    kernel's claim scratch (not part of the table's contents, never
-    converted, restored by every launch)."""
+    there, zeroed key / val / state, and with ``claim`` on a CUDA device the
+    two-row insert kernel's claim scratch (not part of the table's contents,
+    never converted, restored by every launch)."""
     first = next(iter(hfns.values()))
     dev = torch.device(device) if device is not None else first.seeds.device
     out = {n: h if h.seeds.device == dev else replace(h, seeds=h.seeds.to(dev))
            for n, h in hfns.items()}
     for f in ("key", "val", "state"):
         out[f] = torch.zeros(shape, dtype=I32, device=dev)
-    if dev.type == "cuda":
+    if claim and dev.type == "cuda":
         from repro_torch.kernels.probe import new_claim
         out["claim"] = new_claim(out["key"].numel(), dev)
     return out
@@ -164,14 +164,14 @@ class LinearTable:
     key: torch.Tensor    # [C] i32
     val: torch.Tensor    # [C] i32
     state: torch.Tensor  # [C] i32 (EMPTY/LIVE/TOMB/MIGRATED)
-    claim: torch.Tensor | None = None   # [C] i32, CUDA tables only (_empty)
 
 
 def linear_make(capacity: int, hfn: hashing.HashFn, max_probes: int = 64,
                 device: torch.device | str | None = None) -> LinearTable:
     """Empty table on ``device`` (default: where the hash seeds live)."""
     return LinearTable(capacity=capacity, max_probes=max_probes,
-                       **_empty((capacity,), {"hfn": hfn}, device))
+                       **_empty((capacity,), {"hfn": hfn}, device,
+                                claim=False))
 
 
 def linear_lookup(t: LinearTable, keys: torch.Tensor):

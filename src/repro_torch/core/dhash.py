@@ -245,7 +245,7 @@ def lookup_counted(d: DHashState, keys: torch.Tensor, *, probe_hi: int = 7,
 
 def _ins_table(dd: DHashState, t, kk, vv, mm):
     """Descriptor-dispatched insert (shared by user inserts and hazard
-    landing, so a fused state's rebuild landing runs the claim kernel)."""
+    landing, so a fused state's rebuild landing runs the insert kernel)."""
     be = _be(dd)
     if dd.fused:
         return be.insert_fused(t, kk, vv, mm)
@@ -363,7 +363,7 @@ def rebuild_land(d: DHashState, *,
     already in the new table (Alg. 3 lines 34-36); entries killed while in
     hazard (delete during the hazard period) are dropped.
 
-    With ``fused`` the landing runs through the SAME claim kernel as user
+    With ``fused`` the landing runs through the SAME insert kernel as user
     inserts.
 
     A landing insert can fail two ways and they MUST be told apart: the key
@@ -373,7 +373,7 @@ def rebuild_land(d: DHashState, *,
     an acknowledged insert, so it stays live and the next transition
     retries).  The reference tells them apart with a presence lookup behind
     a ``cond`` on ``failed.any()``; a host branch there would cost a second
-    synchronisation, so the check runs unconditionally: the claim kernel
+    synchronisation, so the check runs unconditionally: the insert kernel
     already proves presence and hands it back (fused), or a chunk-sized
     plain lookup follows the insert (plain)."""
     be = _be(d)

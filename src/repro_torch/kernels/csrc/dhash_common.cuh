@@ -24,8 +24,9 @@
 #define DHASH_MIGRATED 3
 
 #define DHASH_MAX_WIDTH 32
-// the largest hazard buffer the probe2 kernels stage in shared memory: the
-// 48 KiB a block gets without opting in, and what the extract kernel fills
+// the largest hazard buffer the probe2 kernels stage in shared memory (a
+// staged set of 36 KiB, inside the 48 KiB a block gets without opting in),
+// and what the extract kernel fills
 #define DHASH_MAX_CHUNK 4096
 
 // Linear-probe lookup of one key: walk at most max_probes slots from h0,
@@ -105,11 +106,6 @@ __host__ __device__ inline int dhash_stage_words(int n) {
   return 2 * n + (n + 3) / 4;
 }
 
-// Shared-memory bytes of a staged hazard buffer.
-static inline size_t dhash_hazard_smem_bytes(int chunk) {
-  return (size_t)dhash_stage_words(chunk) * 4;
-}
-
 // Copy n entries into the staged layout at `smem`; `entry(j, &key, &val)`
 // gives entry j and returns whether it is live.  Returns 1 + the index of
 // the last live entry (`end` is a __shared__ int of the caller, one per
@@ -137,25 +133,12 @@ __device__ __forceinline__ int dhash_stage(int n, int* smem, int* end,
   return *end;
 }
 
-// The hazard stage of the probe2 kernels.  The block copies the hazard
-// buffer (key, val, live: 9 bytes an entry, 36 KiB at chunk = 4096) into
-// dynamic shared memory `smem` once and returns 1 + the index of the last
-// live entry.
-__device__ __forceinline__ int dhash_hazard_stage(
-    const int* __restrict__ hk, const int* __restrict__ hv,
-    const uint8_t* __restrict__ hl, int chunk, int* smem, int* hz_end) {
-  return dhash_stage(chunk, smem, hz_end, [&](int j, int* k, int* v) {
-    *k = hk[j];
-    *v = hv[j];
-    return hl[j] != 0;
-  });
-}
-
-// The lowest live hazard index holding `key`, or -1, from the buffer that
-// dhash_hazard_stage (or dhash_tail_stage) put into `smem`.  The scan stops at the first live
-// match (as argmax over the match mask) and at the last live entry; all
-// threads of a warp read the same entry at the same time, which shared
-// memory serves as a broadcast.
+// The lowest live index holding `key`, or -1, of the buffer that
+// dhash_stage (through dhash_tail_stage) put into `smem`: chain_probe's
+// dense tail lookup.  The scan stops at the first live match (as argmax
+// over the match mask) and at the last live entry; all threads of a warp
+// read the same entry at the same time, which shared memory serves as a
+// broadcast.
 __device__ __forceinline__ int dhash_hazard_find(const int* smem, int chunk,
                                                  int n_hz, int key,
                                                  int* val) {
@@ -297,11 +280,11 @@ __device__ __forceinline__ bool dhash_chain_fast(const DhashArena& a,
 // the staged set: a buffer's live keys in shared memory behind a hashed index
 // ---------------------------------------------------------------------------
 //
-// The probe2 kernels above look a query up in a staged buffer by a serial
-// scan: one thread compares its key with every live entry up to the first
-// match, up to 4096 compares a query.  A staged set answers the same
-// question -- the LOWEST live index holding the key, as argmax over the
-// match mask gives it -- in a few shared-memory loads.
+// chain_probe's dense tail lookup above scans a staged buffer serially: one
+// thread compares its key with every live entry up to the first match, up
+// to 512 compares a query (4096 for a hazard buffer).  A staged set answers
+// the same question -- the LOWEST live index holding the key, as argmax
+// over the match mask gives it -- in a few shared-memory loads.
 //
 // Layout: a set of n entries occupies dhash_set_words(n) words of the
 // kernel's dynamic shared memory (dhash_smem) from a word offset that is a

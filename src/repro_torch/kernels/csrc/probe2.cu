@@ -7,17 +7,21 @@
 // partial results over a second grid axis; here both tables are gathered in
 // place, so there is no tile map, no merge round and no `complete` output.
 //
-// Bound: operations, not bytes.  The hazard check compares a query with
-// every live hazard entry: up to Q x chunk = 2.7e8 compares at Q = 65536,
-// chunk = 4096, against a few scattered sectors a query for the two table
-// probes.  The design cuts the compares three ways: a query the old table
-// resolved skips the scan; the scan stops at the first live match (lowest
-// hazard index, as argmax over the match mask gives); and it ends at the
-// last live entry of the buffer, which the block finds while it stages the
-// buffer into shared memory once (dhash_hazard_stage, shared with
-// tc_probe2.cu).  Contract: chunk <= 4096 (the staged buffer fits the 48 KiB
-// of shared memory a block gets without opting in), the same limit as the
-// extract kernel that fills the buffer; a larger chunk is refused.
+// Bound: bytes -- the two probe runs (a few scattered sectors a query), the
+// hazard buffer once, six outputs.  The hazard lookup is a staged set
+// (dhash_set_stage / dhash_set_find in dhash_common.cuh), as in tc_probe2.cu:
+// each block copies the buffer's keys into shared memory once and builds a
+// hashed index over its live entries, so a query the old table did not
+// resolve finds the lowest live hazard index holding its key in a few
+// shared-memory loads; a hit reads its value from device memory.  (The first
+// design staged keys, values and live flags in every 256-thread block and
+// compared a query with every live entry up to its first match: 0.124 ms for
+// 65536 queries on chip_smoke.py's phase-2 input.)  The grid is at most one
+// block of 1024 threads an SM (dhash_set_grid), so the set is built once an
+// SM and its cost is shared by all the SM's queries, which come as runs of
+// 32 dealt round-robin to the blocks (dhash_set_first); 36 KiB of shared
+// memory at chunk = 4096, no opt-in.  Contract: chunk <= 4096 (what the
+// extract kernel fills), refused above.
 //
 // Outputs: found, val, and the ordered-delete components f_old, loc_old
 // (slot in the old table), hz_idx (hazard index, only where the old table
@@ -25,7 +29,7 @@
 // neither the old table nor the hazard buffer resolved it); -1 = none.
 #include "dhash_common.cuh"
 
-__global__ void probe2_kernel(
+__global__ void __launch_bounds__(DHASH_SET_THREADS) probe2_kernel(
     const int* __restrict__ ok, const int* __restrict__ ov,
     const int* __restrict__ os, int Co, const int* __restrict__ nk,
     const int* __restrict__ nv, const int* __restrict__ ns, int Cn,
@@ -35,27 +39,32 @@ __global__ void probe2_kernel(
     int max_probes, uint8_t* __restrict__ found, int* __restrict__ val,
     uint8_t* __restrict__ f_old, int* __restrict__ loc_old,
     int* __restrict__ hz_idx, int* __restrict__ loc_new) {
-  extern __shared__ int smem[];
-  __shared__ int hz_end;   // 1 + index of the last live hazard entry
-  const int n_hz = dhash_hazard_stage(hk, hv, hl, chunk, smem, &hz_end);
+  const DhashSet hz_set = dhash_set_at(0, chunk);
+  dhash_set_stage(hz_set, [&](int j, int* k) {
+    *k = hk[j];
+    return hl[j] != 0;
+  });
 
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= Q) return;
-  const int key = qk[i];
-  int v, lo, hz = -1, ln = -1;
-  bool fo = dhash_probe_one(ok, ov, os, Co, h0o[i], key, max_probes, &v, &lo);
-  bool f = fo;
-  if (!f) {
-    hz = dhash_hazard_find(smem, chunk, n_hz, key, &v);
-    f = hz >= 0;
+  for (int i = dhash_set_first(); i < Q; i += dhash_set_stride()) {
+    const int key = qk[i];
+    int v, lo, hz = -1, ln = -1;
+    bool fo = dhash_probe_one(ok, ov, os, Co, h0o[i], key, max_probes, &v,
+                              &lo);
+    bool f = fo;
+    if (!f) {
+      hz = dhash_set_find(hz_set, key);
+      f = hz >= 0;
+      if (f) v = hv[hz];
+    }
+    if (!f)
+      f = dhash_probe_one(nk, nv, ns, Cn, h0n[i], key, max_probes, &v, &ln);
+    found[i] = f ? 1 : 0;
+    val[i] = v;
+    f_old[i] = fo ? 1 : 0;
+    loc_old[i] = lo;
+    hz_idx[i] = hz;
+    loc_new[i] = ln;
   }
-  if (!f) f = dhash_probe_one(nk, nv, ns, Cn, h0n[i], key, max_probes, &v, &ln);
-  found[i] = f ? 1 : 0;
-  val[i] = v;
-  f_old[i] = fo ? 1 : 0;
-  loc_old[i] = lo;
-  hz_idx[i] = hz;
-  loc_new[i] = ln;
 }
 
 extern "C" int dhash_probe2(
@@ -64,11 +73,12 @@ extern "C" int dhash_probe2(
     const uint8_t* hl, int chunk, const int* h0o, const int* h0n,
     const int* qk, int Q, int max_probes, uint8_t* found, int* val,
     uint8_t* f_old, int* loc_old, int* hz_idx, int* loc_new, void* stream) {
-  const int threads = 256;
-  int blocks = (Q + threads - 1) / threads;
-  if (chunk > DHASH_MAX_CHUNK) return (int)cudaErrorInvalidValue;
-  probe2_kernel<<<blocks, threads, dhash_hazard_smem_bytes(chunk),
-                  (cudaStream_t)stream>>>(
+  if (chunk < 0 || chunk > DHASH_MAX_CHUNK) return (int)cudaErrorInvalidValue;
+  int blocks = 0;
+  const cudaError_t e = dhash_set_grid(Q, &blocks);
+  if (e != cudaSuccess) return (int)e;
+  const size_t bytes = (size_t)dhash_set_words(chunk) * 4;
+  probe2_kernel<<<blocks, DHASH_SET_THREADS, bytes, (cudaStream_t)stream>>>(
       ok, ov, os, Co, nk, nv, ns, Cn, hk, hv, hl, chunk, h0o, h0n, qk, Q,
       max_probes, found, val, f_old, loc_old, hz_idx, loc_new);
   return (int)cudaGetLastError();

@@ -18,7 +18,7 @@
 //     first lane that is not LIVE at the start of the round; the LOWEST batch
 //     index that wants a lane gets it; the winner writes key, value and LIVE.
 //
-// The design is probe_insert.cu's: a round has two phases with a grid-wide
+// The rounds run over the grid: a round has two phases with a grid-wide
 // barrier between them — every pending query picks its lane and does
 // atomicMin(claim[slot], index), then the query whose index is in the claim
 // word writes and restores the word to INT_MAX — and one more barrier before
@@ -34,7 +34,7 @@
 // pending); `remaining` counts pending queries, and the rounds stop as soon
 // as it reaches zero.
 //
-// Bound: neither bytes nor operations but the barriers, as for probe_insert:
+// Bound: neither bytes nor operations but the barriers, two a round:
 // up to 1 + 2 * max_rounds grid syncs a launch (17 for twochoice, 5 for
 // cuckoo) for a few sectors a query a round.  The grid is kept small (one
 // block of 256 threads for every 256 queries, at most what is co-resident)

@@ -4,7 +4,7 @@ Linear: ``probe_lookup`` is the accelerated equivalent of
 ``ref.probe_lookup_ref`` (and of ``buckets.linear_lookup``'s inner loop);
 ``ordered_lookup_fused`` is the rebuild-epoch path (one ``probe2`` launch for
 the whole old -> hazard -> new ordered check); ``probe_insert`` /
-``probe_delete`` are the write paths (the claim kernel; the location-emitting
+``probe_delete`` are the write paths (the insert kernel; the location-emitting
 lookup + one scatter); ``ordered_delete_fused`` is the rebuild-epoch delete
 (the same ``probe2`` launch's location outputs drive the old/new tombstones
 and the hazard kill); ``extract_chunk_fused`` is the rebuild chunk scan,
@@ -126,9 +126,8 @@ def ordered_lookup_fused(old_tables, new_tables, hazard_key, hazard_val,
 def probe_insert(tkey: torch.Tensor, tval: torch.Tensor, tstate: torch.Tensor,
                  h0: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor,
                  mask: torch.Tensor, *, max_probes: int = 64,
-                 claim: torch.Tensor | None = None,
                  with_present: bool = False):
-    """Batched linear-probe INSERT via the claim kernel; writes
+    """Batched linear-probe INSERT via the ``probe_insert`` kernel; writes
     ``tkey/tval/tstate`` IN PLACE.
 
     Caller contract: ``mask`` is winner-filtered (at most one True per
@@ -141,7 +140,7 @@ def probe_insert(tkey: torch.Tensor, tval: torch.Tensor, tstate: torch.Tensor,
     before the batch).
     """
     ok, present = probe.probe_insert(tkey, tval, tstate, h0, keys, vals, mask,
-                                     max_probes, claim)
+                                     max_probes)
     if with_present:
         return tkey, tval, tstate, ok, present
     return tkey, tval, tstate, ok

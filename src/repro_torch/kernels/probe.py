@@ -34,18 +34,19 @@ the flat node arena.
 What bounds each kernel on an H100 and what its design does about it is
 written at the top of its ``.cu`` file; in short: ``probe_lookup`` — bytes
 (dependent scattered gathers; one query a thread, early exit); ``probe2`` —
-operations (the query x hazard compare; skipped for queries the old table
-resolved, stopped at the first match and at the last live entry, buffer
-staged in shared memory); ``probe_insert`` — grid-wide barriers (two a
-claim round; small co-resident grid, early end of rounds); ``extract`` —
-launch latency (one block, one shuffle scan); ``tc_lookup`` — bytes (two
-rows a query, each as 16-byte loads); ``tc_probe2`` — bytes (four rows a
-query; the hazard buffer staged as a hashed set, built once an SM, where a
-lookup is a few shared-memory loads); ``tc_insert`` — grid-wide barriers
-(the design of ``probe_insert``); ``chain_probe`` — bytes (a segment scan a query, the
-dirty tail staged in shared memory); ``chain_probe2`` — bytes (a segment
-of a few nodes in each arena; the hazard buffer and both dirty tails staged
-as hashed sets in shared memory, ``dhash_set_*`` in ``dhash_common.cuh``).
+bytes (two probe runs a query; the hazard buffer staged as a hashed set,
+built once an SM, where a lookup is a few shared-memory loads);
+``probe_insert`` — bytes (no claim round: each block resolves its range of
+start slots in descending start slot, one kernel boundary between the reads
+and the writes); ``extract`` — launch latency (one block, one shuffle
+scan); ``tc_lookup`` — bytes (two rows a query, each as 16-byte loads);
+``tc_probe2`` — bytes (four rows a query, the hazard buffer as
+``probe2``'s); ``tc_insert`` — grid-wide barriers (two a claim round;
+small co-resident grid, early end of rounds); ``chain_probe`` — bytes (a
+segment scan a query, the dirty tail staged in shared memory);
+``chain_probe2`` — bytes (a segment of a few nodes in each arena; the
+hazard buffer and both dirty tails staged as hashed sets in shared memory,
+``dhash_set_*`` in ``dhash_common.cuh``).
 
 What the TPU design needed and these kernels do not have: a padded copy of
 the table (a thread wraps its own probe), a query sort, query tiles, a
@@ -77,8 +78,8 @@ from repro_torch.kernels import ref
 I32 = torch.int32
 EMPTY, LIVE, TOMB, MIGRATED = 0, 1, 2, 3
 CLAIM_FREE = 2**31 - 1      # value of every claim word between launches
-# contract of the extract kernel (one block) and of probe2 (the hazard buffer
-# staged in shared memory): the largest chunk either takes
+# contract of the extract kernel (one block) and of the probe2 kernels (the
+# hazard buffer staged in shared memory): the largest chunk they take
 EXTRACT_MAX_CHUNK = 4096
 
 KERNELS = ("probe_lookup", "probe2", "probe_insert", "extract", "tc_lookup",
@@ -161,8 +162,8 @@ def kick_counts() -> dict[str, int]:
 
 
 def new_claim(capacity: int, device) -> torch.Tensor:
-    """The claim scratch of ``probe_insert`` for a table of ``capacity``
-    slots: allocated once with the table, restored by every launch."""
+    """The claim scratch of ``tc_insert`` for a table of ``capacity`` slots:
+    allocated once with the table, restored by every launch."""
     return torch.full((capacity,), CLAIM_FREE, dtype=I32, device=device)
 
 
@@ -279,9 +280,8 @@ def probe2(old_t, new_t, hazard_key, hazard_val, hazard_live,
 # ---------------------------------------------------------------------------
 
 def probe_insert_plain(tkey, tval, tstate, h0, keys, vals, mask,
-                       max_probes: int, claim=None):
-    """Plain version of ``probe_insert``; mutates tkey/tval/tstate in place.
-    ``claim`` is accepted for signature parity and not used."""
+                       max_probes: int):
+    """Plain version of ``probe_insert``; mutates tkey/tval/tstate in place."""
     c, q, dev = tkey.shape[0], keys.shape[0], tkey.device
     present, _, _ = probe_lookup_plain(tkey, tval, tstate, h0, keys,
                                        max_probes)
@@ -309,39 +309,34 @@ def probe_insert_plain(tkey, tval, tstate, h0, keys, vals, mask,
     return ok, present
 
 
-def probe_insert(tkey, tval, tstate, h0, keys, vals, mask, max_probes: int,
-                 claim=None):
+def probe_insert(tkey, tval, tstate, h0, keys, vals, mask, max_probes: int):
     """Batched claim-first-non-LIVE insert; MUTATES tkey/tval/tstate.
 
     Presence is proved on the table as it was before the batch; then
     ``max_probes`` rounds run in lock step, round ``p`` looking at slot
     ``(h0 + p) mod C``; a slot that is not LIVE at the start of a round goes
     to the lowest batch index that wants it.  The placement is that of
-    ``ref.probe_insert_ref`` slot for slot.
+    ``ref.probe_insert_ref`` slot for slot.  The kernel runs no round: it
+    resolves every start slot's group in descending start slot
+    (``csrc/probe_insert.cu``), and needs no scratch but one int32 target
+    a query.
 
     Caller contract: ``mask`` is winner-filtered (at most one True per
-    distinct key).  ``claim`` is the table's claim scratch (``new_claim``);
-    without one a fresh scratch is allocated for this call (an O(C) fill).
-    Returns (ok[Q] bool, present[Q] bool): ``present`` marks masked keys
-    that were already LIVE, which tells a duplicate from a full window."""
+    distinct key).  Returns (ok[Q] bool, present[Q] bool): ``present`` marks
+    masked keys that were already LIVE, which tells a duplicate from a full
+    window."""
     if tkey.device.type == "cpu":
         return probe_insert_plain(tkey, tval, tstate, h0, keys, vals, mask,
                                   max_probes)
+    _check((tkey, I32), (tval, I32), (tstate, I32), (h0, I32), (keys, I32),
+           (vals, I32), (mask, torch.bool))
     c, q, dev = tkey.shape[0], keys.shape[0], tkey.device
-    if claim is None:
-        claim = new_claim(c, dev)
-    _check((tkey, I32), (tval, I32), (tstate, I32), (claim, I32), (h0, I32),
-           (keys, I32), (vals, I32), (mask, torch.bool))
-    if claim.shape[0] != c:
-        raise ValueError("claim scratch does not match the table size")
     ok = torch.empty(q, dtype=torch.bool, device=dev)
     present = torch.empty(q, dtype=torch.bool, device=dev)
     if q:
-        pend = torch.empty(q, dtype=torch.bool, device=dev)
-        remaining = torch.zeros(1, dtype=I32, device=dev)
-        _launch("probe_insert", probe_insert, dev, tkey, tval, tstate, claim,
-                c, h0, keys, vals, mask, q, max_probes, ok, present, pend,
-                remaining)
+        slot = torch.empty(q, dtype=I32, device=dev)
+        _launch("probe_insert", probe_insert, dev, tkey, tval, tstate, c, h0,
+                keys, vals, mask, q, max_probes, ok, present, slot)
     return ok, present
 
 

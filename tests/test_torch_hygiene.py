@@ -71,18 +71,26 @@ def test_the_two_row_kernel_sources_exist_and_share_the_hazard_stage():
         src = (CSRC / f"{k}.cu").read_text()
         assert "__global__" in src and f'extern "C" int dhash_{k}(' in src, k
         assert "cudaGetLastError" in src and "DHASH_MAX_WIDTH" in src, k
-    # probe2 keeps the dense hazard stage; tc_probe2 stages the buffer as a
-    # hashed set (dhash_common.cuh); neither stages it by itself
-    src = (CSRC / "probe2.cu").read_text()
-    assert "dhash_hazard_stage(" in src and "dhash_hazard_find(" in src
-    src = (CSRC / "tc_probe2.cu").read_text()
-    assert "dhash_set_stage(" in src and "dhash_set_find(" in src
-    assert "dhash_hazard_stage(" not in src and "dhash_hazard_find(" not in src
-    assert "dhash_set_grid(" in src and "DHASH_SET_THREADS" in src
+    # probe2 and tc_probe2 both stage the hazard buffer as a hashed set
+    # (dhash_common.cuh); neither stages it by itself, and the dense hazard
+    # stage is gone
     for k in ("probe2", "tc_probe2"):
         src = (CSRC / f"{k}.cu").read_text()
+        assert "dhash_set_stage(" in src and "dhash_set_find(" in src, k
+        assert "dhash_hazard_find(" not in src, k
+        assert "dhash_set_grid(" in src and "DHASH_SET_THREADS" in src, k
         assert "atomicMax" not in src and "atomicCAS" not in src, \
             f"{k} stages the hazard buffer itself"
+    assert "dhash_hazard_stage" not in (CSRC / "dhash_common.cuh").read_text()
+    # probe_insert resolves its claims without a grid barrier or claim words:
+    # a read kernel and a write kernel, no cooperative launch
+    src = (CSRC / "probe_insert.cu").read_text()
+    for gone in ("grid.sync", "cudaLaunchCooperativeKernel",
+                 "cooperative_groups", "remaining", "claim["):
+        assert gone not in src, gone
+    for kern in ("probe_insert_resolve<<<", "probe_insert_lockstep<<<",
+                 "probe_insert_write<<<"):
+        assert kern in src, kern
     from repro_torch.kernels import build, probe
     assert set(probe.KERNELS) == set(build.SOURCES)
 
@@ -115,11 +123,11 @@ def test_the_nine_kernels_and_the_chain_sources():
         assert fn not in src, fn
     # the staged set carries word offsets into one shared array, not
     # pointers (nvcc lost the shared state space of pointers kept in a
-    # returned struct), and the old stage stays for probe2 and chain_probe
+    # returned struct), and the dense stage stays for chain_probe
     common = (CSRC / "dhash_common.cuh").read_text()
     assert "extern __shared__ __align__(16) int dhash_smem[];" in common
-    for fn in ("dhash_hazard_stage(", "dhash_hazard_find(",
-               "dhash_tail_stage(", "dhash_set_stage(", "DHASH_SET_RUN"):
+    for fn in ("dhash_stage(", "dhash_hazard_find(", "dhash_tail_stage(",
+               "dhash_set_stage(", "DHASH_SET_RUN"):
         assert fn in common, fn
 
 
