@@ -8,8 +8,8 @@ for an H100) and the CUDA toolkit:
     python3 chip_smoke.py --steps 300 --tc-steps 300 --big-steps 16  # shorter
     python3 chip_smoke.py --profile build/profile.txt  # + profiler tables
     python3 chip_smoke.py --baseline OTHER/build/repro_torch_kernels
-        # phase 2 also runs another tree's probe2, probe_insert, tc_probe2,
-        # chain_probe and chain_probe2 on its cases, in turns
+        # phase 2 also runs another tree's tc_insert on its timed batches,
+        # in turns with this tree's
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
 
@@ -30,8 +30,12 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
    wider than the table or than 64 slots, a group on the last start slot
    of a block's range, wrapping runs, keys all present, TOMB and MIGRATED
    slots taken, a landing-shaped batch, one query, 3000 keys on one start
-   slot at the head of a batch of 20000), and times kernel and plain
-   version;
+   slot at the head of a batch of 20000; for the two-row insert, 2048 keys
+   on one row, a full table, one query, widths 4 and 8, two and eight
+   rounds, both forms of the kernel; the cuckoo kick-out at the main path's
+   load, under a flood, on a crowded table and with nothing pending; the
+   guarded extract and the epoch swap on every backend's tables, flags set
+   and not), and times kernel and plain version;
 3. drives the main path of each backend — ``dhash.make(backend,
    fused=True)`` with ``backend`` linear (a), twochoice (b), cuckoo (c) and
    chain (d) at the unreduced ``dhash-paper`` size under ``DHashEngine``
@@ -43,7 +47,10 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
    also takes a collision flood mid-epoch (2048 keys to one row) and must
    keep every acknowledged key through the next swap; (e) runs the chain
    arm of the collision-flood benchmark (2048 keys into one bucket, then a
-   live swap) and reports its four lookup rates;
+   live swap) and reports its four lookup rates; (f) captures one
+   rebuild-epoch engine step of each backend in a CUDA graph and replays it
+   across a live swap against the eager engine (tolerance 0), with the
+   oracle checking every step;
 4. runs the same engines in lock step with the port's own plain
    (``fused=False``) path on the card for one epoch at a smaller table;
 5. repeats a short stretch of the linear main path on a table far larger
@@ -92,6 +99,11 @@ KERNEL_INFO = {
                     "src/repro/kernels/probe.py:906"),
     "chain_probe2": ("src/repro_torch/kernels/csrc/chain_probe2.cu",
                      "src/repro/kernels/probe.py:925"),
+    # no pallas_call: the reference's XLA code behind lax.cond
+    "cuckoo_kick": ("src/repro_torch/kernels/csrc/cuckoo_kick.cu",
+                    "src/repro/core/backend.py:446"),
+    "epoch_swap": ("src/repro_torch/kernels/csrc/epoch_swap.cu",
+                   "src/repro/core/dhash.py:433"),
 }
 BACKENDS = ("linear", "twochoice", "cuckoo", "chain")
 # the kernels each backend's main path runs: (lookup, insert, rebuild-epoch
@@ -116,9 +128,10 @@ def log(*a):
 
 OUTPUTS = ("found", "val", "f_old", "loc_old", "hz_idx", "loc_new")
 # the kernels --baseline runs from another tree, in turns with this tree's
-BASELINE_KERNELS = ("probe2", "probe_insert", "tc_probe2", "chain_probe",
-                    "chain_probe2")
+BASELINE_KERNELS = ("tc_insert",)
 SET_LOOKUP_OPS = 4      # a staged-set lookup: hash, probe, compare, select
+# the forms of tc_insert held and timed in phase 2 (csrc/tc_insert.cu)
+TC_FORMS = (0, 1)
 
 
 def set_shift(n: int) -> int:
@@ -184,9 +197,10 @@ def load_baseline(path: str) -> dict:
     """The C entry points of the kernels that ``--baseline`` times from
     another tree's build directory, with the argument types that tree's
     own ``build.py`` declares (``path`` is ``<tree>/build/repro_torch_kernels``).
-    ``probe_insert`` comes as a function with the arguments of this tree's
-    wrapper, whichever C interface the other tree has: one with claim words
-    and a pending counter (16 arguments), or this one (14)."""
+    ``tc_insert`` comes as a function with the arguments of this tree's
+    wrapper, whichever C interface the other tree has: the cooperative one
+    with a claim word a slot and a pending counter (17 arguments), or this
+    one (19)."""
     import ctypes
     import glob
     import importlib.util
@@ -205,32 +219,38 @@ def load_baseline(path: str) -> dict:
         fn.argtypes = other._ARGTYPES[f"dhash_{name}"]
         fn.restype = ctypes.c_int
         out[name] = fn
-    out["probe_insert"] = baseline_insert(out["probe_insert"])
+    out["tc_insert"] = baseline_tc_insert(out["tc_insert"])
     return out
 
 
-def baseline_insert(fn):
-    """``probe.probe_insert`` on another tree's C entry point ``fn``."""
+def baseline_tc_insert(fn):
+    """``probe.tc_insert`` on another tree's C entry point ``fn``."""
     from repro_torch.kernels import probe
     claims = {}
 
-    def insert(tk, tv, ts, h0, keys, vals, mask, max_probes):
-        c, q, dev = tk.shape[0], keys.shape[0], tk.device
+    def insert(tk, tv, ts, ra, rb, keys, vals, mask, max_rounds):
+        q, dev, w = keys.shape[0], tk.device, tk.shape[1]
         ok = torch.empty(q, dtype=torch.bool, device=dev)
         present = torch.empty(q, dtype=torch.bool, device=dev)
-        if len(fn.argtypes) == 16:      # claim words and a pending counter
-            if c not in claims:
-                claims[c] = probe.new_claim(c, dev)
-            args = (tk, tv, ts, claims[c], c, h0, keys, vals, mask, q,
-                    max_probes, ok, present,
-                    torch.empty(q, dtype=torch.bool, device=dev),
-                    torch.zeros(1, dtype=torch.int32, device=dev))
+        i32 = torch.int32
+        if len(fn.argtypes) == 17:      # a claim word a slot, cooperative
+            if tk.numel() not in claims:
+                claims[tk.numel()] = probe.new_claim(tk.numel(), dev)
+            args = (tk, tv, ts, claims[tk.numel()], w, ra, rb, keys, vals,
+                    mask, q, max_rounds, ok, present,
+                    torch.empty(q, dtype=i32, device=dev),
+                    torch.zeros(1, dtype=i32, device=dev))
         else:
-            args = (tk, tv, ts, c, h0, keys, vals, mask, q, max_probes, ok,
-                    present, torch.empty(q, dtype=torch.int32, device=dev))
+            if tk.shape[0] not in claims:
+                claims[tk.shape[0]] = probe.new_claim(tk.shape[0], dev)
+            args = (tk, tv, ts, claims[tk.shape[0]], w, ra, rb, keys, vals,
+                    mask, q, max_rounds, ok, present,
+                    torch.empty(q, dtype=i32, device=dev),
+                    torch.empty(q, dtype=i32, device=dev),
+                    torch.empty(1, dtype=i32, device=dev), 0)
         err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
                    for a in args], torch.cuda.current_stream().cuda_stream)
-        check(err == 0, f"--baseline probe_insert was not launched: {err}")
+        check(err == 0, f"--baseline tc_insert was not launched: {err}")
         return ok, present
     return insert
 
@@ -251,7 +271,7 @@ def compare_cases(name: str, kernel, plain, cases: dict, reps: int,
         for x, y, n in zip(got, want, outputs):
             same(x, y, f"{name} {label} {n}")
         entry = {}
-        if baseline is None:
+        if baseline is None or name not in baseline:
             entry["ms"] = time_ms(lambda: kernel(*args), reps)
         else:
             mine = lib[name]
@@ -353,8 +373,9 @@ def profile_steps(eng, oracle, cfg, n_steps: int, step0: int, path: str):
                          getattr(e, "self_cuda_time_total", 0))
                  for e in ka if e.device_type == DeviceType.CUDA)
     cpu_us = sum(e.self_cpu_time_total for e in ka)
-    # device-to-host copies: the engine's reads and the oracle's four
-    # outputs a step; anything more is a read the engine does not count
+    # device-to-host copies: the engine's polls, the harness's epoch read
+    # and the oracle's four outputs a step; anything more is a read the
+    # engine does not count
     d2h = sum(e.count for e in ka if e.key.startswith("Memcpy DtoH"))
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
@@ -366,7 +387,8 @@ def profile_steps(eng, oracle, cfg, n_steps: int, step0: int, path: str):
     log(f"  profile of {n_steps} steps: device busy "
         f"{dev_us / 1e3 / n_steps:.3f} ms a step, host time in PyTorch ops "
         f"{cpu_us / 1e3 / n_steps:.3f} ms a step, device-to-host copies "
-        f"{d2h / n_steps:.2f} a step (the oracle's 4 included) -> {path}")
+        f"{d2h / n_steps:.2f} a step (the oracle's 4 and the engine's polls "
+        f"included) -> {path}")
 
 
 # ---------------------------------------------------------------------------
@@ -541,7 +563,7 @@ def time_insert_cases(probe, cases: dict, reps: int, baseline):
             probe.probe_insert(*a, h0, k, v, m, p)
         entry = {"placed": int(ok.sum()), "present": int(pr.sum()),
                  "dead_slots_taken": dead}
-        if baseline is None:
+        if baseline is None or "probe_insert" not in baseline:
             entry["ms"] = time_ms(mine, reps, restore)
         else:
             other = baseline["probe_insert"]
@@ -711,6 +733,42 @@ def phase_kernels(device, cfg, reps: int, baseline=None) -> dict:
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
     log(f"  extract ok: chunk={CH} live in the timed chunk={n_live}")
 
+    # the guarded, in-place form an engine step launches: the hazard buffer
+    # and the cursor written in place where run is set and hold is not,
+    # nothing anywhere else
+    flags = {v: torch.tensor(v, device=device) for v in (False, True)}
+    for run, hold in ((True, False), (False, False), (True, True)):
+        outs = []
+        for fn in (probe.extract, probe.extract_plain):
+            st = ts.clone()
+            hz = (torch.full((CH,), 7, dtype=i32, device=device),
+                  torch.full((CH,), 9, dtype=i32, device=device),
+                  torch.ones(CH, dtype=torch.bool, device=device))
+            cur = torch.tensor(5 * CH, dtype=i32, device=device)
+            fn(tk, tv, st, cur, CH, out=hz, run=flags[run],
+               hold=flags[hold])
+            torch.cuda.synchronize()
+            outs.append((*hz, cur, st))
+        for x, y, n in zip(*outs, ("hkey", "hval", "hlive", "cursor",
+                                   "state")):
+            err = max(err, same(x, y, f"extract run={run} hold={hold} {n}"))
+        idle = bool(outs[0][2].all()) and int(outs[0][3]) == 5 * CH \
+            and torch.equal(outs[0][4], ts)
+        check(idle == (not run or hold), f"extract run={run} hold={hold}: "
+              f"the guard did not hold")
+    res["extract"]["max_abs_err"] = err
+    hz = (torch.zeros(CH, dtype=i32, device=device),
+          torch.zeros(CH, dtype=i32, device=device),
+          torch.zeros(CH, dtype=torch.bool, device=device))
+    cur = torch.tensor(5 * CH, dtype=i32, device=device)
+    res["extract"]["guarded_idle_ms"] = time_ms(
+        lambda: probe.extract(tk, tv, sa, cur, CH, out=hz, run=flags[False]),
+        reps)
+    log(f"  extract guarded ok: in place where run and not hold, nothing "
+        f"written otherwise; an idle launch "
+        f"{res['extract']['guarded_idle_ms']:.4f} ms")
+
+
     # -- probe2: old table mid-rebuild, hazard buffer with killed entries,
     #    new table 4x the old (and one of the same size)
     err = 0
@@ -872,13 +930,14 @@ def phase_tc_kernels(device, cfg, reps: int, baseline=None) -> dict:
     from repro_torch.core import backend, buckets, hashing
     from repro_torch.kernels import probe, ref
     rng = np.random.default_rng(12)
-    B, W = 1 << 18, 8
+    B, W = cfg.capacity_per_shard // 4, 8
     Q, QU, CH = cfg.lookups_per_step, cfg.updates_per_step, cfg.chunk
     res = {}
     i32 = torch.int32
 
     hfa, hfb, tk, tv, ts, keys = build_rows_table(probe, hashing, B, W,
-                                                  1 << 20, rng, device, 41)
+                                                  cfg.capacity_per_shard,
+                                                  rng, device, 41)
     log(f"  two-row table: {B} x {W} live={int((ts == 1).sum())} "
         f"tomb={int((ts == 2).sum())} migrated={int((ts == 3).sum())} "
         f"full rows={int(((ts == 1).sum(1) == W).sum())}")
@@ -927,14 +986,17 @@ def phase_tc_kernels(device, cfg, reps: int, baseline=None) -> dict:
     log(f"  tc_lookup ok: Q={Q} rows read={nrows} hits={hits}")
 
     # -- tc_insert: a hot row pair, duplicates, keys already live or dead,
-    #    rows a == b, ragged Q; twochoice's 8 rounds and cuckoo's 2
-    def insert_inputs(q):
+    #    rows a == b, ragged Q; twochoice's 8 rounds and cuckoo's 2; 2048
+    #    keys on one row, a full table, one query, a table of width 4, a
+    #    landing's batch; both forms of the kernel (the split and one block)
+    def insert_inputs(q, kk=keys, nb=B, fa=hfa, fb=hfb):
         k = torch.as_tensor(
             rng.integers(-(1 << 31), -(1 << 30), q).astype(np.int32),
             device=device)
-        k[: q // 8] = keys[: q // 8]                 # already live (or dead)
+        n = min(q // 8, kk.numel())
+        k[:n] = kk[:n]                               # already live (or dead)
         k[q // 8: q // 4] = k[q // 4: q // 4 + (q // 4 - q // 8)]  # dups
-        ra, rb = rows(k)
+        ra, rb = rows(k, nb, fa, fb)
         hot = slice(q // 2, q // 2 + 3000)
         ra[hot], rb[hot] = 7, 11                     # one hot row pair
         rb[q // 4: q // 4 + 200] = ra[q // 4: q // 4 + 200]
@@ -942,53 +1004,122 @@ def phase_tc_kernels(device, cfg, reps: int, baseline=None) -> dict:
         return (ra, rb, k.contiguous(), (k * 5 + 2).contiguous(),
                 buckets.batch_winners(k, mask))
 
+    def fresh_inputs(q, nb=B, fa=hfa, fb=hfb):
+        k = torch.as_tensor(np.unique(rng.integers(
+            -(1 << 31), -(1 << 30), 2 * q))[:q].astype(np.int32),
+            device=device)
+        k = k[torch.as_tensor(rng.permutation(q), device=device)]
+        ra, rb = rows(k, nb, fa, fb)
+        return (ra, rb, k.contiguous(), (k * 5 + 2).contiguous(),
+                torch.ones_like(k, dtype=torch.bool))
+
+    W4 = 4
+    hfa4, hfb4, tk4, tv4, ts4, keys4 = build_rows_table(
+        probe, hashing, B // 4, W4, B // 2, rng, device, 43)
+    full = [torch.ones((1024, W), dtype=i32, device=device) for _ in range(3)]
+    full[0].copy_(torch.arange(1024 * W, device=device).view(1024, W))
     err = 0
-    claim = probe.new_claim(B * W, device)
+    cases = []                   # (label, table, claim, args, rounds)
+
+    def add(label, tab, args, rounds):
+        cases.append((label, tab, probe.new_claim(tab[0].shape[0], device),
+                      args, rounds))
+
     for q, rounds in ((QU + 5, 8), (QU, 8), (QU, 2)):
-        ra, rb, k, v, m = insert_inputs(q)
-        a = [t.clone() for t in (tk, tv, ts)]
-        b = [t.clone() for t in (tk, tv, ts)]
-        ok_k, pr_k = probe.tc_insert(*a, ra, rb, k, v, m, rounds, claim)
-        torch.cuda.synchronize()
-        ok_p, pr_p = probe.tc_insert_plain(*b, ra, rb, k, v, m, rounds)
-        err = max(err, same(ok_k, ok_p, f"tc_insert Q={q} r={rounds} ok"),
-                  same(pr_k, pr_p, f"tc_insert Q={q} r={rounds} present"))
-        for x, y, n in zip(a, b, ("key", "val", "state")):
-            err = max(err, same(x, y, f"tc_insert Q={q} r={rounds} {n}"))
-        check(bool((claim == probe.CLAIM_FREE).all()),
-              "tc_insert left claim words behind")
-        failed = m & ~ok_k & ~pr_k
-        check(int(failed.sum()) > 2000, "tc_insert: most of the hot row "
-              "pair's inserts must find no lane")
-        log(f"  tc_insert ok: Q={q} max_rounds={rounds} "
-            f"placed={int(ok_k.sum())} present={int(pr_k.sum())} "
-            f"no-lane={int(failed.sum())}")
-    # timed on the main path's kind of batch: fresh keys, hashed rows
-    k = torch.as_tensor(rng.integers(-(1 << 31), -(1 << 30), QU)
-                        .astype(np.int32), device=device)
-    (ra, rb), v = rows(k), k * 5 + 2
-    m = buckets.batch_winners(k, torch.ones_like(k, dtype=torch.bool))
+        add(f"mixed Q={q} r={rounds}", (tk, tv, ts), insert_inputs(q), rounds)
+    for rounds in (2, 8):
+        fl = fresh_inputs(2048)
+        fl[0].fill_(7)                               # 2048 keys on one row
+        add(f"flood r={rounds}", (tk, tv, ts), fl, rounds)
+        add(f"full table r={rounds}", full, fresh_inputs(QU, 1024), rounds)
+        add(f"one query r={rounds}", (tk, tv, ts),
+            tuple(t[:1] for t in fresh_inputs(1)), rounds)
+        add(f"W=4 r={rounds}", (tk4, tv4, ts4),
+            insert_inputs(QU, keys4, B // 4, hfa4, hfb4), rounds)
+        add(f"landing Q={CH} r={rounds}", (tk, tv, ts), fresh_inputs(CH),
+            rounds)
+    for label, tab, claim, args, rounds in cases:
+        b = [t.clone() for t in tab]
+        ok_p, pr_p = probe.tc_insert_plain(*b, *args, rounds)
+        for form in TC_FORMS:
+            a = [t.clone() for t in tab]
+            ok_k, pr_k = probe.tc_insert(*a, *args, rounds, claim, form=form)
+            torch.cuda.synchronize()
+            what = f"tc_insert {label} form={form}"
+            err = max(err, same(ok_k, ok_p, f"{what} ok"),
+                      same(pr_k, pr_p, f"{what} present"))
+            for x, y, n in zip(a, b, ("key", "val", "state")):
+                err = max(err, same(x, y, f"{what} {n}"))
+            check(bool((claim == probe.CLAIM_FREE).all()),
+                  f"{what}: claim words left behind")
+        failed = args[4] & ~ok_p & ~pr_p
+        log(f"  tc_insert ok, both forms: {label} placed={int(ok_p.sum())} "
+            f"present={int(pr_p.sum())} no-lane={int(failed.sum())}")
+        if label.startswith("mixed"):
+            check(int(failed.sum()) > 2000, "tc_insert: most of the hot row "
+                  "pair's inserts must find no lane")
+        if label.startswith("full"):
+            check(not bool(ok_p.any()), "tc_insert: a full table took a key")
+        if label.startswith("flood"):
+            check(0 < int(ok_p.sum()) < 2048, "tc_insert: the flood must "
+                  "place some keys and refuse some")
+    # timed on the main path's kind of batch (fresh keys, hashed rows) at
+    # the user insert's Q and the landing's, both forms, and the parent's
+    # kernel in turns with this tree's where --baseline gives it
+    claim = probe.new_claim(B, device)
     a = [t.clone() for t in (tk, tv, ts)]
 
     def restore():
         for x, y in zip(a, (tk, tv, ts)):
             x.copy_(y)
+    timed = {}
+    for q in (QU, CH):
+        ins = fresh_inputs(q)
+        for rounds in (8, 2):
+            entry = {}
+            for form in TC_FORMS:
+                entry[f"form{form}_ms"] = time_ms(
+                    lambda: probe.tc_insert(*a, *ins, rounds, claim,
+                                            form=form), reps, restore)
+            if baseline is not None:
+                fn = baseline["tc_insert"]
+                restore()
+                ok_b, pr_b = fn(*a, *ins, rounds)
+                b = [t.clone() for t in (tk, tv, ts)]
+                ok_p, pr_p = probe.tc_insert_plain(*b, *ins, rounds)
+                for x, y, n in zip((ok_b, pr_b, *a), (ok_p, pr_p, *b),
+                                   ("ok", "present", "key", "val", "state")):
+                    same(x, y, f"tc_insert (baseline) Q={q} r={rounds} {n}")
+                t = {"parent": [], "this": []}
+                for who in ("parent", "this", "this", "parent"):
+                    t[who].append(time_ms(
+                        (lambda: fn(*a, *ins, rounds)) if who == "parent"
+                        else (lambda: probe.tc_insert(*a, *ins, rounds,
+                                                      claim)),
+                        reps, restore))
+                entry["ms"], entry["parent_ms"] = t["this"], t["parent"]
+            timed[f"Q={q} r={rounds}"] = entry
+            log(f"    tc_insert Q={q} max_rounds={rounds}: ms "
+                + json.dumps(entry))
     restore()
-    ok_t, pr_t = probe.tc_insert(*a, ra, rb, k, v, m, 8, claim)
-    nrows = rows_read(ref, tk, tv, ts, ra, k, m)
+    ins = fresh_inputs(QU)
+    m = ins[4]
+    ok_t, pr_t = probe.tc_insert(*a, *ins, 8, claim)
+    nrows = rows_read(ref, tk, tv, ts, ins[0], ins[2], m)
     pend = int((m & ~pr_t).sum())
     res["tc_insert"] = dict(
         max_abs_err=err,
-        ms=time_ms(lambda: probe.tc_insert(*a, ra, rb, k, v, m, 8, claim),
-                   reps, restore),
+        ms=time_ms(lambda: probe.tc_insert(*a, *ins, 8, claim), reps,
+                   restore),
         plain_ms=time_ms(
-            lambda: probe.tc_insert_plain(*a, ra, rb, k, v, m, 8), 3, restore,
+            lambda: probe.tc_insert_plain(*a, *ins, 8), 3, restore,
             queue_ahead=False),
         # in: rows, key, val, mask; the presence rows (key + state); one
         # state row a pending query; out: the winners' slots, ok, present
         **bound(QU * 17 + nrows * W * 8 + pend * W * 4
                 + int(ok_t.sum()) * 12 + QU * 2,
-                nrows * W * 2 + pend * W))
+                nrows * W * 2 + pend * W),
+        forms=timed)
 
     # -- tc_probe2: old table mid-rebuild, hazard buffer with killed
     #    entries, new tables 4x (+3 rows, not a power of two) and 1x
@@ -1001,7 +1132,7 @@ def phase_tc_kernels(device, cfg, reps: int, baseline=None) -> dict:
     hl = hl & torch.as_tensor(rng.random(CH) < 0.8, device=device)  # kills
     for b_new, seed in ((4 * B + 3, 51), (B, 52)):
         nfa, nfb, nk, nv, ns, nkeys = build_rows_table(
-            probe, hashing, b_new, W, 1 << 18, rng, device, seed)
+            probe, hashing, b_new, W, B, rng, device, seed)
         for q in (Q + 77, Q):
             n4 = q // 4
             qk = torch.cat([
@@ -1310,7 +1441,7 @@ def phase_chain_kernels(device, cfg, reps: int, baseline=None) -> dict:
         # (SET_LOOKUP_OPS) for each query its segment did not settle
         **bound(Q * 16 + nodes * 8 + int(need.sum()) * 4 + hits * 4 + Q * 9,
                 2 * nodes + SET_LOOKUP_OPS * lookups))
-    if baseline is not None:
+    if baseline is not None and "chain_probe" in baseline:
         res["chain_probe"]["cases"] = compare_cases(
             "chain_probe", probe.chain_probe, probe.chain_probe_plain,
             {"phase-2": args}, reps, baseline, ("found", "val", "loc"))
@@ -1432,6 +1563,240 @@ def phase_chain_kernels(device, cfg, reps: int, baseline=None) -> dict:
     return res
 
 
+def cuckoo_table(device, nbuckets: int, n_live: int, rng, seed: int):
+    """An empty cuckoo table of ``nbuckets`` rows a side (width 8) with
+    ``n_live`` random keys offered to the plain claim rounds, ``nbuckets``
+    keys a call, so rows fill unevenly; some keys find no lane."""
+    from repro_torch.core import backend, buckets
+    from repro_torch.kernels import probe
+    t = backend.get("cuckoo").make(12 * (nbuckets - 1), seed, device=device)
+    check(t.nbuckets == nbuckets, f"cuckoo table of {t.nbuckets} rows")
+    keys = torch.as_tensor(np.unique(rng.integers(
+        1, 1 << 30, n_live + n_live // 4))[:n_live].astype(np.int32),
+        device=device)
+    for i in range(0, n_live, nbuckets):
+        k = keys[i:i + nbuckets]
+        probe.tc_insert_plain(t.key, t.val, t.state, *buckets._ck_rows(t, k),
+                              k, k * 3 + 1, torch.ones_like(k,
+                                                            dtype=torch.bool),
+                              8)
+    return t
+
+
+def phase_guard_kernels(device, cfg, reps: int) -> dict:
+    """The two guarded kernels against their plain versions (tolerance 0):
+    the cuckoo kick-out at the cuckoo main path's shape (2 x 2^17 rows x 8)
+    on the main path's kind of batch, under a flood of 2048 keys on one row,
+    on a crowded table where most keys must move a resident, and with
+    nothing pending; the epoch swap on the four backends' full-size tables,
+    for a rebuild that is done (swap and start, swap alone), one mid-epoch
+    (nothing) and no rebuild (start alone)."""
+    from repro_torch.core import backend, buckets, dhash, hashing
+    from repro_torch.kernels import probe
+    rng = np.random.default_rng(14)
+    QU, CH, W = cfg.updates_per_step, cfg.chunk, 8
+    res = {}
+
+    # -- cuckoo_kick
+    Bs = cfg.capacity_per_shard // 8
+    t = cuckoo_table(device, Bs, cfg.capacity_per_shard, rng, 71)
+    crowd = cuckoo_table(device, 1 << 10, int(2 * 8 * (1 << 10) * 0.93),
+                         rng, 72)
+    log(f"  cuckoo table: 2 x {Bs} x {W} live={int((t.state == 1).sum())}; "
+        f"crowded 2 x {crowd.nbuckets} x {W} "
+        f"live={int((crowd.state == 1).sum())}")
+
+    def fresh(q, tab, row0=False):
+        if row0:                       # keys whose side-A row is row 0
+            gen = torch.Generator(device=device)
+            gen.manual_seed(99)
+            got = torch.empty(0, dtype=torch.int32, device=device)
+            while got.numel() < q:
+                cand = torch.randint(1 << 30, (1 << 31) - 1, (1 << 24,),
+                                     generator=gen, device=device,
+                                     dtype=torch.int32)
+                hit = cand[hashing.bucket_of(tab.hfn_a, cand,
+                                             tab.nbuckets) == 0]
+                got = torch.unique(torch.cat([got, hit]))
+            k = got[:q]
+        else:
+            k = torch.as_tensor(np.unique(rng.integers(
+                -(1 << 31), -(1 << 30), 2 * q))[:q].astype(np.int32),
+                device=device)
+        return k[torch.as_tensor(rng.permutation(q), device=device)]
+
+    def kick_inputs(tab, k):
+        """The claim kernel's outputs on a copy of ``tab``: the kick-out's
+        inputs (table after the claim rounds, rows, flags)."""
+        a = [x.clone() for x in (tab.key, tab.val, tab.state)]
+        ra, rb = buckets._ck_rows(tab, k)
+        win = torch.ones_like(k, dtype=torch.bool)
+        ok, present = probe.tc_insert(*a, ra, rb, k, k * 7 + 3, win, 2,
+                                      tab.claim)
+        return a, (ra, rb, tab.hfn_a, tab.hfn_b, tab.nbuckets, k, k * 7 + 3,
+                   win), ok, present
+
+    err, kick = 0, {}
+    for label, tab, k in (("main path", t, fresh(QU, t)),
+                          ("flood", t, fresh(2048, t, row0=True)),
+                          ("crowded", crowd, fresh(4096, crowd)),
+                          ("nothing pending", t, fresh(QU, t))):
+        a, args, ok, present = kick_inputs(tab, k)
+        if label == "nothing pending":
+            args = (*args[:-1], torch.zeros_like(args[-1]))
+        pend = int((args[-1] & ~ok & ~present).sum())
+        b = [x.clone() for x in a]
+        pre = b[0].clone()
+        ok_k, ok_p = ok.clone(), ok.clone()
+        tally0 = probe.kick_tally(device)
+        probe.cuckoo_kick(*a, *args, ok_k, present, tab.max_kick, tab.claim)
+        torch.cuda.synchronize()
+        tally = {n: v - tally0[n] for n, v in probe.kick_tally(device).items()}
+        probe.cuckoo_kick_plain(*b, *args, ok_p, present, tab.max_kick)
+        for x, y, n in zip((*a, ok_k), (*b, ok_p),
+                           ("key", "val", "state", "ok")):
+            err = max(err, same(x, y, f"cuckoo_kick {label} {n}"))
+        check(tab.claim is None or bool((tab.claim == probe.CLAIM_FREE)
+                                        .all()),
+              f"cuckoo_kick {label}: row locks left behind")
+        placed = int((ok_k & ~ok).sum())
+        # residents that a plan B moved into their alternate row
+        moved = int(((a[0] != pre) & (a[2] == 1)
+                     & ~torch.isin(a[0], k)).sum())
+        if label == "nothing pending":
+            check(pend == 0 and tally["runs"] == 0 and placed == 0,
+                  f"cuckoo_kick: ran with nothing pending {tally}")
+        elif label == "crowded":
+            check(placed > 0 and moved > 0 and pend > placed,
+                  f"cuckoo_kick crowded: placed {placed} of {pend}, moved "
+                  f"{moved}: the table must make it move residents and "
+                  f"refuse some")
+        a0 = [x.clone() for x in a]
+
+        def restore():
+            for x, y in zip(a, a0):
+                x.copy_(y)
+            ok_k.copy_(ok)
+        restore()
+        ms = time_ms(lambda: probe.cuckoo_kick(*a, *args, ok_k, present,
+                                               tab.max_kick, tab.claim),
+                     reps, restore)
+        kick[label] = dict(pending=pend, placed=placed, residents_moved=moved,
+                           iterations=tally["iterations"], ms=ms)
+        log(f"  cuckoo_kick ok: {label} " + json.dumps(kick[label]))
+        if label == "main path":
+            q = k.numel()
+            rows_b = pend * (2 + 2 * W) * W * 4 * max(tally["iterations"], 1)
+            main = dict(ms=ms, nbytes=q * 3 + rows_b + placed * 24 + q,
+                        ops=q + pend * 2 * W * 30)
+            plain_ms = time_ms(lambda: probe.cuckoo_kick_plain(
+                *a, *args, ok_k, present, tab.max_kick), 3, restore,
+                queue_ahead=False)
+    res["cuckoo_kick"] = dict(
+        max_abs_err=err, ms=main["ms"], plain_ms=plain_ms,
+        # in: three flags a query, for each pending key in each iteration
+        # its two rows' states and its victims' alternate rows; out: the
+        # placed keys' and moved residents' slots, ok; operations: a flag
+        # test a query and a hash of each victim (about 30 integer
+        # operations) for each pending key
+        **bound(main["nbytes"], main["ops"]), cases=kick)
+
+    # -- epoch_swap on the main path's tables of every backend
+    err, swap = 0, {}
+    for name in BACKENDS:
+        d = dhash.make(name, capacity=cfg.capacity_per_shard, chunk=CH,
+                       fused=True, seed=3, device=device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(5)
+        for tab in (d.old, d.new):
+            for x, spec in backend.epoch_leaves(tab):
+                if spec[0] != "seeds":
+                    x.copy_(torch.randint(-9, 1 << 20, x.shape, generator=gen,
+                                          device=device, dtype=torch.int32))
+        cap = backend.get(name).capacity_of(d.old)
+        for label, rb, cursor, swap_on, start_on in (
+                ("done, swap and start", True, cap, True, True),
+                ("done, swap alone", True, cap, True, False),
+                ("mid-epoch", True, cap // 2, True, True),
+                ("no rebuild, start", False, 0, True, True)):
+            outs = []
+            for fn in (probe.epoch_swap, probe.epoch_swap_plain):
+                e = dataclasses.replace(
+                    d, old=_clone_table(d.old), new=_clone_table(d.new),
+                    hazard_live=torch.zeros_like(d.hazard_live),
+                    cursor=torch.tensor(cursor, dtype=torch.int32,
+                                        device=device),
+                    rebuilding=torch.tensor(rb, device=device),
+                    epoch=torch.tensor(6, dtype=torch.int32, device=device),
+                    lookups=torch.tensor(3, dtype=torch.int32, device=device),
+                    expensive=torch.tensor(2, dtype=torch.int32,
+                                           device=device))
+                lo, ln = backend.epoch_leaves(e.old), backend.epoch_leaves(e.new)
+                go = fn([x for x, _ in lo], [x for x, _ in ln],
+                        [s for _, s in lo], e.hazard_live, e.cursor,
+                        e.rebuilding, e.epoch, e.lookups, e.expensive, cap,
+                        swap_on, start_on)
+                torch.cuda.synchronize()
+                outs.append((go, [x for x, _ in lo + ln],
+                             [e.cursor, e.rebuilding, e.epoch, e.lookups,
+                              e.expensive]))
+            (gk, lk, sk), (gp, lp, sp) = outs
+            err = max(err, same(gk, gp, f"epoch_swap {name} {label} go"))
+            for i, (x, y) in enumerate(zip(lk + sk, lp + sp)):
+                err = max(err, same(x, y, f"epoch_swap {name} {label} "
+                                          f"leaf {i}"))
+            want = {"done, swap and start": [True, True],
+                    "done, swap alone": [True, False],
+                    "mid-epoch": [False, False],
+                    "no rebuild, start": [False, True]}[label]
+            check(gk.tolist() == want, f"epoch_swap {name} {label}: go "
+                  f"{gk.tolist()}, want {want}")
+        log(f"  epoch_swap ok: {name}, four cases")
+        if name == "linear":
+            lo, ln = backend.epoch_leaves(d.old), backend.epoch_leaves(d.new)
+            specs = [s for _, s in lo]
+            rb_t = torch.tensor(True, device=device)
+            cur_t = torch.tensor(cap, dtype=torch.int32, device=device)
+            scal = [torch.zeros((), dtype=torch.int32, device=device)
+                    for _ in range(3)]
+
+            def launch():
+                return probe.epoch_swap(
+                    [x for x, _ in lo], [x for x, _ in ln], specs,
+                    d.hazard_live, cur_t, rb_t, *scal, cap, True, True)
+
+            def flags(cur_v):
+                return lambda: (rb_t.fill_(True), cur_t.fill_(cur_v))
+            swap["linear idle"] = time_ms(launch, reps, flags(0))
+            swap["linear swap and start"] = time_ms(launch, reps, flags(cap))
+            nbytes = sum(x.numel() * x.element_size() for x, _ in ln) * 3
+    res["epoch_swap"] = dict(
+        max_abs_err=err, ms=swap["linear swap and start"],
+        plain_ms=time_ms(lambda: probe.epoch_swap_plain(
+            [x for x, _ in lo], [x for x, _ in ln], specs, d.hazard_live,
+            cur_t.fill_(cap), rb_t.fill_(True), *scal, cap, True, True), 3,
+            queue_ahead=False),
+        # in: the new table (and the flags); out: both tables
+        **bound(nbytes, 0), idle_ms=swap["linear idle"])
+    log(f"  epoch_swap times, linear 2^21 slots: idle launch (every other "
+        f"step) {swap['linear idle']:.4f} ms, swap and start (once an "
+        f"epoch) {swap['linear swap and start']:.4f} ms")
+    return res
+
+
+def _clone_table(t):
+    """A table with every tensor cloned (hash seeds included)."""
+    from repro_torch.core import hashing
+    kw = {}
+    for f in dataclasses.fields(t):
+        v = getattr(t, f.name)
+        if isinstance(v, torch.Tensor):
+            kw[f.name] = v.clone()
+        elif isinstance(v, hashing.HashFn):
+            kw[f.name] = dataclasses.replace(v, seeds=v.seeds.clone())
+    return dataclasses.replace(t, **kw)
+
+
 # ---------------------------------------------------------------------------
 # the op stream and its dense oracle (phases 3 and 5)
 # ---------------------------------------------------------------------------
@@ -1505,27 +1870,33 @@ class Oracle:
 
 
 def expected_launches(before: dict, after: dict, was_rebuilding: bool,
-                      backend: str) -> str | None:
+                      backend: str, continuous: bool) -> str | None:
     """None if the step's launches are the stated ones, else what was seen.
-    A step launches only its backend's kernels (the extract kernel is
+    A step launches only its backend's kernels (extract and epoch_swap are
     shared): steady state two lookup-kernel launches (lookup, delete) and one
-    insert; in a rebuild epoch two probe2 launches, one insert and one
-    extract or one landing insert.  (Chain's insert kernel is its lookup
+    insert; in a rebuild epoch two probe2 launches, two inserts (the user's
+    and the landing's, which inserts nothing when no hazard entry is live),
+    one extract (guarded: it scans only where the device allows) and one
+    epoch_swap (guarded: it swaps and restarts only where the rebuild is
+    done); the first step of continuous rebuild adds the epoch_swap that
+    starts it.  Every cuckoo insert adds its kick-out launch (guarded: with
+    nothing pending it returns).  (Chain's insert kernel is its lookup
     kernel, the presence probe.)"""
     d = {k: after[k] - before[k] for k in after}
     look, ins, p2 = PATH_KERNELS[backend]
-
-    def launches(*pairs):
-        out = dict.fromkeys(after, 0)
-        for k, n in pairs:
-            out[k] += n
-        return out
-    if not was_rebuilding:
-        want = [launches((look, 2), (ins, 1))]
+    want = dict.fromkeys(after, 0)
+    inserts = 2 if was_rebuilding else 1
+    if was_rebuilding:
+        for k, n in ((p2, 2), ("extract", 1)):
+            want[k] += n
     else:
-        want = [launches((p2, 2), (ins, 1), ("extract", 1)),
-                launches((p2, 2), (ins, 2))]
-    return None if d in want else f"{d} (rebuilding={was_rebuilding})"
+        want[look] += 2
+    want[ins] += inserts
+    if backend == "cuckoo":
+        want["cuckoo_kick"] += inserts
+    if was_rebuilding or continuous:
+        want["epoch_swap"] += 1
+    return None if d == want else f"{d} (rebuilding={was_rebuilding})"
 
 
 def seeds_of(eng) -> list:
@@ -1598,7 +1969,7 @@ class Flood:
         self.n, self.after_swap, self.delay = n, after_swap, delay
         self.keys = self.vals = None
         self.step_ms = None
-        self.kick_runs = 0
+        self.kick = None
         self.swap_checked = False
 
     def colliders(self, t, device) -> torch.Tensor:
@@ -1626,21 +1997,24 @@ class Flood:
         keys = self.colliders(eng.state.new, eng.device)
         vals = keys * 7 + 3
         empty = np.zeros(0, np.int32)
-        runs0 = probe.kick_counts()["runs"]
+        tally0 = probe.kick_tally(eng.device)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = eng.step(empty, keys, vals, empty)
         torch.cuda.synchronize()
         self.step_ms = (time.perf_counter() - t0) * 1e3
-        self.kick_runs = probe.kick_counts()["runs"] - runs0
-        check(self.kick_runs >= 1, "flood: the kick-out did not run")
+        self.kick = {k: v - tally0[k]
+                     for k, v in probe.kick_tally(eng.device).items()}
+        check(self.kick["runs"] >= 1, "flood: the kick-out did not run")
         ok = out[2]
         self.keys, self.vals = keys[ok], vals[ok]
         check(self.keys.numel() >= self.n - 64,
               f"flood: only {self.keys.numel()} of {self.n} acknowledged")
         log(f"  flood: {self.n} keys to side-A row 0 of the insert target, "
-            f"{self.keys.numel()} acknowledged, kick-out ran "
-            f"{self.kick_runs} time(s), step {self.step_ms:.3f} ms")
+            f"{self.keys.numel()} acknowledged, kick-out kernel found work "
+            f"{self.kick['runs']} time(s) ({self.kick['keys']} pending keys, "
+            f"{self.kick['iterations']} iterations), step "
+            f"{self.step_ms:.3f} ms")
         self.verify(eng, "right after the flood")
 
     def verify(self, eng, when: str):
@@ -1662,7 +2036,9 @@ def drive(eng, oracle, n_steps: int, n_look: int, n_upd: int, where: str,
     from repro_torch.kernels import probe
     times, in_rebuild, hits = [], 0, 0
     seeds = []
-    completed = eng.stats.rebuilds_completed
+    # the epoch counter read here, outside the step (the engine itself
+    # learns of a swap at its next poll)
+    epoch = int(eng.state.epoch)
     since_swap = 0
     two_row = eng.state.backend in ("twochoice", "cuckoo")
     chain = eng.state.backend == "chain"
@@ -1684,25 +2060,24 @@ def drive(eng, oracle, n_steps: int, n_look: int, n_upd: int, where: str,
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         bad = expected_launches(before, probe.launch_counts(), was_rb,
-                                eng.state.backend)
+                                eng.state.backend, eng.continuous_rebuild)
         check(bad is None, f"{where} step {s}: unexpected launches {bad}")
         in_rebuild += was_rb
         hits += oracle.step(look, ins, vals, ins_mask, dele, out,
                             f"{where} step {s}")
+        swapped = int(eng.state.epoch) != epoch
         if two_row:
             ok_i = np.asarray(out[2].cpu())
             check_refusals(
-                eng.state.backend,
-                insert_target(eng, was_rb,
-                              eng.stats.rebuilds_completed != completed),
+                eng.state.backend, insert_target(eng, was_rb, swapped),
                 states, oracle.key(ins), oracle._first(ins, ins_mask) & ~ok_i,
                 oracle.key(ins[ok_i]), f"{where} step {s}")
         if chain:
             check_chain_step(eng, free0, oracle._first(ins, ins_mask),
                              np.asarray(out[2].cpu()), f"{where} step {s}")
         since_swap += 1
-        if eng.stats.rebuilds_completed != completed:
-            completed = eng.stats.rebuilds_completed
+        if swapped:
+            epoch += 1
             since_swap = 0
             # quiescence: the swap has just happened, nothing is in flight
             n = eng.count()
@@ -1778,15 +2153,15 @@ def phase_main(device, cfg, n_steps: int, min_epochs: int,
     seed0 = seeds_of(eng)
 
     # -------- the main path: counts set to 0 here, read right after --------
+    # (the engine's raw counters: reading ``eng.stats`` would refresh them
+    # with a read of its own)
     probe.reset_launches()
-    syncs0 = eng.stats.host_syncs
+    syncs0 = eng._stats.host_syncs
     steady = 16
     t_steady, _, hits_a, _ = drive(eng, oracle, steady, cfg.lookups_per_step,
                                    cfg.updates_per_step,
                                    f"{cfg.backend}/steady")
-    steady_eng = eng.stats.host_syncs - syncs0
-    kicks_steady = probe.kick_counts()
-    steady_syncs = steady_eng + kicks_steady["reads"]
+    steady_syncs = eng._stats.host_syncs - syncs0
     eng.continuous_rebuild = True
     t0 = time.perf_counter()
     times, in_rb, hits_b, seeds = drive(
@@ -1794,17 +2169,18 @@ def phase_main(device, cfg, n_steps: int, min_epochs: int,
         f"{cfg.backend}/rebuild", step0=steady, flood=flood)
     wall = time.perf_counter() - t0
     launches = probe.launch_counts()
-    kicks = probe.kick_counts()
+    kick = probe.kick_tally(device)
     # ------------------------------------------------------------------------
-    kick_reads = kicks["reads"] - kicks_steady["reads"]
-    # the engine's own reads, less the count() at each swap
-    eng_syncs = eng.stats.host_syncs - syncs0 - steady_eng - len(seeds)
-    used = {*PATH_KERNELS[cfg.backend], "extract"}
+    # the engine's own reads (its polls), less the count() at each swap
+    eng_syncs = eng._stats.host_syncs - syncs0 - steady_syncs - len(seeds)
+    used = {*PATH_KERNELS[cfg.backend], "extract", "epoch_swap"}
+    if cfg.backend == "cuckoo":
+        used.add("cuckoo_kick")
     check(all(launches[k] > 0 for k in used),
           f"main path did not launch every kernel of its backend: {launches}")
     check(all(launches[k] == 0 for k in probe.KERNELS if k not in used),
           f"main path launched another backend's kernels: {launches}")
-    epochs = eng.stats.rebuilds_completed
+    epochs = len(seeds)
     check(epochs >= min_epochs,
           f"only {epochs} complete rebuild epochs in {n_steps} steps")
     allseeds = [seed0] + seeds
@@ -1818,8 +2194,7 @@ def phase_main(device, cfg, n_steps: int, min_epochs: int,
     dev_ops = ops_step * len(times) / (sum(times) / 1e3)
     log(f"  steady state: {steady} steps, median "
         f"{statistics.median(t_steady):.3f} ms a step, "
-        f"{steady_syncs / steady:.3f} host syncs a step (kick-out reads "
-        f"{kicks_steady['reads']})")
+        f"{steady_syncs / steady:.3f} host syncs a step")
     log(f"  continuous rebuild: {n_steps} steps, {epochs} complete epochs "
         f"(hash functions swapped live {epochs} times, every seed changed), "
         f"{ops_step * n_steps} operations")
@@ -1827,12 +2202,13 @@ def phase_main(device, cfg, n_steps: int, min_epochs: int,
         f"p99 {ts[int(0.99 * (len(ts) - 1))]:.3f} max {ts[-1]:.3f}; "
         f"{dev_ops / 1e6:.2f} M operations/s over the steps' own time "
         f"({ops_step * n_steps / wall / 1e6:.2f} M/s with the host oracle)")
-    log(f"  host syncs a step: {(eng_syncs + kick_reads) / n_steps:.4f} "
-        f"(engine {eng_syncs / n_steps:.4f}, cuckoo kick-out gate and "
-        f"stage checks {kick_reads / n_steps:.4f}; kick-out ran "
-        f"{kicks['runs'] - kicks_steady['runs']} times); "
-        f"share of steps in a rebuild epoch: {in_rb / n_steps:.4f}; lookup "
-        f"hit rate "
+    log(f"  host syncs a step: {eng_syncs / n_steps:.4f} (the engine's "
+        f"polls, one in {eng.poll_every} steps; no other read)"
+        + (f"; kick-out kernel found pending keys {kick['runs']} times "
+           f"({kick['keys']} keys, {kick['iterations']} iterations)"
+           if cfg.backend == "cuckoo" else "")
+        + f"; share of steps in a rebuild epoch: {in_rb / n_steps:.4f}; "
+        f"lookup hit rate "
         f"{(hits_a + hits_b) / ((steady + n_steps) * cfg.lookups_per_step):.3f}")
     if flood is not None:
         log(f"  flood step {flood.step_ms:.3f} ms against a median step of "
@@ -1863,6 +2239,145 @@ def phase_main(device, cfg, n_steps: int, min_epochs: int,
     if profile_to:
         profile_steps(eng, oracle, cfg, 40, steady + n_steps, profile_to)
     return launches
+
+
+def _leaves(obj, path=""):
+    """(path, tensor) of every tensor of a state container."""
+    if isinstance(obj, torch.Tensor):
+        yield path, obj
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            yield from _leaves(getattr(obj, f.name), f"{path}.{f.name}")
+
+
+def phase_graph(device, cfg, margin: int = 16, max_steps: int = 1500) -> dict:
+    """One rebuild-epoch engine step of ``cfg.backend`` captured in a CUDA
+    graph and replayed: a second engine, cloned from the first in continuous
+    rebuild, has its ``_device_step`` captured once on static input buffers
+    (capture refuses any call that synchronises with the host), then the
+    graph is replayed step after step across a complete live hash-function
+    swap plus ``margin`` steps, beside the eager engine fed the same
+    batches.  Every step's four outputs must be equal between the two
+    (tolerance 0) and right by the dict oracle; at the end every tensor of
+    the two states (both tables, hash seeds, hazard buffer, scalars) must be
+    equal.  Returns the replayed and eager ms a step (host clock, each
+    ended by a synchronise), the replay's device span (CUDA events) and the
+    device busy time of a replayed step (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import backend, dhash
+    from repro_torch.core.engine import DHashEngine
+    name, NL, NU = cfg.backend, cfg.lookups_per_step, cfg.updates_per_step
+    state = dhash.make(name, capacity=cfg.capacity_per_shard,
+                       chunk=cfg.chunk, fused=True, seed=1, device=device)
+    slots = backend.get(name).capacity_of(state.old)
+    oracle = Oracle(4 * cfg.capacity_per_shard, seed=31)
+    eager = DHashEngine(state, continuous_rebuild=False)
+    populate(eager, oracle, min(cfg.capacity_per_shard, slots // 2), NL,
+             f"{name} graph")
+    eager.continuous_rebuild = True
+    step = 0
+
+    def batch():
+        look, ins, vals, dele = oracle.batch(NL, NU, 10_000 + step)
+        return look, ins, vals, dele, ~oracle.present[ins]
+
+    for _ in range(2):          # start the rebuild: rebuilding from here on
+        look, ins, vals, dele, mask = batch()
+        out = eager.step(oracle.key(look), oracle.key(ins), vals,
+                         oracle.key(dele), ins_mask=mask)
+        oracle.step(look, ins, vals, mask, dele, out, f"{name} graph {step}")
+        step += 1
+    check(eager.rebuilding and bool(eager.state.rebuilding),
+          "graph: the eager engine is not in a rebuild epoch")
+    graph_eng = DHashEngine(eager.state, continuous_rebuild=True)
+    i32 = torch.int32
+    lk, dk = (torch.zeros(n, dtype=i32, device=device) for n in (NL, NU))
+    ik, iv = (torch.zeros(NU, dtype=i32, device=device) for _ in range(2))
+    im = torch.zeros(NU, dtype=torch.bool, device=device)
+    dm = torch.ones(NU, dtype=torch.bool, device=device)
+    # warm up on a throwaway clone (same shapes, its own tensors), on the
+    # stream the capture uses
+    spare = DHashEngine(eager.state, continuous_rebuild=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            spare._device_step(lk, ik, iv, dk, im, dm)
+    torch.cuda.current_stream().wait_stream(side)
+    del spare
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        outs = graph_eng._device_step(lk, ik, iv, dk, im, dm)
+    log(f"  {name}: one rebuild-epoch step captured ({g.__class__.__name__})")
+
+    epoch0 = int(eager.state.epoch)
+    t_replay, t_eager, t_dev = [], [], []
+    swap_at = None
+    n = 0
+    while n < max_steps:
+        look, ins, vals, dele, mask = batch()
+        for dst, src in ((lk, oracle.key(look)), (ik, oracle.key(ins)),
+                         (iv, vals), (dk, oracle.key(dele)), (im, mask)):
+            dst.copy_(torch.as_tensor(src))
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev0.record()
+        g.replay()
+        ev1.record()
+        torch.cuda.synchronize()
+        t_replay.append((time.perf_counter() - t0) * 1e3)
+        t_dev.append(ev0.elapsed_time(ev1))
+        got = [x.clone() for x in outs]
+        t0 = time.perf_counter()
+        want = eager.step(oracle.key(look), oracle.key(ins), vals,
+                          oracle.key(dele), ins_mask=mask)
+        torch.cuda.synchronize()
+        t_eager.append((time.perf_counter() - t0) * 1e3)
+        for a, b, what in zip(got, want, ("found", "vals", "ok_i", "ok_d")):
+            check(torch.equal(a, b), f"graph {name} step {n}: {what} of the "
+                  f"replayed step differs from the eager engine's")
+        oracle.step(look, ins, vals, mask, dele, got, f"{name} graph {n}")
+        step += 1
+        n += 1
+        if swap_at is None and int(graph_eng.state.epoch) > epoch0:
+            swap_at = n
+        if swap_at is not None and n >= swap_at + margin:
+            break
+    check(swap_at is not None, f"graph {name}: no live swap in {n} replays")
+    check(int(eager.state.epoch) == int(graph_eng.state.epoch),
+          f"graph {name}: the two engines' epochs differ")
+    pairs = list(zip(_leaves(graph_eng.state), _leaves(eager.state)))
+    for (p, a), (_, b) in pairs:
+        check(torch.equal(a, b), f"graph {name}: state{p} differs from the "
+              f"eager engine's after {n} replays")
+    # device busy of a replayed step: 10 more replays under the profiler
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            g.replay()
+        torch.cuda.synchronize()
+    busy_us = sum(getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0))
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    out = dict(steps=n, swap_at=swap_at, leaves_equal=len(pairs),
+               replay_ms=statistics.median(t_replay),
+               eager_ms=statistics.median(t_eager),
+               replay_device_ms=statistics.median(t_dev),
+               replay_busy_ms=busy_us / 1e3 / 10)
+    log(f"  {name}: {n} replays, the live swap at replay {swap_at}; answers "
+        f"equal to the eager engine's and the oracle's every step, all "
+        f"{len(pairs)} state tensors equal at the end; ms a step: replayed "
+        f"{out['replay_ms']:.3f} (device span {out['replay_device_ms']:.3f},"
+        f" busy {out['replay_busy_ms']:.3f}), eager {out['eager_ms']:.3f}")
+    del g
+    return out
 
 
 def mid_rebuild_split(eng, keys, reps: int) -> None:
@@ -2147,10 +2662,9 @@ def main() -> int:
     ap.add_argument("--baseline", default="", metavar="DIR",
                     help="the build directory of another tree of this repo "
                     "(build/repro_torch_kernels there, after its own run): "
-                    "phase 2 also holds that tree's probe2, probe_insert, "
-                    "tc_probe2, chain_probe and chain_probe2 against the "
-                    "plain versions on every case and times them in turns "
-                    "with this tree's")
+                    "phase 2 also holds that tree's tc_insert against the "
+                    "plain version on the timed batches and times it in "
+                    "turns with this tree's")
     ap.add_argument("--profile", default="", metavar="FILE",
                     help="also run 40 steps of each main path under "
                     "torch.profiler and write the kernel tables to FILE "
@@ -2195,6 +2709,7 @@ def main() -> int:
     kres = phase_kernels(device, CONFIG, args.reps, baseline)
     kres.update(phase_tc_kernels(device, CONFIG, args.reps, baseline))
     kres.update(phase_chain_kernels(device, CONFIG, args.reps, baseline))
+    kres.update(phase_guard_kernels(device, CONFIG, args.reps))
 
     by_path = {}
     for i, name in enumerate(BACKENDS):
@@ -2218,6 +2733,15 @@ def main() -> int:
         f"{CONFIG.capacity_per_shard} nodes), 2048 keys into one bucket, "
         f"max_chain 2112")
     phase_chain_flood(device, CONFIG, args.reps)
+    log(f"== 3f. one rebuild-epoch step in a CUDA graph, replayed across a "
+        f"live swap against the eager engine ({CONFIG.arch_id} unreduced)")
+    graphs = {}
+    for name in BACKENDS:
+        graphs[name] = phase_graph(
+            device, dataclasses.replace(CONFIG, backend=name))
+    log(f"  {card}; replayed step against eager, ms: " + "; ".join(
+        f"{k} {v['replay_ms']:.3f} / {v['eager_ms']:.3f} (busy "
+        f"{v['replay_busy_ms']:.3f})" for k, v in graphs.items()))
 
     log("== 4. fused engine against the plain path in lock step")
     for name in BACKENDS:
@@ -2233,12 +2757,13 @@ def main() -> int:
                         "replaces": rep, "launches": sum(paths.values()),
                         "launches_by_path": paths, **kres[name],
                         "library_ms": None})
-    log(f"  no single PyTorch call computes any of these nine functions (a "
-        f"probe sequence, a two-row lane match, a lock-step claim, an ordered "
-        f"three-way check, a compacting scan, a segment scan with a bounded "
-        f"walk), so library_ms is null; times are medians of {args.reps} "
-        f"launches, tables warm in L2; launches are summed over the four "
-        f"main paths (launches_by_path: each path's own count)")
+    log(f"  no single PyTorch call computes any of these eleven functions "
+        f"(a probe sequence, a two-row lane match, a lock-step claim, an "
+        f"ordered three-way check, a compacting scan, a segment scan with a "
+        f"bounded walk, a cuckoo kick-out, a guarded two-table exchange), "
+        f"so library_ms is null; times are medians of {args.reps} launches, "
+        f"tables warm in L2; launches are summed over the four main paths "
+        f"(launches_by_path: each path's own count)")
     log(f"  total {time.perf_counter() - t_start:.0f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

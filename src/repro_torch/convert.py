@@ -97,7 +97,7 @@ def table_from_numpy(tree: dict, device: torch.device | str = "cuda",
                for f in _ARRAYS.get(cls, _SLOTS)})
     if dev.type == "cuda" and cls in _CLAIMS:
         from repro_torch.kernels.probe import new_claim
-        kw["claim"] = new_claim(kw["key"].numel(), dev)
+        kw["claim"] = new_claim(kw["key"].shape[0], dev)
     return cls(**kw)
 
 

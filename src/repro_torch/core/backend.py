@@ -20,7 +20,8 @@ descriptor bundling everything the DHash layer needs to drive it:
   dirty-tail window (the compaction threshold and the window the chain
   kernels stage);
 * the optional ``lookup_fwd`` hook (MIGRATED-slot hazard forwarding) and
-  ``freeze_old`` hook (chain: compact the old arena at a rebuild's start);
+  ``freeze_old`` hook (chain: compact the old arena at a rebuild's start,
+  or, given a device flag, compute the compaction and select it);
 * ``hash_fns``: the table's hash functions (one for linear and chain, a and
   b for the two-row backends), so that a caller can see every seed change at
   a swap.
@@ -34,8 +35,10 @@ The ``*_fused`` adapters in this module are the thin descriptor-bound glue
 over ``kernels/ops.py``: hash the keys (``hashing.bucket_of``, outside the
 kernels as in the reference), call the op, hand back the table.  Cuckoo
 drives the twochoice kernels unchanged with side-offset rows; only its
-insert adds the bounded kick-out, behind counted host reads.  Chain's
+insert adds the bounded kick-out, a kernel guarded on the device.  Chain's
 insert adds the compaction, selected on the device (no host read).
+``epoch_leaves`` lists a table's tensor leaves with what a rebuild start
+clears each to, for the epoch-swap kernel.
 """
 from __future__ import annotations
 
@@ -87,9 +90,12 @@ class BucketBackend:
 
       lookup_fused(t, keys) -> (found, vals)
       lookup_fused_loc(t, keys) -> (found, vals, loc)
-      insert_fused(t, keys, vals, mask, with_present=False) -> (t, ok[, present])
+      insert_fused(t, keys, vals, mask, with_present=False, dedup=True)
+          -> (t, ok[, present])      dedup=False: mask already distinct
       delete_fused(t, keys, mask) -> (t, ok)
-      extract_chunk_fused(t, cursor, n) -> like extract_chunk
+      extract_chunk_fused(t, cursor, n, *, out=None, run=None, hold=None)
+          -> like extract_chunk; with ``out`` (the hazard buffer) IN PLACE,
+             behind the device flags run & ~hold (``probe.extract``)
       ordered_lookup_fused(t_old, t_new, hk, hv, hl, keys, *, nres_cap)
           -> (found, vals)                     whole Lemma-4.1 ordered check
       ordered_delete_fused(t_old, t_new, hk, hv, hl, keys, mask, *, nres_cap)
@@ -200,12 +206,13 @@ def linear_lookup_fused_loc(t: LinearTable, keys: torch.Tensor):
 
 def linear_insert_fused(t: LinearTable, keys: torch.Tensor,
                         vals: torch.Tensor, mask: torch.Tensor, *,
-                        with_present: bool = False):
+                        with_present: bool = False, dedup: bool = True):
     """Kernel-backed insert: batch_winners dedup (the kernel's caller
-    contract), then one claim launch.  Writes ``t``'s tensors in place.
+    contract; ``dedup=False`` when the masked keys are already distinct),
+    then one claim launch.  Writes ``t``'s tensors in place.
     Returns (t, ok), or (t, ok, present) when ``with_present``."""
     from repro_torch.kernels import ops
-    winner = batch_winners(keys, mask)
+    winner = batch_winners(keys, mask) if dedup else mask
     h0 = hashing.bucket_of(t.hfn, keys, t.capacity)
     *_, ok, present = ops.probe_insert(
         t.key, t.val, t.state, h0, keys, vals, winner,
@@ -225,22 +232,29 @@ def linear_delete_fused(t: LinearTable, keys: torch.Tensor,
     return t, ok
 
 
-def _extract_fused(t, arrays, cursor: torch.Tensor, n: int, plain):
+def _extract_fused(t, arrays, cursor: torch.Tensor, n: int, plain, *,
+                   out=None, run=None, hold=None):
     """One ``extract`` launch on flat (key, val, state) ``arrays`` of ``t``;
     above the kernel's chunk a CUDA table raises and a CPU table takes the
-    ``plain`` scan."""
-    from repro_torch.kernels import ops
+    ``plain`` scan (with ``out``, the extract's plain version, which takes
+    any chunk and the flags)."""
+    from repro_torch.kernels import ops, probe
     if n > ops.EXTRACT_MAX_CHUNK:
         if arrays[0].is_cuda:
             raise ValueError(
                 f"fused rebuild takes chunk <= {ops.EXTRACT_MAX_CHUNK} on a "
                 f"CUDA device, got {n}; use a smaller chunk or fused=False")
-        return plain(t, cursor, n)
-    _, hk, hv, hl, cur = ops.extract_chunk_fused(*arrays, cursor, chunk=n)
+        if out is None:
+            return plain(t, cursor, n)
+        return (t, *probe.extract_plain(*arrays, cursor, n, out=out, run=run,
+                                        hold=hold))
+    _, hk, hv, hl, cur = ops.extract_chunk_fused(*arrays, cursor, chunk=n,
+                                                 out=out, run=run, hold=hold)
     return t, hk, hv, hl, cur
 
 
-def extract_chunk_fused(t, cursor: torch.Tensor, n: int):
+def extract_chunk_fused(t, cursor: torch.Tensor, n: int, *, out=None,
+                        run=None, hold=None):
     """Kernel-backed rebuild chunk scan of a slot table: one ``extract``
     launch on the row-major flattened slot arrays (the scan order of the
     plain scan); hazard entries come back COMPACTED (live entries first) —
@@ -254,7 +268,7 @@ def extract_chunk_fused(t, cursor: torch.Tensor, n: int):
     reference does."""
     return _extract_fused(
         t, (t.key.view(-1), t.val.view(-1), t.state.view(-1)), cursor, n,
-        buckets.extract_chunk)
+        buckets.extract_chunk, out=out, run=run, hold=hold)
 
 
 def linear_ordered_lookup_fused(t_old: LinearTable, t_new: LinearTable,
@@ -352,75 +366,37 @@ def _two_row_fused(rows) -> dict:
 
 def twochoice_insert_fused(t: TwoChoiceTable, keys: torch.Tensor,
                            vals: torch.Tensor, mask: torch.Tensor, *,
-                           with_present: bool = False):
+                           with_present: bool = False, dedup: bool = True):
     """Kernel-backed two-choice insert: batch_winners dedup, then ONE
     ``tc_insert`` launch (``max_rounds`` alternating rounds).  Writes ``t``'s
     tensors in place.  Returns (t, ok), or (t, ok, present)."""
     from repro_torch.kernels import ops
-    winner = batch_winners(keys, mask)
+    winner = batch_winners(keys, mask) if dedup else mask
     *_, ok, present = ops.twochoice_insert(
         t.key, t.val, t.state, *_tc_rows(t, keys), keys, vals, winner,
         max_rounds=t.max_rounds, claim=t.claim, with_present=True)
     return (t, ok, present) if with_present else (t, ok)
 
 
-# iteration counts after which a running kick-out reads whether any key is
-# still unplaced (most resolve in an iteration or two; the bound is max_kick)
-KICK_STAGES = (1, 2, 4, 8, 16)
-
-
-def _kick_out(t: CuckooTable, ra, rb, keys, vals, pend):
-    """The bounded kick-out on the pending keys only, written into ``t``'s
-    tensors; returns (indices, done) or None when nothing is pending.
-
-    The gate (``probe.kick_gate``) is one counted read that also yields the
-    indices; the kick-out then runs in stages of iterations, reading after
-    each stage whether a key is still unplaced.  Both are exact: a query
-    that is not pending takes no part in an iteration, the subset keeps the
-    batch order (so the row locks' lowest-index winners), and the stages
-    carry the iteration number — the result is ``ref.cuckoo_kick_ref`` over
-    the whole batch for ``max_kick`` iterations, slot for slot."""
-    from repro_torch.kernels import probe, ref
-    sel = probe.kick_gate(pend)
-    if not sel.numel():
-        return None
-    ra, rb, keys, vals = ra[sel], rb[sel], keys[sel], vals[sel]
-    left = torch.ones(sel.numel(), dtype=torch.bool, device=sel.device)
-    done = torch.zeros_like(left)
-    it = 0
-    for stop in (*[n for n in KICK_STAGES if n < t.max_kick], t.max_kick):
-        k, v, s, d = ref.cuckoo_kick_ref(
-            t.key, t.val, t.state, ra, rb, t.hfn_a, t.hfn_b, t.nbuckets,
-            keys, vals, left, stop - it, first_iter=it)
-        for dst, src in ((t.key, k), (t.val, v), (t.state, s)):
-            dst.copy_(src)
-        done |= d
-        left &= ~d
-        it = stop
-        if it == t.max_kick or not probe.kick_pending(left):
-            break
-    return sel, done
-
-
 def cuckoo_insert_fused(t: CuckooTable, keys: torch.Tensor,
                         vals: torch.Tensor, mask: torch.Tensor, *,
-                        with_present: bool = False):
+                        with_present: bool = False, dedup: bool = True):
     """Kernel-backed cuckoo insert: the ``tc_insert`` launch places every
     key whose candidate rows have room (``max_rounds=2`` — one try a side);
-    then the bounded kick-out (``_kick_out``: plain tensor code as in the
-    reference, behind counted host reads) relocates for the winners left
-    unplaced and absent from both rows.  Writes ``t``'s tensors in place.
+    then the ``cuckoo_kick`` launch runs the bounded kick-out for the
+    winners left unplaced and absent from both rows (the reference's
+    ``lax.cond`` is the kernel's own guard: with nothing pending it returns
+    at once).  Writes ``t``'s tensors and ``ok`` in place, no host read.
     Returns (t, ok), or (t, ok, present)."""
-    from repro_torch.kernels import ops
-    winner = batch_winners(keys, mask)
+    from repro_torch.kernels import ops, probe
+    winner = batch_winners(keys, mask) if dedup else mask
     ra, rb = _ck_rows(t, keys)
     *_, ok, present = ops.twochoice_insert(
         t.key, t.val, t.state, ra, rb, keys, vals, winner, max_rounds=2,
         claim=t.claim, with_present=True)
-    kicked = _kick_out(t, ra, rb, keys, vals, winner & ~ok & ~present)
-    if kicked is not None:
-        sel, done = kicked
-        ok[sel] |= done
+    probe.cuckoo_kick(t.key, t.val, t.state, ra, rb, t.hfn_a, t.hfn_b,
+                      t.nbuckets, keys, vals, winner, ok, present, t.max_kick,
+                      claim=t.claim)
     return (t, ok, present) if with_present else (t, ok)
 
 
@@ -448,14 +424,15 @@ def chain_lookup_fused(t: ChainTable, keys: torch.Tensor):
 
 
 def chain_insert_fused(t: ChainTable, keys: torch.Tensor, vals: torch.Tensor,
-                       mask: torch.Tensor, *, with_present: bool = False):
+                       mask: torch.Tensor, *, with_present: bool = False,
+                       dedup: bool = True):
     """Kernel-backed chain insert: batch_winners dedup, the presence launch,
     then allocation from the free-stack tail and the head relink, written
     into ``t``'s tensors in place.  New nodes extend the dirty tail;
     ``chain_maybe_compact`` restores the sorted layout.  Returns (t, ok), or
     (t, ok, present)."""
     from repro_torch.kernels import ops
-    winner = batch_winners(keys, mask)
+    winner = batch_winners(keys, mask) if dedup else mask
     *_, ok, present = ops.chain_insert_fused(
         *_chain_parts(t), t.free_stack, t.free_top, _chain_bq(t, keys), keys,
         vals, winner, max_chain=t.max_chain, dirty_cap=t.dirty_cap,
@@ -513,13 +490,15 @@ def chain_ordered_delete_fused(t_old: ChainTable, t_new: ChainTable,
                           batch_winners(keys, mask), nres_cap=nres_cap)
 
 
-def chain_extract_chunk_fused(t: ChainTable, cursor: torch.Tensor, n: int):
+def chain_extract_chunk_fused(t: ChainTable, cursor: torch.Tensor, n: int,
+                              *, out=None, run=None, hold=None):
     """Kernel-backed rebuild chunk scan: the arena is a flat array, so the
     ``extract`` kernel runs on it unchanged (positions are scan order), with
     the chunk contract of ``extract_chunk_fused``.  Writes ``t.astate`` in
     place."""
     return _extract_fused(t, (t.akey, t.aval, t.astate), cursor, n,
-                          buckets.chain_extract_chunk)
+                          buckets.chain_extract_chunk, out=out, run=run,
+                          hold=hold)
 
 
 def _chain_fields(t: ChainTable) -> tuple:
@@ -535,12 +514,15 @@ def _chain_compacted(t: ChainTable) -> tuple:
                                    _chain_bq(t, t.akey), nbuckets=t.nbuckets)
 
 
-def chain_compact_fused(t: ChainTable) -> ChainTable:
+def chain_compact_fused(t: ChainTable,
+                        where: torch.Tensor | None = None) -> ChainTable:
     """Restore the arena-sorted layout (``ops.chain_compact_fused``) IN
     PLACE: tombstones and migrated nodes are reclaimed, the dirty count
-    drops to 0.  The ``freeze_old`` hook: run at a rebuild's start."""
+    drops to 0.  With ``where`` (a 0-dim bool device flag) the compaction is
+    computed and taken only where the flag is set (``torch.where``, no host
+    read).  The ``freeze_old`` hook: run at a rebuild's start."""
     for dst, src in zip(_chain_fields(t), _chain_compacted(t)):
-        dst.copy_(src)
+        dst.copy_(src if where is None else torch.where(where, src, dst))
     return t
 
 
@@ -548,20 +530,18 @@ def chain_maybe_compact(t: ChainTable) -> ChainTable:
     """Compaction trigger: re-sort the arena iff the dirty tail has outgrown
     the window (the table's ``dirty_cap``).  The reference gates with
     ``lax.cond``; here the compaction is computed and selected on the device
-    (``torch.where``) into ``t``'s tensors IN PLACE, so the trigger costs no
-    host read."""
-    fire = chain_dirty(t) > t.dirty_cap
-    for dst, src in zip(_chain_fields(t), _chain_compacted(t)):
-        dst.copy_(torch.where(fire, src, dst))
-    return t
+    into ``t``'s tensors IN PLACE, so the trigger costs no host read."""
+    return chain_compact_fused(t, chain_dirty(t) > t.dirty_cap)
 
 
 def _chain_insert_fused_compacting(t: ChainTable, keys, vals, mask, *,
-                                   with_present: bool = False):
+                                   with_present: bool = False,
+                                   dedup: bool = True):
     """The descriptor-bound chain insert: the fused insert plus the
     compaction trigger that keeps the next probes on the sorted segments —
     what the DHash layer (user inserts AND hazard landings) runs."""
-    out = chain_insert_fused(t, keys, vals, mask, with_present=with_present)
+    out = chain_insert_fused(t, keys, vals, mask, with_present=with_present,
+                             dedup=dedup)
     chain_maybe_compact(t)
     return out
 
@@ -651,15 +631,42 @@ def _fresh_chain(t: ChainTable, seed) -> ChainTable:
                               device=dev)
 
 
+# the salt offset each hash function of a table takes at a reseed (b's as
+# in the reference, so the reseeded seeds are the reference's)
+SALT_OFFSET = {"hfn": 0, "hfn_a": 0, "hfn_b": 0x5851F42}
+# what ``clear`` writes into a table's tensor fields, where it is not 0:
+# "desc" is n - 1 - i (the chain free stack), "arena" the arena's size
+CLEAR_FILL = {"anext": -1, "heads": -1, "free_stack": "desc",
+              "free_top": "arena"}
+
+
 def _reseed_one(t, salt):
     return replace(t, hfn=hashing.reseed(t.hfn, salt))
 
 
 def _reseed_two(t, salt):
-    """Both functions of a two-row table; b's salt is offset as in the
-    reference, so the reseeded seeds are the reference's."""
-    return replace(t, hfn_a=hashing.reseed(t.hfn_a, salt),
-                   hfn_b=hashing.reseed(t.hfn_b, salt + 0x5851F42))
+    """Both functions of a two-row table."""
+    return replace(
+        t, hfn_a=hashing.reseed(t.hfn_a, salt + SALT_OFFSET["hfn_a"]),
+        hfn_b=hashing.reseed(t.hfn_b, salt + SALT_OFFSET["hfn_b"]))
+
+
+def epoch_leaves(t) -> list:
+    """Every tensor leaf of a table (the claim words aside: scratch, equal in
+    both tables between launches), each with what ``clear`` and ``reseed``
+    write into it at a rebuild start (``probe.epoch_swap``'s specs): its
+    ``CLEAR_FILL``, or a hash function's seeds with its ``SALT_OFFSET``."""
+    out = []
+    for f in dataclasses.fields(t):
+        v = getattr(t, f.name)
+        if isinstance(v, hashing.HashFn):
+            out.append((v.seeds, ("seeds", v.kind, SALT_OFFSET[f.name])))
+        elif isinstance(v, torch.Tensor) and f.name != "claim":
+            fill = CLEAR_FILL.get(f.name, 0)
+            spec = ("desc",) if fill == "desc" else \
+                ("fill", t.arena if fill == "arena" else fill)
+            out.append((v, spec))
+    return out
 
 
 # ---------------------------------------------------------------------------

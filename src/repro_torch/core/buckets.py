@@ -90,8 +90,8 @@ def _empty(shape: tuple, hfns: dict, device, claim: bool = True) -> dict:
     """The fields of an empty table of ``shape`` on ``device`` (default:
     where the first hash function's seeds live): the hash functions moved
     there, zeroed key / val / state, and with ``claim`` on a CUDA device the
-    two-row insert kernel's claim scratch (not part of the table's contents,
-    never converted, restored by every launch)."""
+    two-row kernels' claim words, one a row (not part of the table's
+    contents, never converted, restored by every launch)."""
     first = next(iter(hfns.values()))
     dev = torch.device(device) if device is not None else first.seeds.device
     out = {n: h if h.seeds.device == dev else replace(h, seeds=h.seeds.to(dev))
@@ -100,7 +100,7 @@ def _empty(shape: tuple, hfns: dict, device, claim: bool = True) -> dict:
         out[f] = torch.zeros(shape, dtype=I32, device=dev)
     if claim and dev.type == "cuda":
         from repro_torch.kernels.probe import new_claim
-        out["claim"] = new_claim(out["key"].numel(), dev)
+        out["claim"] = new_claim(shape[0], dev)
     return out
 
 
@@ -263,7 +263,7 @@ class TwoChoiceTable:
     key: torch.Tensor    # [B, W] i32
     val: torch.Tensor    # [B, W] i32
     state: torch.Tensor  # [B, W] i32
-    claim: torch.Tensor | None = None   # [B*W] i32, CUDA tables only
+    claim: torch.Tensor | None = None   # [B] i32, CUDA tables only
 
 
 def twochoice_make(nbuckets: int, hfn_a: hashing.HashFn,
@@ -340,7 +340,7 @@ class CuckooTable:
     key: torch.Tensor    # [2B, W] i32
     val: torch.Tensor    # [2B, W] i32
     state: torch.Tensor  # [2B, W] i32
-    claim: torch.Tensor | None = None   # [2B*W] i32, CUDA tables only
+    claim: torch.Tensor | None = None   # [2B] i32, CUDA tables only
 
 
 def cuckoo_make(nbuckets: int, hfn_a: hashing.HashFn, hfn_b: hashing.HashFn,

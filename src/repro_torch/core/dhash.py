@@ -24,20 +24,28 @@ This is the paper's core contribution (§3-§4) in batched form:
   duplicate keys discovered at landing are dropped in favour of the new
   table's copy (Alg. 3 lines 34-36).
 
-* The epoch swap (Alg. 3 lines 41-46) exchanges the two table REFERENCES on
-  the host — no table data moves.  The paper's ``synchronize_rcu`` grace
-  periods are step boundaries.
+* The epoch swap (Alg. 3 lines 41-46): the host-level forms exchange the two
+  table REFERENCES (no table data moves); the device-flag form exchanges the
+  tables' CONTENTS in one kernel, so that both containers keep their
+  tensors.  The paper's ``synchronize_rcu`` grace periods are step
+  boundaries.
 
 * **Backend dispatch is the descriptor registry** (core/backend.py): this
   module contains zero per-backend branches.
 
 Where the reference branches on a device scalar with ``lax.cond``
-(``rebuilding``, ``hazard_live.any()``, ``done``), eager PyTorch has to
-branch on the host.  Every function that does so takes the flag as an
-optional keyword HINT: ``None`` (the default) reads it from the device — a
-host synchronisation — and keeps the reference's semantics whatever the flag
-is; a caller that already knows the flag (the engine reads one small flags
-tensor a step) passes it and the function never synchronises.
+(``rebuilding``, ``hazard_live.any()``, ``done``), eager PyTorch either
+branches on the host or decides on the device.  The functional ops branch on
+the host and take the flag as an optional keyword HINT: ``None`` (the
+default) reads it from the device — a host synchronisation — and keeps the
+reference's semantics whatever the flag is; a caller that already knows the
+flag passes it and the function never synchronises.  The DEVICE-FLAG forms
+(``insert_by_flag``, ``rebuild_step_``, ``finish_same_shape_``,
+``rebuild_autostart_``) decide on the device instead: guarded kernel
+launches (``extract`` and ``epoch_swap`` skip their work on a device flag)
+and selects, no host read, and they write every field of the state IN PLACE
+(``copy_``, never a rebound field), so that one engine step can be captured
+in a CUDA graph and replayed.
 
 Mutation: with ``fused=True`` the ops update the table tensors IN PLACE (the
 counterpart of the reference's buffer donation) and return a state container
@@ -58,7 +66,7 @@ import torch
 
 from repro_torch.core import backend as backends
 from repro_torch.core import buckets
-from repro_torch.core.struct_utils import replace, state_dataclass
+from repro_torch.core.struct_utils import assign_, replace, state_dataclass
 
 I32 = torch.int32
 
@@ -243,12 +251,14 @@ def lookup_counted(d: DHashState, keys: torch.Tensor, *, probe_hi: int = 7,
     return d, (f, v)
 
 
-def _ins_table(dd: DHashState, t, kk, vv, mm):
+def _ins_table(dd: DHashState, t, kk, vv, mm, dedup: bool = True):
     """Descriptor-dispatched insert (shared by user inserts and hazard
-    landing, so a fused state's rebuild landing runs the insert kernel)."""
+    landing, so a fused state's rebuild landing runs the insert kernel).
+    ``dedup=False``: the masked keys are already distinct (the fused path
+    then skips the kernel's batch_winners; the plain ops always dedup)."""
     be = _be(dd)
     if dd.fused:
-        return be.insert_fused(t, kk, vv, mm)
+        return be.insert_fused(t, kk, vv, mm, dedup=dedup)
     return be.insert(t, kk, vv, mm)
 
 
@@ -455,6 +465,101 @@ def rebuild_autostart(d: DHashState, *,
         old = be.freeze_old(old)
     return replace(d, old=old, new=new, cursor=_scalar(0, I32, d.device),
                    rebuilding=_scalar(True, torch.bool, d.device))
+
+
+# ---------------------------------------------------------------------------
+# device-flag forms: every branch decided on the device, every field written
+# in place (what an engine step runs; see the module docstring)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def insert_by_flag(d: DHashState, keys: torch.Tensor, vals: torch.Tensor,
+                   mask: torch.Tensor | None = None):
+    """``insert`` whose target the DEVICE flag ``rebuilding`` picks: the new
+    table where it is set, else the old one — two masked calls that share
+    one ``batch_winners``, one of which inserts nothing.  For a caller whose
+    host copy of the flag may be stale (a rebuild epoch that ended on the
+    device).  Writes ``d``'s tensors in place.  Returns (d, ok)."""
+    if mask is None:
+        mask = torch.ones(keys.shape, dtype=torch.bool, device=keys.device)
+    win = buckets.batch_winners(keys, mask)
+    ok = torch.zeros_like(win)
+    for t, m in ((d.new, win & d.rebuilding), (d.old, win & ~d.rebuilding)):
+        t2, ok_t = _ins_table(d, t, keys, vals, m, dedup=False)
+        assign_(t, t2)
+        ok |= ok_t
+    return d, ok
+
+
+@torch.no_grad()
+def rebuild_step_(d: DHashState) -> DHashState:
+    """``rebuild_step`` decided on the device, IN PLACE: the landing runs
+    every call (an insert of the live hazard entries — nothing when none is
+    live), then the extract launch, which scans only where ``rebuilding`` is
+    set and no hazard entry was live BEFORE the landing (a snapshot taken
+    first, so that a landing that empties the buffer does not let the
+    extract run in the same step: one transition a call, as the
+    reference's ``lax.cond(hazard_live.any(), land, extract)``)."""
+    be = _be(d)
+    pending = d.hazard_live.any()
+    if d.fused:
+        # the hazard keys are distinct: extracted from one table's LIVE slots
+        _, ok, present = be.insert_fused(d.new, d.hazard_key, d.hazard_val,
+                                         d.hazard_live, with_present=True,
+                                         dedup=False)
+    else:
+        t, ok = be.insert(d.new, d.hazard_key, d.hazard_val, d.hazard_live)
+        present, _, _ = be.lookup(t, d.hazard_key)
+        assign_(d.new, t)
+    d.hazard_live.copy_(d.hazard_live & ~ok & ~present)
+    hazard = (d.hazard_key, d.hazard_val, d.hazard_live)
+    if d.fused:
+        be.extract_chunk_fused(d.old, d.cursor, d.chunk, out=hazard,
+                               run=d.rebuilding, hold=pending)
+    else:
+        t, *scan = be.extract_chunk(d.old, d.cursor, d.chunk)
+        go = d.rebuilding & ~pending
+        assign_(d.old, t, go)
+        for dst, src in zip((*hazard, d.cursor), scan):
+            assign_(dst, src, go)
+    return d
+
+
+def _epoch_(d: DHashState, swap: bool, start: bool) -> torch.Tensor:
+    """One ``epoch_swap`` launch over both tables' leaves (the plain version
+    on a plain state), then chain's freeze of the old arena, computed and
+    taken where the start happened.  Returns go[2]: (swapped, started)."""
+    from repro_torch.kernels import probe
+    be = _be(d)
+    lo, ln = backends.epoch_leaves(d.old), backends.epoch_leaves(d.new)
+    fn = probe.epoch_swap if d.fused else probe.epoch_swap_plain
+    go = fn([x for x, _ in lo], [x for x, _ in ln], [s for _, s in lo],
+            d.hazard_live, d.cursor, d.rebuilding, d.epoch, d.lookups,
+            d.expensive, be.capacity_of(d.old), swap, start)
+    if start and d.fused and be.freeze_old is not None:
+        be.freeze_old(d.old, go[1])
+    return go
+
+
+@torch.no_grad()
+def finish_same_shape_(d: DHashState, *,
+                       autostart: bool = False) -> torch.Tensor:
+    """``finish_same_shape`` decided on the device, IN PLACE (old/new must
+    share shapes): where the rebuild is done, the two tables' contents change
+    places and the scalars reset, as the reference's select does.  With
+    ``autostart`` the same launch then runs ``rebuild_autostart_``'s start
+    (the continuous-rebuild engine's swap and restart in one step).
+    Returns go[2] bool on the device: (swapped, started)."""
+    return _epoch_(d, swap=True, start=autostart)
+
+
+@torch.no_grad()
+def rebuild_autostart_(d: DHashState) -> torch.Tensor:
+    """``rebuild_autostart`` decided on the device, IN PLACE: where no
+    rebuild runs, clear the standby, reseed its hash functions from
+    ``epoch + 1``, raise ``rebuilding`` (cursor 0), and freeze the old
+    table (chain).  Returns go[2] as ``finish_same_shape_``."""
+    return _epoch_(d, swap=False, start=True)
 
 
 # ---------------------------------------------------------------------------

@@ -13,21 +13,33 @@ mode, the next rebuild start (``rebuild_autostart``, which reseeds the hash
 function on the device).  With a ``fused`` state every op in the step is a
 hand-written CUDA kernel launch plus plain tensor glue.
 
-Host synchronisations.  PyTorch runs eagerly, so "land or extract?" and
-"swap now?" are host branches.  The engine keeps ``rebuilding`` as a host
-flag (every change of it is a decision the engine itself takes) and, on a
-step inside a rebuild epoch, reads ONE small flags tensor from the device
-(hazard pending, cursor, rebuilding) after the deletes.  ``done`` needs the
-hazard state after the transition, so the steps on which the cursor has
-reached the end of the table — the last extract and the landing(s) after it,
-two or three steps an epoch — read one more flag.  Steps outside a rebuild
-epoch read nothing.  Every read is counted in ``EngineStats.host_syncs``.
-The reference's budget of zero reads between polls is therefore not met yet.
+Host synchronisations.  A step is split as the reference's is: the host
+converts the inputs, ``_device_step`` (the counterpart of the reference's
+jitted ``fused``) runs the whole step on the device, and the host keeps its
+books and, one step in ``poll_every``, polls.  Every ``lax.cond`` the
+reference puts on the step is a decision taken on the device: the transition
+is ``dhash.rebuild_step_`` (the landing runs every step and inserts nothing
+when no hazard entry is live; the extract launch scans only where the
+device flags allow), the epoch swap and the next rebuild's start are one
+``epoch_swap`` launch (``dhash.finish_same_shape_``), and the cuckoo
+kick-out is a kernel with its own guard.  ``_device_step`` reads nothing
+from the device and writes every field of the state in place, so it can be
+captured in a CUDA graph.  The host keeps ``rebuilding`` as a flag of its
+own: in continuous-rebuild mode the swap and the next start happen in one
+step, so it is true at every step boundary; otherwise a rebuild epoch that
+ends on the device between polls leaves it stale until the poll, and the
+epoch's inserts pick their table on the device (``dhash.insert_by_flag``),
+while lookups and deletes stay right on the epoch path (the standby holds
+nothing LIVE).  The poll is the one read: ``(epoch, rebuilding, done)`` in
+one small tensor, counted in ``EngineStats.host_syncs``, from which
+``rebuilds_completed`` is refreshed, as in the reference.  Steps between
+polls read nothing.
 
 Only a *shape-changing* rebuild (a user-supplied ``new_table`` with a
 different capacity) is finished by the K-step poll, as in the reference — up
 to K-1 steps late, which is safe because a completed-but-unswapped rebuild
-still answers every op correctly through the ordered check.
+still answers every op correctly through the ordered check; its transitions
+run on the device all the same.
 
 Ownership: the engine CLONES the state it is given and then owns the clone:
 a fused state's tables are updated in place, step after step.  Read
@@ -45,6 +57,7 @@ from dataclasses import dataclass, field
 import torch
 
 from repro_torch.core import dhash
+from repro_torch.core.struct_utils import assign_
 
 I32 = torch.int32
 
@@ -85,6 +98,8 @@ class DHashEngine:
     policy: None = None                # elastic policy: not ported yet
     _stats: EngineStats = field(default_factory=EngineStats, repr=False)
     _rebuilding: bool = field(default=False, init=False, repr=False)
+    _epoch0: int = field(default=0, init=False, repr=False)
+    _last_poll_step: int = field(default=0, init=False, repr=False)
 
     def __post_init__(self):
         if self.policy is not None:
@@ -97,6 +112,7 @@ class DHashEngine:
         # engine must not share a tensor with the caller
         self.state = _clone_tree(self.state)
         self._rebuilding = bool(self.state.rebuilding)
+        self._epoch0 = int(self.state.epoch)
 
     @property
     def device(self) -> torch.device:
@@ -104,7 +120,9 @@ class DHashEngine:
 
     @property
     def rebuilding(self) -> bool:
-        """Whether a rebuild epoch is in progress (host flag, no read)."""
+        """Whether a rebuild epoch is in progress, as the host last knew it
+        (no read; in non-continuous mode it may stay True for up to
+        ``poll_every - 1`` steps after the epoch ended on the device)."""
         return self._rebuilding
 
     # -- the step ------------------------------------------------------------
@@ -141,69 +159,84 @@ class DHashEngine:
         im = None if ins_mask is None else self._tensor(ins_mask, torch.bool)
         dm = None if del_mask is None else self._tensor(del_mask, torch.bool)
 
-        d, rb = self.state, self._rebuilding
-        found, vals = dhash.lookup(d, lk, rebuilding=rb)
-        d, ok_i = dhash.insert(d, ik, iv, im, rebuilding=rb)
-        d, ok_d = dhash.delete(d, dk, dm, rebuilding=rb)
-        self.state = d
-        swap = self._swap_on_device()
-        if rb:
-            self._rebuild_transition(swap)
-        if swap and self.continuous_rebuild and not self._rebuilding:
-            self.state = dhash.rebuild_autostart(self.state, rebuilding=False)
-            self._rebuilding = True
-
+        self._stats.rebuild_transitions += self._rebuilding
+        out = self._device_step(lk, ik, iv, dk, im, dm)
+        if self._swap_on_device() and self.continuous_rebuild:
+            self._rebuilding = True     # swapped and restarted, or running
         self._stats.steps += 1
         self._stats.ops += lk.numel() + ik.numel() + dk.numel()
         if self.poll_every <= 1 or self._stats.steps % self.poll_every == 0:
             self._poll()
-        return found, vals, ok_i, ok_d
+        return out
 
-    def _rebuild_transition(self, swap: bool):
-        """``rebuild_step`` + ``finish_same_shape`` on host-read flags."""
-        d = self.state
-        pending, cursor, rebuilding = self._read(torch.stack([
-            d.hazard_live.any().to(I32), d.cursor, d.rebuilding.to(I32)]))
-        if not rebuilding:
-            raise RuntimeError("engine.state was changed outside the engine")
-        d = dhash.rebuild_step(d, hazard_pending=bool(pending),
-                               rebuilding=True)
-        self._stats.rebuild_transitions += 1
-        if swap:
-            cap = dhash._be(d).capacity_of(d.old)
-            if not pending:
-                cursor = min(cursor + d.chunk, cap)
-            # done = cursor at the end AND the hazard buffer empty after the
-            # transition: only then is a second flag worth reading
-            if cursor >= cap and self._read(dhash.rebuild_done(d)):
-                d = dhash.finish_same_shape(d, done=True)
-                self._rebuilding = False
-                self._stats.rebuilds_completed += 1
-        self.state = d
+    def _device_step(self, lk, ik, iv, dk, im=None, dm=None):
+        """The step on the device — lookup, insert, delete, one rebuild
+        transition, the epoch swap and (continuous rebuild) the next start —
+        with no host read and every state field written in place: the
+        counterpart of the reference's jitted step and the unit a CUDA graph
+        captures.  Which kernels it launches depends only on host flags
+        (``rebuilding`` as the host knows it, the mode, the tables' shapes).
+        Returns (found, vals, ok_insert, ok_delete)."""
+        d, rb = self.state, self._rebuilding
+        swap = self._swap_on_device()
+        found, vals = dhash.lookup(d, lk, rebuilding=rb)
+        if rb and swap and not self.continuous_rebuild:
+            _, ok_i = dhash.insert_by_flag(d, ik, iv, im)
+        else:
+            d2, ok_i = dhash.insert(d, ik, iv, im, rebuilding=rb)
+            assign_(d, d2)
+        d2, ok_d = dhash.delete(d, dk, dm, rebuilding=rb)
+        assign_(d, d2)
+        if rb:
+            dhash.rebuild_step_(d)
+        if swap and (rb or self.continuous_rebuild):
+            dhash.finish_same_shape_(d, autostart=self.continuous_rebuild)
+        return found, vals, ok_i, ok_d
 
     # -- host-side polling (1 of every K steps) ------------------------------
 
     def _poll(self):
-        """Finish a shape-changing rebuild; (re)start a rebuild in continuous
-        mode if the in-step autostart could not (shape-changing tables)."""
-        if self._rebuilding and not self._swap_on_device():
-            if self._read(dhash.rebuild_done(self.state)):
-                self.state = dhash.rebuild_finish(self.state, done=True)
-                self._rebuilding = False
-                self._stats.rebuilds_completed += 1
+        """One read of (epoch, rebuilding, done): refresh the host flag and
+        ``rebuilds_completed``; finish a shape-changing rebuild; (re)start a
+        rebuild in continuous mode if the in-step autostart could not
+        (shape-changing tables)."""
+        d = self.state
+        epoch, rebuilding, done = self._read(torch.stack([
+            d.epoch, d.rebuilding.to(I32), dhash.rebuild_done(d).to(I32)]))
+        if done:
+            # only reachable when the in-step swap was not applicable
+            self.state = dhash.rebuild_finish(d, done=True)
+            epoch, rebuilding = epoch + 1, False
+        self._rebuilding = bool(rebuilding)
+        self._stats.rebuilds_completed = epoch - self._epoch0
+        self._last_poll_step = self._stats.steps
         if self.continuous_rebuild and not self._rebuilding:
             self.request_rebuild()
 
     @property
     def stats(self) -> EngineStats:
-        """Engine statistics; kept on the host, so reading them costs no
-        device read."""
+        """Engine statistics.  As the reference's: reading them performs a
+        refresh-only device read (counted) if the engine stepped since the
+        last poll, so that ``rebuilds_completed`` is current; it never
+        finishes or starts a rebuild, and ``step()`` itself stays free of
+        reads between polls."""
+        if self._stats.steps != self._last_poll_step:
+            epoch, rebuilding = self._read(torch.stack([
+                self.state.epoch, self.state.rebuilding.to(I32)]))
+            self._rebuilding = bool(rebuilding)
+            self._stats.rebuilds_completed = epoch - self._epoch0
+            self._last_poll_step = self._stats.steps
         return self._stats
 
     def request_rebuild(self, *, seed: int | None = None, new_table=None):
         """Begin a live rebuild (fails like the paper's trylock if one is
-        already in progress).  ``new_table`` is cloned: the engine owns what
-        it writes."""
+        already in progress).  Where the host flag may be stale (an epoch
+        that ended on the device since the last poll) the device's flag is
+        read, counted.  ``new_table`` is cloned: the engine owns what it
+        writes."""
+        if self._rebuilding and self._swap_on_device() \
+                and not self.continuous_rebuild:
+            self._rebuilding = bool(self._read(self.state.rebuilding))
         if self._rebuilding:
             return False  # -EBUSY
         if new_table is not None:

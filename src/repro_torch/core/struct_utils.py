@@ -4,12 +4,17 @@ Every state object in the port is a frozen dataclass whose array fields are
 ``torch.Tensor``s and whose configuration fields are plain Python values.
 There is no pytree registration: PyTorch runs eagerly, so containers are
 just passed around.  ``replace`` builds a new container that SHARES the
-tensors it was not given — it never copies device memory.
+tensors it was not given — it never copies device memory.  ``assign_``
+goes the other way: it writes one container's tensors into another's in
+place, for a caller that must keep its tensors' storage (an engine step
+captured in a CUDA graph).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import TypeVar
+
+import torch
 
 _T = TypeVar("_T")
 
@@ -22,3 +27,19 @@ def state_dataclass(cls: type[_T]) -> type[_T]:
 
 def replace(obj: _T, **kw) -> _T:
     return dataclasses.replace(obj, **kw)  # type: ignore[type-var]
+
+
+def assign_(dst, src, where=None) -> None:
+    """Write every tensor of container ``src`` into the tensor at the same
+    place in ``dst`` (same structure), IN PLACE, so that ``dst``'s tensors
+    keep their storage: a tensor ``src`` shares with ``dst`` is skipped.
+    With ``where`` (a 0-dim bool tensor) each is taken only where it is set
+    (``torch.where``, decided on the device)."""
+    if dst is src:
+        return
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src if where is None else torch.where(where, src, dst))
+        return
+    if dataclasses.is_dataclass(dst):
+        for f in dataclasses.fields(dst):
+            assign_(getattr(dst, f.name), getattr(src, f.name), where)

@@ -20,11 +20,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("probe_lookup", "probe2", "probe_insert", "extract", "tc_lookup",
-           "tc_insert", "tc_probe2", "chain_probe", "chain_probe2")
+           "tc_insert", "tc_probe2", "chain_probe", "chain_probe2",
+           "cuckoo_kick", "epoch_swap")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # argument types of each C entry point (pointers and the stream as void*)
 _ARGTYPES = {
     "dhash_probe_lookup": [_P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P],
@@ -32,15 +33,18 @@ _ARGTYPES = {
                      _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "dhash_probe_insert": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
                            _P, _P, _P, _P],
-    "dhash_extract": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P],
+    "dhash_extract": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P],
     "dhash_tc_lookup": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P],
     "dhash_tc_insert": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
-                        _P, _P, _P, _P, _P],
+                        _P, _P, _P, _P, _P, _I, _P],
     "dhash_tc_probe2": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I,
                         _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
     "dhash_chain_probe": [_P] * 5 + [_I] + [_P] * 6 + [_I] * 3 + [_P] * 4,
     "dhash_chain_probe2": ([_P] * 5 + [_I] + [_P] * 4) * 2 + [_P] * 3 + [_I]
     + [_P] * 3 + [_I] * 4 + [_P] * 7,
+    "dhash_cuckoo_kick": [_P] * 3 + [_I] * 2 + [_P] * 7 + [_I] * 2
+    + [_P, _I, _P, _I] + [_P] * 5,
+    "dhash_epoch_swap": [_P, _I, _P, _I] + [_P] * 5 + [_L, _I, _I, _P, _P],
 }
 _ENTRY = {s: f"dhash_{s}" for s in SOURCES}
 

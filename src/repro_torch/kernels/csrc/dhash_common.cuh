@@ -603,3 +603,130 @@ __device__ __forceinline__ int dhash_set_first() {
 __device__ __forceinline__ int dhash_set_stride() {
   return (blockDim.x >> 5) * gridDim.x * 32;
 }
+
+// ---------------------------------------------------------------------------
+// the hash families of core/hashing.py, bit for bit (u32 arithmetic with
+// wrap-around, logical shifts); a function's seeds are int64 words holding
+// u32 values, its kind one of the codes below (its index in HASH_KINDS)
+// ---------------------------------------------------------------------------
+
+#define DHASH_KIND_MULTIPLY_SHIFT 0
+#define DHASH_KIND_MIX32 1
+#define DHASH_KIND_TABULATION 2
+
+__device__ __forceinline__ uint32_t dhash_mix32(uint32_t x, uint32_t s0,
+                                                uint32_t s1) {
+  x ^= s0;
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x ^ s1;
+}
+
+// hashing.hash_u32 of one key.
+__device__ __forceinline__ uint32_t dhash_hash_u32(int kind,
+                                                   const long long* seeds,
+                                                   int key) {
+  const uint32_t k = (uint32_t)key;
+  if (kind == DHASH_KIND_MULTIPLY_SHIFT)
+    return k * (uint32_t)seeds[0] + (uint32_t)seeds[1];
+  if (kind == DHASH_KIND_MIX32)
+    return dhash_mix32(k, (uint32_t)seeds[0], (uint32_t)seeds[1]);
+  return (uint32_t)seeds[k & 0xFF] ^ (uint32_t)seeds[256 + ((k >> 8) & 0xFF)] ^
+         (uint32_t)seeds[512 + ((k >> 16) & 0xFF)] ^
+         (uint32_t)seeds[768 + (k >> 24)];
+}
+
+// hashing.bucket_of of one key: a mask for a power-of-two bucket count.
+__device__ __forceinline__ int dhash_bucket_of(int kind, const long long* seeds,
+                                               int key, int nbuckets) {
+  const uint32_t h = dhash_hash_u32(kind, seeds, key);
+  const uint32_t n = (uint32_t)nbuckets;
+  return (int)((n & (n - 1)) == 0 ? (h & (n - 1)) : (h % n));
+}
+
+// hashing.reseed of seed word `pos` under `salt` (an int32, wrapped): the
+// mix32 finalizer over (seed ^ mixed salt, 0x27D4EB2F ^ pos, 0x165667B1).
+__device__ __forceinline__ uint32_t dhash_reseed_word(uint32_t seed,
+                                                      uint32_t salt,
+                                                      uint32_t pos) {
+  const uint32_t s = salt * 0x9E3779B1u + 0x85EBCA77u;
+  return dhash_mix32(seed ^ s, 0x27D4EB2Fu ^ pos, 0x165667B1u);
+}
+
+// First lane of `row` that is not LIVE, or -1, read from L2 (past the SM's
+// own L1, so a write another block made before a launch boundary or a
+// barrier is seen).  With VEC the row is read as 16-byte loads.
+template <bool VEC>
+__device__ __forceinline__ int dhash_row_first_free(const int* ts,
+                                                    long long row, int W) {
+  const long long base = row * W;
+  if (VEC) {
+    for (int l = 0; l < W; l += 4) {
+      const int4 s = __ldcg(reinterpret_cast<const int4*>(ts + base + l));
+      if (s.x != DHASH_LIVE) return l;
+      if (s.y != DHASH_LIVE) return l + 1;
+      if (s.z != DHASH_LIVE) return l + 2;
+      if (s.w != DHASH_LIVE) return l + 3;
+    }
+  } else {
+    for (int l = 0; l < W; ++l)
+      if (__ldcg(ts + base + l) != DHASH_LIVE) return l;
+  }
+  return -1;
+}
+
+// Ordered compaction by one block: appends to list[n[0] ...] the indices i
+// of [0, Q) with keep(i), in ascending order, and advances n[0] (shared;
+// n[1] is scratch), which every thread may read after the call.  Each
+// thread tests a run of up to 16 consecutive indices, so a batch of up to
+// 16 x blockDim indices is one pass: one shuffle scan of the counts and one
+// scan of the warp totals.  `warp_tot` is 32 words of shared scratch.
+// Every thread of the block must call it.
+template <class Keep>
+__device__ __forceinline__ void dhash_block_compact(int Q, Keep keep,
+                                                    int* __restrict__ list,
+                                                    int* warp_tot, int* n) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int per_pass = blockDim.x * 16;
+  for (int base = 0; base < Q; base += per_pass) {
+    const int len = Q - base < per_pass ? Q - base : per_pass;
+    const int ipt = (len + blockDim.x - 1) / blockDim.x;
+    const int lo = base + t * ipt;
+    const int hi = lo + ipt < base + len ? lo + ipt : base + len;
+    unsigned bits = 0;
+    int cnt = 0;
+    for (int i = lo; i < hi; ++i)
+      if (keep(i)) {
+        bits |= 1u << (i - lo);
+        ++cnt;
+      }
+    int incl = cnt;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += v;
+    }
+    if (lane == 31) warp_tot[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      const int w = lane < nwarps ? warp_tot[lane] : 0;
+      int wi = w;
+      for (int d = 1; d < 32; d <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, wi, d);
+        if (lane >= d) wi += v;
+      }
+      if (lane < nwarps) warp_tot[lane] = wi - w;
+      if (lane == 31) n[1] = wi;       // this pass's total
+    }
+    __syncthreads();
+    int pos = n[0] + warp_tot[warp] + incl - cnt;
+    for (int i = lo; i < hi; ++i)
+      if ((bits >> (i - lo)) & 1u) list[pos++] = i;
+    __syncthreads();
+    if (t == 0) n[0] += n[1];
+    __syncthreads();
+  }
+}

@@ -16,6 +16,15 @@
 // block.  The design is therefore one
 // block of 1024 threads, each owning a run of consecutive slots, one warp
 // shuffle scan and one scan of the 32 warp totals in shared memory.
+//
+// Guard: the reference runs the scan behind lax.cond(rebuilding & ~pending)
+// (src/repro/core/dhash.py, rebuild_extract).  Here the launch takes two
+// device flags, `run` and `hold` (either may be null): the block returns at
+// once unless run is set and hold is not, so an engine step launches the
+// scan every step and never asks the host.  The outputs may be the state's
+// own hazard buffer and `new_cursor` may be `cursor` itself: every thread
+// reads the cursor before the first barrier, and it is written after the
+// last.
 #include "dhash_common.cuh"
 
 #define EXTRACT_THREADS 1024
@@ -23,11 +32,12 @@
 
 __global__ void __launch_bounds__(EXTRACT_THREADS) extract_kernel(
     const int* __restrict__ tk, const int* __restrict__ tv,
-    int* __restrict__ ts, int C, const int* __restrict__ cursor, int chunk,
+    int* __restrict__ ts, int C, const int* cursor, int chunk,
     int* __restrict__ hk, int* __restrict__ hv, uint8_t* __restrict__ hl,
-    int* __restrict__ new_cursor) {
+    int* new_cursor, const uint8_t* run, const uint8_t* hold) {
   __shared__ int warp_tot[EXTRACT_THREADS / 32];
   __shared__ int total_sh;
+  if ((run != nullptr && !*run) || (hold != nullptr && *hold)) return;
   const int t = threadIdx.x;
   const int lane = t & 31, warp = t >> 5;
   const int cur = cursor[0];
@@ -96,10 +106,10 @@ __global__ void __launch_bounds__(EXTRACT_THREADS) extract_kernel(
 extern "C" int dhash_extract(
     const int* tk, const int* tv, int* ts, int C, const int* cursor,
     int chunk, int* hk, int* hv, uint8_t* hl, int* new_cursor,
-    void* stream) {
+    const uint8_t* run, const uint8_t* hold, void* stream) {
   if (chunk > EXTRACT_THREADS * EXTRACT_MAX_ITEMS)
     return (int)cudaErrorInvalidValue;
   extract_kernel<<<1, EXTRACT_THREADS, 0, (cudaStream_t)stream>>>(
-      tk, tv, ts, C, cursor, chunk, hk, hv, hl, new_cursor);
+      tk, tv, ts, C, cursor, chunk, hk, hv, hl, new_cursor, run, hold);
   return (int)cudaGetLastError();
 }

@@ -18,156 +18,272 @@
 //     first lane that is not LIVE at the start of the round; the LOWEST batch
 //     index that wants a lane gets it; the winner writes key, value and LIVE.
 //
-// The rounds run over the grid: a round has two phases with a grid-wide
-// barrier between them — every pending query picks its lane and does
-// atomicMin(claim[slot], index), then the query whose index is in the claim
-// word writes and restores the word to INT_MAX — and one more barrier before
-// the next round reads the states.  The kernel is launched cooperatively
-// with no more blocks than can be resident at once; the blocks walk the
-// batch with a grid-stride loop, so each query stays with one thread.
-// States and claim words that other blocks write between barriers are read
-// with __ldcg (from L2, past the SM's own L1); a row is read as 16-byte
-// loads where W allows.  Nothing depends on the order in which threads run,
-// so the result is deterministic.  The claim words (int32 [rows * W], all
-// INT_MAX between launches) are allocated once with the table; `slot` is a
-// per-query scratch holding the lane bid of the round (-1: none, -2: not
-// pending); `remaining` counts pending queries, and the rounds stop as soon
-// as it reaches zero.
+// In one round every query aimed at a row bids for the same lane (the
+// row's first free one), so arbitration is one claim word a ROW, not a slot.
+// No grid-wide barrier: the rounds are split where the work is.
 //
-// Bound: neither bytes nor operations but the barriers, two a round:
-// up to 1 + 2 * max_rounds grid syncs a launch (17 for twochoice, 5 for
-// cuckoo) for a few sectors a query a round.  The grid is kept small (one
-// block of 256 threads for every 256 queries, at most what is co-resident)
-// so that a barrier is cheap, and the rounds end early.
+//   1. tc_insert_bid, over the grid, one query a thread: presence in both
+//      rows, and for a pending query round 0's bid — the first free lane of
+//      row a, atomicMin(claim[row a], index).  It reads only the table
+//      before the batch, as round 0 must.
+//   2. tc_insert_resolve, over the grid (the launch boundary is the round's
+//      barrier): the bidder whose index is in its row's word writes the lane
+//      and restores the word to INT_MAX; the others still pending (losers,
+//      and queries whose row a was full) go to a list in device memory, in
+//      no particular order — the lowest index wins by atomicMin whatever the
+//      order; a few percent of the batch at the main path's load.  Each
+//      block then fences its writes and counts itself done, and the block
+//      that counts last runs rounds 1 .. max_rounds-1 over the list
+//      (tc_rounds): a block's barriers between a round's bids, its reads of
+//      the claim words and its writes.  The rounds end when no query is
+//      pending, or when two rounds in a row (one on rows a, one on rows b)
+//      found no free lane for any query: rows only fill, so no later round
+//      can place one.
+//
+// The other form, one block for the whole batch (`form` 1: presence, the
+// list and every round in one block), is kept for timing against the split;
+// chip_smoke.py times both.  States, claim words and list entries that
+// another block or launch wrote are read with __ldcg (from L2); a row is
+// read as 16-byte loads where W allows.  Nothing depends on the order in
+// which threads run, so the result is deterministic.  The claim words
+// (int32 a row, all INT_MAX between launches) are allocated once with the
+// table; `slot` (a query's round-0 bid, then a listed query's bid), `list`
+// and `count` (the list's length and the count of blocks done) are scratch.
+//
+// Bound: latency.  The bytes are a few rows a query (0.00047 ms at the main
+// path's Q = 8192); the time is two launches back to back and the last
+// block's rounds, where one SM sends every scattered load and atomic of the
+// queries still pending: a few percent of the batch on twochoice, about
+// one in seven on cuckoo (half the rows a side), so there the rounds cost
+// more than the two launches.
 //
 // Caller contract (as the reference): mask is winner-filtered, at most one
 // set entry for each distinct key.
-#include <cooperative_groups.h>
 #include <limits.h>
 
 #include "dhash_common.cuh"
 
-namespace cg = cooperative_groups;
+#define TC_THREADS 256
+#define TC_RESOLVE_THREADS 256
+#define TC_TAIL_THREADS 1024
 
-// First lane of `row` that is not LIVE, read from L2, or -1.
+// slot values of a query after the bid: not pending, or pending without a
+// lane in row a
+#define TC_IDLE -2
+#define TC_NO_LANE -1
+
 template <bool VEC>
-__device__ __forceinline__ int row_first_free(const int* ts, long long row,
-                                              int W) {
-  const long long base = row * W;
-  if (VEC) {
-    for (int l = 0; l < W; l += 4) {
-      const int4 s = __ldcg(reinterpret_cast<const int4*>(ts + base + l));
-      if (s.x != DHASH_LIVE) return l;
-      if (s.y != DHASH_LIVE) return l + 1;
-      if (s.z != DHASH_LIVE) return l + 2;
-      if (s.w != DHASH_LIVE) return l + 3;
-    }
-  } else {
-    for (int l = 0; l < W; ++l)
-      if (__ldcg(ts + base + l) != DHASH_LIVE) return l;
-  }
-  return -1;
+__device__ __forceinline__ bool tc_present(const int* tk, const int* ts,
+                                           int ra, int rb, int W, int key) {
+  return dhash_row_find<VEC>(tk, ts, ra, W, key) >= 0 ||
+         dhash_row_find<VEC>(tk, ts, rb, W, key) >= 0;
 }
 
 template <bool VEC>
-__global__ void tc_insert_kernel(
-    int* __restrict__ tk, int* __restrict__ tv, int* __restrict__ ts,
-    int* __restrict__ claim, int W, const int* __restrict__ rows_a,
-    const int* __restrict__ rows_b, const int* __restrict__ keys,
-    const int* __restrict__ vals, const uint8_t* __restrict__ mask, int Q,
+__global__ void __launch_bounds__(TC_THREADS) tc_insert_bid(
+    const int* __restrict__ tk, const int* __restrict__ ts, int* claim, int W,
+    const int* __restrict__ rows_a, const int* __restrict__ rows_b,
+    const int* __restrict__ keys, const uint8_t* __restrict__ mask, int Q,
     int max_rounds, uint8_t* __restrict__ okf, uint8_t* __restrict__ present,
-    int* __restrict__ slot, int* __restrict__ remaining) {
-  cg::grid_group grid = cg::this_grid();
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int stride = gridDim.x * blockDim.x;
-
-  // phase 0: presence in either row, on the table as it was before the batch
-  for (int i = tid; i < Q; i += stride) {
-    bool there = false;
-    bool todo = false;
-    if (mask[i]) {
-      const int key = keys[i];
-      there = dhash_row_find<VEC>(tk, ts, rows_a[i], W, key) >= 0 ||
-              dhash_row_find<VEC>(tk, ts, rows_b[i], W, key) >= 0;
-      todo = !there;
+    int* __restrict__ slot, int* __restrict__ count) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i == 0) count[0] = count[1] = 0;
+  if (i >= Q) return;
+  bool there = false;
+  int s = TC_IDLE;
+  if (mask[i]) {
+    const int ra = rows_a[i];
+    there = tc_present<VEC>(tk, ts, ra, rows_b[i], W, keys[i]);
+    if (!there && max_rounds > 0) {
+      const int lane = dhash_row_first_free<VEC>(ts, ra, W);
+      s = TC_NO_LANE;
+      if (lane >= 0) {
+        s = ra * W + lane;
+        atomicMin(&claim[ra], i);
+      }
     }
+  }
+  present[i] = there ? 1 : 0;
+  okf[i] = 0;
+  slot[i] = s;
+}
+
+// Rounds [first, max_rounds) over the n listed queries, by one block: bids
+// on the table as the last round left it, the lowest bidder of each row
+// marked by flipping its list entry, then the writes, with a barrier
+// between each; every claim word a bid took is restored.  Ends when no
+// query is pending, or after two rounds in a row (one on rows a, one on
+// rows b) without a bid: rows only fill, so no later round can place one.
+// The counts ride on the barriers (__syncthreads_or), not on shared atomics.
+template <bool VEC>
+__device__ __forceinline__ void tc_rounds(
+    int* tk, int* tv, int* ts, int* claim, int W,
+    const int* __restrict__ rows_a, const int* __restrict__ rows_b,
+    const int* __restrict__ keys, const int* __restrict__ vals, int n,
+    int first, int max_rounds, uint8_t* okf, int* bid, int* list) {
+  const int t = threadIdx.x;
+  int dry = 0;
+  for (int r = first; r < max_rounds; ++r) {
+    int mine = 0;
+    for (int j = t; j < n; j += blockDim.x) {
+      const int i = __ldcg(&list[j]);
+      int s = -1;
+      if (i >= 0) {
+        const int row = (r & 1) ? rows_b[i] : rows_a[i];
+        const int lane = dhash_row_first_free<VEC>(ts, row, W);
+        if (lane >= 0) {
+          s = row * W + lane;
+          atomicMin(&claim[row], i);
+          mine = 1;
+        }
+      }
+      bid[j] = s;
+    }
+    const int bids = __syncthreads_or(mine);
+    for (int j = t; j < n; j += blockDim.x) {
+      const int i = list[j];
+      const int s = bid[j];
+      if (i >= 0 && s >= 0 && __ldcg(&claim[s / W]) == i) list[j] = ~i;
+    }
+    __syncthreads();
+    int left = 0;
+    for (int j = t; j < n; j += blockDim.x) {
+      const int s = bid[j];
+      const int e = list[j];
+      if (s >= 0) claim[s / W] = INT_MAX;
+      if (e >= 0) {
+        left = 1;
+        continue;
+      }
+      if (s < 0) continue;         // placed in an earlier round
+      const int i = ~e;
+      tk[s] = keys[i];
+      tv[s] = vals[i];
+      ts[s] = DHASH_LIVE;
+      okf[i] = 1;
+      list[j] = INT_MIN;           // placed: skipped from now on
+    }
+    dry = bids ? 0 : dry + 1;
+    if (!__syncthreads_or(left) || dry >= 2) break;
+  }
+}
+
+// Round 0's resolve over the grid, then rounds 1.. in the last block to
+// finish (a block fences its writes and counts itself done; the one that
+// counts last has every block's writes and list entries in view).
+template <bool VEC>
+__global__ void __launch_bounds__(TC_RESOLVE_THREADS) tc_insert_resolve(
+    int* tk, int* tv, int* ts, int* claim, int W,
+    const int* __restrict__ rows_a, const int* __restrict__ rows_b,
+    const int* __restrict__ keys, const int* __restrict__ vals, int Q,
+    int max_rounds, uint8_t* okf, int* slot, int* list, int* count) {
+  __shared__ int last_sh;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int s = i < Q ? slot[i] : TC_IDLE;
+  bool keep = false;
+  if (s >= 0 && __ldcg(&claim[s / W]) == i) {
+    tk[s] = keys[i];
+    tv[s] = vals[i];
+    ts[s] = DHASH_LIVE;
+    claim[s / W] = INT_MAX;
+    okf[i] = 1;
+  } else if (s != TC_IDLE && max_rounds > 1) {
+    keep = true;
+  }
+  // one atomic a warp for the list positions
+  const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+  const int lane = threadIdx.x & 31;
+  if (ballot) {
+    const int leader = __ffs(ballot) - 1;
+    int base = 0;
+    if (lane == leader) base = atomicAdd(&count[0], __popc(ballot));
+    base = __shfl_sync(0xffffffffu, base, leader);
+    if (keep) list[base + __popc(ballot & ((1u << lane) - 1u))] = i;
+  }
+  if (max_rounds < 2) return;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last_sh = atomicAdd(&count[1], 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!last_sh) return;
+  __threadfence();
+  const int n = atomicAdd(&count[0], 0);
+  if (n == 0) return;
+  tc_rounds<VEC>(tk, tv, ts, claim, W, rows_a, rows_b, keys, vals, n, 1,
+                 max_rounds, okf, slot, list);
+}
+
+// The one-block form: presence, the ordered list of pending queries and
+// every round in one block.
+template <bool VEC>
+__global__ void __launch_bounds__(TC_TAIL_THREADS) tc_insert_one_block(
+    int* tk, int* tv, int* ts, int* claim, int W,
+    const int* __restrict__ rows_a, const int* __restrict__ rows_b,
+    const int* __restrict__ keys, const int* __restrict__ vals,
+    const uint8_t* __restrict__ mask, int Q, int max_rounds, uint8_t* okf,
+    uint8_t* present, int* bid, int* list) {
+  __shared__ int warp_tot[32];
+  __shared__ int n_sh[2];
+  const int t = threadIdx.x;
+  for (int i = t; i < Q; i += blockDim.x) {
+    bool there = false;
+    if (mask[i])
+      there = tc_present<VEC>(tk, ts, rows_a[i], rows_b[i], W, keys[i]);
     present[i] = there ? 1 : 0;
     okf[i] = 0;
-    slot[i] = todo ? -1 : -2;
-    if (todo) atomicAdd(remaining, 1);
   }
-  grid.sync();
-
-  volatile int* rem = remaining;
-  for (int r = 0; r < max_rounds; ++r) {
-    if (*rem == 0) break;
-    // phase A: every pending query bids for the first free lane of its row
-    for (int i = tid; i < Q; i += stride) {
-      if (slot[i] == -2) continue;
-      const long long row = (r & 1) ? rows_b[i] : rows_a[i];
-      const int lane = row_first_free<VEC>(ts, row, W);
-      int s = -1;
-      if (lane >= 0) {
-        s = (int)(row * W + lane);
-        atomicMin(&claim[s], i);
-      }
-      slot[i] = s;
-    }
-    grid.sync();
-    // phase B: the lowest bidder writes and restores the claim word
-    for (int i = tid; i < Q; i += stride) {
-      const int s = slot[i];
-      if (s < 0) continue;
-      if (__ldcg(&claim[s]) == i) {
-        tk[s] = keys[i];
-        tv[s] = vals[i];
-        ts[s] = DHASH_LIVE;
-        claim[s] = INT_MAX;
-        slot[i] = -2;
-        okf[i] = 1;
-        atomicSub(remaining, 1);
-      }
-    }
-    grid.sync();
-  }
+  if (t == 0) n_sh[0] = 0;
+  __syncthreads();
+  if (max_rounds < 1) return;
+  dhash_block_compact(
+      Q, [&](int i) { return mask[i] && !present[i]; }, list, warp_tot,
+      n_sh);
+  const int n = n_sh[0];
+  if (n == 0) return;
+  tc_rounds<VEC>(tk, tv, ts, claim, W, rows_a, rows_b, keys, vals, n, 0,
+                 max_rounds, okf, bid, list);
 }
-
-// co-resident blocks of each instance of the kernel, for each device that
-// has launched it
-#define DHASH_MAX_DEVICES 64
-static int g_max_blocks[DHASH_MAX_DEVICES][2];
 
 extern "C" int dhash_tc_insert(
     int* tk, int* tv, int* ts, int* claim, int W, const int* rows_a,
     const int* rows_b, const int* keys, const int* vals, const uint8_t* mask,
     int Q, int max_rounds, uint8_t* okf, uint8_t* present, int* slot,
-    int* remaining, void* stream) {
+    int* list, int* count, int form, void* stream) {
   if (W < 1 || W > DHASH_MAX_WIDTH) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
+  if (Q < 1) return (int)cudaSuccess;
   const bool vec = dhash_rows_vec_ok(W, tk, ts);
-  void* fn = vec ? (void*)tc_insert_kernel<true> : (void*)tc_insert_kernel<false>;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev < 0 || dev >= DHASH_MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  int& max_blocks = g_max_blocks[dev][vec ? 1 : 0];
-  if (max_blocks == 0) {
-    int sms = 0, per_sm = 0;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
-                                                        0);
-    if (e != cudaSuccess) return (int)e;
-    if (sms * per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
-    max_blocks = sms * per_sm;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (form == 1) {
+    if (vec)
+      tc_insert_one_block<true><<<1, TC_TAIL_THREADS, 0, s>>>(
+          tk, tv, ts, claim, W, rows_a, rows_b, keys, vals, mask, Q,
+          max_rounds, okf, present, slot, list);
+    else
+      tc_insert_one_block<false><<<1, TC_TAIL_THREADS, 0, s>>>(
+          tk, tv, ts, claim, W, rows_a, rows_b, keys, vals, mask, Q,
+          max_rounds, okf, present, slot, list);
+    return (int)cudaGetLastError();
   }
-  int blocks = (Q + threads - 1) / threads;
-  if (blocks > max_blocks) blocks = max_blocks;
-  void* args[] = {&tk,     &tv,   &ts,   &claim, &W,          &rows_a,
-                  &rows_b, &keys, &vals, &mask,  &Q,          &max_rounds,
-                  &okf,    &present, &slot, &remaining};
-  e = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(threads), args, 0,
-                                  (cudaStream_t)stream);
+  const int blocks = (Q + TC_THREADS - 1) / TC_THREADS;
+  if (vec)
+    tc_insert_bid<true><<<blocks, TC_THREADS, 0, s>>>(
+        tk, ts, claim, W, rows_a, rows_b, keys, mask, Q, max_rounds, okf,
+        present, slot, count);
+  else
+    tc_insert_bid<false><<<blocks, TC_THREADS, 0, s>>>(
+        tk, ts, claim, W, rows_a, rows_b, keys, mask, Q, max_rounds, okf,
+        present, slot, count);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
+  const int rblocks = (Q + TC_RESOLVE_THREADS - 1) / TC_RESOLVE_THREADS;
+  if (vec)
+    tc_insert_resolve<true><<<rblocks, TC_RESOLVE_THREADS, 0, s>>>(
+        tk, tv, ts, claim, W, rows_a, rows_b, keys, vals, Q, max_rounds, okf,
+        slot, list, count);
+  else
+    tc_insert_resolve<false><<<rblocks, TC_RESOLVE_THREADS, 0, s>>>(
+        tk, tv, ts, claim, W, rows_a, rows_b, keys, vals, Q, max_rounds, okf,
+        slot, list, count);
   return (int)cudaGetLastError();
 }

@@ -208,11 +208,14 @@ def ordered_delete_fused(old_tables, new_tables, hazard_key, hazard_val,
 @torch.no_grad()
 def extract_chunk_fused(tkey: torch.Tensor, tval: torch.Tensor,
                         tstate: torch.Tensor, cursor: torch.Tensor, *,
-                        chunk: int):
+                        chunk: int, out=None, run=None, hold=None):
     """Rebuild chunk scan via the extract kernel: ONE launch reads the slots
     at ``cursor`` (a 0-dim int32 tensor; never read on the host), compacts
     the live entries, and marks them MIGRATED in ``tstate`` IN PLACE.
-    Requires ``chunk <= EXTRACT_MAX_CHUNK`` (the caller gates).
+    Requires ``chunk <= EXTRACT_MAX_CHUNK`` (the caller gates).  With
+    ``out`` (the hazard buffer) the scan writes it and advances ``cursor``
+    in place, and only where the device flags ``run`` and not ``hold``
+    allow (``probe.extract``).
 
     Returns (tstate, hkeys[chunk], hvals[chunk], hlive[chunk] bool,
     new_cursor) — identical set contents to the plain scan, with the hazard
@@ -221,7 +224,8 @@ def extract_chunk_fused(tkey: torch.Tensor, tval: torch.Tensor,
     if chunk > EXTRACT_MAX_CHUNK:
         raise ValueError(f"chunk {chunk} exceeds the extract kernel's "
                          f"{EXTRACT_MAX_CHUNK}")
-    hk, hv, hl, new_cursor = probe.extract(tkey, tval, tstate, cursor, chunk)
+    hk, hv, hl, new_cursor = probe.extract(tkey, tval, tstate, cursor, chunk,
+                                           out=out, run=run, hold=hold)
     return tstate, hk, hv, hl, new_cursor
 
 

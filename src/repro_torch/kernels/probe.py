@@ -24,12 +24,20 @@ wrapper               replaces (src/repro/kernels/probe.py)      source
                       fallback
 ``chain_probe2``      ``_chain_probe2_kernel`` + the wrappers'   chain_probe2.cu
                       windows, ordering and fallbacks
+``cuckoo_kick``       no Pallas kernel: the reference's XLA      cuckoo_kick.cu
+                      ``cuckoo_kick_ref`` behind ``lax.cond``
+``epoch_swap``        no Pallas kernel: the reference's XLA      epoch_swap.cu
+                      ``finish_same_shape`` and
+                      ``rebuild_autostart``
 ====================  =========================================  ============
 
 The first four serve the linear backend; the three ``tc_*`` kernels serve
 twochoice and cuckoo (cuckoo passes side-offset rows of its [2B, W] table);
 the two ``chain_*`` kernels serve chain, whose chunk scan is ``extract`` on
-the flat node arena.
+the flat node arena.  ``cuckoo_kick`` is the cuckoo insert's bounded kick-out
+and ``epoch_swap`` the engine step's epoch swap and rebuild start, both
+guarded by flags computed on the device, so that a step inside a rebuild
+epoch never asks the host (``extract`` takes two such flags too).
 
 What bounds each kernel on an H100 and what its design does about it is
 written at the top of its ``.cu`` file; in short: ``probe_lookup`` — bytes
@@ -41,12 +49,15 @@ start slots in descending start slot, one kernel boundary between the reads
 and the writes); ``extract`` — launch latency (one block, one shuffle
 scan); ``tc_lookup`` — bytes (two rows a query, each as 16-byte loads);
 ``tc_probe2`` — bytes (four rows a query, the hazard buffer as
-``probe2``'s); ``tc_insert`` — grid-wide barriers (two a claim round;
-small co-resident grid, early end of rounds); ``chain_probe`` — bytes (a
+``probe2``'s); ``tc_insert`` — latency (a bid launch and a resolve
+launch over the grid for round 0, the later rounds in the resolve's last
+block, no grid-wide barrier); ``chain_probe`` — bytes (a
 segment scan a query, the dirty tail staged in shared memory);
 ``chain_probe2`` — bytes (a segment of a few nodes in each arena; the
 hazard buffer and both dirty tails staged as hashed sets in shared memory,
-``dhash_set_*`` in ``dhash_common.cuh``).
+``dhash_set_*`` in ``dhash_common.cuh``); ``cuckoo_kick`` — latency (one
+block, a few rows a pending key an iteration); ``epoch_swap`` — bytes once
+an epoch, launch latency on every other step.
 
 What the TPU design needed and these kernels do not have: a padded copy of
 the table (a thread wraps its own probe), a query sort, query tiles, a
@@ -61,9 +72,9 @@ signature and the same in-place behaviour in plain PyTorch.  A wrapper takes
 the plain version only when the tensors it was given lie on the CPU; for CUDA
 tensors it launches the kernel or raises.  ``<wrapper>.launches`` counts the
 kernel launches (and nothing else); ``reset_launches`` / ``launch_counts``
-set and read all nine.  ``kick_gate`` / ``kick_pending`` count the
-device-to-host reads of the cuckoo kick-out gate (``kick_counts``; reset
-with the launch counts).
+set and read all eleven.  ``kick_tally`` reads a device counter the kick-out
+kernel adds to (launches that found pending keys, iterations, keys taken),
+for a harness; it is zeroed with the launch counts.
 
 Data types: tables, keys, values, start slots and locations are ``int32``;
 masks and flags are ``torch.bool`` (one byte, read by the kernels as
@@ -73,6 +84,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import hashing
 from repro_torch.kernels import ref
 
 I32 = torch.int32
@@ -83,7 +95,8 @@ CLAIM_FREE = 2**31 - 1      # value of every claim word between launches
 EXTRACT_MAX_CHUNK = 4096
 
 KERNELS = ("probe_lookup", "probe2", "probe_insert", "extract", "tc_lookup",
-           "tc_insert", "tc_probe2", "chain_probe", "chain_probe2")
+           "tc_insert", "tc_probe2", "chain_probe", "chain_probe2",
+           "cuckoo_kick", "epoch_swap")
 MAX_WIDTH = 32              # widest row the tc_* kernels take
 MAX_DIRTY = 512             # widest dirty-tail window the chain_* kernels stage
 
@@ -131,40 +144,42 @@ def _wrappers():
 def reset_launches() -> None:
     for f in _wrappers():
         f.launches = 0
-    kick_gate.reads = kick_gate.runs = 0
+    for t in _KICK_TALLY.values():
+        t.zero_()
 
 
 def launch_counts() -> dict[str, int]:
     return {f.__name__: f.launches for f in _wrappers()}
 
 
-def kick_gate(pending: torch.Tensor) -> torch.Tensor:
-    """The cuckoo inserts still unplaced after the claim kernel, as indices:
-    ONE counted device-to-host read (``kick_gate.reads``).  The reference
-    gates its kick-out behind ``lax.cond(pending.any())``; eager PyTorch
-    branches on the host.  ``kick_gate.runs`` counts the reads that found
-    work."""
-    kick_gate.reads += 1
-    sel = pending.nonzero().squeeze(1)
-    kick_gate.runs += bool(sel.numel())
-    return sel
+# the kick-out kernel's counters, one int32[3] a device: launches that found
+# pending keys, iterations run, pending keys taken
+_KICK_TALLY: dict = {}
 
 
-def kick_pending(pending: torch.Tensor) -> bool:
-    """Whether a kick-out stage left a key unplaced: one more counted read
-    (in ``kick_gate.reads``)."""
-    kick_gate.reads += 1
-    return bool(pending.any())
+def _kick_tally(dev: torch.device) -> torch.Tensor:
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if dev not in _KICK_TALLY:
+        _KICK_TALLY[dev] = torch.zeros(3, dtype=I32, device=dev)
+    return _KICK_TALLY[dev]
 
 
-def kick_counts() -> dict[str, int]:
-    return {"reads": kick_gate.reads, "runs": kick_gate.runs}
+def kick_tally(dev: torch.device | str = "cuda") -> dict[str, int]:
+    """What the kick-out kernel did on ``dev`` since the last
+    ``reset_launches``: launches that found pending keys (``runs``),
+    iterations, pending keys taken.  One device-to-host read, made by the
+    caller (a harness), never by a step."""
+    runs, iters, keys = _kick_tally(torch.device(dev)).tolist()
+    return {"runs": runs, "iterations": iters, "keys": keys}
 
 
-def new_claim(capacity: int, device) -> torch.Tensor:
-    """The claim scratch of ``tc_insert`` for a table of ``capacity`` slots:
-    allocated once with the table, restored by every launch."""
-    return torch.full((capacity,), CLAIM_FREE, dtype=I32, device=device)
+def new_claim(rows: int, device) -> torch.Tensor:
+    """The claim words of a two-row table of ``rows`` rows (one a row):
+    allocated once with the table, all ``CLAIM_FREE`` between launches.
+    ``tc_insert`` takes them as its rows' claim words and ``cuckoo_kick`` as
+    its row locks; each launch restores every word it takes."""
+    return torch.full((rows,), CLAIM_FREE, dtype=I32, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -344,9 +359,11 @@ def probe_insert(tkey, tval, tstate, h0, keys, vals, mask, max_probes: int):
 # extract
 # ---------------------------------------------------------------------------
 
-def extract_plain(tkey, tval, tstate, cursor, chunk: int):
+def extract_plain(tkey, tval, tstate, cursor, chunk: int, *, out=None,
+                  run=None, hold=None):
     """Plain version of ``extract``; marks the migrated slots in ``tstate``
-    in place."""
+    in place (and with ``out`` writes the hazard buffer and the cursor in
+    place).  The flags are honoured by computing the scan and selecting."""
     c, dev = tkey.shape[0], tkey.device
     lane = torch.arange(chunk, dtype=torch.int64, device=dev)
     pos = cursor.long() + lane
@@ -360,32 +377,65 @@ def extract_plain(tkey, tval, tstate, cursor, chunk: int):
     hk[dest] = torch.where(live, tkey[cpos], 0)
     hv[dest] = torch.where(live, tval[cpos], 0)
     hl = lane < live.sum()
-    # MIGRATED is the largest state, so a max leaves every other slot as is
-    tstate.scatter_reduce_(0, cpos, torch.where(live, MIGRATED, 0).to(I32),
-                           "amax")
     new_cursor = torch.clamp(cursor.long() + chunk, max=c).to(I32)
-    return hk[:chunk].contiguous(), hv[:chunk].contiguous(), hl, new_cursor
+    go = _go(run, hold, dev)
+    # MIGRATED is the largest state, so a max leaves every other slot as is
+    tstate.scatter_reduce_(0, cpos, torch.where(live & go, MIGRATED, 0)
+                           .to(I32), "amax")
+    hk, hv = hk[:chunk].contiguous(), hv[:chunk].contiguous()
+    if out is None:
+        return hk, hv, hl, new_cursor
+    for dst, src in zip((*out, cursor), (hk, hv, hl, new_cursor)):
+        dst.copy_(torch.where(go, src, dst))
+    return (*out, cursor)
 
 
-def extract(tkey, tval, tstate, cursor, chunk: int):
+def _go(run, hold, dev) -> torch.Tensor:
+    """run & ~hold as a 0-dim bool tensor (a missing flag does not stop)."""
+    go = torch.ones((), dtype=torch.bool, device=dev)
+    if run is not None:
+        go = go & run
+    if hold is not None:
+        go = go & ~hold
+    return go
+
+
+def extract(tkey, tval, tstate, cursor, chunk: int, *, out=None, run=None,
+            hold=None):
     """Rebuild chunk scan: the ``chunk`` slots at ``cursor`` (a 0-dim int32
     tensor, read on the device), LIVE ones compacted in slot order to the
     front of the hazard outputs and marked MIGRATED in ``tstate`` IN PLACE.
     Slots at or past C never migrate.  Contract: ``chunk <= 4096``.
-    Returns (hkeys[chunk], hvals[chunk], hlive[chunk] bool, new_cursor)."""
+    Returns (hkeys[chunk], hvals[chunk], hlive[chunk] bool, new_cursor).
+
+    ``out`` = (hkeys, hvals, hlive) makes the scan write the hazard buffer
+    and advance ``cursor`` IN PLACE (and returns them).  ``run`` / ``hold``
+    are 0-dim bool device flags: the scan happens only where ``run`` is set
+    and ``hold`` is not, else nothing is written — the reference's
+    ``lax.cond(rebuilding & ~pending)``, decided on the device."""
     if tkey.device.type == "cpu":
-        return extract_plain(tkey, tval, tstate, cursor, chunk)
+        return extract_plain(tkey, tval, tstate, cursor, chunk, out=out,
+                             run=run, hold=hold)
     if chunk > EXTRACT_MAX_CHUNK:
         raise ValueError(f"chunk {chunk} exceeds the extract kernel's "
                          f"{EXTRACT_MAX_CHUNK}")
     _check((tkey, I32), (tval, I32), (tstate, I32), (cursor, I32))
     dev = tkey.device
-    hk = torch.empty(chunk, dtype=I32, device=dev)
-    hv = torch.empty(chunk, dtype=I32, device=dev)
-    hl = torch.empty(chunk, dtype=torch.bool, device=dev)
-    new_cursor = torch.empty((), dtype=I32, device=dev)
+    if out is None:
+        hk = torch.empty(chunk, dtype=I32, device=dev)
+        hv = torch.empty(chunk, dtype=I32, device=dev)
+        hl = torch.empty(chunk, dtype=torch.bool, device=dev)
+        new_cursor = torch.empty((), dtype=I32, device=dev)
+    else:
+        (hk, hv, hl), new_cursor = out, cursor
+        _check((hk, I32), (hv, I32), (hl, torch.bool))
+        if hk.shape[0] != chunk:
+            raise ValueError("hazard buffer does not match the chunk")
+    for f in (run, hold):
+        if f is not None:
+            _check((tkey, I32), (f, torch.bool))
     _launch("extract", extract, dev, tkey, tval, tstate, tkey.shape[0],
-            cursor, chunk, hk, hv, hl, new_cursor)
+            cursor, chunk, hk, hv, hl, new_cursor, run, hold)
     return hk, hv, hl, new_cursor
 
 
@@ -439,10 +489,10 @@ def tc_lookup(tkey, tval, tstate, rows_a, rows_b, qkey):
 # ---------------------------------------------------------------------------
 
 def tc_insert_plain(tkey, tval, tstate, rows_a, rows_b, keys, vals, mask,
-                    max_rounds: int, claim=None):
+                    max_rounds: int, claim=None, form: int = 0):
     """Plain version of ``tc_insert`` (``ref.tc_insert_ref`` written back);
-    mutates tkey/tval/tstate in place.  ``claim`` is accepted for signature
-    parity and not used."""
+    mutates tkey/tval/tstate in place.  ``claim`` and ``form`` are accepted
+    for signature parity and not used."""
     fa, _, _ = ref.tc_row_lookup_ref(tkey, tval, tstate, rows_a, keys)
     fb, _, _ = ref.tc_row_lookup_ref(tkey, tval, tstate, rows_b, keys)
     k, v, s, ok = ref.tc_insert_ref(tkey, tval, tstate, rows_a, rows_b, keys,
@@ -454,7 +504,7 @@ def tc_insert_plain(tkey, tval, tstate, rows_a, rows_b, keys, vals, mask,
 
 
 def tc_insert(tkey, tval, tstate, rows_a, rows_b, keys, vals, mask,
-              max_rounds: int, claim=None):
+              max_rounds: int, claim=None, form: int = 0):
     """Batched claim-a-lane two-row insert on a [B, W] table; MUTATES
     tkey/tval/tstate.
 
@@ -463,31 +513,37 @@ def tc_insert(tkey, tval, tstate, rows_a, rows_b, keys, vals, mask,
     ``rows_a`` if ``r`` is even, else ``rows_b``, and taking the row's first
     lane that is not LIVE at the start of the round; the lowest batch index
     wins a contested lane.  The placement is ``ref.tc_insert_ref``'s, slot
-    for slot.
+    for slot.  The kernel has no grid-wide barrier: round 0 is a bid launch
+    and a resolve launch over the grid, and the resolve's last block to
+    finish runs the later rounds over the queries still pending
+    (``csrc/tc_insert.cu``).
 
     Caller contract: ``mask`` is winner-filtered.  ``claim`` is the table's
-    claim scratch (``new_claim(B * W)``); without one a fresh scratch is
-    allocated for this call.  Returns (ok[Q] bool, present[Q] bool)."""
+    claim words (``new_claim(B)``, one a row); without them fresh words are
+    allocated for this call.  ``form`` 1 runs the whole batch in one block
+    instead (slower; kept for timing against the split).  Returns (ok[Q]
+    bool, present[Q] bool)."""
     if tkey.device.type == "cpu":
         return tc_insert_plain(tkey, tval, tstate, rows_a, rows_b, keys, vals,
                                mask, max_rounds)
     w = _check_rows(tkey, tval, tstate)
     q, dev = keys.shape[0], tkey.device
     if claim is None:
-        claim = new_claim(tkey.numel(), dev)
+        claim = new_claim(tkey.shape[0], dev)
     _check((tkey, I32), (tval, I32), (tstate, I32), (claim, I32),
            (rows_a, I32), (rows_b, I32), (keys, I32), (vals, I32),
            (mask, torch.bool))
-    if claim.shape[0] != tkey.numel():
-        raise ValueError("claim scratch does not match the table size")
+    if claim.shape[0] != tkey.shape[0]:
+        raise ValueError("claim words do not match the table's rows")
     ok = torch.empty(q, dtype=torch.bool, device=dev)
     present = torch.empty(q, dtype=torch.bool, device=dev)
     if q:
         slot = torch.empty(q, dtype=I32, device=dev)
-        remaining = torch.zeros(1, dtype=I32, device=dev)
+        lst = torch.empty(q, dtype=I32, device=dev)
+        count = torch.empty(2, dtype=I32, device=dev)
         _launch("tc_insert", tc_insert, dev, tkey, tval, tstate, claim, w,
                 rows_a, rows_b, keys, vals, mask, q, max_rounds, ok, present,
-                slot, remaining)
+                slot, lst, count, form)
     return ok, present
 
 
@@ -724,6 +780,170 @@ def chain_probe2(old, new, hazard_key, hazard_val, hazard_live, bq_old,
                 hazard_key.shape[0], bq_old, bq_new, qkey, q, max_chain,
                 *wsizes, found, val, f_old, loc_old, hz_idx, loc_new)
     return found, val, f_old, loc_old, hz_idx, loc_new
+
+
+# ---------------------------------------------------------------------------
+# cuckoo_kick
+# ---------------------------------------------------------------------------
+
+def cuckoo_kick_plain(tkey, tval, tstate, rows_a, rows_b, hfn_a, hfn_b,
+                      nbuckets: int, keys, vals, winner, ok, present,
+                      max_kick: int, claim=None):
+    """Plain version of ``cuckoo_kick``: ``ref.cuckoo_kick_ref`` over the
+    whole batch for ``max_kick`` iterations on the pending queries, behind
+    the same flag; writes the table and ``ok`` in place.  ``claim`` is
+    accepted for signature parity and not used."""
+    pend = winner & ~ok & ~present
+    if not bool(pend.any()):
+        return ok
+    k, v, st, done = ref.cuckoo_kick_ref(tkey, tval, tstate, rows_a, rows_b,
+                                         hfn_a, hfn_b, nbuckets, keys, vals,
+                                         pend, max_kick)
+    for dst, src in ((tkey, k), (tval, v), (tstate, st)):
+        dst.copy_(src)
+    ok |= done
+    return ok
+
+
+def cuckoo_kick(tkey, tval, tstate, rows_a, rows_b, hfn_a, hfn_b,
+                nbuckets: int, keys, vals, winner, ok, present,
+                max_kick: int, claim=None):
+    """The cuckoo insert's bounded kick-out on a [2B, W] table; MUTATES the
+    table and ``ok`` (a placed key's entry becomes True).
+
+    The pending queries are ``winner & ~ok & ~present`` (the claim kernel's
+    outputs); the placement is ``ref.cuckoo_kick_ref`` over the whole batch
+    for ``max_kick`` iterations, slot for slot (the scan start rotated by
+    the iteration, the per-row lock to the lowest batch index).  One launch,
+    which returns after one pass over the flags when nothing is pending and
+    stops on the device when no key is left (``csrc/cuckoo_kick.cu``).
+    ``claim`` is the table's claim words, the row locks (``new_claim(2B)``);
+    without them fresh words are allocated.  Returns ``ok``."""
+    if tkey.device.type == "cpu":
+        return cuckoo_kick_plain(tkey, tval, tstate, rows_a, rows_b, hfn_a,
+                                 hfn_b, nbuckets, keys, vals, winner, ok,
+                                 present, max_kick)
+    w = _check_rows(tkey, tval, tstate)
+    q, dev = keys.shape[0], tkey.device
+    if claim is None:
+        claim = new_claim(tkey.shape[0], dev)
+    _check((tkey, I32), (tval, I32), (tstate, I32), (claim, I32),
+           (rows_a, I32), (rows_b, I32), (keys, I32), (vals, I32),
+           (winner, torch.bool), (ok, torch.bool), (present, torch.bool),
+           (hfn_a.seeds, torch.int64), (hfn_b.seeds, torch.int64))
+    if claim.shape[0] != tkey.shape[0]:
+        raise ValueError("claim words do not match the table's rows")
+    if q:
+        lst = torch.empty(q, dtype=I32, device=dev)
+        plan = torch.empty(3 * q, dtype=I32, device=dev)
+        _launch("cuckoo_kick", cuckoo_kick, dev, tkey, tval, tstate, w,
+                nbuckets, rows_a, rows_b, keys, vals, winner, ok, present, q,
+                max_kick, hfn_a.seeds, hashing.HASH_KINDS.index(hfn_a.kind),
+                hfn_b.seeds, hashing.HASH_KINDS.index(hfn_b.kind), claim, lst,
+                plan, _kick_tally(dev))
+    return ok
+
+
+# ---------------------------------------------------------------------------
+# epoch_swap
+# ---------------------------------------------------------------------------
+#
+# A table's leaves come with what the rebuild start's clear writes into them:
+# ("fill", v) — every word v; ("desc",) — n - 1 - i (a chain free stack);
+# ("seeds", kind, salt_offset) — a hash function's seeds, reseeded as
+# ``hashing.reseed(fn, epoch + 1 + salt_offset)``.
+
+_LEAF_MODE = {"fill": 0, "desc": 1, "seeds": 2}
+
+
+def _epoch_flags(hazard_live, cursor, rebuilding, capacity: int, swap: bool,
+                 start: bool):
+    go_swap = rebuilding & (cursor.long() >= capacity) & ~hazard_live.any()
+    if not swap:
+        go_swap = torch.zeros_like(go_swap)
+    go_start = (go_swap | ~rebuilding) if start \
+        else torch.zeros_like(go_swap)
+    return go_swap, go_start
+
+
+def _cleared(spec, x: torch.Tensor, salt: torch.Tensor) -> torch.Tensor:
+    """What the rebuild start writes into leaf ``x`` under ``spec``."""
+    if spec[0] == "fill":
+        return torch.full_like(x, spec[1])
+    if spec[0] == "desc":
+        n = x.numel()
+        return (n - 1 - torch.arange(n, dtype=x.dtype,
+                                     device=x.device)).view(x.shape)
+    _, kind, off = spec
+    return hashing.reseed(hashing.HashFn(kind=kind, seeds=x),
+                          salt + off).seeds
+
+
+def epoch_swap_plain(old, new, specs, hazard_live, cursor, rebuilding, epoch,
+                     lookups, expensive, capacity: int, swap: bool,
+                     start: bool) -> torch.Tensor:
+    """Plain version of ``epoch_swap``: the same decisions as tensors, the
+    leaves selected with ``torch.where`` in place.  Returns go[2] bool."""
+    go_swap, go_start = _epoch_flags(hazard_live, cursor, rebuilding,
+                                     capacity, swap, start)
+    salt = (epoch + go_swap.to(I32) + 1).to(I32)
+    for a, b, spec in zip(old, new, specs):
+        a0 = a.clone()
+        a.copy_(torch.where(go_swap, b, a))
+        mid = torch.where(go_swap, a0, b)
+        b.copy_(torch.where(go_start, _cleared(spec, mid, salt), mid))
+    epoch.add_(go_swap.to(I32))
+    for x in (lookups, expensive):
+        x.copy_(torch.where(go_swap, 0, x))
+    cursor.copy_(torch.where(go_swap | go_start, 0, cursor))
+    rebuilding.copy_(go_start | (rebuilding & ~go_swap))
+    return torch.stack([go_swap, go_start])
+
+
+def epoch_swap(old, new, specs, hazard_live, cursor, rebuilding, epoch,
+               lookups, expensive, capacity: int, swap: bool,
+               start: bool) -> torch.Tensor:
+    """The epoch swap and the next rebuild's start, decided on the device,
+    IN PLACE.
+
+    ``old`` / ``new`` are the two tables' tensor leaves in one order (same
+    shapes), ``specs`` what a rebuild start clears each to (see above).
+    ``swap`` (when the old and new tables share shapes) allows the swap,
+    taken where ``rebuilding`` is set, ``cursor >= capacity`` and no hazard
+    entry is live — the reference's ``finish_same_shape``: the leaves'
+    contents change places, cursor / lookups / expensive go to 0, rebuilding
+    falls, the epoch counter rises.  ``start`` (continuous rebuild) allows
+    the start, taken after a swap or where no rebuild runs — the
+    reference's ``rebuild_autostart``: the new table is cleared, its hash
+    functions reseeded from the new epoch + 1, rebuilding rises, cursor 0.
+    One wrapper launch (two kernels, ``csrc/epoch_swap.cu``).  Returns
+    go[2] bool on the device: (swapped, started)."""
+    dev = cursor.device
+    if dev.type == "cpu":
+        return epoch_swap_plain(old, new, specs, hazard_live, cursor,
+                                rebuilding, epoch, lookups, expensive,
+                                capacity, swap, start)
+    rows = []
+    for a, b, spec in zip(old, new, specs, strict=True):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise ValueError("epoch_swap: the two tables' leaves differ")
+        mode = _LEAF_MODE[spec[0]]
+        if spec[0] == "seeds":
+            _check((a, torch.int64), (b, torch.int64))
+            mode += spec[1] == "multiply_shift"
+            fill = spec[2]
+        else:
+            _check((a, I32), (b, I32))
+            fill = spec[1] if spec[0] == "fill" else 0
+        rows.append([a.data_ptr(), b.data_ptr(), a.numel(), mode, fill])
+    _check((cursor, I32), (epoch, I32), (lookups, I32), (expensive, I32),
+           (rebuilding, torch.bool), (hazard_live, torch.bool))
+    desc = torch.tensor(rows, dtype=torch.int64).reshape(-1)
+    go = torch.empty(2, dtype=torch.bool, device=dev)
+    _launch("epoch_swap", epoch_swap, dev, desc, len(rows), hazard_live,
+            hazard_live.shape[0], cursor, rebuilding, epoch, lookups,
+            expensive, capacity, int(swap), int(start), go)
+    return go
 
 
 reset_launches()

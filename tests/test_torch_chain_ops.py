@@ -523,13 +523,14 @@ def test_window_escape_divergence_is_pinned():
 @pytest.mark.parametrize("backend", ["linear", "twochoice", "cuckoo", "chain"])
 def test_fused_engine_steps_read_nothing_uncounted(backend):
     """The glue around the kernels reads nothing on the host: engine steps
-    on the fused path, steady and mid-rebuild, dispatch no scalar read
+    on the fused path between polls — steady state, a rebuild epoch and its
+    end (the swap, and in continuous mode the next start, taken on the
+    device; in requested mode the inserts after the swap, which pick their
+    table on the device) — dispatch no scalar read
     (``aten::_local_scalar_dense``, what ``item()``, ``bool()``, ``int()``
     and indexing with a 0-dim tensor run) and no ``nonzero`` outside the
     kernel wrappers (on the CPU those run their plain versions, which may
-    read; on the card they launch and read nothing) — except the cuckoo
-    kick-out's counted reads.  The engine's own flags read is a ``tolist``
-    of one small tensor, counted in ``host_syncs``."""
+    read; on the card they launch and read nothing), on every backend."""
     from unittest import mock
 
     from torch.utils._python_dispatch import TorchDispatchMode
@@ -548,6 +549,7 @@ def test_fused_engine_steps_read_nothing_uncounted(backend):
             return func(*args, **(kwargs or {}))
 
     mode = Reads()
+    mode.seen = []
 
     def pausing(fn):
         def run(*a, **k):
@@ -558,28 +560,29 @@ def test_fused_engine_steps_read_nothing_uncounted(backend):
                 mode.paused -= 1
         return run
 
-    eng = TEngine(tdhash.make(backend, capacity=2048, chunk=256, fused=True,
-                              seed=3, device="cpu"), continuous_rebuild=False)
-    rng = np.random.default_rng(5)
-    keys = rng.choice(1 << 20, 1500, replace=False).astype(np.int32)
-    eng.step(keys[:0], keys[:1000], keys[:1000], keys[:0])
-    patches = [mock.patch.object(tprobe, k, pausing(getattr(tprobe, k)))
-               for k in tprobe.KERNELS]
-    for p in patches:
-        p.start()
-    try:
-        kicks0 = tprobe.kick_counts()["reads"]
-        with mode:
-            for s in range(12):
-                if s == 4:
-                    eng.request_rebuild(seed=11)
-                look = rng.choice(keys, 300).astype(np.int32)
-                ins = keys[1000 + 40 * s:1040 + 40 * s]
-                eng.step(look, ins, ins * 3, look[:40])
-        kicks = tprobe.kick_counts()["reads"] - kicks0
-    finally:
+    for continuous in (True, False):
+        eng = TEngine(tdhash.make(backend, capacity=512, chunk=128,
+                                  fused=True, seed=3, device="cpu"),
+                      continuous_rebuild=continuous, poll_every=10**6)
+        rng = np.random.default_rng(5)
+        keys = rng.choice(1 << 20, 1200, replace=False).astype(np.int32)
+        eng.step(keys[:0], keys[:250], keys[:250], keys[:0])
+        if not continuous:
+            eng.request_rebuild(seed=11)
+        epoch0 = int(eng.state.epoch)
+        patches = [mock.patch.object(tprobe, k, pausing(getattr(tprobe, k)))
+                   for k in tprobe.KERNELS]
         for p in patches:
-            p.stop()
-    assert eng.rebuilding and eng.stats.rebuild_transitions >= 7
-    assert len(mode.seen) == (kicks if backend == "cuckoo" else 0), \
-        mode.seen
+            p.start()
+        try:
+            with mode:
+                for s in range(28):
+                    look = rng.choice(keys, 100).astype(np.int32)
+                    ins = keys[250 + 30 * s:280 + 30 * s]
+                    eng.step(look, ins, ins * 3, look[:20])
+        finally:
+            for p in patches:
+                p.stop()
+        assert int(eng.state.epoch) > epoch0, (continuous, "no epoch ended")
+        assert eng._stats.host_syncs == 0
+        assert mode.seen == [], (continuous, mode.seen)

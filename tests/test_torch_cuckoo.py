@@ -1,17 +1,19 @@
 """Port vs reference: the cuckoo backend's insert.
 
 The port's fused cuckoo insert is the ``tc_insert`` claim kernel
-(``max_rounds=2``, one try a side) followed, behind counted host reads, by
-the bounded kick-out on the winners it left unplaced (run on those keys only,
-in stages of iterations).  It is held slot for
+(``max_rounds=2``, one try a side) followed by the ``cuckoo_kick`` kernel,
+the bounded kick-out on the winners it left unplaced, guarded on the device
+(with nothing pending it does nothing).  It is held slot for
 slot against the same composition of the JAX package's own oracles:
 ``ref.tc_insert_ref(max_rounds=2)``, then ``ref.cuckoo_kick_ref`` on the
 winners unplaced and absent from both rows.  The plain insert (the kick-out
 alone) is held slot for slot against the JAX ``buckets.cuckoo_insert``; plain
 and fused are different linearisations under contention, so between them
 only ``ok`` and the live key -> value map are compared.  ``cuckoo_kick_ref``
-of both packages is compared on its own, and the reference's collision-flood
-contract (probe depth below the row width) is checked on the port.
+of both packages is compared on its own, the kick-out's plain version against
+it and against the staged composition the port ran before the kernel, and
+the reference's collision-flood contract (probe depth below the row width)
+is checked on the port.
 Tolerance 0.
 """
 from __future__ import annotations
@@ -97,11 +99,6 @@ def test_fused_insert_equals_composed_jax_oracles(width, n_base, q):
     tprobe.reset_launches()
     t2, ok, present = tbe.cuckoo_insert_fused(pt, T(keys), T(vals), T(mask),
                                               with_present=True)
-    # one gate read (it yields the pending keys), then one read after each
-    # stage of kick-out iterations that ran
-    kicks = tprobe.kick_counts()
-    assert kicks["runs"] == 1
-    assert 2 <= kicks["reads"] <= 1 + len(tbe.KICK_STAGES)
     assert t2.key is pt.key, "written in place"
     for a, c in ((k2, t2.key), (v2, t2.val), (s2, t2.state),
                  (want_ok, ok)):
@@ -120,15 +117,96 @@ def test_fused_insert_equals_composed_jax_oracles(width, n_base, q):
                                                           t2.state)
 
 
-def test_fused_insert_reads_once_and_skips_an_idle_kick_out():
-    """A batch the claim kernel places whole: one read, no kick-out."""
-    jt, _ = loaded_table(8, 10, seed=4)
+def test_guarded_kick_out_does_nothing_when_no_winner_is_pending():
+    """The kick-out's guard: a batch with no pending winner (every key
+    placed by the claim kernel, present, or masked out) leaves the table and
+    ``ok`` as they were, bit for bit — also on a crowded table where a
+    kick-out would move residents."""
+    jt, base = loaded_table(8, 60, seed=4)
     pt = convert.table_from_numpy(jax_table_tree(jt), device="cpu")
-    keys = np.array([123_457, 223_459], np.int32)
-    tprobe.reset_launches()
-    _, ok = tbe.cuckoo_insert_fused(pt, T(keys), T(keys), T([True, True]))
-    assert bool(ok.all())
-    assert tprobe.kick_counts() == {"reads": 1, "runs": 0}
+    keys = np.array([base[0], base[1], 523_457, 623_459], np.int32)
+    ra, rb = tb._ck_rows(pt, T(keys))
+    winner = T([True, True, False, True])
+    ok = T([False, False, False, True])
+    present = T([True, True, False, False])
+    before = [x.clone() for x in (pt.key, pt.val, pt.state, ok)]
+    got = tprobe.cuckoo_kick(pt.key, pt.val, pt.state, ra, rb, pt.hfn_a,
+                             pt.hfn_b, pt.nbuckets, T(keys), T(keys), winner,
+                             ok, present, pt.max_kick)
+    assert got is ok
+    for a, b in zip(before, (pt.key, pt.val, pt.state, ok)):
+        assert torch.equal(a, b)
+    # the same flags with one winner pending: the kick-out runs and places it
+    ok2 = T([False, False, False, False])
+    tprobe.cuckoo_kick(pt.key, pt.val, pt.state, ra, rb, pt.hfn_a, pt.hfn_b,
+                       pt.nbuckets, T(keys), T(keys), winner, ok2, present,
+                       pt.max_kick)
+    assert ok2.tolist() == [False, False, False, True]
+    f, v, _ = tb.cuckoo_lookup(pt, T(keys[3:]))
+    assert bool(f.all()) and int(v[0]) == keys[3]
+
+
+def _staged_kick(tk, tv, ts, ra, rb, hfa, hfb, nb, keys, vals, pend,
+                 max_kick, stages=(1, 2, 4, 8, 16)):
+    """The kick-out as the port ran it before its kernel: on the pending
+    keys only, in stages of iterations numbered on, each stage on the keys
+    the last one left unplaced."""
+    sel = pend.nonzero().squeeze(1)
+    k, v, s = tk.clone(), tv.clone(), ts.clone()
+    left = torch.ones(sel.numel(), dtype=torch.bool)
+    done = torch.zeros_like(left)
+    it = 0
+    for stop in (*[n for n in stages if n < max_kick], max_kick):
+        k, v, s, d = tref.cuckoo_kick_ref(
+            k, v, s, ra[sel], rb[sel], hfa, hfb, nb, keys[sel], vals[sel],
+            left, stop - it, first_iter=it)
+        done |= d
+        left &= ~d
+        it = stop
+    out = torch.zeros_like(pend)
+    out[sel] = done
+    return k, v, s, out
+
+
+def test_kick_out_plain_equals_staged_calls_and_jax():
+    """The kick-out kernel's plain version over ``max_kick`` iterations (the
+    whole batch, ``ok`` updated in place) equals the staged composition the
+    port ran before the kernel and the JAX ``cuckoo_kick_ref``, slot for
+    slot, on a crowded table with full rows and a row shared by many
+    queries."""
+    rng = np.random.default_rng(18)
+    nb, w = 16, 4
+    hfa, hfb = jh.fresh("mix32", 3), jh.fresh("mix32", 4)
+    tk = rng.integers(1, 10_000, (2 * nb, w)).astype(np.int32)
+    ts = np.where(rng.random((2 * nb, w)) < 0.85, LIVE,
+                  rng.integers(0, 4, (2 * nb, w))).astype(np.int32)
+    keys = rng.choice(np.arange(20_000, 30_000), 48,
+                      replace=False).astype(np.int32)
+    ra = np.array(jh.bucket_of(hfa, J(keys), nb))
+    rb = nb + np.array(jh.bucket_of(hfb, J(keys), nb))
+    ra[:10] = 5                                           # a shared row
+    winner = rng.random(48) < 0.9
+    ok = rng.random(48) < 0.2
+    present = rng.random(48) < 0.1
+    pend = winner & ~ok & ~present
+    max_kick = 32
+    jk = jref.cuckoo_kick_ref(J(tk), J(tk * 3), J(ts), J(ra), J(rb), hfa, hfb,
+                              nb, J(keys), J(keys * 5), J(pend), max_kick)
+    tfa, tfb = th.fresh("mix32", 3, "cpu"), th.fresh("mix32", 4, "cpu")
+    args = [T(x) for x in (tk, tk * 3, ts, ra, rb)]
+    staged = _staged_kick(*args, tfa, tfb, nb, T(keys), T(keys * 5),
+                          T(pend), max_kick)
+    tab = [x.clone() for x in args[:3]]
+    ok_t = T(ok)
+    tprobe.cuckoo_kick_plain(*tab, args[3], args[4], tfa, tfb, nb, T(keys),
+                             T(keys * 5), T(winner), ok_t, T(present),
+                             max_kick)
+    for a, b, c in zip(jk[:3], staged[:3], tab):
+        assert np.array_equal(np.asarray(a), N(b))
+        assert torch.equal(b, c)
+    assert np.array_equal(np.asarray(jk[3]), N(staged[3]))
+    assert torch.equal(ok_t, T(ok) | staged[3])
+    assert staged[3].any() and not bool(staged[3][T(pend)].all())
 
 
 @pytest.mark.parametrize("width,n_base,q", [(8, 60, 64), (4, 24, 40)])
@@ -206,12 +284,17 @@ def test_probe_depth_bounded_under_collision_flood(fused):
                    torch.ones(normal.shape, dtype=torch.bool))
     assert bool(ok.all())
     atk = _colliding_keys(t.hfn_a, int(t.nbuckets), 3 * t.width, rng)
-    tprobe.reset_launches()
+    if fused:
+        # the claim kernel's two rounds alone leave some unplaced: the
+        # kick-out must run
+        k, v, s = (x.clone() for x in (t.key, t.val, t.state))
+        ra, rb = tb._ck_rows(t, T(atk))
+        ok2, _ = tprobe.tc_insert(k, v, s, ra, rb, T(atk), T(atk * 3),
+                                  torch.ones(atk.shape, dtype=torch.bool), 2)
+        assert not bool(ok2.all())
     t, ok = insert(t, T(atk), T(atk * 3),
                    torch.ones(atk.shape, dtype=torch.bool))
     assert bool(ok.all()), "kick-out must place a modest collider flood"
-    if fused:
-        assert tprobe.kick_counts()["runs"] == 1
     qs = T(np.concatenate([normal, atk]))
     f, v, loc = be.lookup(t, qs)
     assert bool(f.all()) and torch.equal(v, qs * 3)

@@ -96,12 +96,14 @@ def test_the_two_row_kernel_sources_exist_and_share_the_hazard_stage():
 
 
 def test_the_nine_kernels_and_the_chain_sources():
-    """Nine kernels, one source each; the chain kernels resolve every query
-    in the kernel (tail stage, segment scan, bounded walk); chain_probe keeps
-    the dense tail stage, chain_probe2 stages the hazard buffer and both
-    tail windows as hashed sets, as tc_probe2 stages its hazard buffer."""
+    """The nine ported kernels and the two guarded ones (the cuckoo
+    kick-out, the epoch swap), one source each; the chain kernels resolve
+    every query in the kernel (tail stage, segment scan, bounded walk);
+    chain_probe keeps the dense tail stage, chain_probe2 stages the hazard
+    buffer and both tail windows as hashed sets, as tc_probe2 stages its
+    hazard buffer."""
     from repro_torch.kernels import build, probe
-    assert len(probe.KERNELS) == len(set(probe.KERNELS)) == 9
+    assert len(probe.KERNELS) == len(set(probe.KERNELS)) == 11
     assert probe.KERNELS == build.SOURCES
     assert set(build._ENTRY.values()) == set(build._ARGTYPES)
     for k in ("chain_probe", "chain_probe2"):
@@ -129,6 +131,36 @@ def test_the_nine_kernels_and_the_chain_sources():
     for fn in ("dhash_stage(", "dhash_hazard_find(", "dhash_tail_stage(",
                "dhash_set_stage(", "DHASH_SET_RUN"):
         assert fn in common, fn
+
+
+def test_tc_insert_has_no_grid_barrier_and_no_kick_out_read_is_left():
+    """tc_insert resolves its rounds without a cooperative launch or a
+    grid-wide barrier (a bid and a resolve launch, then one block); the
+    cuckoo kick-out is a guarded kernel, and the host reads that gated it
+    (``kick_gate``, ``kick_pending``, the staged ``_kick_out``) are gone;
+    extract and the epoch swap take their device flags."""
+    from repro_torch.core import backend
+    from repro_torch.kernels import probe
+    src = (CSRC / "tc_insert.cu").read_text()
+    for gone in ("cudaLaunchCooperativeKernel", "grid.sync",
+                 "cooperative_groups", "this_grid"):
+        assert gone not in src, gone
+    for kern in ("tc_insert_bid<", "tc_insert_resolve<", "tc_rounds<",
+                 "tc_insert_one_block<"):
+        assert kern in src, kern
+    for name in ("kick_gate", "kick_pending", "kick_counts"):
+        assert not hasattr(probe, name), name
+    for name in ("KICK_STAGES", "_kick_out"):
+        assert not hasattr(backend, name), name
+    py = (PKG / "core" / "backend.py").read_text()
+    assert "kick_gate" not in py and "kick_pending" not in py
+    kick = (CSRC / "cuckoo_kick.cu").read_text()
+    assert "__syncthreads()" in kick and "dhash_bucket_of(" in kick
+    assert 'extern "C" int dhash_cuckoo_kick(' in kick
+    swap = (CSRC / "epoch_swap.cu").read_text()
+    assert 'extern "C" int dhash_epoch_swap(' in swap
+    ext = (CSRC / "extract.cu").read_text()
+    assert "const uint8_t* run, const uint8_t* hold" in ext
 
 
 def test_the_eleven_modules_and_four_kernel_sources_exist():
