@@ -8,8 +8,9 @@ for an H100) and the CUDA toolkit:
     python3 chip_smoke.py --steps 300 --tc-steps 300 --big-steps 16  # shorter
     python3 chip_smoke.py --profile build/profile.txt  # + profiler tables
     python3 chip_smoke.py --baseline OTHER/build/repro_torch_kernels
-        # phase 2 also runs another tree's tc_insert on its timed batches,
-        # in turns with this tree's
+        # phase 2 also runs another tree's probe2, probe_insert, tc_insert,
+        # tc_probe2, chain_probe and chain_probe2 on its timed batches, in
+        # turns with this tree's
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
 
@@ -32,7 +33,7 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
    slots taken, a landing-shaped batch, one query, 3000 keys on one start
    slot at the head of a batch of 20000; for the two-row insert, 2048 keys
    on one row, a full table, one query, widths 4 and 8, two and eight
-   rounds, both forms of the kernel; the cuckoo kick-out at the main path's
+   rounds; the cuckoo kick-out at the main path's
    load, under a flood, on a crowded table and with nothing pending; the
    guarded extract and the epoch swap on every backend's tables, flags set
    and not), and times kernel and plain version;
@@ -104,6 +105,8 @@ KERNEL_INFO = {
                     "src/repro/core/backend.py:446"),
     "epoch_swap": ("src/repro_torch/kernels/csrc/epoch_swap.cu",
                    "src/repro/core/dhash.py:433"),
+    "chain_compact": ("src/repro_torch/kernels/csrc/chain_compact.cu",
+                      "src/repro/core/backend.py:624"),
 }
 BACKENDS = ("linear", "twochoice", "cuckoo", "chain")
 # the kernels each backend's main path runs: (lookup, insert, rebuild-epoch
@@ -128,10 +131,9 @@ def log(*a):
 
 OUTPUTS = ("found", "val", "f_old", "loc_old", "hz_idx", "loc_new")
 # the kernels --baseline runs from another tree, in turns with this tree's
-BASELINE_KERNELS = ("tc_insert",)
+BASELINE_KERNELS = ("probe2", "probe_insert", "tc_insert", "tc_probe2",
+                    "chain_probe", "chain_probe2")
 SET_LOOKUP_OPS = 4      # a staged-set lookup: hash, probe, compare, select
-# the forms of tc_insert held and timed in phase 2 (csrc/tc_insert.cu)
-TC_FORMS = (0, 1)
 
 
 def set_shift(n: int) -> int:
@@ -197,10 +199,10 @@ def load_baseline(path: str) -> dict:
     """The C entry points of the kernels that ``--baseline`` times from
     another tree's build directory, with the argument types that tree's
     own ``build.py`` declares (``path`` is ``<tree>/build/repro_torch_kernels``).
-    ``tc_insert`` comes as a function with the arguments of this tree's
-    wrapper, whichever C interface the other tree has: the cooperative one
-    with a claim word a slot and a pending counter (17 arguments), or this
-    one (19)."""
+    ``probe_insert`` and ``tc_insert`` come as functions with the arguments
+    of this tree's wrappers; ``tc_insert`` through either C interface the
+    other tree may have: the cooperative one with a claim word a slot and a
+    pending counter (17 arguments), or this one (18)."""
     import ctypes
     import glob
     import importlib.util
@@ -219,8 +221,24 @@ def load_baseline(path: str) -> dict:
         fn.argtypes = other._ARGTYPES[f"dhash_{name}"]
         fn.restype = ctypes.c_int
         out[name] = fn
+    out["probe_insert"] = baseline_insert(out["probe_insert"])
     out["tc_insert"] = baseline_tc_insert(out["tc_insert"])
     return out
+
+
+def baseline_insert(fn):
+    """``probe.probe_insert`` on another tree's C entry point ``fn``."""
+    def insert(tk, tv, ts, h0, keys, vals, mask, max_probes):
+        c, q, dev = tk.shape[0], keys.shape[0], tk.device
+        ok = torch.empty(q, dtype=torch.bool, device=dev)
+        present = torch.empty(q, dtype=torch.bool, device=dev)
+        args = (tk, tv, ts, c, h0, keys, vals, mask, q, max_probes, ok,
+                present, torch.empty(q, dtype=torch.int32, device=dev))
+        err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
+                   for a in args], torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"--baseline probe_insert was not launched: {err}")
+        return ok, present
+    return insert
 
 
 def baseline_tc_insert(fn):
@@ -247,7 +265,7 @@ def baseline_tc_insert(fn):
                     mask, q, max_rounds, ok, present,
                     torch.empty(q, dtype=i32, device=dev),
                     torch.empty(q, dtype=i32, device=dev),
-                    torch.empty(1, dtype=i32, device=dev), 0)
+                    torch.empty(2, dtype=i32, device=dev))
         err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
                    for a in args], torch.cuda.current_stream().cuda_stream)
         check(err == 0, f"--baseline tc_insert was not launched: {err}")
@@ -271,7 +289,7 @@ def compare_cases(name: str, kernel, plain, cases: dict, reps: int,
         for x, y, n in zip(got, want, outputs):
             same(x, y, f"{name} {label} {n}")
         entry = {}
-        if baseline is None or name not in baseline:
+        if baseline is None:
             entry["ms"] = time_ms(lambda: kernel(*args), reps)
         else:
             mine = lib[name]
@@ -563,7 +581,7 @@ def time_insert_cases(probe, cases: dict, reps: int, baseline):
             probe.probe_insert(*a, h0, k, v, m, p)
         entry = {"placed": int(ok.sum()), "present": int(pr.sum()),
                  "dead_slots_taken": dead}
-        if baseline is None or "probe_insert" not in baseline:
+        if baseline is None:
             entry["ms"] = time_ms(mine, reps, restore)
         else:
             other = baseline["probe_insert"]
@@ -988,7 +1006,7 @@ def phase_tc_kernels(device, cfg, reps: int, baseline=None) -> dict:
     # -- tc_insert: a hot row pair, duplicates, keys already live or dead,
     #    rows a == b, ragged Q; twochoice's 8 rounds and cuckoo's 2; 2048
     #    keys on one row, a full table, one query, a table of width 4, a
-    #    landing's batch; both forms of the kernel (the split and one block)
+    #    landing's batch
     def insert_inputs(q, kk=keys, nb=B, fa=hfa, fb=hfb):
         k = torch.as_tensor(
             rng.integers(-(1 << 31), -(1 << 30), q).astype(np.int32),
@@ -1041,19 +1059,18 @@ def phase_tc_kernels(device, cfg, reps: int, baseline=None) -> dict:
     for label, tab, claim, args, rounds in cases:
         b = [t.clone() for t in tab]
         ok_p, pr_p = probe.tc_insert_plain(*b, *args, rounds)
-        for form in TC_FORMS:
-            a = [t.clone() for t in tab]
-            ok_k, pr_k = probe.tc_insert(*a, *args, rounds, claim, form=form)
-            torch.cuda.synchronize()
-            what = f"tc_insert {label} form={form}"
-            err = max(err, same(ok_k, ok_p, f"{what} ok"),
-                      same(pr_k, pr_p, f"{what} present"))
-            for x, y, n in zip(a, b, ("key", "val", "state")):
-                err = max(err, same(x, y, f"{what} {n}"))
-            check(bool((claim == probe.CLAIM_FREE).all()),
-                  f"{what}: claim words left behind")
+        a = [t.clone() for t in tab]
+        ok_k, pr_k = probe.tc_insert(*a, *args, rounds, claim)
+        torch.cuda.synchronize()
+        what = f"tc_insert {label}"
+        err = max(err, same(ok_k, ok_p, f"{what} ok"),
+                  same(pr_k, pr_p, f"{what} present"))
+        for x, y, n in zip(a, b, ("key", "val", "state")):
+            err = max(err, same(x, y, f"{what} {n}"))
+        check(bool((claim == probe.CLAIM_FREE).all()),
+              f"{what}: claim words left behind")
         failed = args[4] & ~ok_p & ~pr_p
-        log(f"  tc_insert ok, both forms: {label} placed={int(ok_p.sum())} "
+        log(f"  tc_insert ok: {label} placed={int(ok_p.sum())} "
             f"present={int(pr_p.sum())} no-lane={int(failed.sum())}")
         if label.startswith("mixed"):
             check(int(failed.sum()) > 2000, "tc_insert: most of the hot row "
@@ -1064,8 +1081,8 @@ def phase_tc_kernels(device, cfg, reps: int, baseline=None) -> dict:
             check(0 < int(ok_p.sum()) < 2048, "tc_insert: the flood must "
                   "place some keys and refuse some")
     # timed on the main path's kind of batch (fresh keys, hashed rows) at
-    # the user insert's Q and the landing's, both forms, and the parent's
-    # kernel in turns with this tree's where --baseline gives it
+    # the user insert's Q and the landing's, and the parent's kernel in
+    # turns with this tree's where --baseline gives it
     claim = probe.new_claim(B, device)
     a = [t.clone() for t in (tk, tv, ts)]
 
@@ -1077,11 +1094,11 @@ def phase_tc_kernels(device, cfg, reps: int, baseline=None) -> dict:
         ins = fresh_inputs(q)
         for rounds in (8, 2):
             entry = {}
-            for form in TC_FORMS:
-                entry[f"form{form}_ms"] = time_ms(
-                    lambda: probe.tc_insert(*a, *ins, rounds, claim,
-                                            form=form), reps, restore)
-            if baseline is not None:
+            if baseline is None:
+                entry["ms"] = time_ms(
+                    lambda: probe.tc_insert(*a, *ins, rounds, claim), reps,
+                    restore)
+            else:
                 fn = baseline["tc_insert"]
                 restore()
                 ok_b, pr_b = fn(*a, *ins, rounds)
@@ -1119,7 +1136,7 @@ def phase_tc_kernels(device, cfg, reps: int, baseline=None) -> dict:
         **bound(QU * 17 + nrows * W * 8 + pend * W * 4
                 + int(ok_t.sum()) * 12 + QU * 2,
                 nrows * W * 2 + pend * W),
-        forms=timed)
+        cases=timed)
 
     # -- tc_probe2: old table mid-rebuild, hazard buffer with killed
     #    entries, new tables 4x (+3 rows, not a power of two) and 1x
@@ -1252,8 +1269,11 @@ def build_chain(device, nb: int, n: int, n_live: int, rng, seed: int,
     keys (and ``hot`` more, all in bucket 5; none in buckets 1 to 3, which
     stay empty) packed into sorted segments by the compaction, a dirty tail
     of ``tail`` keys placed by the PLAIN insert, then a share of the sorted
-    nodes tombstoned and a share marked MIGRATED.  Returns (table, keys)."""
+    nodes tombstoned and a share marked MIGRATED.  The compaction is the
+    plain one, so that no kernel under test builds its own inputs.  Returns
+    (table, keys)."""
     from repro_torch.core import backend, buckets, hashing
+    from repro_torch.kernels import probe
     t = buckets.chain_make(nb, n, hashing.fresh("mix32", seed, device),
                            device=device)
     total = n_live + tail
@@ -1277,7 +1297,7 @@ def build_chain(device, nb: int, n: int, n_live: int, rng, seed: int,
     t.akey[:m] = keys[:m]
     t.aval[:m] = keys[:m] * 3 + 1
     t.astate[:m] = buckets.LIVE
-    backend.chain_compact_fused(t)
+    probe.chain_compact_plain(backend._chain_fields(t), t.hfn, nb)
     live = (t.astate == buckets.LIVE).nonzero().squeeze(1)
     pick = live[torch.as_tensor(rng.permutation(live.numel()),
                                 device=device)]
@@ -1441,7 +1461,7 @@ def phase_chain_kernels(device, cfg, reps: int, baseline=None) -> dict:
         # (SET_LOOKUP_OPS) for each query its segment did not settle
         **bound(Q * 16 + nodes * 8 + int(need.sum()) * 4 + hits * 4 + Q * 9,
                 2 * nodes + SET_LOOKUP_OPS * lookups))
-    if baseline is not None and "chain_probe" in baseline:
+    if baseline is not None:
         res["chain_probe"]["cases"] = compare_cases(
             "chain_probe", probe.chain_probe, probe.chain_probe_plain,
             {"phase-2": args}, reps, baseline, ("found", "val", "loc"))
@@ -1584,13 +1604,14 @@ def cuckoo_table(device, nbuckets: int, n_live: int, rng, seed: int):
 
 
 def phase_guard_kernels(device, cfg, reps: int) -> dict:
-    """The two guarded kernels against their plain versions (tolerance 0):
+    """The three guarded kernels against their plain versions (tolerance 0):
     the cuckoo kick-out at the cuckoo main path's shape (2 x 2^17 rows x 8)
     on the main path's kind of batch, under a flood of 2048 keys on one row,
     on a crowded table where most keys must move a resident, and with
     nothing pending; the epoch swap on the four backends' full-size tables,
     for a rebuild that is done (swap and start, swap alone), one mid-epoch
-    (nothing) and no rebuild (start alone)."""
+    (nothing) and no rebuild (start alone); the chain compaction
+    (``compact_cases``)."""
     from repro_torch.core import backend, buckets, dhash, hashing
     from repro_torch.kernels import probe
     rng = np.random.default_rng(14)
@@ -1701,6 +1722,15 @@ def phase_guard_kernels(device, cfg, reps: int) -> dict:
         # operations) for each pending key
         **bound(main["nbytes"], main["ops"]), cases=kick)
 
+    # -- chain_compact at the chain main path's size: after a user insert
+    #    (a half-full sorted arena with dead nodes and a tail of a batch and
+    #    a dirty window), a bucket of 2048 nodes in the sorted runs, a bucket
+    #    flooded with 2048 tail nodes (all live, or all but 40 deleted: a
+    #    long walk), an arena whose every node is tail, an arena with nothing
+    #    live; the guard off by its flag and by the dirty count, and on by
+    #    the flag (the freeze)
+    res["chain_compact"] = compact_cases(device, cfg, reps, rng)
+
     # -- epoch_swap on the main path's tables of every backend
     err, swap = 0, {}
     for name in BACKENDS:
@@ -1782,6 +1812,103 @@ def phase_guard_kernels(device, cfg, reps: int) -> dict:
         f"step) {swap['linear idle']:.4f} ms, swap and start (once an "
         f"epoch) {swap['linear swap and start']:.4f} ms")
     return res
+
+
+def bucket_keys(t, b: int, n: int, rng, device) -> torch.Tensor:
+    """``n`` distinct keys that ``t``'s hash function puts in bucket ``b``."""
+    from repro_torch.core import hashing
+    got = torch.empty(0, dtype=torch.int32, device=device)
+    while got.numel() < n:
+        more = torch.as_tensor(rng.integers(1 << 30, (1 << 31) - 1,
+                                            1 << 22).astype(np.int32),
+                               device=device)
+        got = torch.cat([got, more[hashing.bucket_of(t.hfn, more,
+                                                     t.nbuckets) == b]])
+        got = got.unique()
+    return got[torch.as_tensor(rng.permutation(got.numel())[:n],
+                               device=device)]
+
+
+def compact_cases(device, cfg, reps: int, rng) -> dict:
+    """``chain_compact`` against its plain version (tolerance 0, all ten
+    arrays) at the chain main path's size (2^20 nodes, 2^16 buckets), and
+    timed: where it runs (after a user insert) and where its guard is off."""
+    from repro_torch.core import backend, buckets, hashing
+    from repro_torch.kernels import probe
+    n, nb, QU = cfg.capacity_per_shard, cfg.capacity_per_shard // 16, \
+        cfg.updates_per_step
+    cap = backend.get("chain").dirty_cap
+    ones = torch.ones(1, dtype=torch.bool, device=device)
+
+    def tail_insert(t, keys, parts: int = 3):
+        for k in keys.chunk(parts):
+            t2, ok = buckets.chain_insert(t, k, k * 3 + 1,
+                                          torch.ones_like(k, dtype=torch.bool))
+            check(bool(ok.all()), "chain_compact: a tail insert was refused")
+            t = t2
+        return t
+
+    user, _ = build_chain(device, nb, n, n // 2, rng, 81, tail=QU + cap)
+    runs, _ = build_chain(device, nb, n, n // 2, rng, 82, hot=2048, tail=QU)
+    flood, _ = build_chain(device, nb, n, n // 2, rng, 83, tail=QU)
+    fk = bucket_keys(flood, 9, 2048, rng, device)
+    flood = tail_insert(flood, fk)
+    dead = _clone_table(flood)
+    su, end = int(dead.sorted_upto), n - int(dead.free_top)
+    dead.astate[su:end].masked_fill_(torch.isin(dead.akey[su:end], fk[40:]),
+                                     buckets.TOMB)
+    fresh = buckets.chain_make(nb, n, hashing.fresh("mix32", 84, device),
+                               device=device)
+    fk = torch.as_tensor(np.unique(rng.integers(-(1 << 30), 1 << 30, 70000))
+                         [:65536].astype(np.int32), device=device)
+    fresh = tail_insert(fresh, fk, 4)
+    empty = buckets.chain_make(nb, n, hashing.fresh("mix32", 85, device),
+                               device=device)
+    cases = {"after a user insert": (user, None, cap),
+             "2048 nodes in one run": (runs, None, -1),
+             "2048 tail nodes in one bucket": (flood, None, cap),
+             "2048 tail nodes in one bucket, 40 live": (dead, None, cap),
+             "every node in the tail": (fresh, None, cap),
+             "nothing live": (empty, None, -1),
+             "flag off": (user, ~ones[0], -1),
+             "within the dirty window": (user, None, 1 << 30),
+             "flag on (freeze)": (user, ones[0], -1)}
+    err, out = 0, {}
+    for label, (t, where, dcap) in cases.items():
+        f0 = backend._chain_fields(t)
+        a, b = [x.clone() for x in f0], [x.clone() for x in f0]
+        probe.chain_compact(a, t.hfn, nb, where, dcap)
+        torch.cuda.synchronize()
+        probe.chain_compact_plain(b, t.hfn, nb, where, dcap)
+        for i, (x, y) in enumerate(zip(a, b)):
+            err = max(err, same(x, y, f"chain_compact {label} array {i}"))
+        moved = not all(torch.equal(x, y) for x, y in zip(a, f0))
+        if label != "nothing live":     # (compacting it changes nothing)
+            off = label in ("flag off", "within the dirty window")
+            check(moved != off, f"chain_compact {label}: ran={moved}")
+        out[label] = dict(ran=moved, live=int(b[9]),
+                          tail=n - int(f0[6]) - int(f0[9]))
+        log(f"  chain_compact ok: {label} " + json.dumps(out[label]))
+    f0 = backend._chain_fields(user)
+    a = [x.clone() for x in f0]
+
+    def restore():
+        for x, y in zip(a, f0):
+            x.copy_(y)
+
+    def launch(where=None, dcap=cap):
+        return lambda: probe.chain_compact(a, user.hfn, nb, where, dcap)
+    ms = time_ms(launch(), reps, restore)
+    idle = time_ms(launch(dcap=1 << 30), reps, restore)
+    plain_ms = time_ms(lambda: probe.chain_compact_plain(
+        a, user.hfn, nb, None, cap), 3, restore, queue_ahead=False)
+    log(f"  chain_compact times, 2^20 nodes: after a user insert {ms:.4f} "
+        f"ms, guard off {idle:.4f} ms, plain {plain_ms:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, idle_ms=idle,
+                # in: key, value, state of every node, each bucket's run;
+                # out: key, value, state, link and free-stack word of every
+                # node, each bucket's start, length and head
+                **bound(n * 32 + nb * 20, 0), cases=out)
 
 
 def _clone_table(t):
@@ -1880,7 +2007,9 @@ def expected_launches(before: dict, after: dict, was_rebuilding: bool,
     epoch_swap (guarded: it swaps and restarts only where the rebuild is
     done); the first step of continuous rebuild adds the epoch_swap that
     starts it.  Every cuckoo insert adds its kick-out launch (guarded: with
-    nothing pending it returns).  (Chain's insert kernel is its lookup
+    nothing pending it returns), every chain insert its compaction (guarded
+    on the dirty count), and every continuous chain step the freeze's
+    compaction (guarded on the start).  (Chain's insert kernel is its lookup
     kernel, the presence probe.)"""
     d = {k: after[k] - before[k] for k in after}
     look, ins, p2 = PATH_KERNELS[backend]
@@ -1894,6 +2023,8 @@ def expected_launches(before: dict, after: dict, was_rebuilding: bool,
     want[ins] += inserts
     if backend == "cuckoo":
         want["cuckoo_kick"] += inserts
+    if backend == "chain":
+        want["chain_compact"] += inserts + continuous
     if was_rebuilding or continuous:
         want["epoch_swap"] += 1
     return None if d == want else f"{d} (rebuilding={was_rebuilding})"
@@ -2176,6 +2307,8 @@ def phase_main(device, cfg, n_steps: int, min_epochs: int,
     used = {*PATH_KERNELS[cfg.backend], "extract", "epoch_swap"}
     if cfg.backend == "cuckoo":
         used.add("cuckoo_kick")
+    if cfg.backend == "chain":
+        used.add("chain_compact")
     check(all(launches[k] > 0 for k in used),
           f"main path did not launch every kernel of its backend: {launches}")
     check(all(launches[k] == 0 for k in probe.KERNELS if k not in used),
@@ -2227,10 +2360,11 @@ def phase_main(device, cfg, n_steps: int, min_epochs: int,
         ins_calls = launches["chain_probe"] - 2 * steady
         log(f"  inserts refused for want of a node: {oracle.no_slot} of "
             f"{n_ins} (populate included), each with the free stack empty; "
-            f"the compaction ran (computed, then selected on the device: no "
-            f"host read) on each of the {ins_calls} insert calls, "
-            f"{ins_calls / (steady + n_steps):.3f} a step, and left no dirty "
-            f"tail past the window")
+            f"the compaction was launched (guarded on the dirty count on the "
+            f"device: no host read) after each of the {ins_calls} insert "
+            f"calls, {ins_calls / (steady + n_steps):.3f} a step, and left no "
+            f"dirty tail past the window; {launches['chain_compact']} "
+            f"chain_compact launches with the freeze's")
     else:
         log(f"  inserts refused for want of a slot: {oracle.no_slot} of "
             f"{n_ins} (populate included), each with both rows full")
@@ -2662,9 +2796,10 @@ def main() -> int:
     ap.add_argument("--baseline", default="", metavar="DIR",
                     help="the build directory of another tree of this repo "
                     "(build/repro_torch_kernels there, after its own run): "
-                    "phase 2 also holds that tree's tc_insert against the "
-                    "plain version on the timed batches and times it in "
-                    "turns with this tree's")
+                    "phase 2 also holds that tree's probe2, probe_insert, "
+                    "tc_insert, tc_probe2, chain_probe and chain_probe2 "
+                    "against their plain versions on the timed batches and "
+                    "times each in turns with this tree's")
     ap.add_argument("--profile", default="", metavar="FILE",
                     help="also run 40 steps of each main path under "
                     "torch.profiler and write the kernel tables to FILE "
@@ -2757,10 +2892,11 @@ def main() -> int:
                         "replaces": rep, "launches": sum(paths.values()),
                         "launches_by_path": paths, **kres[name],
                         "library_ms": None})
-    log(f"  no single PyTorch call computes any of these eleven functions "
+    log(f"  no single PyTorch call computes any of these twelve functions "
         f"(a probe sequence, a two-row lane match, a lock-step claim, an "
         f"ordered three-way check, a compacting scan, a segment scan with a "
-        f"bounded walk, a cuckoo kick-out, a guarded two-table exchange), "
+        f"bounded walk, a cuckoo kick-out, a guarded two-table exchange, a "
+        f"guarded arena compaction), "
         f"so library_ms is null; times are medians of {args.reps} launches, "
         f"tables warm in L2; launches are summed over the four main paths "
         f"(launches_by_path: each path's own count)")

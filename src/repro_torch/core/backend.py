@@ -36,9 +36,12 @@ over ``kernels/ops.py``: hash the keys (``hashing.bucket_of``, outside the
 kernels as in the reference), call the op, hand back the table.  Cuckoo
 drives the twochoice kernels unchanged with side-offset rows; only its
 insert adds the bounded kick-out, a kernel guarded on the device.  Chain's
-insert adds the compaction, selected on the device (no host read).
+insert adds the compaction, a kernel that reads its trigger on the device
+and returns at once below it (no host read).
 ``epoch_leaves`` lists a table's tensor leaves with what a rebuild start
-clears each to, for the epoch-swap kernel.
+clears each to, for the epoch-swap kernel, from the descriptor's
+``clear_fill`` and ``salt_offsets`` (stated next to ``clear`` and
+``reseed``, which they must reproduce).
 """
 from __future__ import annotations
 
@@ -51,7 +54,7 @@ import torch
 from repro_torch.core import buckets, hashing
 from repro_torch.core.buckets import (ChainTable, CuckooTable, LinearTable,
                                      TwoChoiceTable, _chain_parts, _ck_rows,
-                                     _tc_rows, batch_winners, chain_dirty)
+                                     _tc_rows, batch_winners)
 from repro_torch.core.struct_utils import replace
 from repro_torch.kernels.ops import DIRTY_CAP, NRES_CAP
 
@@ -110,6 +113,9 @@ class BucketBackend:
     make: Callable[..., Any]
     fresh_like: Callable[..., Any]
     reseed: Callable[..., Any]
+    # the salt offset each hash-function field takes at a ``reseed``
+    salt_offsets: dict = dataclasses.field(default_factory=dict,
+                                           kw_only=True)
     capacity_of: Callable[[Any], int]
     with_state: Callable[..., Any]
     # plain ops (the oracle surface)
@@ -119,6 +125,10 @@ class BucketBackend:
     extract_chunk: Callable[..., Any]
     count_live: Callable[..., Any]
     clear: Callable[..., Any]
+    # what ``clear`` writes into a tensor field where it is not 0: "desc" is
+    # n - 1 - i (the chain free stack), "arena" the arena's size
+    clear_fill: dict = dataclasses.field(default_factory=dict,
+                                         kw_only=True)
     # occupancy / probe telemetry
     count_tomb: Callable[..., Any] = None
     probe_cost: Callable[..., Any] = None
@@ -508,30 +518,29 @@ def _chain_fields(t: ChainTable) -> tuple:
             t.free_top, t.bstart, t.blen, t.sorted_upto)
 
 
-def _chain_compacted(t: ChainTable) -> tuple:
-    from repro_torch.kernels import ops
-    return ops.chain_compact_fused(t.akey, t.aval, t.astate,
-                                   _chain_bq(t, t.akey), nbuckets=t.nbuckets)
-
-
 def chain_compact_fused(t: ChainTable,
                         where: torch.Tensor | None = None) -> ChainTable:
     """Restore the arena-sorted layout (``ops.chain_compact_fused``) IN
     PLACE: tombstones and migrated nodes are reclaimed, the dirty count
-    drops to 0.  With ``where`` (a 0-dim bool device flag) the compaction is
-    computed and taken only where the flag is set (``torch.where``, no host
-    read).  The ``freeze_old`` hook: run at a rebuild's start."""
-    for dst, src in zip(_chain_fields(t), _chain_compacted(t)):
-        dst.copy_(src if where is None else torch.where(where, src, dst))
+    drops to 0.  With ``where`` (a 0-dim bool device flag) only where the
+    flag is set: one ``chain_compact`` launch, which returns at once
+    elsewhere (no host read).  The ``freeze_old`` hook: run at a rebuild's
+    start."""
+    from repro_torch.kernels import probe
+    probe.chain_compact(_chain_fields(t), t.hfn, t.nbuckets, where)
     return t
 
 
 def chain_maybe_compact(t: ChainTable) -> ChainTable:
     """Compaction trigger: re-sort the arena iff the dirty tail has outgrown
     the window (the table's ``dirty_cap``).  The reference gates with
-    ``lax.cond``; here the compaction is computed and selected on the device
-    into ``t``'s tensors IN PLACE, so the trigger costs no host read."""
-    return chain_compact_fused(t, chain_dirty(t) > t.dirty_cap)
+    ``lax.cond``; here the ``chain_compact`` launch reads the dirty count on
+    the device and returns at once below the window, IN PLACE, so the
+    trigger costs no host read."""
+    from repro_torch.kernels import probe
+    probe.chain_compact(_chain_fields(t), t.hfn, t.nbuckets,
+                        dirty_cap=t.dirty_cap)
+    return t
 
 
 def _chain_insert_fused_compacting(t: ChainTable, keys, vals, mask, *,
@@ -631,13 +640,10 @@ def _fresh_chain(t: ChainTable, seed) -> ChainTable:
                               device=dev)
 
 
-# the salt offset each hash function of a table takes at a reseed (b's as
-# in the reference, so the reseeded seeds are the reference's)
-SALT_OFFSET = {"hfn": 0, "hfn_a": 0, "hfn_b": 0x5851F42}
-# what ``clear`` writes into a table's tensor fields, where it is not 0:
-# "desc" is n - 1 - i (the chain free stack), "arena" the arena's size
-CLEAR_FILL = {"anext": -1, "heads": -1, "free_stack": "desc",
-              "free_top": "arena"}
+# the salt offset of each hash function at a reseed (b's as in the
+# reference, so the reseeded seeds are the reference's)
+ONE_FN_SALTS = {"hfn": 0}
+TWO_ROW_SALTS = {"hfn_a": 0, "hfn_b": 0x5851F42}
 
 
 def _reseed_one(t, salt):
@@ -647,22 +653,24 @@ def _reseed_one(t, salt):
 def _reseed_two(t, salt):
     """Both functions of a two-row table."""
     return replace(
-        t, hfn_a=hashing.reseed(t.hfn_a, salt + SALT_OFFSET["hfn_a"]),
-        hfn_b=hashing.reseed(t.hfn_b, salt + SALT_OFFSET["hfn_b"]))
+        t, hfn_a=hashing.reseed(t.hfn_a, salt + TWO_ROW_SALTS["hfn_a"]),
+        hfn_b=hashing.reseed(t.hfn_b, salt + TWO_ROW_SALTS["hfn_b"]))
 
 
 def epoch_leaves(t) -> list:
     """Every tensor leaf of a table (the claim words aside: scratch, equal in
-    both tables between launches), each with what ``clear`` and ``reseed``
-    write into it at a rebuild start (``probe.epoch_swap``'s specs): its
-    ``CLEAR_FILL``, or a hash function's seeds with its ``SALT_OFFSET``."""
+    both tables between launches), each with what its descriptor's
+    ``clear`` and ``reseed`` write into it at a rebuild start
+    (``probe.epoch_swap``'s specs): the ``clear_fill``, or a hash
+    function's seeds with its ``salt_offsets`` entry."""
+    be = of_table(t)
     out = []
     for f in dataclasses.fields(t):
         v = getattr(t, f.name)
         if isinstance(v, hashing.HashFn):
-            out.append((v.seeds, ("seeds", v.kind, SALT_OFFSET[f.name])))
+            out.append((v.seeds, ("seeds", v.kind, be.salt_offsets[f.name])))
         elif isinstance(v, torch.Tensor) and f.name != "claim":
-            fill = CLEAR_FILL.get(f.name, 0)
+            fill = be.clear_fill.get(f.name, 0)
             spec = ("desc",) if fill == "desc" else \
                 ("fill", t.arena if fill == "arena" else fill)
             out.append((v, spec))
@@ -742,6 +750,7 @@ LINEAR = register(BucketBackend(
     make=_make_linear,
     fresh_like=_fresh_linear,
     reseed=_reseed_one,
+    salt_offsets=ONE_FN_SALTS,
     capacity_of=lambda t: t.capacity,
     with_state=lambda t, s: replace(t, state=s),
     lookup=buckets.linear_lookup,
@@ -772,6 +781,7 @@ TWOCHOICE = register(BucketBackend(
     make=_make_twochoice,
     fresh_like=_fresh_twochoice,
     reseed=_reseed_two,
+    salt_offsets=TWO_ROW_SALTS,
     capacity_of=lambda t: t.nbuckets * t.width,
     with_state=lambda t, s: replace(t, state=s),
     lookup=buckets.twochoice_lookup,
@@ -797,6 +807,7 @@ CUCKOO = register(BucketBackend(
     make=_make_cuckoo,
     fresh_like=_fresh_cuckoo,
     reseed=_reseed_two,
+    salt_offsets=TWO_ROW_SALTS,
     capacity_of=lambda t: 2 * t.nbuckets * t.width,
     with_state=lambda t, s: replace(t, state=s),
     lookup=buckets.cuckoo_lookup,
@@ -822,6 +833,7 @@ CHAIN = register(BucketBackend(
     make=_make_chain,
     fresh_like=_fresh_chain,
     reseed=_reseed_one,
+    salt_offsets=ONE_FN_SALTS,
     capacity_of=lambda t: t.arena,
     with_state=lambda t, s: replace(t, astate=s),
     lookup=buckets.chain_lookup,
@@ -830,6 +842,8 @@ CHAIN = register(BucketBackend(
     extract_chunk=buckets.chain_extract_chunk,
     count_live=buckets.chain_count_live,
     clear=buckets.chain_clear,
+    clear_fill={"anext": -1, "heads": -1, "free_stack": "desc",
+                "free_top": "arena"},
     count_tomb=_chain_count_tomb,
     probe_cost=_chain_probe_cost,
     slots_for=_chain_slots_for,

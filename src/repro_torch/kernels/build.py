@@ -21,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("probe_lookup", "probe2", "probe_insert", "extract", "tc_lookup",
            "tc_insert", "tc_probe2", "chain_probe", "chain_probe2",
-           "cuckoo_kick", "epoch_swap")
+           "cuckoo_kick", "epoch_swap", "chain_compact")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,7 +36,7 @@ _ARGTYPES = {
     "dhash_extract": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P],
     "dhash_tc_lookup": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P],
     "dhash_tc_insert": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
-                        _P, _P, _P, _P, _P, _I, _P],
+                        _P, _P, _P, _P, _P, _P],
     "dhash_tc_probe2": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I,
                         _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
     "dhash_chain_probe": [_P] * 5 + [_I] + [_P] * 6 + [_I] * 3 + [_P] * 4,
@@ -45,6 +45,7 @@ _ARGTYPES = {
     "dhash_cuckoo_kick": [_P] * 3 + [_I] * 2 + [_P] * 7 + [_I] * 2
     + [_P, _I, _P, _I] + [_P] * 5,
     "dhash_epoch_swap": [_P, _I, _P, _I] + [_P] * 5 + [_L, _I, _I, _P, _P],
+    "dhash_chain_compact": [_P] * 10 + [_I] * 3 + [_P, _P, _I, _P, _P],
 }
 _ENTRY = {s: f"dhash_{s}" for s in SOURCES}
 

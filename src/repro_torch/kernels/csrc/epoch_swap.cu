@@ -23,7 +23,7 @@
 // each of its hash functions is reseeded from epoch + 1 (the epoch after
 // the swap) plus its salt offset, as hashing.reseed does, and rebuilding
 // rises with the cursor at 0.  Chain's freeze of the old arena at a start
-// is the caller's (a compaction in plain PyTorch, selected on `go[1]`).
+// is the caller's (a chain_compact launch guarded on `go[1]`).
 //
 // Two kernels in one call: one block decides and writes go[0] = swap and
 // go[1] = start, then the exchange.  Its block 0 handles the hash seeds

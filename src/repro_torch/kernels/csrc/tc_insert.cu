@@ -40,9 +40,9 @@
 //      found no free lane for any query: rows only fill, so no later round
 //      can place one.
 //
-// The other form, one block for the whole batch (`form` 1: presence, the
-// list and every round in one block), is kept for timing against the split;
-// chip_smoke.py times both.  States, claim words and list entries that
+// (One block for the whole batch, presence, the list and every round, was
+// timed against this split and was 5-6x slower at the main path's Q; PERF.md
+// keeps its times.)  States, claim words and list entries that
 // another block or launch wrote are read with __ldcg (from L2); a row is
 // read as 16-byte loads where W allows.  Nothing depends on the order in
 // which threads run, so the result is deterministic.  The claim words
@@ -65,7 +65,6 @@
 
 #define TC_THREADS 256
 #define TC_RESOLVE_THREADS 256
-#define TC_TAIL_THREADS 1024
 
 // slot values of a query after the bid: not pending, or pending without a
 // lane in row a
@@ -214,57 +213,15 @@ __global__ void __launch_bounds__(TC_RESOLVE_THREADS) tc_insert_resolve(
                  max_rounds, okf, slot, list);
 }
 
-// The one-block form: presence, the ordered list of pending queries and
-// every round in one block.
-template <bool VEC>
-__global__ void __launch_bounds__(TC_TAIL_THREADS) tc_insert_one_block(
-    int* tk, int* tv, int* ts, int* claim, int W,
-    const int* __restrict__ rows_a, const int* __restrict__ rows_b,
-    const int* __restrict__ keys, const int* __restrict__ vals,
-    const uint8_t* __restrict__ mask, int Q, int max_rounds, uint8_t* okf,
-    uint8_t* present, int* bid, int* list) {
-  __shared__ int warp_tot[32];
-  __shared__ int n_sh[2];
-  const int t = threadIdx.x;
-  for (int i = t; i < Q; i += blockDim.x) {
-    bool there = false;
-    if (mask[i])
-      there = tc_present<VEC>(tk, ts, rows_a[i], rows_b[i], W, keys[i]);
-    present[i] = there ? 1 : 0;
-    okf[i] = 0;
-  }
-  if (t == 0) n_sh[0] = 0;
-  __syncthreads();
-  if (max_rounds < 1) return;
-  dhash_block_compact(
-      Q, [&](int i) { return mask[i] && !present[i]; }, list, warp_tot,
-      n_sh);
-  const int n = n_sh[0];
-  if (n == 0) return;
-  tc_rounds<VEC>(tk, tv, ts, claim, W, rows_a, rows_b, keys, vals, n, 0,
-                 max_rounds, okf, bid, list);
-}
-
 extern "C" int dhash_tc_insert(
     int* tk, int* tv, int* ts, int* claim, int W, const int* rows_a,
     const int* rows_b, const int* keys, const int* vals, const uint8_t* mask,
     int Q, int max_rounds, uint8_t* okf, uint8_t* present, int* slot,
-    int* list, int* count, int form, void* stream) {
+    int* list, int* count, void* stream) {
   if (W < 1 || W > DHASH_MAX_WIDTH) return (int)cudaErrorInvalidValue;
   if (Q < 1) return (int)cudaSuccess;
   const bool vec = dhash_rows_vec_ok(W, tk, ts);
   cudaStream_t s = (cudaStream_t)stream;
-  if (form == 1) {
-    if (vec)
-      tc_insert_one_block<true><<<1, TC_TAIL_THREADS, 0, s>>>(
-          tk, tv, ts, claim, W, rows_a, rows_b, keys, vals, mask, Q,
-          max_rounds, okf, present, slot, list);
-    else
-      tc_insert_one_block<false><<<1, TC_TAIL_THREADS, 0, s>>>(
-          tk, tv, ts, claim, W, rows_a, rows_b, keys, vals, mask, Q,
-          max_rounds, okf, present, slot, list);
-    return (int)cudaGetLastError();
-  }
   const int blocks = (Q + TC_THREADS - 1) / TC_THREADS;
   if (vec)
     tc_insert_bid<true><<<blocks, TC_THREADS, 0, s>>>(

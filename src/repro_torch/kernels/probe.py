@@ -29,15 +29,20 @@ wrapper               replaces (src/repro/kernels/probe.py)      source
 ``epoch_swap``        no Pallas kernel: the reference's XLA      epoch_swap.cu
                       ``finish_same_shape`` and
                       ``rebuild_autostart``
+``chain_compact``     no Pallas kernel: the reference's XLA      chain_compact.cu
+                      ``chain_compact_fused`` behind
+                      ``lax.cond`` (``chain_maybe_compact``,
+                      the freeze at a start)
 ====================  =========================================  ============
 
 The first four serve the linear backend; the three ``tc_*`` kernels serve
 twochoice and cuckoo (cuckoo passes side-offset rows of its [2B, W] table);
 the two ``chain_*`` kernels serve chain, whose chunk scan is ``extract`` on
-the flat node arena.  ``cuckoo_kick`` is the cuckoo insert's bounded kick-out
-and ``epoch_swap`` the engine step's epoch swap and rebuild start, both
-guarded by flags computed on the device, so that a step inside a rebuild
-epoch never asks the host (``extract`` takes two such flags too).
+the flat node arena.  ``cuckoo_kick`` is the cuckoo insert's bounded
+kick-out, ``epoch_swap`` the engine step's epoch swap and rebuild start and
+``chain_compact`` the chain arena's compaction, each guarded by flags
+computed on the device, so that a step inside a rebuild epoch never asks
+the host (``extract`` takes two such flags too).
 
 What bounds each kernel on an H100 and what its design does about it is
 written at the top of its ``.cu`` file; in short: ``probe_lookup`` — bytes
@@ -57,7 +62,10 @@ segment scan a query, the dirty tail staged in shared memory);
 hazard buffer and both dirty tails staged as hashed sets in shared memory,
 ``dhash_set_*`` in ``dhash_common.cuh``); ``cuckoo_kick`` — latency (one
 block, a few rows a pending key an iteration); ``epoch_swap`` — bytes once
-an epoch, launch latency on every other step.
+an epoch, launch latency on every other step; ``chain_compact`` — bytes
+where it runs (no sort of the arena: the sorted runs give most nodes their
+place, one block ranks the dirty tail), launch latency where its guard is
+off.
 
 What the TPU design needed and these kernels do not have: a padded copy of
 the table (a thread wraps its own probe), a query sort, query tiles, a
@@ -72,7 +80,7 @@ signature and the same in-place behaviour in plain PyTorch.  A wrapper takes
 the plain version only when the tensors it was given lie on the CPU; for CUDA
 tensors it launches the kernel or raises.  ``<wrapper>.launches`` counts the
 kernel launches (and nothing else); ``reset_launches`` / ``launch_counts``
-set and read all eleven.  ``kick_tally`` reads a device counter the kick-out
+set and read all twelve.  ``kick_tally`` reads a device counter the kick-out
 kernel adds to (launches that found pending keys, iterations, keys taken),
 for a harness; it is zeroed with the launch counts.
 
@@ -96,7 +104,7 @@ EXTRACT_MAX_CHUNK = 4096
 
 KERNELS = ("probe_lookup", "probe2", "probe_insert", "extract", "tc_lookup",
            "tc_insert", "tc_probe2", "chain_probe", "chain_probe2",
-           "cuckoo_kick", "epoch_swap")
+           "cuckoo_kick", "epoch_swap", "chain_compact")
 MAX_WIDTH = 32              # widest row the tc_* kernels take
 MAX_DIRTY = 512             # widest dirty-tail window the chain_* kernels stage
 
@@ -489,10 +497,10 @@ def tc_lookup(tkey, tval, tstate, rows_a, rows_b, qkey):
 # ---------------------------------------------------------------------------
 
 def tc_insert_plain(tkey, tval, tstate, rows_a, rows_b, keys, vals, mask,
-                    max_rounds: int, claim=None, form: int = 0):
+                    max_rounds: int, claim=None):
     """Plain version of ``tc_insert`` (``ref.tc_insert_ref`` written back);
-    mutates tkey/tval/tstate in place.  ``claim`` and ``form`` are accepted
-    for signature parity and not used."""
+    mutates tkey/tval/tstate in place.  ``claim`` is accepted for signature
+    parity and not used."""
     fa, _, _ = ref.tc_row_lookup_ref(tkey, tval, tstate, rows_a, keys)
     fb, _, _ = ref.tc_row_lookup_ref(tkey, tval, tstate, rows_b, keys)
     k, v, s, ok = ref.tc_insert_ref(tkey, tval, tstate, rows_a, rows_b, keys,
@@ -504,7 +512,7 @@ def tc_insert_plain(tkey, tval, tstate, rows_a, rows_b, keys, vals, mask,
 
 
 def tc_insert(tkey, tval, tstate, rows_a, rows_b, keys, vals, mask,
-              max_rounds: int, claim=None, form: int = 0):
+              max_rounds: int, claim=None):
     """Batched claim-a-lane two-row insert on a [B, W] table; MUTATES
     tkey/tval/tstate.
 
@@ -520,9 +528,7 @@ def tc_insert(tkey, tval, tstate, rows_a, rows_b, keys, vals, mask,
 
     Caller contract: ``mask`` is winner-filtered.  ``claim`` is the table's
     claim words (``new_claim(B)``, one a row); without them fresh words are
-    allocated for this call.  ``form`` 1 runs the whole batch in one block
-    instead (slower; kept for timing against the split).  Returns (ok[Q]
-    bool, present[Q] bool)."""
+    allocated for this call.  Returns (ok[Q] bool, present[Q] bool)."""
     if tkey.device.type == "cpu":
         return tc_insert_plain(tkey, tval, tstate, rows_a, rows_b, keys, vals,
                                mask, max_rounds)
@@ -543,7 +549,7 @@ def tc_insert(tkey, tval, tstate, rows_a, rows_b, keys, vals, mask,
         count = torch.empty(2, dtype=I32, device=dev)
         _launch("tc_insert", tc_insert, dev, tkey, tval, tstate, claim, w,
                 rows_a, rows_b, keys, vals, mask, q, max_rounds, ok, present,
-                slot, lst, count, form)
+                slot, lst, count)
     return ok, present
 
 
@@ -842,6 +848,63 @@ def cuckoo_kick(tkey, tval, tstate, rows_a, rows_b, hfn_a, hfn_b,
                 hfn_b.seeds, hashing.HASH_KINDS.index(hfn_b.kind), claim, lst,
                 plan, _kick_tally(dev))
     return ok
+
+
+# ---------------------------------------------------------------------------
+# chain_compact
+# ---------------------------------------------------------------------------
+
+def _compact_guard(free_top, sorted_upto, n: int, where, dirty_cap: int):
+    """The compaction's guard as a 0-dim bool, or None when it always runs."""
+    run = where
+    if dirty_cap >= 0:
+        over = (n - free_top - sorted_upto) > dirty_cap
+        run = over if run is None else run & over
+    return run
+
+
+def chain_compact_plain(fields, hfn, nbuckets: int, where=None,
+                        dirty_cap: int = -1):
+    """Plain version of ``chain_compact``: ``ops.chain_compact_fused`` (one
+    stable sort of the arena) computed, and taken with ``torch.where`` where
+    the guard holds, IN PLACE."""
+    from repro_torch.kernels import ops
+    akey, aval, astate, *_ = fields
+    run = _compact_guard(fields[6], fields[9], akey.numel(), where,
+                         dirty_cap)
+    new = ops.chain_compact_fused(akey, aval, astate,
+                                  hashing.bucket_of(hfn, akey, nbuckets),
+                                  nbuckets=nbuckets)
+    for dst, src in zip(fields, new):
+        dst.copy_(src if run is None else torch.where(run, src, dst))
+
+
+def chain_compact(fields, hfn, nbuckets: int, where=None,
+                  dirty_cap: int = -1):
+    """The chain arena's compaction, guarded on the device, IN PLACE.
+
+    ``fields`` are a chain table's (akey, aval, astate, anext, heads,
+    free_stack, free_top, bstart, blen, sorted_upto), ``hfn`` its hash
+    function over ``nbuckets`` buckets.  It runs where ``where`` (a 0-dim
+    bool on the device, or None) is set and, with ``dirty_cap`` >= 0, the
+    dirty tail is longer than ``dirty_cap``; elsewhere the launch returns at
+    once.  Where it runs it writes what ``ops.chain_compact_fused`` returns:
+    the live nodes packed in (bucket, arena index) order, the links, the
+    free stack, the bucket offsets (``csrc/chain_compact.cu``: no sort of the
+    arena; it reads the layout the last compaction left)."""
+    akey = fields[0]
+    if akey.device.type == "cpu":
+        return chain_compact_plain(fields, hfn, nbuckets, where, dirty_cap)
+    _check(*((f, I32) for f in fields), (hfn.seeds, torch.int64))
+    if where is not None:
+        _check((where, torch.bool))
+        if where.numel() != 1:
+            raise ValueError("chain_compact: the flag must be one bool")
+    n, dev = akey.numel(), akey.device
+    scratch = torch.empty(2 + 3 * nbuckets + 5 * n, dtype=I32, device=dev)
+    _launch("chain_compact", chain_compact, dev, *fields, n, nbuckets,
+            hashing.HASH_KINDS.index(hfn.kind), hfn.seeds, where, dirty_cap,
+            scratch)
 
 
 # ---------------------------------------------------------------------------

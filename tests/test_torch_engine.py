@@ -23,6 +23,7 @@ from repro.core.engine import DHashEngine as JEngine  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import backend as tbe  # noqa: E402
 from repro_torch.core import dhash as tdhash  # noqa: E402
+from repro_torch.core import struct_utils  # noqa: E402
 from repro_torch.core.engine import DHashEngine as TEngine  # noqa: E402
 from test_torch_convert import jax_state_tree  # noqa: E402
 from test_torch_dhash import compare_states  # noqa: E402
@@ -352,3 +353,37 @@ def test_requested_epoch_ends_between_polls_against_oracle_and_reference():
     f, v = port.lookup(live)
     assert bool(f.all()) and v.tolist() == [final[k] for k in live.tolist()]
     compare_states(port.state, plain.state, fused.state, "end")
+
+
+@pytest.mark.parametrize("backend", ["linear", "twochoice", "cuckoo", "chain"])
+def test_epoch_leaves_specs_reproduce_clear_and_reseed(backend):
+    """What the epoch swap writes into the standby at a rebuild start, read
+    from ``epoch_leaves``' specs (the descriptor's ``clear_fill`` and
+    ``salt_offsets``), equals the descriptor's own ``clear`` after
+    ``reseed`` from the new epoch + 1, on a table holding keys."""
+    from repro_torch.core import backend as be
+    from repro_torch.kernels import probe
+    desc = be.get(backend)
+    d = tdhash.make(backend, capacity=96, chunk=32, seed=4, fused=True,
+                    device="cpu")
+    keys = torch.arange(1, 61, dtype=torch.int32) * 7
+    for t in (d.old, d.new):
+        t2, _ = desc.insert(t, keys, keys * 3,
+                            torch.ones(60, dtype=torch.bool))
+        struct_utils.assign_(t, t2)
+    epoch = torch.tensor(6, dtype=torch.int32)
+    want = desc.clear(desc.reseed(d.new, epoch + 1))
+    assert int(desc.count_live(d.new)) > 0
+    lo, ln = be.epoch_leaves(d.old), be.epoch_leaves(d.new)
+    go = probe.epoch_swap_plain(
+        [x for x, _ in lo], [x for x, _ in ln], [s for _, s in lo],
+        torch.zeros_like(d.hazard_live), torch.tensor(0, dtype=torch.int32),
+        torch.tensor(False), epoch, torch.tensor(0, dtype=torch.int32),
+        torch.tensor(0, dtype=torch.int32), desc.capacity_of(d.old),
+        False, True)
+    assert go.tolist() == [False, True]
+    got = [x for x, _ in be.epoch_leaves(d.new)]
+    exp = [x for x, _ in be.epoch_leaves(want)]
+    assert len(got) == len(exp)
+    for i, (a, b) in enumerate(zip(got, exp)):
+        assert torch.equal(a, b), (backend, i)

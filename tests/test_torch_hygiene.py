@@ -96,16 +96,23 @@ def test_the_two_row_kernel_sources_exist_and_share_the_hazard_stage():
 
 
 def test_the_nine_kernels_and_the_chain_sources():
-    """The nine ported kernels and the two guarded ones (the cuckoo
-    kick-out, the epoch swap), one source each; the chain kernels resolve
-    every query in the kernel (tail stage, segment scan, bounded walk);
+    """The nine ported kernels and the three guarded ones (the cuckoo
+    kick-out, the epoch swap, the chain compaction), one source each; the
+    compaction takes its guard on the device and sorts no arena (a bucket's
+    thread ranks its few tail nodes, one block the rest); the chain kernels
+    resolve every query in the kernel (tail stage, segment scan, bounded
+    walk);
     chain_probe keeps the dense tail stage, chain_probe2 stages the hazard
     buffer and both tail windows as hashed sets, as tc_probe2 stages its
     hazard buffer."""
     from repro_torch.kernels import build, probe
-    assert len(probe.KERNELS) == len(set(probe.KERNELS)) == 11
+    assert len(probe.KERNELS) == len(set(probe.KERNELS)) == 12
     assert probe.KERNELS == build.SOURCES
     assert set(build._ENTRY.values()) == set(build._ARGTYPES)
+    src = (CSRC / "chain_compact.cu").read_text()
+    assert 'extern "C" int dhash_chain_compact(' in src
+    assert "if (!go[0]) return;" in src and "dirty > dirty_cap" in src
+    assert "Sort" not in src and "cc_tail<<<1," in src
     for k in ("chain_probe", "chain_probe2"):
         src = (CSRC / f"{k}.cu").read_text()
         assert "__global__" in src and f'extern "C" int dhash_{k}(' in src, k
@@ -145,8 +152,7 @@ def test_tc_insert_has_no_grid_barrier_and_no_kick_out_read_is_left():
     for gone in ("cudaLaunchCooperativeKernel", "grid.sync",
                  "cooperative_groups", "this_grid"):
         assert gone not in src, gone
-    for kern in ("tc_insert_bid<", "tc_insert_resolve<", "tc_rounds<",
-                 "tc_insert_one_block<"):
+    for kern in ("tc_insert_bid<", "tc_insert_resolve<", "tc_rounds<"):
         assert kern in src, kern
     for name in ("kick_gate", "kick_pending", "kick_counts"):
         assert not hasattr(probe, name), name

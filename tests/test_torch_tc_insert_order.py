@@ -9,12 +9,12 @@ queries go to a list in no particular order); rounds 1 .. max_rounds-1 run
 in one block over the list (the resolve launch's last block to finish),
 with barriers between a round's bids, its reads of the claim words and its
 writes, and end when nothing is pending or two rounds in a row found no
-free lane.  The other form runs everything in one block.  ``model_tc_insert`` below is both forms in numpy, step for step,
-with the resolve's list in a shuffled order; it must equal the reference's
-``tc_insert_ref`` (JAX and port) and ``tc_insert_plain`` slot for slot on
-seeded tables with TOMB and MIGRATED lanes: a hot row pair, rows a == b,
-widths 4 and 8, two and eight rounds, 2048 keys on one row, a full table,
-one query.  A model that took round 1's lanes from the table before round 0
+free lane.  ``model_tc_insert`` below is that resolution in numpy, step
+for step, with the resolve's list in a shuffled order; it must equal the
+reference's ``tc_insert_ref`` (JAX and port) and ``tc_insert_plain`` slot
+for slot on seeded tables with TOMB and MIGRATED lanes: a hot row pair, rows
+a == b, widths 4 and 8, two and eight rounds, 2048 keys on one row, a full
+table, one query.  A model that took round 1's lanes from the table before round 0
 (no barrier between the two) departs from it.  Tolerance 0.  The card holds
 the kernel to ``tc_insert_plain`` on the same kinds of input
 (``chip_smoke.py``).
@@ -48,7 +48,7 @@ def first_free(ts, row: int) -> int:
 
 
 def model_tc_insert(tk, tv, ts, ra, rb, keys, vals, mask, R: int, *,
-                    form: int = 0, rng=None, stale_round1: bool = False):
+                    rng=None, stale_round1: bool = False):
     """The kernel's resolution in numpy.  Returns (key, val, state, ok,
     present).  ``rng`` shuffles the order in which the resolve appends to
     the list; ``stale_round1`` makes the tail's round 1 read the table as it
@@ -71,34 +71,28 @@ def model_tc_insert(tk, tv, ts, ra, rb, keys, vals, mask, R: int, *,
         tk.flat[s], tv.flat[s], ts.flat[s] = keys[i], vals[i], LIVE
         ok[i] = True
 
-    if form == 0:
-        # bid launch: the table before the batch
-        slot = np.full(Q, IDLE, np.int64)
-        for i in range(Q):
-            if mask[i] and not present[i] and R > 0:
-                lane = first_free(ts, ra[i])
-                slot[i] = NO_LANE if lane < 0 else ra[i] * W + lane
-                if lane >= 0:
-                    claim[ra[i]] = min(claim[ra[i]], i)
-        # resolve launch, in an order of its own
-        order = rng.permutation(Q) if rng is not None else np.arange(Q)
-        pending = []
-        for i in order:
-            s = slot[i]
-            if s >= 0 and claim[s // W] == i:
-                write(s, i)
-                claim[s // W] = FREE
-            elif s != IDLE and R > 1:
-                pending.append(i)
-        first = 1
-    else:
-        pending = [i for i in range(Q) if mask[i] and not present[i]] \
-            if R > 0 else []
-        first = 0
+    # bid launch: the table before the batch
+    slot = np.full(Q, IDLE, np.int64)
+    for i in range(Q):
+        if mask[i] and not present[i] and R > 0:
+            lane = first_free(ts, ra[i])
+            slot[i] = NO_LANE if lane < 0 else ra[i] * W + lane
+            if lane >= 0:
+                claim[ra[i]] = min(claim[ra[i]], i)
+    # resolve launch, in an order of its own
+    order = rng.permutation(Q) if rng is not None else np.arange(Q)
+    pending = []
+    for i in order:
+        s = slot[i]
+        if s >= 0 and claim[s // W] == i:
+            write(s, i)
+            claim[s // W] = FREE
+        elif s != IDLE and R > 1:
+            pending.append(i)
     # the tail block
     placed = np.zeros(len(pending), bool)
     dry = 0
-    for r in range(first, R):
+    for r in range(1, R):
         view = before if (stale_round1 and r == 1) else ts
         bid = np.full(len(pending), -1, np.int64)
         for j, i in enumerate(pending):
@@ -194,13 +188,12 @@ def test_model_equals_the_references_slot_for_slot(case, W, live, rounds):
     ra, rb, keys, vals, mask = batch(case, B, W, tk, ts, rng)
     j, t, p, present = references(tk, tv, ts, ra, rb, keys, vals, mask,
                                   rounds)
-    for form in (0, 1):
-        got = model_tc_insert(tk, tv, ts, ra, rb, keys, vals, mask, rounds,
-                              form=form, rng=rng)
-        for name, want in (("jax", j), ("port", t), ("plain", p)):
-            for a, b, n in zip(got[:4], want, ("key", "val", "state", "ok")):
-                assert np.array_equal(a, b), (form, name, n)
-        assert np.array_equal(got[4], present), form
+    got = model_tc_insert(tk, tv, ts, ra, rb, keys, vals, mask, rounds,
+                          rng=rng)
+    for name, want in (("jax", j), ("port", t), ("plain", p)):
+        for a, b, n in zip(got[:4], want, ("key", "val", "state", "ok")):
+            assert np.array_equal(a, b), (name, n)
+    assert np.array_equal(got[4], present)
     if case == "full":
         assert not got[3].any()
     elif case != "one_query" or live < 1:
