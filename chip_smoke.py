@@ -9,8 +9,8 @@ for an H100) and the CUDA toolkit:
     python3 chip_smoke.py --profile build/profile.txt  # + profiler tables
     python3 chip_smoke.py --baseline OTHER/build/repro_torch_kernels
         # phase 2 also runs another tree's probe2, probe_insert, tc_insert,
-        # tc_probe2, chain_probe and chain_probe2 on its timed batches, in
-        # turns with this tree's
+        # tc_probe2, chain_probe, chain_probe2 and chain_compact on its
+        # timed inputs, in turns with this tree's
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
 
@@ -22,7 +22,7 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
    a partial last chunk, killed hazard entries, a new table 4x the old with
    a bucket count that is not a power of two; for chain hits in the sorted
    segments and the dirty tail, a segment longer than max_chain, a tail
-   longer than the window, empty buckets; for the three kernels that stage
+   longer than the window, empty buckets; for the four kernels that stage
    their buffers as hashed sets, duplicate live hazard keys with dead
    entries between them, an empty and a full hazard buffer, a buffer whose
    keys all share one home slot of the index, duplicate live keys and dead
@@ -36,7 +36,10 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
    rounds; the cuckoo kick-out at the main path's
    load, under a flood, on a crowded table and with nothing pending; the
    guarded extract and the epoch swap on every backend's tables, flags set
-   and not), and times kernel and plain version;
+   and not; the chain compaction after a user insert, with its guard off,
+   on a full arena, on floods of one bucket and of eight buckets in eight
+   tiles, on listed buckets at tile edges and on a tail of dead nodes), and
+   times kernel and plain version;
 3. drives the main path of each backend — ``dhash.make(backend,
    fused=True)`` with ``backend`` linear (a), twochoice (b), cuckoo (c) and
    chain (d) at the unreduced ``dhash-paper`` size under ``DHashEngine``
@@ -68,6 +71,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -132,7 +136,7 @@ def log(*a):
 OUTPUTS = ("found", "val", "f_old", "loc_old", "hz_idx", "loc_new")
 # the kernels --baseline runs from another tree, in turns with this tree's
 BASELINE_KERNELS = ("probe2", "probe_insert", "tc_insert", "tc_probe2",
-                    "chain_probe", "chain_probe2")
+                    "chain_probe", "chain_probe2", "chain_compact")
 SET_LOOKUP_OPS = 4      # a staged-set lookup: hash, probe, compare, select
 
 
@@ -223,7 +227,26 @@ def load_baseline(path: str) -> dict:
         out[name] = fn
     out["probe_insert"] = baseline_insert(out["probe_insert"])
     out["tc_insert"] = baseline_tc_insert(out["tc_insert"])
+    out["chain_compact"] = baseline_compact(out["chain_compact"])
     return out
+
+
+def baseline_compact(fn):
+    """Another tree's ``dhash_chain_compact`` entry point ``fn`` for this
+    tree's wrapper to call: the same arguments, but a scratch of the
+    largest layout that tree may have, 3 + 3 nb + 5 n words (the one-block
+    scan's; this tree's wrapper sizes the scratch for its own kernel)."""
+    scratch = {}
+
+    def call(*argv):
+        n, nb = argv[10], argv[11]
+        if (n, nb) not in scratch:
+            scratch[n, nb] = torch.empty(3 + 3 * nb + 5 * n,
+                                         dtype=torch.int32, device="cuda")
+        argv = list(argv)
+        argv[16] = scratch[n, nb].data_ptr()
+        return fn(*argv)
+    return call
 
 
 def baseline_insert(fn):
@@ -367,6 +390,15 @@ def time_ms(fn, reps: int, setup=None, queue_ahead: bool = True) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in evs)
 
 
+def port_kernel_names() -> set:
+    """The names of the ``__global__`` functions of the port's sources."""
+    from repro_torch.kernels import build
+    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+                     r"(\w+)")
+    return {m.group(1) for p in build.CSRC.glob("*.cu")
+            for m in pat.finditer(p.read_text())}
+
+
 def profile_steps(eng, oracle, cfg, n_steps: int, step0: int, path: str):
     """``n_steps`` more engine steps under torch.profiler; writes the kernel
     table and the device's busy share to ``path``."""
@@ -395,6 +427,17 @@ def profile_steps(eng, oracle, cfg, n_steps: int, step0: int, path: str):
     # and the oracle's four outputs a step; anything more is a read the
     # engine does not count
     d2h = sum(e.count for e in ka if e.key.startswith("Memcpy DtoH"))
+    # the port's own kernels, each a row whatever its rank in the table
+    names = port_kernel_names()
+    rows = []
+    for e in ka:
+        m = re.match(r"(?:void )?(\w+)", e.key)
+        if e.device_type == DeviceType.CUDA and m and m.group(1) in names:
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+            rows.append(f"  {m.group(1)}: {e.count} launches, "
+                        f"{us / max(e.count, 1):.3f} us a launch, "
+                        f"{us / n_steps:.3f} us a step")
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         f.write(f"{n_steps} steps, wall {wall_ms:.1f} ms (with the host "
@@ -402,6 +445,9 @@ def profile_steps(eng, oracle, cfg, n_steps: int, step0: int, path: str):
                 f"PyTorch ops {cpu_us / 1e3:.1f} ms, {d2h} device-to-host "
                 f"copies\n")
         f.write(ka.table(sort_by="self_cuda_time_total", row_limit=40))
+        f.write("\nthe port's kernels:\n" + "\n".join(sorted(rows)) + "\n")
+    for row in sorted(rows):
+        log("   " + row)
     log(f"  profile of {n_steps} steps: device busy "
         f"{dev_us / 1e3 / n_steps:.3f} ms a step, host time in PyTorch ops "
         f"{cpu_us / 1e3 / n_steps:.3f} ms a step, device-to-host copies "
@@ -1461,10 +1507,50 @@ def phase_chain_kernels(device, cfg, reps: int, baseline=None) -> dict:
         # (SET_LOOKUP_OPS) for each query its segment did not settle
         **bound(Q * 16 + nodes * 8 + int(need.sum()) * 4 + hits * 4 + Q * 9,
                 2 * nodes + SET_LOOKUP_OPS * lookups))
-    if baseline is not None:
-        res["chain_probe"]["cases"] = compare_cases(
-            "chain_probe", probe.chain_probe, probe.chain_probe_plain,
-            {"phase-2": args}, reps, baseline, ("found", "val", "loc"))
+
+    # -- chain_probe on the staged set's own cases: duplicate live keys and
+    #    TOMB / MIGRATED nodes in the tail, an empty tail, a tail whose keys
+    #    all have one home slot of the set's index, an arena of 2^16 + 3
+    #    nodes (segments scanned a node a step: not 16-byte loads), small and
+    #    main-path batches
+    mc, dc = t.max_chain, t.dirty_cap
+
+    def probe_case(table, *key_sets):
+        qk = chain_queries(Q, keys, *key_sets).contiguous()
+        return (*buckets._chain_parts(table),
+                hashing.bucket_of(table.hfn, qk, table.nbuckets), qk, mc, dc)
+    odd, odd_keys = build_chain(device, nb // 16, n // 16 + 3, n // 32, rng,
+                                63, tail=200)
+    o2, okeys = tail_duplicates(old, rng, device)
+    flat = _clone_table(old)
+    probe.chain_compact_plain(backend._chain_fields(flat), flat.hfn, nb)
+    rk = torch.as_tensor(one_run_keys(dc, rng), device=device)
+    rk = rk[~torch.isin(rk, flat.akey)]      # (a key already in the arena)
+    one_run, _ = buckets.chain_insert(
+        _clone_table(flat), rk, rk * 3 + 1, torch.ones_like(rk,
+                                                            dtype=torch.bool))
+    check(int(buckets.chain_dirty(one_run)) == rk.numel() > dc - 16
+          and int(buckets.chain_dirty(flat)) == 0,
+          "chain_probe cases: tails of the one-run and the empty case")
+    pcases = {"phase-2": args,
+              "tail_duplicates": probe_case(o2, okeys, tail),
+              "empty tail": probe_case(flat, tail, hot),
+              "one_run": probe_case(one_run, rk),
+              "odd arena": probe_case(odd, odd_keys)}
+    for q in (1, 33, 256, cfg.updates_per_step // 2, cfg.updates_per_step):
+        pcases[f"phase-2 Q={q}"] = (*args[:3], args[3][:q], args[4][:q], mc,
+                                    dc)
+    res["chain_probe"]["cases"] = compare_cases(
+        "chain_probe", probe.chain_probe, probe.chain_probe_plain, pcases,
+        reps, baseline, ("found", "val", "loc"))
+    tail_hits = {}
+    for label in ("tail_duplicates", "one_run"):
+        a = pcases[label]
+        f, _, loc = probe.chain_probe(*a)
+        tail_hits[label] = int((f & (loc >= a[2][2])).sum())
+    check(min(tail_hits.values()) > Q // 8,
+          f"chain_probe cases: hits in the tail {tail_hits}")
+    log(f"  chain_probe cases ok: hits in the tail {tail_hits}")
 
     # -- chain_probe2: the old arena mid-rebuild, a new arena 4x the old
     #    with its own tail, and the stale old arena whose misses walk
@@ -1535,6 +1621,11 @@ def phase_chain_kernels(device, cfg, reps: int, baseline=None) -> dict:
     n2, nkeys2 = tail_duplicates(new, rng, device)
     cases["tail_duplicates"] = chain_case(
         o2, n2, hk, hv, hl, chain_queries(Q, keys, okeys, nkeys2, hz_live))
+    qk = chain_queries(Q, odd_keys, hz_live, nkeys).contiguous()
+    cases["odd old arena"] = (
+        buckets._chain_parts(odd), buckets._chain_parts(new), hk, hv, hl,
+        hashing.bucket_of(odd.hfn, qk, odd.nbuckets),
+        hashing.bucket_of(new.hfn, qk, 4 * nb), qk, mc, dc)
     for q in (1, 33, 256):
         for label in ("phase-2", "full"):
             a = cases[label]
@@ -1603,7 +1694,7 @@ def cuckoo_table(device, nbuckets: int, n_live: int, rng, seed: int):
     return t
 
 
-def phase_guard_kernels(device, cfg, reps: int) -> dict:
+def phase_guard_kernels(device, cfg, reps: int, baseline=None) -> dict:
     """The three guarded kernels against their plain versions (tolerance 0):
     the cuckoo kick-out at the cuckoo main path's shape (2 x 2^17 rows x 8)
     on the main path's kind of batch, under a flood of 2048 keys on one row,
@@ -1729,7 +1820,7 @@ def phase_guard_kernels(device, cfg, reps: int) -> dict:
     #    long walk), an arena whose every node is tail, an arena with nothing
     #    live; the guard off by its flag and by the dirty count, and on by
     #    the flag (the freeze)
-    res["chain_compact"] = compact_cases(device, cfg, reps, rng)
+    res["chain_compact"] = compact_cases(device, cfg, reps, rng, baseline)
 
     # -- epoch_swap on the main path's tables of every backend
     err, swap = 0, {}
@@ -1829,12 +1920,15 @@ def bucket_keys(t, b: int, n: int, rng, device) -> torch.Tensor:
                                device=device)]
 
 
-def compact_cases(device, cfg, reps: int, rng) -> dict:
+def compact_cases(device, cfg, reps: int, rng, baseline=None) -> dict:
     """``chain_compact`` against its plain version (tolerance 0, all ten
-    arrays) at the chain main path's size (2^20 nodes, 2^16 buckets), and
-    timed: where it runs (after a user insert) and where its guard is off."""
+    arrays) at the chain main path's size (2^20 nodes, 2^16 buckets, tiles
+    of 256 buckets), and timed: where it runs (after a user insert), where
+    its guard is off, and on the floods.  With a baseline the other tree's
+    kernel is held against the plain version on every case too, and the
+    timed cases run in turns (other, this, this, other)."""
     from repro_torch.core import backend, buckets, hashing
-    from repro_torch.kernels import probe
+    from repro_torch.kernels import build, probe
     n, nb, QU = cfg.capacity_per_shard, cfg.capacity_per_shard // 16, \
         cfg.updates_per_step
     cap = backend.get("chain").dirty_cap
@@ -1848,6 +1942,19 @@ def compact_cases(device, cfg, reps: int, rng) -> dict:
             t = t2
         return t
 
+    def fresh_keys(count: int) -> torch.Tensor:
+        k = np.unique(rng.integers(-(1 << 31), (1 << 31) - 1,
+                                   count + count // 8))
+        return torch.as_tensor(rng.permutation(k)[:count].astype(np.int32),
+                               device=device)
+
+    def flooded(seed: int, per_bucket: dict):
+        t, _ = build_chain(device, nb, n, n // 2, rng, seed, tail=QU)
+        fk = torch.cat([bucket_keys(t, b, m, rng, device)
+                        for b, m in per_bucket.items()])
+        return tail_insert(t, fk[torch.as_tensor(rng.permutation(
+            fk.numel()), device=device)])
+
     user, _ = build_chain(device, nb, n, n // 2, rng, 81, tail=QU + cap)
     runs, _ = build_chain(device, nb, n, n // 2, rng, 82, hot=2048, tail=QU)
     flood, _ = build_chain(device, nb, n, n // 2, rng, 83, tail=QU)
@@ -1857,22 +1964,46 @@ def compact_cases(device, cfg, reps: int, rng) -> dict:
     su, end = int(dead.sorted_upto), n - int(dead.free_top)
     dead.astate[su:end].masked_fill_(torch.isin(dead.akey[su:end], fk[40:]),
                                      buckets.TOMB)
+    # eight floods in eight tiles far apart; listed buckets on both sides of
+    # the edge of tiles 0 and 1 (buckets 255 and 256) and in the last bucket;
+    # a tail of dead nodes only; a full arena (live == n, no free node)
+    floods = flooded(86, {9 + k * (nb // 8): 2048 for k in range(8)})
+    edge = flooded(87, {255: 100, 256: 100, nb - 1: 100})
+    tomb = _clone_table(user)
+    su, end = int(tomb.sorted_upto), n - int(tomb.free_top)
+    tomb.astate[su:end] = torch.where(tomb.astate[su:end] == buckets.LIVE,
+                                      buckets.TOMB, tomb.astate[su:end])
+    full = buckets.chain_make(nb, n, hashing.fresh("mix32", 88, device),
+                              device=device)
+    fk = fresh_keys(n)
+    full.akey[:n - QU], full.aval[:n - QU] = fk[:n - QU], fk[:n - QU] * 3 + 1
+    full.astate[:n - QU] = buckets.LIVE
+    probe.chain_compact_plain(backend._chain_fields(full), full.hfn, nb)
+    full = tail_insert(full, fk[n - QU:])
+    check(int(full.free_top) == 0, "chain_compact: the full arena has room")
     fresh = buckets.chain_make(nb, n, hashing.fresh("mix32", 84, device),
                                device=device)
-    fk = torch.as_tensor(np.unique(rng.integers(-(1 << 30), 1 << 30, 70000))
-                         [:65536].astype(np.int32), device=device)
-    fresh = tail_insert(fresh, fk, 4)
+    fresh = tail_insert(fresh, fresh_keys(65536), 4)
     empty = buckets.chain_make(nb, n, hashing.fresh("mix32", 85, device),
                                device=device)
     cases = {"after a user insert": (user, None, cap),
              "2048 nodes in one run": (runs, None, -1),
              "2048 tail nodes in one bucket": (flood, None, cap),
              "2048 tail nodes in one bucket, 40 live": (dead, None, cap),
+             "8 buckets of 2048 tail nodes, 8 tiles": (floods, None, cap),
+             "listed buckets at tile edges": (edge, None, cap),
+             "a tail of dead nodes only": (tomb, None, cap),
+             "full arena": (full, None, -1),
              "every node in the tail": (fresh, None, cap),
              "nothing live": (empty, None, -1),
              "flag off": (user, ~ones[0], -1),
              "within the dirty window": (user, None, 1 << 30),
              "flag on (freeze)": (user, ones[0], -1)}
+    timed = ("after a user insert", "within the dirty window",
+             "2048 tail nodes in one bucket",
+             "8 buckets of 2048 tail nodes, 8 tiles", "full arena")
+    lib = build.load()
+    mine = lib["chain_compact"]
     err, out = 0, {}
     for label, (t, where, dcap) in cases.items():
         f0 = backend._chain_fields(t)
@@ -1888,23 +2019,63 @@ def compact_cases(device, cfg, reps: int, rng) -> dict:
             check(moved != off, f"chain_compact {label}: ran={moved}")
         out[label] = dict(ran=moved, live=int(b[9]),
                           tail=n - int(f0[6]) - int(f0[9]))
+        if baseline is not None:
+            try:
+                lib["chain_compact"] = baseline["chain_compact"]
+                c = [x.clone() for x in f0]
+                probe.chain_compact(c, t.hfn, nb, where, dcap)
+                torch.cuda.synchronize()
+            finally:
+                lib["chain_compact"] = mine
+            for i, (x, y) in enumerate(zip(c, b)):
+                same(x, y, f"chain_compact (baseline) {label} array {i}")
+        if label in timed:
+            def restore():
+                for x, y in zip(a, f0):
+                    x.copy_(y)
+
+            def launch():
+                probe.chain_compact(a, t.hfn, nb, where, dcap)
+            t_by = {"parent": [], "this": []}
+            order = ("parent", "this", "this", "parent") if baseline \
+                else ("this",)
+            try:
+                for who in order:
+                    lib["chain_compact"] = baseline["chain_compact"] \
+                        if who == "parent" else mine
+                    t_by[who].append(time_ms(launch, reps, restore))
+            finally:
+                lib["chain_compact"] = mine
+            out[label]["ms"] = t_by["this"] if baseline else t_by["this"][0]
+            if baseline:
+                out[label]["parent_ms"] = t_by["parent"]
+            if label == "after a user insert":
+                plain_ms = time_ms(lambda: probe.chain_compact_plain(
+                    a, t.hfn, nb, where, dcap), 3, restore,
+                    queue_ahead=False)
         log(f"  chain_compact ok: {label} " + json.dumps(out[label]))
-    f0 = backend._chain_fields(user)
-    a = [x.clone() for x in f0]
 
-    def restore():
-        for x, y in zip(a, f0):
-            x.copy_(y)
-
-    def launch(where=None, dcap=cap):
-        return lambda: probe.chain_compact(a, user.hfn, nb, where, dcap)
-    ms = time_ms(launch(), reps, restore)
-    idle = time_ms(launch(dcap=1 << 30), reps, restore)
-    plain_ms = time_ms(lambda: probe.chain_compact_plain(
-        a, user.hfn, nb, None, cap), 3, restore, queue_ahead=False)
+    # the full arena again, on a scratch of exactly the wrapper's size
+    # followed by guard words: the kernel writes nothing past it
+    words = probe.compact_scratch_words(n, nb)
+    scratch = torch.full((words + 4096,), 0x5A5A5A5A, dtype=torch.int32,
+                         device=device)
+    f = [x.clone() for x in backend._chain_fields(full)]
+    rc = mine(*[x.data_ptr() for x in f], n, nb,
+              hashing.HASH_KINDS.index(full.hfn.kind),
+              full.hfn.seeds.data_ptr(), None, -1, scratch.data_ptr(),
+              torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    check(rc == 0, f"chain_compact on a guarded scratch: cudaError {rc}")
+    check(bool((scratch[words:] == 0x5A5A5A5A).all()),
+          f"chain_compact wrote past its {words}-word scratch")
+    check(int(f[9]) == n, "chain_compact: the full arena lost nodes")
+    ms, idle = (np.ravel(out[k]["ms"])[0] for k in timed[:2])
     log(f"  chain_compact times, 2^20 nodes: after a user insert {ms:.4f} "
-        f"ms, guard off {idle:.4f} ms, plain {plain_ms:.4f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, idle_ms=idle,
+        f"ms, guard off {idle:.4f} ms, plain {plain_ms:.4f} ms; a full arena "
+        f"writes nothing past its {words}-word scratch")
+    return dict(max_abs_err=err, ms=float(ms), plain_ms=plain_ms,
+                idle_ms=float(idle),
                 # in: key, value, state of every node, each bucket's run;
                 # out: key, value, state, link and free-stack word of every
                 # node, each bucket's start, length and head
@@ -2797,9 +2968,9 @@ def main() -> int:
                     help="the build directory of another tree of this repo "
                     "(build/repro_torch_kernels there, after its own run): "
                     "phase 2 also holds that tree's probe2, probe_insert, "
-                    "tc_insert, tc_probe2, chain_probe and chain_probe2 "
-                    "against their plain versions on the timed batches and "
-                    "times each in turns with this tree's")
+                    "tc_insert, tc_probe2, chain_probe, chain_probe2 and "
+                    "chain_compact against their plain versions on the timed "
+                    "inputs and times each in turns with this tree's")
     ap.add_argument("--profile", default="", metavar="FILE",
                     help="also run 40 steps of each main path under "
                     "torch.profiler and write the kernel tables to FILE "
@@ -2844,7 +3015,7 @@ def main() -> int:
     kres = phase_kernels(device, CONFIG, args.reps, baseline)
     kres.update(phase_tc_kernels(device, CONFIG, args.reps, baseline))
     kres.update(phase_chain_kernels(device, CONFIG, args.reps, baseline))
-    kres.update(phase_guard_kernels(device, CONFIG, args.reps))
+    kres.update(phase_guard_kernels(device, CONFIG, args.reps, baseline))
 
     by_path = {}
     for i, name in enumerate(BACKENDS):

@@ -7,7 +7,7 @@
 // start), one stable sort of the arena keyed on (bucket, arena index) with
 // dead nodes after every bucket (src/repro/kernels/ops.py,
 // chain_compact_fused).  Eager PyTorch computes that sort on every call and
-// selects it; this launch returns at once where its guard is off:
+// selects it; these launches return at once where the guard is off:
 //
 //   run = (where is null || *where) && (dirty_cap < 0 || dirty > dirty_cap)
 //   dirty = arena - free_top - sorted_upto
@@ -27,33 +27,50 @@
 // b's chain in front of its run (each insert links its nodes at the head).
 // So a live node's place is start[b] + its rank among the live nodes of its
 // run, or start[b] + the run's live count + its rank, by arena index, among
-// b's live tail nodes:
+// b's live tail nodes.  The buckets are cut into tiles of CC_THREADS:
 //
-//   1. cc_buckets, a thread a bucket: the guard (written once for the
-//      launches after), each live run node's rank, then a walk of the
-//      chain's tail part; up to CC_SMALL live tail nodes (within CC_WALK
-//      nodes) are sorted by arena index in the thread and ranked; a bucket
-//      with more is listed for step 2;
-//   2. cc_tail, one block: each listed bucket's live tail nodes found by
-//      one ordered pass over the tail (hashing each key) and ranked; then
-//      one exclusive scan of the bucket totals (starts, and the live count);
-//   3. cc_gather, a thread a node: each live node copied to its place in a
-//      scratch arena (key, value, bucket);
-//   4. cc_write, a thread a node and a bucket: the scratch copied back, the
-//      links, the free stack, the bucket offsets and the two scalars.
+//   1. cc_scan, a block a tile, a thread a bucket: the guard (written once
+//      for the launches after), each live run node's rank, then a walk of
+//      the chain's tail part; up to CC_SMALL live tail nodes (within CC_WALK
+//      nodes) are sorted by arena index in the thread and ranked.  A bucket
+//      with more is listed in its tile's block, which ranks its live tail
+//      nodes by one ordered pass over the tail (hashing each key) once the
+//      threads are done, so a flood of several buckets in several tiles
+//      runs on several SMs.  Then the block's exclusive scan of its bucket
+//      totals (each bucket's start within the tile) and the tile's sum;
+//   2. cc_gather, a thread a node (grid-stride): the first block to arrive
+//      (a ticket from a counter cc_scan zeroed) scans the tile sums into
+//      each tile's start and the live count and raises a flag, which the
+//      other blocks wait for; then each live node is copied to its place in
+//      a scratch arena (key, value, bucket);
+//   3. cc_write, a thread a node and a bucket (grid-stride): the scratch
+//      copied back, the links, the free stack, the bucket offsets and the
+//      two scalars.
+//
+// Nothing carries over between calls: the counter and the flag live in the
+// call's scratch and are zeroed by cc_scan, an earlier launch of the same
+// call, so the call needs no memset and stays capturable in a CUDA graph;
+// a launch whose guard is off reads the guard (cc_scan) or the word cc_scan
+// wrote (cc_gather, cc_write) and returns.  No block waits on a block that
+// has not started: the scanning block is the first to take a ticket.
 //
 // Bound: bytes, about 13 words a node when it runs (step 1 reads a state
-// word; step 3 reads key, value and state and writes three scratch words;
-// step 4 reads three and writes five): ~52 MiB for an arena of 2^20, ~16 us
-// at 3.35 TB/s; otherwise launch latency.  A flooded bucket costs one pass
-// of the block over the tail (step 2), and its run is one thread's serial
-// loop (step 1).
+// word and writes a rank; step 2 reads key, value, state and rank and
+// writes three scratch words; step 3 reads three and writes five): ~52 MiB
+// for an arena of 2^20, ~16 us at 3.35 TB/s; otherwise launch latency.  A
+// listed bucket costs its tile's block one pass over the tail; a bucket's
+// run is one thread's serial loop (step 1).
 #include "dhash_common.cuh"
 
-#define CC_THREADS 256
-#define CC_TAIL_THREADS 1024
+#define CC_THREADS 256    // threads of every block, and buckets of a tile
 #define CC_SMALL 16       // live tail nodes a bucket's thread ranks itself
 #define CC_WALK 64        // tail nodes, live or dead, it walks at most
+
+// the control words at the head of the scratch
+#define CC_GO 0           // the guard, written by cc_scan's first thread
+#define CC_TICKET 1       // cc_gather's block counter
+#define CC_READY 2        // set once the tile starts are written
+#define CC_LIVE 3         // the live count
 
 // Exclusive sum over the block; *total gets the block's sum.  `warp_tot`
 // is 32 words of shared scratch.  Every thread of the block must call it.
@@ -82,120 +99,145 @@ __device__ __forceinline__ int cc_block_exclusive_sum(int v, int* warp_tot,
   return warp_tot[warp] + incl - v;
 }
 
-__global__ void __launch_bounds__(CC_THREADS) cc_buckets(
-    const int* __restrict__ astate, const int* __restrict__ anext,
-    const int* __restrict__ heads, const int* __restrict__ bstart,
-    const int* __restrict__ blen, const int* free_top,
-    const int* sorted_upto, int n, int nb, const uint8_t* where,
-    int dirty_cap, int* __restrict__ go, int* __restrict__ big,
-    int* __restrict__ nbig, int* __restrict__ tot, int* __restrict__ srank,
-    int* __restrict__ trank) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  const int su = *sorted_upto;
-  const int dirty = n - *free_top - su;
-  const bool run = (where == nullptr || *where) &&
-                   (dirty_cap < 0 || dirty > dirty_cap);
-  if (b == 0) go[0] = run ? 1 : 0;
-  if (!run || b >= nb) return;
-  const int s = bstart[b], e = s + blen[b];
-  int c = 0;
-  for (int i = s; i < e; ++i)
-    if (astate[i] == DHASH_LIVE) srank[i] = c++;
-  // the chain's tail part: newest batch first, each batch in arena order
-  int mine[CC_SMALL];
-  int m = 0, hops = 0;
-  bool over = false;
-  for (int v = heads[b]; v >= su; v = anext[v]) {
-    if (++hops > CC_WALK) {
-      over = true;
-      break;
-    }
-    if (astate[v] != DHASH_LIVE) continue;
-    if (m == CC_SMALL) {
-      over = true;
-      break;
-    }
-    mine[m++] = v;
-  }
-  tot[b] = c;
-  if (over) {                      // step 2 ranks this bucket's tail
-    big[atomicAdd(nbig, 1)] = b;
-    return;
-  }
-  for (int x = 1; x < m; ++x) {    // by arena index
-    const int v = mine[x];
-    int y = x - 1;
-    while (y >= 0 && mine[y] > v) {
-      mine[y + 1] = mine[y];
-      --y;
-    }
-    mine[y + 1] = v;
-  }
-  for (int r = 0; r < m; ++r) trank[mine[r] - su] = c + r;
-  tot[b] = c + m;
-}
-
-__global__ void __launch_bounds__(CC_TAIL_THREADS) cc_tail(
+__global__ void __launch_bounds__(CC_THREADS) cc_scan(
     const int* __restrict__ akey, const int* __restrict__ astate,
+    const int* __restrict__ anext, const int* __restrict__ heads,
+    const int* __restrict__ bstart, const int* __restrict__ blen,
     const int* free_top, const int* sorted_upto, int n, int nb, int kind,
-    const long long* __restrict__ seeds, const int* __restrict__ go,
-    const int* __restrict__ big, const int* __restrict__ nbig, int* tot,
-    int* __restrict__ trank, int* __restrict__ list,
-    int* __restrict__ start, int* __restrict__ total) {
+    const long long* __restrict__ seeds, const uint8_t* where,
+    int dirty_cap, int* __restrict__ ctl, int* __restrict__ tsum,
+    int* __restrict__ tot, int* __restrict__ lstart,
+    int* __restrict__ rank) {
   __shared__ int warp_tot[32];
   __shared__ int n_sh[2];
-  if (!go[0]) return;
-  const int t = threadIdx.x;
-  const int su = *sorted_upto, tail = n - *free_top - su;
-  const int listed = *nbig;
-  for (int k = 0; k < listed; ++k) {
-    const int b = big[k];
+  __shared__ int tot_sh[CC_THREADS];
+  __shared__ int listed[CC_THREADS];
+  __shared__ int n_listed;
+  const int t = threadIdx.x, b = blockIdx.x * CC_THREADS + t;
+  const int su = *sorted_upto, end = n - *free_top, dirty = end - su;
+  const bool run = (where == nullptr || *where) &&
+                   (dirty_cap < 0 || dirty > dirty_cap);
+  if (blockIdx.x == 0 && t == 0) {
+    ctl[CC_GO] = run ? 1 : 0;
+    ctl[CC_TICKET] = 0;
+    ctl[CC_READY] = 0;
+  }
+  if (!run) return;
+  if (t == 0) n_listed = 0;
+  __syncthreads();
+  int c = 0;
+  if (b < nb) {
+    const int s = bstart[b], e = s + blen[b];
+    for (int i = s; i < e; ++i)
+      if (astate[i] == DHASH_LIVE) rank[i] = c++;
+    // the chain's tail part: newest batch first, each batch in arena order
+    int mine[CC_SMALL];
+    int m = 0, hops = 0;
+    bool over = false;
+    for (int v = heads[b]; v >= su; v = anext[v]) {
+      if (++hops > CC_WALK) {
+        over = true;
+        break;
+      }
+      if (astate[v] != DHASH_LIVE) continue;
+      if (m == CC_SMALL) {
+        over = true;
+        break;
+      }
+      mine[m++] = v;
+    }
+    if (over) {                    // the block ranks this bucket's tail
+      listed[atomicAdd(&n_listed, 1)] = t;
+    } else {
+      for (int x = 1; x < m; ++x) {    // by arena index
+        const int v = mine[x];
+        int y = x - 1;
+        while (y >= 0 && mine[y] > v) {
+          mine[y + 1] = mine[y];
+          --y;
+        }
+        mine[y + 1] = v;
+      }
+      for (int r = 0; r < m; ++r) rank[mine[r]] = c + r;
+      c += m;
+    }
+  }
+  tot_sh[t] = c;
+  __syncthreads();
+  const int nl = n_listed;
+  for (int k = 0; k < nl; ++k) {
+    const int lt = listed[k], lb = blockIdx.x * CC_THREADS + lt;
+    const int c0 = tot_sh[lt];
     if (t == 0) n_sh[0] = 0;
     __syncthreads();
-    dhash_block_compact(
-        tail,
+    dhash_block_rank(
+        dirty,
         [&](int j) {
           return astate[su + j] == DHASH_LIVE &&
-                 dhash_bucket_of(kind, seeds, akey[su + j], nb) == b;
+                 dhash_bucket_of(kind, seeds, akey[su + j], nb) == lb;
         },
-        list, warp_tot, n_sh);
-    const int m = n_sh[0], c = tot[b];
-    for (int r = t; r < m; r += blockDim.x) trank[list[r]] = c + r;
-    __syncthreads();
-    if (t == 0) tot[b] = c + m;
+        [&](int j, int r) { rank[su + j] = c0 + r; }, warp_tot, n_sh);
+    if (t == 0) tot_sh[lt] = c0 + n_sh[0];
     __syncthreads();
   }
-  // the exclusive scan of the bucket totals, a contiguous share a thread
-  const int per = (nb + CC_TAIL_THREADS - 1) / CC_TAIL_THREADS;
-  const int lo = min(nb, t * per), hi = min(nb, lo + per);
-  int sum = 0;
-  for (int b = lo; b < hi; ++b) sum += tot[b];
-  int before = cc_block_exclusive_sum(sum, warp_tot, &n_sh[1]);
-  for (int b = lo; b < hi; ++b) {
-    start[b] = before;
-    before += tot[b];
+  c = tot_sh[t];
+  const int before = cc_block_exclusive_sum(c, warp_tot, &n_sh[1]);
+  if (b < nb) {
+    tot[b] = c;
+    lstart[b] = before;
   }
-  if (t == 0) total[0] = n_sh[1];
+  if (t == 0) tsum[blockIdx.x] = n_sh[1];
 }
 
 __global__ void __launch_bounds__(CC_THREADS) cc_gather(
     const int* __restrict__ akey, const int* __restrict__ aval,
-    const int* __restrict__ astate, const int* free_top,
-    const int* sorted_upto, int n, int nb, int kind,
-    const long long* __restrict__ seeds, const int* __restrict__ go,
-    const int* __restrict__ srank, const int* __restrict__ trank,
-    const int* __restrict__ start, int* __restrict__ out_key,
-    int* __restrict__ out_val, int* __restrict__ out_b) {
-  if (!go[0]) return;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int su = *sorted_upto;
-  if (i >= n - *free_top || astate[i] != DHASH_LIVE) return;
-  const int key = akey[i];
-  const int b = dhash_bucket_of(kind, seeds, key, nb);
-  const int dst = start[b] + (i < su ? srank[i] : trank[i - su]);
-  out_key[dst] = key;
-  out_val[dst] = aval[i];
-  out_b[dst] = b;
+    const int* __restrict__ astate, const int* free_top, int n, int nb,
+    int kind, const long long* __restrict__ seeds, int* ctl,
+    const int* __restrict__ tsum, int* tpre,
+    const int* __restrict__ lstart, const int* __restrict__ rank,
+    int* __restrict__ out_key, int* __restrict__ out_val,
+    int* __restrict__ out_b) {
+  __shared__ int warp_tot[32];
+  __shared__ int sh[2];
+  if (!ctl[CC_GO]) return;
+  const int t = threadIdx.x;
+  if (t == 0) sh[0] = atomicAdd(&ctl[CC_TICKET], 1);
+  __syncthreads();
+  if (sh[0] == 0) {      // the first block: each tile's start, the live count
+    const int ntiles = (nb + CC_THREADS - 1) / CC_THREADS;
+    int carry = 0;
+    for (int base = 0; base < ntiles; base += CC_THREADS) {
+      const int j = base + t;
+      const int v = j < ntiles ? tsum[j] : 0;
+      const int e = cc_block_exclusive_sum(v, warp_tot, &sh[1]);
+      if (j < ntiles) tpre[j] = carry + e;
+      carry += sh[1];
+      __syncthreads();
+    }
+    __threadfence();
+    __syncthreads();
+    if (t == 0) {
+      ctl[CC_LIVE] = carry;
+      __threadfence();
+      atomicExch(&ctl[CC_READY], 1);
+    }
+  } else if (t == 0) {
+    while (atomicAdd(&ctl[CC_READY], 0) == 0) __nanosleep(64);
+    __threadfence();
+  }
+  __syncthreads();
+  const int end = n - *free_top;
+  for (int i = blockIdx.x * CC_THREADS + t; i < end;
+       i += gridDim.x * CC_THREADS) {
+    if (astate[i] != DHASH_LIVE) continue;
+    const int key = akey[i];
+    const int b = dhash_bucket_of(kind, seeds, key, nb);
+    // tpre was written by another block of this launch: read it from L2
+    const int dst = __ldcg(tpre + b / CC_THREADS) + lstart[b] + rank[i];
+    out_key[dst] = key;
+    out_val[dst] = aval[i];
+    out_b[dst] = b;
+  }
 }
 
 __global__ void __launch_bounds__(CC_THREADS) cc_write(
@@ -203,68 +245,77 @@ __global__ void __launch_bounds__(CC_THREADS) cc_write(
     int* __restrict__ anext, int* __restrict__ heads,
     int* __restrict__ free_stack, int* free_top, int* __restrict__ bstart,
     int* __restrict__ blen, int* sorted_upto, int n, int nb,
-    const int* __restrict__ go, const int* __restrict__ tot,
-    const int* __restrict__ start, const int* __restrict__ total,
-    const int* __restrict__ out_key,
-    const int* __restrict__ out_val, const int* __restrict__ out_b) {
-  if (!go[0]) return;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int live = total[0];
-  if (i < n) {
-    const bool on = i < live;
-    akey[i] = on ? out_key[i] : 0;
-    aval[i] = on ? out_val[i] : 0;
-    astate[i] = on ? DHASH_LIVE : DHASH_EMPTY;
-    anext[i] = (on && i + 1 < live && out_b[i + 1] == out_b[i]) ? i + 1 : -1;
-    free_stack[i] = n - 1 - i;
-  }
-  if (i < nb) {
-    const int c = tot[i];
-    bstart[i] = start[i];
-    blen[i] = c;
-    heads[i] = c > 0 ? start[i] : -1;
-  }
-  if (i == 0) {
-    *free_top = n - live;
-    *sorted_upto = live;
+    const int* __restrict__ ctl, const int* __restrict__ tpre,
+    const int* __restrict__ tot, const int* __restrict__ lstart,
+    const int* __restrict__ out_key, const int* __restrict__ out_val,
+    const int* __restrict__ out_b) {
+  if (!ctl[CC_GO]) return;
+  const int live = ctl[CC_LIVE];
+  const int most = n > nb ? n : nb;
+  for (int i = blockIdx.x * CC_THREADS + threadIdx.x; i < most;
+       i += gridDim.x * CC_THREADS) {
+    if (i < n) {
+      const bool on = i < live;
+      akey[i] = on ? out_key[i] : 0;
+      aval[i] = on ? out_val[i] : 0;
+      astate[i] = on ? DHASH_LIVE : DHASH_EMPTY;
+      anext[i] =
+          (on && i + 1 < live && out_b[i + 1] == out_b[i]) ? i + 1 : -1;
+      free_stack[i] = n - 1 - i;
+    }
+    if (i < nb) {
+      const int c = tot[i], s = tpre[i / CC_THREADS] + lstart[i];
+      bstart[i] = s;
+      blen[i] = c;
+      heads[i] = c > 0 ? s : -1;
+    }
+    if (i == 0) {
+      *free_top = n - live;
+      *sorted_upto = live;
+    }
   }
 }
 
-// scratch: 3 + 3 * nb + 5 * n int32 words (go, total, the listed count;
-// tot, start, the list of buckets; srank, trank, out_key (also step 2's
-// list of tail positions), out_val, out_b), no initial contents needed
+// scratch: 4 + 2 * ((nb + 255) / 256) + 2 * nb + 4 * n int32 words, no
+// initial contents needed: the control words (CC_GO ... CC_LIVE); per tile
+// its sum and its start; per bucket its total and its start within its
+// tile; per node its rank (in its run, or among its bucket's tail nodes);
+// the scratch arena out_key, out_val, out_b.
 extern "C" int dhash_chain_compact(
     int* akey, int* aval, int* astate, int* anext, int* heads,
     int* free_stack, int* free_top, int* bstart, int* blen, int* sorted_upto,
     int n, int nb, int kind, const long long* seeds, const uint8_t* where,
     int dirty_cap, int* scratch, void* stream) {
   if (n < 1 || nb < 1) return (int)cudaErrorInvalidValue;
+  static_assert(CC_THREADS == 256, "the scratch layout counts 256-bucket "
+                                   "tiles");
   cudaStream_t s = (cudaStream_t)stream;
-  int* go = scratch;
-  int* total = scratch + 1;
-  int* nbig = scratch + 2;
-  int* tot = scratch + 3;
-  int* start = tot + nb;
-  int* big = start + nb;
-  int* srank = big + nb;
-  int* trank = srank + n;
-  int* out_key = trank + n;
+  int sms = 0;
+  const cudaError_t e = dhash_sm_count(&sms);
+  if (e != cudaSuccess) return (int)e;
+  const int ntiles = (nb + CC_THREADS - 1) / CC_THREADS;
+  int* ctl = scratch;
+  int* tsum = ctl + 4;
+  int* tpre = tsum + ntiles;
+  int* tot = tpre + ntiles;
+  int* lstart = tot + nb;
+  int* rank = lstart + nb;
+  int* out_key = rank + n;
   int* out_val = out_key + n;
   int* out_b = out_val + n;
-  cudaError_t e = cudaMemsetAsync(nbig, 0, sizeof(int), s);
-  if (e != cudaSuccess) return (int)e;
-  cc_buckets<<<(nb + CC_THREADS - 1) / CC_THREADS, CC_THREADS, 0, s>>>(
-      astate, anext, heads, bstart, blen, free_top, sorted_upto, n, nb, where,
-      dirty_cap, go, big, nbig, tot, srank, trank);
-  cc_tail<<<1, CC_TAIL_THREADS, 0, s>>>(akey, astate, free_top, sorted_upto,
-                                        n, nb, kind, seeds, go, big, nbig,
-                                        tot, trank, out_key, start, total);
-  cc_gather<<<(n + CC_THREADS - 1) / CC_THREADS, CC_THREADS, 0, s>>>(
-      akey, aval, astate, free_top, sorted_upto, n, nb, kind, seeds, go,
-      srank, trank, start, out_key, out_val, out_b);
+  // the node kernels: grid-stride, at most a full SM's worth of blocks an SM
   const int most = n > nb ? n : nb;
-  cc_write<<<(most + CC_THREADS - 1) / CC_THREADS, CC_THREADS, 0, s>>>(
+  const int cap = sms * (2048 / CC_THREADS);
+  const int gn = (n + CC_THREADS - 1) / CC_THREADS;
+  const int gm = (most + CC_THREADS - 1) / CC_THREADS;
+  cc_scan<<<ntiles, CC_THREADS, 0, s>>>(
+      akey, astate, anext, heads, bstart, blen, free_top, sorted_upto, n, nb,
+      kind, seeds, where, dirty_cap, ctl, tsum, tot, lstart, rank);
+  cc_gather<<<gn < cap ? gn : cap, CC_THREADS, 0, s>>>(
+      akey, aval, astate, free_top, n, nb, kind, seeds, ctl, tsum, tpre,
+      lstart, rank, out_key, out_val, out_b);
+  cc_write<<<gm < cap ? gm : cap, CC_THREADS, 0, s>>>(
       akey, aval, astate, anext, heads, free_stack, free_top, bstart, blen,
-      sorted_upto, n, nb, go, tot, start, total, out_key, out_val, out_b);
+      sorted_upto, n, nb, ctl, tpre, tot, lstart, out_key, out_val, out_b);
   return (int)cudaGetLastError();
 }

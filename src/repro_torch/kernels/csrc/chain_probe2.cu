@@ -122,8 +122,10 @@ extern "C" int dhash_chain_probe2(
   const size_t bytes = ((size_t)dhash_set_words(chunk) +
                         dhash_set_words(wsize_o) + dhash_set_words(wsize_n)) *
                        4;
-  DhashArena o = {oak, oav, oas, onext, oheads, obstart, oblen, No};
-  DhashArena n = {nak, nav, nas, nnext, nheads, nbstart, nblen, Nn};
+  DhashArena o = {oak, oav, oas, onext, oheads, obstart, oblen, No,
+                  dhash_arena_vec(oak, oas, No)};
+  DhashArena n = {nak, nav, nas, nnext, nheads, nbstart, nblen, Nn,
+                  dhash_arena_vec(nak, nas, Nn)};
   chain_probe2_kernel<<<blocks, DHASH_SET_THREADS, bytes,
                         (cudaStream_t)stream>>>(
       o, osu, odirty, n, nsu, ndirty, hk, hv, hl, chunk, bqo, bqn, qk, Q,

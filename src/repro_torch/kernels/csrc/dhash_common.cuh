@@ -100,60 +100,6 @@ __device__ __forceinline__ bool dhash_two_row_lookup(
   return true;
 }
 
-// A staged buffer in shared memory: n keys, n values as int32, then n live
-// bytes rounded up to whole words.
-__host__ __device__ inline int dhash_stage_words(int n) {
-  return 2 * n + (n + 3) / 4;
-}
-
-// Copy n entries into the staged layout at `smem`; `entry(j, &key, &val)`
-// gives entry j and returns whether it is live.  Returns 1 + the index of
-// the last live entry (`end` is a __shared__ int of the caller, one per
-// staged buffer).  Every thread of the block must call it: it holds two
-// barriers.
-template <class Entry>
-__device__ __forceinline__ int dhash_stage(int n, int* smem, int* end,
-                                           Entry entry) {
-  int* shk = smem;
-  int* shv = smem + n;
-  uint8_t* shl = (uint8_t*)(smem + 2 * n);
-  if (threadIdx.x == 0) *end = 0;
-  __syncthreads();
-  int my_end = 0;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    int k, v;
-    const bool l = entry(j, &k, &v);
-    shk[j] = k;
-    shv[j] = v;
-    shl[j] = l ? 1 : 0;
-    if (l) my_end = j + 1;
-  }
-  if (my_end) atomicMax(end, my_end);
-  __syncthreads();
-  return *end;
-}
-
-// The lowest live index holding `key`, or -1, of the buffer that
-// dhash_stage (through dhash_tail_stage) put into `smem`: chain_probe's
-// dense tail lookup.  The scan stops at the first live match (as argmax
-// over the match mask) and at the last live entry; all threads of a warp
-// read the same entry at the same time, which shared memory serves as a
-// broadcast.
-__device__ __forceinline__ int dhash_hazard_find(const int* smem, int chunk,
-                                                 int n_hz, int key,
-                                                 int* val) {
-  const int* shk = smem;
-  const int* shv = smem + chunk;
-  const uint8_t* shl = (const uint8_t*)(smem + 2 * chunk);
-  for (int j = 0; j < n_hz; ++j) {
-    if (shl[j] && shk[j] == key) {
-      *val = shv[j];
-      return j;
-    }
-  }
-  return -1;
-}
-
 // Whether the twochoice kernels may read a row as 16-byte loads.
 static inline bool dhash_rows_vec_ok(int W, const void* a, const void* b,
                                      const void* c = nullptr,
@@ -176,40 +122,18 @@ struct DhashArena {
   const int* bstart;  // [B] sorted segment start
   const int* blen;    // [B] sorted segment length
   int n;
+  bool vec;           // key and state 16-byte aligned, n a multiple of 4
 };
 
-// The dirty-tail window of one arena, staged in shared memory: the `size`
-// nodes at [base, base + size) with base = min(sorted_upto, N - size); a
-// node counts if it is LIVE at or past sorted_upto.  `covered` is whether
-// the window holds the whole tail, so that a miss there proves absence.
-struct DhashTail {
-  const int* smem;
-  int size, n_live, base;
-  bool covered;
-};
+// Whether a segment scan may read an arena's keys and states as 16-byte
+// loads (DhashArena::vec).
+static inline bool dhash_arena_vec(const int* key, const int* state, int n) {
+  return n % 4 == 0 && (uintptr_t)key % 16 == 0 &&
+         (uintptr_t)state % 16 == 0;
+}
 
 // The largest dirty window (dirty_cap) the chain kernels stage.
 #define DHASH_MAX_DIRTY 512
-
-// Stage an arena's dirty-tail window (the reference's _chain_dirty_window);
-// every thread of the block must call it.
-__device__ __forceinline__ DhashTail dhash_tail_stage(
-    const DhashArena& a, int sorted_upto, int dirty, int size, int* smem,
-    int* end) {
-  const int base = min(sorted_upto, a.n - size);
-  DhashTail t;
-  t.smem = smem;
-  t.size = size;
-  t.base = base;
-  t.covered = sorted_upto + dirty <= base + size;
-  t.n_live = dhash_stage(size, smem, end, [&](int j, int* k, int* v) {
-    const int p = base + j;
-    *k = a.key[p];
-    *v = a.val[p];
-    return p >= sorted_upto && a.state[p] == DHASH_LIVE;
-  });
-  return t;
-}
 
 // The bounded walk of the pointer-chasing reference (ref.chain_lookup_ref):
 // from the bucket's head along `next`, at most max_chain nodes.
@@ -228,63 +152,15 @@ __device__ __forceinline__ bool dhash_chain_walk(const DhashArena& a, int b,
   return false;
 }
 
-// The dense tail lookup of chain_probe: the lowest live window node holding
-// `key` (dhash_hazard_find over the staged window); on a hit sets val and loc.
-__device__ __forceinline__ bool dhash_tail_find(const DhashArena&,
-                                                const DhashTail& t, int key,
-                                                int* val, int* loc) {
-  const int j = dhash_hazard_find(t.smem, t.size, t.n_live, key, val);
-  if (j >= 0) *loc = t.base + j;
-  return j >= 0;
-}
-
-// The fast path of one arena: the sorted segment of bucket b (scanned only
-// when it is at most max_chain long), then the staged dirty tail, looked up
-// by dhash_tail_find for the tail type Tail (DhashTail: the dense scan;
-// DhashSetTail: the staged set).  On a hit sets val and loc (a node index).
-// `complete` is whether a miss proves absence: the segment was scanned and
-// the window covers the tail.  A query that is found nowhere and not
-// complete takes the bounded walk.
-//
-// The segment scan has ONE exit, so that the warp's lanes, which leave it
-// after different numbers of nodes, meet again before the tail lookup: with
-// a return from inside the scan each group of lanes that left it together
-// ran the whole tail compare on its own (chain_probe on an H100: 0.30 ms
-// instead of 0.042 ms for 65536 queries against a 300-node tail, PERF.md).
-template <class Tail>
-__device__ __forceinline__ bool dhash_chain_fast(const DhashArena& a,
-                                                 const Tail& t, int b,
-                                                 int key, int max_chain,
-                                                 int* val, int* loc,
-                                                 bool* complete) {
-  const int len = a.blen[b];
-  const bool scan = len <= max_chain;
-  *complete = scan && t.covered;
-  bool found = false;
-  if (scan) {
-    const int start = a.bstart[b];
-    for (int p = start; p < start + len; ++p) {
-      if (a.key[p] == key && a.state[p] == DHASH_LIVE) {
-        *val = a.val[p];
-        *loc = p;
-        found = true;
-        break;
-      }
-    }
-  }
-  if (!found) found = dhash_tail_find(a, t, key, val, loc);
-  return found;
-}
-
 // ---------------------------------------------------------------------------
 // the staged set: a buffer's live keys in shared memory behind a hashed index
 // ---------------------------------------------------------------------------
 //
-// chain_probe's dense tail lookup above scans a staged buffer serially: one
-// thread compares its key with every live entry up to the first match, up
-// to 512 compares a query (4096 for a hazard buffer).  A staged set answers
-// the same question -- the LOWEST live index holding the key, as argmax
-// over the match mask gives it -- in a few shared-memory loads.
+// A dense lookup of a staged buffer scans it serially: one thread compares
+// its key with every live entry up to the first match, up to 512 compares a
+// query (4096 for a hazard buffer).  A staged set answers the same question
+// -- the LOWEST live index holding the key, as argmax over the match mask
+// gives it -- in a few shared-memory loads.
 //
 // Layout: a set of n entries occupies dhash_set_words(n) words of the
 // kernel's dynamic shared memory (dhash_smem) from a word offset that is a
@@ -525,16 +401,20 @@ __device__ __forceinline__ int dhash_set_find(const DhashSet& s, int key) {
   return r;
 }
 
-// An arena's dirty-tail window (as DhashTail) as a staged set; the value
-// of a hit is read from the arena.
+// An arena's dirty-tail window as a staged set: the `size` nodes at [base,
+// base + size) with base = min(sorted_upto, N - size), of which a node
+// counts if it is LIVE at or past sorted_upto (the reference's
+// _chain_dirty_window).  `covered` is whether the window holds the whole
+// tail, so that a miss there proves absence.  The value of a hit is read
+// from the arena.
 struct DhashSetTail {
   DhashSet set;
   int base;
   bool covered;
 };
 
-// First half of the stage of a tail set at word `off` (the window of
-// dhash_tail_stage); a __syncthreads() and dhash_set_index(t.set) follow.
+// First half of the stage of a tail set at word `off`; a __syncthreads()
+// and dhash_set_index(t.set) follow.
 __device__ __forceinline__ DhashSetTail dhash_tail_set_fill(
     const DhashArena& a, int sorted_upto, int dirty, int size, int off) {
   DhashSetTail t;
@@ -560,6 +440,67 @@ __device__ __forceinline__ bool dhash_tail_find(const DhashArena& a,
     *loc = t.base + j;
   }
   return j >= 0;
+}
+
+// The fast path of one arena: the sorted segment of bucket b (scanned only
+// when it is at most max_chain long), then the dirty tail's staged set
+// (dhash_tail_find).  On a hit sets val and loc (a node index).
+// `complete` is whether a miss proves absence: the segment was scanned and
+// the window covers the tail.  A query that is found nowhere and not
+// complete takes the bounded walk.
+//
+// The segment scan has ONE exit, so that the warp's lanes, which leave it
+// after different numbers of nodes, meet again before the tail lookup: with
+// a return from inside the scan each group of lanes that left it together
+// ran the tail lookup on its own (chain_probe's first design, a serial
+// scan of the staged tail, on an H100: 0.30 ms instead of 0.042 ms for 65536
+// queries against a 300-node tail, PERF.md).  Where the arena allows
+// (DhashArena::vec) the scan reads keys and states as 16-byte loads, four
+// nodes a step from the 16-byte boundary at or below the segment's start:
+// a warp's lanes scan different buckets, so each load of the scan touches
+// up to 32 lines, and four nodes a load cut those loads to a quarter
+// (chain_probe on an H100, 65536 queries: 0.0234 ms against 0.0247 a node
+// a step, PERF.md).
+__device__ __forceinline__ bool dhash_chain_fast(const DhashArena& a,
+                                                 const DhashSetTail& t, int b,
+                                                 int key, int max_chain,
+                                                 int* val, int* loc,
+                                                 bool* complete) {
+  const int len = a.blen[b];
+  const bool scan = len <= max_chain;
+  *complete = scan && t.covered;
+  bool found = false;
+  if (scan && a.vec) {     // four nodes a step, from a 16-byte boundary
+    const int start = a.bstart[b], end = start + len;
+    for (int p = start & ~3; p < end && !found; p += 4) {
+      const int4 k4 = *reinterpret_cast<const int4*>(a.key + p);
+      const int4 s4 = *reinterpret_cast<const int4*>(a.state + p);
+      const int k[4] = {k4.x, k4.y, k4.z, k4.w};
+      const int s[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int q = p + u;
+        if (!found && q >= start && q < end && k[u] == key &&
+            s[u] == DHASH_LIVE) {
+          *val = a.val[q];
+          *loc = q;
+          found = true;
+        }
+      }
+    }
+  } else if (scan) {
+    const int start = a.bstart[b];
+    for (int p = start; p < start + len; ++p) {
+      if (a.key[p] == key && a.state[p] == DHASH_LIVE) {
+        *val = a.val[p];
+        *loc = p;
+        found = true;
+        break;
+      }
+    }
+  }
+  if (!found) found = dhash_tail_find(a, t, key, val, loc);
+  return found;
 }
 
 // Multiprocessors of the calling thread's current device, cached.
@@ -678,17 +619,16 @@ __device__ __forceinline__ int dhash_row_first_free(const int* ts,
   return -1;
 }
 
-// Ordered compaction by one block: appends to list[n[0] ...] the indices i
-// of [0, Q) with keep(i), in ascending order, and advances n[0] (shared;
-// n[1] is scratch), which every thread may read after the call.  Each
-// thread tests a run of up to 16 consecutive indices, so a batch of up to
-// 16 x blockDim indices is one pass: one shuffle scan of the counts and one
-// scan of the warp totals.  `warp_tot` is 32 words of shared scratch.
-// Every thread of the block must call it.
-template <class Keep>
-__device__ __forceinline__ void dhash_block_compact(int Q, Keep keep,
-                                                    int* __restrict__ list,
-                                                    int* warp_tot, int* n) {
+// Ordered ranking by one block: calls emit(i, r) for the indices i of
+// [0, Q) with keep(i), r counting up from n[0] in ascending order of i, and
+// advances n[0] (shared; n[1] is scratch), which every thread may read
+// after the call.  Each thread tests a run of up to 16 consecutive indices,
+// so a batch of up to 16 x blockDim indices is one pass: one shuffle scan
+// of the counts and one scan of the warp totals.  `warp_tot` is 32 words of
+// shared scratch.  Every thread of the block must call it.
+template <class Keep, class Emit>
+__device__ __forceinline__ void dhash_block_rank(int Q, Keep keep, Emit emit,
+                                                 int* warp_tot, int* n) {
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int nwarps = blockDim.x >> 5;
   const int per_pass = blockDim.x * 16;
@@ -724,9 +664,19 @@ __device__ __forceinline__ void dhash_block_compact(int Q, Keep keep,
     __syncthreads();
     int pos = n[0] + warp_tot[warp] + incl - cnt;
     for (int i = lo; i < hi; ++i)
-      if ((bits >> (i - lo)) & 1u) list[pos++] = i;
+      if ((bits >> (i - lo)) & 1u) emit(i, pos++);
     __syncthreads();
     if (t == 0) n[0] += n[1];
     __syncthreads();
   }
+}
+
+// Ordered compaction by one block: appends to list[n[0] ...] the indices i
+// of [0, Q) with keep(i), in ascending order (dhash_block_rank).
+template <class Keep>
+__device__ __forceinline__ void dhash_block_compact(int Q, Keep keep,
+                                                    int* __restrict__ list,
+                                                    int* warp_tot, int* n) {
+  dhash_block_rank(
+      Q, keep, [&](int i, int r) { list[r] = i; }, warp_tot, n);
 }

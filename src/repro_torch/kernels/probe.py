@@ -57,15 +57,17 @@ scan); ``tc_lookup`` — bytes (two rows a query, each as 16-byte loads);
 ``probe2``'s); ``tc_insert`` — latency (a bid launch and a resolve
 launch over the grid for round 0, the later rounds in the resolve's last
 block, no grid-wide barrier); ``chain_probe`` — bytes (a
-segment scan a query, the dirty tail staged in shared memory);
+segment scan a query, the dirty tail staged as a hashed set in shared
+memory, as ``chain_probe2`` stages its two);
 ``chain_probe2`` — bytes (a segment of a few nodes in each arena; the
 hazard buffer and both dirty tails staged as hashed sets in shared memory,
 ``dhash_set_*`` in ``dhash_common.cuh``); ``cuckoo_kick`` — latency (one
 block, a few rows a pending key an iteration); ``epoch_swap`` — bytes once
 an epoch, launch latency on every other step; ``chain_compact`` — bytes
 where it runs (no sort of the arena: the sorted runs give most nodes their
-place, one block ranks the dirty tail), launch latency where its guard is
-off.
+place, a bucket's thread ranks its few tail nodes, the block of its tile a
+flooded bucket's; the bucket totals scanned a tile a block), launch latency
+where its guard is off (three launches that read the guard and return).
 
 What the TPU design needed and these kernels do not have: a padded copy of
 the table (a thread wraps its own probe), a query sort, query tiles, a
@@ -879,6 +881,14 @@ def chain_compact_plain(fields, hfn, nbuckets: int, where=None,
         dst.copy_(src if run is None else torch.where(run, src, dst))
 
 
+def compact_scratch_words(n: int, nbuckets: int) -> int:
+    """The int32 words of ``chain_compact``'s scratch for an arena of ``n``
+    nodes and ``nbuckets`` buckets: the layout ``csrc/chain_compact.cu``
+    states (four control words, a sum and a start per tile of 256 buckets,
+    two words a bucket, four a node)."""
+    return 4 + 2 * ((nbuckets + 255) // 256) + 2 * nbuckets + 4 * n
+
+
 def chain_compact(fields, hfn, nbuckets: int, where=None,
                   dirty_cap: int = -1):
     """The chain arena's compaction, guarded on the device, IN PLACE.
@@ -901,7 +911,8 @@ def chain_compact(fields, hfn, nbuckets: int, where=None,
         if where.numel() != 1:
             raise ValueError("chain_compact: the flag must be one bool")
     n, dev = akey.numel(), akey.device
-    scratch = torch.empty(2 + 3 * nbuckets + 5 * n, dtype=I32, device=dev)
+    scratch = torch.empty(compact_scratch_words(n, nbuckets), dtype=I32,
+                          device=dev)
     _launch("chain_compact", chain_compact, dev, *fields, n, nbuckets,
             hashing.HASH_KINDS.index(hfn.kind), hfn.seeds, where, dirty_cap,
             scratch)

@@ -15,14 +15,23 @@ tail part (newest batch first, each batch in arena order) and sorts what it
 found; a bucket with more live tail nodes than ``small``, or a longer walk
 than ``walk``, is ranked by one ordered pass over the tail instead.
 
+The buckets are cut into tiles: the kernel's block of a tile ranks the
+tail of each listed bucket of its tile, scans its bucket totals (each
+bucket's start within the tile) and writes the tile's sum; the first
+block of the next launch scans the tile sums into each tile's start and the
+live count, so a bucket's start is its tile's start plus its start within
+the tile.
+
 ``model_compact`` below is that placement in numpy, step for step, with
-small limits so that both ways are taken.  On arenas built by the port's
-chain ops on the CPU (inserts in several batches, so that a chain's walk
-order is not the arena order; deletes; a chunk migrated by the extract; a
-compaction between; a bucket flooded with tail nodes; a fresh arena whose
-every node is tail; nothing live) it must equal the plain compaction on all
-ten arrays, tolerance 0.  A model that ranked tail nodes in walk order
-departs from it.  The wrapper's guard (the flag and the dirty count) is held
+small limits and small tiles so that both ways are taken and an arena has
+several tiles.  On arenas built by the port's chain ops on the CPU (inserts
+in several batches, so that a chain's walk order is not the arena order;
+deletes; a chunk migrated by the extract; a compaction between; a bucket
+flooded with tail nodes; floods in several tiles and at a tile's edge; a
+tile of empty buckets; a fresh arena whose every node is tail; a full
+arena; nothing live) it must equal the plain compaction on all ten arrays,
+tolerance 0.  A model that ranked tail nodes in walk order departs from
+it.  The wrapper's guard (the flag and the dirty count) is held
 on the CPU too; the card holds the kernel to the plain version
 (``chip_smoke.py``).
 """
@@ -40,69 +49,81 @@ from repro_torch.core import hashing  # noqa: E402
 from repro_torch.kernels import probe as tprobe  # noqa: E402
 
 LIVE, EMPTY = 1, 0
-SMALL, WALK = 4, 8
+SMALL, WALK, TILE = 4, 8, 8
 
 
 def fields(t) -> list:
     return [x.clone() for x in tbe._chain_fields(t)]
 
 
+def exclusive(x: np.ndarray) -> np.ndarray:
+    return np.concatenate([[0], np.cumsum(x)[:-1]]).astype(np.int64)
+
+
 def model_compact(t, *, small: int = SMALL, walk: int = WALK,
-                  sort: bool = True) -> list:
-    """The kernel's four steps in numpy; returns the ten arrays.  ``sort``
-    False ranks a bucket's tail nodes in walk order (a departure)."""
+                  tile: int = TILE, sort: bool = True) -> list:
+    """The kernel's three launches in numpy; returns the ten arrays.
+    ``sort`` False ranks a bucket's tail nodes in walk order (a
+    departure).  Sets ``model_compact.listed``: the listed buckets by tile."""
     akey, aval, astate, anext, heads, _, free_top, bstart, blen, su = (
         x.numpy().copy() for x in tbe._chain_fields(t))
     n, nb = akey.size, t.nbuckets
     su, end = int(su), n - int(free_top)
     bucket = hashing.bucket_of(t.hfn, torch.as_tensor(akey), nb).numpy()
     live = astate == LIVE
-    # 1. a thread a bucket: its run's ranks, then its chain's tail part
-    tot, srank, trank = (np.zeros(k, np.int64) for k in (nb, n, n))
-    listed = []
-    for b in range(nb):
-        c = 0
-        for i in range(bstart[b], bstart[b] + blen[b]):
-            if live[i]:
-                srank[i] = c
-                c += 1
-        mine, hops, over, v = [], 0, False, heads[b]
-        while v >= su:
-            hops += 1
-            if hops > walk:
-                over = True
-                break
-            if live[v]:
-                if len(mine) == small:
+    ntiles = -(-nb // tile)
+    tot, lstart, rank = (np.zeros(k, np.int64) for k in (nb, nb, n))
+    tsum = np.zeros(ntiles, np.int64)
+    listed = {}
+    # 1. cc_scan: a block a tile, a thread a bucket
+    for tl in range(ntiles):
+        lo, hi = tl * tile, min(nb, (tl + 1) * tile)
+        for b in range(lo, hi):
+            c = 0
+            for i in range(bstart[b], bstart[b] + blen[b]):
+                if live[i]:
+                    rank[i] = c
+                    c += 1
+            mine, hops, over, v = [], 0, False, heads[b]
+            while v >= su:
+                hops += 1
+                if hops > walk:
                     over = True
                     break
-                mine.append(v)
-            v = anext[v]
-        tot[b] = c
-        if over:
-            listed.append(b)
-            continue
-        for r, v in enumerate(sorted(mine) if sort else mine):
-            trank[v] = c + r
-        tot[b] = c + len(mine)
-    # 2. one block: each listed bucket by an ordered pass over the tail
-    for b in listed:
-        mine = [i for i in range(su, end) if live[i] and bucket[i] == b]
-        for r, v in enumerate(mine):
-            trank[v] = tot[b] + r
-        tot[b] += len(mine)
-    start = np.concatenate([[0], np.cumsum(tot)[:-1]])
-    nlive = int(tot.sum())
-    # 3. gather into the scratch arena
+                if live[v]:
+                    if len(mine) == small:
+                        over = True
+                        break
+                    mine.append(v)
+                v = anext[v]
+            tot[b] = c
+            if over:
+                listed.setdefault(tl, []).append(b)
+                continue
+            for r, v in enumerate(sorted(mine) if sort else mine):
+                rank[v] = c + r
+            tot[b] = c + len(mine)
+        # the tile's block: each listed bucket by an ordered pass over the
+        # tail, then the exclusive scan of the tile's totals
+        for b in listed.get(tl, []):
+            mine = [i for i in range(su, end) if live[i] and bucket[i] == b]
+            for r, v in enumerate(mine):
+                rank[v] = tot[b] + r
+            tot[b] += len(mine)
+        lstart[lo:hi] = exclusive(tot[lo:hi])
+        tsum[tl] = tot[lo:hi].sum()
+    # 2. cc_gather: the first block scans the tile sums; each live node goes
+    #    to its tile's start + its bucket's start in the tile + its rank
+    tpre, nlive = exclusive(tsum), int(tsum.sum())
+    start = tpre[np.arange(nb) // tile] + lstart
     out_k, out_v, out_b = (np.zeros(n, np.int64) for _ in range(3))
     for i in range(end):
         if not live[i]:
             continue
         b = bucket[i]
-        out_k[start[b] + (srank[i] if i < su else trank[i])] = akey[i]
-        out_v[start[b] + (srank[i] if i < su else trank[i])] = aval[i]
-        out_b[start[b] + (srank[i] if i < su else trank[i])] = b
-    # 4. the write
+        dst = start[b] + rank[i]
+        out_k[dst], out_v[dst], out_b[dst] = akey[i], aval[i], b
+    # 3. cc_write
     idx = np.arange(n)
     on = idx < nlive
     nxt = np.zeros(n, bool)
@@ -148,6 +169,19 @@ def arena(case: str):
         for part in np.array_split(keys[:200], 5):
             insert(t, part)
         return t
+    if case == "full":                       # live == arena: no free node
+        keys = rng.choice(np.arange(1, 1 << 16), t.akey.numel(),
+                          replace=False)
+        insert(t, keys[:400])
+        tbe.chain_compact_fused(t)
+        for part in np.array_split(keys[400:], 2):
+            insert(t, part)
+        assert int(t.free_top) == 0
+        return t
+    if case == "empty_tile":                 # buckets 16..23: no key
+        b = hashing.bucket_of(t.hfn, torch.as_tensor(keys.astype(np.int32)),
+                              t.nbuckets).numpy()
+        keys = keys[(b < 2 * TILE) | (b >= 3 * TILE)]
     for part in np.array_split(keys[:160], 4):
         insert(t, part)
     d = torch.as_tensor(keys[:160:5].astype(np.int32))
@@ -165,10 +199,18 @@ def arena(case: str):
         if case == "flood_deleted":          # a long walk, few live nodes
             d = torch.as_tensor(fk[3:].astype(np.int32))
             tbe.chain_delete_fused(t, d, torch.ones_like(d, dtype=bool))
+    if case in FLOODED:                      # long tails in several tiles
+        for b in FLOODED[case]:
+            fk = keys_of_bucket(t, b, 12, rng)
+            for part in np.array_split(fk, 2):
+                insert(t, part)
     return t
 
 
-CASES = ["mixed", "flood", "flood_deleted", "fresh_tail", "nothing_live"]
+# flooded buckets: in three tiles; on both sides of the edge of tiles 0 and 1
+FLOODED = {"floods_in_tiles": (2, 13, 29), "tile_edge": (TILE - 1, TILE)}
+CASES = ["mixed", "flood", "flood_deleted", "fresh_tail", "nothing_live",
+         "floods_in_tiles", "tile_edge", "empty_tile", "full"]
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -179,16 +221,26 @@ def test_model_equals_the_plain_compaction(case):
              "free_top", "bstart", "blen", "sorted_upto")
     for a, b, name in zip(got, want, names):
         assert np.array_equal(np.asarray(a), b.numpy()), (case, name)
+    listed = model_compact.listed
     if case in ("flood", "flood_deleted"):
-        assert 5 in model_compact.listed, "the flood took the thread's way"
+        assert 5 in listed.get(0, []), "the flood took the thread's way"
+    if case in FLOODED:
+        for b in FLOODED[case]:
+            assert b in listed.get(b // TILE, []), (case, b)
+    if case == "empty_tile":
+        assert not want[8][2 * TILE:3 * TILE].any()
+    if case == "full":
+        assert int(want[9]) == t.akey.numel() and listed, case
     if case == "mixed":
         assert int(t.sorted_upto) > 0 and int((t.astate == 3).sum()) > 0
     if case != "nothing_live":
-        # with limits high enough no bucket is listed: the same result
-        high = model_compact(t, small=1 << 20, walk=1 << 20)
-        assert model_compact.listed == []
-        for a, b in zip(high, want):
-            assert np.array_equal(np.asarray(a), b.numpy()), case
+        # with limits high enough no bucket is listed, and with one tile the
+        # scan is one block's: the same result
+        for tile in (TILE, t.nbuckets):
+            high = model_compact(t, small=1 << 20, walk=1 << 20, tile=tile)
+            assert model_compact.listed == {}
+            for a, b in zip(high, want):
+                assert np.array_equal(np.asarray(a), b.numpy()), case
 
 
 def test_ranks_in_walk_order_depart():

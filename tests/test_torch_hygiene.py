@@ -99,20 +99,22 @@ def test_the_nine_kernels_and_the_chain_sources():
     """The nine ported kernels and the three guarded ones (the cuckoo
     kick-out, the epoch swap, the chain compaction), one source each; the
     compaction takes its guard on the device and sorts no arena (a bucket's
-    thread ranks its few tail nodes, one block the rest); the chain kernels
-    resolve every query in the kernel (tail stage, segment scan, bounded
-    walk);
-    chain_probe keeps the dense tail stage, chain_probe2 stages the hazard
-    buffer and both tail windows as hashed sets, as tc_probe2 stages its
-    hazard buffer."""
+    thread ranks its few tail nodes, the block of its tile the rest), scans
+    the bucket totals over the grid (no one-block launch) and needs no
+    memset; the chain kernels resolve every query in the kernel (tail set,
+    segment scan, bounded walk); both stage their tail windows (and
+    chain_probe2 the hazard buffer) as hashed sets, as tc_probe2 stages its
+    hazard buffer, and the dense tail stage is gone."""
     from repro_torch.kernels import build, probe
     assert len(probe.KERNELS) == len(set(probe.KERNELS)) == 12
     assert probe.KERNELS == build.SOURCES
     assert set(build._ENTRY.values()) == set(build._ARGTYPES)
     src = (CSRC / "chain_compact.cu").read_text()
     assert 'extern "C" int dhash_chain_compact(' in src
-    assert "if (!go[0]) return;" in src and "dirty > dirty_cap" in src
-    assert "Sort" not in src and "cc_tail<<<1," in src
+    assert src.count("if (!ctl[CC_GO]) return;") == 2
+    assert "if (!run) return;" in src and "dirty > dirty_cap" in src
+    assert "Sort" not in src and "<<<1," not in src
+    assert "cudaMemset" not in src and "dhash_block_rank(" in src
     for k in ("chain_probe", "chain_probe2"):
         src = (CSRC / f"{k}.cu").read_text()
         assert "__global__" in src and f'extern "C" int dhash_{k}(' in src, k
@@ -121,23 +123,57 @@ def test_the_nine_kernels_and_the_chain_sources():
             assert fn in src, (k, fn)
         assert "atomicMax" not in src and "atomicCAS" not in src, \
             f"{k} stages its buffers itself"
+    # chain_probe finds a tail key through dhash_chain_fast, whose tail is
+    # the staged set (dhash_tail_find -> dhash_set_find)
     src = (CSRC / "chain_probe.cu").read_text()
-    assert "dhash_tail_stage(" in src and "dhash_set_" not in src
+    for fn in ("dhash_tail_set_fill(", "dhash_set_index(", "dhash_set_grid(",
+               "dhash_set_first(", "DHASH_SET_THREADS"):
+        assert fn in src, fn
     src = (CSRC / "chain_probe2.cu").read_text()
     for fn in ("dhash_set_fill(", "dhash_tail_set_fill(", "dhash_set_index(",
                "dhash_set_find(", "dhash_set_grid("):
         assert fn in src, fn
-    for fn in ("dhash_hazard_stage(", "dhash_hazard_find(",
-               "dhash_tail_stage("):
-        assert fn not in src, fn
+    for k in ("chain_probe", "chain_probe2"):
+        src = (CSRC / f"{k}.cu").read_text()
+        for fn in ("dhash_hazard_stage(", "dhash_hazard_find(",
+                   "dhash_tail_stage(", "dhash_stage_words("):
+            assert fn not in src, (k, fn)
     # the staged set carries word offsets into one shared array, not
     # pointers (nvcc lost the shared state space of pointers kept in a
-    # returned struct), and the dense stage stays for chain_probe
+    # returned struct); the dense stage is gone
     common = (CSRC / "dhash_common.cuh").read_text()
     assert "extern __shared__ __align__(16) int dhash_smem[];" in common
-    for fn in ("dhash_stage(", "dhash_hazard_find(", "dhash_tail_stage(",
-               "dhash_set_stage(", "DHASH_SET_RUN"):
+    for fn in ("dhash_set_stage(", "DHASH_SET_RUN", "dhash_set_find(",
+               "const DhashSetTail& t, int b,"):
         assert fn in common, fn
+    for fn in ("dhash_stage(", "dhash_hazard_find(", "dhash_tail_stage(",
+               "struct DhashTail ", "template <class Tail>"):
+        assert fn not in common, fn
+
+
+def test_chain_compact_scratch_is_the_layout_the_kernel_states():
+    """The wrapper allocates the scratch the kernel source lays out: the
+    formula of ``probe.compact_scratch_words`` and the one stated at the
+    entry of ``chain_compact.cu`` agree, for arenas from one node to a
+    full one, bucket counts on and off a tile's edge (a short scratch let
+    the last word of a full arena's compaction land past it)."""
+    import re
+    from repro_torch.kernels import probe
+    src = (CSRC / "chain_compact.cu").read_text()
+    m = re.search(r"// scratch: (.+?) int32 words", src, re.S)
+    assert m, "chain_compact.cu states no scratch layout"
+    cu = " ".join(m.group(1).replace("//", " ").split()).replace("/", "//")
+    assert re.fullmatch(r"[\d\s()+*/nb]+", cu), cu
+    assert "#define CC_THREADS 256" in src
+    fn = next(f for f in ast.walk(ast.parse(
+        (PKG / "kernels" / "probe.py").read_text()))
+        if isinstance(f, ast.FunctionDef) and f.name == "compact_scratch_words")
+    py = ast.unparse(fn.body[-1].value)
+    for n, nb in ((1, 1), (512, 32), (1 << 20, 1 << 16), (1000, 255),
+                  (1000, 256), (1000, 257), (4 << 20, 3 * (1 << 16) + 1)):
+        want = eval(cu, {"n": n, "nb": nb})
+        assert eval(py, {"n": n, "nbuckets": nb}) == want, (n, nb)
+        assert probe.compact_scratch_words(n, nb) == want, (n, nb)
 
 
 def test_tc_insert_has_no_grid_barrier_and_no_kick_out_read_is_left():
