@@ -10,7 +10,9 @@ for an H100) and the CUDA toolkit:
     python3 chip_smoke.py --baseline OTHER/build/repro_torch_kernels
         # phase 2 also runs another tree's probe2, probe_insert, tc_insert,
         # tc_probe2, chain_probe, chain_probe2 and chain_compact on its
-        # timed inputs, in turns with this tree's
+        # timed inputs, and its sequence for a rebuild transition and the
+        # epoch exchange (extract, epoch_swap and the PyTorch ops around
+        # them), in turns with this tree's
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
 
@@ -35,11 +37,18 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
    on one row, a full table, one query, widths 4 and 8, two and eight
    rounds; the cuckoo kick-out at the main path's
    load, under a flood, on a crowded table and with nothing pending; the
-   guarded extract and the epoch swap on every backend's tables, flags set
-   and not; the chain compaction after a user insert, with its guard off,
-   on a full arena, on floods of one bucket and of eight buckets in eight
-   tiles, on listed buckets at tile edges and on a tail of dead nodes), and
-   times kernel and plain version;
+   guarded extract; the rebuild step's transition (the landing's
+   bookkeeping, the guarded scan and the epoch decision in one extract
+   launch) on every backend's tables with hazard flags empty, partial and
+   full, the landing's ok / present all, none and random, the cursor on
+   the first, a middle (aligned and not), the partial last chunk and at
+   the end, rebuilding on and off, swap and start allowed or not; the
+   epoch swap's exchange on every backend's tables on its own decision and
+   on a given go, and on leaves that are not 16-byte aligned; the chain
+   compaction after a user insert, with its guard off, on a full arena, on
+   floods of one bucket and of eight buckets in eight tiles, on listed
+   buckets at tile edges and on a tail of dead nodes), and times kernel and
+   plain version;
 3. drives the main path of each backend — ``dhash.make(backend,
    fused=True)`` with ``backend`` linear (a), twochoice (b), cuckoo (c) and
    chain (d) at the unreduced ``dhash-paper`` size under ``DHashEngine``
@@ -69,6 +78,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import os
 import re
@@ -137,6 +147,10 @@ OUTPUTS = ("found", "val", "f_old", "loc_old", "hz_idx", "loc_new")
 # the kernels --baseline runs from another tree, in turns with this tree's
 BASELINE_KERNELS = ("probe2", "probe_insert", "tc_insert", "tc_probe2",
                     "chain_probe", "chain_probe2", "chain_compact")
+# ... and the two whose C interfaces changed, as the sequence the other tree
+# runs for one rebuild transition and the exchange behind it
+# (``baseline_sequence``)
+BASELINE_SEQUENCE = ("extract", "epoch_swap")
 SET_LOOKUP_OPS = 4      # a staged-set lookup: hash, probe, compare, select
 
 
@@ -206,7 +220,9 @@ def load_baseline(path: str) -> dict:
     ``probe_insert`` and ``tc_insert`` come as functions with the arguments
     of this tree's wrappers; ``tc_insert`` through either C interface the
     other tree may have: the cooperative one with a claim word a slot and a
-    pending counter (17 arguments), or this one (18)."""
+    pending counter (17 arguments), or this one (18).  ``extract`` and
+    ``epoch_swap`` come as one function, the other tree's rebuild
+    transition and exchange (``baseline_sequence``)."""
     import ctypes
     import glob
     import importlib.util
@@ -217,7 +233,7 @@ def load_baseline(path: str) -> dict:
     other = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(other)
     out = {}
-    for name in BASELINE_KERNELS:
+    for name in BASELINE_KERNELS + BASELINE_SEQUENCE:
         found = glob.glob(os.path.join(path, f"{name}-*.so"))
         check(len(found) == 1, f"--baseline: {len(found)} builds of {name} "
                                f"in {path}")
@@ -228,7 +244,124 @@ def load_baseline(path: str) -> dict:
     out["probe_insert"] = baseline_insert(out["probe_insert"])
     out["tc_insert"] = baseline_tc_insert(out["tc_insert"])
     out["chain_compact"] = baseline_compact(out["chain_compact"])
+    out["sequence"], out["epoch_swap"] = baseline_sequence(
+        out.pop("extract"), out.pop("epoch_swap"))
     return out
+
+
+def baseline_sequence(extract_fn, swap_fn):
+    """What an engine step of another tree runs for one rebuild transition
+    after its landing and for the exchange behind it, on that tree's C
+    entry points ``extract_fn`` (the guarded scan, 13 arguments: run and
+    hold, no landing, no decision) and ``swap_fn`` (the decision kernel and
+    the exchange): ``pending = hazard_live.any()``, ``hazard_live &= ~ok &
+    ~present`` (PyTorch ops), the scan held on ``pending``, then the
+    epoch_swap call; the arguments of ``transition_step``.  Also that
+    tree's ``epoch_swap`` alone (its decision and its exchange), with the
+    arguments of ``probe.epoch_swap`` but ``go``."""
+    from repro_torch.core import backend
+    from repro_torch.kernels import probe
+    descs = {}
+
+    def exchange(old, new, specs, hl, cursor, rebuilding, epoch, lookups,
+                 expensive, capacity, swap, start):
+        key = tuple(x.data_ptr() for x in old + new)
+        if key not in descs:
+            descs[key] = (probe._epoch_desc(old, new, specs,
+                                            cursor.device)[0],
+                          torch.empty(2, dtype=torch.bool,
+                                      device=cursor.device))
+        desc, go = descs[key]
+        ptr = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in (
+            desc, len(old), hl, hl.shape[0], cursor, rebuilding, epoch,
+            lookups, expensive, capacity, int(swap), int(start), go)]
+        check(swap_fn(*ptr, torch.cuda.current_stream().cuda_stream) == 0,
+              "--baseline epoch_swap was not launched")
+        return go
+
+    def run(e, ok, present, swap, start):
+        hk, hv, hl = e.hazard_key, e.hazard_val, e.hazard_live
+        pending = hl.any()
+        hl.copy_(hl & ~ok & ~present)
+        arrays = scan_arrays(e.old)
+        stream = torch.cuda.current_stream().cuda_stream
+        ptr = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in (
+            *arrays, arrays[0].numel(), e.cursor, e.chunk, hk, hv, hl,
+            e.cursor, e.rebuilding, pending)]
+        check(extract_fn(*ptr, stream) == 0,
+              "--baseline extract was not launched")
+        lo, ln = backend.epoch_leaves(e.old), backend.epoch_leaves(e.new)
+        return exchange([x for x, _ in lo], [x for x, _ in ln],
+                        [s for _, s in lo], hl, e.cursor, e.rebuilding,
+                        e.epoch, e.lookups, e.expensive, arrays[0].numel(),
+                        swap, start)
+    return run, exchange
+
+
+def variant_entry(source: str, old: str, new: str):
+    """This tree's C entry point of ``csrc/<source>.cu`` built from that
+    source with the text ``old`` (found once) replaced by ``new``, into the
+    build directory: a variant that a design choice is timed against, in
+    turns with the kernel as it stands."""
+    import ctypes
+    from repro_torch.kernels import build
+    src = (build.CSRC / f"{source}.cu").read_text()
+    check(src.count(old) == 1, f"variant of {source}: {old!r} not found once")
+    out = build.build_dir() / f"variant-{source}-{build.source_hash()}"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / f"{source}.cu").write_text(src.replace(old, new))
+    so = out / f"{source}.so"
+    r = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-I",
+                        str(build.CSRC), "-o", str(so), str(out / f"{source}.cu")],
+                       capture_output=True, text=True)
+    check(r.returncode == 0, f"the variant of {source} did not build:\n"
+                             f"{r.stdout}{r.stderr}")
+    fn = getattr(ctypes.CDLL(str(so)), build._ENTRY[source])
+    fn.argtypes = build._ARGTYPES[build._ENTRY[source]]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def scan_arrays(t) -> tuple:
+    """The flat (key, val, state) arrays a table's rebuild scan reads."""
+    if hasattr(t, "akey"):
+        return t.akey, t.aval, t.astate
+    return t.key.view(-1), t.val.view(-1), t.state.view(-1)
+
+
+def transition_step(e, ok, present, swap, start):
+    """This tree's rebuild transition after the landing and the exchange
+    behind it, as an engine step launches them: one ``extract`` launch
+    (``probe.transition``), one ``epoch_swap`` launch on its go."""
+    from repro_torch.core import backend
+    from repro_torch.kernels import probe
+    go = backend.get(e.backend).transition_fused(
+        e.old, e.cursor, e.chunk, (e.hazard_key, e.hazard_val,
+                                   e.hazard_live), e.rebuilding, ok, present,
+        swap, start)
+    lo, ln = backend.epoch_leaves(e.old), backend.epoch_leaves(e.new)
+    return probe.epoch_swap([x for x, _ in lo], [x for x, _ in ln],
+                            [s for _, s in lo], e.hazard_live, e.cursor,
+                            e.rebuilding, e.epoch, e.lookups, e.expensive,
+                            backend.get(e.backend).capacity_of(e.old), swap,
+                            start, go)
+
+
+def transition_step_plain(e, ok, present, swap, start):
+    """``transition_step`` with the plain versions."""
+    from repro_torch.core import backend
+    from repro_torch.kernels import probe
+    go = probe.transition_plain(
+        *scan_arrays(e.old), e.cursor, e.chunk,
+        (e.hazard_key, e.hazard_val, e.hazard_live), e.rebuilding, ok,
+        present, swap, start)
+    lo, ln = backend.epoch_leaves(e.old), backend.epoch_leaves(e.new)
+    return probe.epoch_swap_plain([x for x, _ in lo], [x for x, _ in ln],
+                                  [s for _, s in lo], e.hazard_live,
+                                  e.cursor, e.rebuilding, e.epoch, e.lookups,
+                                  e.expensive,
+                                  backend.get(e.backend).capacity_of(e.old),
+                                  swap, start, go)
 
 
 def baseline_compact(fn):
@@ -427,6 +560,20 @@ def profile_steps(eng, oracle, cfg, n_steps: int, step0: int, path: str):
     # and the oracle's four outputs a step; anything more is a read the
     # engine does not count
     d2h = sum(e.count for e in ka if e.key.startswith("Memcpy DtoH"))
+    # PyTorch ops a step, and the ops the rebuild step's transition took
+    # over (the hazard flags' snapshot and keep mask), by name, wherever in
+    # the step they run: calls and device µs a step
+    n_ops = sum(e.count for e in ka if e.key.startswith("aten::"))
+    named = {k: [0, 0.0] for k in ("aten::any", "aten::bitwise_not",
+                                   "aten::bitwise_and", "aten::copy_")}
+    for e in ka:
+        if e.key in named:
+            named[e.key][0] += e.count
+            named[e.key][1] += getattr(e, "device_time_total",
+                                       getattr(e, "cuda_time_total", 0))
+    op_line = (f"PyTorch ops a step: {n_ops / n_steps:.2f}; of them "
+               + ", ".join(f"{k} {c / n_steps:.2f} ({us / n_steps:.3f} us)"
+                           for k, (c, us) in named.items()))
     # the port's own kernels, each a row whatever its rank in the table
     names = port_kernel_names()
     rows = []
@@ -446,8 +593,10 @@ def profile_steps(eng, oracle, cfg, n_steps: int, step0: int, path: str):
                 f"copies\n")
         f.write(ka.table(sort_by="self_cuda_time_total", row_limit=40))
         f.write("\nthe port's kernels:\n" + "\n".join(sorted(rows)) + "\n")
+        f.write(op_line + "\n")
     for row in sorted(rows):
         log("   " + row)
+    log("    " + op_line)
     log(f"  profile of {n_steps} steps: device busy "
         f"{dev_us / 1e3 / n_steps:.3f} ms a step, host time in PyTorch ops "
         f"{cpu_us / 1e3 / n_steps:.3f} ms a step, device-to-host copies "
@@ -940,7 +1089,11 @@ def phase_kernels(device, cfg, reps: int, baseline=None) -> dict:
                 (tk, tv, so), (nk, nv, ns), zk, zk, zl, h0o, h0n, qk, P)),
             ("backend.extract_chunk_fused",
              lambda: backend.extract_chunk_fused(
-                 table, torch.zeros((), dtype=i32, device=device), big))):
+                 table, torch.zeros((), dtype=i32, device=device), big)),
+            ("backend.transition_fused",
+             lambda: backend.transition_fused(
+                 table, torch.zeros((), dtype=i32, device=device), big,
+                 (zk, zk, zl), zl[0], zl, zl, True, True))):
         try:
             call()
         except ValueError:
@@ -948,7 +1101,7 @@ def phase_kernels(device, cfg, reps: int, baseline=None) -> dict:
         check(False, f"{what}: a chunk of {big} on the card must raise")
     check(probe.launch_counts() == before, "a refused chunk was launched")
     log(f"  chunk contract ok: chunk {big} on the card raises in extract, "
-        f"probe2 and the backend adapter")
+        f"probe2 and the backend adapters")
     return res
 
 
@@ -1695,15 +1848,17 @@ def cuckoo_table(device, nbuckets: int, n_live: int, rng, seed: int):
 
 
 def phase_guard_kernels(device, cfg, reps: int, baseline=None) -> dict:
-    """The three guarded kernels against their plain versions (tolerance 0):
-    the cuckoo kick-out at the cuckoo main path's shape (2 x 2^17 rows x 8)
-    on the main path's kind of batch, under a flood of 2048 keys on one row,
-    on a crowded table where most keys must move a resident, and with
-    nothing pending; the epoch swap on the four backends' full-size tables,
-    for a rebuild that is done (swap and start, swap alone), one mid-epoch
-    (nothing) and no rebuild (start alone); the chain compaction
-    (``compact_cases``)."""
-    from repro_torch.core import backend, buckets, dhash, hashing
+    """The guarded kernels against their plain versions (tolerance 0): the
+    cuckoo kick-out at the cuckoo main path's shape (2 x 2^17 rows x 8) on
+    the main path's kind of batch, under a flood of 2048 keys on one row, on
+    a crowded table where most keys must move a resident, and with nothing
+    pending; the chain compaction (``compact_cases``); the rebuild step's
+    transition (``transition_cases``); the epoch swap on the four backends'
+    full-size tables, for a rebuild that is done (swap and start, swap
+    alone), one mid-epoch (nothing) and no rebuild (start alone), each on
+    its own decision and on a given go, and on leaves that are not 16-byte
+    aligned."""
+    from repro_torch.core import backend, buckets, hashing
     from repro_torch.kernels import probe
     rng = np.random.default_rng(14)
     QU, CH, W = cfg.updates_per_step, cfg.chunk, 8
@@ -1822,18 +1977,20 @@ def phase_guard_kernels(device, cfg, reps: int, baseline=None) -> dict:
     #    the flag (the freeze)
     res["chain_compact"] = compact_cases(device, cfg, reps, rng, baseline)
 
-    # -- epoch_swap on the main path's tables of every backend
+    # -- the rebuild step's transition on the main path's tables of every
+    #    backend, and its time (with a baseline: in turns with the other
+    #    tree's sequence for the same work)
+    res["transition"] = transition_cases(device, cfg, reps, baseline)
+
+    # -- epoch_swap on the main path's tables of every backend: the exchange
+    #    on the go it is given (an engine step's) and with its own decision
     err, swap = 0, {}
+    want_go = {"done, swap and start": [True, True],
+               "done, swap alone": [True, False],
+               "mid-epoch": [False, False],
+               "no rebuild, start": [False, True]}
     for name in BACKENDS:
-        d = dhash.make(name, capacity=cfg.capacity_per_shard, chunk=CH,
-                       fused=True, seed=3, device=device)
-        gen = torch.Generator(device=device)
-        gen.manual_seed(5)
-        for tab in (d.old, d.new):
-            for x, spec in backend.epoch_leaves(tab):
-                if spec[0] != "seeds":
-                    x.copy_(torch.randint(-9, 1 << 20, x.shape, generator=gen,
-                                          device=device, dtype=torch.int32))
+        d = random_state(name, cfg, device, 5)
         cap = backend.get(name).capacity_of(d.old)
         for label, rb, cursor, swap_on, start_on in (
                 ("done, swap and start", True, cap, True, True),
@@ -1841,7 +1998,9 @@ def phase_guard_kernels(device, cfg, reps: int, baseline=None) -> dict:
                 ("mid-epoch", True, cap // 2, True, True),
                 ("no rebuild, start", False, 0, True, True)):
             outs = []
-            for fn in (probe.epoch_swap, probe.epoch_swap_plain):
+            for fn, given in itertools.product(
+                    (probe.epoch_swap, probe.epoch_swap_plain),
+                    (False, True)):
                 e = dataclasses.replace(
                     d, old=_clone_table(d.old), new=_clone_table(d.new),
                     hazard_live=torch.zeros_like(d.hazard_live),
@@ -1856,53 +2015,389 @@ def phase_guard_kernels(device, cfg, reps: int, baseline=None) -> dict:
                 go = fn([x for x, _ in lo], [x for x, _ in ln],
                         [s for _, s in lo], e.hazard_live, e.cursor,
                         e.rebuilding, e.epoch, e.lookups, e.expensive, cap,
-                        swap_on, start_on)
+                        swap_on, start_on,
+                        torch.tensor(want_go[label], device=device)
+                        if given else None)
                 torch.cuda.synchronize()
-                outs.append((go, [x for x, _ in lo + ln],
+                outs.append((go.clone(), [x for x, _ in lo + ln],
                              [e.cursor, e.rebuilding, e.epoch, e.lookups,
                               e.expensive]))
-            (gk, lk, sk), (gp, lp, sp) = outs
-            err = max(err, same(gk, gp, f"epoch_swap {name} {label} go"))
-            for i, (x, y) in enumerate(zip(lk + sk, lp + sp)):
-                err = max(err, same(x, y, f"epoch_swap {name} {label} "
-                                          f"leaf {i}"))
-            want = {"done, swap and start": [True, True],
-                    "done, swap alone": [True, False],
-                    "mid-epoch": [False, False],
-                    "no rebuild, start": [False, True]}[label]
-            check(gk.tolist() == want, f"epoch_swap {name} {label}: go "
-                  f"{gk.tolist()}, want {want}")
-        log(f"  epoch_swap ok: {name}, four cases")
-        if name == "linear":
-            lo, ln = backend.epoch_leaves(d.old), backend.epoch_leaves(d.new)
-            specs = [s for _, s in lo]
-            rb_t = torch.tensor(True, device=device)
-            cur_t = torch.tensor(cap, dtype=torch.int32, device=device)
-            scal = [torch.zeros((), dtype=torch.int32, device=device)
-                    for _ in range(3)]
+            for i, (gk, lk, sk) in enumerate(outs[1:]):
+                gp, lp, sp = outs[0]
+                err = max(err, same(gk, gp, f"epoch_swap {name} {label} "
+                                    f"form {i + 1} go"))
+                for j, (x, y) in enumerate(zip(lk + sk, lp + sp)):
+                    err = max(err, same(x, y, f"epoch_swap {name} {label} "
+                                              f"form {i + 1} leaf {j}"))
+            check(outs[0][0].tolist() == want_go[label],
+                  f"epoch_swap {name} {label}: go {outs[0][0].tolist()}, "
+                  f"want {want_go[label]}")
+        log(f"  epoch_swap ok: {name}, four cases, on its own decision and "
+            f"on a given go")
 
-            def launch():
-                return probe.epoch_swap(
+        # the exchange on a given go, as an engine step launches it: swap
+        # and start (once an epoch) and idle (every other step); the call
+        # that decides first, idle
+        lo, ln = backend.epoch_leaves(d.old), backend.epoch_leaves(d.new)
+        specs = [s for _, s in lo]
+        rb_t = torch.tensor(True, device=device)
+        cur_t = torch.tensor(cap // 2, dtype=torch.int32, device=device)
+        scal = [torch.zeros((), dtype=torch.int32, device=device)
+                for _ in range(3)]
+        gos = {v: torch.tensor(v, device=device)
+               for v in ((True, True), (False, False))}
+
+        def launch(go=None):
+            return lambda: probe.epoch_swap(
+                [x for x, _ in lo], [x for x, _ in ln], specs, d.hazard_live,
+                cur_t, rb_t, *scal, cap, True, True, go)
+        # read the new table, write both (the seeds and scalars aside)
+        nbytes = sum(x.numel() * x.element_size() for x, _ in ln) * 3
+        swap[name] = dict(
+            swap_and_start_ms=time_ms(launch(gos[True, True]), reps),
+            idle_ms=time_ms(launch(gos[False, False]), reps),
+            decide_idle_ms=time_ms(launch(), reps),
+            **bound(nbytes, 0))
+        if baseline is not None:
+            # this tree's exchange on its go, the other tree's epoch_swap
+            # (its decision and its exchange), in turns, on swap and start
+            # and on an idle step; the other tree's held to the plain
+            # version first
+            def parent(cur_v):
+                return lambda: baseline["epoch_swap"](
                     [x for x, _ in lo], [x for x, _ in ln], specs,
-                    d.hazard_live, cur_t, rb_t, *scal, cap, True, True)
+                    d.hazard_live, cur_t.fill_(cur_v), rb_t.fill_(True),
+                    *scal, cap, True, True)
+            mut = [v for v, _ in lo + ln] + [cur_t, rb_t, *scal]
+            for cur_v in (cap, cap // 2):
+                snap = [v.clone() for v in mut]
+                got = []
+                for fn in (parent(cur_v), lambda: probe.epoch_swap_plain(
+                        [x for x, _ in lo], [x for x, _ in ln], specs,
+                        d.hazard_live, cur_t.fill_(cur_v), rb_t.fill_(True),
+                        *scal, cap, True, True)):
+                    for v, v0 in zip(mut, snap):
+                        v.copy_(v0)
+                    go = fn()
+                    torch.cuda.synchronize()
+                    got.append([go.clone()] + [v.clone() for v in mut])
+                for a, b in zip(*got):
+                    same(a, b, f"epoch_swap {name} (baseline) cursor={cur_v}")
+            t = {k: [] for k in ("parent", "this", "parent_idle",
+                                 "this_idle")}
+            for who in ("parent", "this", "this", "parent"):
+                fn = launch(gos[True, True]) if who == "this" \
+                    else parent(cap)
+                t[who].append(time_ms(fn, reps))
+                fn = launch(gos[False, False]) if who == "this" \
+                    else parent(cap // 2)
+                t[who + "_idle"].append(time_ms(fn, reps))
+            swap[name]["in_turns"] = {
+                "swap_and_start_ms": t["this"],
+                "parent_swap_and_start_ms": t["parent"],
+                "idle_ms": t["this_idle"], "parent_idle_ms": t["parent_idle"]}
+        log(f"  epoch_swap times, {name}: " + json.dumps(swap[name]))
 
-            def flags(cur_v):
-                return lambda: (rb_t.fill_(True), cur_t.fill_(cur_v))
-            swap["linear idle"] = time_ms(launch, reps, flags(0))
-            swap["linear swap and start"] = time_ms(launch, reps, flags(cap))
-            nbytes = sum(x.numel() * x.element_size() for x, _ in ln) * 3
+    # -- leaves whose tensors are not 16-byte aligned, and lengths that are
+    #    not a multiple of four: the scalar loop
+    for n in (1, 1001):
+        for go_v in want_go.values():
+            outs = []
+            for fn in (probe.epoch_swap, probe.epoch_swap_plain):
+                g = torch.Generator(device=device)
+                g.manual_seed(n)
+                bufs = [torch.randint(-9, 99, (n + 8,), generator=g,
+                                      device=device, dtype=torch.int32)
+                        for _ in range(4)]
+                old, new = [bufs[0][1:n + 1], bufs[1][4:n + 4]], \
+                    [bufs[2][3:n + 3], bufs[3][:n]]
+                sc = [torch.tensor(v, dtype=torch.int32, device=device)
+                      for v in (0, 6, 3, 2)]
+                rbt = torch.tensor(True, device=device)
+                go = fn(old, new, [("fill", 7), ("desc",)],
+                        torch.zeros(8, dtype=torch.bool, device=device),
+                        sc[0], rbt, *sc[1:], n, True, True,
+                        torch.tensor(go_v, device=device))
+                torch.cuda.synchronize()
+                outs.append(bufs + sc + [rbt])
+            for x, y in zip(*outs):
+                err = max(err, same(x, y, f"epoch_swap unaligned n={n} "
+                                          f"go={go_v}"))
+    log("  epoch_swap ok: unaligned leaves of 1 and 1001 words, four cases")
+    lin = swap["linear"]
+    d = random_state("linear", cfg, device, 5)
+    lin_cap = backend.get("linear").capacity_of(d.old)
+    lo, ln = backend.epoch_leaves(d.old), backend.epoch_leaves(d.new)
     res["epoch_swap"] = dict(
-        max_abs_err=err, ms=swap["linear swap and start"],
+        max_abs_err=err, ms=lin["swap_and_start_ms"],
         plain_ms=time_ms(lambda: probe.epoch_swap_plain(
-            [x for x, _ in lo], [x for x, _ in ln], specs, d.hazard_live,
-            cur_t.fill_(cap), rb_t.fill_(True), *scal, cap, True, True), 3,
+            [x for x, _ in lo], [x for x, _ in ln], [s for _, s in lo],
+            d.hazard_live, d.cursor.fill_(lin_cap), d.rebuilding.fill_(True),
+            d.epoch, d.lookups, d.expensive, lin_cap, True, True), 3,
             queue_ahead=False),
-        # in: the new table (and the flags); out: both tables
-        **bound(nbytes, 0), idle_ms=swap["linear idle"])
-    log(f"  epoch_swap times, linear 2^21 slots: idle launch (every other "
-        f"step) {swap['linear idle']:.4f} ms, swap and start (once an "
-        f"epoch) {swap['linear swap and start']:.4f} ms")
+        bound_ms=lin["bound_ms"], bound_by=lin["bound_by"],
+        idle_ms=lin["idle_ms"], by_backend=swap)
     return res
+
+
+def random_state(name: str, cfg, device, seed: int):
+    """A fused state of backend ``name`` at the main path's size whose
+    tables' leaves hold random words (the hash seeds aside; slot and node
+    states in EMPTY..MIGRATED, 45 % LIVE), mid-rebuild."""
+    from repro_torch.core import backend, dhash
+    d = dhash.make(name, capacity=cfg.capacity_per_shard, chunk=cfg.chunk,
+                   fused=True, seed=seed, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    for tab in (d.old, d.new):
+        for x, spec in backend.epoch_leaves(tab):
+            if spec[0] != "seeds":
+                x.copy_(torch.randint(-9, 1 << 20, x.shape, generator=gen,
+                                      device=device, dtype=torch.int32))
+        st = scan_arrays(tab)[2]
+        u = torch.rand(st.shape, generator=gen, device=device)
+        st.copy_((u > 0.3).int() + (u > 0.75).int() + (u > 0.9).int())
+    d.rebuilding.fill_(True)
+    return d
+
+
+def clone_state(d):
+    """A copy of a DHashState with tensors of its own."""
+    return dataclasses.replace(
+        d, old=_clone_table(d.old), new=_clone_table(d.new),
+        **{f.name: getattr(d, f.name).clone() for f in dataclasses.fields(d)
+           if isinstance(getattr(d, f.name), torch.Tensor)})
+
+
+def transition_cases(device, cfg, reps: int, baseline=None) -> dict:
+    """The rebuild step's transition (``probe.transition``: the landing's
+    bookkeeping, the guarded scan and the epoch decision in one ``extract``
+    launch) against its plain version, tolerance 0, on the main path's
+    tables of the four backends: hazard flags empty, partial and full; the
+    landing's ok / present all, none and random; the cursor on the first
+    chunk, a middle one (aligned, and 123 slots off), the partial last one
+    and at the end; rebuilding on and off; swap_on x start_on.  Then, on the
+    landing step (flags pending: no scan), the scan step and the idle one
+    (not rebuilding), the transition's time; with a baseline the other
+    tree's sequence for the same work (``baseline_sequence``: the PyTorch
+    ops, its extract, its decision and exchange) against this tree's
+    transition and exchange, held equal and timed in turns, and under the
+    profiler: device µs and PyTorch ops a step of this work; and this
+    tree's transition and exchange against the same with the exchange
+    launched as an ordinary kernel, not a programmatic dependent
+    (``serial``, a variant of ``epoch_swap.cu``), in turns."""
+    from repro_torch.core import backend
+    from repro_torch.kernels import build, probe
+    CH = cfg.chunk
+    serial = None if baseline is None else variant_entry(
+        "epoch_swap", "programmaticStreamSerializationAllowed = 1",
+        "programmaticStreamSerializationAllowed = 0")
+
+    def serial_step(*a):
+        lib = build.load()
+        mine = lib["epoch_swap"]
+        lib["epoch_swap"] = serial
+        try:
+            return transition_step(*a)
+        finally:
+            lib["epoch_swap"] = mine
+    gen = torch.Generator(device=device)
+    gen.manual_seed(18)
+
+    def flags(kind):
+        if kind in ("empty", "none"):
+            return torch.zeros(CH, dtype=torch.bool, device=device)
+        if kind in ("full", "all"):
+            return torch.ones(CH, dtype=torch.bool, device=device)
+        return torch.rand(CH, generator=gen, device=device) < 0.5
+
+    err, out = 0, {"cases": 0}
+    for i, name in enumerate(BACKENDS):
+        d = random_state(name, cfg, device, 40 + i)
+        be = backend.get(name)
+        c = be.capacity_of(d.old)
+        hz0 = [torch.randint(-9, 1 << 20, (CH,), generator=gen,
+                             device=device, dtype=torch.int32)
+               for _ in range(2)]
+        seen = set()
+        for cur, hl_kind, okp in itertools.product(
+                (0, 5 * CH, 5 * CH + 123, c - 1000, c),
+                ("empty", "partial", "full"), ("all", "none", "random")):
+            hl0 = flags(hl_kind)
+            ok = flags(okp)
+            present = flags("random") & flags("random") if okp == "random" \
+                else torch.zeros_like(ok)
+            for rb, swap, start in itertools.product(
+                    (True, False), (False, True), (False, True)):
+                outs = []
+                for fn in (be.transition_fused, None):
+                    st = scan_arrays(d.old)[2].clone()
+                    t = dataclasses.replace(d.old, **(
+                        {"astate": st} if name == "chain"
+                        else {"state": st.view(d.old.state.shape)}))
+                    hz = (hz0[0].clone(), hz0[1].clone(), hl0.clone())
+                    cursor = torch.tensor(cur, dtype=torch.int32,
+                                          device=device)
+                    rbt = torch.tensor(rb, device=device)
+                    if fn is None:
+                        go = probe.transition_plain(
+                            *scan_arrays(t), cursor, CH, hz, rbt, ok,
+                            present, swap, start)
+                    else:
+                        go = fn(t, cursor, CH, hz, rbt, ok, present, swap,
+                                start)
+                        torch.cuda.synchronize()
+                    outs.append((st, *hz, cursor, rbt, go))
+                for x, y, n in zip(*outs, ("state", "hkey", "hval", "hlive",
+                                           "cursor", "rebuilding", "go")):
+                    err = max(err, same(x, y, f"transition {name} cursor="
+                                        f"{cur} hl={hl_kind} ok={okp} "
+                                        f"rb={rb} swap={swap} start={start} "
+                                        f"{n}"))
+                seen.add(tuple(outs[0][-1].tolist()))
+                out["cases"] += 1
+        check(seen == {(False, False), (False, True), (True, False),
+                       (True, True)}, f"transition {name}: decisions {seen}")
+        log(f"  transition ok: {name}, {c} slots, 360 cases (tolerance 0)")
+
+        # times on the main path's table: the landing step, the scan step
+        # (the chunk at 5 * CH) and a step that is not rebuilding
+        ok, present = flags("random"), flags("none")
+        hz = (hz0[0].clone(), hz0[1].clone(), flags("empty"))
+        cursor = torch.tensor(5 * CH, dtype=torch.int32, device=device)
+        rbt = torch.tensor(True, device=device)
+        arrays = scan_arrays(d.old)
+        st0 = arrays[2].clone()
+        hl_land = flags("partial")
+
+        def restore(hl_v, rb_v=True):
+            def run():
+                arrays[2].copy_(st0)
+                hz[2].copy_(hl_v)
+                cursor.fill_(5 * CH)
+                rbt.fill_(rb_v)
+            return run
+
+        def launch():
+            return probe.transition(*arrays, cursor, CH, hz, rbt, ok,
+                                    present, True, True)
+        times = {
+            "scan": time_ms(launch, reps, restore(flags("empty"))),
+            "land": time_ms(launch, reps, restore(hl_land)),
+            "idle": time_ms(launch, reps, restore(flags("empty"), False)),
+            "plain": time_ms(lambda: probe.transition_plain(
+                *arrays, cursor, CH, hz, rbt, ok, present, True, True), 3,
+                restore(flags("empty")), queue_ahead=False)}
+        restore(flags("empty"))()
+        n_live = int((arrays[2][5 * CH:6 * CH] == 1).sum())
+        # the scan step: in the flags (chunk bytes), every slot's state, key
+        # and value of the live slots, cursor and flag; out the hazard
+        # buffer, the MIGRATED marks, cursor and go
+        nbytes = CH + CH * 4 + n_live * 8 + 5 + CH * 9 + n_live * 4 + 6
+        out[name] = dict(ms=times["scan"], land_ms=times["land"],
+                         idle_ms=times["idle"], plain_ms=times["plain"],
+                         live_in_chunk=n_live, **bound(nbytes, 0))
+        log(f"  transition times, {name}: " + json.dumps(out[name]))
+
+        if baseline is None:
+            continue
+        # this tree's transition and exchange against the other tree's
+        # sequence for the same work, on the landing step, the scan step
+        # and (linear) the step that ends the epoch: swap and start
+        e0 = clone_state(d)
+        e0.cursor.fill_(5 * CH)
+        steps = {"land": (hl_land, 5 * CH), "scan": (flags("empty"), 5 * CH)}
+        if name == "linear":
+            steps["swap and start"] = (flags("empty"), c)
+        for label, (hl_v, cur) in steps.items():
+            runs = {}
+            for who, fn in (("this", transition_step),
+                            ("parent", baseline["sequence"]),
+                            ("serial", serial_step),
+                            ("plain", transition_step_plain)):
+                e = clone_state(e0)
+                e.hazard_live.copy_(hl_v)
+                e.cursor.fill_(cur)
+                go = fn(e, ok, present, True, True)
+                torch.cuda.synchronize()
+                runs[who] = [go.clone(), *(x for _, x in _leaves(e))]
+            for who in ("this", "parent", "serial"):
+                for x, y in zip(runs[who], runs["plain"]):
+                    same(x, y, f"transition step {name} {label} ({who})")
+            e = clone_state(e0)
+            win = slice(5 * CH, 6 * CH)
+            st_e, st_0 = scan_arrays(e.old)[2][win], scan_arrays(e0.old)[2][win]
+
+            def setup(hl_v=hl_v, cur=cur, e=e, st_e=st_e, st_0=st_0):
+                st_e.copy_(st_0)            # the scanned chunk's states
+                e.hazard_live.copy_(hl_v)
+                e.cursor.fill_(cur)
+                e.rebuilding.fill_(True)
+            t = {"parent": [], "this": [], "serial": []}
+            prof = {"parent": [], "this": [], "serial": []}
+            fns = {"this": transition_step, "parent": baseline["sequence"],
+                   "serial": serial_step}
+            for who in ("parent", "this", "serial", "serial", "this",
+                        "parent"):
+                fn = fns[who]
+                t[who].append(time_ms(
+                    lambda: fn(e, ok, present, True, True), reps, setup))
+                if who in prof and len(prof[who]) < 2:
+                    prof[who].append(profile_calls(
+                        lambda: fn(e, ok, present, True, True), 20, setup))
+            entry = {"ms": t["this"], "parent_ms": t["parent"],
+                     "serial_ms": t["serial"],
+                     "device_us": [p[0] for p in prof["this"]],
+                     "parent_device_us": [p[0] for p in prof["parent"]],
+                     "ops": prof["this"][0][1],
+                     "parent_ops": prof["parent"][0][1],
+                     "kernels": prof["this"][0][2],
+                     "parent_kernels": prof["parent"][0][2],
+                     "serial_kernels": prof["serial"][0][2]}
+            out.setdefault("in_turns", {})[f"{name} {label}"] = entry
+            log(f"    transition and exchange, {name} {label}: equal to the "
+                f"plain version and to the parent's sequence; "
+                + json.dumps(entry))
+    out["max_abs_err"] = err
+    return out
+
+
+def profile_calls(fn, n: int, setup) -> tuple:
+    """``n`` calls of ``fn``, each after ``setup``, under torch.profiler,
+    less ``n`` calls of ``setup`` alone: device µs a call (every kernel and
+    copy on the device), PyTorch ops a call (``aten::`` calls, nested ones
+    included), and the kernels by name: [launches, device µs] a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def session(work):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                setup()
+                if work:
+                    fn()
+            torch.cuda.synchronize()
+        dev_us, ops, kern = 0.0, 0, {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                us = getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0))
+                dev_us += us
+                k = re.match(r"(?:void )?([\w:]+)", e.key).group(1)[:48]
+                c, u = kern.get(k, (0, 0.0))
+                kern[k] = (c + e.count, u + us)
+            elif e.key.startswith("aten::"):
+                ops += e.count
+        return dev_us, ops, kern
+
+    (du, ou, ku), (db, ob, kb) = session(True), session(False)
+    kern = {k: [(c - kb.get(k, (0, 0.0))[0]) / n,
+                (u - kb.get(k, (0, 0.0))[1]) / n]
+            for k, (c, u) in sorted(ku.items())
+            if c != kb.get(k, (0, 0.0))[0]}
+    return (du - db) / n, (ou - ob) / n, kern
 
 
 def bucket_keys(t, b: int, n: int, rng, device) -> torch.Tensor:
@@ -2174,10 +2669,12 @@ def expected_launches(before: dict, after: dict, was_rebuilding: bool,
     shared): steady state two lookup-kernel launches (lookup, delete) and one
     insert; in a rebuild epoch two probe2 launches, two inserts (the user's
     and the landing's, which inserts nothing when no hazard entry is live),
-    one extract (guarded: it scans only where the device allows) and one
-    epoch_swap (guarded: it swaps and restarts only where the rebuild is
+    one extract (the transition: the landing's bookkeeping, the scan where
+    the device allows, the epoch decision) and one epoch_swap (the exchange
+    on that decision: it swaps and restarts only where the rebuild is
     done); the first step of continuous rebuild adds the epoch_swap that
-    starts it.  Every cuckoo insert adds its kick-out launch (guarded: with
+    starts it, which decides by itself: two kernels, the decision and the
+    exchange.  Every cuckoo insert adds its kick-out launch (guarded: with
     nothing pending it returns), every chain insert its compaction (guarded
     on the dirty count), and every continuous chain step the freeze's
     compaction (guarded on the start).  (Chain's insert kernel is its lookup
@@ -2197,7 +2694,7 @@ def expected_launches(before: dict, after: dict, was_rebuilding: bool,
     if backend == "chain":
         want["chain_compact"] += inserts + continuous
     if was_rebuilding or continuous:
-        want["epoch_swap"] += 1
+        want["epoch_swap"] += 1 if was_rebuilding else 2
     return None if d == want else f"{d} (rebuilding={was_rebuilding})"
 
 
@@ -2970,7 +3467,10 @@ def main() -> int:
                     "phase 2 also holds that tree's probe2, probe_insert, "
                     "tc_insert, tc_probe2, chain_probe, chain_probe2 and "
                     "chain_compact against their plain versions on the timed "
-                    "inputs and times each in turns with this tree's")
+                    "inputs and times each in turns with this tree's, and "
+                    "its rebuild transition and epoch exchange (extract, "
+                    "epoch_swap and the PyTorch ops around them) against "
+                    "this tree's transition and exchange")
     ap.add_argument("--profile", default="", metavar="FILE",
                     help="also run 40 steps of each main path under "
                     "torch.profiler and write the kernel tables to FILE "
@@ -3016,6 +3516,16 @@ def main() -> int:
     kres.update(phase_tc_kernels(device, CONFIG, args.reps, baseline))
     kres.update(phase_chain_kernels(device, CONFIG, args.reps, baseline))
     kres.update(phase_guard_kernels(device, CONFIG, args.reps, baseline))
+    # the main path launches extract as the transition: its time, bound and
+    # plain time on linear are the kernel's; the extract form's stay beside
+    tr, ext = kres.pop("transition"), kres["extract"]
+    ext.update(extract_form=dict(ms=ext["ms"], plain_ms=ext["plain_ms"],
+                                 bound_ms=ext["bound_ms"],
+                                 idle_ms=ext.pop("guarded_idle_ms")),
+               max_abs_err=max(ext["max_abs_err"], tr.pop("max_abs_err")),
+               transition=tr)
+    ext.update({k: tr["linear"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by")})
 
     by_path = {}
     for i, name in enumerate(BACKENDS):

@@ -99,6 +99,11 @@ class BucketBackend:
       extract_chunk_fused(t, cursor, n, *, out=None, run=None, hold=None)
           -> like extract_chunk; with ``out`` (the hazard buffer) IN PLACE,
              behind the device flags run & ~hold (``probe.extract``)
+      transition_fused(t, cursor, n, hazard, rebuilding, ok, present,
+                       swap, start) -> go[2]
+          the rebuild step's transition after its landing, IN PLACE: the
+          landing's bookkeeping, the guarded scan of ``t`` and the epoch
+          decision in one launch (``probe.transition``)
       ordered_lookup_fused(t_old, t_new, hk, hv, hl, keys, *, nres_cap)
           -> (found, vals)                     whole Lemma-4.1 ordered check
       ordered_delete_fused(t_old, t_new, hk, hv, hl, keys, mask, *, nres_cap)
@@ -140,6 +145,7 @@ class BucketBackend:
     insert_fused: Callable[..., Any] | None = None
     delete_fused: Callable[..., Any] | None = None
     extract_chunk_fused: Callable[..., Any] | None = None
+    transition_fused: Callable[..., Any] | None = None
     ordered_lookup_fused: Callable[..., Any] | None = None
     ordered_delete_fused: Callable[..., Any] | None = None
     # optional hooks
@@ -155,7 +161,8 @@ class BucketBackend:
     def __post_init__(self):
         fused_set = (self.lookup_fused, self.lookup_fused_loc,
                      self.insert_fused, self.delete_fused,
-                     self.extract_chunk_fused, self.ordered_lookup_fused,
+                     self.extract_chunk_fused, self.transition_fused,
+                     self.ordered_lookup_fused,
                      self.ordered_delete_fused)
         have = [f is not None for f in fused_set]
         if any(have) and not all(have):
@@ -281,6 +288,17 @@ def extract_chunk_fused(t, cursor: torch.Tensor, n: int, *, out=None,
         buckets.extract_chunk, out=out, run=run, hold=hold)
 
 
+def transition_fused(t, cursor: torch.Tensor, n: int, hazard, rebuilding,
+                     ok, present, swap: bool, start: bool) -> torch.Tensor:
+    """The rebuild step's transition on a slot table (``probe.transition``
+    on the row-major flattened slot arrays, the scan order of
+    ``extract_chunk_fused``, with its chunk contract).  Returns go[2]."""
+    from repro_torch.kernels import probe
+    return probe.transition(t.key.view(-1), t.val.view(-1),
+                            t.state.view(-1), cursor, n, hazard, rebuilding,
+                            ok, present, swap, start)
+
+
 def linear_ordered_lookup_fused(t_old: LinearTable, t_new: LinearTable,
                                 hazard_key: torch.Tensor,
                                 hazard_val: torch.Tensor,
@@ -370,6 +388,7 @@ def _two_row_fused(rows) -> dict:
     return dict(lookup_fused=lookup_fused, lookup_fused_loc=lookup_fused_loc,
                 delete_fused=delete_fused,
                 extract_chunk_fused=extract_chunk_fused,
+                transition_fused=transition_fused,
                 ordered_lookup_fused=ordered_lookup_fused,
                 ordered_delete_fused=ordered_delete_fused)
 
@@ -509,6 +528,17 @@ def chain_extract_chunk_fused(t: ChainTable, cursor: torch.Tensor, n: int,
     return _extract_fused(t, (t.akey, t.aval, t.astate), cursor, n,
                           buckets.chain_extract_chunk, out=out, run=run,
                           hold=hold)
+
+
+def chain_transition_fused(t: ChainTable, cursor: torch.Tensor, n: int,
+                           hazard, rebuilding, ok, present, swap: bool,
+                           start: bool) -> torch.Tensor:
+    """The rebuild step's transition on the flat arena (``probe.transition``;
+    positions are scan order, as in ``chain_extract_chunk_fused``).  Returns
+    go[2]."""
+    from repro_torch.kernels import probe
+    return probe.transition(t.akey, t.aval, t.astate, cursor, n, hazard,
+                            rebuilding, ok, present, swap, start)
 
 
 def _chain_fields(t: ChainTable) -> tuple:
@@ -767,6 +797,7 @@ LINEAR = register(BucketBackend(
     insert_fused=linear_insert_fused,
     delete_fused=linear_delete_fused,
     extract_chunk_fused=extract_chunk_fused,
+    transition_fused=transition_fused,
     ordered_lookup_fused=linear_ordered_lookup_fused,
     ordered_delete_fused=linear_ordered_delete_fused,
     lookup_fwd=buckets.linear_lookup_fwd,
@@ -852,6 +883,7 @@ CHAIN = register(BucketBackend(
     insert_fused=_chain_insert_fused_compacting,
     delete_fused=chain_delete_fused,
     extract_chunk_fused=chain_extract_chunk_fused,
+    transition_fused=chain_transition_fused,
     ordered_lookup_fused=chain_ordered_lookup_fused,
     ordered_delete_fused=chain_ordered_delete_fused,
     freeze_old=chain_compact_fused,

@@ -42,10 +42,11 @@ reference's semantics whatever the flag is; a caller that already knows the
 flag passes it and the function never synchronises.  The DEVICE-FLAG forms
 (``insert_by_flag``, ``rebuild_step_``, ``finish_same_shape_``,
 ``rebuild_autostart_``) decide on the device instead: guarded kernel
-launches (``extract`` and ``epoch_swap`` skip their work on a device flag)
-and selects, no host read, and they write every field of the state IN PLACE
-(``copy_``, never a rebound field), so that one engine step can be captured
-in a CUDA graph and replayed.
+launches (``extract`` and ``epoch_swap`` skip their work on a device flag;
+the rebuild step's transition decides the epoch for the exchange that
+follows it) and selects, no host read, and they write every field of the
+state IN PLACE (``copy_``, never a rebound field), so that one engine step
+can be captured in a CUDA graph and replayed.
 
 Mutation: with ``fused=True`` the ops update the table tensors IN PLACE (the
 counterpart of the reference's buffer donation) and return a state container
@@ -492,65 +493,85 @@ def insert_by_flag(d: DHashState, keys: torch.Tensor, vals: torch.Tensor,
 
 
 @torch.no_grad()
-def rebuild_step_(d: DHashState) -> DHashState:
+def rebuild_step_(d: DHashState, *, swap: bool = False,
+                  start: bool = False) -> torch.Tensor:
     """``rebuild_step`` decided on the device, IN PLACE: the landing runs
     every call (an insert of the live hazard entries — nothing when none is
-    live), then the extract launch, which scans only where ``rebuilding`` is
-    set and no hazard entry was live BEFORE the landing (a snapshot taken
-    first, so that a landing that empties the buffer does not let the
-    extract run in the same step: one transition a call, as the
-    reference's ``lax.cond(hazard_live.any(), land, extract)``)."""
+    live), then ONE transition launch (``backend.transition_fused``): a
+    snapshot of ``hazard_live.any()`` taken before the buffer changes, the
+    landing's bookkeeping, the chunk scan where ``rebuilding`` is set and
+    nothing was pending (one transition a call, as the reference's
+    ``lax.cond(hazard_live.any(), land, extract)``), and the epoch decision
+    that ``finish_same_shape_(d, go=...)`` takes: ``swap`` allows the swap,
+    ``start`` the next start.  Returns go[2] bool on the device: (swap,
+    start).  A plain state (``fused=False``) runs the same sequence as
+    plain ops (``_rebuild_step_plain_``)."""
+    if not d.fused:
+        return _rebuild_step_plain_(d, swap, start)
+    be = _be(d)
+    hazard = (d.hazard_key, d.hazard_val, d.hazard_live)
+    # the hazard keys are distinct: extracted from one table's LIVE slots
+    _, ok, present = be.insert_fused(d.new, *hazard, with_present=True,
+                                     dedup=False)
+    return be.transition_fused(d.old, d.cursor, d.chunk, hazard,
+                               d.rebuilding, ok, present, swap, start)
+
+
+def _rebuild_step_plain_(d: DHashState, swap: bool,
+                         start: bool) -> torch.Tensor:
+    """``rebuild_step_`` on a plain state: the plain insert and lookup, the
+    keep mask, the position-aligned plain scan selected on the device, the
+    epoch decision."""
+    from repro_torch.kernels import probe
     be = _be(d)
     pending = d.hazard_live.any()
-    if d.fused:
-        # the hazard keys are distinct: extracted from one table's LIVE slots
-        _, ok, present = be.insert_fused(d.new, d.hazard_key, d.hazard_val,
-                                         d.hazard_live, with_present=True,
-                                         dedup=False)
-    else:
-        t, ok = be.insert(d.new, d.hazard_key, d.hazard_val, d.hazard_live)
-        present, _, _ = be.lookup(t, d.hazard_key)
-        assign_(d.new, t)
+    t, ok = be.insert(d.new, d.hazard_key, d.hazard_val, d.hazard_live)
+    present, _, _ = be.lookup(t, d.hazard_key)
+    assign_(d.new, t)
     d.hazard_live.copy_(d.hazard_live & ~ok & ~present)
-    hazard = (d.hazard_key, d.hazard_val, d.hazard_live)
-    if d.fused:
-        be.extract_chunk_fused(d.old, d.cursor, d.chunk, out=hazard,
-                               run=d.rebuilding, hold=pending)
-    else:
-        t, *scan = be.extract_chunk(d.old, d.cursor, d.chunk)
-        go = d.rebuilding & ~pending
-        assign_(d.old, t, go)
-        for dst, src in zip((*hazard, d.cursor), scan):
-            assign_(dst, src, go)
-    return d
+    t, *scan = be.extract_chunk(d.old, d.cursor, d.chunk)
+    go = d.rebuilding & ~pending
+    assign_(d.old, t, go)
+    for dst, src in zip((d.hazard_key, d.hazard_val, d.hazard_live,
+                         d.cursor), scan):
+        assign_(dst, src, go)
+    return torch.stack(probe._epoch_flags(
+        d.hazard_live, d.cursor, d.rebuilding, be.capacity_of(d.old), swap,
+        start))
 
 
-def _epoch_(d: DHashState, swap: bool, start: bool) -> torch.Tensor:
-    """One ``epoch_swap`` launch over both tables' leaves (the plain version
-    on a plain state), then chain's freeze of the old arena, computed and
-    taken where the start happened.  Returns go[2]: (swapped, started)."""
+def _epoch_(d: DHashState, swap: bool, start: bool,
+            go: torch.Tensor | None = None) -> torch.Tensor:
+    """One ``epoch_swap`` call over both tables' leaves (the plain version
+    on a plain state) — the exchange on ``go`` where the step's transition
+    decided, else the decision and the exchange — then chain's freeze of
+    the old arena, taken where the start happened.  Returns go[2]:
+    (swapped, started)."""
     from repro_torch.kernels import probe
     be = _be(d)
     lo, ln = backends.epoch_leaves(d.old), backends.epoch_leaves(d.new)
     fn = probe.epoch_swap if d.fused else probe.epoch_swap_plain
     go = fn([x for x, _ in lo], [x for x, _ in ln], [s for _, s in lo],
             d.hazard_live, d.cursor, d.rebuilding, d.epoch, d.lookups,
-            d.expensive, be.capacity_of(d.old), swap, start)
+            d.expensive, be.capacity_of(d.old), swap, start, go)
     if start and d.fused and be.freeze_old is not None:
         be.freeze_old(d.old, go[1])
     return go
 
 
 @torch.no_grad()
-def finish_same_shape_(d: DHashState, *,
-                       autostart: bool = False) -> torch.Tensor:
+def finish_same_shape_(d: DHashState, *, autostart: bool = False,
+                       go: torch.Tensor | None = None) -> torch.Tensor:
     """``finish_same_shape`` decided on the device, IN PLACE (old/new must
     share shapes): where the rebuild is done, the two tables' contents change
     places and the scalars reset, as the reference's select does.  With
     ``autostart`` the same launch then runs ``rebuild_autostart_``'s start
-    (the continuous-rebuild engine's swap and restart in one step).
-    Returns go[2] bool on the device: (swapped, started)."""
-    return _epoch_(d, swap=True, start=autostart)
+    (the continuous-rebuild engine's swap and restart in one step).  ``go``
+    is the decision of this step's ``rebuild_step_(d, swap=True,
+    start=autostart)``, which leaves the exchange alone to launch; without
+    it the call decides from the state.  Returns go[2] bool on the device:
+    (swapped, started)."""
+    return _epoch_(d, swap=True, start=autostart, go=go)
 
 
 @torch.no_grad()

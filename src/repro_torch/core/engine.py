@@ -19,21 +19,22 @@ jitted ``fused``) runs the whole step on the device, and the host keeps its
 books and, one step in ``poll_every``, polls.  Every ``lax.cond`` the
 reference puts on the step is a decision taken on the device: the transition
 is ``dhash.rebuild_step_`` (the landing runs every step and inserts nothing
-when no hazard entry is live; the extract launch scans only where the
-device flags allow), the epoch swap and the next rebuild's start are one
-``epoch_swap`` launch (``dhash.finish_same_shape_``), and the cuckoo
-kick-out is a kernel with its own guard.  ``_device_step`` reads nothing
-from the device and writes every field of the state in place, so it can be
-captured in a CUDA graph.  The host keeps ``rebuilding`` as a flag of its
-own: in continuous-rebuild mode the swap and the next start happen in one
-step, so it is true at every step boundary; otherwise a rebuild epoch that
-ends on the device between polls leaves it stale until the poll, and the
-epoch's inserts pick their table on the device (``dhash.insert_by_flag``),
-while lookups and deletes stay right on the epoch path (the standby holds
-nothing LIVE).  The poll is the one read: ``(epoch, rebuilding, done)`` in
-one small tensor, counted in ``EngineStats.host_syncs``, from which
-``rebuilds_completed`` is refreshed, as in the reference.  Steps between
-polls read nothing.
+when no hazard entry is live; one transition launch then does the landing's
+bookkeeping, scans only where the device flags allow and decides the epoch
+swap and the next rebuild's start), the swap and the start are one
+``epoch_swap`` exchange on that decision (``dhash.finish_same_shape_``), and
+the cuckoo kick-out is a kernel with its own guard.  ``_device_step`` reads
+nothing from the device and writes every field of the state in place, so it
+can be captured in a CUDA graph.  The host keeps ``rebuilding`` as a flag of
+its own: in continuous-rebuild mode the swap and the next start happen in
+one step, so it is true at every step boundary; otherwise a rebuild epoch
+that ends on the device between polls leaves it stale until the poll, and
+the epoch's inserts pick their table on the device
+(``dhash.insert_by_flag``), while lookups and deletes stay right on the
+epoch path (the standby holds nothing LIVE).  The poll is the one read:
+``(epoch, rebuilding, done)`` in one small tensor, counted in
+``EngineStats.host_syncs``, from which ``rebuilds_completed`` is refreshed,
+as in the reference.  Steps between polls read nothing.
 
 Only a *shape-changing* rebuild (a user-supplied ``new_table`` with a
 different capacity) is finished by the K-step poll, as in the reference — up
@@ -187,10 +188,13 @@ class DHashEngine:
             assign_(d, d2)
         d2, ok_d = dhash.delete(d, dk, dm, rebuilding=rb)
         assign_(d, d2)
+        go = None
         if rb:
-            dhash.rebuild_step_(d)
+            go = dhash.rebuild_step_(d, swap=swap,
+                                     start=self.continuous_rebuild)
         if swap and (rb or self.continuous_rebuild):
-            dhash.finish_same_shape_(d, autostart=self.continuous_rebuild)
+            dhash.finish_same_shape_(d, autostart=self.continuous_rebuild,
+                                     go=go)
         return found, vals, ok_i, ok_d
 
     # -- host-side polling (1 of every K steps) ------------------------------

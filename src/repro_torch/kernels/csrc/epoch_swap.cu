@@ -6,12 +6,17 @@
 // jnp.where on `done` over every leaf of both tables and the scalars; and
 // rebuild_autostart: lax.cond(rebuilding) around clearing the standby,
 // reseeding its hash function from the epoch counter and freezing the old
-// table).  Eager PyTorch would branch on the host for both; this launch lets
-// an engine step decide on the device:
+// table).  Eager PyTorch would branch on the host for both; here the
+// exchange reads two device flags, go[0] = swap and go[1] = start:
 //
 //   swap  = swap_on && rebuilding && cursor >= capacity && no hazard entry
 //           live                                    (rebuild_done)
 //   start = start_on && (swap || !rebuilding)       (the autostart's cond)
+//
+// An engine's rebuild-epoch step takes them from its transition launch
+// (extract.cu decides them after the scan); a caller with no transition in
+// its step has this entry point decide them first (epoch_flags_kernel, one
+// block), then exchange.
 //
 // When `swap` is set, the contents of every tensor leaf of the old and the
 // new table change places (key, value, state, the hash seeds; for a chain
@@ -25,20 +30,26 @@
 // rises with the cursor at 0.  Chain's freeze of the old arena at a start
 // is the caller's (a chain_compact launch guarded on `go[1]`).
 //
-// Two kernels in one call: one block decides and writes go[0] = swap and
-// go[1] = start, then the exchange.  Its block 0 handles the hash seeds
-// (a few words; the reseed needs the epoch, so the same block moves the
-// scalars after a barrier) and the others walk the table leaves.  On a step
-// with neither flag set, every block returns at once: the cost is the two
-// launches.
-//
-// Bound: bytes, once an epoch — read the new table, write both (a table of
-// 3 x 2^21 int32 words is 24 MiB, so about 72 MiB, ~21 us at 3.35 TB/s);
-// on every other step, launch latency.
+// Bound: bytes, once an epoch; launch latency on every other step.  The
+// exchange reads only what its outcome needs — swap and start: a <- b,
+// b <- fill (reads b); start alone: b <- fill (reads nothing); swap alone:
+// a <-> b (reads both) — and moves 16-byte words (a scalar loop takes a
+// leaf's tail past its last whole word, and a leaf whose two tensors are
+// not both 16-byte aligned), four words a thread an iteration, with 1024
+// threads an SM (64 KiB in flight an SM; an idle launch starts no more
+// warps than a two-kernel design of 256-thread blocks did).  Block 0
+// handles the hash seeds (a few words; the reseed needs the epoch, so the
+// same block moves the scalars after a barrier).  On an idle step every
+// block reads go and returns: one launch.  It is launched as a
+// programmatic dependent (its blocks may start while the transition block
+// ahead of it runs, and wait in griddepcontrol.wait until that grid has
+// finished and its writes are visible).
 #include "dhash_common.cuh"
 
 #define EPOCH_MAX_LEAVES 16
-#define EPOCH_THREADS 256
+#define EPOCH_THREADS 512
+#define EPOCH_BLOCKS_PER_SM 2
+#define EPOCH_UNROLL 4
 
 // leaf modes: what the clear writes into the standby's words
 #define EPOCH_FILL 0        // int32 words, the constant `fill`
@@ -73,9 +84,86 @@ __global__ void epoch_flags_kernel(const uint8_t* __restrict__ hl, int chunk,
   }
 }
 
-__global__ void __launch_bounds__(EPOCH_THREADS) epoch_swap_kernel(
-    EpochLeaves L, const uint8_t* __restrict__ go, int* cursor,
-    uint8_t* rebuilding, int* epoch, int* lookups, int* expensive) {
+// what the clear writes at word i of a leaf of n words
+__device__ __forceinline__ int epoch_clear(int mode, int fill, long long n,
+                                           long long i) {
+  return mode == EPOCH_DESC ? (int)(n - 1 - i) : fill;
+}
+
+__device__ __forceinline__ int4 epoch_clear4(int mode, int fill, long long n,
+                                             long long w) {
+  const long long i = 4 * w;
+  return make_int4(epoch_clear(mode, fill, n, i),
+                   epoch_clear(mode, fill, n, i + 1),
+                   epoch_clear(mode, fill, n, i + 2),
+                   epoch_clear(mode, fill, n, i + 3));
+}
+
+// one int32 leaf: words [first, n4) as int4 with stride `stride`, then the
+// scalar tail [4 n4, n)
+__device__ __forceinline__ void epoch_leaf(int* __restrict__ a,
+                                           int* __restrict__ b, long long n,
+                                           int mode, int fill, bool swap,
+                                           bool start, long long first,
+                                           long long stride) {
+  const bool vec = (((uintptr_t)a | (uintptr_t)b) & 15) == 0;
+  const long long n4 = vec ? n / 4 : 0;
+  int4* a4 = reinterpret_cast<int4*>(a);
+  int4* b4 = reinterpret_cast<int4*>(b);
+  long long w = first;
+  if (swap && start) {                         // a <- b, b <- clear
+    for (; w + (EPOCH_UNROLL - 1) * stride < n4; w += EPOCH_UNROLL * stride) {
+      int4 x[EPOCH_UNROLL];
+#pragma unroll
+      for (int u = 0; u < EPOCH_UNROLL; ++u) x[u] = b4[w + u * stride];
+#pragma unroll
+      for (int u = 0; u < EPOCH_UNROLL; ++u) {
+        a4[w + u * stride] = x[u];
+        b4[w + u * stride] = epoch_clear4(mode, fill, n, w + u * stride);
+      }
+    }
+    for (; w < n4; w += stride) {
+      a4[w] = b4[w];
+      b4[w] = epoch_clear4(mode, fill, n, w);
+    }
+  } else if (swap) {                           // a <-> b
+    for (; w + (EPOCH_UNROLL - 1) * stride < n4; w += EPOCH_UNROLL * stride) {
+      int4 x[EPOCH_UNROLL], y[EPOCH_UNROLL];
+#pragma unroll
+      for (int u = 0; u < EPOCH_UNROLL; ++u) {
+        x[u] = a4[w + u * stride];
+        y[u] = b4[w + u * stride];
+      }
+#pragma unroll
+      for (int u = 0; u < EPOCH_UNROLL; ++u) {
+        a4[w + u * stride] = y[u];
+        b4[w + u * stride] = x[u];
+      }
+    }
+    for (; w < n4; w += stride) {
+      const int4 x = a4[w];
+      a4[w] = b4[w];
+      b4[w] = x;
+    }
+  } else {                                     // b <- clear
+    for (; w < n4; w += stride) b4[w] = epoch_clear4(mode, fill, n, w);
+  }
+  for (long long i = 4 * n4 + first; i < n; i += stride) {
+    if (swap) {
+      const int bv = b[i];
+      b[i] = start ? epoch_clear(mode, fill, n, i) : a[i];
+      a[i] = bv;
+    } else {
+      b[i] = epoch_clear(mode, fill, n, i);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(EPOCH_THREADS, EPOCH_BLOCKS_PER_SM)
+epoch_swap_kernel(EpochLeaves L, const uint8_t* __restrict__ go, int* cursor,
+                  uint8_t* rebuilding, int* epoch, int* lookups,
+                  int* expensive) {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
   const bool swap = go[0] != 0, start = go[1] != 0;
   if (!swap && !start) return;
   if (blockIdx.x == 0) {
@@ -118,21 +206,16 @@ __global__ void __launch_bounds__(EPOCH_THREADS) epoch_swap_kernel(
   for (int l = 0; l < L.count; ++l) {
     const int mode = L.mode[l];
     if (mode == EPOCH_SEEDS || mode == EPOCH_SEEDS_MS) continue;
-    int* a = (int*)L.a[l];
-    int* b = (int*)L.b[l];
-    const long long n = L.n[l];
-    const int fill = L.fill[l];
-    for (long long i = first; i < n; i += stride) {
-      const int av = a[i], bv = b[i];
-      const int mid = swap ? av : bv;
-      if (swap) a[i] = bv;
-      b[i] = start ? (mode == EPOCH_DESC ? (int)(n - 1 - i) : fill) : mid;
-    }
+    epoch_leaf((int*)L.a[l], (int*)L.b[l], L.n[l], mode, L.fill[l], swap,
+               start, first, stride);
   }
 }
 
 // `desc` holds count rows of five int64 words: old leaf pointer, new leaf
 // pointer, elements, mode, fill (the constant, or the seeds' salt offset).
+// With `hl` given this call decides go first (epoch_flags_kernel, from the
+// hazard flags, cursor and rebuilding, swap_on and start_on), then
+// exchanges; with `hl` null it exchanges on the go it is given.
 extern "C" int dhash_epoch_swap(const long long* desc, int count,
                                 const uint8_t* hl, int chunk, int* cursor,
                                 uint8_t* rebuilding, int* epoch, int* lookups,
@@ -154,19 +237,35 @@ extern "C" int dhash_epoch_swap(const long long* desc, int count,
     if (L.n[l] > most) most = L.n[l];
   }
   cudaStream_t s = (cudaStream_t)stream;
-  epoch_flags_kernel<<<1, 1024, 0, s>>>(hl, chunk, cursor, rebuilding,
-                                        capacity, swap_on, start_on, go);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  cudaError_t e;
+  if (hl != nullptr) {
+    epoch_flags_kernel<<<1, 1024, 0, s>>>(hl, chunk, cursor, rebuilding,
+                                          capacity, swap_on, start_on, go);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
   int sms = 0;
   e = dhash_sm_count(&sms);
   if (e != cudaSuccess) return (int)e;
-  // block 0 for the seeds, then enough blocks for the largest leaf, at most
-  // four an SM
-  long long want = (most + EPOCH_THREADS - 1) / EPOCH_THREADS;
-  if (want > 4LL * sms) want = 4LL * sms;
+  // block 0 for the seeds, then enough blocks for the largest leaf's
+  // 16-byte words, at most EPOCH_BLOCKS_PER_SM an SM
+  long long want = (most / 4 + (long long)EPOCH_THREADS * EPOCH_UNROLL - 1) /
+                   ((long long)EPOCH_THREADS * EPOCH_UNROLL);
+  if (want > (long long)EPOCH_BLOCKS_PER_SM * sms)
+    want = (long long)EPOCH_BLOCKS_PER_SM * sms;
   if (want < 1) want = 1;
-  epoch_swap_kernel<<<(int)want + 1, EPOCH_THREADS, 0, s>>>(
-      L, go, cursor, rebuilding, epoch, lookups, expensive);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)want + 1);
+  cfg.blockDim = dim3(EPOCH_THREADS);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, epoch_swap_kernel, L, (const uint8_t*)go,
+                         cursor, rebuilding, epoch, lookups, expensive);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

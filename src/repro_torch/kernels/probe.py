@@ -42,7 +42,10 @@ the flat node arena.  ``cuckoo_kick`` is the cuckoo insert's bounded
 kick-out, ``epoch_swap`` the engine step's epoch swap and rebuild start and
 ``chain_compact`` the chain arena's compaction, each guarded by flags
 computed on the device, so that a step inside a rebuild epoch never asks
-the host (``extract`` takes two such flags too).
+the host (``extract`` takes two such flags too).  An engine's rebuild step
+launches ``extract`` as its one transition (``transition``: the landing's
+bookkeeping, the guarded scan and the epoch decision) and ``epoch_swap``
+as the exchange on that decision.
 
 What bounds each kernel on an H100 and what its design does about it is
 written at the top of its ``.cu`` file; in short: ``probe_lookup`` — bytes
@@ -52,7 +55,8 @@ built once an SM, where a lookup is a few shared-memory loads);
 ``probe_insert`` — bytes (no claim round: each block resolves its range of
 start slots in descending start slot, one kernel boundary between the reads
 and the writes); ``extract`` — launch latency (one block, one shuffle
-scan); ``tc_lookup`` — bytes (two rows a query, each as 16-byte loads);
+scan, 16-byte loads, no barrier its step's work does not need);
+``tc_lookup`` — bytes (two rows a query, each as 16-byte loads);
 ``tc_probe2`` — bytes (four rows a query, the hazard buffer as
 ``probe2``'s); ``tc_insert`` — latency (a bid launch and a resolve
 launch over the grid for round 0, the later rounds in the resolve's last
@@ -63,11 +67,13 @@ memory, as ``chain_probe2`` stages its two);
 hazard buffer and both dirty tails staged as hashed sets in shared memory,
 ``dhash_set_*`` in ``dhash_common.cuh``); ``cuckoo_kick`` — latency (one
 block, a few rows a pending key an iteration); ``epoch_swap`` — bytes once
-an epoch, launch latency on every other step; ``chain_compact`` — bytes
-where it runs (no sort of the arena: the sorted runs give most nodes their
-place, a bucket's thread ranks its few tail nodes, the block of its tile a
-flooded bucket's; the bucket totals scanned a tile a block), launch latency
-where its guard is off (three launches that read the guard and return).
+an epoch (16-byte words, only what the outcome needs is read), launch
+latency on every other step (one launch that reads go); ``chain_compact``
+— bytes where it runs (no sort of the arena: the sorted runs give most
+nodes their place, a bucket's thread ranks its few tail nodes, the block
+of its tile a flooded bucket's; the bucket totals scanned a tile a block),
+launch latency where its guard is off (three launches that read the guard
+and return).
 
 What the TPU design needed and these kernels do not have: a padded copy of
 the table (a thread wraps its own probe), a query sort, query tiles, a
@@ -81,7 +87,9 @@ Beside each wrapper stands ``<name>_plain``: the same function with the same
 signature and the same in-place behaviour in plain PyTorch.  A wrapper takes
 the plain version only when the tensors it was given lie on the CPU; for CUDA
 tensors it launches the kernel or raises.  ``<wrapper>.launches`` counts the
-kernel launches (and nothing else); ``reset_launches`` / ``launch_counts``
+kernel launches (and nothing else; ``transition`` counts on ``extract``,
+whose kernel it launches, and ``epoch_swap`` adds one more where it
+launches its decision kernel too); ``reset_launches`` / ``launch_counts``
 set and read all twelve.  ``kick_tally`` reads a device counter the kick-out
 kernel adds to (launches that found pending keys, iterations, keys taken),
 for a harness; it is zeroed with the launch counts.
@@ -445,8 +453,67 @@ def extract(tkey, tval, tstate, cursor, chunk: int, *, out=None, run=None,
         if f is not None:
             _check((tkey, I32), (f, torch.bool))
     _launch("extract", extract, dev, tkey, tval, tstate, tkey.shape[0],
-            cursor, chunk, hk, hv, hl, new_cursor, run, hold)
+            cursor, chunk, hk, hv, hl, new_cursor, run, hold, None, None,
+            None, 0, 0)
     return hk, hv, hl, new_cursor
+
+
+def transition_plain(tkey, tval, tstate, cursor, chunk: int, hazard,
+                     rebuilding, ok, present, swap: bool,
+                     start: bool) -> torch.Tensor:
+    """Plain version of ``transition``: the sequence it replaces — the
+    snapshot ``any``, the landing's keep mask, the guarded
+    ``extract_plain``, ``_epoch_flags`` — writing the same tensors in
+    place.  Returns go[2] bool."""
+    hl = hazard[2]
+    pending = hl.any()
+    hl.copy_(hl & ~ok & ~present)
+    extract_plain(tkey, tval, tstate, cursor, chunk, out=hazard,
+                  run=rebuilding, hold=pending)
+    return torch.stack(_epoch_flags(hl, cursor, rebuilding, tkey.shape[0],
+                                    swap, start))
+
+
+def transition(tkey, tval, tstate, cursor, chunk: int, hazard, rebuilding,
+               ok, present, swap: bool, start: bool) -> torch.Tensor:
+    """One rebuild transition of an engine step, after the landing insert,
+    in ONE ``extract`` launch (``csrc/extract.cu``, counted as
+    ``extract``), IN PLACE:
+
+    (a) ``pending = any(hazard_live)``, taken before the buffer changes (one
+    transition a call: a landing that empties the buffer does not let the
+    scan run in the same step); (b) the landing's bookkeeping
+    ``hazard_live &= ~ok & ~present`` (``ok`` / ``present`` bool[chunk],
+    the landing insert's outputs); (c) the chunk scan of ``extract`` into
+    ``hazard`` = (hkeys, hvals, hlive) at ``cursor``, where ``rebuilding``
+    is set and nothing was pending; (d) the epoch decision: go[0] = swap
+    (allowed by ``swap``: rebuilding, the cursor at the table's end and no
+    hazard entry live), go[1] = start (allowed by ``start``: after a swap
+    or where no rebuild runs) — the flags ``epoch_swap`` reads.
+
+    (``tkey``, ``tval``, ``tstate``) are the scanned table's flat arrays;
+    their length is its scan-order capacity.  Contract: ``chunk <= 4096``
+    on a CUDA device.  Returns go[2] bool on the device."""
+    dev = tkey.device
+    if dev.type == "cpu":
+        return transition_plain(tkey, tval, tstate, cursor, chunk, hazard,
+                                rebuilding, ok, present, swap, start)
+    if chunk > EXTRACT_MAX_CHUNK:
+        raise ValueError(f"chunk {chunk} exceeds the extract kernel's "
+                         f"{EXTRACT_MAX_CHUNK}")
+    hk, hv, hl = hazard
+    _check((tkey, I32), (tval, I32), (tstate, I32), (cursor, I32), (hk, I32),
+           (hv, I32), (hl, torch.bool), (rebuilding, torch.bool),
+           (ok, torch.bool), (present, torch.bool))
+    if not hk.shape[0] == hv.shape[0] == hl.shape[0] == ok.shape[0] \
+            == present.shape[0] == chunk:
+        raise ValueError("transition: the hazard buffer, ok and present "
+                         "must match the chunk")
+    go = torch.empty(2, dtype=torch.bool, device=dev)
+    _launch("extract", extract, dev, tkey, tval, tstate, tkey.shape[0],
+            cursor, chunk, hk, hv, hl, cursor, rebuilding, None, ok, present,
+            go, int(swap), int(start))
+    return go
 
 
 # ---------------------------------------------------------------------------
@@ -955,11 +1022,14 @@ def _cleared(spec, x: torch.Tensor, salt: torch.Tensor) -> torch.Tensor:
 
 def epoch_swap_plain(old, new, specs, hazard_live, cursor, rebuilding, epoch,
                      lookups, expensive, capacity: int, swap: bool,
-                     start: bool) -> torch.Tensor:
+                     start: bool, go=None) -> torch.Tensor:
     """Plain version of ``epoch_swap``: the same decisions as tensors, the
     leaves selected with ``torch.where`` in place.  Returns go[2] bool."""
-    go_swap, go_start = _epoch_flags(hazard_live, cursor, rebuilding,
-                                     capacity, swap, start)
+    if go is None:
+        go_swap, go_start = _epoch_flags(hazard_live, cursor, rebuilding,
+                                         capacity, swap, start)
+    else:
+        go_swap, go_start = go[0], go[1]
     salt = (epoch + go_swap.to(I32) + 1).to(I32)
     for a, b, spec in zip(old, new, specs):
         a0 = a.clone()
@@ -974,9 +1044,44 @@ def epoch_swap_plain(old, new, specs, hazard_live, cursor, rebuilding, epoch,
     return torch.stack([go_swap, go_start])
 
 
+# the leaf descriptors of the last calls, by their contents (the leaves'
+# pointers, sizes and modes): the tables' tensors never move, so an engine
+# step finds its descriptor and its go buffer here
+_EPOCH_DESC: dict = {}
+_EPOCH_DESC_KEEP = 16
+
+
+def _epoch_desc(old, new, specs, dev):
+    """(descriptor, go buffer) of the leaves: one row of five int64 words a
+    leaf (old pointer, new pointer, elements, mode, fill), a CPU tensor the
+    C side reads when it launches."""
+    rows = []
+    for a, b, spec in zip(old, new, specs, strict=True):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise ValueError("epoch_swap: the two tables' leaves differ")
+        mode = _LEAF_MODE[spec[0]]
+        if spec[0] == "seeds":
+            _check((a, torch.int64), (b, torch.int64))
+            mode += spec[1] == "multiply_shift"
+            fill = spec[2]
+        else:
+            _check((a, I32), (b, I32))
+            fill = spec[1] if spec[0] == "fill" else 0
+        rows.append((a.data_ptr(), b.data_ptr(), a.numel(), mode, fill))
+    key = (dev, tuple(rows))
+    hit = _EPOCH_DESC.pop(key, None)
+    if hit is None:
+        hit = (torch.tensor(rows, dtype=torch.int64).reshape(-1),
+               torch.empty(2, dtype=torch.bool, device=dev))
+        while len(_EPOCH_DESC) >= _EPOCH_DESC_KEEP:
+            _EPOCH_DESC.pop(next(iter(_EPOCH_DESC)))
+    _EPOCH_DESC[key] = hit
+    return hit
+
+
 def epoch_swap(old, new, specs, hazard_live, cursor, rebuilding, epoch,
                lookups, expensive, capacity: int, swap: bool,
-               start: bool) -> torch.Tensor:
+               start: bool, go=None) -> torch.Tensor:
     """The epoch swap and the next rebuild's start, decided on the device,
     IN PLACE.
 
@@ -990,33 +1095,33 @@ def epoch_swap(old, new, specs, hazard_live, cursor, rebuilding, epoch,
     the start, taken after a swap or where no rebuild runs — the
     reference's ``rebuild_autostart``: the new table is cleared, its hash
     functions reseeded from the new epoch + 1, rebuilding rises, cursor 0.
-    One wrapper launch (two kernels, ``csrc/epoch_swap.cu``).  Returns
-    go[2] bool on the device: (swapped, started)."""
+
+    ``go`` (bool[2] on the device, from ``transition``) gives the decision:
+    one launch, the exchange (``csrc/epoch_swap.cu``).  Without it this
+    call decides first from ``hazard_live``, ``cursor`` and ``rebuilding``
+    (a second kernel; ``epoch_swap.launches`` counts both) into a buffer
+    kept with the leaves' descriptor, valid until the next call on the same
+    leaves.  Returns go[2] bool on the device: (swapped, started)."""
     dev = cursor.device
     if dev.type == "cpu":
         return epoch_swap_plain(old, new, specs, hazard_live, cursor,
                                 rebuilding, epoch, lookups, expensive,
-                                capacity, swap, start)
-    rows = []
-    for a, b, spec in zip(old, new, specs, strict=True):
-        if a.shape != b.shape or a.dtype != b.dtype:
-            raise ValueError("epoch_swap: the two tables' leaves differ")
-        mode = _LEAF_MODE[spec[0]]
-        if spec[0] == "seeds":
-            _check((a, torch.int64), (b, torch.int64))
-            mode += spec[1] == "multiply_shift"
-            fill = spec[2]
-        else:
-            _check((a, I32), (b, I32))
-            fill = spec[1] if spec[0] == "fill" else 0
-        rows.append([a.data_ptr(), b.data_ptr(), a.numel(), mode, fill])
+                                capacity, swap, start, go)
+    desc, own = _epoch_desc(old, new, specs, dev)
     _check((cursor, I32), (epoch, I32), (lookups, I32), (expensive, I32),
            (rebuilding, torch.bool), (hazard_live, torch.bool))
-    desc = torch.tensor(rows, dtype=torch.int64).reshape(-1)
-    go = torch.empty(2, dtype=torch.bool, device=dev)
-    _launch("epoch_swap", epoch_swap, dev, desc, len(rows), hazard_live,
-            hazard_live.shape[0], cursor, rebuilding, epoch, lookups,
-            expensive, capacity, int(swap), int(start), go)
+    decide = go is None
+    if decide:
+        go = own
+    else:
+        _check((go, torch.bool))
+        if go.numel() != 2:
+            raise ValueError("epoch_swap: go must be two bools")
+    _launch("epoch_swap", epoch_swap, dev, desc, len(old),
+            hazard_live if decide else None, hazard_live.shape[0], cursor,
+            rebuilding, epoch, lookups, expensive, capacity, int(swap),
+            int(start), go)
+    epoch_swap.launches += decide               # the decision's kernel
     return go
 
 

@@ -181,7 +181,11 @@ def test_tc_insert_has_no_grid_barrier_and_no_kick_out_read_is_left():
     grid-wide barrier (a bid and a resolve launch, then one block); the
     cuckoo kick-out is a guarded kernel, and the host reads that gated it
     (``kick_gate``, ``kick_pending``, the staged ``_kick_out``) are gone;
-    extract and the epoch swap take their device flags."""
+    extract and the epoch swap take their device flags: the rebuild step's
+    decision is made in the transition kernel (extract.cu: the landing's
+    ok / present in, go out), the exchange reads that go (no cooperative
+    launch), and ``dhash.rebuild_step_`` issues no reduction or bitwise op
+    on the hazard flags of its own."""
     from repro_torch.core import backend
     from repro_torch.kernels import probe
     src = (CSRC / "tc_insert.cu").read_text()
@@ -201,8 +205,20 @@ def test_tc_insert_has_no_grid_barrier_and_no_kick_out_read_is_left():
     assert 'extern "C" int dhash_cuckoo_kick(' in kick
     swap = (CSRC / "epoch_swap.cu").read_text()
     assert 'extern "C" int dhash_epoch_swap(' in swap
+    assert "cudaLaunchCooperativeKernel" not in swap
+    assert "const uint8_t* __restrict__ go" in swap
     ext = (CSRC / "extract.cu").read_text()
     assert "const uint8_t* run, const uint8_t* hold" in ext
+    for got in ("const uint8_t* __restrict__ ok", "__syncthreads_or(",
+                "go[0] = swap", "go[1] = start"):
+        assert got in ext, got
+    import inspect
+
+    from repro_torch.core import dhash
+    fn = ast.parse(inspect.getsource(dhash.rebuild_step_)).body[0]
+    step = "\n".join(ast.unparse(x) for x in fn.body[1:])  # no docstring
+    assert ".any()" not in step and "hazard_live &" not in step
+    assert "transition_fused(" in step
 
 
 def test_the_eleven_modules_and_four_kernel_sources_exist():
