@@ -8,11 +8,12 @@ for an H100) and the CUDA toolkit:
     python3 chip_smoke.py --steps 300 --tc-steps 300 --big-steps 16  # shorter
     python3 chip_smoke.py --profile build/profile.txt  # + profiler tables
     python3 chip_smoke.py --baseline OTHER/build/repro_torch_kernels
-        # phase 2 also runs another tree's probe2, probe_insert, tc_insert,
-        # tc_probe2, chain_probe, chain_probe2 and chain_compact on its
-        # timed inputs, and its sequence for a rebuild transition and the
-        # epoch exchange (extract, epoch_swap and the PyTorch ops around
-        # them), in turns with this tree's
+        # phase 2 also runs another tree's probe_lookup, probe2,
+        # probe_insert, tc_insert, tc_probe2, chain_probe, chain_probe2 and
+        # chain_compact on its timed inputs, its tc_insert and cuckoo_kick
+        # as the cuckoo insert, and its sequence for a rebuild transition
+        # and the epoch exchange (extract, epoch_swap and the PyTorch ops
+        # around them), in turns with this tree's
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
 
@@ -36,7 +37,10 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
    slot at the head of a batch of 20000; for the two-row insert, 2048 keys
    on one row, a full table, one query, widths 4 and 8, two and eight
    rounds; the cuckoo kick-out at the main path's
-   load, under a flood, on a crowded table and with nothing pending; the
+   load, under a flood, on a crowded table and with nothing pending, alone
+   and as the cuckoo insert runs it (in tc_insert's resolve); for the
+   lookup both forms, start slots given and hashed in the kernel, with
+   walks that wrap, tables not 16-byte aligned and all three hash kinds; the
    guarded extract; the rebuild step's transition (the landing's
    bookkeeping, the guarded scan and the epoch decision in one extract
    launch) on every backend's tables with hazard flags empty, partial and
@@ -145,8 +149,9 @@ def log(*a):
 
 OUTPUTS = ("found", "val", "f_old", "loc_old", "hz_idx", "loc_new")
 # the kernels --baseline runs from another tree, in turns with this tree's
-BASELINE_KERNELS = ("probe2", "probe_insert", "tc_insert", "tc_probe2",
-                    "chain_probe", "chain_probe2", "chain_compact")
+BASELINE_KERNELS = ("probe_lookup", "probe2", "probe_insert", "tc_insert",
+                    "tc_probe2", "chain_probe", "chain_probe2",
+                    "cuckoo_kick", "chain_compact")
 # ... and the two whose C interfaces changed, as the sequence the other tree
 # runs for one rebuild transition and the exchange behind it
 # (``baseline_sequence``)
@@ -220,7 +225,10 @@ def load_baseline(path: str) -> dict:
     ``probe_insert`` and ``tc_insert`` come as functions with the arguments
     of this tree's wrappers; ``tc_insert`` through either C interface the
     other tree may have: the cooperative one with a claim word a slot and a
-    pending counter (17 arguments), or this one (18).  ``extract`` and
+    pending counter (17 arguments), or the bid / resolve one without the
+    kick-out (18).  ``probe_lookup`` comes as an entry point with this
+    tree's arguments (``baseline_lookup``: start slots given only);
+    ``cuckoo_kick`` as it is (its C interface did not change).  ``extract`` and
     ``epoch_swap`` come as one function, the other tree's rebuild
     transition and exchange (``baseline_sequence``)."""
     import ctypes
@@ -241,6 +249,7 @@ def load_baseline(path: str) -> dict:
         fn.argtypes = other._ARGTYPES[f"dhash_{name}"]
         fn.restype = ctypes.c_int
         out[name] = fn
+    out["probe_lookup"] = baseline_lookup(out["probe_lookup"])
     out["probe_insert"] = baseline_insert(out["probe_insert"])
     out["tc_insert"] = baseline_tc_insert(out["tc_insert"])
     out["chain_compact"] = baseline_compact(out["chain_compact"])
@@ -258,9 +267,21 @@ def baseline_sequence(extract_fn, swap_fn):
     ~present`` (PyTorch ops), the scan held on ``pending``, then the
     epoch_swap call; the arguments of ``transition_step``.  Also that
     tree's ``epoch_swap`` alone (its decision and its exchange), with the
-    arguments of ``probe.epoch_swap`` but ``go``."""
+    arguments of ``probe.epoch_swap`` but ``go``.  A tree whose ``extract``
+    has this tree's C interface (the transition) runs
+    ``transition_step`` on its own two entry points."""
     from repro_torch.core import backend
-    from repro_torch.kernels import probe
+    from repro_torch.kernels import build, probe
+    if len(extract_fn.argtypes) == len(build._ARGTYPES["dhash_extract"]):
+        def run_same(e, ok, present, swap, start):
+            with swapped("extract", extract_fn), \
+                    swapped("epoch_swap", swap_fn):
+                return transition_step(e, ok, present, swap, start)
+
+        def exchange_same(*a):
+            with swapped("epoch_swap", swap_fn):
+                return probe.epoch_swap(*a)
+        return run_same, exchange_same
     descs = {}
 
     def exchange(old, new, specs, hl, cursor, rebuilding, epoch, lookups,
@@ -298,24 +319,32 @@ def baseline_sequence(extract_fn, swap_fn):
     return run, exchange
 
 
-def variant_entry(source: str, old: str, new: str):
+def variant_entry(source: str, old: str, new: str, *more: str):
     """This tree's C entry point of ``csrc/<source>.cu`` built from that
-    source with the text ``old`` (found once) replaced by ``new``, into the
-    build directory: a variant that a design choice is timed against, in
-    turns with the kernel as it stands."""
+    source with the text ``old`` (found once) replaced by ``new`` (and each
+    further pair of ``more`` likewise), into the build directory: a variant
+    that a design choice is timed against, in turns with the kernel as it
+    stands."""
     import ctypes
+    import hashlib
     from repro_torch.kernels import build
     src = (build.CSRC / f"{source}.cu").read_text()
-    check(src.count(old) == 1, f"variant of {source}: {old!r} not found once")
-    out = build.build_dir() / f"variant-{source}-{build.source_hash()}"
-    out.mkdir(parents=True, exist_ok=True)
-    (out / f"{source}.cu").write_text(src.replace(old, new))
+    pairs = [(old, new), *zip(more[::2], more[1::2])]
+    for a, b in pairs:
+        check(src.count(a) == 1, f"variant of {source}: {a!r} not found once")
+        src = src.replace(a, b)
+    tag = hashlib.sha256((build.source_hash() + src).encode()).hexdigest()
+    out = build.build_dir() / f"variant-{source}-{tag[:16]}"
     so = out / f"{source}.so"
-    r = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-I",
-                        str(build.CSRC), "-o", str(so), str(out / f"{source}.cu")],
-                       capture_output=True, text=True)
-    check(r.returncode == 0, f"the variant of {source} did not build:\n"
-                             f"{r.stdout}{r.stderr}")
+    if not so.is_file():            # built once a run
+        out.mkdir(parents=True, exist_ok=True)
+        (out / f"{source}.cu").write_text(src)
+        r = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-I",
+                            str(build.CSRC), "-o", str(so),
+                            str(out / f"{source}.cu")],
+                           capture_output=True, text=True)
+        check(r.returncode == 0, f"the variant of {source} did not build:\n"
+                                 f"{r.stdout}{r.stderr}")
     fn = getattr(ctypes.CDLL(str(so)), build._ENTRY[source])
     fn.argtypes = build._ARGTYPES[build._ENTRY[source]]
     fn.restype = ctypes.c_int
@@ -532,9 +561,11 @@ def port_kernel_names() -> set:
             for m in pat.finditer(p.read_text())}
 
 
-def profile_steps(eng, oracle, cfg, n_steps: int, step0: int, path: str):
+def profile_steps(eng, oracle, cfg, n_steps: int, step0: int, path: str,
+                  steady: bool = False):
     """``n_steps`` more engine steps under torch.profiler; writes the kernel
-    table and the device's busy share to ``path``."""
+    table, the device's busy share and the PyTorch ops a step by name to
+    ``path`` (``steady``: also logs them)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     batches = [oracle.batch(cfg.lookups_per_step, cfg.updates_per_step,
@@ -574,6 +605,10 @@ def profile_steps(eng, oracle, cfg, n_steps: int, step0: int, path: str):
     op_line = (f"PyTorch ops a step: {n_ops / n_steps:.2f}; of them "
                + ", ".join(f"{k} {c / n_steps:.2f} ({us / n_steps:.3f} us)"
                            for k, (c, us) in named.items()))
+    by_name = sorted(((e.count / n_steps, e.key) for e in ka
+                      if e.key.startswith("aten::")), reverse=True)
+    name_line = "PyTorch ops a step by name: " + ", ".join(
+        f"{k} {c:.2f}" for c, k in by_name)
     # the port's own kernels, each a row whatever its rank in the table
     names = port_kernel_names()
     rows = []
@@ -593,10 +628,12 @@ def profile_steps(eng, oracle, cfg, n_steps: int, step0: int, path: str):
                 f"copies\n")
         f.write(ka.table(sort_by="self_cuda_time_total", row_limit=40))
         f.write("\nthe port's kernels:\n" + "\n".join(sorted(rows)) + "\n")
-        f.write(op_line + "\n")
+        f.write(op_line + "\n" + name_line + "\n")
     for row in sorted(rows):
         log("   " + row)
     log("    " + op_line)
+    if steady:
+        log("    " + name_line)
     log(f"  profile of {n_steps} steps: device busy "
         f"{dev_us / 1e3 / n_steps:.3f} ms a step, host time in PyTorch ops "
         f"{cpu_us / 1e3 / n_steps:.3f} ms a step, device-to-host copies "
@@ -806,6 +843,250 @@ def time_insert_cases(probe, cases: dict, reps: int, baseline):
     return err, out
 
 
+LOOKUP_OUTPUTS = ("found", "val", "loc")
+# variants of probe_lookup.cu a design choice is timed against (text pairs
+# for ``variant_entry``): the parent's slot-by-slot walk; the windows read
+# past L1; the value read behind a hit instead of with the window
+_WINDOW_LOADS = """\
+    const int4 s = __ldg(reinterpret_cast<const int4*>(ts + base));
+    const int4 k = __ldg(reinterpret_cast<const int4*>(tk + base));
+    const int4 v = __ldg(reinterpret_cast<const int4*>(tv + base));
+"""
+LOOKUP_VARIANTS = {
+    "slot by slot": (
+        "const bool vec = C % 4 == 0 && dhash_rows_vec_ok(4, tk, tv, ts);",
+        "const bool vec = false;"),
+    "windows past L1": (_WINDOW_LOADS, _WINDOW_LOADS.replace("__ldg",
+                                                             "__ldcg")),
+    "value behind the hit": (
+        "    const int4 v = __ldg(reinterpret_cast<const int4*>(tv + base));\n",
+        "", "    const int vv[4] = {v.x, v.y, v.z, v.w};\n", "",
+        "*val = vv[j];", "*val = __ldg(tv + base + j);"),
+}
+# integer operations of one mix32 hash (bucket_of of a key, the mask
+# included), the hash of every table the port builds
+MIX32_OPS = 12
+
+
+def swapped(name: str, fn):
+    """A context in which the C entry point of kernel ``name`` is ``fn``."""
+    import contextlib
+
+    from repro_torch.kernels import build
+
+    @contextlib.contextmanager
+    def ctx():
+        lib = build.load()
+        mine = lib[name]
+        lib[name] = fn
+        try:
+            yield
+        finally:
+            lib[name] = mine
+    return ctx()
+
+
+def wrap_keys(hashing, hfn, c: int, n: int, device) -> torch.Tensor:
+    """``n`` distinct fresh keys whose start slot (``bucket_of``) is one of
+    the last 40 of ``c`` slots, found by rejection sampling on the card:
+    their walks wrap at ``c``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(40)
+    got = torch.empty(0, dtype=torch.int32, device=device)
+    while got.numel() < n:
+        cand = torch.randint(1 << 30, (1 << 31) - 1, (1 << 22,),
+                             generator=gen, device=device, dtype=torch.int32)
+        got = torch.unique(torch.cat(
+            [got, cand[hashing.bucket_of(hfn, cand, c) >= c - 40]]))
+    return got[torch.randperm(got.numel(), generator=gen,
+                              device=device)[:n]]
+
+
+def baseline_lookup(fn):
+    """Another tree's ``dhash_probe_lookup`` entry point ``fn`` for this
+    tree's wrapper: the start-slot form only (12 arguments: no seeds, no
+    hash kind)."""
+    def call(*argv):
+        check(argv[4] is not None, "--baseline probe_lookup takes h0 only")
+        return fn(*argv[:5], *argv[7:])
+    return call
+
+
+def lookup_cases(hfn, tk, tv, ts, keys, Q: int, P: int, rng, device,
+                 reps: int, baseline) -> dict:
+    """``probe_lookup`` (start slots given) and ``probe_lookup_hashed``
+    (start slots hashed in the kernel) against ``probe_lookup_plain``
+    (tolerance 0) on phase 2's table: ragged Q, hits, misses, TOMB and
+    MIGRATED runs, walks that wrap at C (given start slots in the last 40
+    slots; for the hashed form keys found by rejection sampling whose hash
+    lands there, inserted into a copy of the table, so that their runs
+    wrap, and the table's own keys that hash there), batches of 1
+    and 33, the table's arrays one slot off their start (not 16-byte
+    aligned, C - 1 slots: the slot-by-slot walk, and a bucket count that is
+    not a power of two), hash functions of the other two kinds.  Then the
+    time of both forms; what bounds the kernel: a launch of one query, the
+    profiler's device µs a call, the walk of the parent design (a variant
+    of ``probe_lookup.cu`` with the windows off) with and without the h0
+    load; with a baseline, the other tree's kernel in turns with this
+    tree's on the same start slots, and its sequence (``bucket_of``, then
+    its kernel) in turns with the hashed form."""
+    from repro_torch.core import hashing
+    from repro_torch.kernels import probe
+    C, i32 = tk.shape[0], torch.int32
+
+    def inputs(q, c=C, fn=hfn):
+        hit = keys[torch.as_tensor(rng.integers(0, keys.numel(), q // 2),
+                                   device=device)]
+        miss = torch.as_tensor(
+            rng.integers(1 << 30, (1 << 31) - 1, q - q // 2).astype(np.int32),
+            device=device)
+        qk = torch.cat([hit, miss])[torch.as_tensor(rng.permutation(q),
+                                                    device=device)]
+        return hashing.bucket_of(fn, qk, c).contiguous(), qk.contiguous()
+
+    near_end = keys[hashing.bucket_of(hfn, keys, C) >= C - 40]
+    wrapping = wrap_keys(hashing, hfn, C, Q // 64, device)
+    # each case: (key, val, state, h0, qkey), and the hash function
+    cases, fns = {}, {}
+    for q in (Q + 77, Q, 33, 1):
+        h0, qk = inputs(q)
+        h0[: q // 16] = C - 1 - torch.arange(q // 16, device=device,
+                                             dtype=i32) % 40   # wrap
+        cases[f"Q={q}"], fns[f"Q={q}"] = (tk, tv, ts, h0, qk), hfn
+    # a copy of the table with the wrapping keys inserted: they fill its
+    # last 40 slots and run on past C from slot 0
+    wt = [x.clone() for x in (tk, tv, ts)]
+    probe.probe_insert_plain(*wt, hashing.bucket_of(hfn, wrapping, C),
+                             wrapping, wrapping * 3 + 1,
+                             torch.ones_like(wrapping, dtype=torch.bool), P)
+    h0, qk = inputs(Q)
+    qk[: wrapping.numel()] = wrapping
+    qk[wrapping.numel(): wrapping.numel() + near_end.numel()] = near_end
+    cases["wrapping keys"] = (*wt, hashing.bucket_of(hfn, qk, C), qk)
+    cases["unaligned, C-1"] = (tk[1:], tv[1:], ts[1:], *inputs(Q, C - 1))
+    fns["wrapping keys"] = fns["unaligned, C-1"] = hfn
+    for kind in ("multiply_shift", "tabulation"):
+        fns[kind] = hashing.fresh(kind, 7, device)
+        cases[kind] = (tk, tv, ts, *inputs(Q, C, fns[kind]))
+    err, out = 0, {}
+    for label, (k_, v_, s_, h0, qk) in cases.items():
+        want = probe.probe_lookup_plain(k_, v_, s_, h0, qk, P)
+        got = probe.probe_lookup(k_, v_, s_, h0, qk, P)
+        torch.cuda.synchronize()
+        for x, y, n in zip(got, want, LOOKUP_OUTPUTS):
+            err = max(err, same(x, y, f"probe_lookup {label} {n}"))
+        # the hashed form: its start slots are bucket_of's, never forced
+        hw = probe.probe_lookup_plain(
+            k_, v_, s_, hashing.bucket_of(fns[label], qk, k_.shape[0]), qk, P)
+        hg = probe.probe_lookup_hashed(k_, v_, s_, fns[label], qk, P)
+        torch.cuda.synchronize()
+        for x, y, n in zip(hg, hw, LOOKUP_OUTPUTS):
+            err = max(err, same(x, y, f"probe_lookup_hashed {label} {n}"))
+        out[label] = {"hits": int(want[0].sum()), "hashed_hits":
+                      int(hw[0].sum())}
+    hw = probe.probe_lookup_plain(*cases["wrapping keys"], P)
+    check(bool(((hw[2] >= 0) & (hw[2] < cases["wrapping keys"][3])).any()),
+          "probe_lookup: no hit across the wrap at C")
+    log(f"  probe_lookup ok, both forms: " + json.dumps(out)
+        + f"; {wrapping.numel()} fresh keys and {near_end.numel()} table "
+        f"keys hashed into the last 40 slots")
+
+    # the timed batch: phase 2's (hits and misses, a sixteenth forced to
+    # wrap) for the start-slot form, its keys for the hashed one
+    *tab, h0, qk = cases[f"Q={Q}"]
+    found, _, loc = probe.probe_lookup(*tab, h0, qk, P)
+    check(bool(found.any()) and not bool(found.all()),
+          "probe_lookup: inputs must mix hits and misses")
+    visits = count_visits(ts, h0, found, loc, P)
+    fh, _, lh = probe.probe_lookup_hashed(*tab, hfn, qk, P)
+    visits_h = count_visits(ts, hashing.bucket_of(hfn, qk, C), fh, lh, P)
+    *_, h1, k1 = cases["Q=1"]
+    calls = {"windows": lambda: probe.probe_lookup(*tab, h0, qk, P),
+             "windows, hashed": lambda: probe.probe_lookup_hashed(
+                 *tab, hfn, qk, P),
+             "Q=1": lambda: probe.probe_lookup(*tab, h1, k1, P),
+             "Q=1, hashed": lambda: probe.probe_lookup_hashed(*tab, hfn, k1,
+                                                              P)}
+    # in: key (and h0) a query, state and key of each slot visited, value
+    # of a hit; out: found, val, loc; operations: two a slot visited (and a
+    # hash a query)
+    res = dict(
+        max_abs_err=err, ms=time_ms(calls["windows"], reps),
+        plain_ms=time_ms(lambda: probe.probe_lookup_plain(*tab, h0, qk, P), 3,
+                         queue_ahead=False),
+        **bound(Q * 8 + visits * 8 + int(found.sum()) * 4 + Q * 9,
+                2 * visits),
+        hashed=dict(ms=time_ms(calls["windows, hashed"], reps),
+                    **bound(Q * 4 + visits_h * 8 + int(fh.sum()) * 4 + Q * 9,
+                            2 * visits_h + MIX32_OPS * Q),
+                    visits=visits_h),
+        visits=visits, q1_ms=time_ms(calls["Q=1"], reps),
+        q1_hashed_ms=time_ms(calls["Q=1, hashed"], reps), cases=out)
+    # what bounds it: device µs a call in the profile, for this design and
+    # variants of this source: the parent's walk (the windows off), each
+    # with h0 given and hashed; the windows read past L1 (__ldcg); the
+    # value read behind a hit, not with the window
+    prof = {k: profile_calls(f, 50, lambda: None)[0]
+            for k, f in calls.items()}
+    res["variants"] = {}
+    for label, pairs in LOOKUP_VARIANTS.items():
+        with swapped("probe_lookup", variant_entry("probe_lookup", *pairs)):
+            for name in ("windows", "windows, hashed"):
+                got = calls[name]()
+                want = probe.probe_lookup_plain(
+                    *tab, hashing.bucket_of(hfn, qk, C) if "hashed" in name
+                    else h0, qk, P)
+                for x, y, n in zip(got, want, LOOKUP_OUTPUTS):
+                    same(x, y, f"probe_lookup ({label}; {name}) {n}")
+            res["variants"][label] = {
+                "ms": time_ms(calls["windows"], reps),
+                "profile_us": profile_calls(calls["windows"], 50,
+                                            lambda: None)[0],
+                "hashed_profile_us": profile_calls(calls["windows, hashed"],
+                                                   50, lambda: None)[0]}
+    walk = res["variants"]["slot by slot"]
+    prof["slot by slot"] = walk["profile_us"]
+    prof["slot by slot, hashed"] = walk["hashed_profile_us"]
+    res["slot_by_slot_ms"] = walk["ms"]
+    if baseline is not None:
+        res["in_turns"] = compare_cases(
+            "probe_lookup", probe.probe_lookup, probe.probe_lookup_plain,
+            {k: (*cases[k], P) for k in (f"Q={Q}", "Q=1")}, reps, baseline,
+            LOOKUP_OUTPUTS)
+        other = baseline["probe_lookup"]
+
+        def parent_hashed():
+            with swapped("probe_lookup", other):
+                return probe.probe_lookup(
+                    *tab, hashing.bucket_of(hfn, qk, C), qk, P)
+        t = {"parent": [], "this": []}
+        for who in ("parent", "this", "this", "parent"):
+            t[who].append(time_ms(
+                parent_hashed if who == "parent" else calls["windows, hashed"],
+                reps))
+        res["in_turns"]["hashed"] = {
+            "ms": t["this"], "parent_bucket_of_and_kernel_ms": t["parent"]}
+        with swapped("probe_lookup", other):
+            prof["parent"] = profile_calls(calls["windows"], 50,
+                                           lambda: None)[0]
+            prof["parent, Q=1"] = profile_calls(calls["Q=1"], 50,
+                                                lambda: None)[0]
+        prof["parent bucket_of and kernel"] = profile_calls(
+            parent_hashed, 50, lambda: None)[0]
+    # the hash's PyTorch ops, by name: what the steady state's lookup and
+    # delete no longer issue
+    _, n_ops, _ = profile_calls(lambda: hashing.bucket_of(hfn, qk, C), 20,
+                                lambda: None)
+    res["bucket_of_ops"] = n_ops
+    res["profile_us"] = prof
+    res["h0_load_share"] = (prof["slot by slot"]
+                            - prof["slot by slot, hashed"]) / \
+        prof["slot by slot"]
+    log(f"  probe_lookup times: " + json.dumps(
+        {k: v for k, v in res.items() if k not in ("cases", "in_turns")}))
+    return res
+
+
 def phase_kernels(device, cfg, reps: int, baseline=None) -> dict:
     from repro_torch.core import buckets, hashing
     from repro_torch.kernels import probe
@@ -821,44 +1102,9 @@ def phase_kernels(device, cfg, reps: int, baseline=None) -> dict:
     log(f"  table: C={C} live={int((ts == 1).sum())} "
         f"tomb={int((ts == 2).sum())} migrated={int((ts == 3).sum())}")
 
-    # -- probe_lookup: ragged Q, hits, misses, tombstoned keys, wrap-around
-    def lookup_inputs(q):
-        hit = keys[torch.as_tensor(rng.integers(0, keys.numel(), q // 2),
-                                   device=device)]
-        miss = torch.as_tensor(
-            rng.integers(1 << 30, (1 << 31) - 1, q - q // 2).astype(np.int32),
-            device=device)
-        qk = torch.cat([hit, miss])[torch.as_tensor(rng.permutation(q),
-                                                    device=device)]
-        h0 = hashing.bucket_of(hfn, qk, C)
-        h0[: q // 16] = C - 1 - torch.arange(q // 16, device=device,
-                                             dtype=i32) % 40   # wrap
-        return h0.contiguous(), qk.contiguous()
-
-    err = 0
-    for q in (Q + 77, Q):
-        h0, qk = lookup_inputs(q)
-        out_k = probe.probe_lookup(tk, tv, ts, h0, qk, P)
-        torch.cuda.synchronize()
-        out_p = probe.probe_lookup_plain(tk, tv, ts, h0, qk, P)
-        for a, b, n in zip(out_k, out_p, ("found", "val", "loc")):
-            err = max(err, same(a, b, f"probe_lookup Q={q} {n}"))
-    check(bool(out_k[0].any()) and not bool(out_k[0].all()),
-          "probe_lookup: inputs must mix hits and misses")
-    visits = count_visits(ts, h0, out_k[0], out_k[2], P)
-    nbytes = Q * 8 + visits * 8 + int(out_k[0].sum()) * 4 + Q * 9
-    res["probe_lookup"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: probe.probe_lookup(tk, tv, ts, h0, qk, P), reps),
-        plain_ms=time_ms(
-            lambda: probe.probe_lookup_plain(tk, tv, ts, h0, qk, P), 3,
-            queue_ahead=False),
-        bound_ms=max(nbytes / HBM_BYTES_PER_S, 2 * visits / INT_OPS_PER_S)
-        * 1e3,
-        bound_by="bytes" if nbytes / HBM_BYTES_PER_S
-        >= 2 * visits / INT_OPS_PER_S else "operations")
-    log(f"  probe_lookup ok: Q={Q} visits={visits} "
-        f"hits={int(out_k[0].sum())}")
+    # -- probe_lookup, both forms (start slots given, hashed in the kernel)
+    res["probe_lookup"] = lookup_cases(hfn, tk, tv, ts, keys, Q, P, rng,
+                                       device, reps, baseline)
 
     # -- probe_insert: hot start slot past max_probes, wrap, duplicates,
     #    keys already live, ragged Q
@@ -1847,6 +2093,115 @@ def cuckoo_table(device, nbuckets: int, n_live: int, rng, seed: int):
     return t
 
 
+def fold_case(label: str, tab, args, tally: dict, baseline, reps: int):
+    """The cuckoo insert as the main path runs it (``probe.cuckoo_insert``:
+    the claim rounds and the kick-out in one ``tc_insert`` launch) from the
+    table before the batch, against ``cuckoo_insert_plain`` (tolerance 0):
+    the claim words all free afterwards, and the kick-out's tally that of
+    the standalone kernel on the same batch (``tally``).  Timed against this
+    tree's three launches (``tc_insert``, then ``cuckoo_kick``), in turns
+    with the kick-out launched as a programmatic dependent of the resolve
+    (a variant of ``tc_insert.cu``, held equal too) and, with a baseline,
+    in turns with the other tree's (its ``tc_insert``, then its
+    ``cuckoo_kick``), and profiled: device µs and PyTorch ops a call."""
+    from repro_torch.kernels import probe
+    ra, rb, hfa, hfb, nb, k, v, win = args
+    kick = (ra, rb, hfa, hfb, nb, k, v, win)
+    dev = k.device
+    pre = [x.clone() for x in (tab.key, tab.val, tab.state)]
+    a = [x.clone() for x in pre]
+    b = [x.clone() for x in pre]
+    tally0 = probe.kick_tally(dev)
+    before = probe.launch_counts()
+    ok_k, pr_k = probe.cuckoo_insert(*a, ra, rb, hfa, hfb, nb, k, v, win,
+                                     tab.max_kick, tab.claim)
+    torch.cuda.synchronize()
+    got = {n: x - tally0[n] for n, x in probe.kick_tally(dev).items()}
+    launched = {n: x - before[n] for n, x in probe.launch_counts().items()
+                if x != before[n]}
+    ok_p, pr_p = probe.cuckoo_insert_plain(*b, ra, rb, hfa, hfb, nb, k, v,
+                                           win, tab.max_kick)
+    for x, y, n in zip((*a, ok_k, pr_k), (*b, ok_p, pr_p),
+                       ("key", "val", "state", "ok", "present")):
+        same(x, y, f"cuckoo_insert {label} {n}")
+    check(bool((tab.claim == probe.CLAIM_FREE).all()),
+          f"cuckoo_insert {label}: row locks left behind")
+    check(got == tally, f"cuckoo_insert {label}: the kick-out's tally {got}, "
+                        f"the standalone kernel's {tally}")
+    check(launched == {"tc_insert": 1},
+          f"cuckoo_insert {label}: launched {launched}")
+
+    def restore():
+        for x, y in zip(a, pre):
+            x.copy_(y)
+
+    def folded():
+        probe.cuckoo_insert(*a, ra, rb, hfa, hfb, nb, k, v, win,
+                            tab.max_kick, tab.claim)
+
+    def composed(ins=None):
+        def run():
+            if ins is None:
+                ok, pr = probe.tc_insert(*a, ra, rb, k, v, win, 2, tab.claim)
+            else:
+                ok, pr = ins(*a, ra, rb, k, v, win, 2)
+            probe.cuckoo_kick(*a, *kick, ok, pr, tab.max_kick, tab.claim)
+            return ok, pr
+        return run
+    # the kick-out as a programmatic dependent of the resolve (a variant of
+    # tc_insert.cu): held equal too, and timed in turns with the fold
+    dep = variant_entry("tc_insert", "#define TC_KICK_DEPENDENT 0",
+                        "#define TC_KICK_DEPENDENT 1")
+
+    def dependent():
+        with swapped("tc_insert", dep):
+            return probe.cuckoo_insert(*a, ra, rb, hfa, hfb, nb, k, v, win,
+                                       tab.max_kick, tab.claim)
+    restore()
+    tally0 = probe.kick_tally(dev)
+    ok_d, pr_d = dependent()
+    torch.cuda.synchronize()
+    for x, y, n in zip((*a, ok_d, pr_d), (*b, ok_p, pr_p),
+                       ("key", "val", "state", "ok", "present")):
+        same(x, y, f"cuckoo_insert (dependent kick-out) {label} {n}")
+    got_d = {n: x - tally0[n] for n, x in probe.kick_tally(dev).items()}
+    check(got_d == tally and bool((tab.claim == probe.CLAIM_FREE).all()),
+          f"cuckoo_insert (dependent kick-out) {label}: tally {got_d}")
+    t = {"folded": [], "dependent": []}
+    for who in ("folded", "dependent", "dependent", "folded"):
+        t[who].append(time_ms(folded if who == "folded" else dependent,
+                              reps, restore))
+    entry = dict(placed=int(ok_k.sum()), **got,
+                 ms=time_ms(folded, reps, restore),
+                 three_launches_ms=time_ms(composed(), reps, restore),
+                 folded_and_dependent_in_turns=t)
+    calls = {"folded": folded, "dependent": dependent,
+             "three launches": composed()}
+    if baseline is not None:
+        def parent():
+            with swapped("cuckoo_kick", baseline["cuckoo_kick"]):
+                return composed(baseline["tc_insert"])()
+        restore()
+        ok_b, pr_b = parent()
+        torch.cuda.synchronize()
+        for x, y, n in zip((*a, ok_b, pr_b), (*b, ok_p, pr_p),
+                           ("key", "val", "state", "ok", "present")):
+            same(x, y, f"cuckoo insert (baseline) {label} {n}")
+        t = {"parent": [], "this": []}
+        for who in ("parent", "this", "this", "parent"):
+            t[who].append(time_ms(parent if who == "parent" else folded,
+                                  reps, restore))
+        entry["in_turns"] = {"ms": t["this"], "parent_ms": t["parent"]}
+        calls["parent"] = parent
+    entry["profile"] = {}
+    for name, fn in calls.items():
+        us, ops, kern = profile_calls(fn, 50, restore)
+        entry["profile"][name] = {"device_us": us, "ops": ops,
+                                  "kernels": kern}
+    log(f"  cuckoo_insert ok: {label} " + json.dumps(entry))
+    return entry
+
+
 def phase_guard_kernels(device, cfg, reps: int, baseline=None) -> dict:
     """The guarded kernels against their plain versions (tolerance 0): the
     cuckoo kick-out at the cuckoo main path's shape (2 x 2^17 rows x 8) on
@@ -1903,7 +2258,7 @@ def phase_guard_kernels(device, cfg, reps: int, baseline=None) -> dict:
         return a, (ra, rb, tab.hfn_a, tab.hfn_b, tab.nbuckets, k, k * 7 + 3,
                    win), ok, present
 
-    err, kick = 0, {}
+    err, kick, fold = 0, {}, {}
     for label, tab, k in (("main path", t, fresh(QU, t)),
                           ("flood", t, fresh(2048, t, row0=True)),
                           ("crowded", crowd, fresh(4096, crowd)),
@@ -1951,6 +2306,7 @@ def phase_guard_kernels(device, cfg, reps: int, baseline=None) -> dict:
         kick[label] = dict(pending=pend, placed=placed, residents_moved=moved,
                            iterations=tally["iterations"], ms=ms)
         log(f"  cuckoo_kick ok: {label} " + json.dumps(kick[label]))
+        fold[label] = fold_case(label, tab, args, tally, baseline, reps)
         if label == "main path":
             q = k.numel()
             rows_b = pend * (2 + 2 * W) * W * 4 * max(tally["iterations"], 1)
@@ -1967,6 +2323,7 @@ def phase_guard_kernels(device, cfg, reps: int, baseline=None) -> dict:
         # test a query and a hash of each victim (about 30 integer
         # operations) for each pending key
         **bound(main["nbytes"], main["ops"]), cases=kick)
+    res["cuckoo_insert"] = fold
 
     # -- chain_compact at the chain main path's size: after a user insert
     #    (a half-full sorted arena with dead nodes and a tail of a batch and
@@ -2674,8 +3031,9 @@ def expected_launches(before: dict, after: dict, was_rebuilding: bool,
     on that decision: it swaps and restarts only where the rebuild is
     done); the first step of continuous rebuild adds the epoch_swap that
     starts it, which decides by itself: two kernels, the decision and the
-    exchange.  Every cuckoo insert adds its kick-out launch (guarded: with
-    nothing pending it returns), every chain insert its compaction (guarded
+    exchange.  A cuckoo insert is one tc_insert launch (its two kernels,
+    the bid and the resolve, whose last block runs the kick-out: no
+    cuckoo_kick launch); every chain insert adds its compaction (guarded
     on the dirty count), and every continuous chain step the freeze's
     compaction (guarded on the start).  (Chain's insert kernel is its lookup
     kernel, the presence probe.)"""
@@ -2689,8 +3047,6 @@ def expected_launches(before: dict, after: dict, was_rebuilding: bool,
     else:
         want[look] += 2
     want[ins] += inserts
-    if backend == "cuckoo":
-        want["cuckoo_kick"] += inserts
     if backend == "chain":
         want["chain_compact"] += inserts + continuous
     if was_rebuilding or continuous:
@@ -2950,6 +3306,13 @@ def phase_main(device, cfg, n_steps: int, min_epochs: int,
         f"steps; {slots} {'nodes' if chain else 'slots'} a table ({shape}), "
         f"{oracle.no_slot} inserts found no slot")
     seed0 = seeds_of(eng)
+    if profile_to and cfg.backend in ("linear", "cuckoo"):
+        # the steady state (no rebuild), which serves most of a table's
+        # life: the lookup and delete kernels and the insert, no epoch work
+        root, ext = os.path.splitext(profile_to)
+        profile_steps(eng, oracle, cfg, 40, 1 << 20, f"{root}_steady{ext}",
+                      steady=True)
+        check(not eng.rebuilding, "the steady profile started a rebuild")
 
     # -------- the main path: counts set to 0 here, read right after --------
     # (the engine's raw counters: reading ``eng.stats`` would refresh them
@@ -2973,8 +3336,6 @@ def phase_main(device, cfg, n_steps: int, min_epochs: int,
     # the engine's own reads (its polls), less the count() at each swap
     eng_syncs = eng._stats.host_syncs - syncs0 - steady_syncs - len(seeds)
     used = {*PATH_KERNELS[cfg.backend], "extract", "epoch_swap"}
-    if cfg.backend == "cuckoo":
-        used.add("cuckoo_kick")
     if cfg.backend == "chain":
         used.add("chain_compact")
     check(all(launches[k] > 0 for k in used),
@@ -3005,7 +3366,9 @@ def phase_main(device, cfg, n_steps: int, min_epochs: int,
         f"({ops_step * n_steps / wall / 1e6:.2f} M/s with the host oracle)")
     log(f"  host syncs a step: {eng_syncs / n_steps:.4f} (the engine's "
         f"polls, one in {eng.poll_every} steps; no other read)"
-        + (f"; kick-out kernel found pending keys {kick['runs']} times "
+        + (f"; the kick-out (in tc_insert's resolve, {launches['tc_insert']}"
+           f" cuckoo inserts, {launches['cuckoo_kick']} cuckoo_kick "
+           f"launches) found pending keys {kick['runs']} times "
            f"({kick['keys']} keys, {kick['iterations']} iterations)"
            if cfg.backend == "cuckoo" else "")
         + f"; share of steps in a rebuild epoch: {in_rb / n_steps:.4f}; "
@@ -3464,10 +3827,12 @@ def main() -> int:
     ap.add_argument("--baseline", default="", metavar="DIR",
                     help="the build directory of another tree of this repo "
                     "(build/repro_torch_kernels there, after its own run): "
-                    "phase 2 also holds that tree's probe2, probe_insert, "
-                    "tc_insert, tc_probe2, chain_probe, chain_probe2 and "
-                    "chain_compact against their plain versions on the timed "
-                    "inputs and times each in turns with this tree's, and "
+                    "phase 2 also holds that tree's probe_lookup, probe2, "
+                    "probe_insert, tc_insert, tc_probe2, chain_probe, "
+                    "chain_probe2 and chain_compact against their plain "
+                    "versions on the timed inputs and times each in turns "
+                    "with this tree's, its tc_insert and cuckoo_kick against "
+                    "this tree's cuckoo insert, and "
                     "its rebuild transition and epoch exchange (extract, "
                     "epoch_swap and the PyTorch ops around them) against "
                     "this tree's transition and exchange")
@@ -3475,7 +3840,9 @@ def main() -> int:
                     help="also run 40 steps of each main path under "
                     "torch.profiler and write the kernel tables to FILE "
                     "(linear) and FILE with _twochoice / _cuckoo / _chain "
-                    "before its extension")
+                    "before its extension, and 40 steady-state steps of "
+                    "linear and cuckoo to FILE with _steady / "
+                    "_cuckoo_steady")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3526,6 +3893,8 @@ def main() -> int:
                transition=tr)
     ext.update({k: tr["linear"][k] for k in ("ms", "plain_ms", "bound_ms",
                                             "bound_by")})
+    # the cuckoo insert launches tc_insert with the kick-out in its resolve
+    kres["tc_insert"]["cuckoo_insert"] = kres.pop("cuckoo_insert")
 
     by_path = {}
     for i, name in enumerate(BACKENDS):

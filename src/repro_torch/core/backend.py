@@ -33,9 +33,10 @@ of any other name raises the reference's ``ValueError``.
 
 The ``*_fused`` adapters in this module are the thin descriptor-bound glue
 over ``kernels/ops.py``: hash the keys (``hashing.bucket_of``, outside the
-kernels as in the reference), call the op, hand back the table.  Cuckoo
-drives the twochoice kernels unchanged with side-offset rows; only its
-insert adds the bounded kick-out, a kernel guarded on the device.  Chain's
+kernels as in the reference, but for the linear steady state's lookup and
+delete, whose kernel hashes them itself), call the op, hand back the table.
+Cuckoo drives the twochoice kernels with side-offset rows; only its insert
+adds the bounded kick-out, run by the insert kernel's resolve.  Chain's
 insert adds the compaction, a kernel that reads its trigger on the device
 and returns at once below it (no host read).
 ``epoch_leaves`` lists a table's tensor leaves with what a rebuild start
@@ -205,10 +206,10 @@ def of_table(t) -> BucketBackend:
 # ---------------------------------------------------------------------------
 
 def linear_lookup_fused(t: LinearTable, keys: torch.Tensor):
-    """Kernel-backed lookup.  Returns (found, vals)."""
+    """Kernel-backed lookup: one launch that hashes the keys itself.
+    Returns (found, vals)."""
     from repro_torch.kernels import ops
-    h0 = hashing.bucket_of(t.hfn, keys, t.capacity)
-    return ops.probe_lookup(t.key, t.val, t.state, h0, keys,
+    return ops.probe_lookup(t.key, t.val, t.state, t.hfn, keys,
                             max_probes=t.max_probes)
 
 
@@ -216,8 +217,7 @@ def linear_lookup_fused_loc(t: LinearTable, keys: torch.Tensor):
     """Kernel-backed lookup keeping the kernel's loc output: the SAME single
     launch as ``linear_lookup_fused``, returning (found, vals, loc)."""
     from repro_torch.kernels import ops
-    h0 = hashing.bucket_of(t.hfn, keys, t.capacity)
-    return ops.probe_lookup(t.key, t.val, t.state, h0, keys,
+    return ops.probe_lookup(t.key, t.val, t.state, t.hfn, keys,
                             max_probes=t.max_probes, with_loc=True)
 
 
@@ -239,12 +239,12 @@ def linear_insert_fused(t: LinearTable, keys: torch.Tensor,
 
 def linear_delete_fused(t: LinearTable, keys: torch.Tensor,
                         mask: torch.Tensor):
-    """Kernel-backed delete: the location-emitting probe kernel tombstones
-    in ONE pass (one launch + one scatter).  Writes ``t.state`` in place."""
+    """Kernel-backed delete: the location-emitting probe kernel (hashing
+    the keys itself) tombstones in ONE pass (one launch + one scatter).
+    Writes ``t.state`` in place."""
     from repro_torch.kernels import ops
     winner = batch_winners(keys, mask)
-    h0 = hashing.bucket_of(t.hfn, keys, t.capacity)
-    _, ok = ops.probe_delete(t.key, t.val, t.state, h0, keys, winner,
+    _, ok = ops.probe_delete(t.key, t.val, t.state, t.hfn, keys, winner,
                              max_probes=t.max_probes)
     return t, ok
 
@@ -342,7 +342,7 @@ def linear_ordered_delete_fused(t_old: LinearTable, t_new: LinearTable,
 # ---------------------------------------------------------------------------
 # twochoice and cuckoo: fused adapters (the tc_* kernels; cuckoo feeds them
 # side-offset rows of its [2B, W] table).  One kernel launch an op; the
-# cuckoo insert adds the kick-out behind counted host reads.
+# cuckoo insert's kick-out runs inside its insert launch.
 # ---------------------------------------------------------------------------
 
 def _two_row_fused(rows) -> dict:
@@ -410,22 +410,19 @@ def twochoice_insert_fused(t: TwoChoiceTable, keys: torch.Tensor,
 def cuckoo_insert_fused(t: CuckooTable, keys: torch.Tensor,
                         vals: torch.Tensor, mask: torch.Tensor, *,
                         with_present: bool = False, dedup: bool = True):
-    """Kernel-backed cuckoo insert: the ``tc_insert`` launch places every
-    key whose candidate rows have room (``max_rounds=2`` — one try a side);
-    then the ``cuckoo_kick`` launch runs the bounded kick-out for the
-    winners left unplaced and absent from both rows (the reference's
-    ``lax.cond`` is the kernel's own guard: with nothing pending it returns
-    at once).  Writes ``t``'s tensors and ``ok`` in place, no host read.
-    Returns (t, ok), or (t, ok, present)."""
-    from repro_torch.kernels import ops, probe
+    """Kernel-backed cuckoo insert: ONE ``tc_insert`` launch places every
+    key whose candidate rows have room (two rounds — one try a side) and,
+    in its resolve's last block, runs the bounded kick-out for the winners
+    left unplaced and absent from both rows (the reference's ``lax.cond``
+    is the kernel's own test: with nothing left it does nothing).  Writes
+    ``t``'s tensors in place, no host read.  Returns (t, ok), or (t, ok,
+    present)."""
+    from repro_torch.kernels import ops
     winner = batch_winners(keys, mask) if dedup else mask
-    ra, rb = _ck_rows(t, keys)
-    *_, ok, present = ops.twochoice_insert(
-        t.key, t.val, t.state, ra, rb, keys, vals, winner, max_rounds=2,
-        claim=t.claim, with_present=True)
-    probe.cuckoo_kick(t.key, t.val, t.state, ra, rb, t.hfn_a, t.hfn_b,
-                      t.nbuckets, keys, vals, winner, ok, present, t.max_kick,
-                      claim=t.claim)
+    *_, ok, present = ops.cuckoo_insert(
+        t.key, t.val, t.state, *_ck_rows(t, keys), t.hfn_a, t.hfn_b,
+        t.nbuckets, keys, vals, winner, max_kick=t.max_kick, claim=t.claim,
+        with_present=True)
     return (t, ok, present) if with_present else (t, ok)
 
 

@@ -28,7 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # argument types of each C entry point (pointers and the stream as void*)
 _ARGTYPES = {
-    "dhash_probe_lookup": [_P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P],
+    "dhash_probe_lookup": [_P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P,
+                           _P],
     "dhash_probe2": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I,
                      _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "dhash_probe_insert": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
@@ -36,7 +37,7 @@ _ARGTYPES = {
     "dhash_extract": [_P, _P, _P, _I, _P, _I] + [_P] * 9 + [_I, _I, _P],
     "dhash_tc_lookup": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P],
     "dhash_tc_insert": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
-                        _P, _P, _P, _P, _P, _P],
+                        _P, _P, _P, _I, _I, _P, _I, _P, _I, _P, _P],
     "dhash_tc_probe2": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I,
                         _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
     "dhash_chain_probe": [_P] * 5 + [_I] + [_P] * 6 + [_I] * 3 + [_P] * 4,

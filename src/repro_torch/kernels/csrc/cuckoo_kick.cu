@@ -25,21 +25,17 @@
 // One block of 1024 threads runs it all: an ordered compaction of the
 // pending indices into `list` (a query that takes no part in an iteration
 // changes nothing, so only the pending ones are walked), then the
-// iterations in lock step with barriers between the plan, the lock read and
-// the writes.  The row locks are the table's claim words (one int32 a row,
-// INT_MAX between launches, shared with tc_insert), taken with atomicMin in
-// L2 and restored by every query that took one.  The iterations end early
-// on the device when no query is pending, or when no pending query could
-// form a plan (then none ever can: the table did not change); both counts
-// ride on the barriers (__syncthreads_or).  With nothing
-// pending the launch reads the Q flags once and returns: that is the guard.
+// iterations (dhash_kick_rounds in dhash_common.cuh, the body this kernel
+// shares with tc_insert's resolve, which runs the kick-out of the cuckoo
+// insert itself: this kernel serves callers that have no resolve).  The
+// row locks are the table's claim words (one int32 a row, INT_MAX between
+// launches, shared with tc_insert).  With nothing pending the launch reads
+// the Q flags once and returns: that is the guard.
 //
 // Bound: latency, not bytes — a few rows a pending query an iteration, each
 // iteration three block barriers and one round trip to L2 for the locks.
 // `tally` (optional) accumulates launches that found work, iterations run
 // and pending queries taken, for a harness to read.
-#include <limits.h>
-
 #include "dhash_common.cuh"
 
 #define KICK_THREADS 1024
@@ -56,99 +52,16 @@ __global__ void __launch_bounds__(KICK_THREADS) cuckoo_kick_kernel(
     int* plan, int* tally) {
   __shared__ int warp_tot[32];
   __shared__ int n_sh[2];
-  const int t = threadIdx.x;
-  if (t == 0) n_sh[0] = 0;
+  if (threadIdx.x == 0) n_sh[0] = 0;
   __syncthreads();
   dhash_block_compact(
       Q, [&](int i) { return winner[i] && !ok[i] && !present[i]; }, list,
       warp_tot, n_sh);
   const int n = n_sh[0];
   if (n == 0) return;
-  int it = 0;
-  while (it < max_kick) {
-    // plan: on the table as it is at the start of the iteration
-    int planned = 0;
-    for (int j = t; j < n; j += blockDim.x) {
-      const int i = list[j];
-      if (i < 0) continue;
-      const int ra = rows_a[i], rb = rows_b[i];
-      int kind = 0, slot = 0, row2 = 0;
-      const int la = dhash_row_first_free<VEC>(ts, ra, W);
-      const int lb = la >= 0 ? -1 : dhash_row_first_free<VEC>(ts, rb, W);
-      if (la >= 0 || lb >= 0) {
-        kind = 1;
-        slot = la >= 0 ? ra * W + la : rb * W + lb;
-      } else {
-        for (int r = 0; r < 2 * W; ++r) {
-          const int l = (r + it) % (2 * W);
-          const int vrow = l < W ? ra : rb;
-          const int vs = vrow * W + (l % W);
-          if (__ldcg(ts + vs) != DHASH_LIVE) continue;
-          const int vkey = __ldcg(tk + vs);
-          const int alt = l < W
-              ? nbuckets + dhash_bucket_of(kind_b, seeds_b, vkey, nbuckets)
-              : dhash_bucket_of(kind_a, seeds_a, vkey, nbuckets);
-          if (dhash_row_first_free<VEC>(ts, alt, W) >= 0) {
-            kind = 2;
-            slot = vs;
-            row2 = alt;
-            break;
-          }
-        }
-      }
-      plan[3 * j] = kind;
-      plan[3 * j + 1] = slot;
-      plan[3 * j + 2] = row2;
-      if (kind) {
-        atomicMin(&lock[slot / W], i);
-        if (kind == 2) atomicMin(&lock[row2], i);
-        planned = 1;
-      }
-    }
-    if (!__syncthreads_or(planned)) break;   // no plan now, none ever: stop
-    ++it;
-    // the locks: a plan acts only on rows it holds
-    for (int j = t; j < n; j += blockDim.x) {
-      const int i = list[j];
-      const int kind = plan[3 * j];
-      if (i < 0 || kind == 0) continue;
-      const bool own = __ldcg(&lock[plan[3 * j + 1] / W]) == i &&
-                       (kind != 2 || __ldcg(&lock[plan[3 * j + 2]]) == i);
-      if (own) plan[3 * j] = kind + 2;
-    }
-    __syncthreads();
-    // the writes, each in rows its query holds; every lock taken restored
-    int left = 0;
-    for (int j = t; j < n; j += blockDim.x) {
-      const int i = list[j];
-      const int kind = plan[3 * j];
-      if (i < 0) continue;
-      left |= kind <= 2;
-      if (kind == 0) continue;
-      const int slot = plan[3 * j + 1], row2 = plan[3 * j + 2];
-      const bool b = kind == 2 || kind == 4;
-      lock[slot / W] = INT_MAX;
-      if (b) lock[row2] = INT_MAX;
-      if (kind <= 2) continue;
-      if (b) {
-        const int alt = row2 * W + dhash_row_first_free<VEC>(ts, row2, W);
-        tk[alt] = tk[slot];
-        tv[alt] = tv[slot];
-        ts[alt] = DHASH_LIVE;
-      }
-      tk[slot] = keys[i];
-      tv[slot] = vals[i];
-      ts[slot] = DHASH_LIVE;
-      ok[i] = 1;
-      list[j] = -1;
-    }
-    if (!__syncthreads_or(left)) break;      // every key placed
-  }
-  if (t == 0 && tally != nullptr) {
-    atomicAdd(&tally[0], 1);
-    atomicAdd(&tally[1], it);
-    atomicAdd(&tally[2], n);
-  }
+  dhash_kick_rounds<VEC>(
+      tk, tv, ts, W, nbuckets, rows_a, rows_b, keys, vals, ok, max_kick,
+      seeds_a, kind_a, seeds_b, kind_b, lock, list, n, plan, tally);
 }
 
 extern "C" int dhash_cuckoo_kick(

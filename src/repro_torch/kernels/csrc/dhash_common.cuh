@@ -16,6 +16,7 @@
 // dirty).  A location is a node index in [0, N).
 #pragma once
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #define DHASH_EMPTY 0
@@ -617,6 +618,224 @@ __device__ __forceinline__ int dhash_row_first_free(const int* ts,
       if (__ldcg(ts + base + l) != DHASH_LIVE) return l;
   }
   return -1;
+}
+
+// The lanes of `row` that are not LIVE, as a bit mask (lane l is bit l),
+// read from L2 with every load of the row issued before any is tested: one
+// round trip a row, where dhash_row_first_free stops at the first free lane.
+template <bool VEC>
+__device__ __forceinline__ unsigned dhash_row_free_mask(const int* ts,
+                                                        long long row, int W) {
+  const long long base = row * W;
+  unsigned m = 0;
+  if (VEC) {
+#pragma unroll
+    for (int q = 0; q < DHASH_MAX_WIDTH / 4; ++q) {
+      if (4 * q >= W) break;
+      const int4 s = __ldcg(reinterpret_cast<const int4*>(ts + base + 4 * q));
+      m |= ((unsigned)(s.x != DHASH_LIVE) | (unsigned)(s.y != DHASH_LIVE) << 1 |
+            (unsigned)(s.z != DHASH_LIVE) << 2 |
+            (unsigned)(s.w != DHASH_LIVE) << 3) << (4 * q);
+    }
+  } else {
+    for (int l = 0; l < W; ++l)
+      m |= (unsigned)(__ldcg(ts + base + l) != DHASH_LIVE) << l;
+  }
+  return m;
+}
+
+// One pending query's plan in iteration `it` (dhash_kick_rounds): kind 0
+// (none), 1 (plan A: the key into `slot`), 2 (plan B: the victim in `slot`,
+// key `vkey` and value `vval`, moves to lane `lane2` of row `row2`, and the
+// key takes its lane).  Both rows' states are loaded together; with both
+// full every lane is LIVE, so a victim's state needs no test.
+template <bool VEC>
+__device__ __forceinline__ void dhash_kick_plan(
+    const int* tk, const int* tv, const int* ts, int W, int nbuckets, int ra,
+    int rb, int it, const long long* __restrict__ seeds_a, int kind_a,
+    const long long* __restrict__ seeds_b, int kind_b, int* kind, int* slot,
+    int* row2, int* lane2, int* vkey, int* vval) {
+  const unsigned fa = dhash_row_free_mask<VEC>(ts, ra, W);
+  const unsigned fb = dhash_row_free_mask<VEC>(ts, rb, W);
+  *kind = 0;
+  if (fa | fb) {
+    *kind = 1;
+    *slot = fa ? ra * W + __ffs(fa) - 1 : rb * W + __ffs(fb) - 1;
+    return;
+  }
+  for (int r = 0; r < 2 * W; ++r) {
+    const int l = (r + it) % (2 * W);
+    const int vs = (l < W ? ra : rb) * W + (l % W);
+    const int k = __ldcg(tk + vs);
+    const int v = __ldcg(tv + vs);
+    const int alt = l < W
+        ? nbuckets + dhash_bucket_of(kind_b, seeds_b, k, nbuckets)
+        : dhash_bucket_of(kind_a, seeds_a, k, nbuckets);
+    const unsigned fr = dhash_row_free_mask<VEC>(ts, alt, W);
+    if (fr) {
+      *kind = 2;
+      *slot = vs;
+      *row2 = alt;
+      *lane2 = __ffs(fr) - 1;
+      *vkey = k;
+      *vval = v;
+      return;
+    }
+  }
+}
+
+// A plan that holds its rows, carried out (the rows it touches are the
+// plan's since it was made: only their lock's holder writes them): plan
+// B's victim into its alternate row, then the key into `slot`.
+__device__ __forceinline__ void dhash_kick_write(int* tk, int* tv, int* ts,
+                                                 int W, int kind, int slot,
+                                                 int row2, int lane2,
+                                                 int vkey, int vval, int key,
+                                                 int val) {
+  if (kind == 2) {
+    const int alt = row2 * W + lane2;
+    tk[alt] = vkey;
+    tv[alt] = vval;
+    ts[alt] = DHASH_LIVE;
+  }
+  tk[slot] = key;
+  tv[slot] = val;
+  ts[slot] = DHASH_LIVE;
+}
+
+// The cuckoo insert's bounded kick-out (cuckoo_kick_ref over the whole batch
+// for max_kick iterations, slot for slot), by one block of any size, over a
+// list of n batch indices of the queries it takes, in any order (an entry < 0
+// is skipped).  In iteration `it` each pending query forms one plan on the
+// table as it is at the start of the iteration: plan A, the first free lane
+// of row a, else of row b; plan B (both rows full), the first LIVE victim
+// among the 2W lanes (row a's, then row b's) scanned from lane it mod 2W
+// whose alternate row (the other side, under the other hash function) has a
+// free lane.  A row's lock goes to the lowest batch index among the plans
+// that touch it (atomicMin on lock[row]; the locks are CLAIM_FREE = INT_MAX
+// on entry and every one taken is restored), and a query acts only if it
+// holds every row its plan touches: plan A writes the key, plan B moves the
+// victim into the alternate row's first free lane and writes the key into the
+// lane it vacated.  Nothing depends on the order of the entries, so the
+// placement is the reference's.  The iterations end early when no query is
+// pending, or when no pending query could form a plan (then none ever can:
+// the table did not change); the counts ride on the barriers
+// (__syncthreads_or).  A placed entry of the list turns INT_MIN.  With no
+// more entries than threads each thread keeps its one query's state in
+// registers across the barriers (the main path: a few keys); otherwise
+// `plan` holds three int32 words a list entry.  `tally` (optional) gets one run, the
+// iterations and n.  Every thread of the block must call it; table words
+// another block or launch wrote are read from L2 (__ldcg).
+template <bool VEC>
+__device__ __forceinline__ void dhash_kick_rounds(
+    int* tk, int* tv, int* ts, int W, int nbuckets,
+    const int* __restrict__ rows_a, const int* __restrict__ rows_b,
+    const int* __restrict__ keys, const int* __restrict__ vals, uint8_t* ok,
+    int max_kick, const long long* __restrict__ seeds_a, int kind_a,
+    const long long* __restrict__ seeds_b, int kind_b, int* lock,
+    int* list, int n, int* plan, int* tally) {
+  const int t = threadIdx.x;
+  int it = 0;
+  if (n <= (int)blockDim.x) {
+    // a query a thread at most: its rows, key, value and plan stay in
+    // registers across the barriers (no plan words, no list re-reads)
+    int i = t < n ? __ldcg(&list[t]) : -1;
+    int ra = 0, rb = 0, key = 0, val = 0;
+    if (i >= 0) {
+      ra = rows_a[i];
+      rb = rows_b[i];
+      key = keys[i];
+      val = vals[i];
+    }
+    while (it < max_kick) {
+      int kind = 0, slot = 0, row2 = 0, lane2 = 0, vkey = 0, vval = 0;
+      if (i >= 0) {
+        dhash_kick_plan<VEC>(tk, tv, ts, W, nbuckets, ra, rb, it, seeds_a,
+                             kind_a, seeds_b, kind_b, &kind, &slot, &row2,
+                             &lane2, &vkey, &vval);
+        if (kind) atomicMin(&lock[slot / W], i);
+        if (kind == 2) atomicMin(&lock[row2], i);
+      }
+      if (!__syncthreads_or(kind)) break;    // no plan now, none ever: stop
+      ++it;
+      const bool own = kind && __ldcg(&lock[slot / W]) == i &&
+                       (kind != 2 || __ldcg(&lock[row2]) == i);
+      __syncthreads();                       // every lock read, then freed
+      if (kind) lock[slot / W] = INT_MAX;
+      if (kind == 2) lock[row2] = INT_MAX;
+      if (own) {
+        dhash_kick_write(tk, tv, ts, W, kind, slot, row2, lane2, vkey, vval,
+                         key, val);
+        ok[i] = 1;
+        list[t] = INT_MIN;         // placed
+        i = -1;
+      }
+      if (!__syncthreads_or(i >= 0)) break;  // every key placed
+    }
+  } else {
+    while (it < max_kick) {
+      // plan: on the table as it is at the start of the iteration
+      int planned = 0;
+      for (int j = t; j < n; j += blockDim.x) {
+        const int i = __ldcg(&list[j]);
+        if (i < 0) continue;
+        int kind, slot = 0, row2 = 0, lane2, vkey, vval;
+        dhash_kick_plan<VEC>(tk, tv, ts, W, nbuckets, rows_a[i], rows_b[i],
+                             it, seeds_a, kind_a, seeds_b, kind_b, &kind,
+                             &slot, &row2, &lane2, &vkey, &vval);
+        plan[3 * j] = kind;
+        plan[3 * j + 1] = slot;
+        plan[3 * j + 2] = row2;
+        if (kind) {
+          atomicMin(&lock[slot / W], i);
+          if (kind == 2) atomicMin(&lock[row2], i);
+          planned = 1;
+        }
+      }
+      if (!__syncthreads_or(planned)) break;  // no plan now, none ever
+      ++it;
+      // the locks: a plan acts only on rows it holds
+      for (int j = t; j < n; j += blockDim.x) {
+        const int i = __ldcg(&list[j]);
+        const int kind = plan[3 * j];
+        if (i < 0 || kind == 0) continue;
+        const bool own = __ldcg(&lock[plan[3 * j + 1] / W]) == i &&
+                         (kind != 2 || __ldcg(&lock[plan[3 * j + 2]]) == i);
+        if (own) plan[3 * j] = kind + 2;
+      }
+      __syncthreads();
+      // the writes, each in rows its query holds; every lock taken restored
+      int left = 0;
+      for (int j = t; j < n; j += blockDim.x) {
+        const int i = __ldcg(&list[j]);
+        const int kind = plan[3 * j];
+        if (i < 0) continue;
+        left |= kind <= 2;
+        if (kind == 0) continue;
+        const int slot = plan[3 * j + 1], row2 = plan[3 * j + 2];
+        lock[slot / W] = INT_MAX;
+        if (kind == 2 || kind == 4) lock[row2] = INT_MAX;
+        if (kind <= 2) continue;
+        if (kind == 4) {             // plan B: the victim, as it is now
+          const unsigned fr = dhash_row_free_mask<VEC>(ts, row2, W);
+          dhash_kick_write(tk, tv, ts, W, 2, slot, row2, __ffs(fr) - 1,
+                           __ldcg(tk + slot), __ldcg(tv + slot), keys[i],
+                           vals[i]);
+        } else {
+          dhash_kick_write(tk, tv, ts, W, 1, slot, 0, 0, 0, 0, keys[i],
+                           vals[i]);
+        }
+        ok[i] = 1;
+        list[j] = INT_MIN;         // placed: skipped from now on
+      }
+      if (!__syncthreads_or(left)) break;    // every key placed
+    }
+  }
+  if (t == 0 && tally != nullptr) {
+    atomicAdd(&tally[0], 1);
+    atomicAdd(&tally[1], it);
+    atomicAdd(&tally[2], n);
+  }
 }
 
 // Ordered ranking by one block: calls emit(i, r) for the indices i of

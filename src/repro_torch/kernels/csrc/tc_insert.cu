@@ -40,6 +40,15 @@
 //      found no free lane for any query: rows only fill, so no later round
 //      can place one.
 //
+// With max_kick > 0 (the cuckoo insert) the same last block then runs the
+// bounded kick-out over the same list (dhash_kick_rounds in
+// dhash_common.cuh, the body the standalone cuckoo_kick kernel shares):
+// after the rounds the list's entries >= 0 are exactly the queries the
+// kick-out takes, winner & ~ok & ~present (a placed entry is INT_MIN); the
+// last round's writes gather them into `work` as they pass, and the claim
+// words are the kick-out's row locks.  A cuckoo insert is these two launches; with
+// nothing left after the rounds the kick-out costs nothing.
+//
 // (One block for the whole batch, presence, the list and every round, was
 // timed against this split and was 5-6x slower at the main path's Q; PERF.md
 // keeps its times.)  States, claim words and list entries that
@@ -47,8 +56,13 @@
 // read as 16-byte loads where W allows.  Nothing depends on the order in
 // which threads run, so the result is deterministic.  The claim words
 // (int32 a row, all INT_MAX between launches) are allocated once with the
-// table; `slot` (a query's round-0 bid, then a listed query's bid), `list`
-// and `count` (the list's length and the count of blocks done) are scratch.
+// table.  Everything else lives in one int32 scratch the C entry carves:
+// `slot` (a query's round-0 bid, then a listed query's bid) at [0, Q),
+// `list` at [Q, 2Q), `count` (the list's length and the count of blocks
+// done) at [2Q, 2Q + 2), and for the kick-out `work` (the queries the
+// rounds leave) at [2Q + 2, 3Q + 2) and `plan` (three words a query of
+// `work`) at [3Q + 2, 6Q + 2):
+// scratch: 2 * Q + 2 + 4 * Q * (max_kick > 0) int32 words
 //
 // Bound: latency.  The bytes are a few rows a query (0.00047 ms at the main
 // path's Q = 8192); the time is two launches back to back and the last
@@ -65,6 +79,11 @@
 
 #define TC_THREADS 256
 #define TC_RESOLVE_THREADS 256
+// The cuckoo kick-out's form: 0, in the resolve's last block; 1, a third
+// kernel of 1024 threads launched as a programmatic dependent of the
+// resolve over the pending entries its last block gathers (the form
+// chip_smoke.py times this one against)
+#define TC_KICK_DEPENDENT 0
 
 // slot values of a query after the bid: not pending, or pending without a
 // lane in row a
@@ -114,14 +133,30 @@ __global__ void __launch_bounds__(TC_THREADS) tc_insert_bid(
 // query is pending, or after two rounds in a row (one on rows a, one on
 // rows b) without a bid: rows only fill, so no later round can place one.
 // The counts ride on the barriers (__syncthreads_or), not on shared atomics.
-template <bool VEC>
-__device__ __forceinline__ void tc_rounds(
+// Returns whether a listed query may be left unplaced (1 where no round
+// ran).  GATHER (the kick-out's rounds): the round that ends the rounds
+// also gathers the queries it leaves unplaced into `work`, in no order
+// (one shared atomic a query), and the call returns their count.
+template <bool VEC, bool GATHER>
+__device__ __forceinline__ int tc_rounds(
     int* tk, int* tv, int* ts, int* claim, int W,
     const int* __restrict__ rows_a, const int* __restrict__ rows_b,
     const int* __restrict__ keys, const int* __restrict__ vals, int n,
-    int first, int max_rounds, uint8_t* okf, int* bid, int* list) {
+    int first, int max_rounds, uint8_t* okf, int* bid, int* list,
+    int* work) {
+  __shared__ int m_sh;
   const int t = threadIdx.x;
-  int dry = 0;
+  if (GATHER && t == 0) m_sh = 0;
+  if (GATHER && first >= max_rounds) {      // no round: every entry left
+    __syncthreads();
+    for (int j = t; j < n; j += blockDim.x) {
+      const int e = __ldcg(&list[j]);
+      if (e >= 0) work[atomicAdd(&m_sh, 1)] = e;
+    }
+    __syncthreads();
+    return m_sh;
+  }
+  int dry = 0, any_left = 1;
   for (int r = first; r < max_rounds; ++r) {
     int mine = 0;
     for (int j = t; j < n; j += blockDim.x) {
@@ -145,6 +180,8 @@ __device__ __forceinline__ void tc_rounds(
       if (i >= 0 && s >= 0 && __ldcg(&claim[s / W]) == i) list[j] = ~i;
     }
     __syncthreads();
+    dry = bids ? 0 : dry + 1;
+    const bool last = r == max_rounds - 1 || dry >= 2;
     int left = 0;
     for (int j = t; j < n; j += blockDim.x) {
       const int s = bid[j];
@@ -152,6 +189,7 @@ __device__ __forceinline__ void tc_rounds(
       if (s >= 0) claim[s / W] = INT_MAX;
       if (e >= 0) {
         left = 1;
+        if (GATHER && last) work[atomicAdd(&m_sh, 1)] = e;
         continue;
       }
       if (s < 0) continue;         // placed in an earlier round
@@ -162,21 +200,31 @@ __device__ __forceinline__ void tc_rounds(
       okf[i] = 1;
       list[j] = INT_MIN;           // placed: skipped from now on
     }
-    dry = bids ? 0 : dry + 1;
-    if (!__syncthreads_or(left) || dry >= 2) break;
+    any_left = __syncthreads_or(left);
+    if (!any_left || dry >= 2) break;
   }
+  if (GATHER) return any_left ? m_sh : 0;
+  return any_left;
 }
 
-// Round 0's resolve over the grid, then rounds 1.. in the last block to
-// finish (a block fences its writes and counts itself done; the one that
-// counts last has every block's writes and list entries in view).
-template <bool VEC>
+// Round 0's resolve over the grid, then rounds 1.. and the kick-out in the
+// last block to finish (a block fences its writes and counts itself done;
+// the one that counts last has every block's writes and list entries in
+// view).  KICK compiles the kick-out in (max_kick > 0); the twochoice
+// insert's resolve is built without it.
+template <bool VEC, bool KICK>
 __global__ void __launch_bounds__(TC_RESOLVE_THREADS) tc_insert_resolve(
     int* tk, int* tv, int* ts, int* claim, int W,
     const int* __restrict__ rows_a, const int* __restrict__ rows_b,
     const int* __restrict__ keys, const int* __restrict__ vals, int Q,
-    int max_rounds, uint8_t* okf, int* slot, int* list, int* count) {
+    int max_rounds, uint8_t* okf, int* slot, int* list, int* count,
+    int max_kick, int nbuckets, const long long* __restrict__ seeds_a,
+    int kind_a, const long long* __restrict__ seeds_b, int kind_b, int* work,
+    int* plan, int* tally) {
   __shared__ int last_sh;
+#if TC_KICK_DEPENDENT
+  if (KICK) asm volatile("griddepcontrol.launch_dependents;");
+#endif
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int s = i < Q ? slot[i] : TC_IDLE;
   bool keep = false;
@@ -186,7 +234,7 @@ __global__ void __launch_bounds__(TC_RESOLVE_THREADS) tc_insert_resolve(
     ts[s] = DHASH_LIVE;
     claim[s / W] = INT_MAX;
     okf[i] = 1;
-  } else if (s != TC_IDLE && max_rounds > 1) {
+  } else if (s != TC_IDLE && (max_rounds > 1 || KICK)) {
     keep = true;
   }
   // one atomic a warp for the list positions
@@ -199,7 +247,7 @@ __global__ void __launch_bounds__(TC_RESOLVE_THREADS) tc_insert_resolve(
     base = __shfl_sync(0xffffffffu, base, leader);
     if (keep) list[base + __popc(ballot & ((1u << lane) - 1u))] = i;
   }
-  if (max_rounds < 2) return;
+  if (max_rounds < 2 && !KICK) return;
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0)
@@ -208,18 +256,55 @@ __global__ void __launch_bounds__(TC_RESOLVE_THREADS) tc_insert_resolve(
   if (!last_sh) return;
   __threadfence();
   const int n = atomicAdd(&count[0], 0);
-  if (n == 0) return;
-  tc_rounds<VEC>(tk, tv, ts, claim, W, rows_a, rows_b, keys, vals, n, 1,
-                 max_rounds, okf, slot, list);
+  // with the kick-out: the queries the rounds leave, gathered into `work`
+  const int m = n > 0 ? tc_rounds<VEC, KICK>(tk, tv, ts, claim, W, rows_a,
+                                             rows_b, keys, vals, n, 1,
+                                             max_rounds, okf, slot, list,
+                                             work)
+                      : 0;
+  if (!KICK) return;
+#if TC_KICK_DEPENDENT
+  if (threadIdx.x == 0) count[1] = m;
+#else
+  if (m > 0)
+    dhash_kick_rounds<VEC>(
+        tk, tv, ts, W, nbuckets, rows_a, rows_b, keys, vals, okf, max_kick,
+        seeds_a, kind_a, seeds_b, kind_b, claim, work, m, plan, tally);
+#endif
 }
+
+#if TC_KICK_DEPENDENT
+template <bool VEC>
+__global__ void __launch_bounds__(1024) tc_kick_dependent(
+    int* tk, int* tv, int* ts, int* claim, int W,
+    const int* __restrict__ rows_a, const int* __restrict__ rows_b,
+    const int* __restrict__ keys, const int* __restrict__ vals,
+    uint8_t* okf, const int* count, int* work, int* plan, int max_kick,
+    int nbuckets, const long long* __restrict__ seeds_a, int kind_a,
+    const long long* __restrict__ seeds_b, int kind_b, int* tally) {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const int m = __ldcg(&count[1]);
+  if (m == 0) return;
+  dhash_kick_rounds<VEC>(
+      tk, tv, ts, W, nbuckets, rows_a, rows_b, keys, vals, okf, max_kick,
+      seeds_a, kind_a, seeds_b, kind_b, claim, work, m, plan, tally);
+}
+#endif
 
 extern "C" int dhash_tc_insert(
     int* tk, int* tv, int* ts, int* claim, int W, const int* rows_a,
     const int* rows_b, const int* keys, const int* vals, const uint8_t* mask,
-    int Q, int max_rounds, uint8_t* okf, uint8_t* present, int* slot,
-    int* list, int* count, void* stream) {
+    int Q, int max_rounds, uint8_t* okf, uint8_t* present, int* scratch,
+    int max_kick, int nbuckets, const long long* seeds_a, int kind_a,
+    const long long* seeds_b, int kind_b, int* tally, void* stream) {
   if (W < 1 || W > DHASH_MAX_WIDTH) return (int)cudaErrorInvalidValue;
   if (Q < 1) return (int)cudaSuccess;
+  if (max_kick < 0) max_kick = 0;
+  int* slot = scratch;
+  int* list = scratch + Q;
+  int* count = scratch + 2 * (long long)Q;
+  int* work = max_kick > 0 ? count + 2 : nullptr;
+  int* plan = max_kick > 0 ? work + Q : nullptr;
   const bool vec = dhash_rows_vec_ok(W, tk, ts);
   cudaStream_t s = (cudaStream_t)stream;
   const int blocks = (Q + TC_THREADS - 1) / TC_THREADS;
@@ -234,13 +319,40 @@ extern "C" int dhash_tc_insert(
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int rblocks = (Q + TC_RESOLVE_THREADS - 1) / TC_RESOLVE_THREADS;
-  if (vec)
-    tc_insert_resolve<true><<<rblocks, TC_RESOLVE_THREADS, 0, s>>>(
-        tk, tv, ts, claim, W, rows_a, rows_b, keys, vals, Q, max_rounds, okf,
-        slot, list, count);
+#define TC_RESOLVE(V, K)                                                     \
+  tc_insert_resolve<V, K><<<rblocks, TC_RESOLVE_THREADS, 0, s>>>(             \
+      tk, tv, ts, claim, W, rows_a, rows_b, keys, vals, Q, max_rounds, okf,  \
+      slot, list, count, max_kick, nbuckets, seeds_a, kind_a, seeds_b,       \
+      kind_b, work, plan, tally)
+  if (vec && max_kick > 0)
+    TC_RESOLVE(true, true);
+  else if (vec)
+    TC_RESOLVE(true, false);
+  else if (max_kick > 0)
+    TC_RESOLVE(false, true);
   else
-    tc_insert_resolve<false><<<rblocks, TC_RESOLVE_THREADS, 0, s>>>(
-        tk, tv, ts, claim, W, rows_a, rows_b, keys, vals, Q, max_rounds, okf,
-        slot, list, count);
+    TC_RESOLVE(false, false);
+#undef TC_RESOLVE
+#if TC_KICK_DEPENDENT
+  e = cudaGetLastError();
+  if (e != cudaSuccess || max_kick == 0) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1);
+  cfg.blockDim = dim3(1024);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  void (*kick)(int*, int*, int*, int*, int, const int*, const int*,
+               const int*, const int*, uint8_t*, const int*, int*, int*, int,
+               int, const long long*, int, const long long*, int, int*) =
+      vec ? &tc_kick_dependent<true> : &tc_kick_dependent<false>;
+  e = cudaLaunchKernelEx(&cfg, kick, tk, tv, ts, claim, W, rows_a, rows_b, keys, vals,
+                         okf, (const int*)count, work, plan, max_kick,
+                         nbuckets, seeds_a, kind_a, seeds_b, kind_b, tally);
+  if (e != cudaSuccess) return (int)e;
+#endif
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,9 @@
 """The op layer over the kernels.
 
 Linear: ``probe_lookup`` is the accelerated equivalent of
-``ref.probe_lookup_ref`` (and of ``buckets.linear_lookup``'s inner loop);
+``ref.probe_lookup_ref`` (and of ``buckets.linear_lookup``'s inner loop;
+given the table's hash function in place of the start slots, the kernel
+hashes the keys itself);
 ``ordered_lookup_fused`` is the rebuild-epoch path (one ``probe2`` launch for
 the whole old -> hazard -> new ordered check); ``probe_insert`` /
 ``probe_delete`` are the write paths (the insert kernel; the location-emitting
@@ -12,7 +14,8 @@ which the two-row backends run on their flattened arrays.
 
 Twochoice and cuckoo (two candidate rows a key, [B, W] tables):
 ``twochoice_lookup`` / ``twochoice_insert`` / ``twochoice_delete`` over the
-``tc_lookup`` and ``tc_insert`` kernels, and ``twochoice_ordered_lookup`` /
+``tc_lookup`` and ``tc_insert`` kernels, ``cuckoo_insert`` (``tc_insert``
+with the bounded kick-out in its resolve), and ``twochoice_ordered_lookup`` /
 ``twochoice_ordered_delete`` over ``tc_probe2``, whose outputs have the
 meaning of ``probe2``'s, so both ordered deletes land through one helper.
 
@@ -72,9 +75,18 @@ def _tombstone_(state: torch.Tensor, ok: torch.Tensor, loc: torch.Tensor):
     return state
 
 
+def _probe(tkey, tval, tstate, h0, qkey, max_probes: int):
+    """The lookup kernel on start slots ``h0``, or with the start slots
+    hashed in the kernel where ``h0`` is the table's ``HashFn``."""
+    if isinstance(h0, torch.Tensor):
+        return probe.probe_lookup(tkey, tval, tstate, h0, qkey, max_probes)
+    return probe.probe_lookup_hashed(tkey, tval, tstate, h0, qkey,
+                                     max_probes)
+
+
 @torch.no_grad()
 def probe_lookup(tkey: torch.Tensor, tval: torch.Tensor, tstate: torch.Tensor,
-                 h0: torch.Tensor, qkey: torch.Tensor, *,
+                 h0, qkey: torch.Tensor, *,
                  max_probes: int = 64, with_loc: bool = False):
     """Batched linear-probe lookup. Returns (found[Q], val[Q]), or
     (found, val, loc[Q]) when ``with_loc`` — ``loc`` is the hit's physical
@@ -82,11 +94,12 @@ def probe_lookup(tkey: torch.Tensor, tval: torch.Tensor, tstate: torch.Tensor,
 
     Args:
       tkey/tval/tstate: table arrays [C].
-      h0: start slot per query (hash(key) % C), [Q].
+      h0: start slot per query (hash(key) % C), [Q]; or the table's
+        ``HashFn``, and the kernel hashes each key itself
+        (``probe.probe_lookup_hashed``, equal to ``bucket_of`` first).
       qkey: query keys [Q].
     """
-    found, val, loc = probe.probe_lookup(tkey, tval, tstate, h0, qkey,
-                                         max_probes)
+    found, val, loc = _probe(tkey, tval, tstate, h0, qkey, max_probes)
     return (found, val, loc) if with_loc else (found, val)
 
 
@@ -148,16 +161,16 @@ def probe_insert(tkey: torch.Tensor, tval: torch.Tensor, tstate: torch.Tensor,
 
 @torch.no_grad()
 def probe_delete(tkey: torch.Tensor, tval: torch.Tensor, tstate: torch.Tensor,
-                 h0: torch.Tensor, keys: torch.Tensor, mask: torch.Tensor, *,
+                 h0, keys: torch.Tensor, mask: torch.Tensor, *,
                  max_probes: int = 64):
     """Batched linear-probe DELETE: the location-emitting lookup kernel +
-    ONE tombstone scatter; writes ``tstate`` IN PLACE.
+    ONE tombstone scatter; writes ``tstate`` IN PLACE.  ``h0`` as in
+    ``probe_lookup``: start slots, or the table's ``HashFn``.
 
     Caller contract: ``mask`` is winner-filtered, so distinct masked keys
     occupy distinct slots.  Returns (tstate, ok[Q]).
     """
-    found, _val, loc = probe.probe_lookup(tkey, tval, tstate, h0, keys,
-                                          max_probes)
+    found, _val, loc = _probe(tkey, tval, tstate, h0, keys, max_probes)
     ok = mask & found
     return _tombstone_(tstate, ok, loc), ok
 
@@ -264,6 +277,30 @@ def twochoice_insert(tkey: torch.Tensor, tval: torch.Tensor,
     ``present[Q]`` (masked keys LIVE in either row before the batch)."""
     ok, present = probe.tc_insert(tkey, tval, tstate, rows_a, rows_b, keys,
                                   vals, mask, max_rounds, claim)
+    if with_present:
+        return tkey, tval, tstate, ok, present
+    return tkey, tval, tstate, ok
+
+
+@torch.no_grad()
+def cuckoo_insert(tkey: torch.Tensor, tval: torch.Tensor,
+                  tstate: torch.Tensor, rows_a: torch.Tensor,
+                  rows_b: torch.Tensor, hfn_a, hfn_b, nbuckets: int,
+                  keys: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
+                  *, max_kick: int, claim: torch.Tensor | None = None,
+                  with_present: bool = False):
+    """Batched cuckoo INSERT on a [2B, W] table: ONE ``tc_insert`` launch
+    (two claim rounds, one a side) whose resolve also runs the bounded
+    kick-out for the winners left unplaced and absent from both rows
+    (``probe.cuckoo_insert``); writes ``tkey/tval/tstate`` IN PLACE.  The
+    placement is ``ref.tc_insert_ref(max_rounds=2)`` then
+    ``ref.cuckoo_kick_ref``'s, slot for slot.
+
+    Caller contract: ``mask`` is winner-filtered.  Returns (tkey, tval,
+    tstate, ok[Q]) and, when ``with_present``, also ``present[Q]``."""
+    ok, present = probe.cuckoo_insert(tkey, tval, tstate, rows_a, rows_b,
+                                      hfn_a, hfn_b, nbuckets, keys, vals,
+                                      mask, max_kick, claim)
     if with_present:
         return tkey, tval, tstate, ok, present
     return tkey, tval, tstate, ok

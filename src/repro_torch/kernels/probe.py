@@ -45,11 +45,17 @@ computed on the device, so that a step inside a rebuild epoch never asks
 the host (``extract`` takes two such flags too).  An engine's rebuild step
 launches ``extract`` as its one transition (``transition``: the landing's
 bookkeeping, the guarded scan and the epoch decision) and ``epoch_swap``
-as the exchange on that decision.
+as the exchange on that decision.  Two more entries launch a kernel of the
+table and are counted on it: ``probe_lookup_hashed`` is ``probe_lookup``
+with the start slots hashed in the kernel (the linear steady state's lookup
+and delete), and ``cuckoo_insert`` is ``tc_insert`` with the cuckoo
+kick-out run by its resolve's last block (the cuckoo insert: two kernels,
+no ``cuckoo_kick`` launch).
 
 What bounds each kernel on an H100 and what its design does about it is
-written at the top of its ``.cu`` file; in short: ``probe_lookup`` — bytes
-(dependent scattered gathers; one query a thread, early exit); ``probe2`` —
+written at the top of its ``.cu`` file; in short: ``probe_lookup`` — latency
+(one query a thread walking aligned windows of 4 slots, state, key and
+value loaded together; the start slot hashed in the kernel); ``probe2`` —
 bytes (two probe runs a query; the hazard buffer staged as a hashed set,
 built once an SM, where a lookup is a few shared-memory loads);
 ``probe_insert`` — bytes (no claim round: each block resolves its range of
@@ -59,14 +65,15 @@ scan, 16-byte loads, no barrier its step's work does not need);
 ``tc_lookup`` — bytes (two rows a query, each as 16-byte loads);
 ``tc_probe2`` — bytes (four rows a query, the hazard buffer as
 ``probe2``'s); ``tc_insert`` — latency (a bid launch and a resolve
-launch over the grid for round 0, the later rounds in the resolve's last
-block, no grid-wide barrier); ``chain_probe`` — bytes (a
+launch over the grid for round 0, the later rounds and the cuckoo kick-out
+in the resolve's last block, no grid-wide barrier); ``chain_probe`` — bytes (a
 segment scan a query, the dirty tail staged as a hashed set in shared
 memory, as ``chain_probe2`` stages its two);
 ``chain_probe2`` — bytes (a segment of a few nodes in each arena; the
 hazard buffer and both dirty tails staged as hashed sets in shared memory,
 ``dhash_set_*`` in ``dhash_common.cuh``); ``cuckoo_kick`` — latency (one
-block, a few rows a pending key an iteration); ``epoch_swap`` — bytes once
+block, a few rows a pending key an iteration; the body the cuckoo insert
+runs in ``tc_insert``'s resolve); ``epoch_swap`` — bytes once
 an epoch (16-byte words, only what the outcome needs is read), launch
 latency on every other step (one launch that reads go); ``chain_compact``
 — bytes where it runs (no sort of the arena: the sorted runs give most
@@ -90,9 +97,10 @@ tensors it launches the kernel or raises.  ``<wrapper>.launches`` counts the
 kernel launches (and nothing else; ``transition`` counts on ``extract``,
 whose kernel it launches, and ``epoch_swap`` adds one more where it
 launches its decision kernel too); ``reset_launches`` / ``launch_counts``
-set and read all twelve.  ``kick_tally`` reads a device counter the kick-out
-kernel adds to (launches that found pending keys, iterations, keys taken),
-for a harness; it is zeroed with the launch counts.
+set and read all twelve.  ``kick_tally`` reads a device counter the kick-out adds
+to, in ``tc_insert``'s resolve or in its own kernel (launches that found
+pending keys, iterations, keys taken), for a harness; it is zeroed with the
+launch counts.
 
 Data types: tables, keys, values, start slots and locations are ``int32``;
 masks and flags are ``torch.bool`` (one byte, read by the kernels as
@@ -170,7 +178,7 @@ def launch_counts() -> dict[str, int]:
     return {f.__name__: f.launches for f in _wrappers()}
 
 
-# the kick-out kernel's counters, one int32[3] a device: launches that found
+# the kick-out's counters, one int32[3] a device: launches that found
 # pending keys, iterations run, pending keys taken
 _KICK_TALLY: dict = {}
 
@@ -184,8 +192,9 @@ def _kick_tally(dev: torch.device) -> torch.Tensor:
 
 
 def kick_tally(dev: torch.device | str = "cuda") -> dict[str, int]:
-    """What the kick-out kernel did on ``dev`` since the last
-    ``reset_launches``: launches that found pending keys (``runs``),
+    """What the kick-out did on ``dev`` (in ``tc_insert``'s resolve or in
+    its own kernel) since the last ``reset_launches``: launches that found
+    pending keys (``runs``),
     iterations, pending keys taken.  One device-to-host read, made by the
     caller (a harness), never by a step."""
     runs, iters, keys = _kick_tally(torch.device(dev)).tolist()
@@ -195,8 +204,9 @@ def kick_tally(dev: torch.device | str = "cuda") -> dict[str, int]:
 def new_claim(rows: int, device) -> torch.Tensor:
     """The claim words of a two-row table of ``rows`` rows (one a row):
     allocated once with the table, all ``CLAIM_FREE`` between launches.
-    ``tc_insert`` takes them as its rows' claim words and ``cuckoo_kick`` as
-    its row locks; each launch restores every word it takes."""
+    ``tc_insert`` takes them as its rows' claim words and the kick-out (in
+    ``tc_insert``'s resolve or ``cuckoo_kick``) as its row locks; each
+    launch restores every word it takes."""
     return torch.full((rows,), CLAIM_FREE, dtype=I32, device=device)
 
 
@@ -238,7 +248,39 @@ def probe_lookup(tkey, tval, tstate, h0, qkey, max_probes: int):
     loc = torch.empty(q, dtype=I32, device=dev)
     if q:
         _launch("probe_lookup", probe_lookup, dev, tkey, tval, tstate,
-                tkey.shape[0], h0, qkey, q, max_probes, found, val, loc)
+                tkey.shape[0], h0, None, 0, qkey, q, max_probes, found, val,
+                loc)
+    return found, val, loc
+
+
+def probe_lookup_hashed_plain(tkey, tval, tstate, hfn, qkey,
+                              max_probes: int):
+    """Plain version of ``probe_lookup_hashed``: ``hashing.bucket_of``, then
+    ``probe_lookup_plain``."""
+    h0 = hashing.bucket_of(hfn, qkey, tkey.shape[0])
+    return probe_lookup_plain(tkey, tval, tstate, h0, qkey, max_probes)
+
+
+def probe_lookup_hashed(tkey, tval, tstate, hfn, qkey, max_probes: int):
+    """``probe_lookup`` with the start slots hashed in the kernel:
+    ``h0 = hashing.bucket_of(hfn, qkey, C)``, bit for bit, computed from the
+    table's hash function (``hfn``: its kind and seeds) by each query's
+    thread, so the caller runs no hashing ops.  The same kernel as
+    ``probe_lookup`` (counted there).  Returns (found, val, loc)."""
+    if tkey.device.type == "cpu":
+        return probe_lookup_hashed_plain(tkey, tval, tstate, hfn, qkey,
+                                         max_probes)
+    _check((tkey, I32), (tval, I32), (tstate, I32), (qkey, I32),
+           (hfn.seeds, torch.int64))
+    q, dev = qkey.shape[0], tkey.device
+    found = torch.empty(q, dtype=torch.bool, device=dev)
+    val = torch.empty(q, dtype=I32, device=dev)
+    loc = torch.empty(q, dtype=I32, device=dev)
+    if q:
+        _launch("probe_lookup", probe_lookup, dev, tkey, tval, tstate,
+                tkey.shape[0], None, hfn.seeds,
+                hashing.HASH_KINDS.index(hfn.kind), qkey, q, max_probes,
+                found, val, loc)
     return found, val, loc
 
 
@@ -580,6 +622,48 @@ def tc_insert_plain(tkey, tval, tstate, rows_a, rows_b, keys, vals, mask,
     return ok, mask & (fa | fb)
 
 
+def tc_scratch_words(q: int, max_kick: int) -> int:
+    """The int32 words of ``tc_insert``'s scratch for a batch of ``q``: the
+    layout ``csrc/tc_insert.cu`` states (a round-0 slot and a list entry a
+    query, the list's length and the count of blocks done, and with the
+    kick-out a word a query for the queries the rounds leave and three
+    plan words a query)."""
+    return 2 * q + 2 + 4 * q * (max_kick > 0)
+
+
+def _tc_launch(tkey, tval, tstate, rows_a, rows_b, keys, vals, mask,
+               max_rounds: int, claim, kick=None):
+    """One ``tc_insert`` launch; ``kick`` = (hfn_a, hfn_b, nbuckets,
+    max_kick) runs the cuckoo kick-out in its resolve.  Returns (ok,
+    present)."""
+    w = _check_rows(tkey, tval, tstate)
+    q, dev = keys.shape[0], tkey.device
+    if claim is None:
+        claim = new_claim(tkey.shape[0], dev)
+    _check((tkey, I32), (tval, I32), (tstate, I32), (claim, I32),
+           (rows_a, I32), (rows_b, I32), (keys, I32), (vals, I32),
+           (mask, torch.bool))
+    if claim.shape[0] != tkey.shape[0]:
+        raise ValueError("claim words do not match the table's rows")
+    hfn_a, hfn_b, nbuckets, max_kick = kick or (None, None, 0, 0)
+    if kick is not None:
+        _check((hfn_a.seeds, torch.int64), (hfn_b.seeds, torch.int64))
+    ok = torch.empty(q, dtype=torch.bool, device=dev)
+    present = torch.empty(q, dtype=torch.bool, device=dev)
+    if q:
+        scratch = torch.empty(tc_scratch_words(q, max_kick), dtype=I32,
+                              device=dev)
+        _launch("tc_insert", tc_insert, dev, tkey, tval, tstate, claim, w,
+                rows_a, rows_b, keys, vals, mask, q, max_rounds, ok, present,
+                scratch, max_kick, nbuckets,
+                None if kick is None else hfn_a.seeds,
+                0 if kick is None else hashing.HASH_KINDS.index(hfn_a.kind),
+                None if kick is None else hfn_b.seeds,
+                0 if kick is None else hashing.HASH_KINDS.index(hfn_b.kind),
+                None if kick is None else _kick_tally(dev))
+    return ok, present
+
+
 def tc_insert(tkey, tval, tstate, rows_a, rows_b, keys, vals, mask,
               max_rounds: int, claim=None):
     """Batched claim-a-lane two-row insert on a [B, W] table; MUTATES
@@ -601,25 +685,48 @@ def tc_insert(tkey, tval, tstate, rows_a, rows_b, keys, vals, mask,
     if tkey.device.type == "cpu":
         return tc_insert_plain(tkey, tval, tstate, rows_a, rows_b, keys, vals,
                                mask, max_rounds)
-    w = _check_rows(tkey, tval, tstate)
-    q, dev = keys.shape[0], tkey.device
-    if claim is None:
-        claim = new_claim(tkey.shape[0], dev)
-    _check((tkey, I32), (tval, I32), (tstate, I32), (claim, I32),
-           (rows_a, I32), (rows_b, I32), (keys, I32), (vals, I32),
-           (mask, torch.bool))
-    if claim.shape[0] != tkey.shape[0]:
-        raise ValueError("claim words do not match the table's rows")
-    ok = torch.empty(q, dtype=torch.bool, device=dev)
-    present = torch.empty(q, dtype=torch.bool, device=dev)
-    if q:
-        slot = torch.empty(q, dtype=I32, device=dev)
-        lst = torch.empty(q, dtype=I32, device=dev)
-        count = torch.empty(2, dtype=I32, device=dev)
-        _launch("tc_insert", tc_insert, dev, tkey, tval, tstate, claim, w,
-                rows_a, rows_b, keys, vals, mask, q, max_rounds, ok, present,
-                slot, lst, count)
+    return _tc_launch(tkey, tval, tstate, rows_a, rows_b, keys, vals, mask,
+                      max_rounds, claim)
+
+
+# the claim rounds of the cuckoo insert: one try a side
+CUCKOO_ROUNDS = 2
+
+
+def cuckoo_insert_plain(tkey, tval, tstate, rows_a, rows_b, hfn_a, hfn_b,
+                        nbuckets: int, keys, vals, mask, max_kick: int,
+                        claim=None):
+    """Plain version of ``cuckoo_insert``: ``tc_insert_plain`` with two
+    rounds, then ``cuckoo_kick_plain``; mutates the table in place.
+    ``claim`` is accepted for signature parity and not used."""
+    ok, present = tc_insert_plain(tkey, tval, tstate, rows_a, rows_b, keys,
+                                  vals, mask, CUCKOO_ROUNDS)
+    cuckoo_kick_plain(tkey, tval, tstate, rows_a, rows_b, hfn_a, hfn_b,
+                      nbuckets, keys, vals, mask, ok, present, max_kick)
     return ok, present
+
+
+def cuckoo_insert(tkey, tval, tstate, rows_a, rows_b, hfn_a, hfn_b,
+                  nbuckets: int, keys, vals, mask, max_kick: int,
+                  claim=None):
+    """The cuckoo insert on a [2B, W] table in ONE ``tc_insert`` launch (its
+    two kernels); MUTATES the table.
+
+    The claim rounds of ``tc_insert`` (two: row a, then row b), then the
+    bounded kick-out of ``cuckoo_kick`` for the winners they left unplaced
+    and absent from both rows, run by the resolve's last block over the
+    list the rounds left (``csrc/tc_insert.cu``): the placement of
+    ``tc_insert_plain`` then ``cuckoo_kick_plain``, slot for slot.  Counted
+    on ``tc_insert``; what the kick-out did goes to ``kick_tally``.
+    Caller contract: ``mask`` is winner-filtered.  ``claim`` is the table's
+    claim words (``new_claim(2B)``); without them fresh words are
+    allocated.  Returns (ok[Q] bool, present[Q] bool)."""
+    if tkey.device.type == "cpu":
+        return cuckoo_insert_plain(tkey, tval, tstate, rows_a, rows_b, hfn_a,
+                                   hfn_b, nbuckets, keys, vals, mask,
+                                   max_kick)
+    return _tc_launch(tkey, tval, tstate, rows_a, rows_b, keys, vals, mask,
+                      CUCKOO_ROUNDS, claim, (hfn_a, hfn_b, nbuckets, max_kick))
 
 
 # ---------------------------------------------------------------------------
@@ -909,13 +1016,12 @@ def cuckoo_kick(tkey, tval, tstate, rows_a, rows_b, hfn_a, hfn_b,
     if claim.shape[0] != tkey.shape[0]:
         raise ValueError("claim words do not match the table's rows")
     if q:
-        lst = torch.empty(q, dtype=I32, device=dev)
-        plan = torch.empty(3 * q, dtype=I32, device=dev)
+        lst = torch.empty(4 * q, dtype=I32, device=dev)   # list, then plan
         _launch("cuckoo_kick", cuckoo_kick, dev, tkey, tval, tstate, w,
                 nbuckets, rows_a, rows_b, keys, vals, winner, ok, present, q,
                 max_kick, hfn_a.seeds, hashing.HASH_KINDS.index(hfn_a.kind),
                 hfn_b.seeds, hashing.HASH_KINDS.index(hfn_b.kind), claim, lst,
-                plan, _kick_tally(dev))
+                lst.data_ptr() + 4 * q, _kick_tally(dev))
     return ok
 
 

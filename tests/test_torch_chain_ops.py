@@ -570,8 +570,12 @@ def test_fused_engine_steps_read_nothing_uncounted(backend):
         if not continuous:
             eng.request_rebuild(seed=11)
         epoch0 = int(eng.state.epoch)
+        # every kernel wrapper: the twelve, and the entries that launch one
+        # of them (each has a plain version beside it)
+        wrappers = [k for k in dir(tprobe) if hasattr(tprobe, f"{k}_plain")]
+        assert set(tprobe.KERNELS) <= set(wrappers)
         patches = [mock.patch.object(tprobe, k, pausing(getattr(tprobe, k)))
-                   for k in tprobe.KERNELS]
+                   for k in wrappers]
         for p in patches:
             p.start()
         try:

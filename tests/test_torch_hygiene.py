@@ -176,10 +176,103 @@ def test_chain_compact_scratch_is_the_layout_the_kernel_states():
         assert probe.compact_scratch_words(n, nb) == want, (n, nb)
 
 
+def test_tc_insert_scratch_is_the_layout_the_kernel_states():
+    """The cuckoo kick-out's scratch (its queries and three plan words a
+    query) is carved from the one scratch ``tc_insert`` takes: the formula of
+    ``probe.tc_scratch_words`` and the one stated in ``tc_insert.cu``
+    agree, the C entry carves the regions that layout names, and the
+    wrapper allocates the scratch from that function alone."""
+    import re
+    from repro_torch.kernels import probe
+    src = (CSRC / "tc_insert.cu").read_text()
+    m = re.search(r"// scratch: (.+?) int32 words", src, re.S)
+    assert m, "tc_insert.cu states no scratch layout"
+    cu = " ".join(m.group(1).replace("//", " ").split())
+    assert re.fullmatch(r"[\d\s()+*<>Qmax_kick]+", cu), cu
+    for carve in ("int* slot = scratch;", "int* list = scratch + Q;",
+                  "int* count = scratch + 2 * (long long)Q;",
+                  "int* work = max_kick > 0 ? count + 2 : nullptr;",
+                  "int* plan = max_kick > 0 ? work + Q : nullptr;"):
+        assert carve in src, carve
+    fn = next(f for f in ast.walk(ast.parse(
+        (PKG / "kernels" / "probe.py").read_text()))
+        if isinstance(f, ast.FunctionDef) and f.name == "tc_scratch_words")
+    py = ast.unparse(fn.body[-1].value)
+    for q in (1, 33, 4096, 8192, 8197, 1 << 20):
+        for k in (0, 1, 32):
+            want = eval(cu, {"Q": q, "max_kick": k})
+            assert eval(py, {"q": q, "max_kick": k}) == want, (q, k)
+            assert probe.tc_scratch_words(q, k) == want, (q, k)
+    launch = ast.unparse(next(
+        f for f in ast.parse((PKG / "kernels" / "probe.py").read_text()).body
+        if isinstance(f, ast.FunctionDef) and f.name == "_tc_launch"))
+    assert "torch.empty(tc_scratch_words(q, max_kick)" in launch
+    assert launch.count("torch.empty(") == 3      # ok, present, scratch
+
+
+def test_no_wrapper_falls_back_to_its_plain_version_on_cuda_tensors():
+    """Every kernel wrapper of ``probe.py`` (each function with a ``_plain``
+    sibling) calls that plain version once, as the whole body of an ``if``
+    on the device type being ``"cpu"``, catches nothing, and calls no other
+    plain version; on tensors of another device (``meta`` here, as CUDA
+    tensors there) the new wrappers raise before any plain version runs."""
+    from repro_torch.core import hashing
+    from repro_torch.kernels import probe
+    tree = ast.parse((PKG / "kernels" / "probe.py").read_text())
+    defs = {f.name: f for f in tree.body if isinstance(f, ast.FunctionDef)}
+    wrappers = [n for n in defs if f"{n}_plain" in defs]
+    assert set(probe.KERNELS) | {"probe_lookup_hashed", "cuckoo_insert",
+                                 "transition"} <= set(wrappers)
+    for name in wrappers:
+        f = defs[name]
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(f)), name
+        calls = [n for n in ast.walk(f) if isinstance(n, ast.Call)
+                 and isinstance(n.func, ast.Name)
+                 and n.func.id.endswith("_plain")]
+        assert [c.func.id for c in calls] == [f"{name}_plain"], name
+        guard = next(n for n in ast.walk(f) if isinstance(n, ast.If)
+                     and any(c is calls[0] for c in ast.walk(n)))
+        test = guard.test
+        assert isinstance(test, ast.Compare) and isinstance(
+            test.ops[0], ast.Eq), name
+        assert isinstance(test.left, ast.Attribute) and \
+            test.left.attr == "type", name
+        assert ast.literal_eval(test.comparators[0]) == "cpu", name
+        assert len(guard.body) == 1 and isinstance(guard.body[0], ast.Return) \
+            and guard.body[0].value is calls[0] and not guard.orelse, name
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(defs["_launch"]))
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran for non-CPU tensors")
+    m = lambda n, dt=torch.int32: torch.zeros(n, dtype=dt, device="meta")
+    hfn = hashing.HashFn(kind="mix32", seeds=m(2, torch.int64))
+    tab = [torch.zeros((8, 4), dtype=torch.int32, device="meta")
+           for _ in range(3)]
+    saved = {n: getattr(probe, n) for n in ("probe_lookup_hashed_plain",
+                                            "cuckoo_insert_plain",
+                                            "probe_lookup_plain",
+                                            "tc_insert_plain",
+                                            "cuckoo_kick_plain")}
+    try:
+        for n in saved:
+            setattr(probe, n, refuse)
+        with pytest.raises(ValueError):
+            probe.probe_lookup_hashed(m(8), m(8), m(8), hfn, m(4), 4)
+        with pytest.raises(ValueError):
+            probe.cuckoo_insert(*tab, m(4), m(4), hfn, hfn, 4, m(4), m(4),
+                                m(4, torch.bool), 8, m(8))
+    finally:
+        for n, f in saved.items():
+            setattr(probe, n, f)
+    assert probe.launch_counts() == dict.fromkeys(probe.KERNELS, 0)
+
+
 def test_tc_insert_has_no_grid_barrier_and_no_kick_out_read_is_left():
     """tc_insert resolves its rounds without a cooperative launch or a
     grid-wide barrier (a bid and a resolve launch, then one block); the
-    cuckoo kick-out is a guarded kernel, and the host reads that gated it
+    cuckoo kick-out runs in that block (a compile-time option of the
+    resolve) and in a guarded kernel of its own, one body (any block size)
+    shared by both, and the host reads that gated it
     (``kick_gate``, ``kick_pending``, the staged ``_kick_out``) are gone;
     extract and the epoch swap take their device flags: the rebuild step's
     decision is made in the transition kernel (extract.cu: the landing's
@@ -200,8 +293,16 @@ def test_tc_insert_has_no_grid_barrier_and_no_kick_out_read_is_left():
         assert not hasattr(backend, name), name
     py = (PKG / "core" / "backend.py").read_text()
     assert "kick_gate" not in py and "kick_pending" not in py
+    # the kick-out's body (its barriers, the victims' hashes) is shared by
+    # the standalone kernel and tc_insert's resolve
     kick = (CSRC / "cuckoo_kick.cu").read_text()
-    assert "__syncthreads()" in kick and "dhash_bucket_of(" in kick
+    assert "__syncthreads()" in kick and "dhash_kick_rounds<" in kick
+    assert "dhash_kick_rounds<" in src and "template <bool VEC, bool KICK>" \
+        in src
+    body = (CSRC / "dhash_common.cuh").read_text()
+    body = body[body.index("void dhash_kick_plan("):]
+    assert "__syncthreads_or(" in body and "dhash_bucket_of(" in body
+    assert "blockDim.x" in body and "KICK_THREADS" not in body
     assert 'extern "C" int dhash_cuckoo_kick(' in kick
     swap = (CSRC / "epoch_swap.cu").read_text()
     assert 'extern "C" int dhash_epoch_swap(' in swap
