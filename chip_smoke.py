@@ -844,25 +844,6 @@ def time_insert_cases(probe, cases: dict, reps: int, baseline):
 
 
 LOOKUP_OUTPUTS = ("found", "val", "loc")
-# variants of probe_lookup.cu a design choice is timed against (text pairs
-# for ``variant_entry``): the parent's slot-by-slot walk; the windows read
-# past L1; the value read behind a hit instead of with the window
-_WINDOW_LOADS = """\
-    const int4 s = __ldg(reinterpret_cast<const int4*>(ts + base));
-    const int4 k = __ldg(reinterpret_cast<const int4*>(tk + base));
-    const int4 v = __ldg(reinterpret_cast<const int4*>(tv + base));
-"""
-LOOKUP_VARIANTS = {
-    "slot by slot": (
-        "const bool vec = C % 4 == 0 && dhash_rows_vec_ok(4, tk, tv, ts);",
-        "const bool vec = false;"),
-    "windows past L1": (_WINDOW_LOADS, _WINDOW_LOADS.replace("__ldg",
-                                                             "__ldcg")),
-    "value behind the hit": (
-        "    const int4 v = __ldg(reinterpret_cast<const int4*>(tv + base));\n",
-        "", "    const int vv[4] = {v.x, v.y, v.z, v.w};\n", "",
-        "*val = vv[j];", "*val = __ldg(tv + base + j);"),
-}
 # integer operations of one mix32 hash (bucket_of of a key, the mask
 # included), the hash of every table the port builds
 MIX32_OPS = 12
@@ -924,12 +905,11 @@ def lookup_cases(hfn, tk, tv, ts, keys, Q: int, P: int, rng, device,
     and 33, the table's arrays one slot off their start (not 16-byte
     aligned, C - 1 slots: the slot-by-slot walk, and a bucket count that is
     not a power of two), hash functions of the other two kinds.  Then the
-    time of both forms; what bounds the kernel: a launch of one query, the
-    profiler's device µs a call, the walk of the parent design (a variant
-    of ``probe_lookup.cu`` with the windows off) with and without the h0
-    load; with a baseline, the other tree's kernel in turns with this
-    tree's on the same start slots, and its sequence (``bucket_of``, then
-    its kernel) in turns with the hashed form."""
+    time of both forms; what bounds the kernel: a launch of one query and
+    the profiler's device µs a call; with a baseline, the other tree's
+    kernel in turns with this tree's on the same start slots, and its
+    sequence (``bucket_of``, then its kernel) in turns with the hashed
+    form."""
     from repro_torch.core import hashing
     from repro_torch.kernels import probe
     C, i32 = tk.shape[0], torch.int32
@@ -1022,32 +1002,9 @@ def lookup_cases(hfn, tk, tv, ts, keys, Q: int, P: int, rng, device,
                     visits=visits_h),
         visits=visits, q1_ms=time_ms(calls["Q=1"], reps),
         q1_hashed_ms=time_ms(calls["Q=1, hashed"], reps), cases=out)
-    # what bounds it: device µs a call in the profile, for this design and
-    # variants of this source: the parent's walk (the windows off), each
-    # with h0 given and hashed; the windows read past L1 (__ldcg); the
-    # value read behind a hit, not with the window
+    # what bounds it: device µs a call in the profile
     prof = {k: profile_calls(f, 50, lambda: None)[0]
             for k, f in calls.items()}
-    res["variants"] = {}
-    for label, pairs in LOOKUP_VARIANTS.items():
-        with swapped("probe_lookup", variant_entry("probe_lookup", *pairs)):
-            for name in ("windows", "windows, hashed"):
-                got = calls[name]()
-                want = probe.probe_lookup_plain(
-                    *tab, hashing.bucket_of(hfn, qk, C) if "hashed" in name
-                    else h0, qk, P)
-                for x, y, n in zip(got, want, LOOKUP_OUTPUTS):
-                    same(x, y, f"probe_lookup ({label}; {name}) {n}")
-            res["variants"][label] = {
-                "ms": time_ms(calls["windows"], reps),
-                "profile_us": profile_calls(calls["windows"], 50,
-                                            lambda: None)[0],
-                "hashed_profile_us": profile_calls(calls["windows, hashed"],
-                                                   50, lambda: None)[0]}
-    walk = res["variants"]["slot by slot"]
-    prof["slot by slot"] = walk["profile_us"]
-    prof["slot by slot, hashed"] = walk["hashed_profile_us"]
-    res["slot_by_slot_ms"] = walk["ms"]
     if baseline is not None:
         res["in_turns"] = compare_cases(
             "probe_lookup", probe.probe_lookup, probe.probe_lookup_plain,
@@ -1079,9 +1036,6 @@ def lookup_cases(hfn, tk, tv, ts, keys, Q: int, P: int, rng, device,
                                 lambda: None)
     res["bucket_of_ops"] = n_ops
     res["profile_us"] = prof
-    res["h0_load_share"] = (prof["slot by slot"]
-                            - prof["slot by slot, hashed"]) / \
-        prof["slot by slot"]
     log(f"  probe_lookup times: " + json.dumps(
         {k: v for k, v in res.items() if k not in ("cases", "in_turns")}))
     return res
@@ -2099,10 +2053,8 @@ def fold_case(label: str, tab, args, tally: dict, baseline, reps: int):
     table before the batch, against ``cuckoo_insert_plain`` (tolerance 0):
     the claim words all free afterwards, and the kick-out's tally that of
     the standalone kernel on the same batch (``tally``).  Timed against this
-    tree's three launches (``tc_insert``, then ``cuckoo_kick``), in turns
-    with the kick-out launched as a programmatic dependent of the resolve
-    (a variant of ``tc_insert.cu``, held equal too) and, with a baseline,
-    in turns with the other tree's (its ``tc_insert``, then its
+    tree's three launches (``tc_insert``, then ``cuckoo_kick``) and, with
+    a baseline, in turns with the other tree's (its ``tc_insert``, then its
     ``cuckoo_kick``), and profiled: device µs and PyTorch ops a call."""
     from repro_torch.kernels import probe
     ra, rb, hfa, hfb, nb, k, v, win = args
@@ -2148,35 +2100,10 @@ def fold_case(label: str, tab, args, tally: dict, baseline, reps: int):
             probe.cuckoo_kick(*a, *kick, ok, pr, tab.max_kick, tab.claim)
             return ok, pr
         return run
-    # the kick-out as a programmatic dependent of the resolve (a variant of
-    # tc_insert.cu): held equal too, and timed in turns with the fold
-    dep = variant_entry("tc_insert", "#define TC_KICK_DEPENDENT 0",
-                        "#define TC_KICK_DEPENDENT 1")
-
-    def dependent():
-        with swapped("tc_insert", dep):
-            return probe.cuckoo_insert(*a, ra, rb, hfa, hfb, nb, k, v, win,
-                                       tab.max_kick, tab.claim)
-    restore()
-    tally0 = probe.kick_tally(dev)
-    ok_d, pr_d = dependent()
-    torch.cuda.synchronize()
-    for x, y, n in zip((*a, ok_d, pr_d), (*b, ok_p, pr_p),
-                       ("key", "val", "state", "ok", "present")):
-        same(x, y, f"cuckoo_insert (dependent kick-out) {label} {n}")
-    got_d = {n: x - tally0[n] for n, x in probe.kick_tally(dev).items()}
-    check(got_d == tally and bool((tab.claim == probe.CLAIM_FREE).all()),
-          f"cuckoo_insert (dependent kick-out) {label}: tally {got_d}")
-    t = {"folded": [], "dependent": []}
-    for who in ("folded", "dependent", "dependent", "folded"):
-        t[who].append(time_ms(folded if who == "folded" else dependent,
-                              reps, restore))
     entry = dict(placed=int(ok_k.sum()), **got,
                  ms=time_ms(folded, reps, restore),
-                 three_launches_ms=time_ms(composed(), reps, restore),
-                 folded_and_dependent_in_turns=t)
-    calls = {"folded": folded, "dependent": dependent,
-             "three launches": composed()}
+                 three_launches_ms=time_ms(composed(), reps, restore))
+    calls = {"folded": folded, "three launches": composed()}
     if baseline is not None:
         def parent():
             with swapped("cuckoo_kick", baseline["cuckoo_kick"]):
@@ -3289,30 +3216,17 @@ def phase_main(device, cfg, n_steps: int, min_epochs: int,
     nodes), 16 steady-state steps, then ``n_steps`` in continuous rebuild;
     the launch counts are set to 0 just before and read just after.
     Returns the launch counts."""
-    from repro_torch.core import backend, dhash
-    from repro_torch.core.engine import DHashEngine
+    from repro_torch.core import backend
     from repro_torch.kernels import probe
-    state = dhash.make(cfg.backend, capacity=cfg.capacity_per_shard,
-                       chunk=cfg.chunk, fused=True, seed=0, device=device)
-    slots = backend.get(cfg.backend).capacity_of(state.old)
+    eng, oracle, n_pop = main_engine(device, cfg)
+    slots = backend.get(cfg.backend).capacity_of(eng.state.old)
     chain = cfg.backend == "chain"
-    shape = (f"{state.old.nbuckets} buckets" if chain
-             else tuple(state.old.key.shape))
-    oracle = Oracle(4 * cfg.capacity_per_shard, seed=3)
-    eng = DHashEngine(state, continuous_rebuild=False)
-    n_pop = populate(eng, oracle, min(cfg.capacity_per_shard, slots // 2),
-                     cfg.lookups_per_step, f"{cfg.backend}")
+    shape = (f"{eng.state.old.nbuckets} buckets" if chain
+             else tuple(eng.state.old.key.shape))
     log(f"  populated {int(oracle.present.sum())} keys in {n_pop} engine "
         f"steps; {slots} {'nodes' if chain else 'slots'} a table ({shape}), "
         f"{oracle.no_slot} inserts found no slot")
     seed0 = seeds_of(eng)
-    if profile_to and cfg.backend in ("linear", "cuckoo"):
-        # the steady state (no rebuild), which serves most of a table's
-        # life: the lookup and delete kernels and the insert, no epoch work
-        root, ext = os.path.splitext(profile_to)
-        profile_steps(eng, oracle, cfg, 40, 1 << 20, f"{root}_steady{ext}",
-                      steady=True)
-        check(not eng.rebuilding, "the steady profile started a rebuild")
 
     # -------- the main path: counts set to 0 here, read right after --------
     # (the engine's raw counters: reading ``eng.stats`` would refresh them
@@ -3403,7 +3317,36 @@ def phase_main(device, cfg, n_steps: int, min_epochs: int,
         f"{ {k: v for k, v in launches.items() if v} }")
     if profile_to:
         profile_steps(eng, oracle, cfg, 40, steady + n_steps, profile_to)
+    if profile_to and cfg.backend in ("linear", "cuckoo"):
+        # the steady state (no rebuild), which serves most of a table's
+        # life: the lookup and delete kernels and the insert, no epoch
+        # work; on an engine built and populated as the main path's was,
+        # so that the main path runs the same work with --profile or not
+        del eng, oracle
+        eng, oracle, _ = main_engine(device, cfg)
+        root, ext = os.path.splitext(profile_to)
+        profile_steps(eng, oracle, cfg, 40, 1 << 20, f"{root}_steady{ext}",
+                      steady=True)
+        check(not eng.rebuilding, "the steady profile started a rebuild")
     return launches
+
+
+def main_engine(device, cfg):
+    """An engine of ``cfg.backend`` at full size, populated to half its
+    table's slots (``capacity_per_shard`` keys on the slot tables, which
+    are twice that size; half the arena on chain, whose arena IS
+    ``capacity_per_shard`` nodes), with no rebuild running; its oracle,
+    and the populate's engine steps."""
+    from repro_torch.core import backend, dhash
+    from repro_torch.core.engine import DHashEngine
+    state = dhash.make(cfg.backend, capacity=cfg.capacity_per_shard,
+                       chunk=cfg.chunk, fused=True, seed=0, device=device)
+    slots = backend.get(cfg.backend).capacity_of(state.old)
+    oracle = Oracle(4 * cfg.capacity_per_shard, seed=3)
+    eng = DHashEngine(state, continuous_rebuild=False)
+    n_pop = populate(eng, oracle, min(cfg.capacity_per_shard, slots // 2),
+                     cfg.lookups_per_step, f"{cfg.backend}")
+    return eng, oracle, n_pop
 
 
 def _leaves(obj, path=""):
@@ -3840,9 +3783,10 @@ def main() -> int:
                     help="also run 40 steps of each main path under "
                     "torch.profiler and write the kernel tables to FILE "
                     "(linear) and FILE with _twochoice / _cuckoo / _chain "
-                    "before its extension, and 40 steady-state steps of "
-                    "linear and cuckoo to FILE with _steady / "
-                    "_cuckoo_steady")
+                    "before its extension (after the main path's counts "
+                    "are read), and 40 steady-state steps of linear and "
+                    "cuckoo, on an engine populated as the main path's, to "
+                    "FILE with _steady / _cuckoo_steady")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():

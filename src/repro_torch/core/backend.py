@@ -209,7 +209,7 @@ def linear_lookup_fused(t: LinearTable, keys: torch.Tensor):
     """Kernel-backed lookup: one launch that hashes the keys itself.
     Returns (found, vals)."""
     from repro_torch.kernels import ops
-    return ops.probe_lookup(t.key, t.val, t.state, t.hfn, keys,
+    return ops.probe_lookup(t.key, t.val, t.state, None, keys, hfn=t.hfn,
                             max_probes=t.max_probes)
 
 
@@ -217,7 +217,7 @@ def linear_lookup_fused_loc(t: LinearTable, keys: torch.Tensor):
     """Kernel-backed lookup keeping the kernel's loc output: the SAME single
     launch as ``linear_lookup_fused``, returning (found, vals, loc)."""
     from repro_torch.kernels import ops
-    return ops.probe_lookup(t.key, t.val, t.state, t.hfn, keys,
+    return ops.probe_lookup(t.key, t.val, t.state, None, keys, hfn=t.hfn,
                             max_probes=t.max_probes, with_loc=True)
 
 
@@ -244,8 +244,8 @@ def linear_delete_fused(t: LinearTable, keys: torch.Tensor,
     Writes ``t.state`` in place."""
     from repro_torch.kernels import ops
     winner = batch_winners(keys, mask)
-    _, ok = ops.probe_delete(t.key, t.val, t.state, t.hfn, keys, winner,
-                             max_probes=t.max_probes)
+    _, ok = ops.probe_delete(t.key, t.val, t.state, None, keys, winner,
+                             hfn=t.hfn, max_probes=t.max_probes)
     return t, ok
 
 

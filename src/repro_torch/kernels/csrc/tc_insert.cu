@@ -50,8 +50,9 @@
 // nothing left after the rounds the kick-out costs nothing.
 //
 // (One block for the whole batch, presence, the list and every round, was
-// timed against this split and was 5-6x slower at the main path's Q; PERF.md
-// keeps its times.)  States, claim words and list entries that
+// timed against this split and was 5-6x slower at the main path's Q; the
+// kick-out as a third kernel, a programmatic dependent of the resolve, was
+// timed against the fold; PERF.md keeps both times.)  States, claim words and list entries that
 // another block or launch wrote are read with __ldcg (from L2); a row is
 // read as 16-byte loads where W allows.  Nothing depends on the order in
 // which threads run, so the result is deterministic.  The claim words
@@ -79,11 +80,6 @@
 
 #define TC_THREADS 256
 #define TC_RESOLVE_THREADS 256
-// The cuckoo kick-out's form: 0, in the resolve's last block; 1, a third
-// kernel of 1024 threads launched as a programmatic dependent of the
-// resolve over the pending entries its last block gathers (the form
-// chip_smoke.py times this one against)
-#define TC_KICK_DEPENDENT 0
 
 // slot values of a query after the bid: not pending, or pending without a
 // lane in row a
@@ -222,9 +218,6 @@ __global__ void __launch_bounds__(TC_RESOLVE_THREADS) tc_insert_resolve(
     int kind_a, const long long* __restrict__ seeds_b, int kind_b, int* work,
     int* plan, int* tally) {
   __shared__ int last_sh;
-#if TC_KICK_DEPENDENT
-  if (KICK) asm volatile("griddepcontrol.launch_dependents;");
-#endif
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int s = i < Q ? slot[i] : TC_IDLE;
   bool keep = false;
@@ -262,34 +255,11 @@ __global__ void __launch_bounds__(TC_RESOLVE_THREADS) tc_insert_resolve(
                                              max_rounds, okf, slot, list,
                                              work)
                       : 0;
-  if (!KICK) return;
-#if TC_KICK_DEPENDENT
-  if (threadIdx.x == 0) count[1] = m;
-#else
-  if (m > 0)
+  if (KICK && m > 0)
     dhash_kick_rounds<VEC>(
         tk, tv, ts, W, nbuckets, rows_a, rows_b, keys, vals, okf, max_kick,
         seeds_a, kind_a, seeds_b, kind_b, claim, work, m, plan, tally);
-#endif
 }
-
-#if TC_KICK_DEPENDENT
-template <bool VEC>
-__global__ void __launch_bounds__(1024) tc_kick_dependent(
-    int* tk, int* tv, int* ts, int* claim, int W,
-    const int* __restrict__ rows_a, const int* __restrict__ rows_b,
-    const int* __restrict__ keys, const int* __restrict__ vals,
-    uint8_t* okf, const int* count, int* work, int* plan, int max_kick,
-    int nbuckets, const long long* __restrict__ seeds_a, int kind_a,
-    const long long* __restrict__ seeds_b, int kind_b, int* tally) {
-  asm volatile("griddepcontrol.wait;" ::: "memory");
-  const int m = __ldcg(&count[1]);
-  if (m == 0) return;
-  dhash_kick_rounds<VEC>(
-      tk, tv, ts, W, nbuckets, rows_a, rows_b, keys, vals, okf, max_kick,
-      seeds_a, kind_a, seeds_b, kind_b, claim, work, m, plan, tally);
-}
-#endif
 
 extern "C" int dhash_tc_insert(
     int* tk, int* tv, int* ts, int* claim, int W, const int* rows_a,
@@ -333,26 +303,5 @@ extern "C" int dhash_tc_insert(
   else
     TC_RESOLVE(false, false);
 #undef TC_RESOLVE
-#if TC_KICK_DEPENDENT
-  e = cudaGetLastError();
-  if (e != cudaSuccess || max_kick == 0) return (int)e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(1);
-  cfg.blockDim = dim3(1024);
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  void (*kick)(int*, int*, int*, int*, int, const int*, const int*,
-               const int*, const int*, uint8_t*, const int*, int*, int*, int,
-               int, const long long*, int, const long long*, int, int*) =
-      vec ? &tc_kick_dependent<true> : &tc_kick_dependent<false>;
-  e = cudaLaunchKernelEx(&cfg, kick, tk, tv, ts, claim, W, rows_a, rows_b, keys, vals,
-                         okf, (const int*)count, work, plan, max_kick,
-                         nbuckets, seeds_a, kind_a, seeds_b, kind_b, tally);
-  if (e != cudaSuccess) return (int)e;
-#endif
   return (int)cudaGetLastError();
 }

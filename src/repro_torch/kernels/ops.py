@@ -2,8 +2,8 @@
 
 Linear: ``probe_lookup`` is the accelerated equivalent of
 ``ref.probe_lookup_ref`` (and of ``buckets.linear_lookup``'s inner loop;
-given the table's hash function in place of the start slots, the kernel
-hashes the keys itself);
+given the table's hash function as ``hfn`` in place of the start slots, the
+kernel hashes the keys itself);
 ``ordered_lookup_fused`` is the rebuild-epoch path (one ``probe2`` launch for
 the whole old -> hazard -> new ordered check); ``probe_insert`` /
 ``probe_delete`` are the write paths (the insert kernel; the location-emitting
@@ -75,31 +75,34 @@ def _tombstone_(state: torch.Tensor, ok: torch.Tensor, loc: torch.Tensor):
     return state
 
 
-def _probe(tkey, tval, tstate, h0, qkey, max_probes: int):
-    """The lookup kernel on start slots ``h0``, or with the start slots
-    hashed in the kernel where ``h0`` is the table's ``HashFn``."""
-    if isinstance(h0, torch.Tensor):
+def _probe(tkey, tval, tstate, h0, qkey, hfn, max_probes: int):
+    """The lookup kernel on start slots ``h0``, or, where ``h0`` is None,
+    with the start slots hashed in the kernel by the table's ``hfn``."""
+    if (h0 is None) == (hfn is None):
+        raise ValueError("give exactly one of h0 and hfn")
+    if hfn is None:
         return probe.probe_lookup(tkey, tval, tstate, h0, qkey, max_probes)
-    return probe.probe_lookup_hashed(tkey, tval, tstate, h0, qkey,
+    return probe.probe_lookup_hashed(tkey, tval, tstate, hfn, qkey,
                                      max_probes)
 
 
 @torch.no_grad()
 def probe_lookup(tkey: torch.Tensor, tval: torch.Tensor, tstate: torch.Tensor,
-                 h0, qkey: torch.Tensor, *,
-                 max_probes: int = 64, with_loc: bool = False):
+                 h0: torch.Tensor | None, qkey: torch.Tensor, *,
+                 hfn=None, max_probes: int = 64, with_loc: bool = False):
     """Batched linear-probe lookup. Returns (found[Q], val[Q]), or
     (found, val, loc[Q]) when ``with_loc`` — ``loc`` is the hit's physical
     slot in [0, C) (-1 on miss), the probe telemetry input.
 
     Args:
       tkey/tval/tstate: table arrays [C].
-      h0: start slot per query (hash(key) % C), [Q]; or the table's
-        ``HashFn``, and the kernel hashes each key itself
-        (``probe.probe_lookup_hashed``, equal to ``bucket_of`` first).
+      h0: start slot per query (hash(key) % C), [Q]; None with ``hfn``.
       qkey: query keys [Q].
+      hfn: the table's ``HashFn``, in place of ``h0``: the kernel hashes
+        each key itself (``probe.probe_lookup_hashed``, equal to
+        ``bucket_of`` first).
     """
-    found, val, loc = _probe(tkey, tval, tstate, h0, qkey, max_probes)
+    found, val, loc = _probe(tkey, tval, tstate, h0, qkey, hfn, max_probes)
     return (found, val, loc) if with_loc else (found, val)
 
 
@@ -161,16 +164,18 @@ def probe_insert(tkey: torch.Tensor, tval: torch.Tensor, tstate: torch.Tensor,
 
 @torch.no_grad()
 def probe_delete(tkey: torch.Tensor, tval: torch.Tensor, tstate: torch.Tensor,
-                 h0, keys: torch.Tensor, mask: torch.Tensor, *,
-                 max_probes: int = 64):
+                 h0: torch.Tensor | None, keys: torch.Tensor,
+                 mask: torch.Tensor, *, hfn=None, max_probes: int = 64):
     """Batched linear-probe DELETE: the location-emitting lookup kernel +
-    ONE tombstone scatter; writes ``tstate`` IN PLACE.  ``h0`` as in
-    ``probe_lookup``: start slots, or the table's ``HashFn``.
+    ONE tombstone scatter; writes ``tstate`` IN PLACE.  ``h0`` and ``hfn``
+    as in ``probe_lookup``: start slots, or None and the table's
+    ``HashFn``.
 
     Caller contract: ``mask`` is winner-filtered, so distinct masked keys
     occupy distinct slots.  Returns (tstate, ok[Q]).
     """
-    found, _val, loc = _probe(tkey, tval, tstate, h0, keys, max_probes)
+    found, _val, loc = _probe(tkey, tval, tstate, h0, keys, hfn,
+                             max_probes)
     ok = mask & found
     return _tombstone_(tstate, ok, loc), ok
 

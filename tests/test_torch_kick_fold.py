@@ -17,7 +17,7 @@ bounded kick-out over the list the rounds left (``csrc/tc_insert.cu``,
   main-path-like batch, a flooded row, a crowded table (93 % LIVE) and a
   batch that leaves nothing pending;
 * ``probe_lookup_hashed`` (through ``ops.probe_lookup`` / ``probe_delete``
-  given the table's hash function) equal to the JAX ``bucket_of`` followed
+  given the table's hash function as ``hfn``) equal to the JAX ``bucket_of`` followed
   by ``ops.probe_lookup`` / ``probe_delete``, with keys found by rejection
   sampling whose hash lands in the last 40 slots, so that walks wrap, for
   the three hash kinds and a slot count that is not a power of two.
@@ -382,8 +382,8 @@ def test_hashed_lookup_equals_jax_bucket_of_then_probe_lookup(c, kind):
     thfn = th.fresh(kind, c, "cpu")
     assert np.array_equal(np.asarray(hfn.seeds).astype(np.int64),
                           N(thfn.seeds))
-    tf, tv, tl = tops.probe_lookup(*map(T, tab), thfn, T(qk), max_probes=16,
-                                   with_loc=True)
+    tf, tv, tl = tops.probe_lookup(*map(T, tab), None, T(qk), hfn=thfn,
+                                   max_probes=16, with_loc=True)
     assert np.array_equal(np.asarray(jf), N(tf))
     assert np.array_equal(np.asarray(jv), N(tv))
     jl = np.asarray(jl)
@@ -409,8 +409,19 @@ def test_hashed_delete_equals_jax_bucket_of_then_probe_delete(c):
     js, jok = jops.probe_delete(*map(J, tab), jh.bucket_of(hfn, J(qk), c),
                                 J(qk), J(win), max_probes=16)
     tt = [T(x) for x in tab]
-    ts, tok = tops.probe_delete(*tt, th.fresh("mix32", c + 1, "cpu"), T(qk),
-                                T(win), max_probes=16)
+    ts, tok = tops.probe_delete(*tt, None, T(qk), T(win),
+                                hfn=th.fresh("mix32", c + 1, "cpu"),
+                                max_probes=16)
     assert ts is tt[2], "the state array is written in place"
     assert np.array_equal(np.asarray(jok), N(tok)) and N(tok).any()
     assert np.array_equal(np.asarray(js), N(ts))
+
+
+@pytest.mark.parametrize("give", ["both", "neither"])
+def test_lookup_takes_exactly_one_of_start_slots_and_hash(give):
+    hfn, tab, keys = lookup_table(64, "mix32", seed=5)
+    thfn = th.fresh("mix32", 64, "cpu")
+    h0 = T(np.asarray(jh.bucket_of(hfn, J(keys), 64)))
+    with pytest.raises(ValueError, match="exactly one"):
+        tops.probe_lookup(*map(T, tab), h0 if give == "both" else None,
+                          T(keys), hfn=thfn if give == "both" else None)
