@@ -9,8 +9,8 @@ for an H100) and the CUDA toolkit:
     python3 chip_smoke.py --profile build/profile.txt  # + profiler tables
     python3 chip_smoke.py --baseline OTHER/build/repro_torch_kernels
         # phase 2 also runs another tree's probe_lookup, probe2,
-        # probe_insert, tc_insert, tc_probe2, chain_probe, chain_probe2 and
-        # chain_compact on its timed inputs, its tc_insert and cuckoo_kick
+        # probe_insert, tc_lookup, tc_insert, tc_probe2, chain_probe,
+        # chain_probe2 and chain_compact on its timed inputs, its tc_insert and cuckoo_kick
         # as the cuckoo insert, and its sequence for a rebuild transition
         # and the epoch exchange (extract, epoch_swap and the PyTorch ops
         # around them), in turns with this tree's
@@ -40,7 +40,11 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
    load, under a flood, on a crowded table and with nothing pending, alone
    and as the cuckoo insert runs it (in tc_insert's resolve); for the
    lookup both forms, start slots given and hashed in the kernel, with
-   walks that wrap, tables not 16-byte aligned and all three hash kinds; the
+   walks that wrap, tables not 16-byte aligned and all three hash kinds; for
+   the two-row lookup both forms, rows given and hashed in the kernel at
+   both b-row offsets (twochoice and cuckoo), at the lookup's and the
+   delete's batch sizes, with one hash function for both rows, widths 4, 6,
+   12 and 16, a table not 16-byte aligned and all three hash kinds; the
    guarded extract; the rebuild step's transition (the landing's
    bookkeeping, the guarded scan and the epoch decision in one extract
    launch) on every backend's tables with hazard flags empty, partial and
@@ -149,8 +153,8 @@ def log(*a):
 
 OUTPUTS = ("found", "val", "f_old", "loc_old", "hz_idx", "loc_new")
 # the kernels --baseline runs from another tree, in turns with this tree's
-BASELINE_KERNELS = ("probe_lookup", "probe2", "probe_insert", "tc_insert",
-                    "tc_probe2", "chain_probe", "chain_probe2",
+BASELINE_KERNELS = ("probe_lookup", "probe2", "probe_insert", "tc_lookup",
+                    "tc_insert", "tc_probe2", "chain_probe", "chain_probe2",
                     "cuckoo_kick", "chain_compact")
 # ... and the two whose C interfaces changed, as the sequence the other tree
 # runs for one rebuild transition and the exchange behind it
@@ -225,9 +229,11 @@ def load_baseline(path: str) -> dict:
     ``probe_insert`` and ``tc_insert`` come as functions with the arguments
     of this tree's wrappers; ``tc_insert`` through either C interface the
     other tree may have: the cooperative one with a claim word a slot and a
-    pending counter (17 arguments), or the bid / resolve one without the
-    kick-out (18).  ``probe_lookup`` comes as an entry point with this
-    tree's arguments (``baseline_lookup``: start slots given only);
+    pending counter (17 arguments), the bid / resolve one without the
+    kick-out (18), or this tree's (23).  ``probe_lookup`` and ``tc_lookup``
+    come as entry
+    points with this tree's arguments (``baseline_lookup``: start slots
+    given only; ``baseline_tc_lookup``: rows given only);
     ``cuckoo_kick`` as it is (its C interface did not change).  ``extract`` and
     ``epoch_swap`` come as one function, the other tree's rebuild
     transition and exchange (``baseline_sequence``)."""
@@ -250,6 +256,7 @@ def load_baseline(path: str) -> dict:
         fn.restype = ctypes.c_int
         out[name] = fn
     out["probe_lookup"] = baseline_lookup(out["probe_lookup"])
+    out["tc_lookup"] = baseline_tc_lookup(out["tc_lookup"])
     out["probe_insert"] = baseline_insert(out["probe_insert"])
     out["tc_insert"] = baseline_tc_insert(out["tc_insert"])
     out["chain_compact"] = baseline_compact(out["chain_compact"])
@@ -427,12 +434,21 @@ def baseline_insert(fn):
 
 
 def baseline_tc_insert(fn):
-    """``probe.tc_insert`` on another tree's C entry point ``fn``."""
+    """``probe.tc_insert`` on another tree's C entry point ``fn``.  Where
+    that tree's interface is this tree's (23 arguments: the kick-out in the
+    resolve), the function carries the entry point as ``entry``, so that
+    the other tree's cuckoo insert is its own folded launch."""
     from repro_torch.kernels import probe
     claims = {}
 
     def insert(tk, tv, ts, ra, rb, keys, vals, mask, max_rounds):
         q, dev, w = keys.shape[0], tk.device, tk.shape[1]
+        if len(fn.argtypes) == 23:
+            if tk.shape[0] not in claims:
+                claims[tk.shape[0]] = probe.new_claim(tk.shape[0], dev)
+            with swapped("tc_insert", fn):
+                return probe.tc_insert(tk, tv, ts, ra, rb, keys, vals, mask,
+                                       max_rounds, claims[tk.shape[0]])
         ok = torch.empty(q, dtype=torch.bool, device=dev)
         present = torch.empty(q, dtype=torch.bool, device=dev)
         i32 = torch.int32
@@ -455,6 +471,7 @@ def baseline_tc_insert(fn):
                    for a in args], torch.cuda.current_stream().cuda_stream)
         check(err == 0, f"--baseline tc_insert was not launched: {err}")
         return ok, present
+    insert.entry = fn if len(fn.argtypes) == 23 else None
     return insert
 
 
@@ -620,6 +637,25 @@ def profile_steps(eng, oracle, cfg, n_steps: int, step0: int, path: str,
             rows.append(f"  {m.group(1)}: {e.count} launches, "
                         f"{us / max(e.count, 1):.3f} us a launch, "
                         f"{us / n_steps:.3f} us a step")
+    if steady:
+        # a steady step launches its lookup kernel twice, the lookup's
+        # batch first and the delete's second: µs a launch of each
+        launches = {}
+        for e in prof.events():
+            m = re.match(r"(?:void )?(\w+)", e.name)
+            if e.device_type == DeviceType.CUDA and m and m.group(1) in (
+                    "probe_lookup_kernel", "tc_lookup_kernel",
+                    "tc_lookup_pair_kernel"):
+                launches.setdefault(m.group(1), []).append(
+                    (e.time_range.start, e.time_range.elapsed_us()))
+        for name, ev in sorted(launches.items()):
+            us = [d for _, d in sorted(ev)]
+            rows.append(
+                f"  {name} by batch: lookup {statistics.mean(us[0::2]):.3f} "
+                f"us a launch, delete {statistics.mean(us[1::2]):.3f} us a "
+                f"launch" if len(us) == 2 * n_steps else
+                f"  {name} by batch: not measured ({len(us)} launches in "
+                f"{n_steps} steps)")
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         f.write(f"{n_steps} steps, wall {wall_ms:.1f} ms (with the host "
@@ -885,8 +921,11 @@ def wrap_keys(hashing, hfn, c: int, n: int, device) -> torch.Tensor:
 
 def baseline_lookup(fn):
     """Another tree's ``dhash_probe_lookup`` entry point ``fn`` for this
-    tree's wrapper: the start-slot form only (12 arguments: no seeds, no
-    hash kind)."""
+    tree's wrapper: where that tree's takes start slots only (12
+    arguments: no seeds, no hash kind), the start-slot form."""
+    if len(fn.argtypes) != 12:
+        return fn
+
     def call(*argv):
         check(argv[4] is not None, "--baseline probe_lookup takes h0 only")
         return fn(*argv[:5], *argv[7:])
@@ -1306,12 +1345,16 @@ def phase_kernels(device, cfg, reps: int, baseline=None) -> dict:
 
 
 def build_rows_table(probe, hashing, b: int, w: int, n_live: int, rng,
-                     device, seed: int):
+                     device, seed: int, kind: str = "mix32",
+                     cuckoo: bool = False):
     """A [b, w] two-row table with ``n_live`` random keys placed by the PLAIN
-    insert, then a share of them tombstoned and a share marked MIGRATED.
+    insert under two ``kind`` hash functions, then a share of them
+    tombstoned and a share marked MIGRATED; with ``cuckoo`` in a cuckoo
+    table's layout (rows a in [0, b/2), rows b in [b/2, b)).
     Returns (hfn_a, hfn_b, key, val, state, keys)."""
-    hfa = hashing.fresh("mix32", seed, device)
-    hfb = hashing.fresh("mix32", seed + 1000, device)
+    hfa = hashing.fresh(kind, seed, device)
+    hfb = hashing.fresh(kind, seed + 1000, device)
+    nb, off = (b // 2, b // 2) if cuckoo else (b, 0)
     tk, tv, ts = (torch.zeros((b, w), dtype=torch.int32, device=device)
                   for _ in range(3))
     uniq = np.unique(rng.integers(-(1 << 30), 1 << 30, n_live + n_live // 4))
@@ -1320,8 +1363,9 @@ def build_rows_table(probe, hashing, b: int, w: int, n_live: int, rng,
                            device=device)
     for i in range(0, n_live, 1 << 17):
         k = keys[i:i + (1 << 17)]
-        probe.tc_insert_plain(tk, tv, ts, hashing.bucket_of(hfa, k, b),
-                              hashing.bucket_of(hfb, k, b), k, k * 3 + 1,
+        probe.tc_insert_plain(tk, tv, ts, hashing.bucket_of(hfa, k, nb),
+                              off + hashing.bucket_of(hfb, k, nb), k,
+                              k * 3 + 1,
                               torch.ones_like(k, dtype=torch.bool), 8)
     flat = ts.view(-1)
     live = (flat == 1).nonzero().squeeze(1)
@@ -1339,6 +1383,275 @@ def rows_read(probe_ref, tk, tv, ts, ra, qk, need=None) -> int:
     if need is None:
         need = torch.ones_like(fa)
     return int(need.sum()) + int((need & ~fa).sum())
+
+
+# the design forms of tc_lookup.cu timed in turns with the form the source
+# states (text replacements of its switches)
+TC_LOOKUP_VARIANTS = {
+    "values with the rows": (
+        "#define TC_VALUES_WITH_ROWS 0", "#define TC_VALUES_WITH_ROWS 1"),
+    "128 threads": (
+        "#define TC_LOOKUP_THREADS 256", "#define TC_LOOKUP_THREADS 128"),
+    "512 threads": (
+        "#define TC_LOOKUP_THREADS 256", "#define TC_LOOKUP_THREADS 512"),
+    "values with the rows, 128 threads": (
+        "#define TC_VALUES_WITH_ROWS 0", "#define TC_VALUES_WITH_ROWS 1",
+        "#define TC_LOOKUP_THREADS 256", "#define TC_LOOKUP_THREADS 128"),
+    "a pair of lanes": ("#define TC_PAIR 0", "#define TC_PAIR 1"),
+    "a pair of lanes, values with the rows": (
+        "#define TC_PAIR 0", "#define TC_PAIR 1",
+        "#define TC_VALUES_WITH_ROWS 0", "#define TC_VALUES_WITH_ROWS 1"),
+    "a pair of lanes, 128 threads": (
+        "#define TC_PAIR 0", "#define TC_PAIR 1",
+        "#define TC_LOOKUP_THREADS 256", "#define TC_LOOKUP_THREADS 128"),
+}
+
+
+def baseline_tc_lookup(fn):
+    """Another tree's ``dhash_tc_lookup`` entry point ``fn`` for this tree's
+    wrapper: where that tree's takes rows only (12 arguments: no hash
+    functions, no bucket count, no offset), the rows-given form."""
+    if len(fn.argtypes) != 12:
+        return fn
+
+    def call(*argv):
+        check(argv[4] is not None, "--baseline tc_lookup takes rows only")
+        return fn(*argv[:6], *argv[12:])
+    return call
+
+
+def tc_lookup_cases(tab, lookup_inputs, cfg, reps: int, device,
+                    baseline) -> dict:
+    """``tc_lookup`` (rows given) and ``tc_lookup_hashed`` (the rows hashed
+    in the kernel) against their plain versions (tolerance 0).  Rows given,
+    on phase 2's twochoice table (2^18 x 8): ragged Q, hits in row a and b,
+    misses, dead keys, a sixteenth of the queries with both rows one row.
+    Both forms, on that table (b-row offset 0) and on a cuckoo table of
+    the main path's layout (2 x 2^17 x 8, offset 2^17), at Q = 65536 + 77,
+    65536 (the lookup's batch), 8192 (the delete's), 33 and 1; hashed with
+    one hash function for both rows (every ra == rb); tables of widths 4,
+    6 (lane by lane), 12 and 16 (more than one step of 16-byte loads), one
+    not 16-byte aligned (lane by lane), the other two hash kinds on tables
+    whose bucket counts are not powers of two.  Then the time of both forms
+    at the main path's two batches on both layouts; what bounds the kernel
+    (the profiler's device µs a call); with a baseline, the other tree's
+    kernel in turns with this tree's on the same rows, and its sequence
+    (two ``bucket_of``, then its kernel) in turns with the hashed form;
+    the design forms of ``TC_LOOKUP_VARIANTS`` in turns with the source's
+    form."""
+    from repro_torch.core import hashing
+    from repro_torch.kernels import probe, ref
+    hfa, hfb, tk, tv, ts, keys = tab
+    B, W = tk.shape
+    Q, QU = cfg.lookups_per_step, cfg.updates_per_step
+    err = 0
+    for q in (Q + 77, Q):
+        ra, rb, qk = lookup_inputs(q)
+        out_k = probe.tc_lookup(tk, tv, ts, ra, rb, qk)
+        torch.cuda.synchronize()
+        out_p = probe.tc_lookup_plain(tk, tv, ts, ra, rb, qk)
+        for a, b, n in zip(out_k, out_p, LOOKUP_OUTPUTS):
+            err = max(err, same(a, b, f"tc_lookup Q={q} {n}"))
+    f, _, loc = out_k
+    check(bool(f.any()) and not bool(f.all())
+          and bool((f & (loc.long() // W == rb.long())
+                    & (ra != rb)).any()),
+          "tc_lookup: inputs must mix hits in row a, in row b and misses")
+    nrows = rows_read(ref, tk, tv, ts, ra, qk)
+    hits = int(f.sum())
+    timed_rows = (ra, rb, qk)
+
+    # the hashed form's cases: (table, hfn_a, hfn_b, nbuckets, b_offset,
+    # queries); each also through the rows-given form on the same rows
+    rng = np.random.default_rng(20)
+
+    def queries(kk, q):
+        hit = kk[torch.as_tensor(rng.integers(0, kk.numel(), q // 2),
+                                 device=device)]
+        miss = torch.as_tensor(
+            rng.integers(1 << 30, (1 << 31) - 1, q - q // 2).astype(np.int32),
+            device=device)
+        return torch.cat([hit, miss])[torch.as_tensor(
+            rng.permutation(q), device=device)].contiguous()
+
+    ck = build_rows_table(probe, hashing, B, W, cfg.capacity_per_shard, rng,
+                          device, 61, cuckoo=True)
+    layouts = {"twochoice": ((tk, tv, ts), hfa, hfb, B, 0, keys),
+               "cuckoo": (ck[2:5], ck[0], ck[1], B // 2, B // 2, ck[5])}
+    cases = {}
+    for name, (t_, fa, fb, nb, off, kk) in layouts.items():
+        for q in (Q + 77, Q, QU, 33, 1):
+            cases[f"{name} Q={q}"] = (t_, fa, fb, nb, off, queries(kk, q))
+    mixed = [f"{n} Q={q}" for n in layouts for q in (Q + 77, Q, QU)]
+    cases["twochoice, one hash function (ra == rb)"] = (
+        (tk, tv, ts), hfa, hfa, B, 0, queries(keys, Q))
+    for label, (b, w, n, seed, kind, cuckoo) in {
+            "W=4, cuckoo": (4096, 4, 6000, 62, "mix32", True),
+            "W=6": (4096, 6, 9000, 63, "mix32", False),
+            "W=12": (1024, 12, 5000, 64, "mix32", False),
+            "W=16, cuckoo": (2048, 16, 12000, 65, "mix32", True),
+            "tabulation, 3001 rows": (3001, 8, 8000, 66, "tabulation", False),
+            "multiply_shift, cuckoo 2 x 1500 rows": (
+                3000, 8, 8000, 67, "multiply_shift", True)}.items():
+        fa, fb, k_, v_, s_, kk = build_rows_table(
+            probe, hashing, b, w, n, rng, device, seed, kind, cuckoo)
+        nb, off = (b // 2, b // 2) if cuckoo else (b, 0)
+        cases[label] = ((k_, v_, s_), fa, fb, nb, off, queries(kk, 3001))
+    # the unaligned case on a width-8 table: a copy of phase 2's table one
+    # int32 off 16-byte alignment
+    un = []
+    for x in (tk, tv, ts):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=device)
+        buf[1:] = x.view(-1)
+        un.append(buf[1:].view(B, W))
+    check(un[0].data_ptr() % 16 != 0, "the unaligned copy is aligned")
+    cases["W=8, not 16-byte aligned"] = (tuple(un), hfa, hfb, B, 0,
+                                         queries(keys, 3001))
+    out = {}
+    for label, (t_, fa, fb, nb, off, qk) in cases.items():
+        want = probe.tc_lookup_hashed_plain(*t_, fa, fb, nb, off, qk)
+        got = probe.tc_lookup_hashed(*t_, fa, fb, nb, off, qk)
+        torch.cuda.synchronize()
+        for x, y, n in zip(got, want, LOOKUP_OUTPUTS):
+            err = max(err, same(x, y, f"tc_lookup_hashed {label} {n}"))
+        ra_, rb_ = (hashing.bucket_of(fa, qk, nb),
+                    off + hashing.bucket_of(fb, qk, nb))
+        got = probe.tc_lookup(*t_, ra_, rb_, qk)
+        torch.cuda.synchronize()
+        for x, y, n in zip(got, want, LOOKUP_OUTPUTS):
+            err = max(err, same(x, y, f"tc_lookup {label} {n}"))
+        f, _, loc = want
+        in_b = f & (loc.long() // t_[0].shape[1] == rb_.long()) & (ra_ != rb_)
+        out[label] = {"hits": int(f.sum()), "in_row_b": int(in_b.sum()),
+                      "same_row": int((ra_ == rb_).sum())}
+        if label in mixed:
+            check(out[label]["in_row_b"] > 0 and not bool(f.all()),
+                  f"tc_lookup {label}: inputs must mix hits in row a, in "
+                  f"row b and misses")
+    check(out["twochoice, one hash function (ra == rb)"]["same_row"] == Q,
+          "tc_lookup: one hash function must give ra == rb")
+    log("  tc_lookup ok, both forms: " + json.dumps(out))
+
+    # timed: the main path's two batches (the lookup's and the delete's)
+    # on both layouts, rows given and hashed
+    timed = {}
+    for name in layouts:
+        for q in (Q, QU):
+            t_, fa, fb, nb, off, qk = cases[f"{name} Q={q}"]
+            rows = (hashing.bucket_of(fa, qk, nb),
+                    off + hashing.bucket_of(fb, qk, nb))
+            timed[f"{name} Q={q}"] = dict(
+                rows=(*t_, *rows, qk), hashed=(*t_, fa, fb, nb, off, qk))
+    tk_args = (tk, tv, ts, *timed_rows)
+    fh, _, _ = probe.tc_lookup_hashed(tk, tv, ts, hfa, hfb, B, 0,
+                                      timed_rows[2])
+    nrows_h = rows_read(ref, tk, tv, ts,
+                        hashing.bucket_of(hfa, timed_rows[2], B),
+                        timed_rows[2])
+    res = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: probe.tc_lookup(*tk_args), reps),
+        plain_ms=time_ms(lambda: probe.tc_lookup_plain(*tk_args), 3,
+                         queue_ahead=False),
+        # in: key and state of each row read, val of a hit, rows + key a
+        # query; out: found, val, loc
+        **bound(nrows * W * 8 + hits * 4 + Q * 12 + Q * 9, nrows * W * 2),
+        rows_read=nrows, hits=hits,
+        # the hashed form on the same queries: a key a query in, no rows,
+        # and two hashes a query
+        hashed=dict(
+            ms=time_ms(lambda: probe.tc_lookup_hashed(
+                tk, tv, ts, hfa, hfb, B, 0, timed_rows[2]), reps),
+            **bound(nrows_h * W * 8 + int(fh.sum()) * 4 + Q * 4 + Q * 9,
+                    nrows_h * W * 2 + 2 * MIX32_OPS * Q),
+            rows_read=nrows_h),
+        cases=out)
+    res["batches"] = {
+        k: {"rows_ms": time_ms(lambda: probe.tc_lookup(*a["rows"]), reps),
+            "hashed_ms": time_ms(
+                lambda: probe.tc_lookup_hashed(*a["hashed"]), reps)}
+        for k, a in timed.items()}
+    # what bounds it: device µs a call in the profile
+    calls = {"rows, phase 2": lambda: probe.tc_lookup(*tk_args)}
+    for k, a in timed.items():
+        calls[f"rows, {k}"] = lambda a=a: probe.tc_lookup(*a["rows"])
+        calls[f"hashed, {k}"] = lambda a=a: probe.tc_lookup_hashed(
+            *a["hashed"])
+    prof = {k: profile_calls(f, 50, lambda: None)[0]
+            for k, f in calls.items()}
+    if baseline is not None:
+        other = baseline["tc_lookup"]
+        res["in_turns"] = compare_cases(
+            "tc_lookup", probe.tc_lookup, probe.tc_lookup_plain,
+            {"phase 2": tk_args,
+             **{k: a["rows"] for k, a in timed.items()}},
+            reps, baseline, LOOKUP_OUTPUTS)
+
+        def parent_hashed(a):
+            k_, v_, s_, fa, fb, nb, off, qk = a
+            with swapped("tc_lookup", other):
+                return probe.tc_lookup(
+                    k_, v_, s_, hashing.bucket_of(fa, qk, nb),
+                    off + hashing.bucket_of(fb, qk, nb), qk)
+        for k, a in timed.items():
+            t = {"parent": [], "this": []}
+            for who in ("parent", "this", "this", "parent"):
+                t[who].append(time_ms(
+                    (lambda: parent_hashed(a["hashed"])) if who == "parent"
+                    else (lambda: probe.tc_lookup_hashed(*a["hashed"])),
+                    reps))
+            res["in_turns"][f"hashed, {k}"] = {
+                "ms": t["this"], "parent_bucket_of_and_kernel_ms":
+                t["parent"]}
+            log(f"    tc_lookup hashed {k}: ms "
+                + json.dumps(res["in_turns"][f"hashed, {k}"]))
+        with swapped("tc_lookup", other):
+            for k, a in timed.items():
+                prof[f"parent rows, {k}"] = profile_calls(
+                    lambda a=a: probe.tc_lookup(*a["rows"]), 50,
+                    lambda: None)[0]
+        for k, a in timed.items():
+            prof[f"parent bucket_of and kernel, {k}"] = profile_calls(
+                lambda a=a: parent_hashed(a["hashed"]), 50,
+                lambda: None)[0]
+    res["profile_us"] = prof
+    # the design forms, each equal to the plain version and in turns with
+    # the source's form on the four timed batches
+    from repro_torch.kernels import build
+    lib = build.load()
+    variants = {}
+    for vname, pairs in TC_LOOKUP_VARIANTS.items():
+        fn = variant_entry("tc_lookup", *pairs)
+        entry = {}
+        with swapped("tc_lookup", fn):
+            for label in ("twochoice Q=33", f"cuckoo Q={Q + 77}",
+                          "W=6", "W=16, cuckoo"):
+                t_, fa, fb, nb, off, qk = cases[label]
+                want = probe.tc_lookup_hashed_plain(*t_, fa, fb, nb, off, qk)
+                got = probe.tc_lookup_hashed(*t_, fa, fb, nb, off, qk)
+                for x, y, n in zip(got, want, LOOKUP_OUTPUTS):
+                    same(x, y, f"tc_lookup ({vname}) {label} {n}")
+        for k, a in timed.items():
+            for form, call in (
+                    ("rows", lambda a=a: probe.tc_lookup(*a["rows"])),
+                    ("hashed",
+                     lambda a=a: probe.tc_lookup_hashed(*a["hashed"]))):
+                t = {"this": [], "variant": []}
+                mine = lib["tc_lookup"]
+                try:
+                    for who in ("this", "variant", "variant", "this"):
+                        lib["tc_lookup"] = fn if who == "variant" else mine
+                        t[who].append(time_ms(call, reps))
+                finally:
+                    lib["tc_lookup"] = mine
+                entry[f"{form}, {k}"] = t
+        variants[vname] = entry
+        log(f"    tc_lookup variant {vname!r}: " + json.dumps(entry))
+    res["variants"] = variants
+    log(f"  tc_lookup times: " + json.dumps(
+        {k: v for k, v in res.items()
+         if k not in ("cases", "in_turns", "variants")}))
+    return res
 
 
 def phase_tc_kernels(device, cfg, reps: int, baseline=None) -> dict:
@@ -1376,31 +1689,9 @@ def phase_tc_kernels(device, cfg, reps: int, baseline=None) -> dict:
         rb[: q // 16] = ra[: q // 16]                  # both choices one row
         return ra, rb, qk.contiguous()
 
-    err = 0
-    for q in (Q + 77, Q):
-        ra, rb, qk = lookup_inputs(q)
-        out_k = probe.tc_lookup(tk, tv, ts, ra, rb, qk)
-        torch.cuda.synchronize()
-        out_p = probe.tc_lookup_plain(tk, tv, ts, ra, rb, qk)
-        for a, b, n in zip(out_k, out_p, ("found", "val", "loc")):
-            err = max(err, same(a, b, f"tc_lookup Q={q} {n}"))
-    f, _, loc = out_k
-    check(bool(f.any()) and not bool(f.all())
-          and bool((f & (loc.long() // W == rb.long())
-                    & (ra != rb)).any()),
-          "tc_lookup: inputs must mix hits in row a, in row b and misses")
-    nrows = rows_read(ref, tk, tv, ts, ra, qk)
-    hits = int(f.sum())
-    res["tc_lookup"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: probe.tc_lookup(tk, tv, ts, ra, rb, qk), reps),
-        plain_ms=time_ms(lambda: probe.tc_lookup_plain(tk, tv, ts, ra, rb,
-                                                       qk), 3,
-                         queue_ahead=False),
-        # in: key and state of each row read, val of a hit, rows + key a
-        # query; out: found, val, loc
-        **bound(nrows * W * 8 + hits * 4 + Q * 12 + Q * 9, nrows * W * 2))
-    log(f"  tc_lookup ok: Q={Q} rows read={nrows} hits={hits}")
+    res["tc_lookup"] = tc_lookup_cases((hfa, hfb, tk, tv, ts, keys),
+                                       lookup_inputs, cfg, reps, device,
+                                       baseline)
 
     # -- tc_insert: a hot row pair, duplicates, keys already live or dead,
     #    rows a == b, ragged Q; twochoice's 8 rounds and cuckoo's 2; 2048
@@ -2055,7 +2346,8 @@ def fold_case(label: str, tab, args, tally: dict, baseline, reps: int):
     the standalone kernel on the same batch (``tally``).  Timed against this
     tree's three launches (``tc_insert``, then ``cuckoo_kick``) and, with
     a baseline, in turns with the other tree's (its ``tc_insert``, then its
-    ``cuckoo_kick``), and profiled: device µs and PyTorch ops a call."""
+    ``cuckoo_kick``, or its own folded insert), and profiled: device µs and
+    PyTorch ops a call."""
     from repro_torch.kernels import probe
     ra, rb, hfa, hfb, nb, k, v, win = args
     kick = (ra, rb, hfa, hfb, nb, k, v, win)
@@ -2106,6 +2398,12 @@ def fold_case(label: str, tab, args, tally: dict, baseline, reps: int):
     calls = {"folded": folded, "three launches": composed()}
     if baseline is not None:
         def parent():
+            entry = baseline["tc_insert"].entry
+            if entry is not None:       # the other tree folds the kick-out
+                with swapped("tc_insert", entry):
+                    return probe.cuckoo_insert(*a, ra, rb, hfa, hfb, nb, k,
+                                               v, win, tab.max_kick,
+                                               tab.claim)
             with swapped("cuckoo_kick", baseline["cuckoo_kick"]):
                 return composed(baseline["tc_insert"])()
         restore()
@@ -3317,7 +3615,7 @@ def phase_main(device, cfg, n_steps: int, min_epochs: int,
         f"{ {k: v for k, v in launches.items() if v} }")
     if profile_to:
         profile_steps(eng, oracle, cfg, 40, steady + n_steps, profile_to)
-    if profile_to and cfg.backend in ("linear", "cuckoo"):
+    if profile_to and cfg.backend in ("linear", "twochoice", "cuckoo"):
         # the steady state (no rebuild), which serves most of a table's
         # life: the lookup and delete kernels and the insert, no epoch
         # work; on an engine built and populated as the main path's was,
@@ -3771,7 +4069,8 @@ def main() -> int:
                     help="the build directory of another tree of this repo "
                     "(build/repro_torch_kernels there, after its own run): "
                     "phase 2 also holds that tree's probe_lookup, probe2, "
-                    "probe_insert, tc_insert, tc_probe2, chain_probe, "
+                    "probe_insert, tc_lookup, tc_insert, tc_probe2, "
+                    "chain_probe, "
                     "chain_probe2 and chain_compact against their plain "
                     "versions on the timed inputs and times each in turns "
                     "with this tree's, its tc_insert and cuckoo_kick against "
@@ -3784,9 +4083,10 @@ def main() -> int:
                     "torch.profiler and write the kernel tables to FILE "
                     "(linear) and FILE with _twochoice / _cuckoo / _chain "
                     "before its extension (after the main path's counts "
-                    "are read), and 40 steady-state steps of linear and "
-                    "cuckoo, on an engine populated as the main path's, to "
-                    "FILE with _steady / _cuckoo_steady")
+                    "are read), and 40 steady-state steps of linear, "
+                    "twochoice and cuckoo, on an engine populated as the "
+                    "main path's, to FILE with _steady / _twochoice_steady "
+                    "/ _cuckoo_steady")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():

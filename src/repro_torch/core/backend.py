@@ -345,17 +345,24 @@ def linear_ordered_delete_fused(t_old: LinearTable, t_new: LinearTable,
 # cuckoo insert's kick-out runs inside its insert launch.
 # ---------------------------------------------------------------------------
 
-def _two_row_fused(rows) -> dict:
+def _two_row_fused(rows, b_offset) -> dict:
     """The descriptor's fused ops, but the insert, of a two-row backend;
-    ``rows(t, keys)`` gives each key's two candidate rows.  Each op is ONE
-    ``tc_lookup`` or ``tc_probe2`` launch (a delete adds its scatters); the
+    ``rows(t, keys)`` gives each key's two candidate rows, ``b_offset(t)``
+    the offset of row b (0 on twochoice, the bucket count on cuckoo).  Each
+    op is ONE ``tc_lookup`` or ``tc_probe2`` launch (a delete adds its
+    scatters); the lookup and the delete hand the kernel the table's hash
+    functions, which it applies itself, so they issue no hashing ops.  The
     chunk scan is the shared ``extract_chunk_fused``."""
     from repro_torch.kernels import ops
 
+    def hashed(t):
+        return dict(hfn_a=t.hfn_a, hfn_b=t.hfn_b, nbuckets=t.nbuckets,
+                    b_offset=b_offset(t))
+
     def lookup_fused_loc(t, keys):
         """Returns (found, vals, loc)."""
-        return ops.twochoice_lookup(t.key, t.val, t.state, *rows(t, keys),
-                                    keys)
+        return ops.twochoice_lookup(t.key, t.val, t.state, None, None, keys,
+                                    **hashed(t))
 
     def lookup_fused(t, keys):
         """The same launch.  Returns (found, vals)."""
@@ -363,8 +370,8 @@ def _two_row_fused(rows) -> dict:
 
     def delete_fused(t, keys, mask):
         winner = batch_winners(keys, mask)
-        _, ok = ops.twochoice_delete(t.key, t.val, t.state, *rows(t, keys),
-                                     keys, winner)
+        _, ok = ops.twochoice_delete(t.key, t.val, t.state, None, None, keys,
+                                     winner, **hashed(t))
         return t, ok
 
     def ordered(op, t_old, t_new, hazard, keys, *extra, nres_cap):
@@ -823,7 +830,7 @@ TWOCHOICE = register(BucketBackend(
     slots_for=_twochoice_slots_for,
     bounded_placement=True,
     insert_fused=twochoice_insert_fused,
-    **_two_row_fused(_tc_rows),
+    **_two_row_fused(_tc_rows, lambda t: 0),
     hash_fns=_hash_fns_two,
 ))
 
@@ -849,7 +856,7 @@ CUCKOO = register(BucketBackend(
     slots_for=_cuckoo_slots_for,
     bounded_placement=True,
     insert_fused=cuckoo_insert_fused,
-    **_two_row_fused(_ck_rows),
+    **_two_row_fused(_ck_rows, lambda t: t.nbuckets),
     hash_fns=_hash_fns_two,
 ))
 

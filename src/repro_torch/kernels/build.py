@@ -35,7 +35,8 @@ _ARGTYPES = {
     "dhash_probe_insert": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
                            _P, _P, _P, _P],
     "dhash_extract": [_P, _P, _P, _I, _P, _I] + [_P] * 9 + [_I, _I, _P],
-    "dhash_tc_lookup": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P],
+    "dhash_tc_lookup": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P,
+                        _I, _P, _P, _P, _P],
     "dhash_tc_insert": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
                         _P, _P, _P, _I, _I, _P, _I, _P, _I, _P, _P],
     "dhash_tc_probe2": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I,

@@ -1,5 +1,4 @@
-// tc_lookup: batched two-row lookup (twochoice and cuckoo), one thread a
-// query.
+// tc_lookup: batched two-row lookup (twochoice and cuckoo).
 //
 // Replaces the TPU kernel _tc_lookup_kernel (src/repro/kernels/probe.py,
 // with its row probe _tc_row_probe) AND the recombine its wrapper did after
@@ -8,50 +7,228 @@
 // by row, padded the table to whole row blocks and gathered from a window of
 // two resident blocks a tile, flagging entries whose row escaped the window
 // for a fallback pass; the wrapper then unsorted the entries and merged the
-// two of each query with a-row priority.  Here a thread reads its query's two
-// rows where they lie in global memory: a table of 2^18 x 8 slots (24 MiB)
-// stays in the 50 MB L2.  Results come back in query order, one a query, with
-// loc = row * W + lane, the flat slot.  Cuckoo tables use the same kernel
-// with side-offset rows.
+// two of each query with a-row priority.  Here the rows are read where they
+// lie in global memory: a table of 2^18 x 8 slots (24 MiB) stays in the
+// 50 MB L2.  Results come back in query order, one a query, with loc = row *
+// W + lane, the flat slot.  Cuckoo tables use the same kernel with
+// side-offset rows.
 //
-// Bound: bytes.  A query reads row a (its W states and W keys, one 32-byte
-// sector each at W = 8) and, on a miss there, row b, then the value of a hit:
-// dependent scattered gathers with one compare a lane.  The design issues
-// each row as two 16-byte loads of the states and two of the keys when W is a
-// multiple of 4 (one thread, no cross-lane shuffle), keeps 256 threads a
-// block in flight to hide the latency, and skips row b after a hit in row a.
-// The hit's slot is emitted so that a delete is this kernel plus one scatter.
+// DEVELOPMENT FORM: the design switches below are timed against each other
+// by chip_smoke.py; the slower forms leave the source once chosen.
 #include "dhash_common.cuh"
 
-template <bool VEC>
-__global__ void tc_lookup_kernel(
-    const int* __restrict__ tk, const int* __restrict__ tv,
-    const int* __restrict__ ts, int W, const int* __restrict__ rows_a,
-    const int* __restrict__ rows_b, const int* __restrict__ qk, int Q,
-    uint8_t* __restrict__ found, int* __restrict__ val,
-    int* __restrict__ loc) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= Q) return;
-  int v, l;
-  bool f = dhash_two_row_lookup<VEC>(tk, tv, ts, W, rows_a[i], rows_b[i],
-                                     qk[i], &v, &l);
-  found[i] = f ? 1 : 0;
-  val[i] = v;
-  loc[i] = l;
+#define TC_LOOKUP_THREADS 256
+#define TC_PAIR 0
+#define TC_VALUES_WITH_ROWS 0
+
+__device__ __forceinline__ int4 tc_ld4(const int* p) {
+  return __ldg(reinterpret_cast<const int4*>(p));
 }
 
+// The lanes of a 4-lane chunk that hold `key` LIVE, as bits.
+__device__ __forceinline__ unsigned tc_match4(int4 s, int4 k, int key) {
+  return (unsigned)(s.x == DHASH_LIVE && k.x == key) |
+         (unsigned)(s.y == DHASH_LIVE && k.y == key) << 1 |
+         (unsigned)(s.z == DHASH_LIVE && k.z == key) << 2 |
+         (unsigned)(s.w == DHASH_LIVE && k.w == key) << 3;
+}
+
+// Lane j of G chunks, by selects (a register array indexed at run time
+// would go to local memory).
+template <int G>
+__device__ __forceinline__ int tc_pick(const int4 (&v)[G], int j) {
+  int r = 0;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    r = j == 4 * g ? v[g].x : r;
+    r = j == 4 * g + 1 ? v[g].y : r;
+    r = j == 4 * g + 2 ? v[g].z : r;
+    r = j == 4 * g + 3 ? v[g].w : r;
+  }
+  return r;
+}
+
+// The flat slot of the first lane of row ra that holds `key` LIVE, else
+// (where `two`) of row rb, else -1.  A step reads G 16-byte chunks of both
+// rows' states and keys (G = 0: one lane of each), all issued before any is
+// tested.  VALS (G > 0): the values are read with the rows and the hit's is
+// put in *val; otherwise the caller reads it behind.
+template <int G, bool VALS>
+__device__ __forceinline__ long long tc_find(
+    const int* __restrict__ tk, const int* __restrict__ tv,
+    const int* __restrict__ ts, int W, int ra, int rb, bool two, int key,
+    int* val) {
+  const long long ba = (long long)ra * W, bb = (long long)rb * W;
+  long long hit_b = -1;
+  int v_b = 0;
+  if constexpr (G == 0) {
+    for (int l = 0; l < W; ++l) {
+      const int sa = __ldg(ts + ba + l), ka = __ldg(tk + ba + l);
+      int sb = DHASH_EMPTY, kb = 0;
+      if (two) {
+        sb = __ldg(ts + bb + l);
+        kb = __ldg(tk + bb + l);
+      }
+      if (sa == DHASH_LIVE && ka == key) return ba + l;
+      if (hit_b < 0 && sb == DHASH_LIVE && kb == key) hit_b = bb + l;
+    }
+  } else {
+    const int4 z = make_int4(0, 0, 0, 0);
+    for (int l = 0; l < W; l += 4 * G) {
+      int4 sa[G], ka[G], sb[G], kb[G], va[G], vb[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const long long o = l + 4 * g;
+        sa[g] = tc_ld4(ts + ba + o);
+        ka[g] = tc_ld4(tk + ba + o);
+        sb[g] = two ? tc_ld4(ts + bb + o) : z;
+        kb[g] = two ? tc_ld4(tk + bb + o) : z;
+        if (VALS) {
+          va[g] = tc_ld4(tv + ba + o);
+          vb[g] = two ? tc_ld4(tv + bb + o) : z;
+        }
+      }
+      unsigned ma = 0, mb = 0;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        ma |= tc_match4(sa[g], ka[g], key) << (4 * g);
+        mb |= tc_match4(sb[g], kb[g], key) << (4 * g);
+      }
+      if (ma) {
+        const int j = __ffs(ma) - 1;
+        if (VALS) *val = tc_pick<G>(va, j);
+        return ba + l + j;
+      }
+      if (hit_b < 0 && mb) {
+        const int j = __ffs(mb) - 1;
+        if (VALS) v_b = tc_pick<G>(vb, j);
+        hit_b = bb + l + j;
+      }
+    }
+    if (VALS) *val = v_b;
+  }
+  return hit_b;
+}
+
+// A query's rows: given, or bucket_of under the table's two hash functions
+// (core/hashing.py, bit for bit), row b offset by b_off.
+struct TcRows {
+  const int* a;        // nullptr: hashed
+  const int* b;
+  const long long* seeds_a;
+  const long long* seeds_b;
+  int kind_a, kind_b, nbuckets, b_off;
+};
+
+__device__ __forceinline__ int tc_row(const TcRows& r, bool side_b, int i,
+                                      int key) {
+  if (r.a != nullptr) return side_b ? r.b[i] : r.a[i];
+  return side_b ? r.b_off + dhash_bucket_of(r.kind_b, r.seeds_b, key,
+                                            r.nbuckets)
+                : dhash_bucket_of(r.kind_a, r.seeds_a, key, r.nbuckets);
+}
+
+__device__ __forceinline__ void tc_emit(const int* __restrict__ tv,
+                                        long long slot, int v, bool have_v,
+                                        int i, uint8_t* found, int* val,
+                                        int* loc) {
+  if (slot >= 0 && !have_v) v = __ldg(tv + slot);
+  found[i] = slot >= 0 ? 1 : 0;
+  val[i] = slot >= 0 ? v : 0;
+  loc[i] = (int)slot;
+}
+
+// One thread a query: both rows in flight from one thread.
+template <int G, bool VALS>
+__global__ void __launch_bounds__(TC_LOOKUP_THREADS) tc_lookup_kernel(
+    const int* __restrict__ tk, const int* __restrict__ tv,
+    const int* __restrict__ ts, int W, TcRows rows,
+    const int* __restrict__ qk, int Q, uint8_t* __restrict__ found,
+    int* __restrict__ val, int* __restrict__ loc) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= Q) return;
+  const int key = qk[i];
+  const int ra = tc_row(rows, false, i, key);
+  const int rb = tc_row(rows, true, i, key);
+  int v = 0;
+  const long long slot =
+      tc_find<G, VALS>(tk, tv, ts, W, ra, rb, rb != ra, key, &v);
+  tc_emit(tv, slot, v, VALS && G > 0, i, found, val, loc);
+}
+
+// A pair of lanes a query: the even lane reads row a, the odd one row b
+// (not where rb == ra); the even lane takes the pair's answer by shuffles.
+template <int G, bool VALS>
+__global__ void __launch_bounds__(TC_LOOKUP_THREADS) tc_lookup_pair_kernel(
+    const int* __restrict__ tk, const int* __restrict__ tv,
+    const int* __restrict__ ts, int W, TcRows rows,
+    const int* __restrict__ qk, int Q, uint8_t* __restrict__ found,
+    int* __restrict__ val, int* __restrict__ loc) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = (int)(t >> 1);
+  const bool side_b = t & 1;
+  const bool active = i < Q;
+  int key = 0, row = 0;
+  if (active) {
+    key = qk[i];
+    row = tc_row(rows, side_b, i, key);
+  }
+  const int other = __shfl_xor_sync(0xffffffffu, row, 1);
+  int v = 0;
+  long long slot = -1;
+  if (active && !(side_b && row == other))
+    slot = tc_find<G, VALS>(tk, tv, ts, W, row, row, false, key, &v);
+  const int o_slot = __shfl_xor_sync(0xffffffffu, (int)slot, 1);
+  const int o_v = __shfl_xor_sync(0xffffffffu, v, 1);
+  if (!active || side_b) return;
+  if (slot < 0) {
+    slot = o_slot;
+    v = o_v;
+  }
+  tc_emit(tv, slot, v, VALS && G > 0, i, found, val, loc);
+}
+
+template <int G>
+static void tc_launch(const int* tk, const int* tv, const int* ts, int W,
+                      const TcRows& rows, const int* qk, int Q,
+                      uint8_t* found, int* val, int* loc, cudaStream_t s) {
+  const long long n = (long long)Q * (TC_PAIR ? 2 : 1);
+  const int blocks = (int)((n + TC_LOOKUP_THREADS - 1) / TC_LOOKUP_THREADS);
+  if (TC_PAIR)
+    tc_lookup_pair_kernel<G, TC_VALUES_WITH_ROWS != 0>
+        <<<blocks, TC_LOOKUP_THREADS, 0, s>>>(tk, tv, ts, W, rows, qk, Q,
+                                              found, val, loc);
+  else
+    tc_lookup_kernel<G, TC_VALUES_WITH_ROWS != 0>
+        <<<blocks, TC_LOOKUP_THREADS, 0, s>>>(tk, tv, ts, W, rows, qk, Q,
+                                              found, val, loc);
+}
+
+// rows_a and rows_b given, or both nullptr and the rows hashed in the
+// kernel: row a = bucket_of(kind_a, seeds_a) over nbuckets, row b =
+// b_offset + bucket_of(kind_b, seeds_b).
 extern "C" int dhash_tc_lookup(
     const int* tk, const int* tv, const int* ts, int W, const int* rows_a,
-    const int* rows_b, const int* qk, int Q, uint8_t* found, int* val,
-    int* loc, void* stream) {
+    const int* rows_b, const long long* seeds_a, int kind_a,
+    const long long* seeds_b, int kind_b, int nbuckets, int b_offset,
+    const int* qk, int Q, uint8_t* found, int* val, int* loc, void* stream) {
   if (W < 1 || W > DHASH_MAX_WIDTH) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  int blocks = (Q + threads - 1) / threads;
-  if (dhash_rows_vec_ok(W, tk, ts))
-    tc_lookup_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        tk, tv, ts, W, rows_a, rows_b, qk, Q, found, val, loc);
-  else
-    tc_lookup_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        tk, tv, ts, W, rows_a, rows_b, qk, Q, found, val, loc);
+  if ((rows_a == nullptr) != (rows_b == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (rows_a == nullptr &&
+      (seeds_a == nullptr || seeds_b == nullptr || nbuckets < 1))
+    return (int)cudaErrorInvalidValue;
+  if (Q < 1) return (int)cudaSuccess;
+  const TcRows rows{rows_a, rows_b, seeds_a, seeds_b,
+                    kind_a, kind_b, nbuckets, b_offset};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dhash_rows_vec_ok(W, tk, ts, tv)) {
+    if (W % 8 == 0)
+      tc_launch<2>(tk, tv, ts, W, rows, qk, Q, found, val, loc, s);
+    else
+      tc_launch<1>(tk, tv, ts, W, rows, qk, Q, found, val, loc, s);
+  } else {
+    tc_launch<0>(tk, tv, ts, W, rows, qk, Q, found, val, loc, s);
+  }
   return (int)cudaGetLastError();
 }

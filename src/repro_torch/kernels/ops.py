@@ -14,8 +14,10 @@ which the two-row backends run on their flattened arrays.
 
 Twochoice and cuckoo (two candidate rows a key, [B, W] tables):
 ``twochoice_lookup`` / ``twochoice_insert`` / ``twochoice_delete`` over the
-``tc_lookup`` and ``tc_insert`` kernels, ``cuckoo_insert`` (``tc_insert``
-with the bounded kick-out in its resolve), and ``twochoice_ordered_lookup`` /
+``tc_lookup`` and ``tc_insert`` kernels (the lookup and delete given the
+rows, or the table's two hash functions, which the kernel applies itself),
+``cuckoo_insert`` (``tc_insert`` with the bounded kick-out in its resolve),
+and ``twochoice_ordered_lookup`` /
 ``twochoice_ordered_delete`` over ``tc_probe2``, whose outputs have the
 meaning of ``probe2``'s, so both ordered deletes land through one helper.
 
@@ -251,17 +253,43 @@ def extract_chunk_fused(tkey: torch.Tensor, tval: torch.Tensor,
 # twochoice / cuckoo: two candidate rows a key
 # ---------------------------------------------------------------------------
 
+def _tc_probe(tkey, tval, tstate, rows_a, rows_b, qkey, hfn_a, hfn_b,
+              nbuckets: int, b_offset: int):
+    """The two-row lookup kernel on the rows given, or, where both rows are
+    None, with the rows hashed in the kernel by the table's two hash
+    functions."""
+    rows = (rows_a is not None, rows_b is not None)
+    fns = (hfn_a is not None, hfn_b is not None)
+    if not (rows == (True, True) and fns == (False, False)
+            or rows == (False, False) and fns == (True, True)):
+        raise ValueError("give exactly one of rows (rows_a and rows_b) and "
+                         "hash functions (hfn_a and hfn_b)")
+    if hfn_a is None:
+        return probe.tc_lookup(tkey, tval, tstate, rows_a, rows_b, qkey)
+    return probe.tc_lookup_hashed(tkey, tval, tstate, hfn_a, hfn_b, nbuckets,
+                                  b_offset, qkey)
+
+
 @torch.no_grad()
 def twochoice_lookup(tkey: torch.Tensor, tval: torch.Tensor,
-                     tstate: torch.Tensor, rows_a: torch.Tensor,
-                     rows_b: torch.Tensor, qkey: torch.Tensor):
+                     tstate: torch.Tensor, rows_a: torch.Tensor | None,
+                     rows_b: torch.Tensor | None, qkey: torch.Tensor, *,
+                     hfn_a=None, hfn_b=None, nbuckets: int = 0,
+                     b_offset: int = 0):
     """Batched two-row lookup on a [B, W] table: ONE ``tc_lookup`` launch,
     a-row priority (the tie-break of ``buckets.twochoice_lookup``).
+
+    The rows are given (``rows_a``, ``rows_b``), or both are None and the
+    kernel hashes each key itself (``probe.tc_lookup_hashed``): row a is
+    ``bucket_of(hfn_a, key, nbuckets)``, row b ``b_offset + bucket_of(hfn_b,
+    key, nbuckets)`` (``b_offset`` 0 on a twochoice table, ``nbuckets`` on
+    a cuckoo table).  Exactly one of the two, else ValueError.
 
     Returns (found[Q], val[Q] — 0 on a miss, loc[Q] flat slot or -1) —
     ``loc`` is reused by ``twochoice_delete`` so deleting never probes
     twice."""
-    return probe.tc_lookup(tkey, tval, tstate, rows_a, rows_b, qkey)
+    return _tc_probe(tkey, tval, tstate, rows_a, rows_b, qkey, hfn_a, hfn_b,
+                     nbuckets, b_offset)
 
 
 @torch.no_grad()
@@ -313,15 +341,17 @@ def cuckoo_insert(tkey: torch.Tensor, tval: torch.Tensor,
 
 @torch.no_grad()
 def twochoice_delete(tkey: torch.Tensor, tval: torch.Tensor,
-                     tstate: torch.Tensor, rows_a: torch.Tensor,
-                     rows_b: torch.Tensor, keys: torch.Tensor,
-                     mask: torch.Tensor):
+                     tstate: torch.Tensor, rows_a: torch.Tensor | None,
+                     rows_b: torch.Tensor | None, keys: torch.Tensor,
+                     mask: torch.Tensor, *, hfn_a=None, hfn_b=None,
+                     nbuckets: int = 0, b_offset: int = 0):
     """Batched two-row DELETE: the ``tc_lookup`` launch's location output +
-    ONE tombstone scatter; writes ``tstate`` IN PLACE.
+    ONE tombstone scatter; writes ``tstate`` IN PLACE.  Rows or hash
+    functions as in ``twochoice_lookup``.
 
     Caller contract: ``mask`` is winner-filtered.  Returns (tstate, ok[Q])."""
-    found, _val, loc = probe.tc_lookup(tkey, tval, tstate, rows_a, rows_b,
-                                       keys)
+    found, _val, loc = _tc_probe(tkey, tval, tstate, rows_a, rows_b, keys,
+                                 hfn_a, hfn_b, nbuckets, b_offset)
     ok = mask & found
     _tombstone_(tstate.view(-1), ok, loc)
     return tstate, ok

@@ -599,7 +599,50 @@ def tc_lookup(tkey, tval, tstate, rows_a, rows_b, qkey):
     loc = torch.empty(q, dtype=I32, device=dev)
     if q:
         _launch("tc_lookup", tc_lookup, dev, tkey, tval, tstate, w, rows_a,
-                rows_b, qkey, q, found, val, loc)
+                rows_b, None, 0, None, 0, 0, 0, qkey, q, found, val, loc)
+    return found, val, loc
+
+
+def tc_lookup_hashed_plain(tkey, tval, tstate, hfn_a, hfn_b, nbuckets: int,
+                           b_offset: int, qkey):
+    """Plain version of ``tc_lookup_hashed``: ``hashing.bucket_of`` for
+    both rows, then ``tc_lookup_plain``."""
+    rows_a = hashing.bucket_of(hfn_a, qkey, nbuckets)
+    rows_b = hashing.bucket_of(hfn_b, qkey, nbuckets)
+    if b_offset:
+        rows_b = rows_b + b_offset
+    return tc_lookup_plain(tkey, tval, tstate, rows_a, rows_b, qkey)
+
+
+def tc_lookup_hashed(tkey, tval, tstate, hfn_a, hfn_b, nbuckets: int,
+                     b_offset: int, qkey):
+    """``tc_lookup`` with the rows hashed in the kernel: row a =
+    ``hashing.bucket_of(hfn_a, qkey, nbuckets)``, row b = ``b_offset +
+    hashing.bucket_of(hfn_b, qkey, nbuckets)``, bit for bit, computed by the
+    kernel from the table's two hash functions (their kinds and seeds), so
+    the caller runs no hashing ops.  ``b_offset`` is 0 on a twochoice table
+    and ``nbuckets`` on a cuckoo table's [2B, W] array.  The same kernel as
+    ``tc_lookup`` (counted there).  Returns (found, val, loc)."""
+    if not (nbuckets >= 1 and b_offset >= 0
+            and b_offset + nbuckets <= tkey.shape[0]):
+        raise ValueError(f"rows [0, {nbuckets}) and [{b_offset}, "
+                         f"{b_offset + nbuckets}) do not lie in a table of "
+                         f"{tkey.shape[0]} rows")
+    if tkey.device.type == "cpu":
+        return tc_lookup_hashed_plain(tkey, tval, tstate, hfn_a, hfn_b,
+                                      nbuckets, b_offset, qkey)
+    w = _check_rows(tkey, tval, tstate)
+    _check((tkey, I32), (tval, I32), (tstate, I32), (qkey, I32),
+           (hfn_a.seeds, torch.int64), (hfn_b.seeds, torch.int64))
+    q, dev = qkey.shape[0], tkey.device
+    found = torch.empty(q, dtype=torch.bool, device=dev)
+    val = torch.empty(q, dtype=I32, device=dev)
+    loc = torch.empty(q, dtype=I32, device=dev)
+    if q:
+        _launch("tc_lookup", tc_lookup, dev, tkey, tval, tstate, w, None,
+                None, hfn_a.seeds, hashing.HASH_KINDS.index(hfn_a.kind),
+                hfn_b.seeds, hashing.HASH_KINDS.index(hfn_b.kind), nbuckets,
+                b_offset, qkey, q, found, val, loc)
     return found, val, loc
 
 
