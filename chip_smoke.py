@@ -638,24 +638,27 @@ def profile_steps(eng, oracle, cfg, n_steps: int, step0: int, path: str,
                         f"{us / max(e.count, 1):.3f} us a launch, "
                         f"{us / n_steps:.3f} us a step")
     if steady:
-        # a steady step launches its lookup kernel twice, the lookup's
-        # batch first and the delete's second: µs a launch of each
+        # a steady step launches its lookup kernel twice, on the lookup's
+        # batch (65536 queries) and on the delete's (8192): the faster half
+        # of the launches is taken for the delete's, the slower half for
+        # the lookup's; µs a launch of each and their ranges
         launches = {}
         for e in prof.events():
             m = re.match(r"(?:void )?(\w+)", e.name)
             if e.device_type == DeviceType.CUDA and m and m.group(1) in (
-                    "probe_lookup_kernel", "tc_lookup_kernel",
-                    "tc_lookup_pair_kernel"):
+                    "probe_lookup_kernel", "tc_lookup_kernel"):
                 launches.setdefault(m.group(1), []).append(
-                    (e.time_range.start, e.time_range.elapsed_us()))
-        for name, ev in sorted(launches.items()):
-            us = [d for _, d in sorted(ev)]
-            rows.append(
-                f"  {name} by batch: lookup {statistics.mean(us[0::2]):.3f} "
-                f"us a launch, delete {statistics.mean(us[1::2]):.3f} us a "
-                f"launch" if len(us) == 2 * n_steps else
-                f"  {name} by batch: not measured ({len(us)} launches in "
-                f"{n_steps} steps)")
+                    e.time_range.elapsed_us())
+        for name, us in sorted(launches.items()):
+            us, cut = sorted(us), len(us) // 2
+            if cut:
+                rows.append(
+                    f"  {name} by batch: delete {cut} launches, "
+                    f"{statistics.mean(us[:cut]):.3f} us a launch "
+                    f"({us[0]:.3f}-{us[cut - 1]:.3f}); lookup "
+                    f"{len(us) - cut} launches, "
+                    f"{statistics.mean(us[cut:]):.3f} us a launch "
+                    f"({us[cut]:.3f}-{us[-1]:.3f})")
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         f.write(f"{n_steps} steps, wall {wall_ms:.1f} ms (with the host "
@@ -1388,21 +1391,27 @@ def rows_read(probe_ref, tk, tv, ts, ra, qk, need=None) -> int:
 # the design forms of tc_lookup.cu timed in turns with the form the source
 # states (text replacements of its switches)
 TC_LOOKUP_VARIANTS = {
-    "values with the rows": (
-        "#define TC_VALUES_WITH_ROWS 0", "#define TC_VALUES_WITH_ROWS 1"),
     "128 threads": (
         "#define TC_LOOKUP_THREADS 256", "#define TC_LOOKUP_THREADS 128"),
-    "512 threads": (
-        "#define TC_LOOKUP_THREADS 256", "#define TC_LOOKUP_THREADS 512"),
-    "values with the rows, 128 threads": (
-        "#define TC_VALUES_WITH_ROWS 0", "#define TC_VALUES_WITH_ROWS 1",
+    "64 threads": (
+        "#define TC_LOOKUP_THREADS 256", "#define TC_LOOKUP_THREADS 64"),
+    "keys first": ("#define TC_KEYS_FIRST 0", "#define TC_KEYS_FIRST 1"),
+    "keys first, 128 threads": (
+        "#define TC_KEYS_FIRST 0", "#define TC_KEYS_FIRST 1",
         "#define TC_LOOKUP_THREADS 256", "#define TC_LOOKUP_THREADS 128"),
+    "keys first, 64 threads": (
+        "#define TC_KEYS_FIRST 0", "#define TC_KEYS_FIRST 1",
+        "#define TC_LOOKUP_THREADS 256", "#define TC_LOOKUP_THREADS 64"),
     "a pair of lanes": ("#define TC_PAIR 0", "#define TC_PAIR 1"),
-    "a pair of lanes, values with the rows": (
-        "#define TC_PAIR 0", "#define TC_PAIR 1",
-        "#define TC_VALUES_WITH_ROWS 0", "#define TC_VALUES_WITH_ROWS 1"),
     "a pair of lanes, 128 threads": (
         "#define TC_PAIR 0", "#define TC_PAIR 1",
+        "#define TC_LOOKUP_THREADS 256", "#define TC_LOOKUP_THREADS 128"),
+    "a pair of lanes, keys first": (
+        "#define TC_PAIR 0", "#define TC_PAIR 1",
+        "#define TC_KEYS_FIRST 0", "#define TC_KEYS_FIRST 1"),
+    "a pair of lanes, keys first, 128 threads": (
+        "#define TC_PAIR 0", "#define TC_PAIR 1",
+        "#define TC_KEYS_FIRST 0", "#define TC_KEYS_FIRST 1",
         "#define TC_LOOKUP_THREADS 256", "#define TC_LOOKUP_THREADS 128"),
 }
 

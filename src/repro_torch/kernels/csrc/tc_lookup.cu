@@ -19,7 +19,7 @@
 
 #define TC_LOOKUP_THREADS 256
 #define TC_PAIR 0
-#define TC_VALUES_WITH_ROWS 0
+#define TC_KEYS_FIRST 0
 
 __device__ __forceinline__ int4 tc_ld4(const int* p) {
   return __ldg(reinterpret_cast<const int4*>(p));
@@ -33,81 +33,133 @@ __device__ __forceinline__ unsigned tc_match4(int4 s, int4 k, int key) {
          (unsigned)(s.w == DHASH_LIVE && k.w == key) << 3;
 }
 
-// Lane j of G chunks, by selects (a register array indexed at run time
-// would go to local memory).
+// The lanes of a 4-lane chunk whose key is `key`, as bits.
+__device__ __forceinline__ unsigned tc_equal4(int4 k, int key) {
+  return (unsigned)(k.x == key) | (unsigned)(k.y == key) << 1 |
+         (unsigned)(k.z == key) << 2 | (unsigned)(k.w == key) << 3;
+}
+
+// Rows whole: the LIVE lanes of rows ra and rb (where `two`) holding `key`,
+// as bit masks, from both rows' states and keys, every load of a step (G
+// 16-byte chunks of each array, G = 0: one lane) issued before any test.
+// Returns the flat slot of the first (a-row priority) or -1.
 template <int G>
-__device__ __forceinline__ int tc_pick(const int4 (&v)[G], int j) {
-  int r = 0;
+__device__ __forceinline__ long long tc_find_rows(
+    const int* __restrict__ tk, const int* __restrict__ ts, int W,
+    long long ba, long long bb, bool two, int key) {
+  long long hit_b = -1;
+  if constexpr (G == 0) {
+    for (int l = 0; l < W; ++l) {
+      const int sa = __ldg(ts + ba + l), ka = __ldg(tk + ba + l);
+      const int sb = __ldg(ts + bb + l), kb = __ldg(tk + bb + l);
+      if (sa == DHASH_LIVE && ka == key) return ba + l;
+      if (two && hit_b < 0 && sb == DHASH_LIVE && kb == key) hit_b = bb + l;
+    }
+  } else {
+    for (int l = 0; l < W; l += 4 * G) {
+      unsigned ma = 0, mb = 0;
+      if (two) {
+        int4 sa[G], ka[G], sb[G], kb[G];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    r = j == 4 * g ? v[g].x : r;
-    r = j == 4 * g + 1 ? v[g].y : r;
-    r = j == 4 * g + 2 ? v[g].z : r;
-    r = j == 4 * g + 3 ? v[g].w : r;
+        for (int g = 0; g < G; ++g) {
+          sa[g] = tc_ld4(ts + ba + l + 4 * g);
+          ka[g] = tc_ld4(tk + ba + l + 4 * g);
+          sb[g] = tc_ld4(ts + bb + l + 4 * g);
+          kb[g] = tc_ld4(tk + bb + l + 4 * g);
+        }
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          ma |= tc_match4(sa[g], ka[g], key) << (4 * g);
+          mb |= tc_match4(sb[g], kb[g], key) << (4 * g);
+        }
+      } else {
+        int4 sa[G], ka[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          sa[g] = tc_ld4(ts + ba + l + 4 * g);
+          ka[g] = tc_ld4(tk + ba + l + 4 * g);
+        }
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          ma |= tc_match4(sa[g], ka[g], key) << (4 * g);
+      }
+      if (ma) return ba + l + __ffs(ma) - 1;
+      if (hit_b < 0 && mb) hit_b = bb + l + __ffs(mb) - 1;
+    }
   }
-  return r;
+  return hit_b;
+}
+
+// Keys first: the lanes of rows ra and rb (where `two`) whose key is `key`,
+// from both rows' keys (every load of a step issued before any test); then,
+// in a-row priority, the state and value of each such lane, loaded
+// together, until one is LIVE.  A key not in either row reads no state.
+template <int G>
+__device__ __forceinline__ long long tc_find_keys(
+    const int* __restrict__ tk, const int* __restrict__ tv,
+    const int* __restrict__ ts, int W, long long ba, long long bb, bool two,
+    int key, int* val) {
+  unsigned ma = 0, mb = 0;
+  if constexpr (G == 0) {
+    for (int l = 0; l < W; ++l) {
+      ma |= (unsigned)(__ldg(tk + ba + l) == key) << l;
+      mb |= (unsigned)(__ldg(tk + bb + l) == key) << l;
+    }
+  } else {
+    for (int l = 0; l < W; l += 4 * G) {
+      if (two) {
+        int4 ka[G], kb[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          ka[g] = tc_ld4(tk + ba + l + 4 * g);
+          kb[g] = tc_ld4(tk + bb + l + 4 * g);
+        }
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          ma |= tc_equal4(ka[g], key) << (l + 4 * g);
+          mb |= tc_equal4(kb[g], key) << (l + 4 * g);
+        }
+      } else {
+        int4 ka[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g) ka[g] = tc_ld4(tk + ba + l + 4 * g);
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          ma |= tc_equal4(ka[g], key) << (l + 4 * g);
+      }
+    }
+  }
+  if (!two) mb = 0;
+  while (ma | mb) {
+    long long slot;
+    if (ma) {
+      slot = ba + __ffs(ma) - 1;
+      ma &= ma - 1;
+    } else {
+      slot = bb + __ffs(mb) - 1;
+      mb &= mb - 1;
+    }
+    const int st = __ldg(ts + slot), v = __ldg(tv + slot);
+    if (st == DHASH_LIVE) {
+      *val = v;
+      return slot;
+    }
+  }
+  return -1;
 }
 
 // The flat slot of the first lane of row ra that holds `key` LIVE, else
-// (where `two`) of row rb, else -1.  A step reads G 16-byte chunks of both
-// rows' states and keys (G = 0: one lane of each), all issued before any is
-// tested.  VALS (G > 0): the values are read with the rows and the hit's is
-// put in *val; otherwise the caller reads it behind.
-template <int G, bool VALS>
+// (where `two`) of row rb, else -1; with TC_KEYS_FIRST the hit's value in
+// *val, else the caller reads it behind.
+template <int G>
 __device__ __forceinline__ long long tc_find(
     const int* __restrict__ tk, const int* __restrict__ tv,
     const int* __restrict__ ts, int W, int ra, int rb, bool two, int key,
     int* val) {
   const long long ba = (long long)ra * W, bb = (long long)rb * W;
-  long long hit_b = -1;
-  int v_b = 0;
-  if constexpr (G == 0) {
-    for (int l = 0; l < W; ++l) {
-      const int sa = __ldg(ts + ba + l), ka = __ldg(tk + ba + l);
-      int sb = DHASH_EMPTY, kb = 0;
-      if (two) {
-        sb = __ldg(ts + bb + l);
-        kb = __ldg(tk + bb + l);
-      }
-      if (sa == DHASH_LIVE && ka == key) return ba + l;
-      if (hit_b < 0 && sb == DHASH_LIVE && kb == key) hit_b = bb + l;
-    }
-  } else {
-    const int4 z = make_int4(0, 0, 0, 0);
-    for (int l = 0; l < W; l += 4 * G) {
-      int4 sa[G], ka[G], sb[G], kb[G], va[G], vb[G];
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const long long o = l + 4 * g;
-        sa[g] = tc_ld4(ts + ba + o);
-        ka[g] = tc_ld4(tk + ba + o);
-        sb[g] = two ? tc_ld4(ts + bb + o) : z;
-        kb[g] = two ? tc_ld4(tk + bb + o) : z;
-        if (VALS) {
-          va[g] = tc_ld4(tv + ba + o);
-          vb[g] = two ? tc_ld4(tv + bb + o) : z;
-        }
-      }
-      unsigned ma = 0, mb = 0;
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        ma |= tc_match4(sa[g], ka[g], key) << (4 * g);
-        mb |= tc_match4(sb[g], kb[g], key) << (4 * g);
-      }
-      if (ma) {
-        const int j = __ffs(ma) - 1;
-        if (VALS) *val = tc_pick<G>(va, j);
-        return ba + l + j;
-      }
-      if (hit_b < 0 && mb) {
-        const int j = __ffs(mb) - 1;
-        if (VALS) v_b = tc_pick<G>(vb, j);
-        hit_b = bb + l + j;
-      }
-    }
-    if (VALS) *val = v_b;
-  }
-  return hit_b;
+  if (TC_KEYS_FIRST) return tc_find_keys<G>(tk, tv, ts, W, ba, bb, two, key,
+                                           val);
+  return tc_find_rows<G>(tk, ts, W, ba, bb, two, key);
 }
 
 // A query's rows: given, or bucket_of under the table's two hash functions
@@ -139,7 +191,7 @@ __device__ __forceinline__ void tc_emit(const int* __restrict__ tv,
 }
 
 // One thread a query: both rows in flight from one thread.
-template <int G, bool VALS>
+template <int G>
 __global__ void __launch_bounds__(TC_LOOKUP_THREADS) tc_lookup_kernel(
     const int* __restrict__ tk, const int* __restrict__ tv,
     const int* __restrict__ ts, int W, TcRows rows,
@@ -151,14 +203,14 @@ __global__ void __launch_bounds__(TC_LOOKUP_THREADS) tc_lookup_kernel(
   const int ra = tc_row(rows, false, i, key);
   const int rb = tc_row(rows, true, i, key);
   int v = 0;
-  const long long slot =
-      tc_find<G, VALS>(tk, tv, ts, W, ra, rb, rb != ra, key, &v);
-  tc_emit(tv, slot, v, VALS && G > 0, i, found, val, loc);
+  const long long slot = tc_find<G>(tk, tv, ts, W, ra, rb, rb != ra, key,
+                                    &v);
+  tc_emit(tv, slot, v, TC_KEYS_FIRST, i, found, val, loc);
 }
 
 // A pair of lanes a query: the even lane reads row a, the odd one row b
 // (not where rb == ra); the even lane takes the pair's answer by shuffles.
-template <int G, bool VALS>
+template <int G>
 __global__ void __launch_bounds__(TC_LOOKUP_THREADS) tc_lookup_pair_kernel(
     const int* __restrict__ tk, const int* __restrict__ tv,
     const int* __restrict__ ts, int W, TcRows rows,
@@ -177,7 +229,7 @@ __global__ void __launch_bounds__(TC_LOOKUP_THREADS) tc_lookup_pair_kernel(
   int v = 0;
   long long slot = -1;
   if (active && !(side_b && row == other))
-    slot = tc_find<G, VALS>(tk, tv, ts, W, row, row, false, key, &v);
+    slot = tc_find<G>(tk, tv, ts, W, row, row, false, key, &v);
   const int o_slot = __shfl_xor_sync(0xffffffffu, (int)slot, 1);
   const int o_v = __shfl_xor_sync(0xffffffffu, v, 1);
   if (!active || side_b) return;
@@ -185,7 +237,7 @@ __global__ void __launch_bounds__(TC_LOOKUP_THREADS) tc_lookup_pair_kernel(
     slot = o_slot;
     v = o_v;
   }
-  tc_emit(tv, slot, v, VALS && G > 0, i, found, val, loc);
+  tc_emit(tv, slot, v, TC_KEYS_FIRST, i, found, val, loc);
 }
 
 template <int G>
@@ -195,11 +247,11 @@ static void tc_launch(const int* tk, const int* tv, const int* ts, int W,
   const long long n = (long long)Q * (TC_PAIR ? 2 : 1);
   const int blocks = (int)((n + TC_LOOKUP_THREADS - 1) / TC_LOOKUP_THREADS);
   if (TC_PAIR)
-    tc_lookup_pair_kernel<G, TC_VALUES_WITH_ROWS != 0>
+    tc_lookup_pair_kernel<G>
         <<<blocks, TC_LOOKUP_THREADS, 0, s>>>(tk, tv, ts, W, rows, qk, Q,
                                               found, val, loc);
   else
-    tc_lookup_kernel<G, TC_VALUES_WITH_ROWS != 0>
+    tc_lookup_kernel<G>
         <<<blocks, TC_LOOKUP_THREADS, 0, s>>>(tk, tv, ts, W, rows, qk, Q,
                                               found, val, loc);
 }
