@@ -1388,34 +1388,6 @@ def rows_read(probe_ref, tk, tv, ts, ra, qk, need=None) -> int:
     return int(need.sum()) + int((need & ~fa).sum())
 
 
-# the design forms of tc_lookup.cu timed in turns with the form the source
-# states (text replacements of its switches)
-TC_LOOKUP_VARIANTS = {
-    "128 threads": (
-        "#define TC_LOOKUP_THREADS 256", "#define TC_LOOKUP_THREADS 128"),
-    "64 threads": (
-        "#define TC_LOOKUP_THREADS 256", "#define TC_LOOKUP_THREADS 64"),
-    "keys first": ("#define TC_KEYS_FIRST 0", "#define TC_KEYS_FIRST 1"),
-    "keys first, 128 threads": (
-        "#define TC_KEYS_FIRST 0", "#define TC_KEYS_FIRST 1",
-        "#define TC_LOOKUP_THREADS 256", "#define TC_LOOKUP_THREADS 128"),
-    "keys first, 64 threads": (
-        "#define TC_KEYS_FIRST 0", "#define TC_KEYS_FIRST 1",
-        "#define TC_LOOKUP_THREADS 256", "#define TC_LOOKUP_THREADS 64"),
-    "a pair of lanes": ("#define TC_PAIR 0", "#define TC_PAIR 1"),
-    "a pair of lanes, 128 threads": (
-        "#define TC_PAIR 0", "#define TC_PAIR 1",
-        "#define TC_LOOKUP_THREADS 256", "#define TC_LOOKUP_THREADS 128"),
-    "a pair of lanes, keys first": (
-        "#define TC_PAIR 0", "#define TC_PAIR 1",
-        "#define TC_KEYS_FIRST 0", "#define TC_KEYS_FIRST 1"),
-    "a pair of lanes, keys first, 128 threads": (
-        "#define TC_PAIR 0", "#define TC_PAIR 1",
-        "#define TC_KEYS_FIRST 0", "#define TC_KEYS_FIRST 1",
-        "#define TC_LOOKUP_THREADS 256", "#define TC_LOOKUP_THREADS 128"),
-}
-
-
 def baseline_tc_lookup(fn):
     """Another tree's ``dhash_tc_lookup`` entry point ``fn`` for this tree's
     wrapper: where that tree's takes rows only (12 arguments: no hash
@@ -1445,9 +1417,7 @@ def tc_lookup_cases(tab, lookup_inputs, cfg, reps: int, device,
     at the main path's two batches on both layouts; what bounds the kernel
     (the profiler's device µs a call); with a baseline, the other tree's
     kernel in turns with this tree's on the same rows, and its sequence
-    (two ``bucket_of``, then its kernel) in turns with the hashed form;
-    the design forms of ``TC_LOOKUP_VARIANTS`` in turns with the source's
-    form."""
+    (two ``bucket_of``, then its kernel) in turns with the hashed form."""
     from repro_torch.core import hashing
     from repro_torch.kernels import probe, ref
     hfa, hfb, tk, tv, ts, keys = tab
@@ -1624,42 +1594,8 @@ def tc_lookup_cases(tab, lookup_inputs, cfg, reps: int, device,
                 lambda a=a: parent_hashed(a["hashed"]), 50,
                 lambda: None)[0]
     res["profile_us"] = prof
-    # the design forms, each equal to the plain version and in turns with
-    # the source's form on the four timed batches
-    from repro_torch.kernels import build
-    lib = build.load()
-    variants = {}
-    for vname, pairs in TC_LOOKUP_VARIANTS.items():
-        fn = variant_entry("tc_lookup", *pairs)
-        entry = {}
-        with swapped("tc_lookup", fn):
-            for label in ("twochoice Q=33", f"cuckoo Q={Q + 77}",
-                          "W=6", "W=16, cuckoo"):
-                t_, fa, fb, nb, off, qk = cases[label]
-                want = probe.tc_lookup_hashed_plain(*t_, fa, fb, nb, off, qk)
-                got = probe.tc_lookup_hashed(*t_, fa, fb, nb, off, qk)
-                for x, y, n in zip(got, want, LOOKUP_OUTPUTS):
-                    same(x, y, f"tc_lookup ({vname}) {label} {n}")
-        for k, a in timed.items():
-            for form, call in (
-                    ("rows", lambda a=a: probe.tc_lookup(*a["rows"])),
-                    ("hashed",
-                     lambda a=a: probe.tc_lookup_hashed(*a["hashed"]))):
-                t = {"this": [], "variant": []}
-                mine = lib["tc_lookup"]
-                try:
-                    for who in ("this", "variant", "variant", "this"):
-                        lib["tc_lookup"] = fn if who == "variant" else mine
-                        t[who].append(time_ms(call, reps))
-                finally:
-                    lib["tc_lookup"] = mine
-                entry[f"{form}, {k}"] = t
-        variants[vname] = entry
-        log(f"    tc_lookup variant {vname!r}: " + json.dumps(entry))
-    res["variants"] = variants
     log(f"  tc_lookup times: " + json.dumps(
-        {k: v for k, v in res.items()
-         if k not in ("cases", "in_turns", "variants")}))
+        {k: v for k, v in res.items() if k not in ("cases", "in_turns")}))
     return res
 
 

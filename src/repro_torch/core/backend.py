@@ -345,19 +345,20 @@ def linear_ordered_delete_fused(t_old: LinearTable, t_new: LinearTable,
 # cuckoo insert's kick-out runs inside its insert launch.
 # ---------------------------------------------------------------------------
 
-def _two_row_fused(rows, b_offset) -> dict:
+def _two_row_fused(rows) -> dict:
     """The descriptor's fused ops, but the insert, of a two-row backend;
-    ``rows(t, keys)`` gives each key's two candidate rows, ``b_offset(t)``
-    the offset of row b (0 on twochoice, the bucket count on cuckoo).  Each
-    op is ONE ``tc_lookup`` or ``tc_probe2`` launch (a delete adds its
-    scatters); the lookup and the delete hand the kernel the table's hash
-    functions, which it applies itself, so they issue no hashing ops.  The
-    chunk scan is the shared ``extract_chunk_fused``."""
+    ``rows(t, keys)`` gives each key's two candidate rows.  Each op is ONE
+    ``tc_lookup`` or ``tc_probe2`` launch (a delete adds its scatters); the
+    lookup and the delete hand the kernel the table's hash functions, which
+    it applies itself, so they issue no hashing ops.  The chunk scan is the
+    shared ``extract_chunk_fused``."""
     from repro_torch.kernels import ops
 
     def hashed(t):
+        # row b's offset is the rows past the bucket count: 0 on a
+        # twochoice table, the bucket count on a cuckoo table's [2B, W]
         return dict(hfn_a=t.hfn_a, hfn_b=t.hfn_b, nbuckets=t.nbuckets,
-                    b_offset=b_offset(t))
+                    b_offset=t.key.shape[0] - t.nbuckets)
 
     def lookup_fused_loc(t, keys):
         """Returns (found, vals, loc)."""
@@ -830,7 +831,7 @@ TWOCHOICE = register(BucketBackend(
     slots_for=_twochoice_slots_for,
     bounded_placement=True,
     insert_fused=twochoice_insert_fused,
-    **_two_row_fused(_tc_rows, lambda t: 0),
+    **_two_row_fused(_tc_rows),
     hash_fns=_hash_fns_two,
 ))
 
@@ -856,7 +857,7 @@ CUCKOO = register(BucketBackend(
     slots_for=_cuckoo_slots_for,
     bounded_placement=True,
     insert_fused=cuckoo_insert_fused,
-    **_two_row_fused(_ck_rows, lambda t: t.nbuckets),
+    **_two_row_fused(_ck_rows),
     hash_fns=_hash_fns_two,
 ))
 

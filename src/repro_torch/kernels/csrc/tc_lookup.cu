@@ -1,4 +1,5 @@
-// tc_lookup: batched two-row lookup (twochoice and cuckoo).
+// tc_lookup: batched two-row lookup (twochoice and cuckoo), a pair of lanes
+// a query, the rows given or hashed in the kernel.
 //
 // Replaces the TPU kernel _tc_lookup_kernel (src/repro/kernels/probe.py,
 // with its row probe _tc_row_probe) AND the recombine its wrapper did after
@@ -13,25 +14,37 @@
 // W + lane, the flat slot.  Cuckoo tables use the same kernel with
 // side-offset rows.
 //
-// DEVELOPMENT FORM: the design switches below are timed against each other
-// by chip_smoke.py; the slower forms leave the source once chosen.
+// Bound: bytes, 0.0025 ms at the main path's 65536 queries (a row's states
+// and keys are a 32-byte sector each at W = 8); the time is round trips to
+// L2.  The first design gave a query one thread that read row a's states
+// and keys, and only on a miss row b's, then the hit's value: three or four
+// dependent round trips, with the rows computed by the caller (two
+// bucket_of calls, ~50 PyTorch ops each, on every steady lookup and delete).
+// Reading both rows' states and keys at once from one thread was slower at
+// 65536 queries (twice the row bytes), and so was reading the values with
+// the rows.  This design:
+//
+//   * the rows come from rows_a[] / rows_b[] or from the key itself, hashed
+//     in the kernel (dhash_bucket_of, core/hashing.py's bucket_of bit for
+//     bit, given both hash functions' kinds and seeds, the bucket count and
+//     row b's offset: 0 on twochoice, the bucket count on cuckoo), so the
+//     caller issues no hashing ops;
+//   * a query is a pair of lanes, the even one on row a and the odd one on
+//     row b, so both rows are in flight at once and a small batch fills
+//     twice the threads; where rb == ra the odd lane reads nothing;
+//   * a lane reads its row's keys first (two 16-byte loads at W = 8), then
+//     the state and value of each lane whose key is the query's, loaded
+//     together, until one is LIVE: a key in neither row reads no state
+//     (two round trips), a hit one sector of states and one of values more
+//     (three);
+//   * the pair's answer, row a's hit else row b's, goes to the even lane by
+//     two shuffles.
+//
+// Keys are read as 16-byte loads where W is a multiple of 4 and the key
+// array is 16-byte aligned, else lane by lane.
 #include "dhash_common.cuh"
 
 #define TC_LOOKUP_THREADS 256
-#define TC_PAIR 0
-#define TC_KEYS_FIRST 0
-
-__device__ __forceinline__ int4 tc_ld4(const int* p) {
-  return __ldg(reinterpret_cast<const int4*>(p));
-}
-
-// The lanes of a 4-lane chunk that hold `key` LIVE, as bits.
-__device__ __forceinline__ unsigned tc_match4(int4 s, int4 k, int key) {
-  return (unsigned)(s.x == DHASH_LIVE && k.x == key) |
-         (unsigned)(s.y == DHASH_LIVE && k.y == key) << 1 |
-         (unsigned)(s.z == DHASH_LIVE && k.z == key) << 2 |
-         (unsigned)(s.w == DHASH_LIVE && k.w == key) << 3;
-}
 
 // The lanes of a 4-lane chunk whose key is `key`, as bits.
 __device__ __forceinline__ unsigned tc_equal4(int4 k, int key) {
@@ -39,131 +52,43 @@ __device__ __forceinline__ unsigned tc_equal4(int4 k, int key) {
          (unsigned)(k.z == key) << 2 | (unsigned)(k.w == key) << 3;
 }
 
-// Rows whole: the LIVE lanes of rows ra and rb (where `two`) holding `key`,
-// as bit masks, from both rows' states and keys, every load of a step (G
-// 16-byte chunks of each array, G = 0: one lane) issued before any test.
-// Returns the flat slot of the first (a-row priority) or -1.
+// The flat slot of the first lane of the row at `base` that holds `key`
+// LIVE, or -1; its value in *val.  The row's keys are read G 16-byte chunks
+// a step (G = 0: lane by lane), then the state and value of each lane whose
+// key matches, in lane order.
 template <int G>
-__device__ __forceinline__ long long tc_find_rows(
-    const int* __restrict__ tk, const int* __restrict__ ts, int W,
-    long long ba, long long bb, bool two, int key) {
-  long long hit_b = -1;
+__device__ __forceinline__ int tc_row_lookup(const int* __restrict__ tk,
+                                             const int* __restrict__ tv,
+                                             const int* __restrict__ ts,
+                                             int W, long long base, int key,
+                                             int* val) {
+  unsigned m = 0;
   if constexpr (G == 0) {
-    for (int l = 0; l < W; ++l) {
-      const int sa = __ldg(ts + ba + l), ka = __ldg(tk + ba + l);
-      const int sb = __ldg(ts + bb + l), kb = __ldg(tk + bb + l);
-      if (sa == DHASH_LIVE && ka == key) return ba + l;
-      if (two && hit_b < 0 && sb == DHASH_LIVE && kb == key) hit_b = bb + l;
-    }
+    for (int l = 0; l < W; ++l)
+      m |= (unsigned)(__ldg(tk + base + l) == key) << l;
   } else {
     for (int l = 0; l < W; l += 4 * G) {
-      unsigned ma = 0, mb = 0;
-      if (two) {
-        int4 sa[G], ka[G], sb[G], kb[G];
+      int4 k[G];
 #pragma unroll
-        for (int g = 0; g < G; ++g) {
-          sa[g] = tc_ld4(ts + ba + l + 4 * g);
-          ka[g] = tc_ld4(tk + ba + l + 4 * g);
-          sb[g] = tc_ld4(ts + bb + l + 4 * g);
-          kb[g] = tc_ld4(tk + bb + l + 4 * g);
-        }
+      for (int g = 0; g < G; ++g)
+        k[g] = __ldg(reinterpret_cast<const int4*>(tk + base + l + 4 * g));
 #pragma unroll
-        for (int g = 0; g < G; ++g) {
-          ma |= tc_match4(sa[g], ka[g], key) << (4 * g);
-          mb |= tc_match4(sb[g], kb[g], key) << (4 * g);
-        }
-      } else {
-        int4 sa[G], ka[G];
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          sa[g] = tc_ld4(ts + ba + l + 4 * g);
-          ka[g] = tc_ld4(tk + ba + l + 4 * g);
-        }
-#pragma unroll
-        for (int g = 0; g < G; ++g)
-          ma |= tc_match4(sa[g], ka[g], key) << (4 * g);
-      }
-      if (ma) return ba + l + __ffs(ma) - 1;
-      if (hit_b < 0 && mb) hit_b = bb + l + __ffs(mb) - 1;
+      for (int g = 0; g < G; ++g) m |= tc_equal4(k[g], key) << (l + 4 * g);
     }
   }
-  return hit_b;
-}
-
-// Keys first: the lanes of rows ra and rb (where `two`) whose key is `key`,
-// from both rows' keys (every load of a step issued before any test); then,
-// in a-row priority, the state and value of each such lane, loaded
-// together, until one is LIVE.  A key not in either row reads no state.
-template <int G>
-__device__ __forceinline__ long long tc_find_keys(
-    const int* __restrict__ tk, const int* __restrict__ tv,
-    const int* __restrict__ ts, int W, long long ba, long long bb, bool two,
-    int key, int* val) {
-  unsigned ma = 0, mb = 0;
-  if constexpr (G == 0) {
-    for (int l = 0; l < W; ++l) {
-      ma |= (unsigned)(__ldg(tk + ba + l) == key) << l;
-      mb |= (unsigned)(__ldg(tk + bb + l) == key) << l;
-    }
-  } else {
-    for (int l = 0; l < W; l += 4 * G) {
-      if (two) {
-        int4 ka[G], kb[G];
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          ka[g] = tc_ld4(tk + ba + l + 4 * g);
-          kb[g] = tc_ld4(tk + bb + l + 4 * g);
-        }
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          ma |= tc_equal4(ka[g], key) << (l + 4 * g);
-          mb |= tc_equal4(kb[g], key) << (l + 4 * g);
-        }
-      } else {
-        int4 ka[G];
-#pragma unroll
-        for (int g = 0; g < G; ++g) ka[g] = tc_ld4(tk + ba + l + 4 * g);
-#pragma unroll
-        for (int g = 0; g < G; ++g)
-          ma |= tc_equal4(ka[g], key) << (l + 4 * g);
-      }
-    }
-  }
-  if (!two) mb = 0;
-  while (ma | mb) {
-    long long slot;
-    if (ma) {
-      slot = ba + __ffs(ma) - 1;
-      ma &= ma - 1;
-    } else {
-      slot = bb + __ffs(mb) - 1;
-      mb &= mb - 1;
-    }
+  for (; m; m &= m - 1) {
+    const long long slot = base + __ffs(m) - 1;
     const int st = __ldg(ts + slot), v = __ldg(tv + slot);
     if (st == DHASH_LIVE) {
       *val = v;
-      return slot;
+      return (int)slot;
     }
   }
   return -1;
 }
 
-// The flat slot of the first lane of row ra that holds `key` LIVE, else
-// (where `two`) of row rb, else -1; with TC_KEYS_FIRST the hit's value in
-// *val, else the caller reads it behind.
-template <int G>
-__device__ __forceinline__ long long tc_find(
-    const int* __restrict__ tk, const int* __restrict__ tv,
-    const int* __restrict__ ts, int W, int ra, int rb, bool two, int key,
-    int* val) {
-  const long long ba = (long long)ra * W, bb = (long long)rb * W;
-  if (TC_KEYS_FIRST) return tc_find_keys<G>(tk, tv, ts, W, ba, bb, two, key,
-                                           val);
-  return tc_find_rows<G>(tk, ts, W, ba, bb, two, key);
-}
-
-// A query's rows: given, or bucket_of under the table's two hash functions
-// (core/hashing.py, bit for bit), row b offset by b_off.
+// A query's rows: given, or bucket_of under the table's two hash functions,
+// row b offset by b_off.
 struct TcRows {
   const int* a;        // nullptr: hashed
   const int* b;
@@ -172,46 +97,8 @@ struct TcRows {
   int kind_a, kind_b, nbuckets, b_off;
 };
 
-__device__ __forceinline__ int tc_row(const TcRows& r, bool side_b, int i,
-                                      int key) {
-  if (r.a != nullptr) return side_b ? r.b[i] : r.a[i];
-  return side_b ? r.b_off + dhash_bucket_of(r.kind_b, r.seeds_b, key,
-                                            r.nbuckets)
-                : dhash_bucket_of(r.kind_a, r.seeds_a, key, r.nbuckets);
-}
-
-__device__ __forceinline__ void tc_emit(const int* __restrict__ tv,
-                                        long long slot, int v, bool have_v,
-                                        int i, uint8_t* found, int* val,
-                                        int* loc) {
-  if (slot >= 0 && !have_v) v = __ldg(tv + slot);
-  found[i] = slot >= 0 ? 1 : 0;
-  val[i] = slot >= 0 ? v : 0;
-  loc[i] = (int)slot;
-}
-
-// One thread a query: both rows in flight from one thread.
 template <int G>
 __global__ void __launch_bounds__(TC_LOOKUP_THREADS) tc_lookup_kernel(
-    const int* __restrict__ tk, const int* __restrict__ tv,
-    const int* __restrict__ ts, int W, TcRows rows,
-    const int* __restrict__ qk, int Q, uint8_t* __restrict__ found,
-    int* __restrict__ val, int* __restrict__ loc) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= Q) return;
-  const int key = qk[i];
-  const int ra = tc_row(rows, false, i, key);
-  const int rb = tc_row(rows, true, i, key);
-  int v = 0;
-  const long long slot = tc_find<G>(tk, tv, ts, W, ra, rb, rb != ra, key,
-                                    &v);
-  tc_emit(tv, slot, v, TC_KEYS_FIRST, i, found, val, loc);
-}
-
-// A pair of lanes a query: the even lane reads row a, the odd one row b
-// (not where rb == ra); the even lane takes the pair's answer by shuffles.
-template <int G>
-__global__ void __launch_bounds__(TC_LOOKUP_THREADS) tc_lookup_pair_kernel(
     const int* __restrict__ tk, const int* __restrict__ tv,
     const int* __restrict__ ts, int W, TcRows rows,
     const int* __restrict__ qk, int Q, uint8_t* __restrict__ found,
@@ -223,37 +110,40 @@ __global__ void __launch_bounds__(TC_LOOKUP_THREADS) tc_lookup_pair_kernel(
   int key = 0, row = 0;
   if (active) {
     key = qk[i];
-    row = tc_row(rows, side_b, i, key);
+    if (rows.a != nullptr)
+      row = side_b ? rows.b[i] : rows.a[i];
+    else
+      row = side_b ? rows.b_off + dhash_bucket_of(rows.kind_b, rows.seeds_b,
+                                                  key, rows.nbuckets)
+                   : dhash_bucket_of(rows.kind_a, rows.seeds_a, key,
+                                     rows.nbuckets);
   }
+  // every lane of the warp takes part in the shuffles
   const int other = __shfl_xor_sync(0xffffffffu, row, 1);
-  int v = 0;
-  long long slot = -1;
+  int v = 0, slot = -1;
   if (active && !(side_b && row == other))
-    slot = tc_find<G>(tk, tv, ts, W, row, row, false, key, &v);
-  const int o_slot = __shfl_xor_sync(0xffffffffu, (int)slot, 1);
+    slot = tc_row_lookup<G>(tk, tv, ts, W, (long long)row * W, key, &v);
+  const int o_slot = __shfl_xor_sync(0xffffffffu, slot, 1);
   const int o_v = __shfl_xor_sync(0xffffffffu, v, 1);
   if (!active || side_b) return;
   if (slot < 0) {
     slot = o_slot;
     v = o_v;
   }
-  tc_emit(tv, slot, v, TC_KEYS_FIRST, i, found, val, loc);
+  found[i] = slot >= 0 ? 1 : 0;
+  val[i] = slot >= 0 ? v : 0;
+  loc[i] = slot;
 }
 
 template <int G>
 static void tc_launch(const int* tk, const int* tv, const int* ts, int W,
                       const TcRows& rows, const int* qk, int Q,
                       uint8_t* found, int* val, int* loc, cudaStream_t s) {
-  const long long n = (long long)Q * (TC_PAIR ? 2 : 1);
-  const int blocks = (int)((n + TC_LOOKUP_THREADS - 1) / TC_LOOKUP_THREADS);
-  if (TC_PAIR)
-    tc_lookup_pair_kernel<G>
-        <<<blocks, TC_LOOKUP_THREADS, 0, s>>>(tk, tv, ts, W, rows, qk, Q,
-                                              found, val, loc);
-  else
-    tc_lookup_kernel<G>
-        <<<blocks, TC_LOOKUP_THREADS, 0, s>>>(tk, tv, ts, W, rows, qk, Q,
-                                              found, val, loc);
+  const long long lanes = 2LL * Q;
+  const int blocks =
+      (int)((lanes + TC_LOOKUP_THREADS - 1) / TC_LOOKUP_THREADS);
+  tc_lookup_kernel<G><<<blocks, TC_LOOKUP_THREADS, 0, s>>>(
+      tk, tv, ts, W, rows, qk, Q, found, val, loc);
 }
 
 // rows_a and rows_b given, or both nullptr and the rows hashed in the
@@ -274,13 +164,10 @@ extern "C" int dhash_tc_lookup(
   const TcRows rows{rows_a, rows_b, seeds_a, seeds_b,
                     kind_a, kind_b, nbuckets, b_offset};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dhash_rows_vec_ok(W, tk, ts, tv)) {
-    if (W % 8 == 0)
-      tc_launch<2>(tk, tv, ts, W, rows, qk, Q, found, val, loc, s);
-    else
-      tc_launch<1>(tk, tv, ts, W, rows, qk, Q, found, val, loc, s);
-  } else {
+  if (dhash_rows_vec_ok(W, tk, nullptr))
+    (W % 8 == 0 ? tc_launch<2> : tc_launch<1>)(tk, tv, ts, W, rows, qk, Q,
+                                               found, val, loc, s);
+  else
     tc_launch<0>(tk, tv, ts, W, rows, qk, Q, found, val, loc, s);
-  }
   return (int)cudaGetLastError();
 }

@@ -45,12 +45,14 @@ computed on the device, so that a step inside a rebuild epoch never asks
 the host (``extract`` takes two such flags too).  An engine's rebuild step
 launches ``extract`` as its one transition (``transition``: the landing's
 bookkeeping, the guarded scan and the epoch decision) and ``epoch_swap``
-as the exchange on that decision.  Two more entries launch a kernel of the
-table and are counted on it: ``probe_lookup_hashed`` is ``probe_lookup``
-with the start slots hashed in the kernel (the linear steady state's lookup
-and delete), and ``cuckoo_insert`` is ``tc_insert`` with the cuckoo
-kick-out run by its resolve's last block (the cuckoo insert: two kernels,
-no ``cuckoo_kick`` launch).
+as the exchange on that decision.  Three more entries launch a kernel of
+the table and are counted on it: ``probe_lookup_hashed`` is
+``probe_lookup`` with the start slots hashed in the kernel (the linear
+steady state's lookup and delete), ``tc_lookup_hashed`` is ``tc_lookup``
+with both rows hashed in the kernel (the twochoice and cuckoo steady
+state's lookup and delete), and ``cuckoo_insert`` is ``tc_insert`` with the
+cuckoo kick-out run by its resolve's last block (the cuckoo insert: two
+kernels, no ``cuckoo_kick`` launch).
 
 What bounds each kernel on an H100 and what its design does about it is
 written at the top of its ``.cu`` file; in short: ``probe_lookup`` — latency
@@ -62,7 +64,10 @@ built once an SM, where a lookup is a few shared-memory loads);
 start slots in descending start slot, one kernel boundary between the reads
 and the writes); ``extract`` — launch latency (one block, one shuffle
 scan, 16-byte loads, no barrier its step's work does not need);
-``tc_lookup`` — bytes (two rows a query, each as 16-byte loads);
+``tc_lookup`` — round trips to L2 (a pair of lanes a query, one a row,
+both in flight; a lane reads its row's keys as 16-byte loads, then the
+state and value of a lane only where the key matches; the rows hashed in
+the kernel);
 ``tc_probe2`` — bytes (four rows a query, the hazard buffer as
 ``probe2``'s); ``tc_insert`` — latency (a bid launch and a resolve
 launch over the grid for round 0, the later rounds and the cuckoo kick-out
