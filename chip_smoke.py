@@ -578,32 +578,83 @@ def port_kernel_names() -> set:
             for m in pat.finditer(p.read_text())}
 
 
+def lookup_batches(events) -> list:
+    """A steady step launches its lookup kernel twice, on the lookup's
+    batch (65536 queries) and on the delete's (8192), each launch inside a
+    range named by its batch.  The profiler gives each range a span on the
+    device over the kernels launched in it (one launch a range): a row a
+    batch of the launches and µs a launch, and of the ranges whose launch
+    the profiler lost."""
+    from torch.autograd import DeviceType
+    spans, calls = {}, {}
+    for e in events:
+        if e.name.startswith("batch of "):
+            if e.device_type == DeviceType.CPU:
+                calls[e.name] = calls.get(e.name, 0) + 1
+            else:
+                spans.setdefault(e.name, []).append(
+                    e.time_range.elapsed_us())
+    rows = []
+    for name in sorted(calls):
+        us = spans.get(name, [])
+        rows.append(f"  {name}: {len(us)} launches"
+                    + (f", {statistics.mean(us):.3f} us a launch "
+                       f"({min(us):.3f}-{max(us):.3f})" if us else "")
+                    + f"; {calls[name] - len(us)} of {calls[name]} ranges "
+                    f"lost their launch")
+    return rows
+
+
 def profile_steps(eng, oracle, cfg, n_steps: int, step0: int, path: str,
                   steady: bool = False):
     """``n_steps`` more engine steps under torch.profiler; writes the kernel
     table, the device's busy share and the PyTorch ops a step by name to
     ``path`` (``steady``: also logs them)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.kernels import probe
     batches = [oracle.batch(cfg.lookups_per_step, cfg.updates_per_step,
                             step0 + s) for s in range(n_steps)]
+    # steady: each launch of a lookup kernel's hashed wrapper runs inside a
+    # range named by its wrapper and batch size (``lookup_batches``; the
+    # position of qkey in the wrapper's arguments by name)
+    qkey_at = {"probe_lookup_hashed": 4, "tc_lookup_hashed": 7}
+    saved = {n: getattr(probe, n) for n in qkey_at} if steady else {}
+
+    def ranged(name, fn):
+        def call(*a, **k):
+            q = a[qkey_at[name]].numel()
+            with record_function(f"batch of {name}, Q={q}"):
+                return fn(*a, **k)
+        return call
+    for n, fn in saved.items():
+        setattr(probe, n, ranged(n, fn))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for s, (look, ins, vals, dele) in enumerate(batches):
-            mask = ~oracle.present[ins]
-            out = eng.step(oracle.key(look), oracle.key(ins), vals,
-                           oracle.key(dele), ins_mask=mask)
-            oracle.step(look, ins, vals, mask, dele, out, f"profile step {s}")
-        torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for s, (look, ins, vals, dele) in enumerate(batches):
+                mask = ~oracle.present[ins]
+                out = eng.step(oracle.key(look), oracle.key(ins), vals,
+                               oracle.key(dele), ins_mask=mask)
+                oracle.step(look, ins, vals, mask, dele, out,
+                            f"profile step {s}")
+            torch.cuda.synchronize()
+    finally:
+        for n, fn in saved.items():
+            setattr(probe, n, fn)
     wall_ms = (time.perf_counter() - t0) * 1e3
     ka = prof.key_averages()
-    # kernel and memcpy rows only: an op row repeats its kernels' time
+    # kernel and memcpy rows only: an op row repeats its kernels' time, and
+    # so does the device side of a range (the steady profile's batches),
+    # whose host side is the harness's, not PyTorch ops
+    ranges = [getattr(e, "is_user_annotation", False) for e in ka]
     dev_us = sum(getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0))
-                 for e in ka if e.device_type == DeviceType.CUDA)
-    cpu_us = sum(e.self_cpu_time_total for e in ka)
+                 for e, r in zip(ka, ranges)
+                 if e.device_type == DeviceType.CUDA and not r)
+    cpu_us = sum(e.self_cpu_time_total for e, r in zip(ka, ranges) if not r)
     # device-to-host copies: the engine's polls, the harness's epoch read
     # and the oracle's four outputs a step; anything more is a read the
     # engine does not count
@@ -638,27 +689,7 @@ def profile_steps(eng, oracle, cfg, n_steps: int, step0: int, path: str,
                         f"{us / max(e.count, 1):.3f} us a launch, "
                         f"{us / n_steps:.3f} us a step")
     if steady:
-        # a steady step launches its lookup kernel twice, on the lookup's
-        # batch (65536 queries) and on the delete's (8192): the faster half
-        # of the launches is taken for the delete's, the slower half for
-        # the lookup's; µs a launch of each and their ranges
-        launches = {}
-        for e in prof.events():
-            m = re.match(r"(?:void )?(\w+)", e.name)
-            if e.device_type == DeviceType.CUDA and m and m.group(1) in (
-                    "probe_lookup_kernel", "tc_lookup_kernel"):
-                launches.setdefault(m.group(1), []).append(
-                    e.time_range.elapsed_us())
-        for name, us in sorted(launches.items()):
-            us, cut = sorted(us), len(us) // 2
-            if cut:
-                rows.append(
-                    f"  {name} by batch: delete {cut} launches, "
-                    f"{statistics.mean(us[:cut]):.3f} us a launch "
-                    f"({us[0]:.3f}-{us[cut - 1]:.3f}); lookup "
-                    f"{len(us) - cut} launches, "
-                    f"{statistics.mean(us[cut:]):.3f} us a launch "
-                    f"({us[cut]:.3f}-{us[-1]:.3f})")
+        rows += lookup_batches(prof.events())
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         f.write(f"{n_steps} steps, wall {wall_ms:.1f} ms (with the host "
@@ -1388,6 +1419,49 @@ def rows_read(probe_ref, tk, tv, ts, ra, qk, need=None) -> int:
     return int(need.sum()) + int((need & ~fa).sum())
 
 
+def tc_lookup_need(tk, ts, ra, rb, qk) -> dict:
+    """What a two-row lookup must read of the table: the keys of row a,
+    and of row b where row a holds no LIVE copy and ``rb != ra``; in a row
+    read, the state of each lane whose key is the query's, in lane order up
+    to the first LIVE one; the value of a hit."""
+    w = tk.shape[1]
+    lane = torch.arange(w, device=tk.device)
+
+    def row(r, need):
+        r = r.long()
+        match = (tk[r] == qk[:, None]) & need[:, None]
+        live = match & (ts[r] == 1)          # LIVE
+        hit = live.any(1)
+        first = torch.where(hit, live.to(torch.uint8).argmax(1), w)
+        return hit, int((match & (lane <= first[:, None])).sum())
+    hit_a, states_a = row(ra, torch.ones_like(qk, dtype=torch.bool))
+    need_b = ~hit_a & (rb != ra)
+    hit_b, states_b = row(rb, need_b)
+    return dict(rows_read=qk.numel() + int(need_b.sum()),
+                states_read=states_a + states_b,
+                hits=int((hit_a | hit_b).sum()))
+
+
+def tc_lookup_bound(need: dict, w: int, q: int, hashed: bool) -> dict:
+    """``tc_lookup``'s bound from ``tc_lookup_need``: in, the keys of each
+    row read, the states it needs, a value a hit, and a query's key (with
+    its two rows where they are given); out, found, val and loc a query.
+    Operations: a compare and a mask bit a key read, and two hashes a
+    query where the kernel hashes."""
+    nbytes = (need["rows_read"] * w * 4 + need["states_read"] * 4
+              + need["hits"] * 4 + q * (4 if hashed else 12) + q * 9)
+    ops = need["rows_read"] * w * 2 + (2 * MIX32_OPS * q if hashed else 0)
+    return bound(nbytes, ops)
+
+
+def l2_flush(device):
+    """A function that evicts the table from L2 (50 MB): it writes 128 MiB
+    on the stream, for a time taken cold (its write is outside the
+    events)."""
+    buf = torch.empty(32 << 20, dtype=torch.int32, device=device)
+    return lambda: buf.fill_(0)
+
+
 def baseline_tc_lookup(fn):
     """Another tree's ``dhash_tc_lookup`` entry point ``fn`` for this tree's
     wrapper: where that tree's takes rows only (12 arguments: no hash
@@ -1436,8 +1510,8 @@ def tc_lookup_cases(tab, lookup_inputs, cfg, reps: int, device,
           and bool((f & (loc.long() // W == rb.long())
                     & (ra != rb)).any()),
           "tc_lookup: inputs must mix hits in row a, in row b and misses")
-    nrows = rows_read(ref, tk, tv, ts, ra, qk)
-    hits = int(f.sum())
+    need = tc_lookup_need(tk, ts, ra, rb, qk)
+    check(need["hits"] == int(f.sum()), "tc_lookup_need counts other hits")
     timed_rows = (ra, rb, qk)
 
     # the hashed form's cases: (table, hfn_a, hfn_b, nbuckets, b_offset,
@@ -1522,34 +1596,47 @@ def tc_lookup_cases(tab, lookup_inputs, cfg, reps: int, device,
             timed[f"{name} Q={q}"] = dict(
                 rows=(*t_, *rows, qk), hashed=(*t_, fa, fb, nb, off, qk))
     tk_args = (tk, tv, ts, *timed_rows)
-    fh, _, _ = probe.tc_lookup_hashed(tk, tv, ts, hfa, hfb, B, 0,
-                                      timed_rows[2])
-    nrows_h = rows_read(ref, tk, tv, ts,
-                        hashing.bucket_of(hfa, timed_rows[2], B),
-                        timed_rows[2])
+    hk_args = (tk, tv, ts, hfa, hfb, B, 0, timed_rows[2])
+    qk = timed_rows[2]
+    need_h = tc_lookup_need(tk, ts, hashing.bucket_of(hfa, qk, B),
+                            hashing.bucket_of(hfb, qk, B), qk)
+    # warm: the table stays in L2 between the calls (as on the main path,
+    # where old and new tables fit it); cold: L2 flushed before each call,
+    # the reads the bound's HBM rate is for
+    flush = l2_flush(device)
     res = dict(
         max_abs_err=err,
         ms=time_ms(lambda: probe.tc_lookup(*tk_args), reps),
+        cold_ms=time_ms(lambda: probe.tc_lookup(*tk_args), reps,
+                        setup=flush),
         plain_ms=time_ms(lambda: probe.tc_lookup_plain(*tk_args), 3,
                          queue_ahead=False),
-        # in: key and state of each row read, val of a hit, rows + key a
-        # query; out: found, val, loc
-        **bound(nrows * W * 8 + hits * 4 + Q * 12 + Q * 9, nrows * W * 2),
-        rows_read=nrows, hits=hits,
-        # the hashed form on the same queries: a key a query in, no rows,
-        # and two hashes a query
+        **tc_lookup_bound(need, W, Q, hashed=False), **need,
+        # the hashed form on the same queries
         hashed=dict(
-            ms=time_ms(lambda: probe.tc_lookup_hashed(
-                tk, tv, ts, hfa, hfb, B, 0, timed_rows[2]), reps),
-            **bound(nrows_h * W * 8 + int(fh.sum()) * 4 + Q * 4 + Q * 9,
-                    nrows_h * W * 2 + 2 * MIX32_OPS * Q),
-            rows_read=nrows_h),
+            ms=time_ms(lambda: probe.tc_lookup_hashed(*hk_args), reps),
+            cold_ms=time_ms(lambda: probe.tc_lookup_hashed(*hk_args), reps,
+                            setup=flush),
+            **tc_lookup_bound(need_h, W, Q, hashed=True), **need_h),
         cases=out)
-    res["batches"] = {
-        k: {"rows_ms": time_ms(lambda: probe.tc_lookup(*a["rows"]), reps),
-            "hashed_ms": time_ms(
-                lambda: probe.tc_lookup_hashed(*a["hashed"]), reps)}
-        for k, a in timed.items()}
+    res["batches"] = {}
+    for k, a in timed.items():
+        t_, fa, fb, nb, off, qk_ = cases[k]
+        need_k = tc_lookup_need(t_[0], t_[2], *a["rows"][3:5], qk_)
+        res["batches"][k] = dict(
+            rows_ms=time_ms(lambda: probe.tc_lookup(*a["rows"]), reps),
+            rows_cold_ms=time_ms(lambda: probe.tc_lookup(*a["rows"]), reps,
+                                 setup=flush),
+            rows_bound_ms=tc_lookup_bound(need_k, t_[0].shape[1], qk_.numel(),
+                                          hashed=False)["bound_ms"],
+            hashed_ms=time_ms(
+                lambda: probe.tc_lookup_hashed(*a["hashed"]), reps),
+            hashed_cold_ms=time_ms(
+                lambda: probe.tc_lookup_hashed(*a["hashed"]), reps,
+                setup=flush),
+            hashed_bound_ms=tc_lookup_bound(
+                need_k, t_[0].shape[1], qk_.numel(), hashed=True)["bound_ms"],
+            **need_k)
     # what bounds it: device µs a call in the profile
     calls = {"rows, phase 2": lambda: probe.tc_lookup(*tk_args)}
     for k, a in timed.items():

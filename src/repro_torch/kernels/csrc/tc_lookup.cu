@@ -14,9 +14,11 @@
 // W + lane, the flat slot.  Cuckoo tables use the same kernel with
 // side-offset rows.
 //
-// Bound: bytes, 0.0025 ms at the main path's 65536 queries (a row's states
-// and keys are a 32-byte sector each at W = 8); the time is round trips to
-// L2.  The first design gave a query one thread that read row a's states
+// Bound: bytes at the HBM rate (chip_smoke.py counts them from its inputs:
+// the keys of each row read, the state of each lane whose key matches up to
+// the first LIVE one, a value a hit, and a query's inputs and outputs).  The
+// main path's tables sit in L2, and the time is round trips to it.  The
+// first design gave a query one thread that read row a's states
 // and keys, and only on a miss row b's, then the hit's value: three or four
 // dependent round trips, with the rows computed by the caller (two
 // bucket_of calls, ~50 PyTorch ops each, on every steady lookup and delete).
