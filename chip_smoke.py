@@ -5,7 +5,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU (written
 for an H100) and the CUDA toolkit:
 
     python3 chip_smoke.py            # everything, as described below
-    python3 chip_smoke.py --steps 300 --tc-steps 300 --big-steps 16  # shorter
+    python3 chip_smoke.py --steps 300 --tc-steps 300 --cuckoo-steps 300 \
+        --big-steps 16  # shorter
     python3 chip_smoke.py --profile build/profile.txt  # + profiler tables
     python3 chip_smoke.py --baseline OTHER/build/repro_torch_kernels
         # phase 2 also runs another tree's probe_lookup, probe2,
@@ -52,7 +53,10 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
    the first, a middle (aligned and not), the partial last chunk and at
    the end, rebuilding on and off, swap and start allowed or not; the
    epoch swap's exchange on every backend's tables on its own decision and
-   on a given go, and on leaves that are not 16-byte aligned; the chain
+   on a given go, and on leaves that are not 16-byte aligned; ``probe2``
+   with new tables twice, four times and a quarter of the old, and the
+   linear rebuild step (landing insert and transition) across those
+   sizes, as a resize runs it; the chain
    compaction after a user insert, with its guard off, on a full arena, on
    floods of one bucket and of eight buckets in eight tiles, on listed
    buckets at tile edges and on a tail of dead nodes), and times kernel and
@@ -68,10 +72,18 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
    also takes a collision flood mid-epoch (2048 keys to one row) and must
    keep every acknowledged key through the next swap; (e) runs the chain
    arm of the collision-flood benchmark (2048 keys into one bucket, then a
-   live swap) and reports its four lookup rates; (f) captures one
-   rebuild-epoch engine step of each backend in a CUDA graph and replays it
-   across a live swap against the eager engine (tolerance 0), with the
-   oracle checking every step;
+   live swap) and reports its four lookup rates; (f) holds each backend's
+   engine, replaying its step from a CUDA graph, to the same engine in the
+   eager mode across a live swap (tolerance 0, one key held), with the
+   oracle checking every step, and the launches its replays credit to the
+   kernels the profiler sees; (g) runs linear under the elastic policy: a
+   burst that grows the table to 2^22 slots, a drain during which a
+   tombstone reclaim fires on the device, and the shrink to 2^20, every
+   answer checked by the oracle and a stretch held to an eager twin.
+   Every engine step of phases 3-5 is replayed from a CUDA graph (the
+   engine's own cache: the first step of a key runs eagerly and is
+   captured), but for the reference engines of 3f, 3g and 4, which run in
+   the eager mode;
 4. runs the same engines in lock step with the port's own plain
    (``fused=False``) path on the card for one epoch at a smaller table;
 5. repeats a short stretch of the linear main path on a table far larger
@@ -569,13 +581,19 @@ def time_ms(fn, reps: int, setup=None, queue_ahead: bool = True) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in evs)
 
 
-def port_kernel_names() -> set:
-    """The names of the ``__global__`` functions of the port's sources."""
+def port_kernel_sources() -> dict:
+    """``__global__`` function name -> the source whose wrapper launches
+    it (each ``csrc/<name>.cu`` belongs to the wrapper ``probe.<name>``)."""
     from repro_torch.kernels import build
     pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
                      r"(\w+)")
-    return {m.group(1) for p in build.CSRC.glob("*.cu")
+    return {m.group(1): p.stem for p in build.CSRC.glob("*.cu")
             for m in pat.finditer(p.read_text())}
+
+
+def port_kernel_names() -> set:
+    """The names of the ``__global__`` functions of the port's sources."""
+    return set(port_kernel_sources())
 
 
 def lookup_batches(events) -> list:
@@ -1256,14 +1274,16 @@ def phase_kernels(device, cfg, reps: int, baseline=None) -> dict:
 
 
     # -- probe2: old table mid-rebuild, hazard buffer with killed entries,
-    #    new table 4x the old (and one of the same size)
+    #    new tables 2x, 4x and a quarter of the old, and one of its size
     err = 0
     so = ts.clone()
     cursor = torch.tensor(7 * CH, dtype=i32, device=device)
     hk, hv, hl, _ = probe.extract_plain(tk, tv, so, cursor, CH)
     hz_live = int(hl.sum())
     hl = hl & torch.as_tensor(rng.random(CH) < 0.8, device=device)  # kills
-    for c_new, seed in ((4 * C, 31), (C, 32)):
+    # new tables of 2x and 4x the old (growth), a quarter (a shrink) and
+    # the old's size, the last the one timed below
+    for c_new, seed in ((2 * C, 33), (C // 4, 34), (4 * C, 31), (C, 32)):
         hfn2, nk, nv, ns, nkeys = build_table(probe, hashing, c_new, 1 << 18,
                                               rng, device, seed, P)
         for q in (Q + 77, Q):
@@ -2976,6 +2996,83 @@ def transition_cases(device, cfg, reps: int, baseline=None) -> dict:
     return out
 
 
+def hazard_pairs(d) -> list:
+    """The live (key, value) pairs of a state's hazard buffer, in order."""
+    hl = d.hazard_live
+    return list(zip(d.hazard_key[hl].tolist(), d.hazard_val[hl].tolist()))
+
+
+def resize_transition_cases(device, cfg) -> int:
+    """The linear rebuild step across two table sizes, as a resize runs it:
+    ``dhash.rebuild_step_(d, swap=False)`` — the landing insert into the new
+    table (``probe_insert``) and the transition launch (``extract``: the
+    landing's bookkeeping, the guarded scan, the epoch decision) — on a
+    fused state against the same on a plain copy, tolerance 0, with the new
+    table twice, four times and a quarter of the old (2^21 slots, half live,
+    a tenth of those tombstoned and a tenth MIGRATED, keys placed by the
+    plain insert; the new table a quarter full of other keys).  From a
+    chunk in the middle (its entries extracted into the hazard buffer, a
+    fifth of them killed): 6 steps (landings and scans), then from the
+    partial last chunk to the end of the scan, where the epoch is done and
+    no swap is allowed across sizes.  Every step's go and every tensor of
+    both states are compared (the hazard buffer as its live pairs in
+    order: the fused scan compacts it).  Returns the steps compared."""
+    from repro_torch.core import buckets, dhash, hashing
+    from repro_torch.kernels import probe
+    rng = np.random.default_rng(23)
+    C, P, CH = 1 << 21, 64, cfg.chunk
+    hfn, tk, tv, ts, _ = build_table(probe, hashing, C, 1 << 20, rng, device,
+                                     41, P)
+    steps = 0
+    for ratio, seed in ((2, 42), (4, 43), (0.25, 44)):
+        c_new = int(C * ratio)
+        hfn2, nk, nv, ns, _ = build_table(probe, hashing, c_new, c_new // 4,
+                                          rng, device, seed, P)
+        d = dhash.make("linear", capacity=1 << 10, chunk=CH, fused=True,
+                       device=device)
+        old = buckets.LinearTable(C, P, hfn, tk.clone(), tv.clone(),
+                                  ts.clone())
+        new = buckets.LinearTable(c_new, P, hfn2, nk, nv, ns)
+        d = dataclasses.replace(d, old=old, new=new)
+        d.rebuilding.fill_(True)
+        d.cursor.fill_(5 * CH)
+        hk, hv, hl, cur = probe.extract_plain(tk, tv, old.state, d.cursor,
+                                              CH)
+        for x, y in ((d.hazard_key, hk), (d.hazard_val, hv),
+                     (d.hazard_live, hl & torch.as_tensor(
+                         rng.random(CH) < 0.8, device=device)),
+                     (d.cursor, cur)):
+            x.copy_(y)
+        fused = clone_state(d)
+        plain = dataclasses.replace(clone_state(d), fused=False)
+        for i in range(16):
+            if i == 6:
+                for e in (fused, plain):
+                    e.cursor.fill_(C - 1000)
+            go_f = dhash.rebuild_step_(fused, swap=False)
+            go_p = dhash.rebuild_step_(plain, swap=False)
+            torch.cuda.synchronize()
+            same(go_f, go_p, f"resize transition x{ratio} step {i} go")
+            for (p, a), (_, b) in zip(_leaves(fused), _leaves(plain)):
+                if not p.startswith(".hazard"):
+                    same(a, b, f"resize transition x{ratio} step {i} "
+                         f"state{p}")
+            # the fused scan compacts the hazard buffer, the plain one is
+            # position-aligned (same order): equal as live (key, value)s
+            check(hazard_pairs(fused) == hazard_pairs(plain),
+                  f"resize transition x{ratio} step {i}: hazard buffers")
+            steps += 1
+            if i >= 6 and bool(dhash.rebuild_done(fused)):
+                break
+        check(bool(dhash.rebuild_done(fused)) and bool(fused.rebuilding),
+              f"resize transition x{ratio}: the epoch must end undecided "
+              f"(no swap across sizes)")
+        log(f"  rebuild step across sizes ok: new table x{ratio} "
+            f"({c_new} slots), {i + 1} steps (landings and scans, the last "
+            f"chunk, done without a swap), fused against plain, tolerance 0")
+    return steps
+
+
 def profile_calls(fn, n: int, setup) -> tuple:
     """``n`` calls of ``fn``, each after ``setup``, under torch.profiler,
     less ``n`` calls of ``setup`` alone: device µs a call (every kernel and
@@ -3255,7 +3352,8 @@ class Oracle:
         win[pos[first]] = True
         return win
 
-    def step(self, look, ins, vals, ins_mask, dele, out, where: str):
+    def step(self, look, ins, vals, ins_mask, dele, out, where: str,
+             del_mask=None):
         found, got, ok_i, ok_d = (np.asarray(t.cpu()) for t in out)
         exp_f = self.present[look]
         check(np.array_equal(found, exp_f),
@@ -3269,7 +3367,9 @@ class Oracle:
         self.no_slot += int((win & ~ok_i).sum())
         self.present[ins[ok_i]] = True
         self.value[ins[ok_i]] = vals[ok_i]
-        exp_d = self._first(dele, self.present[dele])
+        dm = self.present[dele] if del_mask is None \
+            else self.present[dele] & del_mask
+        exp_d = self._first(dele, dm)
         check(np.array_equal(ok_d, exp_d), f"{where}: delete ok differs from "
               f"the oracle in {int((ok_d != exp_d).sum())} places")
         self.present[dele[exp_d]] = False
@@ -3608,6 +3708,10 @@ def phase_main(device, cfg, n_steps: int, min_epochs: int,
         f"p99 {ts[int(0.99 * (len(ts) - 1))]:.3f} max {ts[-1]:.3f}; "
         f"{dev_ops / 1e6:.2f} M operations/s over the steps' own time "
         f"({ops_step * n_steps / wall / 1e6:.2f} M/s with the host oracle)")
+    log(f"  the step replayed from CUDA graphs: {len(eng._step_keys)} keys "
+        f"captured since the engine was made (populate included; the first "
+        f"step of each ran eagerly), {eng._step_cache_size()} held; the "
+        f"launch counts are the replays' credited ones")
     log(f"  host syncs a step: {eng_syncs / n_steps:.4f} (the engine's "
         f"polls, one in {eng.poll_every} steps; no other read)"
         + (f"; the kick-out (in tc_insert's resolve, {launches['tc_insert']}"
@@ -3661,19 +3765,20 @@ def phase_main(device, cfg, n_steps: int, min_epochs: int,
     return launches
 
 
-def main_engine(device, cfg):
+def main_engine(device, cfg, policy=None):
     """An engine of ``cfg.backend`` at full size, populated to half its
     table's slots (``capacity_per_shard`` keys on the slot tables, which
     are twice that size; half the arena on chain, whose arena IS
-    ``capacity_per_shard`` nodes), with no rebuild running; its oracle,
-    and the populate's engine steps."""
+    ``capacity_per_shard`` nodes), with no rebuild running (and the elastic
+    ``policy``, where one is given); its oracle, and the populate's engine
+    steps."""
     from repro_torch.core import backend, dhash
     from repro_torch.core.engine import DHashEngine
     state = dhash.make(cfg.backend, capacity=cfg.capacity_per_shard,
                        chunk=cfg.chunk, fused=True, seed=0, device=device)
     slots = backend.get(cfg.backend).capacity_of(state.old)
     oracle = Oracle(4 * cfg.capacity_per_shard, seed=3)
-    eng = DHashEngine(state, continuous_rebuild=False)
+    eng = DHashEngine(state, continuous_rebuild=False, policy=policy)
     n_pop = populate(eng, oracle, min(cfg.capacity_per_shard, slots // 2),
                      cfg.lookups_per_step, f"{cfg.backend}")
     return eng, oracle, n_pop
@@ -3688,23 +3793,81 @@ def _leaves(obj, path=""):
             yield from _leaves(getattr(obj, f.name), f"{path}.{f.name}")
 
 
+# kernels a wrapper's launch runs, where not one
+KERNELS_A_LAUNCH = {"probe_insert": 2, "tc_insert": 2, "chain_compact": 3}
+
+
+def credited_against_profiler(run, n: int, where: str) -> dict:
+    """Run ``run()`` (``n`` engine steps that replay one captured graph)
+    three times under torch.profiler, the third traced.  The launches its
+    replays credited to each wrapper, times the kernels one of its launches
+    runs, must equal the kernels of its source the profiler saw on the
+    device, replay for replay: the profiler's counts must be ``m`` times a
+    replay's credit for every wrapper, with ``m`` the replays it saw, ``n``
+    or, where it lost a replay's kernels (seen on an H100), ``n - 1``.
+    Returns the credited counts and ``m``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.kernels import probe
+    # a wait and a warm-up round first, and a spin kernel of about 20 ms
+    # at each end of the traced round: unpadded, the profiler lost kernels
+    # of 3 traces in 120 on an H100, at the start, the end or in between
+    # (docs/torch_port/profiler_window_trials.py); padded, none in 120
+    sched = schedule(wait=1, warmup=1, active=1, repeat=1)
+    with profile(activities=[ProfilerActivity.CUDA], schedule=sched) as prof:
+        for _ in range(2):
+            run()
+            torch.cuda.synchronize()
+            prof.step()
+        torch.cuda._sleep(int(4e7))
+        before = probe.launch_counts()
+        run()
+        after = probe.launch_counts()
+        torch.cuda._sleep(int(4e7))
+        torch.cuda.synchronize()
+        prof.step()
+    credited = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+    sources = port_kernel_sources()
+    seen: dict = {}
+    for e in prof.events():
+        m = re.match(r"(?:void )?(\w+)", e.name)
+        if e.device_type == DeviceType.CUDA and m and m.group(1) in sources:
+            k = sources[m.group(1)]
+            seen[k] = seen.get(k, 0) + 1
+    step = {}
+    for k, c in credited.items():
+        check(c % n == 0, f"{where}: {c} {k} launches credited in {n} steps")
+        step[k] = c // n * KERNELS_A_LAUNCH.get(k, 1)
+    m = max(range(n + 1), key=lambda i: sum(
+        seen.get(k, 0) == i * v for k, v in step.items()))
+    check(m >= n - 1 and seen == {k: m * v for k, v in step.items()},
+          f"{where}: the profiler saw the port's kernels {seen}, the "
+          f"credited launches of a replay make {step} (in {n} replays)")
+    return credited, m
+
+
 def phase_graph(device, cfg, margin: int = 16, max_steps: int = 1500) -> dict:
-    """One rebuild-epoch engine step of ``cfg.backend`` captured in a CUDA
-    graph and replayed: a second engine, cloned from the first in continuous
-    rebuild, has its ``_device_step`` captured once on static input buffers
-    (capture refuses any call that synchronises with the host), then the
-    graph is replayed step after step across a complete live hash-function
-    swap plus ``margin`` steps, beside the eager engine fed the same
-    batches.  Every step's four outputs must be equal between the two
-    (tolerance 0) and right by the dict oracle; at the end every tensor of
-    the two states (both tables, hash seeds, hazard buffer, scalars) must be
-    equal.  Returns the replayed and eager ms a step (host clock, each
-    ended by a synchronise), the replay's device span (CUDA events) and the
-    device busy time of a replayed step (torch.profiler)."""
+    """The engine's own replay held to its eager mode: a second engine,
+    cloned from the first in continuous rebuild mid-epoch, steps through
+    ``DHashEngine.step`` — its first step eager and captured in a CUDA graph,
+    every later one replayed (capture refuses any call that synchronises
+    with the host) — across a complete live hash-function swap plus
+    ``margin`` steps, beside the first engine stepped in the eager mode
+    (``engine._eager()``) on the same batches.  Every step's four outputs
+    must be equal between the two (tolerance 0) and right by the dict
+    oracle; at the end every tensor of the two states (both tables, hash
+    seeds, hazard buffer, scalars) must be equal, and the replaying engine
+    must hold one key.  Then 10 more replayed steps under the profiler:
+    their credited launches against the kernels the device ran
+    (``credited_against_profiler``) and the device busy time of a step.
+    Returns the replayed and eager ms a step (host clock, each ended by a
+    synchronise), the replay's device span (CUDA events) and busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import backend, dhash
+    from repro_torch.core import engine as eng_mod
     from repro_torch.core.engine import DHashEngine
     name, NL, NU = cfg.backend, cfg.lookups_per_step, cfg.updates_per_step
     state = dhash.make(name, capacity=cfg.capacity_per_shard,
@@ -3712,8 +3875,9 @@ def phase_graph(device, cfg, margin: int = 16, max_steps: int = 1500) -> dict:
     slots = backend.get(name).capacity_of(state.old)
     oracle = Oracle(4 * cfg.capacity_per_shard, seed=31)
     eager = DHashEngine(state, continuous_rebuild=False)
-    populate(eager, oracle, min(cfg.capacity_per_shard, slots // 2), NL,
-             f"{name} graph")
+    with eng_mod._eager():
+        populate(eager, oracle, min(cfg.capacity_per_shard, slots // 2), NL,
+                 f"{name} graph")
     eager.continuous_rebuild = True
     step = 0
 
@@ -3721,35 +3885,17 @@ def phase_graph(device, cfg, margin: int = 16, max_steps: int = 1500) -> dict:
         look, ins, vals, dele = oracle.batch(NL, NU, 10_000 + step)
         return look, ins, vals, dele, ~oracle.present[ins]
 
-    for _ in range(2):          # start the rebuild: rebuilding from here on
-        look, ins, vals, dele, mask = batch()
-        out = eager.step(oracle.key(look), oracle.key(ins), vals,
-                         oracle.key(dele), ins_mask=mask)
-        oracle.step(look, ins, vals, mask, dele, out, f"{name} graph {step}")
-        step += 1
+    with eng_mod._eager():
+        for _ in range(2):      # start the rebuild: rebuilding from here on
+            look, ins, vals, dele, mask = batch()
+            out = eager.step(oracle.key(look), oracle.key(ins), vals,
+                             oracle.key(dele), ins_mask=mask)
+            oracle.step(look, ins, vals, mask, dele, out,
+                        f"{name} graph {step}")
+            step += 1
     check(eager.rebuilding and bool(eager.state.rebuilding),
           "graph: the eager engine is not in a rebuild epoch")
     graph_eng = DHashEngine(eager.state, continuous_rebuild=True)
-    i32 = torch.int32
-    lk, dk = (torch.zeros(n, dtype=i32, device=device) for n in (NL, NU))
-    ik, iv = (torch.zeros(NU, dtype=i32, device=device) for _ in range(2))
-    im = torch.zeros(NU, dtype=torch.bool, device=device)
-    dm = torch.ones(NU, dtype=torch.bool, device=device)
-    # warm up on a throwaway clone (same shapes, its own tensors), on the
-    # stream the capture uses
-    spare = DHashEngine(eager.state, continuous_rebuild=True)
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            spare._device_step(lk, ik, iv, dk, im, dm)
-    torch.cuda.current_stream().wait_stream(side)
-    del spare
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        outs = graph_eng._device_step(lk, ik, iv, dk, im, dm)
-    log(f"  {name}: one rebuild-epoch step captured ({g.__class__.__name__})")
 
     epoch0 = int(eager.state.epoch)
     t_replay, t_eager, t_dev = [], [], []
@@ -3757,23 +3903,21 @@ def phase_graph(device, cfg, margin: int = 16, max_steps: int = 1500) -> dict:
     n = 0
     while n < max_steps:
         look, ins, vals, dele, mask = batch()
-        for dst, src in ((lk, oracle.key(look)), (ik, oracle.key(ins)),
-                         (iv, vals), (dk, oracle.key(dele)), (im, mask)):
-            dst.copy_(torch.as_tensor(src))
+        args = (oracle.key(look), oracle.key(ins), vals, oracle.key(dele))
         ev0 = torch.cuda.Event(enable_timing=True)
         ev1 = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ev0.record()
-        g.replay()
+        got = graph_eng.step(*args, ins_mask=mask)
         ev1.record()
         torch.cuda.synchronize()
-        t_replay.append((time.perf_counter() - t0) * 1e3)
-        t_dev.append(ev0.elapsed_time(ev1))
-        got = [x.clone() for x in outs]
+        if n:                   # the first step ran eagerly and captured
+            t_replay.append((time.perf_counter() - t0) * 1e3)
+            t_dev.append(ev0.elapsed_time(ev1))
         t0 = time.perf_counter()
-        want = eager.step(oracle.key(look), oracle.key(ins), vals,
-                          oracle.key(dele), ins_mask=mask)
+        with eng_mod._eager():
+            want = eager.step(*args, ins_mask=mask)
         torch.cuda.synchronize()
         t_eager.append((time.perf_counter() - t0) * 1e3)
         for a, b, what in zip(got, want, ("found", "vals", "ok_i", "ok_d")):
@@ -3793,28 +3937,228 @@ def phase_graph(device, cfg, margin: int = 16, max_steps: int = 1500) -> dict:
     for (p, a), (_, b) in pairs:
         check(torch.equal(a, b), f"graph {name}: state{p} differs from the "
               f"eager engine's after {n} replays")
-    # device busy of a replayed step: 10 more replays under the profiler
-    torch.cuda.synchronize()
+    keys = graph_eng._step_cache_size()
+    check(keys == 1 and len(graph_eng._step_keys) == 1,
+          f"graph {name}: {keys} keys held, {len(graph_eng._step_keys)} "
+          f"captured across the swap (one wanted)")
+    # 10 more replayed steps under the profiler (the oracle is not
+    # consulted: the engine's own results were checked above)
+    extra = [batch() for _ in range(10)]
+
+    def ten():
+        for look, ins, vals, dele, mask in extra:
+            graph_eng.step(oracle.key(look), oracle.key(ins), vals,
+                           oracle.key(dele), ins_mask=mask)
+    credited, seen = credited_against_profiler(ten, 10, f"graph {name}")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            g.replay()
+        ten()
         torch.cuda.synchronize()
     busy_us = sum(getattr(e, "self_device_time_total",
                           getattr(e, "self_cuda_time_total", 0))
                   for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA)
+    # the host side of a replayed step, by call (self time under the
+    # profiler, which adds its own cost to each)
+    host = sorted(((e.self_cpu_time_total / 10, e.count / 10, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU
+                   and e.self_cpu_time_total > 0), reverse=True)
+    log(f"    host us a replayed step by call, profiler on ("
+        f"{sum(h[0] for h in host):.1f} in all): " + ", ".join(
+            f"{k} {us:.1f} ({c:g}x)" for us, c, k in host[:10]))
     out = dict(steps=n, swap_at=swap_at, leaves_equal=len(pairs),
+               replay_host_us=sum(h[0] for h in host),
                replay_ms=statistics.median(t_replay),
+               replay_p99_ms=sorted(t_replay)[int(0.99 * (len(t_replay) - 1))],
                eager_ms=statistics.median(t_eager),
                replay_device_ms=statistics.median(t_dev),
                replay_busy_ms=busy_us / 1e3 / 10)
-    log(f"  {name}: {n} replays, the live swap at replay {swap_at}; answers "
-        f"equal to the eager engine's and the oracle's every step, all "
-        f"{len(pairs)} state tensors equal at the end; ms a step: replayed "
-        f"{out['replay_ms']:.3f} (device span {out['replay_device_ms']:.3f},"
-        f" busy {out['replay_busy_ms']:.3f}), eager {out['eager_ms']:.3f}")
-    del g
+    log(f"  {name}: {n} steps, the engine's own replay from step 2, the live "
+        f"swap at step {swap_at}; answers equal to the eager mode's and the "
+        f"oracle's every step, all {len(pairs)} state tensors equal at the "
+        f"end, one key held; ms a step: replayed {out['replay_ms']:.3f} "
+        f"(p99 {out['replay_p99_ms']:.3f}, device span "
+        f"{out['replay_device_ms']:.3f}, busy {out['replay_busy_ms']:.3f}), "
+        f"eager {out['eager_ms']:.3f}; credited launches of 10 replayed "
+        f"steps {credited}, equal to the profiler's kernels replay for "
+        f"replay ({seen} of the 10 replays seen by the profiler)")
+    return out
+
+
+def phase_policy(device, cfg, tomb_load: float = 0.1, max_steps: int = 9000
+                 ) -> dict:
+    """The elastic policy on the card: linear, fused, ``cfg`` unreduced
+    (2^21 slots), under ``DHashEngine(policy=policy.make(tomb_load=...))``,
+    populated as the main path's.  A burst (fresh inserts, deletes masked
+    off) past the high watermark; quiet steps (lookups only) while the poll
+    applies the grow and the migration to 2^22 slots runs; a drain
+    (deletes, inserts masked off) below the low watermark, during which
+    tombstones past ``tomb_load`` fire a reclaim rehash on the device; quiet
+    steps through it, the shrink the poll applies, and its migration back to
+    2^20 slots.  Every step's answers are checked against the dict oracle.
+    A twin engine cloned at the poll before the grow steps in the eager mode
+    on the same batches until the grow has finished: answers equal every
+    step, every state and policy tensor equal at the end.  Checked: one
+    grow, one shrink, at least one fire; slot counts 2^21 -> 2^22 -> 2^20;
+    the engine's host reads are its polls; no key captured twice; the
+    credited launches of 16 replayed steady steps against the profiler."""
+    from repro_torch.core import backend
+    from repro_torch.core import engine as eng_mod
+    from repro_torch.core import policy as elastic
+    from repro_torch.core.engine import DHashEngine
+    from repro_torch.kernels import probe
+    NL, NU = cfg.lookups_per_step, cfg.updates_per_step
+    be = backend.get(cfg.backend)
+    eng, oracle, n_pop = main_engine(
+        device, cfg, policy=elastic.make(tomb_load=tomb_load, device=device))
+    K = eng.poll_every
+
+    def slots():
+        return be.capacity_of(eng.state.old)
+    s0 = slots()
+    high, _ = elastic.watermarks(eng.policy, s0)
+    _, low = elastic.watermarks(eng.policy, 2 * s0)
+    log(f"  populated {int(oracle.present.sum())} keys in {n_pop} engine "
+        f"steps; {s0} slots; tomb_load {tomb_load}; grow above {high} "
+        f"live ({s0} slots), shrink below {low} ({2 * s0} slots)")
+    syncs0, steps0 = eng._stats.host_syncs, eng._stats.steps
+    keys0 = len(eng._step_keys)
+    probe.reset_launches()
+    t_step, t_eager, slot_seq = [], [], [slots()]
+    events: dict = {}
+    twin, stale = None, 0
+    ones, offs = np.ones(NU, bool), np.zeros(NU, bool)
+    fires = 0
+
+    def one(kind: str):
+        nonlocal twin, stale, fires
+        n = eng._stats.steps
+        look, ins, vals, dele = oracle.batch(NL, NU, n)
+        im = ~oracle.present[ins] if kind == "burst" else offs
+        dm = ones if kind == "drain" else offs
+        args = (oracle.key(look), oracle.key(ins), vals, oracle.key(dele))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.step(*args, ins_mask=im, del_mask=dm)
+        torch.cuda.synchronize()
+        t_step.append((time.perf_counter() - t0) * 1e3)
+        if twin is not None:
+            t0 = time.perf_counter()
+            with eng_mod._eager():
+                want = twin.step(*args, ins_mask=im, del_mask=dm)
+            torch.cuda.synchronize()
+            t_eager.append((time.perf_counter() - t0) * 1e3)
+            for a, b, what in zip(out, want, ("found", "vals", "ok_i",
+                                              "ok_d")):
+                check(torch.equal(a, b), f"policy step {n}: {what} differs "
+                      f"from the eager twin's")
+        oracle.step(look, ins, vals, im, dele, out, f"policy {kind} {n}",
+                    del_mask=dm)
+        # the harness's own read: the fire count and the device flag
+        f, rb = torch.stack([eng.policy.fires,
+                             eng.state.rebuilding.to(torch.int32)]).tolist()
+        if f > fires:
+            events.setdefault("fires", []).append(
+                (n + 1, "between polls" if (n + 1) % K else "at a poll"))
+            fires = f
+        stale += bool(rb) != eng.rebuilding
+        if slots() != slot_seq[-1]:
+            slot_seq.append(slots())
+            events.setdefault("resized", []).append(n + 1)
+        if eng._stats.grows + eng._stats.shrinks > len(
+                events.get("resize_started", [])):
+            events.setdefault("resize_started", []).append(n + 1)
+
+    def run(kind: str, until, limit: int):
+        for _ in range(limit):
+            if until():
+                return
+            one(kind)
+        check(False, f"policy: {kind} did not end in {limit} steps")
+
+    def live():
+        return int(oracle.present.sum())
+    t0 = time.perf_counter()
+    # quiet steps to a poll, where the twin is cloned (its polls fall on
+    # the engine's), then the burst
+    run("quiet", lambda: eng._stats.steps % K == 0, K)
+    twin = DHashEngine(eng.state, policy=eng.policy, poll_every=K,
+                       rebuild_seed=eng.rebuild_seed)
+    twin_from = eng._stats.steps
+    while live() <= high:
+        one("burst")
+    events["burst_steps"] = eng._stats.steps - twin_from
+    run("quiet", lambda: eng._stats.grows == 1 and not eng.rebuilding,
+        max_steps)
+    check(twin is not None, "policy: the twin was never cloned")
+    for (p, a), (_, b) in zip(_leaves(eng.state), _leaves(twin.state)):
+        check(torch.equal(a, b), f"policy: state{p} differs from the eager "
+              f"twin's after the grow")
+    for (p, a), (_, b) in zip(_leaves(eng.policy), _leaves(twin.policy)):
+        check(torch.equal(a, b), f"policy: policy{p} differs from the twin's")
+    twin_steps = eng._stats.steps - twin_from
+    twin = None
+    run("drain", lambda: live() < low, max_steps)
+    run("quiet", lambda: eng._stats.shrinks == 1 and not eng.rebuilding,
+        max_steps)
+    wall = time.perf_counter() - t0
+    n_steps = eng._stats.steps - steps0
+    polls = sum(1 for s in range(steps0 + 1, eng._stats.steps + 1)
+                if s % K == 0)
+    syncs = eng._stats.host_syncs - syncs0
+    launches = probe.launch_counts()
+    st = eng._stats
+    check(st.grows == 1 and st.shrinks == 1,
+          f"policy: {st.grows} grows and {st.shrinks} shrinks (1 and 1)")
+    check(fires >= 1, "policy: no reclaim fired on the device")
+    check(slot_seq == [s0, 2 * s0, s0 // 2],
+          f"policy: slot counts {slot_seq}")
+    check(syncs == polls, f"policy: {syncs} host reads in {n_steps} steps, "
+          f"{polls} polls")
+    captured = eng._step_keys[keys0:]
+    check(len(set(captured)) == len(captured), "policy: a key captured twice")
+    # 16 replayed steady steps (lookups, inserts and deletes) under the
+    # profiler: the credited launches against the kernels the device ran
+    extra = [oracle.batch(NL, NU, 1 << 20) for _ in range(16)]
+
+    look, ins, vals, dele = oracle.batch(NL, NU, 1 << 21)
+    eng.step(oracle.key(look), oracle.key(ins), vals, oracle.key(dele),
+             ins_mask=~oracle.present[ins])       # this key's capture
+
+    def sixteen():
+        for look, ins, vals, dele in extra:
+            eng.step(oracle.key(look), oracle.key(ins), vals,
+                     oracle.key(dele), ins_mask=~oracle.present[ins])
+    credited, seen = credited_against_profiler(sixteen, 16,
+                                               "policy steady")
+    ts = sorted(t_step)
+    out = dict(steps=n_steps, burst_steps=events["burst_steps"],
+               resize_started=events["resize_started"],
+               resized=events["resized"], fires=events["fires"],
+               slots=slot_seq, host_reads=syncs, polls=polls,
+               stale_flag_steps=stale, keys_captured=len(captured),
+               step_ms=statistics.median(ts),
+               step_p99_ms=ts[int(0.99 * (len(ts) - 1))], step_max_ms=ts[-1],
+               eager_ms=statistics.median(t_eager), twin_steps=twin_steps,
+               wall_s=wall, launches={k: v for k, v in launches.items() if v},
+               credited_steady=credited)
+    log(f"  {n_steps} steps ({events['burst_steps']} of burst): resizes "
+        f"started at steps {events['resize_started']} (polls), finished at "
+        f"{events['resized']}; slots {slot_seq}; reclaim fires on the device "
+        f"at {events['fires']}; host flag stale on {stale} steps; every "
+        f"answer right by the oracle")
+    log(f"  host reads {syncs} = polls {polls}; {len(captured)} keys "
+        f"captured, none twice: " + "; ".join(
+            f"sizes {k[4]} swap {k[3]}" for k in captured))
+    log(f"  ms a step: replayed median {out['step_ms']:.3f} p99 "
+        f"{out['step_p99_ms']:.3f} max {out['step_max_ms']:.3f}; eager twin "
+        f"{out['eager_ms']:.3f} over {twin_steps} steps (answers equal every "
+        f"step, every state and policy tensor equal after the grow); wall "
+        f"{wall:.1f} s with the oracle")
+    log(f"  launches: {out['launches']}; 16 replayed steady steps credited "
+        f"{credited}, equal to the profiler's kernels replay for replay "
+        f"({seen} of the 16 replays seen by the profiler)")
     return out
 
 
@@ -3966,7 +4310,8 @@ def _content(tree: dict) -> dict:
 
 
 def phase_lockstep(device, backend: str, max_steps: int):
-    """fused=True against the port's plain path, same ops, one epoch.  The
+    """fused=True against the port's plain path, same ops, one epoch (the
+    fused engine replaying its step, the plain one eager).  The
     fused cuckoo insert (claim kernel, then kick-out) is a linearisation of
     its own, and the fused chain compacts its arena where the plain path
     never does, so for those two the whole key -> value map is compared at
@@ -3977,6 +4322,7 @@ def phase_lockstep(device, backend: str, max_steps: int):
     run out of nodes before the fused one does."""
     from repro_torch import convert
     from repro_torch.core import dhash
+    from repro_torch.core import engine as eng_mod
     from repro_torch.core.engine import DHashEngine
     exact = backend in ("linear", "twochoice")
     cap, chunk, nl, nu = 1 << 16, 4096, 8192, 1024
@@ -3987,15 +4333,19 @@ def phase_lockstep(device, backend: str, max_steps: int):
     empty = np.zeros(0, np.int32)
     ins = oracle._sample(cap // 4 if backend == "chain" else cap // 2, False)
     oracle.present[ins] = True
-    for e in engs:
-        e.step(empty, oracle.key(ins), (ins * 3).astype(np.int32), empty)
+    with eng_mod._eager():
+        for e in engs:
+            e.step(empty, oracle.key(ins), (ins * 3).astype(np.int32), empty)
     steps = 0
     while steps < max_steps and min(e.stats.rebuilds_completed
                                     for e in engs) < 1:
         look, ins, vals, dele = oracle.batch(nl, nu, steps)
         mask = ~oracle.present[ins]
         outs = [e.step(oracle.key(look), oracle.key(ins), vals,
-                       oracle.key(dele), ins_mask=mask) for e in engs]
+                       oracle.key(dele), ins_mask=mask) for e in engs[:1]]
+        with eng_mod._eager():      # the plain path: the reference, eager
+            outs.append(engs[1].step(oracle.key(look), oracle.key(ins), vals,
+                                     oracle.key(dele), ins_mask=mask))
         (fa, va, ia, da), (fb, vb, ib, db) = outs
         if backend in ("twochoice", "cuckoo"):
             va, vb = torch.where(fa, va, 0), torch.where(fb, vb, 0)
@@ -4090,9 +4440,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=1200,
                     help="continuous-rebuild steps of the linear main path")
-    ap.add_argument("--tc-steps", type=int, default=2200,
-                    help="continuous-rebuild steps of the twochoice, cuckoo "
-                    "and chain main paths")
+    ap.add_argument("--tc-steps", type=int, default=1100,
+                    help="continuous-rebuild steps of the twochoice and "
+                    "chain main paths (one epoch takes ~1030 and ~385)")
+    ap.add_argument("--cuckoo-steps", type=int, default=2200,
+                    help="continuous-rebuild steps of the cuckoo main path "
+                    "(its flood and the complete swap after it take ~1900)")
     ap.add_argument("--big-steps", type=int, default=64,
                     help="steps on the table larger than L2")
     ap.add_argument("--reps", type=int, default=50,
@@ -4159,6 +4512,7 @@ def main() -> int:
     kres.update(phase_tc_kernels(device, CONFIG, args.reps, baseline))
     kres.update(phase_chain_kernels(device, CONFIG, args.reps, baseline))
     kres.update(phase_guard_kernels(device, CONFIG, args.reps, baseline))
+    resize_transition_cases(device, CONFIG)
     # the main path launches extract as the transition: its time, bound and
     # plain time on linear are the kernel's; the extract form's stay beside
     tr, ext = kres.pop("transition"), kres["extract"]
@@ -4184,7 +4538,8 @@ def main() -> int:
         if prof and not linear:
             root, ext = os.path.splitext(prof)
             prof = f"{root}_{name}{ext}"
-        steps = args.steps if linear else args.tc_steps
+        steps = {"linear": args.steps,
+                 "cuckoo": args.cuckoo_steps}.get(name, args.tc_steps)
         by_path[name] = phase_main(device, cfg, steps,
                                    min_epochs=2 if steps >= 2100 else 1,
                                    profile_to=prof,
@@ -4203,6 +4558,12 @@ def main() -> int:
     log(f"  {card}; replayed step against eager, ms: " + "; ".join(
         f"{k} {v['replay_ms']:.3f} / {v['eager_ms']:.3f} (busy "
         f"{v['replay_busy_ms']:.3f})" for k, v in graphs.items()))
+    log(f"== 3g. the elastic policy on the card: linear, {CONFIG.arch_id} "
+        f"unreduced, a burst past the high watermark (grow to 2^22 slots), "
+        f"a drain below the low one (a reclaim rehash fired on the device, "
+        f"then the shrink to 2^20)")
+    policy_run = phase_policy(device, CONFIG)
+    log(f"  {card}; " + json.dumps(policy_run))
 
     log("== 4. fused engine against the plain path in lock step")
     for name in BACKENDS:

@@ -31,6 +31,13 @@ as
      "free_top": int32[], "bstart": int32[B], "blen": int32[B],
      "sorted_upto": int32[]}.
 
+An elastic policy (``core/policy.py``'s ``ElasticPolicy``) is its
+configuration fields as plain values beside its device state:
+
+    {"grow_load": float, ..., "place_headroom": float,
+     "armed": bool[], "want_grow": bool[], "want_shrink": bool[],
+     "target_capacity": int32[], "fires": int32[]}.
+
 Hash seeds are ``uint32`` in the tree and int64 words in ``[0, 2**32)`` in
 the port.  The two-row insert kernel's claim scratch (twochoice and cuckoo
 tables only) is not part of a table's contents: it is made anew on the way
@@ -38,11 +45,14 @@ in and left out on the way back.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from repro_torch.core import buckets, hashing
 from repro_torch.core.dhash import DHashState
+from repro_torch.core.policy import ElasticPolicy
 
 _SCALARS = (("cursor", np.int32), ("rebuilding", np.bool_),
             ("epoch", np.int32), ("lookups", np.int32),
@@ -139,4 +149,32 @@ def state_to_numpy(d: DHashState) -> dict:
         tree[name] = getattr(d, name).cpu().numpy()
     for name, dt in _SCALARS:
         tree[name] = np.asarray(getattr(d, name).cpu().numpy(), dtype=dt)
+    return tree
+
+
+_POLICY_STATE = (("armed", np.bool_), ("want_grow", np.bool_),
+                 ("want_shrink", np.bool_), ("target_capacity", np.int32),
+                 ("fires", np.int32))
+
+
+def policy_from_numpy(tree: dict, device: torch.device | str = "cuda"
+                      ) -> ElasticPolicy:
+    """The port's ``ElasticPolicy`` on ``device`` from its tree."""
+    state = dict(_POLICY_STATE)
+    kw = {f.name: tree[f.name] for f in dataclasses.fields(ElasticPolicy)
+          if f.name not in state}
+    for name, dt in _POLICY_STATE:
+        kw[name] = _to_dev(np.asarray(tree[name], dtype=dt).reshape(()), dt,
+                           device)
+    return ElasticPolicy(**kw)
+
+
+def policy_to_numpy(pol: ElasticPolicy) -> dict:
+    """Inverse of ``policy_from_numpy`` (synchronises)."""
+    state = dict(_POLICY_STATE)
+    tree = {f.name: getattr(pol, f.name)
+            for f in dataclasses.fields(ElasticPolicy)
+            if f.name not in state}
+    for name, dt in _POLICY_STATE:
+        tree[name] = np.asarray(getattr(pol, name).cpu().numpy(), dtype=dt)
     return tree

@@ -40,8 +40,9 @@ the host and take the flag as an optional keyword HINT: ``None`` (the
 default) reads it from the device — a host synchronisation — and keeps the
 reference's semantics whatever the flag is; a caller that already knows the
 flag passes it and the function never synchronises.  The DEVICE-FLAG forms
-(``insert_by_flag``, ``rebuild_step_``, ``finish_same_shape_``,
-``rebuild_autostart_``) decide on the device instead: guarded kernel
+(``lookup_counted_``, ``insert_by_flag``, ``rebuild_step_``,
+``finish_same_shape_``, ``rebuild_autostart_``) decide on the device
+instead: guarded kernel
 launches (``extract`` and ``epoch_swap`` skip their work on a device flag;
 the rebuild step's transition decides the epoch for the exchange that
 follows it) and selects, no host read, and they write every field of the
@@ -238,18 +239,23 @@ def lookup_counted(d: DHashState, keys: torch.Tensor, *, probe_hi: int = 7,
     ``probe_cost``, and bumps ``DHashState.lookups`` / ``.expensive``
     (queries whose cost crossed ``probe_hi``).  The rebuild-epoch branch
     answers through the ordered check WITHOUT sampling."""
-    be = _be(d)
     if _flag(d.rebuilding, rebuilding):
         return d, _slow_lookup(d, keys)
+    f, v, exp = _counted_sample(d, keys, probe_hi)
+    d = replace(d, lookups=d.lookups + keys.numel(),
+                expensive=d.expensive + exp)
+    return d, (f, v)
+
+
+def _counted_sample(d: DHashState, keys: torch.Tensor, probe_hi: int):
+    """The steady branch of ``lookup_counted``: (found, vals, expensive)."""
+    be = _be(d)
     if d.fused and be.lookup_fused_loc is not None:
         f, v, loc = be.lookup_fused_loc(d.old, keys)
     else:
         f, v, loc = be.lookup(d.old, keys)
     cost = be.probe_cost(d.old, keys, f, loc)
-    exp = (f & (cost >= probe_hi)).sum().to(I32)
-    d = replace(d, lookups=d.lookups + keys.numel(),
-                expensive=d.expensive + exp)
-    return d, (f, v)
+    return f, v, (f & (cost >= probe_hi)).sum().to(I32)
 
 
 def _ins_table(dd: DHashState, t, kk, vv, mm, dedup: bool = True):
@@ -472,6 +478,25 @@ def rebuild_autostart(d: DHashState, *,
 # device-flag forms: every branch decided on the device, every field written
 # in place (what an engine step runs; see the module docstring)
 # ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def lookup_counted_(d: DHashState, keys: torch.Tensor, *,
+                    probe_hi: int = 7):
+    """``lookup_counted`` decided on the device, IN PLACE: both branches of
+    the reference's cond run — the steady state's loc-emitting probe of the
+    old table and the rebuild epoch's ordered check — and the DEVICE flag
+    ``rebuilding`` picks the answers; ``lookups`` / ``expensive`` are bumped
+    (written in place) only where it is clear, as the reference samples only
+    in its steady branch.  For a caller whose host copy of the flag may be
+    stale in either direction (a policy engine: a rehash can start on the
+    device between polls).  Returns (found, vals)."""
+    f, v, exp = _counted_sample(d, keys, probe_hi)
+    f_rb, v_rb = _slow_lookup(d, keys)
+    rb = d.rebuilding
+    d.lookups.copy_(torch.where(rb, d.lookups, d.lookups + keys.numel()))
+    d.expensive.copy_(torch.where(rb, d.expensive, d.expensive + exp))
+    return torch.where(rb, f_rb, f), torch.where(rb, v_rb, v)
+
 
 @torch.no_grad()
 def insert_by_flag(d: DHashState, keys: torch.Tensor, vals: torch.Tensor,

@@ -183,6 +183,14 @@ def launch_counts() -> dict[str, int]:
     return {f.__name__: f.launches for f in _wrappers()}
 
 
+def add_launches(counts: dict[str, int], times: int = 1) -> None:
+    """Add ``times`` x ``counts`` (shaped as ``launch_counts``) to the
+    counters: a CUDA graph's replay launches what its capture recorded, and
+    the capture itself, which runs nothing, takes its own back."""
+    for f in _wrappers():
+        f.launches += times * counts.get(f.__name__, 0)
+
+
 # the kick-out's counters, one int32[3] a device: launches that found
 # pending keys, iterations run, pending keys taken
 _KICK_TALLY: dict = {}

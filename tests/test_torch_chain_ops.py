@@ -526,7 +526,8 @@ def test_fused_engine_steps_read_nothing_uncounted(backend):
     on the fused path between polls — steady state, a rebuild epoch and its
     end (the swap, and in continuous mode the next start, taken on the
     device; in requested mode the inserts after the swap, which pick their
-    table on the device) — dispatch no scalar read
+    table on the device; on a policy engine the reclaim rehash its policy
+    starts on the device, and that epoch) — dispatch no scalar read
     (``aten::_local_scalar_dense``, what ``item()``, ``bool()``, ``int()``
     and indexing with a 0-dim tensor run) and no ``nonzero`` outside the
     kernel wrappers (on the CPU those run their plain versions, which may
@@ -560,14 +561,18 @@ def test_fused_engine_steps_read_nothing_uncounted(backend):
                 mode.paused -= 1
         return run
 
-    for continuous in (True, False):
+    from repro_torch.core import policy as tpol
+    for continuous, policy in ((True, False), (False, False), (False, True)):
+        # a policy engine: its tombstone reclaim starts on the device
         eng = TEngine(tdhash.make(backend, capacity=512, chunk=128,
                                   fused=True, seed=3, device="cpu"),
-                      continuous_rebuild=continuous, poll_every=10**6)
+                      continuous_rebuild=continuous, poll_every=10**6,
+                      policy=tpol.make(tomb_load=0.01, device="cpu")
+                      if policy else None)
         rng = np.random.default_rng(5)
         keys = rng.choice(1 << 20, 1200, replace=False).astype(np.int32)
         eng.step(keys[:0], keys[:250], keys[:250], keys[:0])
-        if not continuous:
+        if not (continuous or policy):
             eng.request_rebuild(seed=11)
         epoch0 = int(eng.state.epoch)
         # every kernel wrapper: the twelve, and the entries that launch one

@@ -234,10 +234,101 @@ def test_steady_state_steps_read_nothing_and_engine_owns_its_state():
     assert f.all() and torch.equal(v, torch.as_tensor(keys * 2))
 
 
-def test_policy_is_not_ported_yet():
+def _quiet(eng, look, n_upd: int = 1):
+    z, off = np.zeros(n_upd, np.int32), np.zeros(n_upd, bool)
+    return eng.step(look, z, z, z, ins_mask=off, del_mask=off)
+
+
+def test_step_cache_holds_one_key_across_continuous_swaps():
+    """The counterpart of the reference's ``test_donation_no_retrace``: an
+    engine in continuous rebuild keeps ONE key across steps and live swaps
+    (the swap exchanges the tables' contents in place: no field is
+    rebound), and a steady engine one across steps."""
+    eng = TEngine(tdhash.make("linear", capacity=64, chunk=16, seed=1,
+                              fused=True, device="cpu"),
+                  continuous_rebuild=True, poll_every=4)
+    keys = np.arange(1, 33, dtype=np.int32)
+    eng.step(keys, keys, keys * 2, keys[:1], del_mask=np.zeros(1, bool))
+    assert eng.rebuilding
+    epoch = int(eng.state.epoch)
+    for _ in range(40):
+        _quiet(eng, keys)
+    assert int(eng.state.epoch) >= epoch + 2
+    # the first step ran with the host flag down, every later one up
+    assert eng._step_cache_size() == 2 and len(eng._step_keys) == 2
+    steady = TEngine(tdhash.make("linear", capacity=64, chunk=16, seed=1,
+                                 device="cpu"))
+    for _ in range(12):
+        steady.step(keys, keys, keys * 2, keys[:8])
+    assert steady._step_cache_size() == 1
+
+
+def test_step_cache_gains_a_key_for_each_new_one_and_drops_dead_ones():
+    """A new key for a new batch size, for a rebinding by
+    ``request_rebuild`` (a fresh standby and fresh scalars) and for a
+    resize; a key whose tensors are gone (the resized-away table) is
+    dropped, and none is captured twice."""
+    eng = TEngine(tdhash.make("linear", capacity=64, chunk=16, seed=1,
+                              fused=True, device="cpu"), poll_every=4)
+    keys = np.arange(1, 33, dtype=np.int32)
+    _quiet(eng, keys)
+    _quiet(eng, keys)
+    assert eng._step_cache_size() == 1
+    _quiet(eng, keys[:7])                          # a new batch size
+    assert eng._step_cache_size() == 2
+    assert eng.request_rebuild(seed=3)             # fresh standby, scalars
+    _quiet(eng, keys)
+    # the old standby is gone: the two steady keys named it
+    assert eng._step_cache_size() == 1 and len(eng._step_keys) == 3
+    for _ in range(40):
+        _quiet(eng, keys)
+        if not eng.rebuilding:
+            break
+    assert not eng.rebuilding
+    n = len(eng._step_keys)
+    assert eng.request_rebuild(
+        new_table=tdhash._make_table("linear", 192, 9, device="cpu"))
+    _quiet(eng, keys)                              # a resize: a new key
+    assert len(eng._step_keys) == n + 1
+    for _ in range(80):
+        _quiet(eng, keys)
+        if not eng.rebuilding:
+            break
+    assert eng.state.old.capacity == 512 and not eng.rebuilding
+    _quiet(eng, keys)
+    # the poll's swap to the grown table rebound the scalars: every key
+    # that named the old ones is dropped
+    assert eng._step_cache_size() == 1
+    assert len(set(eng._step_keys)) == len(eng._step_keys)
+    f, v = eng.lookup(keys)
+    assert not f.any()
+
+
+def test_outputs_of_a_step_survive_the_next():
+    """A caller's results of step n are its own: step n+1 changes none of
+    them (the reference returns fresh arrays; a replayed graph's outputs
+    are cloned)."""
+    eng = TEngine(tdhash.make("linear", capacity=64, chunk=16, seed=1,
+                              fused=True, device="cpu"))
+    keys = np.arange(1, 33, dtype=np.int32)
+    z, off = np.zeros(1, np.int32), np.zeros(1, bool)
+    first = eng.step(keys, keys, keys * 2, z, del_mask=off)
+    kept = [x.clone() for x in first]
+    second = eng.step(keys, keys + 100, keys, keys[:1])
+    for a, b in zip(first, kept):
+        assert torch.equal(a, b)
+    assert second[0].all() and not kept[0].any()
+    assert all(a.data_ptr() != b.data_ptr() for a, b in zip(first, second))
+
+
+def test_policy_engine_refuses_continuous_rebuild_and_clones_its_policy():
+    from repro_torch.core import policy as tpol
     d = tdhash.make("linear", capacity=16, chunk=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="policy"):
-        TEngine(d, policy=object())
+    pol = tpol.make(device="cpu")
+    with pytest.raises(ValueError, match="exclusive"):
+        TEngine(d, policy=pol, continuous_rebuild=True)
+    eng = TEngine(d, policy=pol)
+    assert eng.policy is not pol and eng.policy.fires is not pol.fires
     assert TEngine(d, policy=None).policy is None
 
 
