@@ -59,8 +59,12 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
    sizes, as a resize runs it; the chain
    compaction after a user insert, with its guard off, on a full arena, on
    floods of one bucket and of eight buckets in eight tiles, on listed
-   buckets at tile edges and on a tail of dead nodes), and times kernel and
-   plain version;
+   buckets at tile edges and on a tail of dead nodes; and the four kernels
+   with a table axis — ``probe2``, ``probe_insert``, the transition and
+   ``epoch_swap`` — at T = 8 tables of 2^21 slots in mixed states: tables
+   mid-rebuild at three cursors, a live hazard buffer on three, idle ones,
+   an exchange that swaps two tables and starts a third), and times kernel
+   and plain version;
 3. drives the main path of each backend — ``dhash.make(backend,
    fused=True)`` with ``backend`` linear (a), twochoice (b), cuckoo (c) and
    chain (d) at the unreduced ``dhash-paper`` size under ``DHashEngine``
@@ -79,7 +83,16 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
    kernels the profiler sees; (g) runs linear under the elastic policy: a
    burst that grows the table to 2^22 slots, a drain during which a
    tombstone reclaim fires on the device, and the shrink to 2^20, every
-   answer checked by the oracle and a stretch held to an eager twin.
+   answer checked by the oracle and a stretch held to an eager twin;
+   (h) drives a linear table stack (``DHashStackEngine``, 8 tables of the
+   unreduced shard, each its shard's traffic a step) through staggered
+   live swaps against a dense oracle a table on the device, with its
+   tables' single-table twins over a stretch across a swap (answers and
+   every state tensor equal), its launches a step (one of each of the four
+   kernels' launches a single-table step makes, whatever T) held to the
+   profiler, and its step timed against eight single-table engines in
+   turn; (i) runs the same stack under the policy, deletes draining two
+   tables until each fires its rehash on the device between polls.
    Every engine step of phases 3-5 is replayed from a CUDA graph (the
    engine's own cache: the first step of a key runs eagerly and is
    captured), but for the reference engines of 3f, 3g and 4, which run in
@@ -267,6 +280,8 @@ def load_baseline(path: str) -> dict:
         fn.argtypes = other._ARGTYPES[f"dhash_{name}"]
         fn.restype = ctypes.c_int
         out[name] = fn
+    for name in ("probe2", "probe_insert", "extract", "epoch_swap"):
+        out[name] = baseline_one_table(name, out[name])
     out["probe_lookup"] = baseline_lookup(out["probe_lookup"])
     out["tc_lookup"] = baseline_tc_lookup(out["tc_lookup"])
     out["probe_insert"] = baseline_insert(out["probe_insert"])
@@ -275,6 +290,29 @@ def load_baseline(path: str) -> dict:
     out["sequence"], out["epoch_swap"] = baseline_sequence(
         out.pop("extract"), out.pop("epoch_swap"))
     return out
+
+
+def baseline_one_table(name: str, fn):
+    """Another tree's entry point of a kernel that has the table axis here
+    (``probe2``, ``probe_insert``, ``extract``, ``epoch_swap``): where that
+    tree's has no table axis (its arguments are this tree's but for those
+    of the axis, which come last before the stream), a function taking
+    this tree's arguments for one table and calling it without them.  The
+    result keeps the other entry point's ``argtypes``."""
+    from repro_torch.kernels import build
+    axis = {"probe2": 2, "probe_insert": 5, "extract": 1, "epoch_swap": 1}
+    k = len(fn.argtypes) - 1
+    if len(fn.argtypes) != len(build._ARGTYPES[build._ENTRY[name]]) \
+            - axis[name]:
+        return fn
+
+    def call(*argv):
+        axis = argv[k:-1]
+        check(axis[0] == 1 and all(a is None for a in axis[1:]),
+              f"--baseline {name}: that tree's kernel takes one table")
+        return fn(*argv[:k], argv[-1])
+    call.argtypes = fn.argtypes
+    return call
 
 
 def baseline_sequence(extract_fn, swap_fn):
@@ -290,8 +328,8 @@ def baseline_sequence(extract_fn, swap_fn):
     has this tree's C interface (the transition) runs
     ``transition_step`` on its own two entry points."""
     from repro_torch.core import backend
-    from repro_torch.kernels import build, probe
-    if len(extract_fn.argtypes) == len(build._ARGTYPES["dhash_extract"]):
+    from repro_torch.kernels import probe
+    if len(extract_fn.argtypes) >= 18:      # the transition's interface
         def run_same(e, ok, present, swap, start):
             with swapped("extract", extract_fn), \
                     swapped("epoch_swap", swap_fn):
@@ -436,8 +474,10 @@ def baseline_insert(fn):
         c, q, dev = tk.shape[0], keys.shape[0], tk.device
         ok = torch.empty(q, dtype=torch.bool, device=dev)
         present = torch.empty(q, dtype=torch.bool, device=dev)
+        # one table: no alternative target
         args = (tk, tv, ts, c, h0, keys, vals, mask, q, max_probes, ok,
-                present, torch.empty(q, dtype=torch.int32, device=dev))
+                present, torch.empty(q, dtype=torch.int32, device=dev), 1,
+                None, None, None, None)
         err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
                    for a in args], torch.cuda.current_stream().cuda_stream)
         check(err == 0, f"--baseline probe_insert was not launched: {err}")
@@ -3847,9 +3887,12 @@ def credited_against_profiler(run, n: int, where: str) -> dict:
     return credited, m
 
 
-def phase_graph(device, cfg, margin: int = 16, max_steps: int = 1500) -> dict:
+def phase_graph(device, cfg, margin: int = 16, max_steps: int = 1500,
+                lead: int = 48) -> dict:
     """The engine's own replay held to its eager mode: a second engine,
-    cloned from the first in continuous rebuild mid-epoch, steps through
+    cloned from the first in continuous rebuild mid-epoch (the first
+    engine's steps replayed, each checked by the oracle, until ``lead``
+    chunks of the table are left to scan), steps through
     ``DHashEngine.step`` — its first step eager and captured in a CUDA graph,
     every later one replayed (capture refuses any call that synchronises
     with the host) — across a complete live hash-function swap plus
@@ -3895,6 +3938,15 @@ def phase_graph(device, cfg, margin: int = 16, max_steps: int = 1500) -> dict:
             step += 1
     check(eager.rebuilding and bool(eager.state.rebuilding),
           "graph: the eager engine is not in a rebuild epoch")
+    # the epoch's first part replayed (its answers checked), so that the
+    # lock step starts ``lead`` chunks before the table's end
+    while int(eager.state.cursor) + lead * cfg.chunk < slots:
+        look, ins, vals, dele, mask = batch()
+        out = eager.step(oracle.key(look), oracle.key(ins), vals,
+                         oracle.key(dele), ins_mask=mask)
+        oracle.step(look, ins, vals, mask, dele, out, f"{name} graph {step}")
+        step += 1
+    skipped = step - 2
     graph_eng = DHashEngine(eager.state, continuous_rebuild=True)
 
     epoch0 = int(eager.state.epoch)
@@ -3967,14 +4019,16 @@ def phase_graph(device, cfg, margin: int = 16, max_steps: int = 1500) -> dict:
     log(f"    host us a replayed step by call, profiler on ("
         f"{sum(h[0] for h in host):.1f} in all): " + ", ".join(
             f"{k} {us:.1f} ({c:g}x)" for us, c, k in host[:10]))
-    out = dict(steps=n, swap_at=swap_at, leaves_equal=len(pairs),
+    out = dict(steps=n, skipped=skipped, swap_at=swap_at,
+               leaves_equal=len(pairs),
                replay_host_us=sum(h[0] for h in host),
                replay_ms=statistics.median(t_replay),
                replay_p99_ms=sorted(t_replay)[int(0.99 * (len(t_replay) - 1))],
                eager_ms=statistics.median(t_eager),
                replay_device_ms=statistics.median(t_dev),
                replay_busy_ms=busy_us / 1e3 / 10)
-    log(f"  {name}: {n} steps, the engine's own replay from step 2, the live "
+    log(f"  {name}: {skipped} steps of the epoch replayed first, then {n} "
+        f"steps in lock step, the engine's own replay from step 2, the live "
         f"swap at step {swap_at}; answers equal to the eager mode's and the "
         f"oracle's every step, all {len(pairs)} state tensors equal at the "
         f"end, one key held; ms a step: replayed {out['replay_ms']:.3f} "
@@ -4309,6 +4363,715 @@ def _content(tree: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# table stacks: the four kernels with the table axis (phase 2), a linear
+# stack engine (3h) and the policy's stack arm (3i)
+# ---------------------------------------------------------------------------
+
+STACK_T = 8
+# the kernels with the table axis, and one stacked step's launches of each
+# (one single-table step's): the lookup's and the delete's probe2, the user
+# insert's and the landing's probe_insert, the transition's extract, the
+# exchange's epoch_swap
+STACK_KERNELS = {"probe2": 2, "probe_insert": 2, "extract": 1,
+                 "epoch_swap": 1}
+
+
+def _tt(x, device, dt=torch.int32) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(x), dtype=dt, device=device)
+
+
+class StackOracle:
+    """The dense oracle of a table stack, on the device: ``present`` and
+    ``value`` [T, U] over each table's key universe ``[-U/2, U/2)`` (and a
+    spare last column that masked-off writes land in); the op order of a
+    step is lookup, insert, delete; the first masked occurrence of a key in
+    a batch wins (found with a scatter of positions, not a sort).  Checks
+    accumulate on the device (``bad``, the first failing step in
+    ``first_bad``): ``verify`` reads them."""
+
+    def __init__(self, n_tables: int, universe: int, seed: int, device):
+        self.t, self.u, self.dev = n_tables, universe, device
+        self.present = torch.zeros((n_tables, universe + 1), dtype=torch.bool,
+                                   device=device)
+        self.value = torch.zeros((n_tables, universe + 1), dtype=torch.int32,
+                                 device=device)
+        self.gen = torch.Generator(device=device)
+        self.gen.manual_seed(seed)
+        self.first_bad = torch.full((), -1, dtype=torch.int64, device=device)
+        self.no_slot = torch.zeros((), dtype=torch.int64, device=device)
+        self._pos = torch.full((n_tables, universe + 1), 1 << 30,
+                               dtype=torch.int32, device=device)
+
+    def key(self, idx: torch.Tensor) -> torch.Tensor:
+        return (idx - self.u // 2).to(torch.int32)
+
+    def live(self) -> torch.Tensor:
+        return self.present[:, :self.u].sum(-1)
+
+    def sample(self, n: int, want_present: bool) -> torch.Tensor:
+        """[T, n] key indices that are (not) present, best effort: 8n
+        candidates a row (present keys are a quarter of the universe at
+        the main path's load), the first n that qualify."""
+        cand = torch.randint(0, self.u, (self.t, 8 * n), generator=self.gen,
+                             device=self.dev)
+        ok = self.present.gather(1, cand) == want_present
+        order = torch.sort((~ok).to(torch.int8), dim=1, stable=True)[1]
+        return cand.gather(1, order[:, :n])
+
+    def _shuffled(self, x: torch.Tensor) -> torch.Tensor:
+        r = torch.rand(x.shape, generator=self.gen, device=self.dev)
+        return x.gather(1, r.argsort(dim=1))
+
+    def batch(self, n_look: int, n_upd: int, step: int):
+        """(look, ins, vals, dele) [T, n] index tensors: lookups half
+        present, fresh inserts with duplicates (n_upd / 64 of them), present
+        deletes."""
+        h = n_look // 2
+        look = self._shuffled(torch.cat([self.sample(h, True),
+                                         self.sample(n_look - h, False)], 1))
+        ins = self.sample(n_upd, False)
+        d = n_upd // 64
+        ins[:, :d] = ins[:, d:2 * d]
+        dele = self.sample(n_upd, True)
+        vals = (ins * 3 + step).to(torch.int32)
+        return look, ins, vals, dele
+
+    def _first(self, idx: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """mask & the first masked occurrence of each index in its row."""
+        pos = torch.arange(idx.shape[1], dtype=torch.int32,
+                           device=self.dev).expand(idx.shape)
+        col = torch.where(mask, idx, self.u)
+        self._pos.scatter_reduce_(1, col, pos, "amin")
+        first = mask & (self._pos.gather(1, col) == pos)
+        self._pos.scatter_(1, col, 1 << 30)
+        return first
+
+    def _fail(self, bad: torch.Tensor, step: int) -> None:
+        self.first_bad.copy_(torch.where(bad & (self.first_bad < 0), step,
+                                         self.first_bad))
+
+    def step(self, look, ins, vals, ins_mask, dele, del_mask, out,
+             step: int) -> None:
+        """Hold one step's outputs (found, vals, ok_i, ok_d) to the oracle
+        and apply the step, on the device."""
+        found, got, ok_i, ok_d = out
+        exp_f = self.present.gather(1, look)
+        bad = (found != exp_f).any() | (got != torch.where(
+            exp_f, self.value.gather(1, look), 0)).any()
+        win = self._first(ins, ins_mask)
+        bad |= (ok_i & ~win).any()
+        self.no_slot += (win & ~ok_i).sum()
+        col = torch.where(ok_i, ins, self.u)
+        self.present.scatter_(1, col, True)
+        self.value.scatter_(1, col, vals)
+        exp_d = self._first(dele, self.present.gather(1, dele) & del_mask)
+        bad |= (ok_d != exp_d).any()
+        self.present.scatter_(1, torch.where(exp_d, dele, self.u), False)
+        self.present[:, self.u] = False
+        self._fail(bad, step)
+
+    def verify(self, where: str) -> None:
+        """The one read: fails at the first step whose outputs differed."""
+        s = int(self.first_bad)
+        check(s < 0, f"{where}: step {s}'s answers differ from the oracle's")
+
+
+def stack_populate(st, oracle, batch: int) -> int:
+    """Fill each table of the stack ``st`` to half its slots through
+    ``dhash.stack_insert`` (keys drawn per table, uniform over its
+    universe), the oracle kept.  Returns the insert calls."""
+    from repro_torch.core import dhash
+    cap = st.old.capacity // 2
+    calls = 0
+    while True:
+        need = cap - oracle.live()
+        if int(need.max()) <= 0:
+            return calls
+        ins = oracle.sample(batch, False)
+        vals = (ins * 3 - 1).to(torch.int32)
+        mask = torch.arange(batch, device=oracle.dev)[None, :] < need[:, None]
+        _, ok = dhash.stack_insert(st, oracle.key(ins), vals, mask)
+        none = torch.zeros((oracle.t, 0), dtype=torch.int64,
+                           device=oracle.dev)
+        oracle.step(none, ins, vals, mask, none, none.bool(),
+                    (none.bool(), none.int(), ok, none.bool()), -1 - calls)
+        calls += 1
+
+
+def stack_state(device, cfg, seed: int):
+    """A linear stack of ``STACK_T`` tables, each the ``dhash-paper`` shard
+    unreduced (capacity 2^20, 2^21 slots, chunk 4096), fused, populated to
+    2^20 keys a table, and its dense oracle."""
+    from repro_torch.core import dhash
+    cap = cfg.capacity_per_shard
+    st = dhash.make_stack(STACK_T, "linear", cap, chunk=cfg.chunk,
+                          fused=True, seed=seed, device=device)
+    oracle = StackOracle(STACK_T, 4 * cap, seed, device)
+    stack_populate(st, oracle, cfg.lookups_per_step)
+    oracle.verify("stack populate")
+    return st, oracle
+
+
+def stack_kernel_cases(device, cfg, reps: int) -> dict:
+    """The four kernels with the table axis against their plain versions,
+    tolerance 0, at T = 8 tables of 2^21 slots and the main path's batches
+    a table, on a stack of mixed states: tables 0-4 mid-rebuild (started
+    at three different times: different cursors, a live hazard buffer on
+    2, 3 and 4), 5-7 idle, tombstones on every table, fresh keys in the
+    rebuilding tables' new tables; then each timed at T = 8 with its bound
+    for that work."""
+    from repro_torch.core import backend, dhash, hashing
+    from repro_torch.core.struct_utils import map_tensors
+    from repro_torch.kernels import probe
+    T, CH, P = STACK_T, cfg.chunk, 64
+    Q, QU = cfg.lookups_per_step, cfg.updates_per_step
+    rng = np.random.default_rng(29)
+    st, oracle = stack_state(device, cfg, 20)
+    C = st.old.capacity
+    dhash.stack_delete(st, oracle.key(oracle.sample(QU, True)))
+    for start, n in (((0, 1), 9), ((2, 3), 4), ((4,), 1)):
+        m = np.zeros(T, bool)
+        m[list(start)] = True
+        dhash.stack_autostart(st, _tt(m, device, torch.bool))
+        for _ in range(n):
+            dhash.stack_rebuild_step(st)
+    fresh = rng.integers(-(1 << 31), -(1 << 30), (T, QU)).astype(np.int32)
+    dhash.stack_insert(st, _tt(fresh, device), _tt(fresh * 7, device))
+    rb = st.rebuilding.tolist()
+    live_hz = st.hazard_live.any(-1).tolist()
+    check(rb == [True] * 5 + [False] * 3 and live_hz ==
+          [False, False, True, True, True, False, False, False],
+          f"stack cases: rebuilding {rb}, live hazard {live_hz}")
+    cursors = st.cursor.tolist()
+    log(f"  stack: {T} linear tables of {C} slots, rebuilding {rb}, "
+        f"cursors {cursors}, live hazard entries "
+        f"{st.hazard_live.sum(-1).tolist()}")
+    res = {}
+    old = (st.old.key, st.old.val, st.old.state)
+    new = (st.new.key, st.new.val, st.new.state)
+
+    # -- probe2: a quarter old keys, a quarter hazard keys (old ones where a
+    #    table has none live), a quarter keys of the new tables, the rest
+    #    misses; the idle tables answer from their old table alone
+    q4 = Q // 4
+    rows = []
+    olds = oracle.key(oracle.sample(q4, True)).cpu().numpy()
+    for t in range(T):
+        hz = st.hazard_key[t][st.hazard_live[t]].cpu().numpy()
+        rows.append(np.concatenate([
+            olds[t], rng.choice(hz, q4) if hz.size else olds[t],
+            rng.choice(fresh[t], q4),
+            rng.integers(1 << 30, (1 << 31) - 1, Q - 3 * q4)]))
+        rng.shuffle(rows[-1])
+    qk = _tt(np.stack(rows).astype(np.int32), device)
+    h0o = hashing.bucket_of(st.old.hfn, qk, C)
+    h0n = hashing.bucket_of(st.new.hfn, qk, C)
+    args = (old, new, st.hazard_key, st.hazard_val, st.hazard_live, h0o, h0n,
+            qk, P, st.rebuilding)
+    out_k = probe.probe2(*args)
+    torch.cuda.synchronize()
+    out_p = probe.probe2_plain(*args)
+    err = max(same(x, y, f"stack probe2 {n}")
+              for x, y, n in zip(out_k, out_p, OUTPUTS))
+    found, _, f_old, loc_old, hz_idx, loc_new = out_k
+    idle = ~st.rebuilding
+    check(not bool(((hz_idx >= 0) | (loc_new >= 0))[idle].any()),
+          "stack probe2: an idle table looked past its old table")
+    check(all(int((hz_idx[t] >= 0).sum()) > 0 for t in (2, 3, 4))
+          and all(int((loc_new[t] >= 0).sum()) > 0 for t in range(5)),
+          "stack probe2: the rebuilding tables must hit hazard and new")
+    v_old = sum(count_visits(st.old.state[t], h0o[t], f_old[t], loc_old[t],
+                             P) for t in range(T))
+    v_new = 0
+    for t in range(5):
+        u = ~f_old[t] & (hz_idx[t] < 0)
+        v_new += count_visits(st.new.state[t], h0n[t][u],
+                              (loc_new[t] >= 0)[u], loc_new[t][u], P)
+    hz_lookups = int((~f_old[:5]).sum())
+    nbytes = T * Q * 8 + 5 * Q * 4 + (v_old + v_new) * 8 + 5 * CH * 9 \
+        + T * Q * 18
+    res["probe2"] = dict(
+        T=T, max_abs_err=err, ms=time_ms(lambda: probe.probe2(*args), reps),
+        plain_ms=time_ms(lambda: probe.probe2_plain(*args), 3,
+                         queue_ahead=False),
+        **bound(nbytes, SET_LOOKUP_OPS * hz_lookups + 2 * (v_old + v_new)))
+    log(f"  stack probe2 ok: T={T} Q={Q} a table, idle tables {[5, 6, 7]} "
+        f"on their old table alone; visits old={v_old} new={v_new}; "
+        + json.dumps(res["probe2"]))
+
+    # -- probe_insert: each table into its target by its flag (the new
+    #    table mid-rebuild, else the old), an eighth of the keys present,
+    #    duplicates, a random mask
+    pres = []
+    olds = oracle.key(oracle.sample(QU // 8, True)).cpu().numpy()
+    for t in range(T):
+        pres.append(fresh[t, :QU // 8] if rb[t] else olds[t])
+    k = np.concatenate([np.stack(pres), rng.integers(
+        -(1 << 31), -(1 << 30), (T, QU - QU // 8))], 1).astype(np.int32)
+    dup = QU // 8
+    k[:, QU // 4: QU // 4 + dup] = k[:, QU // 2: QU // 2 + dup]  # duplicates
+    k = _tt(k, device)
+    v = k * 5 + 2
+    from repro_torch.core import buckets
+    m = buckets.batch_winners(k, _tt(rng.random((T, QU)) < 0.9, device,
+                                     torch.bool))
+    h0 = torch.where(st.rebuilding[:, None],
+                     hashing.bucket_of(st.new.hfn, k, C),
+                     hashing.bucket_of(st.old.hfn, k, C))
+    copies = [[x.clone() for x in old + new] for _ in range(2)]
+    ok_k, pr_k = probe.probe_insert(*copies[0][:3], h0, k, v, m, P,
+                                    alt=tuple(copies[0][3:]),
+                                    use_alt=st.rebuilding)
+    torch.cuda.synchronize()
+    ok_p, pr_p = probe.probe_insert_plain(*copies[1][:3], h0, k, v, m, P,
+                                          alt=tuple(copies[1][3:]),
+                                          use_alt=st.rebuilding)
+    err = max(same(ok_k, ok_p, "stack probe_insert ok"),
+              same(pr_k, pr_p, "stack probe_insert present"),
+              *(same(x, y, f"stack probe_insert table {i}")
+                for i, (x, y) in enumerate(zip(*copies))))
+    for t in range(T):          # only the target table changed
+        kept = copies[0][:3] if rb[t] else copies[0][3:]
+        ref = old if rb[t] else new
+        check(all(torch.equal(x[t], y[t]) for x, y in zip(kept, ref)),
+              f"stack probe_insert: table {t} wrote its other table")
+    check(int(pr_k.sum()) > 0 and int(ok_k.sum()) > 0,
+          "stack probe_insert: nothing placed or nothing present")
+    target = torch.where(st.rebuilding[:, None], st.new.state, st.old.state)
+    visits = sum(count_visits(target[t], h0[t], pr_k[t],
+                              torch.full_like(h0[t], -1), P)
+                 for t in range(T))
+
+    def restore_insert():
+        for x, y in zip(copies[0], old + new):
+            x.copy_(y)
+    nbytes = T * QU * 15 + visits * 8 + int(ok_k.sum()) * 12
+    res["probe_insert"] = dict(
+        T=T, max_abs_err=err, placed=int(ok_k.sum()), present=int(pr_k.sum()),
+        ms=time_ms(lambda: probe.probe_insert(
+            *copies[0][:3], h0, k, v, m, P, alt=tuple(copies[0][3:]),
+            use_alt=st.rebuilding), reps, restore_insert),
+        plain_ms=time_ms(lambda: probe.probe_insert_plain(
+            *copies[0][:3], h0, k, v, m, P, alt=tuple(copies[0][3:]),
+            use_alt=st.rebuilding), 3, restore_insert, queue_ahead=False),
+        **bound(nbytes, 0))
+    log(f"  stack probe_insert ok: T={T} Q={QU} a table, each into its "
+        f"target by its flag; " + json.dumps(res["probe_insert"]))
+
+    # -- the transition (extract): table 1 at the end of its table with no
+    #    hazard entry live (it decides a swap), table 0 on the partial last
+    #    chunk, 2, 3 and 4 landing (live hazard), 5-7 idle
+    base = map_tensors(torch.clone, st)
+    base.cursor[1] = C
+    base.cursor[0] = C - 1000
+    ok_t = torch.rand((T, CH), device=device) < 0.5
+    present_t = (torch.rand((T, CH), device=device) < 0.2) & ~ok_t
+    be = backend.get("linear")
+    outs = []
+    for fn in (be.stack_transition_fused, None):
+        e = map_tensors(torch.clone, base)
+        hz = (e.hazard_key, e.hazard_val, e.hazard_live)
+        if fn is None:
+            go = probe.transition_plain(e.old.key, e.old.val, e.old.state,
+                                        e.cursor, CH, hz, e.rebuilding, ok_t,
+                                        present_t, True, True)
+        else:
+            go = fn(e.old, e.cursor, CH, hz, e.rebuilding, ok_t, present_t,
+                    True, True)
+            torch.cuda.synchronize()
+        outs.append((go, e.old.state, *hz, e.cursor))
+    err = max(same(x, y, f"stack transition {n}") for x, y, n in zip(
+        *outs, ("go", "state", "hkey", "hval", "hlive", "cursor")))
+    go = outs[0][0].tolist()
+    check(go[1] == [True, True] and not any(go[t][0] for t in (0, 2, 3, 4))
+          and all(go[t] == [False, True] for t in (5, 6, 7)),
+          f"stack transition: decisions {go}")
+    e = map_tensors(torch.clone, base)
+    hz = (e.hazard_key, e.hazard_val, e.hazard_live)
+
+    def restore_transition():
+        e.old.state.copy_(base.old.state)
+        for x, y in zip(hz + (e.cursor,), (base.hazard_key, base.hazard_val,
+                                           base.hazard_live, base.cursor)):
+            x.copy_(y)
+    pending = base.hazard_live.any(-1)
+    scan = base.rebuilding & ~pending
+    nbytes = 0
+    for t in range(T):
+        if bool(pending[t]):            # the landing's bookkeeping
+            nbytes += CH * 4
+        elif bool(scan[t]):             # the chunk scan (cf. the single)
+            cur = int(base.cursor[t])
+            n_live = int((base.old.state[t, cur:cur + CH] == 1).sum())
+            nbytes += CH * 14 + n_live * 12 + 11
+        else:                           # the flags and the decision
+            nbytes += CH + 3
+    res["extract"] = dict(
+        T=T, max_abs_err=err,
+        ms=time_ms(lambda: be.stack_transition_fused(
+            e.old, e.cursor, CH, hz, e.rebuilding, ok_t, present_t, True,
+            True), reps, restore_transition),
+        plain_ms=time_ms(lambda: probe.transition_plain(
+            e.old.key, e.old.val, e.old.state, e.cursor, CH, hz,
+            e.rebuilding, ok_t, present_t, True, True), 3,
+            restore_transition, queue_ahead=False),
+        **bound(nbytes, 0))
+    log(f"  stack transition ok: T={T}, decisions {go}; "
+        + json.dumps(res["extract"]))
+
+    # -- epoch_swap: on a given go (table 0 swaps and starts, 1 swaps, 5
+    #    starts, the rest stay) and on its own decision (table 1 done: swap
+    #    and start; the idle tables start; the others stay)
+    gos = torch.zeros((T, 2), dtype=torch.bool, device=device)
+    gos[0] = True
+    gos[1, 0] = True
+    gos[5, 1] = True
+    err = 0
+    for given in (gos, None):
+        outs = []
+        for fn in (probe.epoch_swap, probe.epoch_swap_plain):
+            e = map_tensors(torch.clone, base)
+            lo = backend.epoch_leaves(e.old)
+            ln = backend.epoch_leaves(e.new)
+            go = fn([x for x, _ in lo], [x for x, _ in ln],
+                    [s for _, s in lo], e.hazard_live, e.cursor,
+                    e.rebuilding, e.epoch, e.lookups, e.expensive, C, True,
+                    True, given)
+            torch.cuda.synchronize()
+            outs.append([go.clone()] + [x for _, x in _leaves(e)])
+        err = max(err, *(same(x, y, f"stack epoch_swap given="
+                              f"{given is not None} leaf {i}")
+                         for i, (x, y) in enumerate(zip(*outs))))
+        if given is None:
+            check(outs[0][0].tolist() == [[False, False], [True, True]]
+                  + [[False, False]] * 3 + [[False, True]] * 3,
+                  f"stack epoch_swap: decisions {outs[0][0].tolist()}")
+            seeds = backend.epoch_leaves(e.new)[0][0]
+            check(len({tuple(r) for r in seeds.tolist()}) == T,
+                  "stack epoch_swap: the reseeded tables share seeds")
+    e = map_tensors(torch.clone, base)
+    lo, ln = backend.epoch_leaves(e.old), backend.epoch_leaves(e.new)
+    mut = [x for x, _ in lo + ln] + [e.cursor, e.rebuilding, e.epoch]
+    snap = [x.clone() for x in mut]
+
+    def restore_swap():
+        for x, y in zip(mut, snap):
+            x.copy_(y)
+    leaf = sum(x[0].numel() * x.element_size() for x, _ in ln)
+    res["epoch_swap"] = dict(
+        T=T, max_abs_err=err,
+        ms=time_ms(lambda: probe.epoch_swap(
+            [x for x, _ in lo], [x for x, _ in ln], [s for _, s in lo],
+            e.hazard_live, e.cursor, e.rebuilding, e.epoch, e.lookups,
+            e.expensive, C, True, True, gos), reps, restore_swap),
+        plain_ms=time_ms(lambda: probe.epoch_swap_plain(
+            [x for x, _ in lo], [x for x, _ in ln], [s for _, s in lo],
+            e.hazard_live, e.cursor, e.rebuilding, e.epoch, e.lookups,
+            e.expensive, C, True, True, gos), 3, restore_swap,
+            queue_ahead=False),
+        # swap and start: read new, write both; swap: read and write both;
+        # start: write new
+        **bound(leaf * (3 + 4 + 1), 0))
+    log(f"  stack epoch_swap ok: T={T}, on a given go (one table swaps and "
+        f"starts, one swaps, one starts) and on its own decision; "
+        + json.dumps(res["epoch_swap"]))
+    return res
+
+
+def stack_batches(oracle, cfg, step: int, masks=None):
+    """One step's [T, Q] batches from the stack's oracle: the index tensors
+    (look, ins, vals, dele) on the device, and the step's arguments as the
+    host sends them (numpy: the keys, the insert mask ``~present`` and-ed
+    with ``masks[0]``, the delete mask ``masks[1]``, else all set)."""
+    look, ins, vals, dele = oracle.batch(cfg.lookups_per_step,
+                                         cfg.updates_per_step, step)
+    im = ~oracle.present.gather(1, ins)
+    dm = torch.ones_like(im)
+    if masks is not None:
+        im &= masks[0]
+        dm = masks[1]
+    dev = (look, ins, vals, dele, im, dm)
+    args = tuple(x.cpu().numpy() for x in (
+        oracle.key(look), oracle.key(ins), vals, oracle.key(dele), im, dm))
+    return dev, args
+
+
+def stack_check(oracle, dev, out, step: int) -> None:
+    """Every table's answers against the oracle (on the device)."""
+    look, ins, vals, dele, im, dm = dev
+    oracle.step(look, ins, vals, im, dele, dm, out, step)
+
+
+def twin_step(s, args, t: int):
+    """One step of table ``t``'s twin: the port's single-table device-flag
+    ops on its batches, as the stack engine's step runs them (lookup,
+    insert, the ordered delete, the transition, the swap)."""
+    from repro_torch.core import dhash
+    from repro_torch.core.struct_utils import assign_
+    lk, ik, iv, dk, im, dm = (torch.as_tensor(a[t]).to(s.device)
+                              for a in args)
+    f, v = dhash.lookup_by_flag(s, lk)
+    _, ok_i = dhash.insert_by_flag(s, ik, iv, im)
+    s2, ok_d = dhash.delete(s, dk, dm, rebuilding=True)
+    assign_(s, s2)
+    dhash.finish_same_shape_(s, go=dhash.rebuild_step_(s, swap=True))
+    return f, v, ok_i, ok_d
+
+
+def phase_stack(device, cfg, max_steps: int = 1500, twin=(900, 1200),
+                timed: int = 100, later_at: int = 300) -> dict:
+    """3h: a linear stack on the card.  ``DHashStackEngine``, fused, T = 8
+    tables of the ``dhash-paper`` shard unreduced (capacity 2^20, 2^21
+    slots, chunk 4096), populated to 2^20 keys a table; a step is each
+    table's main-path traffic (65536 lookups, half hits, 8192 inserts, 8192
+    deletes).  Staggered epochs: rebuilds requested on tables 0, 2, 4, 6 at
+    step 0 and on 1, 3 at step ``later_at``; 5 and 7 stay steady.  Every answer
+    against a dense oracle a table, every step; over ``twin`` the tables'
+    copies stepped by the single-table device-flag ops (answers equal every
+    step, every state tensor equal at the end); the launches a replayed
+    step credits against the profiler's kernels; then the replayed stacked
+    step timed against eight single-table ``DHashEngine``s stepped in turn,
+    steady and mid-rebuild.  The launch counts are set to 0 just before the
+    engine's steps and read just after (the twins' taken back)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import dhash
+    from repro_torch.core.engine import DHashEngine, DHashStackEngine
+    from repro_torch.kernels import probe
+    T = STACK_T
+    st, oracle = stack_state(device, cfg, 30)
+    eng = DHashStackEngine(st)
+    del st
+    first = np.array([t % 2 == 0 for t in range(T)])
+    later = np.isin(np.arange(T), (1, 3))
+    started = first | later
+    probe.reset_launches()
+    twins, spread, times = None, False, []
+    for s in range(max_steps):
+        if s == 0:
+            eng.request_rebuild(first)
+        elif s == later_at:
+            eng.request_rebuild(later)
+        dev, args = stack_batches(oracle, cfg, s)
+        if s == twin[0]:
+            twins = dhash.unstack(eng.state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.step(*args[:4], ins_mask=args[4], del_mask=args[5])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        stack_check(oracle, dev, out, s)
+        if twins is not None and s < twin[1]:
+            before = probe.launch_counts()
+            for t in range(T):
+                for a, b, n in zip(out, twin_step(twins[t], args, t),
+                                   ("found", "vals", "ok_i", "ok_d")):
+                    check(torch.equal(a[t], b), f"stack step {s}: table "
+                          f"{t}'s {n} differs from its twin's")
+            after = probe.launch_counts()
+            probe.add_launches({k: after[k] - before[k] for k in after}, -1)
+        if twins is not None and s == twin[1] - 1:
+            for t in range(T):
+                pairs = list(zip(_leaves(dhash._table(eng.state, t)),
+                                 _leaves(twins[t])))
+                for (p, a), (_, b) in pairs:
+                    check(torch.equal(a, b), f"stack: table {t}'s state{p} "
+                          f"differs from its twin's after step {s}")
+            twin_leaves = len(pairs)
+            twins = None
+        if s % eng.poll_every == eng.poll_every - 1:
+            oracle.verify("stack")                  # the harness's reads
+            ep = eng.state.epoch.cpu().numpy()
+            spread |= len(set(ep[started].tolist())) > 1
+        if eng._stats.rebuilds_completed >= int(started.sum()) \
+                and s >= twin[1]:
+            break
+    n_steps = s + 1
+    launches = probe.launch_counts()
+    epochs = eng.state.epoch.tolist()
+    check(epochs == started.astype(int).tolist(),
+          f"stack: epochs {epochs}, want {started.astype(int).tolist()}")
+    check(spread, "stack: the started tables' epochs never spread mid-run")
+    no_slot = int(oracle.no_slot)
+    check(no_slot <= 64, f"stack: {no_slot} inserts found no slot")
+    polls = n_steps // eng.poll_every
+    check(eng._stats.host_syncs == polls,
+          f"stack: {eng._stats.host_syncs} host reads in {polls} polls")
+    check(len(eng._step_keys) == 1 and eng._step_cache_size() == 1,
+          f"stack: {len(eng._step_keys)} keys captured")
+    # a step's launches, and the two requests' exchanges (each one launch
+    # for the whole stack)
+    want = {k: STACK_KERNELS.get(k, 0) * n_steps + 2 * (k == "epoch_swap")
+            for k in launches}
+    check(launches == want, f"stack: launches {launches} in {n_steps} "
+          f"steps, want {want}: {STACK_KERNELS} a step and the requests")
+    ts = sorted(times[1:])
+    log(f"  {n_steps} steps of {T} tables; epochs {epochs} (spread across "
+        f"the started tables mid-run), every answer equal to the oracles', "
+        f"{eng._stats.host_syncs} host reads in {polls} polls, one key; "
+        f"twins over steps {twin[0]}-{twin[1] - 1}: answers equal every "
+        f"step, all {twin_leaves} state tensors of each table equal; "
+        f"launches {launches} ({STACK_KERNELS} a step, whatever T); step "
+        f"ms with the harness's synchronise: median "
+        f"{statistics.median(ts):.3f} p99 {ts[int(0.99 * (len(ts) - 1))]:.3f}")
+
+    # the replayed step's credited launches against the profiler's kernels
+    oracle.verify("stack")
+    host_reads = eng._stats.host_syncs
+    extra = [stack_batches(oracle, cfg, 10_000 + i)[1] for i in range(10)]
+
+    def ten():
+        for a in extra:
+            eng.step(*a[:4], ins_mask=a[4], del_mask=a[5])
+    credited, seen = credited_against_profiler(ten, 10, "stack")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ten()
+        torch.cuda.synchronize()
+    busy_steady = sum(getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0))
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA) / 1e3 / 10
+
+    # the stacked step against eight single-table engines stepped in turn,
+    # on the same batches: steady, then mid-rebuild
+    singles = [DHashEngine(s) for s in dhash.unstack(eng.state)]
+    out = dict(steps=n_steps, epochs=epochs, host_reads=host_reads,
+               polls=polls, launches_a_step=STACK_KERNELS,
+               profiler_replays_seen=seen, twin_steps=list(twin),
+               step_ms=statistics.median(ts),
+               step_p99_ms=ts[int(0.99 * (len(ts) - 1))])
+    for label in ("steady", "rebuild"):
+        if label == "rebuild":
+            eng.request_rebuild()
+            for e1 in singles:
+                e1.request_rebuild()
+        t_stack, t_single = [], []
+        for i in range(timed + 2):
+            a = stack_batches(oracle, cfg, 20_000 + i)[1]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.step(*a[:4], ins_mask=a[4], del_mask=a[5])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for t, e1 in enumerate(singles):
+                e1.step(a[0][t], a[1][t], a[2][t], a[3][t], ins_mask=a[4][t],
+                        del_mask=a[5][t])
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if i >= 2:          # the first steps of a key capture
+                t_stack.append((t1 - t0) * 1e3)
+                t_single.append((t2 - t1) * 1e3)
+        a, b = sorted(t_stack), sorted(t_single)
+        p99 = int(0.99 * (len(a) - 1))
+        out[label] = dict(stack_ms=statistics.median(a), stack_p99_ms=a[p99],
+                          singles_ms=statistics.median(b),
+                          singles_p99_ms=b[p99],
+                          ratio=statistics.median(a) / statistics.median(b))
+        if label == "rebuild":
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                ten()
+                torch.cuda.synchronize()
+            out[label]["stack_busy_ms"] = sum(
+                getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0))
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA) / 1e3 / 10
+        else:
+            out[label]["stack_busy_ms"] = busy_steady
+        out[label]["single_step_launches"] = {
+            k: v for k, v in singles[0]._steps[
+                singles[0]._step_keys[-1]].credit.items() if v}
+        log(f"  {label}: replayed stacked step against 8 single-table "
+            f"engines in turn, ms: " + json.dumps(out[label]))
+    check(all(eng.state.rebuilding.tolist()),
+          "stack: the timed rebuild did not start on every table")
+    out["launches"] = launches
+    del singles
+    return out
+
+
+def phase_stack_policy(device, cfg, tomb_load: float = 0.1,
+                       max_steps: int = 1600) -> dict:
+    """3i: the policy's stack arm on the card.  The same 8-table stack
+    under ``policy.make(in_place=True, tomb_load=0.1)``: deletes drain
+    tables 1 (8192 a step, 30 steps) and 5 (4096 a step, 60 steps) only,
+    the others take lookups alone; each crosses 0.1 x 2^21 tombstones and
+    fires its rehash on the device at its own step, between polls.  Every
+    answer against the oracles every step, until both rehashes finish."""
+    from repro_torch.core import policy as elastic
+    from repro_torch.core.engine import DHashStackEngine
+    from repro_torch.kernels import probe
+    T, QU = STACK_T, cfg.updates_per_step
+    st, oracle = stack_state(device, cfg, 40)
+    eng = DHashStackEngine(st, policy=elastic.make(
+        in_place=True, tomb_load=tomb_load, device=device))
+    del st
+    slots = eng.state.old.capacity
+    limit = int(slots * tomb_load)
+    rates = {1: (QU, 30), 5: (QU // 2, 60)}
+    hot = np.isin(np.arange(T), list(rates))
+    probe.reset_launches()
+    tombs = np.zeros(T, np.int64)
+    fire_at = {}
+    for s in range(max_steps):
+        im = torch.zeros((T, QU), dtype=torch.bool, device=device)
+        dm = torch.zeros((T, QU), dtype=torch.bool, device=device)
+        for t, (rate, until) in rates.items():
+            if s < until:
+                dm[t, :rate] = True
+        dev, args = stack_batches(oracle, cfg, s, (im, dm))
+        out = eng.step(*args[:4], ins_mask=args[4], del_mask=args[5])
+        stack_check(oracle, dev, out, s)
+        if s % eng.poll_every == eng.poll_every - 1:
+            oracle.verify("stack policy")
+        ok_d = out[3].cpu().numpy()
+        for t in rates:
+            if t not in fire_at:
+                tombs[t] += int(ok_d[t].sum())
+                if tombs[t] > limit:
+                    fire_at[t] = s
+        if len(fire_at) == 2 and s > max(fire_at.values()) + 8 \
+                and s % eng.poll_every == eng.poll_every - 1 \
+                and eng._stats.rebuilds_completed == 2:
+            break
+    n_steps = s + 1
+    launches = probe.launch_counts()
+    oracle.verify("stack policy")
+    fires = eng.policy.fires.tolist()
+    epochs = eng.state.epoch.tolist()
+    want = hot.astype(int).tolist()
+    check(fires == want and epochs == want,
+          f"stack policy: fires {fires}, epochs {epochs}, want {want}")
+    check(not any(eng.state.rebuilding.tolist()),
+          "stack policy: a rehash did not finish")
+    polls = n_steps // eng.poll_every
+    check(eng._stats.host_syncs == polls,
+          f"stack policy: {eng._stats.host_syncs} host reads in {polls} "
+          f"polls")
+    between = {t: s % eng.poll_every != eng.poll_every - 1
+               for t, s in fire_at.items()}
+    check(int(oracle.no_slot) <= 64, "stack policy: inserts found no slot")
+    check(all(between.values()) and fire_at[1] != fire_at[5],
+          f"stack policy: fires at steps {fire_at}")
+    check(all(launches[k] > 0 for k in STACK_KERNELS)
+          and all(v == 0 for k, v in launches.items()
+                  if k not in STACK_KERNELS),
+          f"stack policy: launches {launches}")
+    out = dict(steps=n_steps, tomb_load=tomb_load, tomb_limit=limit,
+               fire_steps=fire_at, fires=fires, epochs=epochs,
+               host_reads=eng._stats.host_syncs, polls=polls,
+               launches=launches)
+    log(f"  tomb_load {tomb_load} ({limit} tombstones of {slots} slots): "
+        f"table 1 fired at step {fire_at[1]}, table 5 at step {fire_at[5]} "
+        f"(on the device, between polls); fires {fires}, epochs {epochs} "
+        f"after {n_steps} steps, every answer equal to the oracles', "
+        f"{eng._stats.host_syncs} host reads in {polls} polls; launches "
+        f"{launches}")
+    return out
+
+
 def phase_lockstep(device, backend: str, max_steps: int):
     """fused=True against the port's plain path, same ops, one epoch (the
     fused engine replaying its step, the plain one eager).  The
@@ -4502,6 +5265,9 @@ def main() -> int:
                 or line.startswith("=="):
             log("   ", line.strip())
 
+    def elapsed():
+        log(f"  ({time.perf_counter() - t_start:.0f} s since the start)")
+
     log("== 2. kernels against their plain versions (tolerance 0): linear "
         f"C=2^21, max_probes=64; two-row 2^18 x 8; chain arena 2^20 nodes, "
         f"2^16 buckets, max_chain=64; "
@@ -4525,11 +5291,18 @@ def main() -> int:
                                             "bound_by")})
     # the cuckoo insert launches tc_insert with the kick-out in its resolve
     kres["tc_insert"]["cuckoo_insert"] = kres.pop("cuckoo_insert")
+    log(f"  the table axis: {STACK_T} linear tables of 2^21 slots, "
+        f"main-path batches a table")
+    for name, r in stack_kernel_cases(device, CONFIG, args.reps).items():
+        kres[name]["stack"] = r
+        kres[name]["max_abs_err"] = max(kres[name]["max_abs_err"],
+                                        r["max_abs_err"])
 
     by_path = {}
     for i, name in enumerate(BACKENDS):
         cfg = dataclasses.replace(CONFIG, backend=name)
         linear = name == "linear"
+        elapsed()
         log(f"== 3{'abcd'[i]}. main path, {name}: {cfg.arch_id} unreduced, "
             f"capacity {cfg.capacity_per_shard}, chunk {cfg.chunk}, "
             f"{cfg.lookups_per_step}+{cfg.updates_per_step}+"
@@ -4545,10 +5318,12 @@ def main() -> int:
                                    profile_to=prof,
                                    flood=Flood(2048, after_swap=1, delay=400)
                                    if name == "cuckoo" else None)
+    elapsed()
     log(f"== 3e. collision flood, chain: {CONFIG.arch_id} unreduced (arena "
         f"{CONFIG.capacity_per_shard} nodes), 2048 keys into one bucket, "
         f"max_chain 2112")
     phase_chain_flood(device, CONFIG, args.reps)
+    elapsed()
     log(f"== 3f. one rebuild-epoch step in a CUDA graph, replayed across a "
         f"live swap against the eager engine ({CONFIG.arch_id} unreduced)")
     graphs = {}
@@ -4558,23 +5333,42 @@ def main() -> int:
     log(f"  {card}; replayed step against eager, ms: " + "; ".join(
         f"{k} {v['replay_ms']:.3f} / {v['eager_ms']:.3f} (busy "
         f"{v['replay_busy_ms']:.3f})" for k, v in graphs.items()))
+    elapsed()
     log(f"== 3g. the elastic policy on the card: linear, {CONFIG.arch_id} "
         f"unreduced, a burst past the high watermark (grow to 2^22 slots), "
         f"a drain below the low one (a reclaim rehash fired on the device, "
         f"then the shrink to 2^20)")
     policy_run = phase_policy(device, CONFIG)
     log(f"  {card}; " + json.dumps(policy_run))
+    elapsed()
+    log(f"== 3h. a linear table stack on the card: DHashStackEngine, "
+        f"{STACK_T} tables of {CONFIG.arch_id} unreduced (capacity "
+        f"{CONFIG.capacity_per_shard}, chunk {CONFIG.chunk}), "
+        f"{CONFIG.lookups_per_step}+{CONFIG.updates_per_step}+"
+        f"{CONFIG.updates_per_step} operations a table a step, staggered "
+        f"epochs")
+    stack_run = phase_stack(device, CONFIG)
+    by_path["stack"] = stack_run.pop("launches")
+    log(f"  {card}; " + json.dumps(stack_run))
+    elapsed()
+    log(f"== 3i. the policy's stack arm on the card: the same {STACK_T}-table "
+        f"stack, in-place policy, deletes draining tables 1 and 5")
+    stack_policy_run = phase_stack_policy(device, CONFIG)
+    by_path["stack_policy"] = stack_policy_run.pop("launches")
+    log(f"  {card}; " + json.dumps(stack_policy_run))
 
+    elapsed()
     log("== 4. fused engine against the plain path in lock step")
     for name in BACKENDS:
         phase_lockstep(device, name, 200)
+    elapsed()
     log("== 5. a table larger than L2 (linear, capacity 2^24, 2^25 slots)")
     phase_big(device, CONFIG, args.big_steps, args.reps)
 
     kernels = []
     for name in probe.KERNELS:
         src, rep = KERNEL_INFO[name]
-        paths = {b: by_path[b][name] for b in BACKENDS}
+        paths = {b: counts[name] for b, counts in by_path.items()}
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": sum(paths.values()),
                         "launches_by_path": paths, **kres[name],
@@ -4585,8 +5379,10 @@ def main() -> int:
         f"bounded walk, a cuckoo kick-out, a guarded two-table exchange, a "
         f"guarded arena compaction), "
         f"so library_ms is null; times are medians of {args.reps} launches, "
-        f"tables warm in L2; launches are summed over the four main paths "
-        f"(launches_by_path: each path's own count)")
+        f"tables warm in L2; launches are summed over the six main paths "
+        f"(launches_by_path: each path's own count: the four backends, the "
+        f"table stack and its policy arm); \"stack\" gives the four "
+        f"kernels with the table axis at T = {STACK_T}")
     log(f"  total {time.perf_counter() - t_start:.0f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

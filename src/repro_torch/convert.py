@@ -38,7 +38,9 @@ configuration fields as plain values beside its device state:
      "armed": bool[], "want_grow": bool[], "want_shrink": bool[],
      "target_capacity": int32[], "fires": int32[]}.
 
-Hash seeds are ``uint32`` in the tree and int64 words in ``[0, 2**32)`` in
+A table stack (``dhash.make_stack``; a stacked policy, ``policy.stack``)
+is the same tree with every array leading with [T] (scalars [T]).  Hash
+seeds are ``uint32`` in the tree and int64 words in ``[0, 2**32)`` in
 the port.  The two-row insert kernel's claim scratch (twochoice and cuckoo
 tables only) is not part of a table's contents: it is made anew on the way
 in and left out on the way back.
@@ -107,7 +109,7 @@ def table_from_numpy(tree: dict, device: torch.device | str = "cuda",
                for f in _ARRAYS.get(cls, _SLOTS)})
     if dev.type == "cuda" and cls in _CLAIMS:
         from repro_torch.kernels.probe import new_claim
-        kw["claim"] = new_claim(kw["key"].shape[0], dev)
+        kw["claim"] = new_claim(kw["key"].shape[:-1], dev)
     return cls(**kw)
 
 
@@ -130,8 +132,7 @@ def state_from_numpy(tree: dict, device: torch.device | str = "cuda"
           "fwd_hazard": bool(tree["fwd_hazard"]), "fused": bool(tree["fused"]),
           "nres_cap": int(tree["nres_cap"])}
     for name, dt in _SCALARS:
-        kw[name] = _to_dev(np.asarray(tree[name], dtype=dt).reshape(()), dt,
-                           device)
+        kw[name] = _to_dev(tree[name], dt, device)
     return DHashState(
         old=table_from_numpy(tree["old"], device, kw["backend"]),
         new=table_from_numpy(tree["new"], device, kw["backend"]),
@@ -164,8 +165,7 @@ def policy_from_numpy(tree: dict, device: torch.device | str = "cuda"
     kw = {f.name: tree[f.name] for f in dataclasses.fields(ElasticPolicy)
           if f.name not in state}
     for name, dt in _POLICY_STATE:
-        kw[name] = _to_dev(np.asarray(tree[name], dtype=dt).reshape(()), dt,
-                           device)
+        kw[name] = _to_dev(tree[name], dt, device)
     return ElasticPolicy(**kw)
 
 

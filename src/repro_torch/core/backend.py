@@ -39,7 +39,10 @@ Cuckoo drives the twochoice kernels with side-offset rows; only its insert
 adds the bounded kick-out, run by the insert kernel's resolve.  Chain's
 insert adds the compaction, a kernel that reads its trigger on the device
 and returns at once below it (no host read).
-``epoch_leaves`` lists a table's tensor leaves with what a rebuild start
+The linear descriptor also carries the stack set: the forms of its
+ordered lookup and delete, its insert and the transition on a table stack
+(``dhash.make_stack``), one kernel launch for all T tables.  ``epoch_leaves``
+lists a table's tensor leaves (a stack's: [T, ...]) with what a rebuild start
 clears each to, for the epoch-swap kernel, from the descriptor's
 ``clear_fill`` and ``salt_offsets`` (stated next to ``clear`` and
 ``reseed``, which they must reproduce).
@@ -109,6 +112,21 @@ class BucketBackend:
           -> (found, vals)                     whole Lemma-4.1 ordered check
       ordered_delete_fused(t_old, t_new, hk, hv, hl, keys, mask, *, nres_cap)
           -> (old_state, new_state, hl', ok)
+
+    Stack set (``None`` = a table stack's ops loop over its tables' views;
+    all-or-none; on stacked tables, every tensor leading with [T], keys
+    [T, Q], one kernel launch for the T tables, each table's branch picked
+    on the device by its flag in ``rebuilding`` [T]):
+
+      stack_ordered_lookup_fused(t_old, t_new, hk, hv, hl, keys, rebuilding)
+          -> (found, vals, loc_old)     idle tables: their old table alone
+      stack_ordered_delete_fused(t_old, t_new, hk, hv, hl, keys, mask,
+                                 rebuilding) -> (old_state, new_state, hl', ok)
+      stack_insert_fused(t, keys, vals, mask, *, alt=None, use_alt=None,
+                         with_present=False, dedup=True) -> (t, ok[, present])
+          into ``t``, or ``alt`` where ``use_alt`` [T] is set
+      stack_transition_fused(t, cursor, n, hazard, rebuilding, ok, present,
+                             swap, start) -> go[T, 2]
     """
 
     name: str
@@ -149,6 +167,11 @@ class BucketBackend:
     transition_fused: Callable[..., Any] | None = None
     ordered_lookup_fused: Callable[..., Any] | None = None
     ordered_delete_fused: Callable[..., Any] | None = None
+    # a table stack's kernel-backed ops
+    stack_ordered_lookup_fused: Callable[..., Any] | None = None
+    stack_ordered_delete_fused: Callable[..., Any] | None = None
+    stack_insert_fused: Callable[..., Any] | None = None
+    stack_transition_fused: Callable[..., Any] | None = None
     # optional hooks
     freeze_old: Callable[..., Any] | None = None
     lookup_fwd: Callable[..., Any] | None = None
@@ -158,6 +181,12 @@ class BucketBackend:
     def fused(self) -> bool:
         """True iff this backend has the full kernel-backed op set."""
         return self.lookup_fused is not None
+
+    @property
+    def stack_fused(self) -> bool:
+        """True iff a fused stack of this backend runs each op as one
+        launch for all its tables (the stack set)."""
+        return self.stack_insert_fused is not None
 
     def __post_init__(self):
         fused_set = (self.lookup_fused, self.lookup_fused_loc,
@@ -169,6 +198,13 @@ class BucketBackend:
         if any(have) and not all(have):
             raise ValueError(f"backend {self.name!r}: fused ops must be "
                              f"all-or-none, got {have}")
+        stack_set = (self.stack_ordered_lookup_fused,
+                     self.stack_ordered_delete_fused,
+                     self.stack_insert_fused, self.stack_transition_fused)
+        have = [f is not None for f in stack_set]
+        if any(have) and not (all(have) and self.fused):
+            raise ValueError(f"backend {self.name!r}: stack ops must be "
+                             f"all-or-none, on a fused backend, got {have}")
 
 
 REGISTRY: dict[str, BucketBackend] = {}
@@ -292,11 +328,14 @@ def transition_fused(t, cursor: torch.Tensor, n: int, hazard, rebuilding,
                      ok, present, swap: bool, start: bool) -> torch.Tensor:
     """The rebuild step's transition on a slot table (``probe.transition``
     on the row-major flattened slot arrays, the scan order of
-    ``extract_chunk_fused``, with its chunk contract).  Returns go[2]."""
+    ``extract_chunk_fused``, with its chunk contract); on a table stack
+    (``cursor`` [T]) each table's arrays flattened on its row, one launch.
+    Returns go[2] (go[T, 2])."""
     from repro_torch.kernels import probe
-    return probe.transition(t.key.view(-1), t.val.view(-1),
-                            t.state.view(-1), cursor, n, hazard, rebuilding,
-                            ok, present, swap, start)
+    lead = tuple(cursor.shape)
+    return probe.transition(t.key.view(*lead, -1), t.val.view(*lead, -1),
+                            t.state.view(*lead, -1), cursor, n, hazard,
+                            rebuilding, ok, present, swap, start)
 
 
 def linear_ordered_lookup_fused(t_old: LinearTable, t_new: LinearTable,
@@ -337,6 +376,71 @@ def linear_ordered_delete_fused(t_old: LinearTable, t_new: LinearTable,
         (t_new.key, t_new.val, t_new.state),
         hazard_key, hazard_val, hazard_live, h0_old, h0_new, keys, winner,
         max_probes=t_old.max_probes, nres_cap=nres_cap)
+
+
+def linear_stack_ordered_lookup_fused(t_old: LinearTable, t_new: LinearTable,
+                                      hazard_key, hazard_val, hazard_live,
+                                      keys: torch.Tensor,
+                                      rebuilding: torch.Tensor):
+    """A linear table stack's lookup: ONE probe2 launch for its T tables,
+    the ordered check on the tables mid-rebuild and the old table alone on
+    the others (the reference's ``cond(rebuilding)`` between
+    ``ordered_lookup_fused`` and ``lookup_fused(old)``).  Returns (found,
+    vals, loc_old): the old-table hit slots are the steady branch's probe
+    telemetry."""
+    from repro_torch.kernels import ops
+    h0_old = hashing.bucket_of(t_old.hfn, keys, t_old.capacity)
+    h0_new = hashing.bucket_of(t_new.hfn, keys, t_new.capacity)
+    return ops.ordered_lookup_fused(
+        (t_old.key, t_old.val, t_old.state),
+        (t_new.key, t_new.val, t_new.state),
+        hazard_key, hazard_val, hazard_live, h0_old, h0_new, keys,
+        max_probes=t_old.max_probes, rebuilding=rebuilding, with_loc=True)
+
+
+def linear_stack_ordered_delete_fused(t_old: LinearTable, t_new: LinearTable,
+                                      hazard_key, hazard_val, hazard_live,
+                                      keys: torch.Tensor, mask: torch.Tensor,
+                                      rebuilding: torch.Tensor):
+    """A linear table stack's delete: ONE probe2 launch for its T tables
+    (the ordered check mid-rebuild, the old table alone elsewhere: the
+    steady delete) and the three landing scatters over the stacked arrays.
+    Writes both state arrays in place.  Returns (old_state, new_state,
+    hazard_live', ok)."""
+    from repro_torch.kernels import ops
+    winner = batch_winners(keys, mask)
+    h0_old = hashing.bucket_of(t_old.hfn, keys, t_old.capacity)
+    h0_new = hashing.bucket_of(t_new.hfn, keys, t_new.capacity)
+    return ops.ordered_delete_fused(
+        (t_old.key, t_old.val, t_old.state),
+        (t_new.key, t_new.val, t_new.state),
+        hazard_key, hazard_val, hazard_live, h0_old, h0_new, keys, winner,
+        max_probes=t_old.max_probes, rebuilding=rebuilding)
+
+
+def linear_stack_insert_fused(t: LinearTable, keys: torch.Tensor,
+                              vals: torch.Tensor, mask: torch.Tensor, *,
+                              alt: LinearTable | None = None,
+                              use_alt: torch.Tensor | None = None,
+                              with_present: bool = False,
+                              dedup: bool = True):
+    """A linear table stack's insert: one row-wise ``batch_winners`` sort
+    and ONE ``probe_insert`` launch for its T tables, each into ``t`` or,
+    where ``use_alt`` is set, into ``alt`` (a table of ``t``'s shape): the
+    reference's ``cond(rebuilding)`` between the new and the old table,
+    decided in the kernel.  Writes the targets in place.  Returns (t, ok),
+    or (t, ok, present)."""
+    from repro_torch.kernels import ops
+    winner = batch_winners(keys, mask) if dedup else mask
+    h0 = hashing.bucket_of(t.hfn, keys, t.capacity)
+    if alt is not None:
+        h0 = torch.where(use_alt[:, None],
+                         hashing.bucket_of(alt.hfn, keys, alt.capacity), h0)
+        alt = (alt.key, alt.val, alt.state)
+    *_, ok, present = ops.probe_insert(
+        t.key, t.val, t.state, h0, keys, vals, winner,
+        max_probes=t.max_probes, with_present=True, alt=alt, use_alt=use_alt)
+    return (t, ok, present) if with_present else (t, ok)
 
 
 # ---------------------------------------------------------------------------
@@ -717,11 +821,12 @@ def epoch_leaves(t) -> list:
 # ---------------------------------------------------------------------------
 
 def _count_tomb(t) -> torch.Tensor:
-    return (t.state == buckets.TOMB).sum().to(torch.int32)
+    return buckets.per_table_sum(t.state == buckets.TOMB, t).to(torch.int32)
 
 
 def _chain_count_tomb(t: ChainTable) -> torch.Tensor:
-    return (t.astate == buckets.TOMB).sum().to(torch.int32)
+    return buckets.per_table_sum(t.astate == buckets.TOMB, t).to(
+        torch.int32)
 
 
 def _linear_probe_cost(t: LinearTable, keys, found, loc) -> torch.Tensor:
@@ -805,6 +910,10 @@ LINEAR = register(BucketBackend(
     transition_fused=transition_fused,
     ordered_lookup_fused=linear_ordered_lookup_fused,
     ordered_delete_fused=linear_ordered_delete_fused,
+    stack_ordered_lookup_fused=linear_stack_ordered_lookup_fused,
+    stack_ordered_delete_fused=linear_stack_ordered_delete_fused,
+    stack_insert_fused=linear_stack_insert_fused,
+    stack_transition_fused=transition_fused,
     lookup_fwd=buckets.linear_lookup_fwd,
     hash_fns=_hash_fns_one,
 ))

@@ -64,20 +64,31 @@ BACKENDS = ("linear", "twochoice", "chain", "cuckoo")
 
 def batch_winners(keys: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """First masked occurrence of each distinct key wins (deterministic
-    linearization of intra-batch duplicate ops).
+    linearization of intra-batch duplicate ops).  Over the last axis: a
+    table stack's [T, Q] batch dedups within each row only.
 
-    One stable sort on a packed 64-bit word: the key (sign-extended, so
-    negative keys keep their order) shifted left once, with the low bit set
-    for unmasked entries so masked ones come first within a key."""
-    q = keys.shape[0]
+    One stable sort (along the last axis) on a packed 64-bit word: the key
+    (sign-extended, so negative keys keep their order) shifted left once,
+    with the low bit set for unmasked entries so masked ones come first
+    within a key."""
     packed = (keys.to(torch.int64) << 1) | (~mask).to(torch.int64)
-    _, order = torch.sort(packed, stable=True)
-    ks, ms = keys[order], mask[order]
-    first = torch.ones(q, dtype=torch.bool, device=keys.device)
-    first[1:] = ks[1:] != ks[:-1]
-    win = torch.empty(q, dtype=torch.bool, device=keys.device)
-    win[order] = ms & first
-    return win
+    _, order = torch.sort(packed, dim=-1, stable=True)
+    ks, ms = keys.gather(-1, order), mask.gather(-1, order)
+    first = torch.ones_like(ms)
+    first[..., 1:] = ks[..., 1:] != ks[..., :-1]
+    return torch.empty_like(ms).scatter_(-1, order, ms & first)
+
+
+def table_lead(t) -> tuple:
+    """The leading axes of a table's tensors past one table's own: () for
+    one table, (T,) for a table stack (read from its hash function)."""
+    return hashing.lead_shape(t.hfn if hasattr(t, "hfn") else t.hfn_a)
+
+
+def per_table_sum(x: torch.Tensor, t) -> torch.Tensor:
+    """``x`` (shaped as one of ``t``'s tensor fields) summed over each
+    table: a 0-dim tensor, or [T] for a table stack."""
+    return x.reshape(*table_lead(t), -1).sum(-1)
 
 
 def _argpick(hit: torch.Tensor, vals: torch.Tensor, dim: int = -1):
@@ -143,7 +154,7 @@ def extract_chunk(t, cursor: torch.Tensor, n: int):
 
 
 def count_live(t):
-    return (t.state == LIVE).sum()
+    return per_table_sum(t.state == LIVE, t)
 
 
 def clear(t):
@@ -505,7 +516,7 @@ def chain_compact(t: ChainTable) -> ChainTable:
 
 
 def chain_count_live(t: ChainTable):
-    return (t.astate == LIVE).sum()
+    return per_table_sum(t.astate == LIVE, t)
 
 
 def chain_clear(t: ChainTable) -> ChainTable:

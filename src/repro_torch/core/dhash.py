@@ -55,8 +55,16 @@ over the same tensors — a state passed to ``insert``/``delete``/
 ``rebuild_*`` must not be used again afterwards.  With ``fused=False``
 every op is functional.  ``lookup`` never writes.
 
-Table stacks (``make_stack`` and the ``stack_*`` ops of the reference) are
-not ported yet.
+* **Table stacks** (``make_stack`` + the ``stack_*`` ops): a stack of T
+  independent tables is one state whose every tensor leads with [T] (the
+  configuration is shared).  The reference ``jax.vmap``s the single-table
+  ops, which gives each of its kernels a grid axis over [T]; here the
+  descriptor's stack set runs each op as ONE launch of each kernel for the
+  T tables, each table's branch (rebuilding or not) picked in the kernel by
+  its own device flag (linear, ``fused=True``); every other stack loops
+  over its tables' views with the single-table device-flag forms.  Every
+  stack op decides on the device and writes the stack in place; none reads
+  the host.  Each table runs its own rebuild epoch (multi-tenant serving).
 """
 from __future__ import annotations
 
@@ -68,7 +76,8 @@ import torch
 
 from repro_torch.core import backend as backends
 from repro_torch.core import buckets
-from repro_torch.core.struct_utils import assign_, replace, state_dataclass
+from repro_torch.core.struct_utils import (assign_, map_tensors, replace,
+                                          state_dataclass)
 
 I32 = torch.int32
 
@@ -210,6 +219,15 @@ def _slow_lookup(dd: DHashState, keys: torch.Tensor):
     return found, val
 
 
+def _steady_lookup(d: DHashState, keys: torch.Tensor):
+    """The steady state's lookup: the old table alone."""
+    be = _be(d)
+    if d.fused:
+        return be.lookup_fused(d.old, keys)
+    f, v, _ = be.lookup(d.old, keys)
+    return f, v
+
+
 @torch.no_grad()
 def lookup(d: DHashState, keys: torch.Tensor, *,
            rebuilding: bool | None = None):
@@ -218,13 +236,9 @@ def lookup(d: DHashState, keys: torch.Tensor, *,
     With ``fused`` both branches are one kernel launch: ``probe_lookup`` in
     the steady state, ``probe2`` (the whole old -> hazard -> new ordered
     check) during a rebuild epoch.  Never writes ``d``."""
-    be = _be(d)
     if _flag(d.rebuilding, rebuilding):
         return _slow_lookup(d, keys)
-    if d.fused:
-        return be.lookup_fused(d.old, keys)
-    f, v, _ = be.lookup(d.old, keys)
-    return f, v
+    return _steady_lookup(d, keys)
 
 
 @torch.no_grad()
@@ -499,6 +513,17 @@ def lookup_counted_(d: DHashState, keys: torch.Tensor, *,
 
 
 @torch.no_grad()
+def lookup_by_flag(d: DHashState, keys: torch.Tensor):
+    """``lookup`` decided on the device: both of the reference's branches
+    run, and the DEVICE flag ``rebuilding`` picks the answers.  Never
+    writes ``d``.  Returns (found, vals)."""
+    f, v = _steady_lookup(d, keys)
+    f_rb, v_rb = _slow_lookup(d, keys)
+    rb = d.rebuilding
+    return torch.where(rb, f_rb, f), torch.where(rb, v_rb, v)
+
+
+@torch.no_grad()
 def insert_by_flag(d: DHashState, keys: torch.Tensor, vals: torch.Tensor,
                    mask: torch.Tensor | None = None):
     """``insert`` whose target the DEVICE flag ``rebuilding`` picks: the new
@@ -628,3 +653,225 @@ def count_items(d: DHashState) -> torch.Tensor:
     be = _be(d)
     return (be.count_live(d.old) + be.count_live(d.new)
             + d.hazard_live.sum()).to(I32)
+
+
+# ---------------------------------------------------------------------------
+# table stacks: T independent tables on a leading axis
+# ---------------------------------------------------------------------------
+#
+# A stack is an ordinary DHashState whose every tensor leads with [T] (the
+# configuration — backend, chunk, fused, the tables' sizes — is shared).
+# Where the descriptor has the stack set (linear, fused=True) each op is one
+# launch of each kernel for all T tables, each table's branch picked by its
+# own device flag in the kernel; otherwise each op runs the single-table
+# device-flag form on each table's view (``_table``), which writes through to
+# the stack.  No stack op reads the host.
+
+def make_stack(n_tables: int, backend: str = "linear", capacity: int = 1024,
+               *, chunk: int = 256, seed: int = 0,
+               device: torch.device | str = "cuda", **kw) -> DHashState:
+    """``n_tables`` independent tables (table i seeded ``seed + i``, so
+    their hash functions differ) stacked on a leading [T] axis."""
+    if n_tables < 1:
+        raise ValueError(f"need at least one table, got {n_tables}")
+    tables = [make(backend, capacity, chunk=chunk, seed=seed + i,
+                   device=device, **kw) for i in range(n_tables)]
+    return map_tensors(lambda *xs: torch.stack(xs), *tables)
+
+
+def stack_size(d: DHashState) -> int:
+    """T of a stacked state (the leading axis of its scalars)."""
+    return d.cursor.shape[0]
+
+
+def _table(d: DHashState, i: int) -> DHashState:
+    """Table ``i`` of a stack as a VIEW: its writes land in the stack (a
+    row of a contiguous [T, ...] tensor is contiguous, as the kernels
+    require)."""
+    return map_tensors(lambda x: x[i], d)
+
+
+def unstack(d: DHashState) -> list[DHashState]:
+    """The T tables of a stack as independent single-table states
+    (copies)."""
+    return [map_tensors(lambda x: x[i].clone(), d)
+            for i in range(stack_size(d))]
+
+
+def _one_launch(d: DHashState) -> bool:
+    """Whether the stack's ops run as one launch of each kernel for all its
+    tables (the descriptor's stack set, on a fused stack)."""
+    return d.fused and _be(d).stack_fused
+
+
+def _each(d: DHashState, fn, *rows) -> tuple:
+    """``fn(table i, row i of each of rows)`` for every table, its results
+    stacked (the loop over the views)."""
+    outs = [fn(_table(d, i), *(r[i] for r in rows))
+            for i in range(stack_size(d))]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(o) for o in zip(*outs))
+    return torch.stack(outs)
+
+
+def _ones(keys: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    if mask is None:
+        return torch.ones(keys.shape, dtype=torch.bool, device=keys.device)
+    return mask
+
+
+@torch.no_grad()
+def stack_lookup(d: DHashState, keys: torch.Tensor,
+                 mask: torch.Tensor | None = None):
+    """Lookup over the stack: keys [T, Q] -> (found, vals) [T, Q], each
+    table on its own branch.  ``mask`` squelches ``found`` for padding
+    slots (a routed batch's zero padding never reports a hit).  Never
+    writes ``d``."""
+    if _one_launch(d):
+        found, vals, _ = _be(d).stack_ordered_lookup_fused(
+            d.old, d.new, d.hazard_key, d.hazard_val, d.hazard_live, keys,
+            d.rebuilding)
+    else:
+        found, vals = _each(d, lookup_by_flag, keys)
+    if mask is not None:
+        found = found & mask
+    return found, vals
+
+
+@torch.no_grad()
+def stack_lookup_counted_(d: DHashState, keys: torch.Tensor, *,
+                          probe_hi: int = 7):
+    """``lookup_counted`` over the stack, IN PLACE: each table answers on
+    its own branch and samples the probe telemetry (``lookups`` /
+    ``expensive`` [T]) only where it is not rebuilding.  Returns (found,
+    vals) [T, Q]."""
+    if not _one_launch(d):
+        return _each(d, lambda t, k: lookup_counted_(t, k,
+                                                     probe_hi=probe_hi),
+                     keys)
+    be = _be(d)
+    found, vals, loc = be.stack_ordered_lookup_fused(
+        d.old, d.new, d.hazard_key, d.hazard_val, d.hazard_live, keys,
+        d.rebuilding)
+    cost = be.probe_cost(d.old, keys, found, loc)
+    exp = (found & (cost >= probe_hi)).sum(-1).to(I32)
+    rb = d.rebuilding
+    d.lookups.copy_(torch.where(rb, d.lookups, d.lookups + keys.shape[-1]))
+    d.expensive.copy_(torch.where(rb, d.expensive, d.expensive + exp))
+    return found, vals
+
+
+@torch.no_grad()
+def stack_insert(d: DHashState, keys: torch.Tensor, vals: torch.Tensor,
+                 mask: torch.Tensor | None = None):
+    """Insert over the stack ([T, Q] operands), each table into its target
+    (the new table where it is rebuilding, else the old one), IN PLACE.
+    Returns (d, ok)."""
+    mask = _ones(keys, mask)
+    if _one_launch(d):
+        _, ok = _be(d).stack_insert_fused(d.old, keys, vals, mask,
+                                          alt=d.new, use_alt=d.rebuilding)
+        return d, ok
+    return d, _each(d, lambda t, k, v, m: insert_by_flag(t, k, v, m)[1],
+                    keys, vals, mask)
+
+
+def _ordered_delete_(t: DHashState, keys, mask) -> torch.Tensor:
+    """One table's delete through the ordered check, IN PLACE: right
+    whether or not it is rebuilding (an idle table's hazard buffer is dead
+    and its standby holds nothing LIVE).  Returns ok."""
+    t2, ok = delete(t, keys, mask, rebuilding=True)
+    assign_(t, t2)
+    return ok
+
+
+@torch.no_grad()
+def stack_delete(d: DHashState, keys: torch.Tensor,
+                 mask: torch.Tensor | None = None):
+    """Delete over the stack ([T, Q] operands), each table on its own
+    branch, IN PLACE.  Returns (d, ok)."""
+    mask = _ones(keys, mask)
+    if _one_launch(d):
+        _, _, hl, ok = _be(d).stack_ordered_delete_fused(
+            d.old, d.new, d.hazard_key, d.hazard_val, d.hazard_live, keys,
+            mask, d.rebuilding)
+        d.hazard_live.copy_(hl)
+        return d, ok
+    return d, _each(d, _ordered_delete_, keys, mask)
+
+
+@torch.no_grad()
+def stack_rebuild_step_(d: DHashState, *, swap: bool = False,
+                        start: bool = False) -> torch.Tensor:
+    """``rebuild_step_`` on every table of the stack, IN PLACE: one
+    transition on each rebuilding table (epochs advance independently; idle
+    tables are untouched) and each table's epoch decision.  Returns
+    go[T, 2] on the device (``finish_same_shape_``'s)."""
+    if not _one_launch(d):
+        return _each(d, lambda t: rebuild_step_(t, swap=swap, start=start))
+    be = _be(d)
+    hazard = (d.hazard_key, d.hazard_val, d.hazard_live)
+    _, ok, present = be.stack_insert_fused(d.new, *hazard, with_present=True,
+                                           dedup=False)
+    return be.stack_transition_fused(d.old, d.cursor, d.chunk, hazard,
+                                     d.rebuilding, ok, present, swap, start)
+
+
+def stack_rebuild_step(d: DHashState) -> DHashState:
+    """One rebuild transition on every (rebuilding) table of the stack, IN
+    PLACE.  Returns ``d``."""
+    stack_rebuild_step_(d)
+    return d
+
+
+def _stack_epoch_(d: DHashState, swap: bool, start: bool,
+                  go: torch.Tensor | None = None) -> torch.Tensor:
+    """``_epoch_`` over the stack: one ``epoch_swap`` call on the stacked
+    leaves (each table on its own go row), or each table's view."""
+    if _one_launch(d):
+        return _epoch_(d, swap, start, go)
+    if go is None:
+        return _each(d, lambda t: _epoch_(t, swap, start))
+    return _each(d, lambda t, g: _epoch_(t, swap, start, g), go)
+
+
+@torch.no_grad()
+def stack_finish_same_shape_(d: DHashState, *, autostart: bool = False,
+                             go: torch.Tensor | None = None) -> torch.Tensor:
+    """``finish_same_shape_`` on every table: each swaps exactly when ITS
+    rebuild is done (staggered epochs across the stack), and with
+    ``autostart`` restarts.  ``go`` is ``stack_rebuild_step_``'s decision.
+    Returns go[T, 2]."""
+    return _stack_epoch_(d, True, autostart, go)
+
+
+def stack_finish_same_shape(d: DHashState) -> DHashState:
+    """Per-table epoch swap, IN PLACE.  Returns ``d``."""
+    stack_finish_same_shape_(d)
+    return d
+
+
+@torch.no_grad()
+def stack_autostart(d: DHashState, start=None) -> DHashState:
+    """Begin a rebuild on the tables selected by ``start`` ([T] bool, all by
+    default), IN PLACE, decided on the device: tables already rebuilding
+    are untouched.  Returns ``d``."""
+    rb = d.rebuilding
+    start = torch.ones_like(rb) if start is None else \
+        torch.as_tensor(start, dtype=torch.bool).to(rb.device)
+    _stack_epoch_(d, False, True, torch.stack(
+        [torch.zeros_like(rb), start & ~rb], -1))
+    return d
+
+
+def stack_rebuild_done(d: DHashState) -> torch.Tensor:
+    """[T] bool: which tables have a completed-but-unswapped rebuild."""
+    return d.rebuilding & (d.cursor >= _be(d).capacity_of(d.old)) \
+        & ~d.hazard_live.any(-1)
+
+
+def stack_count_items(d: DHashState) -> torch.Tensor:
+    """[T] i32: live entries a table (old + new + hazard)."""
+    be = _be(d)
+    return (be.count_live(d.old) + be.count_live(d.new)
+            + d.hazard_live.sum(-1)).to(I32)

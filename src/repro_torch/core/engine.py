@@ -74,7 +74,12 @@ owns the clone: a fused state's tables are updated in place, step after
 step.  Read ``engine.state`` freely; never write it or pass it to a mutating
 ``dhash`` function.
 
-``DHashStackEngine`` of the reference is not ported yet.
+``DHashStackEngine`` drives a table stack (``dhash.make_stack``): T
+independent tables, [T, Q] operands, each table on its own rebuild epoch.
+Every decision of its step is a per-table device flag (the stack ops pick
+each table's branch on the device), so its key holds no host flag: one
+captured graph a batch shape and mode, replayed by the same cache as
+``DHashEngine``'s (``_Replayed``).  Its poll is one read of ``epoch[T]``.
 """
 from __future__ import annotations
 
@@ -90,7 +95,7 @@ import torch
 from repro_torch.core import backend as backends
 from repro_torch.core import dhash
 from repro_torch.core import policy as elastic
-from repro_torch.core.struct_utils import assign_, replace
+from repro_torch.core.struct_utils import assign_, map_tensors, replace
 
 I32 = torch.int32
 
@@ -125,13 +130,7 @@ class EngineStats:
 
 def _clone_tree(obj):
     """Deep copy of a state container: every tensor cloned, nothing shared."""
-    if isinstance(obj, torch.Tensor):
-        return obj.clone()
-    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        return dataclasses.replace(obj, **{
-            f.name: _clone_tree(getattr(obj, f.name))
-            for f in dataclasses.fields(obj)})
-    return obj
+    return map_tensors(torch.clone, obj)
 
 
 def _signature(obj, tensors: list) -> tuple:
@@ -180,74 +179,14 @@ class _Step:
         return all(r() is not None for r in self.refs)
 
 
-@dataclass
-class DHashEngine:
-    """Drives a DHashState: user op batches + background rebuild progress."""
-
-    state: dhash.DHashState
-    continuous_rebuild: bool = False   # paper Fig 2: rebuild forever
-    rebuild_seed: int = 1234
-    poll_every: int = DEFAULT_POLL_EVERY   # host polls 1 of every K steps
-    policy: elastic.ElasticPolicy | None = None   # elastic capacity decisions
-    _stats: EngineStats = field(default_factory=EngineStats, repr=False)
-    _rebuilding: bool = field(default=False, init=False, repr=False)
-    _epoch0: int = field(default=0, init=False, repr=False)
-    _last_poll_step: int = field(default=0, init=False, repr=False)
-    _steps: dict = field(default_factory=dict, init=False, repr=False)
-    _step_keys: list = field(default_factory=list, init=False, repr=False)
-    _sig: tuple | None = field(default=None, init=False, repr=False)
-
-    def __post_init__(self):
-        if self.policy is not None and self.continuous_rebuild:
-            raise ValueError("policy and continuous_rebuild are exclusive: "
-                             "the policy decides when to rebuild")
-        # take ownership: the fused ops write the tables in place, so the
-        # engine must not share a tensor with the caller
-        self.state = _clone_tree(self.state)
-        if self.policy is not None:
-            if self.policy.device != self.state.device:
-                raise ValueError(f"the policy lies on {self.policy.device}, "
-                                 f"the state on {self.state.device}")
-            self.policy = _clone_tree(self.policy)
-        self._rebuilding = bool(self.state.rebuilding)
-        self._epoch0 = int(self.state.epoch)
-
-    @property
-    def device(self) -> torch.device:
-        return self.state.device
-
-    @property
-    def rebuilding(self) -> bool:
-        """Whether a rebuild epoch is in progress, as the host last knew it
-        (no read; it may be stale for up to ``poll_every - 1`` steps: after
-        an epoch that ended on the device, and on a policy engine after a
-        rehash the policy started there)."""
-        return self._rebuilding
-
-    def _flag_known(self) -> bool:
-        """Whether the host flag equals the device's: right after a poll,
-        or where nothing can change the device's between polls."""
-        if self._last_poll_step == self._stats.steps:
-            return True
-        if self.policy is not None:
-            return False
-        return not (self._rebuilding and self._swap_on_device()
-                    and not self.continuous_rebuild)
-
-    # -- the step ------------------------------------------------------------
-
-    def _swap_on_device(self) -> bool:
-        """True iff old/new share shapes, so the epoch swap and the autostart
-        run inside the step (host metadata only — no device read)."""
-        old, new = self.state.old, self.state.new
-        if type(old) is not type(new):
-            return False
-        return all(
-            getattr(a, "shape", None) == getattr(b, "shape", None)
-            and getattr(a, "dtype", None) == getattr(b, "dtype", None)
-            for a, b in ((getattr(old, f.name), getattr(new, f.name))
-                         for f in dataclasses.fields(old)
-                         if isinstance(getattr(old, f.name), torch.Tensor)))
+class _Replayed:
+    """What both engines share: their inputs, their counted reads, and the
+    step replayed from CUDA graphs (the counterpart of the reference's jit
+    cache), one captured graph a key.  An engine supplies ``state``,
+    ``policy``, ``device``, ``_stats``, the cache's fields ``_steps``,
+    ``_step_keys`` and ``_sig``, ``_device_step`` (the step on the device,
+    no host read, every field written in place), ``_host_flags`` and
+    ``_sig_extra`` (what its key adds)."""
 
     def _tensor(self, x, dtype) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype).to(self.device)
@@ -275,9 +214,11 @@ class DHashEngine:
 
     def _key(self, sizes: tuple, fresh: bool = False) -> tuple:
         """Everything ``_device_step`` branches on or a graph bakes in, and
-        weak references to the tensors it names.  The containers' signature
-        is kept until ``state`` or ``policy`` is rebound (a frozen container
-        changes only by being replaced), unless ``fresh``."""
+        weak references to the tensors it names: the host flags, what the
+        engine adds of its containers (``_sig_extra``), the batch sizes, the
+        containers' signature.  The signature is kept until ``state`` or
+        ``policy`` is rebound (a frozen container changes only by being
+        replaced), unless ``fresh``."""
         sig = self._sig
         if fresh or sig is None or sig[0]() is not self.state \
                 or sig[1]() is not self.policy:
@@ -285,31 +226,17 @@ class DHashEngine:
             sig = (_weak(self.state), _weak(self.policy),
                    _signature(self.state, tensors),
                    _signature(self.policy, tensors),
-                   self._swap_on_device(), [weakref.ref(t) for t in tensors])
+                   self._sig_extra(), [weakref.ref(t) for t in tensors])
             self._sig = sig
-        pol = self.policy is not None
-        key = (None if pol else self._rebuilding, self.continuous_rebuild,
-               pol, sig[4], sizes, sig[2], sig[3])
+        key = (*self._host_flags(), sig[4], sizes, sig[2], sig[3])
         return key, sig[5]
 
-    def step(self, lookup_keys, ins_keys, ins_vals, del_keys,
-             ins_mask=None, del_mask=None):
-        """One engine step; returns (found, vals, ok_insert, ok_delete) as
-        tensors on the engine's device (the caller's to keep)."""
-        xs = self._inputs(lookup_keys, ins_keys, ins_vals, del_keys,
-                          ins_mask, del_mask)
-        self._stats.rebuild_transitions += self._rebuilding
+    def _run_step(self, xs: list):
+        """The step on inputs ``xs``: eager inside ``_eager()``, else this
+        key's replay (captured at its first step on the card)."""
         if _EAGER:
-            out = self._device_step(*(x.to(self.device) for x in xs))
-        else:
-            out = self._cached_step(xs)
-        if self._swap_on_device() and self.continuous_rebuild:
-            self._rebuilding = True     # swapped and restarted, or running
-        self._stats.steps += 1
-        self._stats.ops += xs[0].numel() + xs[1].numel() + xs[3].numel()
-        if self.poll_every <= 1 or self._stats.steps % self.poll_every == 0:
-            self._poll()
-        return out
+            return self._device_step(*(x.to(self.device) for x in xs))
+        return self._cached_step(xs)
 
     def _cached_step(self, xs: list):
         """The step of this key: replayed where it was captured, else run
@@ -398,6 +325,101 @@ class DHashEngine:
         tensors are gone is dropped first."""
         self._steps = {k: e for k, e in self._steps.items() if e.alive()}
         return len(self._steps)
+
+
+@dataclass
+class DHashEngine(_Replayed):
+    """Drives a DHashState: user op batches + background rebuild progress."""
+
+    state: dhash.DHashState
+    continuous_rebuild: bool = False   # paper Fig 2: rebuild forever
+    rebuild_seed: int = 1234
+    poll_every: int = DEFAULT_POLL_EVERY   # host polls 1 of every K steps
+    policy: elastic.ElasticPolicy | None = None   # elastic capacity decisions
+    _stats: EngineStats = field(default_factory=EngineStats, repr=False)
+    _rebuilding: bool = field(default=False, init=False, repr=False)
+    _epoch0: int = field(default=0, init=False, repr=False)
+    _last_poll_step: int = field(default=0, init=False, repr=False)
+    _steps: dict = field(default_factory=dict, init=False, repr=False)
+    _step_keys: list = field(default_factory=list, init=False, repr=False)
+    _sig: tuple | None = field(default=None, init=False, repr=False)
+
+    def __post_init__(self):
+        if self.policy is not None and self.continuous_rebuild:
+            raise ValueError("policy and continuous_rebuild are exclusive: "
+                             "the policy decides when to rebuild")
+        # take ownership: the fused ops write the tables in place, so the
+        # engine must not share a tensor with the caller
+        self.state = _clone_tree(self.state)
+        if self.policy is not None:
+            if self.policy.device != self.state.device:
+                raise ValueError(f"the policy lies on {self.policy.device}, "
+                                 f"the state on {self.state.device}")
+            self.policy = _clone_tree(self.policy)
+        self._rebuilding = bool(self.state.rebuilding)
+        self._epoch0 = int(self.state.epoch)
+
+    @property
+    def device(self) -> torch.device:
+        return self.state.device
+
+    @property
+    def rebuilding(self) -> bool:
+        """Whether a rebuild epoch is in progress, as the host last knew it
+        (no read; it may be stale for up to ``poll_every - 1`` steps: after
+        an epoch that ended on the device, and on a policy engine after a
+        rehash the policy started there)."""
+        return self._rebuilding
+
+    def _flag_known(self) -> bool:
+        """Whether the host flag equals the device's: right after a poll,
+        or where nothing can change the device's between polls."""
+        if self._last_poll_step == self._stats.steps:
+            return True
+        if self.policy is not None:
+            return False
+        return not (self._rebuilding and self._swap_on_device()
+                    and not self.continuous_rebuild)
+
+    # -- the step ------------------------------------------------------------
+
+    def _swap_on_device(self) -> bool:
+        """True iff old/new share shapes, so the epoch swap and the autostart
+        run inside the step (host metadata only — no device read)."""
+        old, new = self.state.old, self.state.new
+        if type(old) is not type(new):
+            return False
+        return all(
+            getattr(a, "shape", None) == getattr(b, "shape", None)
+            and getattr(a, "dtype", None) == getattr(b, "dtype", None)
+            for a, b in ((getattr(old, f.name), getattr(new, f.name))
+                         for f in dataclasses.fields(old)
+                         if isinstance(getattr(old, f.name), torch.Tensor)))
+
+    def _host_flags(self) -> tuple:
+        """The host flags ``_device_step`` branches on (the first part of a
+        step's key)."""
+        return (None if self.policy is not None else self._rebuilding,
+                self.continuous_rebuild, self.policy is not None)
+
+    def _sig_extra(self):
+        return self._swap_on_device()
+
+    def step(self, lookup_keys, ins_keys, ins_vals, del_keys,
+             ins_mask=None, del_mask=None):
+        """One engine step; returns (found, vals, ok_insert, ok_delete) as
+        tensors on the engine's device (the caller's to keep)."""
+        xs = self._inputs(lookup_keys, ins_keys, ins_vals, del_keys,
+                          ins_mask, del_mask)
+        self._stats.rebuild_transitions += self._rebuilding
+        out = self._run_step(xs)
+        if self._swap_on_device() and self.continuous_rebuild:
+            self._rebuilding = True     # swapped and restarted, or running
+        self._stats.steps += 1
+        self._stats.ops += xs[0].numel() + xs[1].numel() + xs[3].numel()
+        if self.poll_every <= 1 or self._stats.steps % self.poll_every == 0:
+            self._poll()
+        return out
 
     def _device_step(self, lk, ik, iv, dk, im, dm):
         """The step on the device — lookup, insert, delete, one rebuild
@@ -557,3 +579,129 @@ class DHashEngine:
 
     def count(self) -> int:
         return int(self._read(dhash.count_items(self.state)))
+
+
+@dataclass
+class DHashStackEngine(_Replayed):
+    """Drives a ``dhash.make_stack`` state: T independent tables stepped
+    together (the multi-tenant serving loop).
+
+    Per step, every table runs its op batch ([T, Q] operands), one rebuild
+    transition and its own epoch swap, each decided on the device: epochs
+    are INDEPENDENT across the stack.  ``request_rebuild(mask)`` starts
+    rebuilds on any subset of tables (``dhash.stack_autostart`` under the
+    mask, on the device), and in ``continuous_rebuild`` mode every table
+    that finishes an epoch opens the next.  With a ``policy`` (in-place
+    mode; a single policy is broadcast with ``policy.stack``) the lookup is
+    counted and each table fires its own same-shape rehash.  Stacks take
+    same-shape rebuilds only.  On a fused linear stack each op of the step
+    is one launch of each kernel for all T tables.  The step is replayed
+    from a CUDA graph as ``DHashEngine``'s is (no eager fallback on the
+    card; ``_eager()`` runs it eagerly); the host reads the device only at
+    its poll, one in ``poll_every`` steps: ``epoch[T]``."""
+
+    state: dhash.DHashState                # stacked: every tensor leads [T]
+    continuous_rebuild: bool = False
+    poll_every: int = DEFAULT_POLL_EVERY
+    policy: elastic.ElasticPolicy | None = None   # in-place mode; [T]
+    _stats: EngineStats = field(default_factory=EngineStats, repr=False)
+    _epoch0: int = field(default=0, init=False, repr=False)
+    _last_poll_step: int = field(default=0, init=False, repr=False)
+    _steps: dict = field(default_factory=dict, init=False, repr=False)
+    _step_keys: list = field(default_factory=list, init=False, repr=False)
+    _sig: tuple | None = field(default=None, init=False, repr=False)
+
+    def __post_init__(self):
+        self.state = _clone_tree(self.state)
+        self.n_tables = dhash.stack_size(self.state)
+        if self.policy is not None:
+            if self.continuous_rebuild:
+                raise ValueError("policy and continuous_rebuild are "
+                                 "exclusive: the policy decides when to "
+                                 "rebuild")
+            if not self.policy.in_place:
+                raise ValueError("stack engines need an in_place policy: "
+                                 "the stacked tables cannot change shape")
+            if self.policy.device != self.state.device:
+                raise ValueError(f"the policy lies on {self.policy.device}, "
+                                 f"the state on {self.state.device}")
+            if self.policy.armed.dim() == 0:
+                self.policy = elastic.stack(self.policy, self.n_tables)
+            self.policy = _clone_tree(self.policy)
+        self._epoch0 = int(self.state.epoch.sum())
+
+    @property
+    def device(self) -> torch.device:
+        return self.state.device
+
+    def _host_flags(self) -> tuple:
+        return (None, self.continuous_rebuild, self.policy is not None)
+
+    def _sig_extra(self):
+        return None
+
+    def step(self, lookup_keys, ins_keys, ins_vals, del_keys,
+             ins_mask=None, del_mask=None):
+        """One step for all T tables: operands are [T, Q].  Returns (found,
+        vals, ok_insert, ok_delete) [T, Q] on the engine's device (the
+        caller's to keep)."""
+        xs = self._inputs(lookup_keys, ins_keys, ins_vals, del_keys,
+                          ins_mask, del_mask)
+        if any(x.dim() != 2 or x.shape[0] != self.n_tables for x in xs):
+            raise ValueError(f"stack engine operands are [{self.n_tables}, "
+                             f"Q]")
+        out = self._run_step(xs)
+        self._stats.steps += 1
+        self._stats.ops += xs[0].numel() + xs[1].numel() + xs[3].numel()
+        if self.poll_every <= 1 or self._stats.steps % self.poll_every == 0:
+            self._poll()
+        return out
+
+    def _device_step(self, lk, ik, iv, dk, im, dm):
+        """The step on the device, no host read, every field written in
+        place: lookup (counted, with a policy), insert, delete, one rebuild
+        transition, the epoch swap (and, continuous, the next start), the
+        policy's evaluation."""
+        d, pol = self.state, self.policy
+        if pol is None:
+            found, vals = dhash.stack_lookup(d, lk)
+        else:
+            found, vals = dhash.stack_lookup_counted_(d, lk,
+                                                      probe_hi=pol.probe_hi)
+        _, ok_i = dhash.stack_insert(d, ik, iv, im)
+        _, ok_d = dhash.stack_delete(d, dk, dm)
+        go = dhash.stack_rebuild_step_(d, swap=True,
+                                       start=self.continuous_rebuild)
+        dhash.stack_finish_same_shape_(d, autostart=self.continuous_rebuild,
+                                       go=go)
+        if pol is not None:
+            elastic.stack_policy_step(pol, d)
+        return found, vals, ok_i, ok_d
+
+    def _poll(self):
+        """The one read: ``epoch[T]``."""
+        epochs = self._read(self.state.epoch)
+        self._last_poll_step = self._stats.steps
+        self._stats.rebuilds_completed = sum(epochs) - self._epoch0
+
+    @property
+    def stats(self) -> EngineStats:
+        """Engine statistics; reading them polls (one counted read) if the
+        engine stepped since the last poll."""
+        if self._stats.steps != self._last_poll_step:
+            self._poll()
+        return self._stats
+
+    def request_rebuild(self, mask=None) -> None:
+        """Start a rebuild on the selected tables ([T] bool; all by
+        default), on the device: tables mid-rebuild are untouched (the
+        paper's trylock: the request is lost for them)."""
+        dhash.stack_autostart(self.state, mask)
+
+    def lookup(self, keys):
+        """Lookup outside the step ([T, Q] keys; never writes)."""
+        return dhash.stack_lookup(self.state, self._tensor(keys, I32))
+
+    def counts(self) -> np.ndarray:
+        """[T] live-entry counts (one counted read)."""
+        return np.asarray(self._read(dhash.stack_count_items(self.state)))

@@ -103,17 +103,34 @@ def _mix32(x: torch.Tensor, s0, s1) -> torch.Tensor:
     return x ^ s1
 
 
+def lead_shape(fn: HashFn) -> tuple:
+    """The leading axes of ``fn.seeds`` past one function's own shape: ()
+    for one function, (T,) for the functions of a table stack."""
+    own = 2 if fn.kind == "tabulation" else 1
+    return tuple(fn.seeds.shape[:fn.seeds.dim() - own])
+
+
 def hash_u32(fn: HashFn, keys: torch.Tensor) -> torch.Tensor:
-    """Full-width u32 hash of int32 keys, as int64 in [0, 2**32)."""
+    """Full-width u32 hash of int32 keys, as int64 in [0, 2**32).  A stack
+    of functions (seeds [T, ...]) hashes keys [T, Q], row t by function
+    t."""
     k = as_u32(keys)
     s = fn.seeds
-    if fn.kind == "multiply_shift":
-        return (_mul32(k, s[0]) + s[1]) & _M32
-    if fn.kind == "mix32":
-        return _mix32(k, s[0], s[1])
+    stacked = bool(lead_shape(fn))
+    if fn.kind in ("multiply_shift", "mix32"):
+        s0, s1 = (s[..., i, None] if stacked else s[i] for i in (0, 1))
+        if fn.kind == "multiply_shift":
+            return (_mul32(k, s0) + s1) & _M32
+        return _mix32(k, s0, s1)
     # tabulation
-    return (s[0][k & 0xFF] ^ s[1][(k >> 8) & 0xFF]
-            ^ s[2][(k >> 16) & 0xFF] ^ s[3][(k >> 24) & 0xFF])
+    if not stacked:
+        return (s[0][k & 0xFF] ^ s[1][(k >> 8) & 0xFF]
+                ^ s[2][(k >> 16) & 0xFF] ^ s[3][(k >> 24) & 0xFF])
+    out = None
+    for j in range(4):      # row t's byte j looks up function t's table j
+        w = torch.gather(s[:, j], -1, (k >> (8 * j)) & 0xFF)
+        out = w if out is None else out ^ w
+    return out
 
 
 def bucket_of(fn: HashFn, keys: torch.Tensor, nbuckets: int) -> torch.Tensor:

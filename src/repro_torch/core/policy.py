@@ -37,7 +37,9 @@ nothing on the host: the reference's ``lax.cond(fire, rebuild_autostart,
 fire)`` (``dhash._epoch_``), so a step that runs it can be captured in a
 CUDA graph.
 
-Table stacks (``stack``, ``stack_policy_step``) are not ported yet.
+A table stack takes a [T]-stacked policy (``stack``): ``stack_policy_step``
+is the same arithmetic elementwise over [T], each table's fire one row of
+one stacked ``epoch_swap`` call (in-place mode).
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ import torch
 
 from repro_torch.core import backend as backends
 from repro_torch.core import dhash
-from repro_torch.core.struct_utils import state_dataclass
+from repro_torch.core.struct_utils import map_tensors, state_dataclass
 
 I32 = torch.int32
 
@@ -58,10 +60,6 @@ SHRINK_WATERMARK_FACTOR = 4.0
 EXPENSIVE_LOOKUP_THRESHOLD = 7
 ENLARGE_DUE_TO_EXPENSIVE_LOOKUP_AFTER = 2
 BETWEEN_LOOKUP_REPORT_COUNT = 10
-
-_STACKS = ("table stacks (dhash.make_stack and the stack engine) are not "
-           "ported yet (ROADMAP.md A4)")
-
 
 @state_dataclass
 class ElasticPolicy:
@@ -140,7 +138,9 @@ def make(*, grow_load: float = 0.7,
 
 
 def stack(pol: ElasticPolicy, n_tables: int) -> ElasticPolicy:
-    raise NotImplementedError(_STACKS)
+    """A [T]-stacked copy of a policy (one latch and plan a table), for a
+    ``dhash.make_stack`` state."""
+    return map_tensors(lambda x: torch.stack([x] * n_tables), pol)
 
 
 def watermarks(pol: ElasticPolicy, slots: int) -> tuple[int, int]:
@@ -168,6 +168,27 @@ def policy_step(pol: ElasticPolicy, d: dhash.DHashState, *,
     ``allow_autostart=False`` suppresses the rebuild start (plan only) —
     the engine passes it while old/new differ in shape mid-resize; with
     ``True`` the two tables must share shapes."""
+    fire = _evaluate(pol, d)
+    if allow_autostart:
+        dhash._epoch_(d, swap=False, start=True,
+                      go=torch.stack([torch.zeros_like(fire), fire]))
+    return pol, d
+
+
+@torch.no_grad()
+def stack_policy_step(pol: ElasticPolicy, d: dhash.DHashState):
+    """``policy_step`` over a [T] table stack and a [T] policy stack
+    (``stack``), IN PLACE, in-place mode: each table fires its own
+    same-shape rehash under its own latch, the fires one stacked
+    ``epoch_swap`` on go[:, 1] = fire.  Returns ``(pol, d)``."""
+    dhash.stack_autostart(d, _evaluate(pol, d))
+    return pol, d
+
+
+def _evaluate(pol: ElasticPolicy, d: dhash.DHashState) -> torch.Tensor:
+    """The trigger set over one table or a stack (elementwise over [T]):
+    writes the policy's state and the consumed probe window in place and
+    returns ``fire``, for the caller to start the rehash on."""
     be = backends.get(d.backend)
     slots = be.capacity_of(d.old)          # host int (table metadata)
     live = be.count_live(d.old).to(I32)
@@ -209,9 +230,6 @@ def policy_step(pol: ElasticPolicy, d: dhash.DHashState, *,
         want_grow = idle & (over | probe_hot)
         want_shrink = idle & under & ~probe_hot
 
-    if allow_autostart:
-        dhash._epoch_(d, swap=False, start=True,
-                      go=torch.stack([torch.zeros_like(fire), fire]))
     # a fire consumes the probe sample window
     d.lookups.copy_(torch.where(fire, 0, d.lookups))
     d.expensive.copy_(torch.where(fire, 0, d.expensive))
@@ -220,11 +238,7 @@ def policy_step(pol: ElasticPolicy, d: dhash.DHashState, *,
     pol.want_shrink.copy_(want_shrink)
     pol.target_capacity.copy_(target)
     pol.fires.add_(fire.to(I32))
-    return pol, d
-
-
-def stack_policy_step(pol: ElasticPolicy, d: dhash.DHashState):
-    raise NotImplementedError(_STACKS)
+    return fire
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@ just passed around.  ``replace`` builds a new container that SHARES the
 tensors it was not given — it never copies device memory.  ``assign_``
 goes the other way: it writes one container's tensors into another's in
 place, for a caller that must keep its tensors' storage (an engine step
-captured in a CUDA graph).
+captured in a CUDA graph).  ``map_tensors`` builds a container of the same
+structure from one or more (a table stack, its views, copies).
 """
 from __future__ import annotations
 
@@ -43,3 +44,17 @@ def assign_(dst, src, where=None) -> None:
     if dataclasses.is_dataclass(dst):
         for f in dataclasses.fields(dst):
             assign_(getattr(dst, f.name), getattr(src, f.name), where)
+
+
+def map_tensors(fn, obj, *more):
+    """A container of ``obj``'s structure whose every tensor is ``fn`` of
+    the tensors at the same place in ``obj`` and ``more`` (containers of
+    one structure); every other field is ``obj``'s."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj, *more)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: map_tensors(fn, getattr(obj, f.name),
+                                *(getattr(m, f.name) for m in more))
+            for f in dataclasses.fields(obj)})
+    return obj

@@ -31,10 +31,10 @@ _ARGTYPES = {
     "dhash_probe_lookup": [_P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P,
                            _P],
     "dhash_probe2": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I,
-                     _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+                     _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P],
     "dhash_probe_insert": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
-                           _P, _P, _P, _P],
-    "dhash_extract": [_P, _P, _P, _I, _P, _I] + [_P] * 9 + [_I, _I, _P],
+                           _P, _P, _P, _I, _P, _P, _P, _P, _P],
+    "dhash_extract": [_P, _P, _P, _I, _P, _I] + [_P] * 9 + [_I, _I, _I, _P],
     "dhash_tc_lookup": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P,
                         _I, _P, _P, _P, _P],
     "dhash_tc_insert": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
@@ -46,7 +46,8 @@ _ARGTYPES = {
     + [_P] * 3 + [_I] * 4 + [_P] * 7,
     "dhash_cuckoo_kick": [_P] * 3 + [_I] * 2 + [_P] * 7 + [_I] * 2
     + [_P, _I, _P, _I] + [_P] * 5,
-    "dhash_epoch_swap": [_P, _I, _P, _I] + [_P] * 5 + [_L, _I, _I, _P, _P],
+    "dhash_epoch_swap": [_P, _I, _P, _I] + [_P] * 5 + [_L, _I, _I, _P, _I,
+                                                      _P],
     "dhash_chain_compact": [_P] * 10 + [_I] * 3 + [_P, _P, _I, _P, _P],
 }
 _ENTRY = {s: f"dhash_{s}" for s in SOURCES}

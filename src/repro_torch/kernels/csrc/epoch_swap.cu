@@ -44,6 +44,15 @@
 // programmatic dependent (its blocks may start while the transition block
 // ahead of it runs, and wait in griddepcontrol.wait until that grid has
 // finished and its writes are visible).
+//
+// A table stack: T tables in one call, each on its own row: leaves [T, n]
+// (a leaf's n elements a table), scalars and flags [T], hazard flags
+// [T, chunk], go [T, 2].  Each table decides, exchanges, clears and
+// reseeds on its own go row; its reseed salt is its own epoch + 1 and its
+// own seeds, so the tables keep distinct hash functions after every epoch.
+// Table t's exchange runs on grid row blockIdx.y = t (the decision on
+// block t), with at most 2 SMs' worth of blocks / T a row.  One table is
+// T = 1.
 #include "dhash_common.cuh"
 
 #define EPOCH_MAX_LEAVES 16
@@ -71,6 +80,11 @@ __global__ void epoch_flags_kernel(const uint8_t* __restrict__ hl, int chunk,
                                    const uint8_t* __restrict__ rebuilding,
                                    long long capacity, int swap_on,
                                    int start_on, uint8_t* __restrict__ go) {
+  const int t = blockIdx.x;         // the table
+  hl += (long long)t * chunk;
+  cursor += t;
+  rebuilding += t;
+  go += 2 * t;
   int any = 0;
   for (int j = threadIdx.x; j < chunk; j += blockDim.x) any |= hl[j];
   const int live = __syncthreads_or(any);
@@ -164,15 +178,18 @@ epoch_swap_kernel(EpochLeaves L, const uint8_t* __restrict__ go, int* cursor,
                   uint8_t* rebuilding, int* epoch, int* lookups,
                   int* expensive) {
   asm volatile("griddepcontrol.wait;" ::: "memory");
+  const int t = blockIdx.y;         // the table
+  go += 2 * t;
   const bool swap = go[0] != 0, start = go[1] != 0;
   if (!swap && !start) return;
+  cursor += t; rebuilding += t; epoch += t; lookups += t; expensive += t;
   if (blockIdx.x == 0) {
     // the hash seeds: a few words each, this block only
     const uint32_t salt = (uint32_t)(epoch[0] + (swap ? 2 : 1));
     for (int l = 0; l < L.count; ++l) {
       if (L.mode[l] != EPOCH_SEEDS && L.mode[l] != EPOCH_SEEDS_MS) continue;
-      long long* a = (long long*)L.a[l];
-      long long* b = (long long*)L.b[l];
+      long long* a = (long long*)L.a[l] + t * L.n[l];
+      long long* b = (long long*)L.b[l] + t * L.n[l];
       for (long long i = threadIdx.x; i < L.n[l]; i += blockDim.x) {
         const long long av = a[i], bv = b[i];
         const long long mid = swap ? av : bv;
@@ -206,13 +223,14 @@ epoch_swap_kernel(EpochLeaves L, const uint8_t* __restrict__ go, int* cursor,
   for (int l = 0; l < L.count; ++l) {
     const int mode = L.mode[l];
     if (mode == EPOCH_SEEDS || mode == EPOCH_SEEDS_MS) continue;
-    epoch_leaf((int*)L.a[l], (int*)L.b[l], L.n[l], mode, L.fill[l], swap,
-               start, first, stride);
+    epoch_leaf((int*)L.a[l] + t * L.n[l], (int*)L.b[l] + t * L.n[l],
+               L.n[l], mode, L.fill[l], swap, start, first, stride);
   }
 }
 
 // `desc` holds count rows of five int64 words: old leaf pointer, new leaf
-// pointer, elements, mode, fill (the constant, or the seeds' salt offset).
+// pointer, elements (a table's), mode, fill (the constant, or the seeds'
+// salt offset); the leaves, scalars and flags hold T tables' rows.
 // With `hl` given this call decides go first (epoch_flags_kernel, from the
 // hazard flags, cursor and rebuilding, swap_on and start_on), then
 // exchanges; with `hl` null it exchanges on the go it is given.
@@ -221,8 +239,9 @@ extern "C" int dhash_epoch_swap(const long long* desc, int count,
                                 uint8_t* rebuilding, int* epoch, int* lookups,
                                 int* expensive, long long capacity,
                                 int swap_on, int start_on, uint8_t* go,
-                                void* stream) {
-  if (count < 0 || count > EPOCH_MAX_LEAVES) return (int)cudaErrorInvalidValue;
+                                int T, void* stream) {
+  if (count < 0 || count > EPOCH_MAX_LEAVES || T < 1 || T > 65535)
+    return (int)cudaErrorInvalidValue;
   EpochLeaves L;
   L.count = count;
   long long most = 0;
@@ -239,7 +258,7 @@ extern "C" int dhash_epoch_swap(const long long* desc, int count,
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e;
   if (hl != nullptr) {
-    epoch_flags_kernel<<<1, 1024, 0, s>>>(hl, chunk, cursor, rebuilding,
+    epoch_flags_kernel<<<T, 1024, 0, s>>>(hl, chunk, cursor, rebuilding,
                                           capacity, swap_on, start_on, go);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
@@ -247,15 +266,15 @@ extern "C" int dhash_epoch_swap(const long long* desc, int count,
   int sms = 0;
   e = dhash_sm_count(&sms);
   if (e != cudaSuccess) return (int)e;
-  // block 0 for the seeds, then enough blocks for the largest leaf's
-  // 16-byte words, at most EPOCH_BLOCKS_PER_SM an SM
+  // block 0 of a row for the seeds, then enough blocks for the largest
+  // leaf's 16-byte words, at most EPOCH_BLOCKS_PER_SM an SM over all rows
   long long want = (most / 4 + (long long)EPOCH_THREADS * EPOCH_UNROLL - 1) /
                    ((long long)EPOCH_THREADS * EPOCH_UNROLL);
-  if (want > (long long)EPOCH_BLOCKS_PER_SM * sms)
-    want = (long long)EPOCH_BLOCKS_PER_SM * sms;
+  if (want > (long long)EPOCH_BLOCKS_PER_SM * sms / T)
+    want = (long long)EPOCH_BLOCKS_PER_SM * sms / T;
   if (want < 1) want = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)want + 1);
+  cfg.gridDim = dim3((unsigned)want + 1, T);
   cfg.blockDim = dim3(EPOCH_THREADS);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = s;

@@ -51,6 +51,12 @@
 // dependent launch: griddepcontrol.launch_dependents); the exchange waits
 // for this grid to finish before it reads go.
 //
+// A table stack: T tables in one launch, one block a table (table t is
+// block t), each on its own row of the stacked inputs: its table [T, C],
+// cursor, flags run / hold / rebuilding, hazard buffer and ok / present
+// [T, chunk], go [T, 2].  One table (T = 1) takes the kernel's STACK =
+// false instance: the code it always was.
+//
 // In place: the outputs may be the state's own hazard buffer and
 // `new_cursor` may be `cursor` itself: every thread reads the cursor before
 // the first barrier, and it is written after the last; a thread writes the
@@ -96,6 +102,7 @@ __device__ __forceinline__ bool extract_al16(const void* p) {
   return ((uintptr_t)p & 15) == 0;
 }
 
+template <bool STACK>
 __global__ void __launch_bounds__(EXTRACT_THREADS) extract_kernel(
     const int* __restrict__ tk, const int* __restrict__ tv,
     int* __restrict__ ts, int C, const int* cursor, int chunk,
@@ -106,6 +113,18 @@ __global__ void __launch_bounds__(EXTRACT_THREADS) extract_kernel(
   __shared__ int warp_tot[EXTRACT_THREADS / 32];
   __shared__ int total_sh;
   asm volatile("griddepcontrol.launch_dependents;");
+  if (STACK) {  // table `blockIdx.x` of the stack: its row of every array
+    const int b = blockIdx.x;
+    const long long tc = (long long)b * C, th = (long long)b * chunk;
+    tk += tc; tv += tc; ts += tc;
+    cursor += b; new_cursor += b;
+    hk += th; hv += th; hl += th;
+    if (run != nullptr) run += b;
+    if (hold != nullptr) hold += b;
+    if (ok != nullptr) ok += th;
+    if (present != nullptr) present += th;
+    if (go != nullptr) go += 2 * b;
+  }
   const bool land = ok != nullptr;
   const bool rb = run == nullptr || *run != 0;
   if (!land && (!rb || (hold != nullptr && *hold != 0))) return;
@@ -265,15 +284,16 @@ extern "C" int dhash_extract(
     const int* tk, const int* tv, int* ts, int C, const int* cursor,
     int chunk, int* hk, int* hv, uint8_t* hl, int* new_cursor,
     const uint8_t* run, const uint8_t* hold, const uint8_t* ok,
-    const uint8_t* present, uint8_t* go, int swap_on, int start_on,
+    const uint8_t* present, uint8_t* go, int swap_on, int start_on, int T,
     void* stream) {
-  if (chunk < 1 || chunk > EXTRACT_THREADS * EXTRACT_ITEMS)
+  if (chunk < 1 || chunk > EXTRACT_THREADS * EXTRACT_ITEMS || T < 1)
     return (int)cudaErrorInvalidValue;
   const bool land = ok != nullptr;
   if (land != (present != nullptr) ||
       (land && (run == nullptr || hold != nullptr)) || (go && !land))
     return (int)cudaErrorInvalidValue;
-  extract_kernel<<<1, EXTRACT_THREADS, 0, (cudaStream_t)stream>>>(
+  auto kernel = T > 1 ? extract_kernel<true> : extract_kernel<false>;
+  kernel<<<T, EXTRACT_THREADS, 0, (cudaStream_t)stream>>>(
       tk, tv, ts, C, cursor, chunk, hk, hv, hl, new_cursor, run, hold, ok,
       present, go, swap_on, start_on);
   return (int)cudaGetLastError();

@@ -27,8 +27,19 @@
 // (slot in the old table), hz_idx (hazard index, only where the old table
 // did not resolve the query), loc_new (slot in the new table, only where
 // neither the old table nor the hazard buffer resolved it); -1 = none.
+//
+// A table stack: T tables in one launch, table t on the blocks of grid row
+// blockIdx.y, its arrays at row t of the stacked [T, ...] inputs (old
+// tables [T, Co], new [T, Cn], hazard [T, chunk], queries and outputs
+// [T, Q]).  `rb` (one byte a table, or null: every table) says which
+// tables are mid-rebuild; a table whose byte is 0 answers from its old
+// table alone (the reference's steady branch, lookup_fused(d.old)) and
+// stages no hazard set.  A row takes ceil(SMs / T) blocks at most, so the
+// stack's sets are built about once an SM.  One table (T = 1, no flag)
+// takes the kernel's STACK = false instance: the code it always was.
 #include "dhash_common.cuh"
 
+template <bool STACK>
 __global__ void __launch_bounds__(DHASH_SET_THREADS) probe2_kernel(
     const int* __restrict__ ok, const int* __restrict__ ov,
     const int* __restrict__ os, int Co, const int* __restrict__ nk,
@@ -38,12 +49,29 @@ __global__ void __launch_bounds__(DHASH_SET_THREADS) probe2_kernel(
     const int* __restrict__ h0n, const int* __restrict__ qk, int Q,
     int max_probes, uint8_t* __restrict__ found, int* __restrict__ val,
     uint8_t* __restrict__ f_old, int* __restrict__ loc_old,
-    int* __restrict__ hz_idx, int* __restrict__ loc_new) {
+    int* __restrict__ hz_idx, int* __restrict__ loc_new,
+    const uint8_t* __restrict__ rb) {
+  bool rebuilding = true;
+  if (STACK) {
+    // table t of the stack: its rows of every input and output
+    const int t = blockIdx.y;
+    const long long to = (long long)t * Co, tn = (long long)t * Cn,
+                    th = (long long)t * chunk, tq = (long long)t * Q;
+    ok += to; ov += to; os += to;
+    nk += tn; nv += tn; ns += tn;
+    hk += th; hv += th; hl += th;
+    h0o += tq; h0n += tq; qk += tq;
+    found += tq; val += tq; f_old += tq; loc_old += tq; hz_idx += tq;
+    loc_new += tq;
+    // uniform over the block: the steady branch stages nothing
+    rebuilding = rb == nullptr || rb[t] != 0;
+  }
   const DhashSet hz_set = dhash_set_at(0, chunk);
-  dhash_set_stage(hz_set, [&](int j, int* k) {
-    *k = hk[j];
-    return hl[j] != 0;
-  });
+  if (rebuilding)
+    dhash_set_stage(hz_set, [&](int j, int* k) {
+      *k = hk[j];
+      return hl[j] != 0;
+    });
 
   for (int i = dhash_set_first(); i < Q; i += dhash_set_stride()) {
     const int key = qk[i];
@@ -51,12 +79,12 @@ __global__ void __launch_bounds__(DHASH_SET_THREADS) probe2_kernel(
     bool fo = dhash_probe_one(ok, ov, os, Co, h0o[i], key, max_probes, &v,
                               &lo);
     bool f = fo;
-    if (!f) {
+    if (!f && rebuilding) {
       hz = dhash_set_find(hz_set, key);
       f = hz >= 0;
       if (f) v = hv[hz];
     }
-    if (!f)
+    if (!f && rebuilding)
       f = dhash_probe_one(nk, nv, ns, Cn, h0n[i], key, max_probes, &v, &ln);
     found[i] = f ? 1 : 0;
     val[i] = v;
@@ -72,14 +100,21 @@ extern "C" int dhash_probe2(
     const int* nv, const int* ns, int Cn, const int* hk, const int* hv,
     const uint8_t* hl, int chunk, const int* h0o, const int* h0n,
     const int* qk, int Q, int max_probes, uint8_t* found, int* val,
-    uint8_t* f_old, int* loc_old, int* hz_idx, int* loc_new, void* stream) {
-  if (chunk < 0 || chunk > DHASH_MAX_CHUNK) return (int)cudaErrorInvalidValue;
-  int blocks = 0;
-  const cudaError_t e = dhash_set_grid(Q, &blocks);
+    uint8_t* f_old, int* loc_old, int* hz_idx, int* loc_new, int T,
+    const uint8_t* rb, void* stream) {
+  if (chunk < 0 || chunk > DHASH_MAX_CHUNK || T < 1 || T > 65535)
+    return (int)cudaErrorInvalidValue;
+  int blocks = 0, sms = 0;
+  cudaError_t e = dhash_set_grid(Q, &blocks);
+  if (e == cudaSuccess) e = dhash_sm_count(&sms);
   if (e != cudaSuccess) return (int)e;
+  const int row = (sms + T - 1) / T;
+  if (blocks > row) blocks = row;
   const size_t bytes = (size_t)dhash_set_words(chunk) * 4;
-  probe2_kernel<<<blocks, DHASH_SET_THREADS, bytes, (cudaStream_t)stream>>>(
+  auto kernel = T > 1 || rb != nullptr ? probe2_kernel<true>
+                                       : probe2_kernel<false>;
+  kernel<<<dim3(blocks, T), DHASH_SET_THREADS, bytes, (cudaStream_t)stream>>>(
       ok, ov, os, Co, nk, nv, ns, Cn, hk, hv, hl, chunk, h0o, h0n, qk, Q,
-      max_probes, found, val, f_old, loc_old, hz_idx, loc_new);
+      max_probes, found, val, f_old, loc_old, hz_idx, loc_new, rb);
   return (int)cudaGetLastError();
 }

@@ -61,6 +61,15 @@
 // order in which threads run.  The ordering it relies on is pinned on the
 // CPU by tests/test_torch_insert_order.py.
 //
+// A table stack: T tables in one launch, each resolved on its own, table t
+// on grid row blockIdx.y with its rows of the stacked [T, C] table and
+// [T, Q] batch.  Its target is the table given, or, where `sel` (one byte
+// a table, or null) is set, the alternative table of the same shape given
+// beside it: the reference's cond(rebuilding) in dhash.insert (new table
+// mid-rebuild, else old), decided here on the device.  A row of the greedy
+// path takes ceil(SMs / T) blocks at most (and still enough that its
+// ranges never wrap).  One table is T = 1 with no `sel`.
+//
 // Caller contract (as the reference): mask is winner-filtered, at most one
 // set entry for each distinct key.
 #include <limits.h>
@@ -140,6 +149,28 @@ __device__ __forceinline__ int pi_nth_bit(u64 m, int r) {
 // Window mask of max_probes bits.
 __device__ __forceinline__ u64 pi_full(int max_probes) {
   return max_probes >= 64 ? ~0ull : ((1ull << max_probes) - 1);
+}
+
+// Table t of a stack (t = blockIdx.y): the target's arrays (the
+// alternative where sel[t] is set) and the batch's row.
+struct PiTable {
+  int *tk, *tv, *ts;
+  long long tq;                // the batch row's first element
+};
+
+__device__ __forceinline__ PiTable pi_table(int* tk, int* tv, int* ts,
+                                            int* tk2, int* tv2, int* ts2,
+                                            const uint8_t* sel, int C,
+                                            int Q) {
+  const int t = blockIdx.y;
+  const bool alt = sel != nullptr && sel[t] != 0;
+  const long long tc = (long long)t * C;
+  PiTable r;
+  r.tk = (alt ? tk2 : tk) + tc;
+  r.tv = (alt ? tv2 : tv) + tc;
+  r.ts = (alt ? ts2 : ts) + tc;
+  r.tq = (long long)t * Q;
+  return r;
 }
 
 // Slot h + j mod C, for 0 <= h < C and 0 <= j < 3 C.
@@ -535,10 +566,15 @@ __device__ void pi_hot_slot(const int* __restrict__ ts, int C, int a,
 }
 
 __global__ void __launch_bounds__(PI_THREADS) probe_insert_resolve(
-    const int* __restrict__ tk, const int* __restrict__ ts, int C, int W,
-    bool vec8, const int* __restrict__ h0, const int* __restrict__ keys,
-    const uint8_t* __restrict__ mask, int Q, int P, uint8_t* present,
-    int* __restrict__ slot) {
+    int* tk0, int* ts0, int C, int W, bool vec8, const int* __restrict__ h0,
+    const int* __restrict__ keys, const uint8_t* __restrict__ mask, int Q,
+    int P, uint8_t* present, int* __restrict__ slot, int* tk2, int* ts2,
+    const uint8_t* sel) {
+  const PiTable tab = pi_table(tk0, tk0, ts0, tk2, tk2, ts2, sel, C, Q);
+  const int* __restrict__ tk = tab.tk;
+  const int* __restrict__ ts = tab.ts;
+  h0 += tab.tq; keys += tab.tq; mask += tab.tq; present += tab.tq;
+  slot += tab.tq;
   __shared__ int scan[33];
   __shared__ int stk[128][2], n_stk;
   const long long a64 = (long long)blockIdx.x * W;
@@ -580,10 +616,15 @@ __global__ void __launch_bounds__(PI_THREADS) probe_insert_resolve(
 // one block.  The table is written here, so it is read through plain (not
 // read-only) loads.
 __global__ void __launch_bounds__(PI_THREADS) probe_insert_lockstep(
-    int* tk, int* tv, int* ts, int C, const int* __restrict__ h0,
+    int* tk0, int* tv0, int* ts0, int C, const int* __restrict__ h0,
     const int* __restrict__ keys, const int* __restrict__ vals,
     const uint8_t* __restrict__ mask, int Q, int P,
-    uint8_t* __restrict__ present, int* __restrict__ slot) {
+    uint8_t* __restrict__ present, int* __restrict__ slot, int* tk2,
+    int* tv2, int* ts2, const uint8_t* sel) {
+  const PiTable tab = pi_table(tk0, tv0, ts0, tk2, tv2, ts2, sel, C, Q);
+  int *tk = tab.tk, *tv = tab.tv, *ts = tab.ts;
+  h0 += tab.tq; keys += tab.tq; vals += tab.tq; mask += tab.tq;
+  present += tab.tq; slot += tab.tq;
   // the claim map of one chunk: 2048 (slot, lowest index) entries
   constexpr int M = 2 * PI_THREADS;
   int* mkey = (int*)dhash_smem;
@@ -637,14 +678,19 @@ __global__ void __launch_bounds__(PI_THREADS) probe_insert_lockstep(
     if (slot[i] == -2) slot[i] = -1;
 }
 
-__global__ void probe_insert_write(int* __restrict__ tk, int* __restrict__ tv,
-                                   int* __restrict__ ts,
+__global__ void probe_insert_write(int* tk0, int* tv0, int* ts0, int C,
                                    const int* __restrict__ keys,
                                    const int* __restrict__ vals,
                                    const int* __restrict__ slot, int Q,
-                                   uint8_t* __restrict__ okf) {
+                                   uint8_t* __restrict__ okf, int* tk2,
+                                   int* tv2, int* ts2, const uint8_t* sel) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= Q) return;
+  const PiTable tab = pi_table(tk0, tv0, ts0, tk2, tv2, ts2, sel, C, Q);
+  int* __restrict__ tk = tab.tk;
+  int* __restrict__ tv = tab.tv;
+  int* __restrict__ ts = tab.ts;
+  keys += tab.tq; vals += tab.tq; slot += tab.tq; okf += tab.tq;
   const int s = slot[i];
   okf[i] = s >= 0 ? 1 : 0;
   if (s >= 0) {
@@ -673,8 +719,12 @@ extern "C" int dhash_probe_insert(int* tk, int* tv, int* ts, int C,
                                   const int* h0, const int* keys,
                                   const int* vals, const uint8_t* mask,
                                   int Q, int max_probes, uint8_t* okf,
-                                  uint8_t* present, int* slot, void* stream) {
+                                  uint8_t* present, int* slot, int T,
+                                  int* tk2, int* tv2, int* ts2,
+                                  const uint8_t* sel, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (T < 1 || T > 65535 || (sel != nullptr && (!tk2 || !tv2 || !ts2)))
+    return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = dhash_sm_count(&sms);
@@ -688,18 +738,23 @@ extern "C" int dhash_probe_insert(int* tk, int* tv, int* ts, int C,
     g_opted[dev] = true;
   }
   if (max_probes >= 1 && max_probes <= PI_MAX_WINDOW && max_probes <= C) {
-    const int blocks = pi_blocks(C, Q, max_probes, sms);
+    const int blocks = pi_blocks(C, Q, max_probes, (sms + T - 1) / T);
     const int W = (int)(((long long)C + blocks - 1) / blocks);
-    const bool vec8 = (uintptr_t)h0 % 16 == 0 && (uintptr_t)mask % 8 == 0;
-    probe_insert_resolve<<<blocks, PI_THREADS, PI_SMEM_BYTES, s>>>(
-        tk, ts, C, W, vec8, h0, keys, mask, Q, max_probes, present, slot);
+    // every row's start slots and mask bytes aligned as the first row's
+    const bool vec8 = (uintptr_t)h0 % 16 == 0 && (uintptr_t)mask % 8 == 0 &&
+                      (T == 1 || Q % 8 == 0);
+    probe_insert_resolve<<<dim3(blocks, T), PI_THREADS, PI_SMEM_BYTES, s>>>(
+        tk, ts, C, W, vec8, h0, keys, mask, Q, max_probes, present, slot,
+        tk2, ts2, sel);
   } else {
-    probe_insert_lockstep<<<1, PI_THREADS, 2 * PI_THREADS * 2 * 4, s>>>(
-        tk, tv, ts, C, h0, keys, vals, mask, Q, max_probes, present, slot);
+    probe_insert_lockstep<<<dim3(1, T), PI_THREADS, 2 * PI_THREADS * 2 * 4,
+                            s>>>(tk, tv, ts, C, h0, keys, vals, mask, Q,
+                                 max_probes, present, slot, tk2, tv2, ts2,
+                                 sel);
   }
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  probe_insert_write<<<(Q + 255) / 256, 256, 0, s>>>(tk, tv, ts, keys, vals,
-                                                      slot, Q, okf);
+  probe_insert_write<<<dim3((Q + 255) / 256, T), 256, 0, s>>>(
+      tk, tv, ts, C, keys, vals, slot, Q, okf, tk2, tv2, ts2, sel);
   return (int)cudaGetLastError();
 }

@@ -130,21 +130,25 @@ def ordered_lookup(old_tables, new_tables, hazard_key, hazard_val, hazard_live,
 @torch.no_grad()
 def ordered_lookup_fused(old_tables, new_tables, hazard_key, hazard_val,
                          hazard_live, h0_old, h0_new, qkey, *,
-                         max_probes: int = 64, nres_cap: int = NRES_CAP):
+                         max_probes: int = 64, nres_cap: int = NRES_CAP,
+                         rebuilding=None, with_loc: bool = False):
     """FUSED rebuild-epoch lookup: ONE ``probe2`` launch emits the
     Lemma-4.1-ordered result for both tables plus the hazard buffer, whatever
-    the size of the new table.  ``nres_cap`` is accepted and unused."""
-    found, val, *_ = probe.probe2(old_tables, new_tables, hazard_key,
-                                  hazard_val, hazard_live, h0_old, h0_new,
-                                  qkey, max_probes)
-    return found, val
+    the size of the new table.  ``nres_cap`` is accepted and unused.  On a
+    table stack ([T, ...] operands) ``rebuilding`` (one flag a table) sends
+    the idle tables to their old table alone.  Returns (found, val), and
+    the old table's hit slot ``loc_old`` too when ``with_loc``."""
+    found, val, _, loc_old, _, _ = probe.probe2(
+        old_tables, new_tables, hazard_key, hazard_val, hazard_live, h0_old,
+        h0_new, qkey, max_probes, rebuilding)
+    return (found, val, loc_old) if with_loc else (found, val)
 
 
 @torch.no_grad()
 def probe_insert(tkey: torch.Tensor, tval: torch.Tensor, tstate: torch.Tensor,
                  h0: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor,
                  mask: torch.Tensor, *, max_probes: int = 64,
-                 with_present: bool = False):
+                 with_present: bool = False, alt=None, use_alt=None):
     """Batched linear-probe INSERT via the ``probe_insert`` kernel; writes
     ``tkey/tval/tstate`` IN PLACE.
 
@@ -155,10 +159,12 @@ def probe_insert(tkey: torch.Tensor, tval: torch.Tensor, tstate: torch.Tensor,
 
     Returns (tkey, tval, tstate, ok[Q]) — the arrays it was given — and,
     when ``with_present``, also ``present[Q]`` (masked keys found LIVE
-    before the batch).
+    before the batch).  A table stack's operands are [T, ...]; ``alt`` /
+    ``use_alt`` pick each table's target on the device
+    (``probe.probe_insert``).
     """
     ok, present = probe.probe_insert(tkey, tval, tstate, h0, keys, vals, mask,
-                                     max_probes)
+                                     max_probes, alt=alt, use_alt=use_alt)
     if with_present:
         return tkey, tval, tstate, ok, present
     return tkey, tval, tstate, ok
@@ -189,25 +195,36 @@ def _land_ordered_delete(old_state, new_state, hazard_live, mask, f_old,
     bit, or tombstone the new-table slot (old > hazard > new; at most one
     fires — the kernels report hz_idx / loc_new only where nothing earlier
     resolved).  Writes both state arrays IN PLACE (row-major [B, W] arrays
-    through their flat view).  Returns (old_state, new_state, hazard_live',
-    ok)."""
+    through their flat view).  A table stack's [T, Q] outputs land on its
+    stacked arrays, each table's locations offset to its row.  Returns
+    (old_state, new_state, hazard_live', ok)."""
     ok_old = mask & f_old
     ok_hz = mask & (hz_idx >= 0)
     ok_new = mask & (loc_new >= 0)
-    _tombstone_(old_state.view(-1), ok_old, loc_old)
-    _tombstone_(new_state.view(-1), ok_new, loc_new)
-    kill = torch.zeros(hazard_live.shape[0], dtype=I32,
+
+    def flat(loc, arr):
+        # table t's locations into the flat view of the stacked ``arr``
+        if loc.dim() == 1:
+            return loc
+        rows = torch.arange(loc.shape[0], dtype=loc.dtype, device=loc.device)
+        return (loc + rows[:, None] * (arr.numel() // arr.shape[0])).view(-1)
+
+    _tombstone_(old_state.view(-1), ok_old.view(-1), flat(loc_old, old_state))
+    _tombstone_(new_state.view(-1), ok_new.view(-1), flat(loc_new, new_state))
+    kill = torch.zeros(hazard_live.numel(), dtype=I32,
                        device=hazard_live.device)
-    kill.scatter_reduce_(0, torch.where(ok_hz, hz_idx, 0).long(),
-                         ok_hz.to(I32), "amax")
-    return old_state, new_state, hazard_live & (kill == 0), \
-        ok_old | ok_hz | ok_new
+    kill.scatter_reduce_(0, torch.where(ok_hz.view(-1),
+                                        flat(hz_idx, hazard_live), 0).long(),
+                         ok_hz.view(-1).to(I32), "amax")
+    return old_state, new_state, hazard_live & (kill.view(
+        hazard_live.shape) == 0), ok_old | ok_hz | ok_new
 
 
 @torch.no_grad()
 def ordered_delete_fused(old_tables, new_tables, hazard_key, hazard_val,
                          hazard_live, h0_old, h0_new, keys, mask, *,
-                         max_probes: int = 64, nres_cap: int = NRES_CAP):
+                         max_probes: int = 64, nres_cap: int = NRES_CAP,
+                         rebuilding=None):
     """FUSED rebuild-epoch delete (paper Alg. 5): ONE ``probe2`` launch
     resolves the ordered check, then three scatters land the result —
     tombstone the old-table slot, or clear the hazard live bit
@@ -216,11 +233,13 @@ def ordered_delete_fused(old_tables, new_tables, hazard_key, hazard_val,
 
     Caller contract: ``mask`` is winner-filtered.  Returns
     (old_state, new_state, hazard_live', ok[Q]); ``hazard_live'`` is a new
-    tensor.
+    tensor.  On a table stack ([T, ...] operands) ``rebuilding`` (one flag
+    a table) makes it the steady delete of the idle tables (their old table
+    alone).
     """
     _f, _v, *locs = probe.probe2(old_tables, new_tables, hazard_key,
                                  hazard_val, hazard_live, h0_old, h0_new,
-                                 keys, max_probes)
+                                 keys, max_probes, rebuilding)
     return _land_ordered_delete(old_tables[2], new_tables[2], hazard_live,
                                 mask, *locs)
 

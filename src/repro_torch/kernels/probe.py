@@ -95,6 +95,17 @@ segment scan cannot settle).  Results come back in query order, one a query,
 and ``loc`` is the physical slot in ``[0, C)`` (for a [B, W] table the flat
 slot ``row * W + lane``, for a chain arena the node index).
 
+A table axis.  ``probe2``, ``probe_insert``, ``extract`` (and
+``transition``) and ``epoch_swap`` also take a table stack: every operand
+leads with [T] (the stack's tables, each contiguous), one launch serves the
+T tables, and per-table device flags pick each table's branch in the kernel
+(``probe2``'s ``rebuilding``: the ordered check or the old table alone;
+``probe_insert``'s ``use_alt``: the target table; the transition's and the
+exchange's own rows of flags, cursors and go).  A call is stacked where its
+queries are [T, Q] (``probe2``, ``probe_insert``) or its cursor is [T]
+(``extract``, ``transition``, ``epoch_swap``); one table is T = 1 of the
+same kernel.  The plain versions run a stack table by table.
+
 Beside each wrapper stands ``<name>_plain``: the same function with the same
 signature and the same in-place behaviour in plain PyTorch.  A wrapper takes
 the plain version only when the tensors it was given lie on the CPU; for CUDA
@@ -214,13 +225,15 @@ def kick_tally(dev: torch.device | str = "cuda") -> dict[str, int]:
     return {"runs": runs, "iterations": iters, "keys": keys}
 
 
-def new_claim(rows: int, device) -> torch.Tensor:
-    """The claim words of a two-row table of ``rows`` rows (one a row):
+def new_claim(rows, device) -> torch.Tensor:
+    """The claim words of a two-row table of ``rows`` rows (one a row; a
+    shape, such as (T, rows) for a table stack):
     allocated once with the table, all ``CLAIM_FREE`` between launches.
     ``tc_insert`` takes them as its rows' claim words and the kick-out (in
     ``tc_insert``'s resolve or ``cuckoo_kick``) as its row locks; each
     launch restores every word it takes."""
-    return torch.full((rows,), CLAIM_FREE, dtype=I32, device=device)
+    shape = (rows,) if isinstance(rows, int) else tuple(rows)
+    return torch.full(shape, CLAIM_FREE, dtype=I32, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -302,12 +315,48 @@ def probe_lookup_hashed(tkey, tval, tstate, hfn, qkey, max_probes: int):
 # ---------------------------------------------------------------------------
 
 def probe2_plain(old_t, new_t, hazard_key, hazard_val, hazard_live,
-                 h0_old, h0_new, qkey, max_probes: int):
-    """Plain version of ``probe2`` (dense [Q, chunk] hazard compare)."""
-    return _ordered(
-        probe_lookup_plain(*old_t, h0_old, qkey, max_probes),
-        hazard_key, hazard_val, hazard_live, qkey,
-        probe_lookup_plain(*new_t, h0_new, qkey, max_probes))
+                 h0_old, h0_new, qkey, max_probes: int, rebuilding=None):
+    """Plain version of ``probe2`` (dense [Q, chunk] hazard compare; a
+    stack, table by table)."""
+    if qkey.dim() == 2:
+        return _stacked([probe2_plain(
+            _row(old_t, i), _row(new_t, i), hazard_key[i], hazard_val[i],
+            hazard_live[i], h0_old[i], h0_new[i], qkey[i], max_probes,
+            _row(rebuilding, i)) for i in range(qkey.shape[0])])
+    old = probe_lookup_plain(*old_t, h0_old, qkey, max_probes)
+    full = _ordered(old, hazard_key, hazard_val, hazard_live, qkey,
+                    probe_lookup_plain(*new_t, h0_new, qkey, max_probes))
+    if rebuilding is None:
+        return full
+    minus1 = torch.full_like(old[2], -1)
+    steady = (old[0], old[1], old[0], old[2], minus1, minus1)
+    return tuple(torch.where(rebuilding, a, b) for a, b in zip(full, steady))
+
+
+def _row(x, i: int):
+    """Table ``i`` of a stacked operand: a tensor's row, each tensor's row
+    of a tuple, or None."""
+    if x is None:
+        return None
+    if isinstance(x, tuple):
+        return tuple(t[i] for t in x)
+    return x[i]
+
+
+def _stacked(results: list) -> tuple:
+    """The tables' results of a plain version run table by table, stacked
+    on a leading axis."""
+    return tuple(torch.stack(r) for r in zip(*results))
+
+
+def _stack_of(n: int, *tensors) -> None:
+    """Every operand of a stacked call leads with the stack's ``n``
+    tables."""
+    for t in tensors:
+        if t.dim() < 1 or t.shape[0] != n:
+            raise ValueError(f"a stacked kernel operand of shape "
+                             f"{tuple(t.shape)} does not lead with the "
+                             f"stack's {n} tables")
 
 
 def _ordered(old, hazard_key, hazard_val, hazard_live, qkey, new):
@@ -330,7 +379,7 @@ def _ordered(old, hazard_key, hazard_val, hazard_live, qkey, new):
 
 
 def probe2(old_t, new_t, hazard_key, hazard_val, hazard_live,
-           h0_old, h0_new, qkey, max_probes: int):
+           h0_old, h0_new, qkey, max_probes: int, rebuilding=None):
     """Rebuild-epoch ordered check in one pass: old table, hazard buffer,
     new table, priority old > hazard > new.
 
@@ -340,26 +389,43 @@ def probe2(old_t, new_t, hazard_key, hazard_val, hazard_live,
     the key, reported only where the old table did not resolve the query;
     ``loc_new`` the new-table slot, reported only where neither of the
     others resolved it; -1 = none.  Contract: a hazard buffer of at most
-    4096 entries, what ``extract`` fills."""
+    4096 entries, what ``extract`` fills.
+
+    A table stack (``qkey`` [T, Q]): every operand leads with the T tables
+    (tables [T, C], hazard [T, chunk], start slots [T, Q]) and every output
+    is [T, Q]; one launch serves all T.  ``rebuilding`` (bool, one a
+    table) marks the tables mid-rebuild: the others answer from their old
+    table alone (``hz_idx`` and ``loc_new`` -1), the reference's steady
+    branch; None is every table."""
     if qkey.device.type == "cpu":
         return probe2_plain(old_t, new_t, hazard_key, hazard_val,
-                            hazard_live, h0_old, h0_new, qkey, max_probes)
-    if hazard_key.shape[0] > EXTRACT_MAX_CHUNK:
-        raise ValueError(f"hazard buffer of {hazard_key.shape[0]} entries "
+                            hazard_live, h0_old, h0_new, qkey, max_probes,
+                            rebuilding)
+    if hazard_key.shape[-1] > EXTRACT_MAX_CHUNK:
+        raise ValueError(f"hazard buffer of {hazard_key.shape[-1]} entries "
                          f"exceeds the probe2 kernel's {EXTRACT_MAX_CHUNK}")
     _check(*[(t, I32) for t in (*old_t, *new_t, hazard_key, hazard_val,
                                 h0_old, h0_new, qkey)],
            (hazard_live, torch.bool))
-    q, dev = qkey.shape[0], qkey.device
-    found = torch.empty(q, dtype=torch.bool, device=dev)
-    f_old = torch.empty(q, dtype=torch.bool, device=dev)
+    n = qkey.shape[0] if qkey.dim() == 2 else 1
+    if qkey.dim() == 2:
+        _stack_of(n, *old_t, *new_t, hazard_key, hazard_val, hazard_live,
+                  h0_old, h0_new)
+    if rebuilding is not None:
+        _check((qkey, I32), (rebuilding, torch.bool))
+        if rebuilding.numel() != n:
+            raise ValueError("probe2: one rebuilding flag a table")
+    q, dev = qkey.shape[-1], qkey.device
+    found = torch.empty(qkey.shape, dtype=torch.bool, device=dev)
+    f_old = torch.empty(qkey.shape, dtype=torch.bool, device=dev)
     val, loc_old, hz_idx, loc_new = (
-        torch.empty(q, dtype=I32, device=dev) for _ in range(4))
+        torch.empty(qkey.shape, dtype=I32, device=dev) for _ in range(4))
     if q:
-        _launch("probe2", probe2, dev, *old_t, old_t[0].shape[0],
-                *new_t, new_t[0].shape[0], hazard_key, hazard_val,
-                hazard_live, hazard_key.shape[0], h0_old, h0_new, qkey, q,
-                max_probes, found, val, f_old, loc_old, hz_idx, loc_new)
+        _launch("probe2", probe2, dev, *old_t, old_t[0].shape[-1],
+                *new_t, new_t[0].shape[-1], hazard_key, hazard_val,
+                hazard_live, hazard_key.shape[-1], h0_old, h0_new, qkey, q,
+                max_probes, found, val, f_old, loc_old, hz_idx, loc_new, n,
+                rebuilding)
     return found, val, f_old, loc_old, hz_idx, loc_new
 
 
@@ -368,8 +434,21 @@ def probe2(old_t, new_t, hazard_key, hazard_val, hazard_live,
 # ---------------------------------------------------------------------------
 
 def probe_insert_plain(tkey, tval, tstate, h0, keys, vals, mask,
-                       max_probes: int):
-    """Plain version of ``probe_insert``; mutates tkey/tval/tstate in place."""
+                       max_probes: int, *, alt=None, use_alt=None):
+    """Plain version of ``probe_insert``; mutates tkey/tval/tstate (or the
+    ``alt`` table) in place; a stack table by table."""
+    if keys.dim() == 2:
+        return _stacked([probe_insert_plain(
+            tkey[i], tval[i], tstate[i], h0[i], keys[i], vals[i], mask[i],
+            max_probes, alt=_row(alt, i), use_alt=_row(use_alt, i))
+            for i in range(keys.shape[0])])
+    if use_alt is not None:
+        # two masked inserts, one of which inserts nothing (no host read)
+        ok_a, pr_a = probe_insert_plain(*alt, h0, keys, vals,
+                                        mask & use_alt, max_probes)
+        ok, pr = probe_insert_plain(tkey, tval, tstate, h0, keys, vals,
+                                    mask & ~use_alt, max_probes)
+        return ok | ok_a, pr | pr_a
     c, q, dev = tkey.shape[0], keys.shape[0], tkey.device
     present, _, _ = probe_lookup_plain(tkey, tval, tstate, h0, keys,
                                        max_probes)
@@ -397,7 +476,8 @@ def probe_insert_plain(tkey, tval, tstate, h0, keys, vals, mask,
     return ok, present
 
 
-def probe_insert(tkey, tval, tstate, h0, keys, vals, mask, max_probes: int):
+def probe_insert(tkey, tval, tstate, h0, keys, vals, mask, max_probes: int,
+                 *, alt=None, use_alt=None):
     """Batched claim-first-non-LIVE insert; MUTATES tkey/tval/tstate.
 
     Presence is proved on the table as it was before the batch; then
@@ -412,19 +492,37 @@ def probe_insert(tkey, tval, tstate, h0, keys, vals, mask, max_probes: int):
     Caller contract: ``mask`` is winner-filtered (at most one True per
     distinct key).  Returns (ok[Q] bool, present[Q] bool): ``present`` marks
     masked keys that were already LIVE, which tells a duplicate from a full
-    window."""
+    window.
+
+    A table stack (``keys`` [T, Q]): tables [T, C], every batch operand and
+    output [T, Q], each table resolved on its own, one launch for all T.
+    ``alt`` (a (key, val, state) triple shaped as the table) and
+    ``use_alt`` (bool, one a table) give each table its target on the
+    device: ``alt`` where ``use_alt`` is set, else the table given — the
+    reference's ``cond(rebuilding)`` between new and old table."""
     if tkey.device.type == "cpu":
         return probe_insert_plain(tkey, tval, tstate, h0, keys, vals, mask,
-                                  max_probes)
+                                  max_probes, alt=alt, use_alt=use_alt)
     _check((tkey, I32), (tval, I32), (tstate, I32), (h0, I32), (keys, I32),
            (vals, I32), (mask, torch.bool))
-    c, q, dev = tkey.shape[0], keys.shape[0], tkey.device
-    ok = torch.empty(q, dtype=torch.bool, device=dev)
-    present = torch.empty(q, dtype=torch.bool, device=dev)
+    c, q, dev = tkey.shape[-1], keys.shape[-1], tkey.device
+    n = keys.shape[0] if keys.dim() == 2 else 1
+    if keys.dim() == 2:
+        _stack_of(n, tkey, tval, tstate, h0, vals, mask)
+    if (alt is None) != (use_alt is None):
+        raise ValueError("probe_insert: give both alt and use_alt, or none")
+    if use_alt is not None:
+        _check(*((t, I32) for t in alt), (use_alt, torch.bool))
+        if any(t.shape != tkey.shape for t in alt) or use_alt.numel() != n:
+            raise ValueError("probe_insert: the alternative table must be "
+                             "shaped as the table, with one flag a table")
+    ok = torch.empty(keys.shape, dtype=torch.bool, device=dev)
+    present = torch.empty(keys.shape, dtype=torch.bool, device=dev)
     if q:
-        slot = torch.empty(q, dtype=I32, device=dev)
+        slot = torch.empty(keys.shape, dtype=I32, device=dev)
         _launch("probe_insert", probe_insert, dev, tkey, tval, tstate, c, h0,
-                keys, vals, mask, q, max_probes, ok, present, slot)
+                keys, vals, mask, q, max_probes, ok, present, slot, n,
+                *(alt or (None, None, None)), use_alt)
     return ok, present
 
 
@@ -436,7 +534,14 @@ def extract_plain(tkey, tval, tstate, cursor, chunk: int, *, out=None,
                   run=None, hold=None):
     """Plain version of ``extract``; marks the migrated slots in ``tstate``
     in place (and with ``out`` writes the hazard buffer and the cursor in
-    place).  The flags are honoured by computing the scan and selecting."""
+    place).  The flags are honoured by computing the scan and selecting.
+    A stack (``cursor`` [T]) table by table."""
+    if cursor.dim() == 1:
+        res = [extract_plain(tkey[i], tval[i], tstate[i], cursor[i], chunk,
+                             out=_row(out, i), run=_row(run, i),
+                             hold=_row(hold, i))
+               for i in range(cursor.shape[0])]
+        return (*out, cursor) if out is not None else _stacked(res)
     c, dev = tkey.shape[0], tkey.device
     lane = torch.arange(chunk, dtype=torch.int64, device=dev)
     pos = cursor.long() + lane
@@ -485,7 +590,11 @@ def extract(tkey, tval, tstate, cursor, chunk: int, *, out=None, run=None,
     and advance ``cursor`` IN PLACE (and returns them).  ``run`` / ``hold``
     are 0-dim bool device flags: the scan happens only where ``run`` is set
     and ``hold`` is not, else nothing is written — the reference's
-    ``lax.cond(rebuilding & ~pending)``, decided on the device."""
+    ``lax.cond(rebuilding & ~pending)``, decided on the device.
+
+    A table stack (``cursor`` [T]): tables [T, C], flags [T], hazard
+    outputs [T, chunk], each table scanned at its own cursor, one launch
+    (a block a table)."""
     if tkey.device.type == "cpu":
         return extract_plain(tkey, tval, tstate, cursor, chunk, out=out,
                              run=run, hold=hold)
@@ -493,23 +602,28 @@ def extract(tkey, tval, tstate, cursor, chunk: int, *, out=None, run=None,
         raise ValueError(f"chunk {chunk} exceeds the extract kernel's "
                          f"{EXTRACT_MAX_CHUNK}")
     _check((tkey, I32), (tval, I32), (tstate, I32), (cursor, I32))
-    dev = tkey.device
+    dev, lead = tkey.device, tuple(cursor.shape)
+    n = cursor.numel()
+    if lead:
+        _stack_of(n, tkey, tval, tstate)
     if out is None:
-        hk = torch.empty(chunk, dtype=I32, device=dev)
-        hv = torch.empty(chunk, dtype=I32, device=dev)
-        hl = torch.empty(chunk, dtype=torch.bool, device=dev)
-        new_cursor = torch.empty((), dtype=I32, device=dev)
+        hk = torch.empty(lead + (chunk,), dtype=I32, device=dev)
+        hv = torch.empty(lead + (chunk,), dtype=I32, device=dev)
+        hl = torch.empty(lead + (chunk,), dtype=torch.bool, device=dev)
+        new_cursor = torch.empty(lead, dtype=I32, device=dev)
     else:
         (hk, hv, hl), new_cursor = out, cursor
         _check((hk, I32), (hv, I32), (hl, torch.bool))
-        if hk.shape[0] != chunk:
+        if tuple(hk.shape) != lead + (chunk,):
             raise ValueError("hazard buffer does not match the chunk")
     for f in (run, hold):
         if f is not None:
             _check((tkey, I32), (f, torch.bool))
-    _launch("extract", extract, dev, tkey, tval, tstate, tkey.shape[0],
+            if f.numel() != n:
+                raise ValueError("extract: one flag a table")
+    _launch("extract", extract, dev, tkey, tval, tstate, tkey.shape[-1],
             cursor, chunk, hk, hv, hl, new_cursor, run, hold, None, None,
-            None, 0, 0)
+            None, 0, 0, n)
     return hk, hv, hl, new_cursor
 
 
@@ -519,7 +633,12 @@ def transition_plain(tkey, tval, tstate, cursor, chunk: int, hazard,
     """Plain version of ``transition``: the sequence it replaces — the
     snapshot ``any``, the landing's keep mask, the guarded
     ``extract_plain``, ``_epoch_flags`` — writing the same tensors in
-    place.  Returns go[2] bool."""
+    place (a stack table by table).  Returns go[2] bool (go[T, 2])."""
+    if cursor.dim() == 1:
+        return torch.stack([transition_plain(
+            tkey[i], tval[i], tstate[i], cursor[i], chunk, _row(hazard, i),
+            rebuilding[i], ok[i], present[i], swap, start)
+            for i in range(cursor.shape[0])])
     hl = hazard[2]
     pending = hl.any()
     hl.copy_(hl & ~ok & ~present)
@@ -548,7 +667,12 @@ def transition(tkey, tval, tstate, cursor, chunk: int, hazard, rebuilding,
 
     (``tkey``, ``tval``, ``tstate``) are the scanned table's flat arrays;
     their length is its scan-order capacity.  Contract: ``chunk <= 4096``
-    on a CUDA device.  Returns go[2] bool on the device."""
+    on a CUDA device.  Returns go[2] bool on the device.
+
+    A table stack (``cursor`` [T]): the tables' arrays [T, C], the hazard
+    buffer, ``ok`` and ``present`` [T, chunk], ``rebuilding`` [T]; each
+    table runs its own transition on its own flags, one launch (a block a
+    table).  Returns go[T, 2]."""
     dev = tkey.device
     if dev.type == "cpu":
         return transition_plain(tkey, tval, tstate, cursor, chunk, hazard,
@@ -560,14 +684,17 @@ def transition(tkey, tval, tstate, cursor, chunk: int, hazard, rebuilding,
     _check((tkey, I32), (tval, I32), (tstate, I32), (cursor, I32), (hk, I32),
            (hv, I32), (hl, torch.bool), (rebuilding, torch.bool),
            (ok, torch.bool), (present, torch.bool))
-    if not hk.shape[0] == hv.shape[0] == hl.shape[0] == ok.shape[0] \
-            == present.shape[0] == chunk:
+    lead, n = tuple(cursor.shape), cursor.numel()
+    if not tuple(hk.shape) == tuple(hv.shape) == tuple(hl.shape) \
+            == tuple(ok.shape) == tuple(present.shape) == lead + (chunk,):
         raise ValueError("transition: the hazard buffer, ok and present "
                          "must match the chunk")
-    go = torch.empty(2, dtype=torch.bool, device=dev)
-    _launch("extract", extract, dev, tkey, tval, tstate, tkey.shape[0],
+    if lead:
+        _stack_of(n, tkey, tval, tstate, rebuilding)
+    go = torch.empty(lead + (2,), dtype=torch.bool, device=dev)
+    _launch("extract", extract, dev, tkey, tval, tstate, tkey.shape[-1],
             cursor, chunk, hk, hv, hl, cursor, rebuilding, None, ok, present,
-            go, int(swap), int(start))
+            go, int(swap), int(start), n)
     return go
 
 
@@ -1186,7 +1313,14 @@ def epoch_swap_plain(old, new, specs, hazard_live, cursor, rebuilding, epoch,
                      lookups, expensive, capacity: int, swap: bool,
                      start: bool, go=None) -> torch.Tensor:
     """Plain version of ``epoch_swap``: the same decisions as tensors, the
-    leaves selected with ``torch.where`` in place.  Returns go[2] bool."""
+    leaves selected with ``torch.where`` in place; a stack table by table.
+    Returns go[2] bool (go[T, 2])."""
+    if cursor.dim() == 1:
+        return torch.stack([epoch_swap_plain(
+            [a[i] for a in old], [b[i] for b in new], specs, hazard_live[i],
+            cursor[i], rebuilding[i], epoch[i], lookups[i], expensive[i],
+            capacity, swap, start, _row(go, i))
+            for i in range(cursor.shape[0])])
     if go is None:
         go_swap, go_start = _epoch_flags(hazard_live, cursor, rebuilding,
                                          capacity, swap, start)
@@ -1213,10 +1347,11 @@ _EPOCH_DESC: dict = {}
 _EPOCH_DESC_KEEP = 16
 
 
-def _epoch_desc(old, new, specs, dev):
-    """(descriptor, go buffer) of the leaves: one row of five int64 words a
-    leaf (old pointer, new pointer, elements, mode, fill), a CPU tensor the
-    C side reads when it launches."""
+def _epoch_desc(old, new, specs, dev, n: int = 1):
+    """(descriptor, go buffer) of the leaves of ``n`` stacked tables: one
+    row of five int64 words a leaf (old pointer, new pointer, a table's
+    elements, mode, fill), a CPU tensor the C side reads when it launches,
+    and go [2] (one table) or [n, 2]."""
     rows = []
     for a, b, spec in zip(old, new, specs, strict=True):
         if a.shape != b.shape or a.dtype != b.dtype:
@@ -1229,12 +1364,13 @@ def _epoch_desc(old, new, specs, dev):
         else:
             _check((a, I32), (b, I32))
             fill = spec[1] if spec[0] == "fill" else 0
-        rows.append((a.data_ptr(), b.data_ptr(), a.numel(), mode, fill))
-    key = (dev, tuple(rows))
+        rows.append((a.data_ptr(), b.data_ptr(), a.numel() // n, mode, fill))
+    key = (dev, n, tuple(rows))
     hit = _EPOCH_DESC.pop(key, None)
     if hit is None:
         hit = (torch.tensor(rows, dtype=torch.int64).reshape(-1),
-               torch.empty(2, dtype=torch.bool, device=dev))
+               torch.empty((n, 2) if n > 1 else (2,), dtype=torch.bool,
+                           device=dev))
         while len(_EPOCH_DESC) >= _EPOCH_DESC_KEEP:
             _EPOCH_DESC.pop(next(iter(_EPOCH_DESC)))
     _EPOCH_DESC[key] = hit
@@ -1263,26 +1399,35 @@ def epoch_swap(old, new, specs, hazard_live, cursor, rebuilding, epoch,
     call decides first from ``hazard_live``, ``cursor`` and ``rebuilding``
     (a second kernel; ``epoch_swap.launches`` counts both) into a buffer
     kept with the leaves' descriptor, valid until the next call on the same
-    leaves.  Returns go[2] bool on the device: (swapped, started)."""
+    leaves.  Returns go[2] bool on the device: (swapped, started).
+
+    A table stack (``cursor`` [T]): every leaf [T, ...], the scalars [T],
+    ``hazard_live`` [T, chunk], ``go`` [T, 2]; each table decides, swaps,
+    clears and reseeds (from its own epoch + 1 and its own seeds) on its
+    own row, one call for all T.  Returns go[T, 2]."""
     dev = cursor.device
     if dev.type == "cpu":
         return epoch_swap_plain(old, new, specs, hazard_live, cursor,
                                 rebuilding, epoch, lookups, expensive,
                                 capacity, swap, start, go)
-    desc, own = _epoch_desc(old, new, specs, dev)
+    n = cursor.numel()
+    desc, own = _epoch_desc(old, new, specs, dev, n)
     _check((cursor, I32), (epoch, I32), (lookups, I32), (expensive, I32),
            (rebuilding, torch.bool), (hazard_live, torch.bool))
+    if cursor.dim():
+        _stack_of(n, *old, epoch, lookups, expensive, rebuilding,
+                  hazard_live)
     decide = go is None
     if decide:
         go = own
     else:
         _check((go, torch.bool))
-        if go.numel() != 2:
-            raise ValueError("epoch_swap: go must be two bools")
+        if go.numel() != 2 * n:
+            raise ValueError("epoch_swap: go must be two bools a table")
     _launch("epoch_swap", epoch_swap, dev, desc, len(old),
-            hazard_live if decide else None, hazard_live.shape[0], cursor,
+            hazard_live if decide else None, hazard_live.shape[-1], cursor,
             rebuilding, epoch, lookups, expensive, capacity, int(swap),
-            int(start), go)
+            int(start), go, n)
     epoch_swap.launches += decide               # the decision's kernel
     return go
 

@@ -454,7 +454,144 @@ def test_make_checks_and_policy_round_trip():
     assert convert.policy_to_numpy(tpol.make(tomb_load=0.1, in_place=True,
                                              device="cpu")).keys() == \
         tree.keys()
-    with pytest.raises(NotImplementedError, match="A4"):
-        tpol.stack(pt, 4)
-    with pytest.raises(NotImplementedError, match="A4"):
-        tpol.stack_policy_step(pt, None)
+    # a stacked policy: one latch and plan a table, as the reference's
+    ps, js = tpol.stack(pt, 4), jpol.stack(pj, 4)
+    for f in POLICY_STATE:
+        assert getattr(ps, f).shape == (4,), f
+        assert np.array_equal(getattr(ps, f).numpy(),
+                              np.asarray(getattr(js, f))), f
+    ps.fires.add_(1)
+    assert pt.fires.item() == 0
+    back = convert.policy_from_numpy(convert.policy_to_numpy(ps),
+                                     device="cpu")
+    assert back.armed.shape == (4,) and back.fires.tolist() == [1] * 4
+
+
+# ---------------------------------------------------------------------------
+# table stacks: per-tenant policies (the reference's stack cases)
+# ---------------------------------------------------------------------------
+
+def test_stack_engine_latch_holds_across_epoch():
+    """A tenant held past the watermark rebuilds exactly once over a long
+    idle drive, through both packages' DHashStackEngine in lock step."""
+    from repro.core.engine import DHashStackEngine as JStackEngine
+    from repro_torch.core.engine import DHashStackEngine
+    jstk = jdhash.make_stack(4, "linear", 64, chunk=32, fused=True)
+    kw = dict(grow_load=0.5, in_place=True, tomb_load=1.0)
+    ref = JStackEngine(jstk, policy=jpol.make(**kw))
+    eng = DHashStackEngine(
+        convert.state_from_numpy(jax_state_tree(jstk), device="cpu"),
+        policy=tpol.make(device="cpu", **kw))
+    T, Q = 4, 65   # linear cap 64 -> 128 slots, high = 64 at grow_load 0.5
+    kq = np.zeros((T, Q), np.int32)
+    nomask = np.zeros((T, Q), bool)
+    ins = kq.copy()
+    ins[2] = np.arange(1, Q + 1)
+    im = nomask.copy()
+    im[2] = True
+    steps = [(kq, ins, ins * 2, kq, im)] + [(kq, kq, kq, kq, nomask)] * 60
+    for lk, ik, iv, dk, m in steps:
+        got = eng.step(lk, ik, iv, dk, ins_mask=m, del_mask=nomask)
+        want = ref.step(lk, ik, iv, dk, ins_mask=m, del_mask=nomask)
+        for a, b in zip(got, want):
+            assert np.array_equal(a.numpy(), np.asarray(b))
+        assert np.array_equal(eng.state.epoch.numpy(),
+                              np.asarray(ref.state.epoch))
+        assert np.array_equal(eng.policy.fires.numpy(),
+                              np.asarray(ref.policy.fires))
+    assert eng.state.epoch.tolist() == [0, 0, 1, 0]
+    found, vals = eng.lookup(ins)
+    assert found[2].all() and not found[[0, 1, 3]].any()
+    assert (vals[2].numpy() == np.arange(1, Q + 1) * 2).all()
+
+
+@pytest.mark.parametrize("backend,fused", AXIS)
+def test_stack_tenants_fire_independently(backend, fused):
+    """8 tenants, two loaded past the watermark: exactly those fire on the
+    device, each under its own latch, and every tenant's keys survive its
+    rehash — the port's ``stack_policy_step`` against the reference's."""
+    T, cap = 8, 64
+    jd = jdhash.make_stack(T, backend, capacity=cap, chunk=32, seed=0,
+                           fused=fused and REF_FUSED[backend])
+    td = convert.state_from_numpy({**jax_state_tree(jd), "fused": fused},
+                                  device="cpu")
+    slots = int(tbe.get(backend).capacity_of(td.old))
+    cfg = dict(grow_load=0.5, in_place=True, tomb_load=1.0)
+    jp = jpol.stack(jpol.make(**cfg), T)
+    tp = tpol.stack(tpol.make(device="cpu", **cfg), T)
+    high, low = tpol.watermarks(tp, slots)
+    hot = np.array([False, True, False, False, False, True, False, False])
+    target = np.where(hot, high + 1, max(low + 2, 8))
+    held: list[list[int]] = [[] for _ in range(T)]
+    nxt = 1
+    _jins = jax.jit(jdhash.stack_insert)
+    for _ in range(12):
+        live = tbe.get(backend).count_live(td.old).numpy()
+        assert np.array_equal(live, np.asarray(
+            jax.vmap(jbe.get(backend).count_live)(jd.old)))
+        need = target - live
+        if (need <= 0).all():
+            break
+        q = int(need.max())
+        keys = np.zeros((T, q), np.int32)
+        mask = np.zeros((T, q), bool)
+        for t in range(T):
+            if need[t] > 0:
+                keys[t, :need[t]] = np.arange(nxt, nxt + need[t]) + 100_000 * t
+                mask[t, :need[t]] = True
+        nxt += q
+        jd, ok_j = _jins(jd, jnp.asarray(keys), jnp.asarray(keys),
+                         jnp.asarray(mask))
+        _, ok = tdhash.stack_insert(td, torch.as_tensor(keys),
+                                    torch.as_tensor(keys),
+                                    torch.as_tensor(mask))
+        assert np.array_equal(ok.numpy(), np.asarray(ok_j))
+        okn = ok.numpy() & mask
+        for t in range(T):
+            held[t].extend(keys[t][okn[t]].tolist())
+    assert (tbe.get(backend).count_live(td.old).numpy() == target).all()
+
+    jp, jd = jax.jit(jpol.stack_policy_step)(jp, jd)
+    tpol.stack_policy_step(tp, td)
+    for f in POLICY_STATE:
+        assert np.array_equal(getattr(tp, f).numpy(),
+                              np.asarray(getattr(jp, f))), f
+    assert tp.fires.tolist() == hot.astype(int).tolist()
+    assert td.rebuilding.numpy().tolist() == hot.tolist()
+    assert np.array_equal(td.rebuilding.numpy(), np.asarray(jd.rebuilding))
+    for side in ("old", "new"):     # the fired tables' standby, reseeded
+        for h in tbe.get(backend).hash_fns(getattr(td, side)):
+            assert len({tuple(r) for r in h.seeds.tolist()}) == T
+
+    _jstep = jax.jit(lambda d: jdhash.stack_finish_same_shape(
+        jdhash.stack_rebuild_step(d)))
+    for _ in range(50):
+        if not bool(td.rebuilding.any()) and not bool(jd.rebuilding.any()):
+            break
+        tdhash.stack_finish_same_shape(tdhash.stack_rebuild_step(td))
+        jd = _jstep(jd)
+    assert not bool(td.rebuilding.any())
+    assert td.epoch.tolist() == hot.astype(int).tolist()
+    assert np.array_equal(td.epoch.numpy(), np.asarray(jd.epoch))
+    width = max(len(h) for h in held)
+    keys = np.zeros((T, width), np.int32)
+    for t in range(T):
+        keys[t, :len(held[t])] = held[t]
+    found, vals = tdhash.stack_lookup(td, torch.as_tensor(keys))
+    for t in range(T):
+        n = len(held[t])
+        assert found[t, :n].all(), t
+        assert (vals[t, :n].numpy() == keys[t, :n]).all(), t
+    p, r = convert.state_to_numpy(td), jax_state_tree(jd)
+    for t in range(T):
+        row = {k: (v[t] if isinstance(v, np.ndarray) and v.ndim else v)
+               for k, v in p.items() if k not in ("old", "new")}
+        rrow = {k: (v[t] if isinstance(v, np.ndarray) and v.ndim else v)
+                for k, v in r.items() if k not in ("old", "new")}
+        for side in ("old", "new"):
+            row[side] = {k: (v[t] if isinstance(v, np.ndarray) else v)
+                         for k, v in p[side].items() if not k.startswith("h")}
+            rrow[side] = {k: (v[t] if isinstance(v, np.ndarray) else v)
+                          for k, v in r[side].items()
+                          if not k.startswith("h")}
+        assert _content(row) == _content(rrow), t
