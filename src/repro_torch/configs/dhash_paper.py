@@ -11,7 +11,7 @@ class DHashServiceConfig:
     chunk: int = 4096                     # rebuild chunk (hazard buffer)
     lookups_per_step: int = 1 << 16       # per shard
     updates_per_step: int = 1 << 13       # per shard (insert + delete each)
-    route_cap_factor: float = 0.0         # router cap (routing is not ported yet)
+    route_cap_factor: float = 0.0         # router cap (core/distributed.py)
     fwd_hazard: bool = False              # hazard via MIGRATED-slot forwarding
 
 

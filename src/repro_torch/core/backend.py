@@ -39,9 +39,10 @@ Cuckoo drives the twochoice kernels with side-offset rows; only its insert
 adds the bounded kick-out, run by the insert kernel's resolve.  Chain's
 insert adds the compaction, a kernel that reads its trigger on the device
 and returns at once below it (no host read).
-The linear descriptor also carries the stack set: the forms of its
-ordered lookup and delete, its insert and the transition on a table stack
-(``dhash.make_stack``), one kernel launch for all T tables.  ``epoch_leaves``
+The linear, twochoice and cuckoo descriptors also carry the stack set:
+the forms of their ordered lookup and delete, their insert and the
+transition on a table stack (``dhash.make_stack``), one kernel launch for
+all T tables (chain's stacks loop over their tables).  ``epoch_leaves``
 lists a table's tensor leaves (a stack's: [T, ...]) with what a rebuild start
 clears each to, for the epoch-swap kernel, from the descriptor's
 ``clear_fill`` and ``salt_offsets`` (stated next to ``clear`` and
@@ -479,11 +480,11 @@ def _two_row_fused(rows) -> dict:
                                      winner, **hashed(t))
         return t, ok
 
-    def ordered(op, t_old, t_new, hazard, keys, *extra, nres_cap):
+    def ordered(op, t_old, t_new, hazard, keys, *extra, nres_cap, **kw):
         return op((t_old.key, t_old.val, t_old.state),
                   (t_new.key, t_new.val, t_new.state), *hazard,
                   *rows(t_old, keys), *rows(t_new, keys), keys, *extra,
-                  nres_cap=nres_cap)
+                  nres_cap=nres_cap, **kw)
 
     def ordered_lookup_fused(t_old, t_new, hazard_key, hazard_val,
                              hazard_live, keys, *, nres_cap=NRES_CAP):
@@ -497,44 +498,104 @@ def _two_row_fused(rows) -> dict:
                        (hazard_key, hazard_val, hazard_live), keys,
                        batch_winners(keys, mask), nres_cap=nres_cap)
 
+    def stack_ordered_lookup_fused(t_old, t_new, hazard_key, hazard_val,
+                                   hazard_live, keys, rebuilding):
+        """A table stack's lookup: ONE ``tc_probe2`` launch for its T
+        tables, the idle ones on their old rows alone.  Returns (found,
+        vals, loc_old)."""
+        return ordered(ops.twochoice_ordered_lookup, t_old, t_new,
+                       (hazard_key, hazard_val, hazard_live), keys,
+                       nres_cap=NRES_CAP, rebuilding=rebuilding,
+                       with_loc=True)
+
+    def stack_ordered_delete_fused(t_old, t_new, hazard_key, hazard_val,
+                                   hazard_live, keys, mask, rebuilding):
+        """A table stack's delete: ONE ``tc_probe2`` launch and the three
+        landing scatters over the stacked arrays."""
+        return ordered(ops.twochoice_ordered_delete, t_old, t_new,
+                       (hazard_key, hazard_val, hazard_live), keys,
+                       batch_winners(keys, mask), nres_cap=NRES_CAP,
+                       rebuilding=rebuilding)
+
     return dict(lookup_fused=lookup_fused, lookup_fused_loc=lookup_fused_loc,
                 delete_fused=delete_fused,
                 extract_chunk_fused=extract_chunk_fused,
                 transition_fused=transition_fused,
                 ordered_lookup_fused=ordered_lookup_fused,
-                ordered_delete_fused=ordered_delete_fused)
+                ordered_delete_fused=ordered_delete_fused,
+                stack_ordered_lookup_fused=stack_ordered_lookup_fused,
+                stack_ordered_delete_fused=stack_ordered_delete_fused,
+                stack_transition_fused=transition_fused)
+
+
+def _target(t, keys, rows, alt, use_alt):
+    """The rows of an insert's target: ``t``'s, or on a table stack with
+    ``alt``, each table's own: the ``alt`` table's where ``use_alt`` is
+    set, else ``t``'s; and the (key, val, state) triple of ``alt`` (None
+    without one)."""
+    ra, rb = rows(t, keys)
+    if alt is None:
+        return ra, rb, None
+    aa, ab = rows(alt, keys)
+    flag = use_alt[:, None]
+    return (torch.where(flag, aa, ra), torch.where(flag, ab, rb),
+            (alt.key, alt.val, alt.state))
+
+
+def _pick_fn(use_alt, fa: hashing.HashFn, fb: hashing.HashFn):
+    """A stack of hash functions: ``fa``'s row where ``use_alt`` is set,
+    else ``fb``'s."""
+    flag = use_alt.view(-1, *[1] * (fa.seeds.dim() - 1))
+    return replace(fa, seeds=torch.where(flag, fa.seeds, fb.seeds))
 
 
 def twochoice_insert_fused(t: TwoChoiceTable, keys: torch.Tensor,
                            vals: torch.Tensor, mask: torch.Tensor, *,
+                           alt: TwoChoiceTable | None = None,
+                           use_alt: torch.Tensor | None = None,
                            with_present: bool = False, dedup: bool = True):
     """Kernel-backed two-choice insert: batch_winners dedup, then ONE
     ``tc_insert`` launch (``max_rounds`` alternating rounds).  Writes ``t``'s
-    tensors in place.  Returns (t, ok), or (t, ok, present)."""
+    tensors in place.  On a table stack ([T, Q] operands; the descriptor's
+    ``stack_insert_fused``) one row-wise sort and ONE launch for the T
+    tables, each into ``t`` or, where ``use_alt`` is set, into ``alt`` (the
+    reference's ``cond(rebuilding)`` decided in the kernel; ``t``'s claim
+    words serve either target).  Returns (t, ok), or (t, ok, present)."""
     from repro_torch.kernels import ops
     winner = batch_winners(keys, mask) if dedup else mask
+    ra, rb, alt3 = _target(t, keys, _tc_rows, alt, use_alt)
     *_, ok, present = ops.twochoice_insert(
-        t.key, t.val, t.state, *_tc_rows(t, keys), keys, vals, winner,
-        max_rounds=t.max_rounds, claim=t.claim, with_present=True)
+        t.key, t.val, t.state, ra, rb, keys, vals, winner,
+        max_rounds=t.max_rounds, claim=t.claim, with_present=True, alt=alt3,
+        use_alt=use_alt)
     return (t, ok, present) if with_present else (t, ok)
 
 
 def cuckoo_insert_fused(t: CuckooTable, keys: torch.Tensor,
                         vals: torch.Tensor, mask: torch.Tensor, *,
+                        alt: CuckooTable | None = None,
+                        use_alt: torch.Tensor | None = None,
                         with_present: bool = False, dedup: bool = True):
     """Kernel-backed cuckoo insert: ONE ``tc_insert`` launch places every
     key whose candidate rows have room (two rounds — one try a side) and,
     in its resolve's last block, runs the bounded kick-out for the winners
     left unplaced and absent from both rows (the reference's ``lax.cond``
     is the kernel's own test: with nothing left it does nothing).  Writes
-    ``t``'s tensors in place, no host read.  Returns (t, ok), or (t, ok,
+    ``t``'s tensors in place, no host read.  On a table stack as
+    ``twochoice_insert_fused``, each table's kick-out in its own last block
+    with its target's hash functions.  Returns (t, ok), or (t, ok,
     present)."""
     from repro_torch.kernels import ops
     winner = batch_winners(keys, mask) if dedup else mask
+    ra, rb, alt3 = _target(t, keys, _ck_rows, alt, use_alt)
+    fa, fb = t.hfn_a, t.hfn_b
+    if alt is not None:
+        fa, fb = (_pick_fn(use_alt, alt.hfn_a, t.hfn_a),
+                  _pick_fn(use_alt, alt.hfn_b, t.hfn_b))
     *_, ok, present = ops.cuckoo_insert(
-        t.key, t.val, t.state, *_ck_rows(t, keys), t.hfn_a, t.hfn_b,
-        t.nbuckets, keys, vals, winner, max_kick=t.max_kick, claim=t.claim,
-        with_present=True)
+        t.key, t.val, t.state, ra, rb, fa, fb, t.nbuckets, keys, vals,
+        winner, max_kick=t.max_kick, claim=t.claim, with_present=True,
+        alt=alt3, use_alt=use_alt)
     return (t, ok, present) if with_present else (t, ok)
 
 
@@ -940,6 +1001,7 @@ TWOCHOICE = register(BucketBackend(
     slots_for=_twochoice_slots_for,
     bounded_placement=True,
     insert_fused=twochoice_insert_fused,
+    stack_insert_fused=twochoice_insert_fused,
     **_two_row_fused(_tc_rows),
     hash_fns=_hash_fns_two,
 ))
@@ -966,6 +1028,7 @@ CUCKOO = register(BucketBackend(
     slots_for=_cuckoo_slots_for,
     bounded_placement=True,
     insert_fused=cuckoo_insert_fused,
+    stack_insert_fused=cuckoo_insert_fused,
     **_two_row_fused(_ck_rows),
     hash_fns=_hash_fns_two,
 ))

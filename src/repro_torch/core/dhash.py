@@ -40,9 +40,9 @@ the host and take the flag as an optional keyword HINT: ``None`` (the
 default) reads it from the device — a host synchronisation — and keeps the
 reference's semantics whatever the flag is; a caller that already knows the
 flag passes it and the function never synchronises.  The DEVICE-FLAG forms
-(``lookup_counted_``, ``insert_by_flag``, ``rebuild_step_``,
-``finish_same_shape_``, ``rebuild_autostart_``) decide on the device
-instead: guarded kernel
+(``lookup_counted_``, ``insert_by_flag``, ``delete_by_flag``,
+``rebuild_step_``, ``finish_same_shape_``, ``rebuild_autostart_``) decide
+on the device instead: guarded kernel
 launches (``extract`` and ``epoch_swap`` skip their work on a device flag;
 the rebuild step's transition decides the epoch for the exchange that
 follows it) and selects, no host read, and they write every field of the
@@ -61,8 +61,9 @@ every op is functional.  ``lookup`` never writes.
   ops, which gives each of its kernels a grid axis over [T]; here the
   descriptor's stack set runs each op as ONE launch of each kernel for the
   T tables, each table's branch (rebuilding or not) picked in the kernel by
-  its own device flag (linear, ``fused=True``); every other stack loops
-  over its tables' views with the single-table device-flag forms.  Every
+  its own device flag (linear, twochoice and cuckoo, ``fused=True``);
+  every other stack loops over its tables' views with the single-table
+  device-flag forms.  Every
   stack op decides on the device and writes the stack in place; none reads
   the host.  Each table runs its own rebuild epoch (multi-tenant serving).
 """
@@ -543,6 +544,15 @@ def insert_by_flag(d: DHashState, keys: torch.Tensor, vals: torch.Tensor,
 
 
 @torch.no_grad()
+def delete_by_flag(d: DHashState, keys: torch.Tensor,
+                   mask: torch.Tensor | None = None):
+    """``delete`` whatever the DEVICE flag ``rebuilding`` says: the ordered
+    check, which is right either way (an idle table's hazard buffer is dead
+    and its standby holds nothing LIVE), IN PLACE.  Returns (d, ok)."""
+    return d, _ordered_delete_(d, keys, _ones(keys, mask))
+
+
+@torch.no_grad()
 def rebuild_step_(d: DHashState, *, swap: bool = False,
                   start: bool = False) -> torch.Tensor:
     """``rebuild_step`` decided on the device, IN PLACE: the landing runs
@@ -661,11 +671,12 @@ def count_items(d: DHashState) -> torch.Tensor:
 #
 # A stack is an ordinary DHashState whose every tensor leads with [T] (the
 # configuration — backend, chunk, fused, the tables' sizes — is shared).
-# Where the descriptor has the stack set (linear, fused=True) each op is one
-# launch of each kernel for all T tables, each table's branch picked by its
-# own device flag in the kernel; otherwise each op runs the single-table
-# device-flag form on each table's view (``_table``), which writes through to
-# the stack.  No stack op reads the host.
+# Where the descriptor has the stack set (linear, twochoice and cuckoo,
+# fused=True) each op is one launch of each kernel for all T tables, each
+# table's branch picked by its own device flag in the kernel; otherwise each
+# op runs the single-table device-flag form on each table's view
+# (``_table``), which writes through to the stack.  No stack op reads the
+# host.
 
 def make_stack(n_tables: int, backend: str = "linear", capacity: int = 1024,
                *, chunk: int = 256, seed: int = 0,

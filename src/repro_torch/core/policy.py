@@ -43,13 +43,12 @@ one stacked ``epoch_swap`` call (in-place mode).
 """
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 
 from repro_torch.core import backend as backends
 from repro_torch.core import dhash
+from repro_torch.core.distributed import route_cap, route_spill_cap
 from repro_torch.core.struct_utils import map_tensors, state_dataclass
 
 I32 = torch.int32
@@ -280,26 +279,6 @@ def rehash_wanted(live_load, tomb_load, armed, rebuilding, *,
     want = armed & hot & ~rebuilding
     rearm = live_load <= grow_load / expand_headroom
     return want, (armed | rearm) & ~want
-
-
-def route_cap(cap_factor: float, q: int, nshards: int) -> int:
-    """The capped-dispatch buffer width ``cap = ceil(c·Q/S)``, clamped to
-    [1, Q]; ``cap_factor <= 0`` means the full width."""
-    if cap_factor <= 0:
-        return q
-    return min(q, max(1, math.ceil(cap_factor * q / nshards)))
-
-
-def route_spill_cap(q: int, cap: int, slack: float | None = None) -> int:
-    """Spill-slab width for a [Q] batch routed at ``cap`` per owner:
-    ``Q - cap`` (overflow-proof) by default, ``ceil(slack·Q)`` clamped to
-    it for a compact slab, 0 for ``slack <= 0``."""
-    worst = max(q - cap, 0)
-    if slack is None:
-        return worst
-    if slack <= 0:
-        return 0
-    return min(worst, math.ceil(slack * q))
 
 
 class RouteCapController:

@@ -38,9 +38,11 @@ _ARGTYPES = {
     "dhash_tc_lookup": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P,
                         _I, _P, _P, _P, _P],
     "dhash_tc_insert": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
-                        _P, _P, _P, _I, _I, _P, _I, _P, _I, _P, _P],
+                        _P, _P, _P, _I, _I, _P, _I, _P, _I, _P, _I, _I, _I,
+                        _P, _P, _P, _P, _P],
     "dhash_tc_probe2": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I,
-                        _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
+                        _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I,
+                        _P, _I, _I, _P],
     "dhash_chain_probe": [_P] * 5 + [_I] + [_P] * 6 + [_I] * 3 + [_P] * 4,
     "dhash_chain_probe2": ([_P] * 5 + [_I] + [_P] * 4) * 2 + [_P] * 3 + [_I]
     + [_P] * 3 + [_I] * 4 + [_P] * 7,

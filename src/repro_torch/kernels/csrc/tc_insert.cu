@@ -74,6 +74,21 @@
 //
 // Caller contract (as the reference): mask is winner-filtered, at most one
 // set entry for each distinct key.
+//
+// A table stack: T tables in one launch of each kernel, table t on the
+// blocks of grid row blockIdx.y, its arrays at row t of the stacked inputs
+// (tables [T, B, W], claim words [T, B], rows, keys, values, mask and
+// outputs [T, Q], the kick-out's hash functions [T, seed words]).  Each
+// table has its own region of the scratch (the layout above, at t times
+// its size): its own list, its own done counter and so its own last block,
+// which runs that table's rounds and kick-out with that table's hash
+// functions, concurrently with the other tables' last blocks.  A table's
+// placement is its single-table twin's, slot for slot.  With `alt` and
+// `use_alt` (one byte a table) table t inserts into the alternative table
+// of the same shape where its byte is set (the new table of a table
+// mid-rebuild), else into the table given; its claim words serve either
+// target.  One table (T = 1, no alt) takes the STACK = false instances:
+// the code they always were.
 #include <limits.h>
 
 #include "dhash_common.cuh"
@@ -86,6 +101,33 @@
 #define TC_IDLE -2
 #define TC_NO_LANE -1
 
+// A stacked call (STACK): the alternative tables, the strides.
+struct TcStack {
+  int B;                    // rows of a table
+  int* atk;                 // the alternative tables (or null)
+  int* atv;
+  int* ats;
+  const uint8_t* use_alt;   // one byte a table (or null)
+  long long sstride;        // scratch words of a table
+  int seed_stride;          // int64 seed words of a hash function
+};
+
+// Table t = blockIdx.y of a stacked call: the offsets of its table rows,
+// claim words, batch rows and scratch region, and whether it inserts into
+// the alternative table.
+struct TcOff {
+  long long table, claim, batch, scratch;
+  bool alt;
+};
+
+__device__ __forceinline__ TcOff tc_stack_off(const TcStack& st, int W,
+                                              int Q) {
+  const int t = blockIdx.y;
+  return {(long long)t * st.B * W, (long long)t * st.B, (long long)t * Q,
+          (long long)t * st.sstride,
+          st.use_alt != nullptr && st.use_alt[t] != 0};
+}
+
 template <bool VEC>
 __device__ __forceinline__ bool tc_present(const int* tk, const int* ts,
                                            int ra, int rb, int W, int key) {
@@ -93,13 +135,31 @@ __device__ __forceinline__ bool tc_present(const int* tk, const int* ts,
          dhash_row_find<VEC>(tk, ts, rb, W, key) >= 0;
 }
 
-template <bool VEC>
+template <bool VEC, bool STACK>
 __global__ void __launch_bounds__(TC_THREADS) tc_insert_bid(
-    const int* __restrict__ tk, const int* __restrict__ ts, int* claim, int W,
-    const int* __restrict__ rows_a, const int* __restrict__ rows_b,
+    const int* __restrict__ tk, const int* __restrict__ ts, int* claim,
+    int W, const int* __restrict__ rows_a, const int* __restrict__ rows_b,
     const int* __restrict__ keys, const uint8_t* __restrict__ mask, int Q,
     int max_rounds, uint8_t* __restrict__ okf, uint8_t* __restrict__ present,
-    int* __restrict__ slot, int* __restrict__ count) {
+    int* __restrict__ slot, int* __restrict__ count, TcStack st) {
+  if (STACK) {
+    const TcOff o = tc_stack_off(st, W, Q);
+    if (o.alt) {
+      tk = st.atk;
+      ts = st.ats;
+    }
+    tk += o.table;
+    ts += o.table;
+    claim += o.claim;
+    rows_a += o.batch;
+    rows_b += o.batch;
+    keys += o.batch;
+    mask += o.batch;
+    okf += o.batch;
+    present += o.batch;
+    slot += o.scratch;
+    count += o.scratch;
+  }
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i == 0) count[0] = count[1] = 0;
   if (i >= Q) return;
@@ -209,7 +269,7 @@ __device__ __forceinline__ int tc_rounds(
 // view).  KICK compiles the kick-out in (max_kick > 0); the twochoice
 // insert's resolve is built without it.
 template <bool VEC, bool KICK>
-__global__ void __launch_bounds__(TC_RESOLVE_THREADS) tc_insert_resolve(
+__device__ __forceinline__ void tc_resolve(
     int* tk, int* tv, int* ts, int* claim, int W,
     const int* __restrict__ rows_a, const int* __restrict__ rows_b,
     const int* __restrict__ keys, const int* __restrict__ vals, int Q,
@@ -261,13 +321,62 @@ __global__ void __launch_bounds__(TC_RESOLVE_THREADS) tc_insert_resolve(
         seeds_a, kind_a, seeds_b, kind_b, claim, work, m, plan, tally);
 }
 
+// The resolve kernel: on a stacked call (STACK) table t = blockIdx.y's rows
+// of every operand and its scratch region (its own done counter, so its own
+// last block), then the resolve on them.
+template <bool VEC, bool KICK, bool STACK>
+__global__ void __launch_bounds__(TC_RESOLVE_THREADS) tc_insert_resolve(
+    int* tk, int* tv, int* ts, int* claim, int W,
+    const int* __restrict__ rows_a, const int* __restrict__ rows_b,
+    const int* __restrict__ keys, const int* __restrict__ vals, int Q,
+    int max_rounds, uint8_t* okf, int* slot, int* list, int* count,
+    int max_kick, int nbuckets, const long long* __restrict__ seeds_a,
+    int kind_a, const long long* __restrict__ seeds_b, int kind_b, int* work,
+    int* plan, int* tally, TcStack st) {
+  if (STACK) {
+    const TcOff o = tc_stack_off(st, W, Q);
+    if (o.alt) {
+      tk = st.atk;
+      tv = st.atv;
+      ts = st.ats;
+    }
+    tk += o.table;
+    tv += o.table;
+    ts += o.table;
+    claim += o.claim;
+    rows_a += o.batch;
+    rows_b += o.batch;
+    keys += o.batch;
+    vals += o.batch;
+    okf += o.batch;
+    slot += o.scratch;
+    list += o.scratch;
+    count += o.scratch;
+    if (KICK) {
+      work += o.scratch;
+      plan += o.scratch;
+      seeds_a += (long long)blockIdx.y * st.seed_stride;
+      seeds_b += (long long)blockIdx.y * st.seed_stride;
+    }
+  }
+  tc_resolve<VEC, KICK>(tk, tv, ts, claim, W, rows_a, rows_b, keys, vals, Q,
+                        max_rounds, okf, slot, list, count, max_kick,
+                        nbuckets, seeds_a, kind_a, seeds_b, kind_b, work, plan,
+                        tally);
+}
+
 extern "C" int dhash_tc_insert(
     int* tk, int* tv, int* ts, int* claim, int W, const int* rows_a,
     const int* rows_b, const int* keys, const int* vals, const uint8_t* mask,
     int Q, int max_rounds, uint8_t* okf, uint8_t* present, int* scratch,
     int max_kick, int nbuckets, const long long* seeds_a, int kind_a,
-    const long long* seeds_b, int kind_b, int* tally, void* stream) {
-  if (W < 1 || W > DHASH_MAX_WIDTH) return (int)cudaErrorInvalidValue;
+    const long long* seeds_b, int kind_b, int* tally, int T, int B,
+    int seed_stride, int* atk, int* atv, int* ats, const uint8_t* use_alt,
+    void* stream) {
+  if (W < 1 || W > DHASH_MAX_WIDTH || T < 1 || T > 65535 || B < 0 ||
+      seed_stride < 0 || (use_alt != nullptr &&
+                          (atk == nullptr || atv == nullptr || ats == nullptr)))
+    return (int)cudaErrorInvalidValue;
   if (Q < 1) return (int)cudaSuccess;
   if (max_kick < 0) max_kick = 0;
   int* slot = scratch;
@@ -275,33 +384,50 @@ extern "C" int dhash_tc_insert(
   int* count = scratch + 2 * (long long)Q;
   int* work = max_kick > 0 ? count + 2 : nullptr;
   int* plan = max_kick > 0 ? work + Q : nullptr;
-  const bool vec = dhash_rows_vec_ok(W, tk, ts);
+  const TcStack st{B, atk, atv, ats, use_alt,
+                   2 * (long long)Q + 2 + (max_kick > 0 ? 4 * (long long)Q : 0),
+                   seed_stride};
+  const bool stack = T > 1 || use_alt != nullptr;
+  const bool vec = dhash_rows_vec_ok(W, tk, ts, use_alt ? atk : nullptr,
+                                     use_alt ? ats : nullptr);
   cudaStream_t s = (cudaStream_t)stream;
-  const int blocks = (Q + TC_THREADS - 1) / TC_THREADS;
-  if (vec)
-    tc_insert_bid<true><<<blocks, TC_THREADS, 0, s>>>(
-        tk, ts, claim, W, rows_a, rows_b, keys, mask, Q, max_rounds, okf,
-        present, slot, count);
+  const dim3 grid((Q + TC_THREADS - 1) / TC_THREADS, T);
+#define TC_BID(V, S)                                                         \
+  tc_insert_bid<V, S><<<grid, TC_THREADS, 0, s>>>(                           \
+      tk, ts, claim, W, rows_a, rows_b, keys, mask, Q, max_rounds, okf,      \
+      present, slot, count, st)
+  if (vec && stack)
+    TC_BID(true, true);
+  else if (vec)
+    TC_BID(true, false);
+  else if (stack)
+    TC_BID(false, true);
   else
-    tc_insert_bid<false><<<blocks, TC_THREADS, 0, s>>>(
-        tk, ts, claim, W, rows_a, rows_b, keys, mask, Q, max_rounds, okf,
-        present, slot, count);
+    TC_BID(false, false);
+#undef TC_BID
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const int rblocks = (Q + TC_RESOLVE_THREADS - 1) / TC_RESOLVE_THREADS;
-#define TC_RESOLVE(V, K)                                                     \
-  tc_insert_resolve<V, K><<<rblocks, TC_RESOLVE_THREADS, 0, s>>>(             \
+  const dim3 rgrid((Q + TC_RESOLVE_THREADS - 1) / TC_RESOLVE_THREADS, T);
+#define TC_RESOLVE(V, K, S)                                                  \
+  tc_insert_resolve<V, K, S><<<rgrid, TC_RESOLVE_THREADS, 0, s>>>(            \
       tk, tv, ts, claim, W, rows_a, rows_b, keys, vals, Q, max_rounds, okf,  \
       slot, list, count, max_kick, nbuckets, seeds_a, kind_a, seeds_b,       \
-      kind_b, work, plan, tally)
-  if (vec && max_kick > 0)
-    TC_RESOLVE(true, true);
-  else if (vec)
-    TC_RESOLVE(true, false);
-  else if (max_kick > 0)
-    TC_RESOLVE(false, true);
-  else
-    TC_RESOLVE(false, false);
+      kind_b, work, plan, tally, st)
+#define TC_RESOLVE_K(V, S)                                                   \
+  if (max_kick > 0)                                                          \
+    TC_RESOLVE(V, true, S);                                                  \
+  else                                                                       \
+    TC_RESOLVE(V, false, S)
+  if (vec && stack) {
+    TC_RESOLVE_K(true, true);
+  } else if (vec) {
+    TC_RESOLVE_K(true, false);
+  } else if (stack) {
+    TC_RESOLVE_K(false, true);
+  } else {
+    TC_RESOLVE_K(false, false);
+  }
+#undef TC_RESOLVE_K
 #undef TC_RESOLVE
   return (int)cudaGetLastError();
 }

@@ -317,7 +317,7 @@ def twochoice_insert(tkey: torch.Tensor, tval: torch.Tensor,
                      rows_b: torch.Tensor, keys: torch.Tensor,
                      vals: torch.Tensor, mask: torch.Tensor, *,
                      max_rounds: int = 8, claim: torch.Tensor | None = None,
-                     with_present: bool = False):
+                     with_present: bool = False, alt=None, use_alt=None):
     """Batched two-row INSERT via the ``tc_insert`` claim kernel; writes
     ``tkey/tval/tstate`` IN PLACE.
 
@@ -326,9 +326,12 @@ def twochoice_insert(tkey: torch.Tensor, tval: torch.Tensor,
     is ``ref.tc_insert_ref``'s, slot for slot.
 
     Returns (tkey, tval, tstate, ok[Q]) and, when ``with_present``, also
-    ``present[Q]`` (masked keys LIVE in either row before the batch)."""
+    ``present[Q]`` (masked keys LIVE in either row before the batch).  A
+    table stack's operands are [T, ...]; ``alt`` / ``use_alt`` pick each
+    table's target on the device (``probe.tc_insert``)."""
     ok, present = probe.tc_insert(tkey, tval, tstate, rows_a, rows_b, keys,
-                                  vals, mask, max_rounds, claim)
+                                  vals, mask, max_rounds, claim, alt=alt,
+                                  use_alt=use_alt)
     if with_present:
         return tkey, tval, tstate, ok, present
     return tkey, tval, tstate, ok
@@ -340,7 +343,7 @@ def cuckoo_insert(tkey: torch.Tensor, tval: torch.Tensor,
                   rows_b: torch.Tensor, hfn_a, hfn_b, nbuckets: int,
                   keys: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
                   *, max_kick: int, claim: torch.Tensor | None = None,
-                  with_present: bool = False):
+                  with_present: bool = False, alt=None, use_alt=None):
     """Batched cuckoo INSERT on a [2B, W] table: ONE ``tc_insert`` launch
     (two claim rounds, one a side) whose resolve also runs the bounded
     kick-out for the winners left unplaced and absent from both rows
@@ -349,10 +352,12 @@ def cuckoo_insert(tkey: torch.Tensor, tval: torch.Tensor,
     ``ref.cuckoo_kick_ref``'s, slot for slot.
 
     Caller contract: ``mask`` is winner-filtered.  Returns (tkey, tval,
-    tstate, ok[Q]) and, when ``with_present``, also ``present[Q]``."""
+    tstate, ok[Q]) and, when ``with_present``, also ``present[Q]``.  A
+    table stack as ``twochoice_insert``'s, with stacked hash functions."""
     ok, present = probe.cuckoo_insert(tkey, tval, tstate, rows_a, rows_b,
                                       hfn_a, hfn_b, nbuckets, keys, vals,
-                                      mask, max_kick, claim)
+                                      mask, max_kick, claim, alt=alt,
+                                      use_alt=use_alt)
     if with_present:
         return tkey, tval, tstate, ok, present
     return tkey, tval, tstate, ok
@@ -379,32 +384,37 @@ def twochoice_delete(tkey: torch.Tensor, tval: torch.Tensor,
 @torch.no_grad()
 def twochoice_ordered_lookup(old_tables, new_tables, hazard_key, hazard_val,
                              hazard_live, rows_a_old, rows_b_old, rows_a_new,
-                             rows_b_new, qkey, *, nres_cap: int = NRES_CAP):
+                             rows_b_new, qkey, *, nres_cap: int = NRES_CAP,
+                             rebuilding=None, with_loc: bool = False):
     """Two-row rebuild-epoch lookup: ONE ``tc_probe2`` launch emits the
     Lemma-4.1-ordered result for both tables plus the hazard buffer.
-    ``nres_cap`` is accepted and unused.  Returns (found[Q], val[Q])."""
-    found, val, *_ = probe.tc_probe2(old_tables, new_tables, hazard_key,
-                                     hazard_val, hazard_live, rows_a_old,
-                                     rows_b_old, rows_a_new, rows_b_new,
-                                     qkey)
-    return found, val
+    ``nres_cap`` is accepted and unused.  On a table stack ``rebuilding``
+    sends the idle tables to their old table alone, as in
+    ``ordered_lookup_fused``.  Returns (found[Q], val[Q]), and ``loc_old``
+    too when ``with_loc``."""
+    found, val, _, loc_old, _, _ = probe.tc_probe2(
+        old_tables, new_tables, hazard_key, hazard_val, hazard_live,
+        rows_a_old, rows_b_old, rows_a_new, rows_b_new, qkey, rebuilding)
+    return (found, val, loc_old) if with_loc else (found, val)
 
 
 @torch.no_grad()
 def twochoice_ordered_delete(old_tables, new_tables, hazard_key, hazard_val,
                              hazard_live, rows_a_old, rows_b_old, rows_a_new,
                              rows_b_new, keys, mask, *,
-                             nres_cap: int = NRES_CAP):
+                             nres_cap: int = NRES_CAP, rebuilding=None):
     """Two-row rebuild-epoch delete (paper Alg. 5): the SAME single
     ``tc_probe2`` launch resolves old slot / hazard index / new slot, and
     the three scatters of the linear ordered delete land the result.  Writes
-    both state arrays IN PLACE.
+    both state arrays IN PLACE.  On a table stack ``rebuilding`` makes it
+    the steady delete of the idle tables.
 
     Caller contract: ``mask`` is winner-filtered.  Returns
     (old_state, new_state, hazard_live', ok[Q])."""
     _f, _v, *locs = probe.tc_probe2(old_tables, new_tables, hazard_key,
                                     hazard_val, hazard_live, rows_a_old,
-                                    rows_b_old, rows_a_new, rows_b_new, keys)
+                                    rows_b_old, rows_a_new, rows_b_new, keys,
+                                    rebuilding)
     return _land_ordered_delete(old_tables[2], new_tables[2], hazard_live,
                                 mask, *locs)
 

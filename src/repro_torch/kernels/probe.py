@@ -95,14 +95,16 @@ segment scan cannot settle).  Results come back in query order, one a query,
 and ``loc`` is the physical slot in ``[0, C)`` (for a [B, W] table the flat
 slot ``row * W + lane``, for a chain arena the node index).
 
-A table axis.  ``probe2``, ``probe_insert``, ``extract`` (and
-``transition``) and ``epoch_swap`` also take a table stack: every operand
-leads with [T] (the stack's tables, each contiguous), one launch serves the
-T tables, and per-table device flags pick each table's branch in the kernel
-(``probe2``'s ``rebuilding``: the ordered check or the old table alone;
-``probe_insert``'s ``use_alt``: the target table; the transition's and the
-exchange's own rows of flags, cursors and go).  A call is stacked where its
-queries are [T, Q] (``probe2``, ``probe_insert``) or its cursor is [T]
+A table axis.  ``probe2``, ``probe_insert``, ``tc_probe2``, ``tc_insert``
+(and ``cuckoo_insert``), ``extract`` (and ``transition``) and
+``epoch_swap`` also take a table stack: every operand leads with [T] (the
+stack's tables, each contiguous), one launch serves the T tables, and
+per-table device flags pick each table's branch in the kernel (``probe2``'s
+and ``tc_probe2``'s ``rebuilding``: the ordered check or the old table
+alone; ``probe_insert``'s and ``tc_insert``'s ``use_alt``: the target
+table; the transition's and the exchange's own rows of flags, cursors and
+go).  A call is stacked where its queries are [T, Q] (``probe2``,
+``probe_insert``, ``tc_probe2``, ``tc_insert``) or its cursor is [T]
 (``extract``, ``transition``, ``epoch_swap``); one table is T = 1 of the
 same kernel.  The plain versions run a stack table by table.
 
@@ -324,8 +326,15 @@ def probe2_plain(old_t, new_t, hazard_key, hazard_val, hazard_live,
             hazard_live[i], h0_old[i], h0_new[i], qkey[i], max_probes,
             _row(rebuilding, i)) for i in range(qkey.shape[0])])
     old = probe_lookup_plain(*old_t, h0_old, qkey, max_probes)
-    full = _ordered(old, hazard_key, hazard_val, hazard_live, qkey,
-                    probe_lookup_plain(*new_t, h0_new, qkey, max_probes))
+    return _by_flag(old, _ordered(
+        old, hazard_key, hazard_val, hazard_live, qkey,
+        probe_lookup_plain(*new_t, h0_new, qkey, max_probes)), rebuilding)
+
+
+def _by_flag(old, full, rebuilding):
+    """A plain ordered check's outputs where ``rebuilding`` (a table's
+    flag, or None: set) is set, else the steady branch's: the old table's
+    (found, val, loc) alone, ``hz_idx`` and ``loc_new`` -1."""
     if rebuilding is None:
         return full
     minus1 = torch.full_like(old[2], -1)
@@ -702,11 +711,13 @@ def transition(tkey, tval, tstate, cursor, chunk: int, hazard, rebuilding,
 # tc_lookup
 # ---------------------------------------------------------------------------
 
-def _check_rows(*tables):
-    """[rows, W] tables of one width the tc_* kernels take."""
-    w = tables[0].shape[1] if tables[0].dim() == 2 else -1
+def _check_rows(*tables, lead: int = 0):
+    """[rows, W] tables of one width the tc_* kernels take ([T, rows, W]
+    with ``lead`` 1: a table stack)."""
+    nd = 2 + lead
+    w = tables[0].shape[-1] if tables[0].dim() == nd else -1
     for t in tables:
-        if t.dim() != 2 or t.shape[1] != w:
+        if t.dim() != nd or t.shape[-1] != w:
             raise ValueError(f"two-row kernels take [rows, W] tables of one "
                              f"width, got {tuple(t.shape)}")
     if not 1 <= w <= MAX_WIDTH:
@@ -791,10 +802,22 @@ def tc_lookup_hashed(tkey, tval, tstate, hfn_a, hfn_b, nbuckets: int,
 # ---------------------------------------------------------------------------
 
 def tc_insert_plain(tkey, tval, tstate, rows_a, rows_b, keys, vals, mask,
-                    max_rounds: int, claim=None):
+                    max_rounds: int, claim=None, *, alt=None, use_alt=None):
     """Plain version of ``tc_insert`` (``ref.tc_insert_ref`` written back);
-    mutates tkey/tval/tstate in place.  ``claim`` is accepted for signature
-    parity and not used."""
+    mutates tkey/tval/tstate (or the ``alt`` table) in place; a stack table
+    by table.  ``claim`` is accepted for signature parity and not used."""
+    if keys.dim() == 2:
+        return _stacked([tc_insert_plain(
+            tkey[i], tval[i], tstate[i], rows_a[i], rows_b[i], keys[i],
+            vals[i], mask[i], max_rounds, alt=_row(alt, i),
+            use_alt=_row(use_alt, i)) for i in range(keys.shape[0])])
+    if use_alt is not None:
+        # two masked inserts, one of which inserts nothing (no host read)
+        ok_a, pr_a = tc_insert_plain(*alt, rows_a, rows_b, keys, vals,
+                                     mask & use_alt, max_rounds)
+        ok, pr = tc_insert_plain(tkey, tval, tstate, rows_a, rows_b, keys,
+                                 vals, mask & ~use_alt, max_rounds)
+        return ok | ok_a, pr | pr_a
     fa, _, _ = ref.tc_row_lookup_ref(tkey, tval, tstate, rows_a, keys)
     fb, _, _ = ref.tc_row_lookup_ref(tkey, tval, tstate, rows_b, keys)
     k, v, s, ok = ref.tc_insert_ref(tkey, tval, tstate, rows_a, rows_b, keys,
@@ -806,36 +829,59 @@ def tc_insert_plain(tkey, tval, tstate, rows_a, rows_b, keys, vals, mask,
 
 
 def tc_scratch_words(q: int, max_kick: int) -> int:
-    """The int32 words of ``tc_insert``'s scratch for a batch of ``q``: the
-    layout ``csrc/tc_insert.cu`` states (a round-0 slot and a list entry a
-    query, the list's length and the count of blocks done, and with the
-    kick-out a word a query for the queries the rounds leave and three
-    plan words a query)."""
+    """The int32 words of ``tc_insert``'s scratch for a batch of ``q`` (a
+    table's: a stack takes one such region a table): the layout
+    ``csrc/tc_insert.cu`` states (a round-0 slot and a list entry a query,
+    the list's length and the count of blocks done, and with the kick-out a
+    word a query for the queries the rounds leave and three plan words a
+    query)."""
     return 2 * q + 2 + 4 * q * (max_kick > 0)
 
 
+def _fn_row(fn, i: int):
+    """Function ``i`` of a stack of hash functions."""
+    return hashing.HashFn(kind=fn.kind, seeds=fn.seeds[i])
+
+
 def _tc_launch(tkey, tval, tstate, rows_a, rows_b, keys, vals, mask,
-               max_rounds: int, claim, kick=None):
+               max_rounds: int, claim, kick=None, alt=None, use_alt=None):
     """One ``tc_insert`` launch; ``kick`` = (hfn_a, hfn_b, nbuckets,
-    max_kick) runs the cuckoo kick-out in its resolve.  Returns (ok,
-    present)."""
-    w = _check_rows(tkey, tval, tstate)
-    q, dev = keys.shape[0], tkey.device
+    max_kick) runs the cuckoo kick-out in its resolve.  A table stack where
+    ``keys`` is [T, Q].  Returns (ok, present)."""
+    n = keys.shape[0] if keys.dim() == 2 else 1
+    w = _check_rows(tkey, tval, tstate, lead=int(keys.dim() == 2))
+    q, dev = keys.shape[-1], tkey.device
+    rows = tkey.shape[-2]
     if claim is None:
-        claim = new_claim(tkey.shape[0], dev)
+        claim = new_claim(tkey.shape[:-1], dev)
     _check((tkey, I32), (tval, I32), (tstate, I32), (claim, I32),
            (rows_a, I32), (rows_b, I32), (keys, I32), (vals, I32),
            (mask, torch.bool))
-    if claim.shape[0] != tkey.shape[0]:
+    if tuple(claim.shape) != tuple(tkey.shape[:-1]):
         raise ValueError("claim words do not match the table's rows")
+    if keys.dim() == 2:
+        _stack_of(n, tkey, tval, tstate, claim, rows_a, rows_b, vals, mask)
+    if (alt is None) != (use_alt is None):
+        raise ValueError("tc_insert: give both alt and use_alt, or none")
+    if use_alt is not None:
+        _check(*((t, I32) for t in alt), (use_alt, torch.bool))
+        if any(t.shape != tkey.shape for t in alt) or use_alt.numel() != n:
+            raise ValueError("tc_insert: the alternative table must be "
+                             "shaped as the table, with one flag a table")
     hfn_a, hfn_b, nbuckets, max_kick = kick or (None, None, 0, 0)
+    stride = 0
     if kick is not None:
         _check((hfn_a.seeds, torch.int64), (hfn_b.seeds, torch.int64))
-    ok = torch.empty(q, dtype=torch.bool, device=dev)
-    present = torch.empty(q, dtype=torch.bool, device=dev)
+        if keys.dim() == 2:
+            _stack_of(n, hfn_a.seeds, hfn_b.seeds)
+            stride = hfn_a.seeds[0].numel()
+    ok = torch.empty(keys.shape, dtype=torch.bool, device=dev)
+    present = torch.empty(keys.shape, dtype=torch.bool, device=dev)
     if q:
-        scratch = torch.empty(tc_scratch_words(q, max_kick), dtype=I32,
+        # a region a table
+        scratch = torch.empty(tc_scratch_words(q, max_kick) * n, dtype=I32,
                               device=dev)
+        stacked = keys.dim() == 2
         _launch("tc_insert", tc_insert, dev, tkey, tval, tstate, claim, w,
                 rows_a, rows_b, keys, vals, mask, q, max_rounds, ok, present,
                 scratch, max_kick, nbuckets,
@@ -843,12 +889,14 @@ def _tc_launch(tkey, tval, tstate, rows_a, rows_b, keys, vals, mask,
                 0 if kick is None else hashing.HASH_KINDS.index(hfn_a.kind),
                 None if kick is None else hfn_b.seeds,
                 0 if kick is None else hashing.HASH_KINDS.index(hfn_b.kind),
-                None if kick is None else _kick_tally(dev))
+                None if kick is None else _kick_tally(dev), n,
+                rows if stacked else 0, stride,
+                *(alt or (None, None, None)), use_alt)
     return ok, present
 
 
 def tc_insert(tkey, tval, tstate, rows_a, rows_b, keys, vals, mask,
-              max_rounds: int, claim=None):
+              max_rounds: int, claim=None, *, alt=None, use_alt=None):
     """Batched claim-a-lane two-row insert on a [B, W] table; MUTATES
     tkey/tval/tstate.
 
@@ -864,12 +912,19 @@ def tc_insert(tkey, tval, tstate, rows_a, rows_b, keys, vals, mask,
 
     Caller contract: ``mask`` is winner-filtered.  ``claim`` is the table's
     claim words (``new_claim(B)``, one a row); without them fresh words are
-    allocated for this call.  Returns (ok[Q] bool, present[Q] bool)."""
+    allocated for this call.  Returns (ok[Q] bool, present[Q] bool).
+
+    A table stack (``keys`` [T, Q]): tables [T, B, W], claim words [T, B],
+    rows and every batch operand and output [T, Q], each table resolved on
+    its own (its own list and last block), one launch of each kernel for
+    all T.  ``alt`` (a (key, val, state) triple shaped as the table) and
+    ``use_alt`` (bool, one a table) give each table its target on the
+    device, as ``probe_insert``'s do; the rows are the target's."""
     if tkey.device.type == "cpu":
         return tc_insert_plain(tkey, tval, tstate, rows_a, rows_b, keys, vals,
-                               mask, max_rounds)
+                               mask, max_rounds, alt=alt, use_alt=use_alt)
     return _tc_launch(tkey, tval, tstate, rows_a, rows_b, keys, vals, mask,
-                      max_rounds, claim)
+                      max_rounds, claim, alt=alt, use_alt=use_alt)
 
 
 # the claim rounds of the cuckoo insert: one try a side
@@ -878,10 +933,25 @@ CUCKOO_ROUNDS = 2
 
 def cuckoo_insert_plain(tkey, tval, tstate, rows_a, rows_b, hfn_a, hfn_b,
                         nbuckets: int, keys, vals, mask, max_kick: int,
-                        claim=None):
+                        claim=None, *, alt=None, use_alt=None):
     """Plain version of ``cuckoo_insert``: ``tc_insert_plain`` with two
-    rounds, then ``cuckoo_kick_plain``; mutates the table in place.
-    ``claim`` is accepted for signature parity and not used."""
+    rounds, then ``cuckoo_kick_plain``; mutates the table (or the ``alt``
+    table) in place; a stack table by table.  ``claim`` is accepted for
+    signature parity and not used."""
+    if keys.dim() == 2:
+        return _stacked([cuckoo_insert_plain(
+            tkey[i], tval[i], tstate[i], rows_a[i], rows_b[i],
+            _fn_row(hfn_a, i), _fn_row(hfn_b, i), nbuckets, keys[i], vals[i],
+            mask[i], max_kick, alt=_row(alt, i), use_alt=_row(use_alt, i))
+            for i in range(keys.shape[0])])
+    if use_alt is not None:
+        ok_a, pr_a = cuckoo_insert_plain(*alt, rows_a, rows_b, hfn_a, hfn_b,
+                                         nbuckets, keys, vals,
+                                         mask & use_alt, max_kick)
+        ok, pr = cuckoo_insert_plain(tkey, tval, tstate, rows_a, rows_b,
+                                     hfn_a, hfn_b, nbuckets, keys, vals,
+                                     mask & ~use_alt, max_kick)
+        return ok | ok_a, pr | pr_a
     ok, present = tc_insert_plain(tkey, tval, tstate, rows_a, rows_b, keys,
                                   vals, mask, CUCKOO_ROUNDS)
     cuckoo_kick_plain(tkey, tval, tstate, rows_a, rows_b, hfn_a, hfn_b,
@@ -891,7 +961,7 @@ def cuckoo_insert_plain(tkey, tval, tstate, rows_a, rows_b, hfn_a, hfn_b,
 
 def cuckoo_insert(tkey, tval, tstate, rows_a, rows_b, hfn_a, hfn_b,
                   nbuckets: int, keys, vals, mask, max_kick: int,
-                  claim=None):
+                  claim=None, *, alt=None, use_alt=None):
     """The cuckoo insert on a [2B, W] table in ONE ``tc_insert`` launch (its
     two kernels); MUTATES the table.
 
@@ -903,13 +973,16 @@ def cuckoo_insert(tkey, tval, tstate, rows_a, rows_b, hfn_a, hfn_b,
     on ``tc_insert``; what the kick-out did goes to ``kick_tally``.
     Caller contract: ``mask`` is winner-filtered.  ``claim`` is the table's
     claim words (``new_claim(2B)``); without them fresh words are
-    allocated.  Returns (ok[Q] bool, present[Q] bool)."""
+    allocated.  Returns (ok[Q] bool, present[Q] bool).  A table stack as
+    ``tc_insert``'s, with a stack of hash functions (seeds [T, ...]): each
+    table's last block kicks out with its own, those of its target."""
     if tkey.device.type == "cpu":
         return cuckoo_insert_plain(tkey, tval, tstate, rows_a, rows_b, hfn_a,
                                    hfn_b, nbuckets, keys, vals, mask,
-                                   max_kick)
+                                   max_kick, alt=alt, use_alt=use_alt)
     return _tc_launch(tkey, tval, tstate, rows_a, rows_b, keys, vals, mask,
-                      CUCKOO_ROUNDS, claim, (hfn_a, hfn_b, nbuckets, max_kick))
+                      CUCKOO_ROUNDS, claim, (hfn_a, hfn_b, nbuckets, max_kick),
+                      alt=alt, use_alt=use_alt)
 
 
 # ---------------------------------------------------------------------------
@@ -917,44 +990,70 @@ def cuckoo_insert(tkey, tval, tstate, rows_a, rows_b, hfn_a, hfn_b,
 # ---------------------------------------------------------------------------
 
 def tc_probe2_plain(old_t, new_t, hazard_key, hazard_val, hazard_live,
-                    rows_a_old, rows_b_old, rows_a_new, rows_b_new, qkey):
-    """Plain version of ``tc_probe2`` (dense [Q, chunk] hazard compare)."""
-    return _ordered(tc_lookup_plain(*old_t, rows_a_old, rows_b_old, qkey),
-                    hazard_key, hazard_val, hazard_live, qkey,
-                    tc_lookup_plain(*new_t, rows_a_new, rows_b_new, qkey))
+                    rows_a_old, rows_b_old, rows_a_new, rows_b_new, qkey,
+                    rebuilding=None):
+    """Plain version of ``tc_probe2`` (dense [Q, chunk] hazard compare; a
+    stack, table by table)."""
+    if qkey.dim() == 2:
+        return _stacked([tc_probe2_plain(
+            _row(old_t, i), _row(new_t, i), hazard_key[i], hazard_val[i],
+            hazard_live[i], rows_a_old[i], rows_b_old[i], rows_a_new[i],
+            rows_b_new[i], qkey[i], _row(rebuilding, i))
+            for i in range(qkey.shape[0])])
+    old = tc_lookup_plain(*old_t, rows_a_old, rows_b_old, qkey)
+    return _by_flag(old, _ordered(
+        old, hazard_key, hazard_val, hazard_live, qkey,
+        tc_lookup_plain(*new_t, rows_a_new, rows_b_new, qkey)), rebuilding)
 
 
 def tc_probe2(old_t, new_t, hazard_key, hazard_val, hazard_live,
-              rows_a_old, rows_b_old, rows_a_new, rows_b_new, qkey):
+              rows_a_old, rows_b_old, rows_a_new, rows_b_new, qkey,
+              rebuilding=None):
     """Two-row rebuild-epoch ordered check in one pass: old rows a then b,
     the hazard buffer, new rows a then b; priority old > hazard > new.
 
     ``old_t`` / ``new_t`` are (key, val, state) triples of [B, W] tables
     (same W; row counts may differ).  Returns (found, val, f_old, loc_old,
     hz_idx, loc_new) with the meaning of ``probe2``'s, locations as flat
-    slots.  Contract: a hazard buffer of at most 4096 entries."""
+    slots.  Contract: a hazard buffer of at most 4096 entries.
+
+    A table stack (``qkey`` [T, Q]) as ``probe2``'s: tables [T, B, W],
+    hazard [T, chunk], rows and outputs [T, Q], one launch for all T;
+    ``rebuilding`` (bool, one a table) sends the idle tables to their old
+    rows alone (``hz_idx`` and ``loc_new`` -1); None is every table."""
     if qkey.device.type == "cpu":
         return tc_probe2_plain(old_t, new_t, hazard_key, hazard_val,
                                hazard_live, rows_a_old, rows_b_old,
-                               rows_a_new, rows_b_new, qkey)
-    if hazard_key.shape[0] > EXTRACT_MAX_CHUNK:
-        raise ValueError(f"hazard buffer of {hazard_key.shape[0]} entries "
+                               rows_a_new, rows_b_new, qkey, rebuilding)
+    if hazard_key.shape[-1] > EXTRACT_MAX_CHUNK:
+        raise ValueError(f"hazard buffer of {hazard_key.shape[-1]} entries "
                          f"exceeds the tc_probe2 kernel's {EXTRACT_MAX_CHUNK}")
-    w = _check_rows(*old_t, *new_t)
+    stacked = qkey.dim() == 2
+    w = _check_rows(*old_t, *new_t, lead=int(stacked))
     _check(*[(t, I32) for t in (*old_t, *new_t, hazard_key, hazard_val,
                                 rows_a_old, rows_b_old, rows_a_new,
                                 rows_b_new, qkey)],
            (hazard_live, torch.bool))
-    q, dev = qkey.shape[0], qkey.device
-    found = torch.empty(q, dtype=torch.bool, device=dev)
-    f_old = torch.empty(q, dtype=torch.bool, device=dev)
+    n = qkey.shape[0] if stacked else 1
+    if stacked:
+        _stack_of(n, *old_t, *new_t, hazard_key, hazard_val, hazard_live,
+                  rows_a_old, rows_b_old, rows_a_new, rows_b_new)
+    if rebuilding is not None:
+        _check((qkey, I32), (rebuilding, torch.bool))
+        if rebuilding.numel() != n:
+            raise ValueError("tc_probe2: one rebuilding flag a table")
+    q, dev = qkey.shape[-1], qkey.device
+    found = torch.empty(qkey.shape, dtype=torch.bool, device=dev)
+    f_old = torch.empty(qkey.shape, dtype=torch.bool, device=dev)
     val, loc_old, hz_idx, loc_new = (
-        torch.empty(q, dtype=I32, device=dev) for _ in range(4))
+        torch.empty(qkey.shape, dtype=I32, device=dev) for _ in range(4))
     if q:
         _launch("tc_probe2", tc_probe2, dev, *old_t, *new_t, w, hazard_key,
-                hazard_val, hazard_live, hazard_key.shape[0], rows_a_old,
+                hazard_val, hazard_live, hazard_key.shape[-1], rows_a_old,
                 rows_b_old, rows_a_new, rows_b_new, qkey, q, found, val,
-                f_old, loc_old, hz_idx, loc_new)
+                f_old, loc_old, hz_idx, loc_new, n, rebuilding,
+                old_t[0].shape[-2] if stacked else 0,
+                new_t[0].shape[-2] if stacked else 0)
     return found, val, f_old, loc_old, hz_idx, loc_new
 
 

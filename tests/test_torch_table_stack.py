@@ -13,8 +13,8 @@ against the reference path whose placement the port follows; a fused
 linear stack's insert also against the reference's fused one, ``ok`` and
 the live map); the stack against T independent port tables, every state
 tensor slot for slot; the launch budget counted in the kernel wrappers
-(linear fused: as many calls at T = 8 as at T = 1; every other stack: T
-times one table's); the stack engine.  Tolerance 0.
+(linear, twochoice and cuckoo fused: as many calls at T = 8 as at T = 1;
+every other stack: T times one table's); the stack engine.  Tolerance 0.
 """
 from __future__ import annotations
 
@@ -43,6 +43,11 @@ Q = 64
 BACKENDS = ("linear", "twochoice", "cuckoo", "chain")
 AXIS = [(b, f) for b in BACKENDS for f in (False, True)]
 TWO_ROW = ("twochoice", "cuckoo")
+# the backends whose fused stacks run an op as one launch of each kernel:
+# the insert's kernel and the ordered check's
+ONE_LAUNCH = {"linear": ("probe_insert", "probe2"),
+              "twochoice": ("tc_insert", "tc_probe2"),
+              "cuckoo": ("tc_insert", "tc_probe2")}
 
 _J = dict(insert=jax.jit(jdhash.stack_insert),
           delete=jax.jit(jdhash.stack_delete),
@@ -244,6 +249,82 @@ def test_stack_parity_walk_against_the_reference_and_independent_tables(
                 assert np.array_equal(a, b), (side, k)
 
 
+def test_stacked_cuckoo_insert_kicks_out_each_table_with_its_own_functions():
+    """A fused cuckoo stack's insert (one ``tc_insert`` call for T tables)
+    on crowded tables, two of four mid-rebuild (they insert into their new
+    tables, under their new hash functions): each table equals its
+    single-table twin slot for slot, and the reference's composed oracles
+    (``tc_insert_ref`` with two rounds, then ``cuckoo_kick_ref`` with the
+    target's hash functions) slot for slot, ``ok`` for ``ok``; the
+    kick-out placed keys in every table."""
+    from repro.core import buckets as jbuckets
+    from repro.core import hashing as jhash
+    from repro.kernels import ref as jref
+    from repro_torch.core import backend as tbe
+    n, rng = 4, np.random.default_rng(12)
+    st = tdhash.make_stack(n, "cuckoo", 48, chunk=32, seed=3, fused=True,
+                           device="cpu")
+    rb = torch.tensor([False, True, False, True])
+    tdhash.stack_autostart(st, rb)
+    slots = st.old.key[0].numel()
+    # crowd every target: 85 % of its slots LIVE through plain inserts
+    m = int(0.85 * slots)
+    fill = _keys(rng, n, m)
+    for i in range(n):
+        view = tdhash._table(st, i)
+        tgt = view.new if bool(rb[i]) else view.old
+        t2, ok = tbe.get("cuckoo").insert(tgt, _t(fill[i]), _t(fill[i] * 3),
+                                          torch.ones(m, dtype=torch.bool))
+        assert int(ok.sum()) > 0.8 * slots
+        for f in ("key", "val", "state"):
+            getattr(tgt, f).copy_(getattr(t2, f))
+    keys = _keys(rng, n, 24) + (1 << 24)
+    keys[:, :3] = keys[:, 3:6]                          # duplicates
+    vals = keys * 7
+    mask = torch.as_tensor(rng.random((n, 24)) < 0.9)
+    singles = [map_tensors(lambda x: x[i].clone(), st) for i in range(n)]
+    targets = [(s.new if bool(rb[i]) else s.old) for i, s in
+               enumerate(singles)]
+    before = [[getattr(t, f).clone() for f in ("key", "val", "state")]
+              for t in targets]
+    _, ok = tdhash.stack_insert(st, _t(keys), _t(vals), mask)
+    placed_by_kick = 0
+    for i in range(n):
+        _, ok1 = tdhash.insert_by_flag(singles[i], _t(keys[i]), _t(vals[i]),
+                                       mask[i])
+        assert torch.equal(ok[i], ok1), i
+        _tables_equal(tdhash._table(st, i), singles[i], i)
+        t = targets[i]
+        win = np.asarray(jbuckets.batch_winners(jnp.asarray(keys[i]),
+                                                jnp.asarray(mask[i].numpy())))
+        fa, fb = (jhash.HashFn(kind=f.kind, seeds=jnp.asarray(
+            f.seeds.numpy().astype(np.uint32))) for f in (t.hfn_a, t.hfn_b))
+        nb = t.nbuckets
+        ra = jhash.bucket_of(fa, jnp.asarray(keys[i]), nb)
+        rb_ = nb + jhash.bucket_of(fb, jnp.asarray(keys[i]), nb)
+        tk, tv, ts = (jnp.asarray(x.numpy()) for x in before[i])
+        k1, v1, s1, ok1 = jref.tc_insert_ref(tk, tv, ts, ra, rb_,
+                                             jnp.asarray(keys[i]),
+                                             jnp.asarray(vals[i]),
+                                             jnp.asarray(win), 2)
+        f_a, _, _ = jref.tc_row_lookup_ref(tk, tv, ts, ra,
+                                           jnp.asarray(keys[i]))
+        f_b, _, _ = jref.tc_row_lookup_ref(tk, tv, ts, rb_,
+                                           jnp.asarray(keys[i]))
+        pend = jnp.asarray(win) & ~ok1 & ~(f_a | f_b)
+        k2, v2, s2, done = jref.cuckoo_kick_ref(
+            k1, v1, s1, ra, rb_, fa, fb, nb, jnp.asarray(keys[i]),
+            jnp.asarray(vals[i]), pend, t.max_kick)
+        got = tdhash._table(st, i).new if bool(rb[i]) else \
+            tdhash._table(st, i).old
+        for a, b in zip((got.key, got.val, got.state), (k2, v2, s2)):
+            assert np.array_equal(a.numpy(), np.asarray(b)), i
+        assert np.array_equal(ok[i].numpy(), np.asarray(ok1 | done)), i
+        placed_by_kick += int((np.asarray(done) & np.asarray(pend)).sum())
+        assert np.asarray(pend).any(), (i, "nothing left for the kick-out")
+    assert placed_by_kick > 0
+
+
 def _counting(monkeypatch) -> dict:
     """Count the calls of every kernel wrapper by the kernel it launches."""
     calls = dict.fromkeys(probe.KERNELS, 0)
@@ -277,9 +358,10 @@ def _stack_ops(st, keys):
 @pytest.mark.parametrize("name,fused", AXIS)
 def test_stack_launch_budget_counted_in_the_wrappers(name, fused,
                                                      monkeypatch):
-    """Linear fused: each stack op calls each kernel wrapper as often for
-    T = 8 tables as for one (the table axis is the kernels'); every other
-    stack loops over its tables: T times one table's calls."""
+    """Linear, twochoice and cuckoo fused: each stack op calls each kernel
+    wrapper as often for T = 8 tables as for one (the table axis is the
+    kernels'); every other stack loops over its tables: T times one table's
+    calls."""
     calls = _counting(monkeypatch)
     rng = np.random.default_rng(3)
     per = {}
@@ -293,16 +375,17 @@ def test_stack_launch_budget_counted_in_the_wrappers(name, fused,
             run()
             per[n][op] = {k: calls[k] - before[k] for k in calls
                           if calls[k] > before[k]}
-    one_launch = name == "linear" and fused
+    one_launch = name in ONE_LAUNCH and fused
     for op, c1 in per[1].items():
         want = c1 if one_launch else {k: T * v for k, v in c1.items()}
         assert per[T][op] == want, (op, per[1][op], per[T][op])
     if one_launch:
+        ins, probe2 = ONE_LAUNCH[name]
         assert per[T] == {"start": {"epoch_swap": 1},
-                          "insert": {"probe_insert": 1},
-                          "lookup": {"probe2": 1}, "counted": {"probe2": 1},
-                          "delete": {"probe2": 1},
-                          "step": {"probe_insert": 1, "extract": 1},
+                          "insert": {ins: 1},
+                          "lookup": {probe2: 1}, "counted": {probe2: 1},
+                          "delete": {probe2: 1},
+                          "step": {ins: 1, "extract": 1},
                           "finish": {"epoch_swap": 1}}, per[T]
 
 
