@@ -114,7 +114,25 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
 4. runs the same engines in lock step with the port's own plain
    (``fused=False``) path on the card for one epoch at a smaller table;
 5. repeats a short stretch of the linear main path on a table far larger
-   than the L2 cache (2**25 slots).
+   than the L2 cache (2**25 slots);
+6. serves through the port's serving path (``ServingEngine``, the paged
+   KV cache over DHash page tables on the fused kernels,
+   ``DHASH_FUSED=on``) a full-width, full-depth ``qwen3-8b`` in bf16 with
+   random weights from a seed: 16 requests (8 sharing a 32-token prefix),
+   ``launch/serve.py``'s ``ServeConfig``, four times: (A) one page table,
+   (B) one table with a trigger low enough that it rehashes live while
+   sequences decode (the table's contents read to the host after every
+   step: every active block resolves, pages distinct and off the free
+   stack), (C) four tenants behind the router, (D) C with the prefix cache
+   on a chain fingerprint index that is rehashed while decoding.  Every
+   request finishes with the same 16 tokens in all four; A-C return every
+   page; D adopts the shared prefix; the decode step and the rehash step
+   run under ``torch.cuda.set_sync_debug_mode("error")``; the DHash
+   kernels are launched on every run; the step's launches are held to the
+   profiler and its device time split by page-table op; the paged step is
+   held to the dense decode (``model.decode_logits``): at bf16 and 36
+   layers the argmax wherever the top-2 margin exceeds the largest logit
+   difference, at float32 and 4 layers the greedy tokens.
 
 Any failed check raises, so the process exits non-zero and prints no result
 line.  The last line of a good run is
@@ -6143,6 +6161,488 @@ def phase_big(device, cfg, n_steps: int, reps: int, cap: int = 1 << 24):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the serving path — paged decode of a full-width Qwen3-8B over
+# DHash page tables
+# ---------------------------------------------------------------------------
+
+# launch/serve.py's ServeConfig
+SERVE_BASE = dict(max_seqs=8, page_size=16, n_pages=1024, max_blocks=32,
+                  max_new_tokens=16)
+# bench_serve_macro.py's fingerprint-index geometry on chain (its prefix_kw)
+SERVE_PREFIX_KW = (("nbuckets", 16), ("max_chain", 2048 + 128))
+# the page-table ops of a step, annotated for the profiler's breakdown
+SERVE_TABLE_OPS = ("alloc_pages", "resolve_blocks_at", "resolve_blocks",
+                   "rehash_step")
+# weight bytes of a bf16 Qwen3-8B step over the card's memory rate
+HBM_TB_S = HBM_BYTES_PER_S / 1e12
+
+
+def serve_requests(rng, vocab: int) -> list:
+    """16 prompts: 8 share one 32-token prefix (two full pages) and each has
+    its own 4-12-token tail; 8 have their own 4-23-token prompt; the two
+    kinds alternate in the queue."""
+    prefix = rng.integers(1, vocab - 1, size=32)
+    out = []
+    for _ in range(8):
+        tail = rng.integers(1, vocab - 1, size=int(rng.integers(4, 13)))
+        out.append(np.concatenate([prefix, tail]).astype(np.int32).tolist())
+        out.append(rng.integers(1, vocab - 1, size=int(
+            rng.integers(4, 24))).astype(np.int32).tolist())
+    return out
+
+
+class strict_steps:
+    """``paged_decode_step`` and ``kvcache.rehash_step`` run under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host read inside either
+    raises.  Counts the calls; ``after_step`` is called with each decode
+    step's logits, outside the check."""
+
+    def __init__(self, after_step=None):
+        from repro_torch.serving import engine as eng_mod
+        from repro_torch.serving import kvcache
+        self.targets = ((eng_mod, "paged_decode_step"),
+                        (kvcache, "rehash_step"))
+        self.calls = 0
+        self.after_step = after_step
+
+    def _wrap(self, fn, step: bool):
+        def run(*a, **k):
+            self.calls += 1
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = fn(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            if step and self.after_step is not None:
+                self.after_step(out[0])
+            return out
+        return run
+
+    def __enter__(self):
+        self.saved = [(m, n, getattr(m, n)) for m, n in self.targets]
+        for m, n, fn in self.saved:
+            setattr(m, n, self._wrap(fn, n == "paged_decode_step"))
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, fn in self.saved:
+            setattr(m, n, fn)
+
+
+def check_page_table(eng, where: str) -> None:
+    """The page table's invariant, from its contents read to the host (no
+    kernel): every (seq, block) below an active sequence's length maps to
+    a page, the pages are pairwise distinct, none is on the free stack."""
+    from repro_torch import convert
+    kv = eng.kv
+    m = _content(convert.state_to_numpy(kv.table))
+    free = set(kv.free_stack[:int(kv.free_top)].tolist())
+    ps, pages = kv.page_size, []
+    for slot in np.where(eng.active)[0]:
+        sid, n = int(eng.seq_ids[slot]), int(eng.lengths[slot])
+        for b in range(-(-n // ps)):
+            key = (sid << 15) | b
+            check(key in m, f"{where}: seq {sid} block {b} (length {n}) "
+                            f"does not resolve")
+            pages.append(m[key])
+    check(len(set(pages)) == len(pages), f"{where}: a page is mapped twice")
+    check(free.isdisjoint(pages), f"{where}: a mapped page is on the free "
+                                  f"stack")
+
+
+def serve_run(name: str, params, cfg, sc, requests, *, check_pages=False,
+              prefix_rehash_at: int = 0, record=()) -> dict:
+    """Serve ``requests`` through a fresh ``ServingEngine`` (the launch
+    counters set to 0 just before, read just after), each ``_run_slots``
+    (one decode step and one rehash step) timed to a synchronise, the step
+    and the rehash step under the sync-debug check.  ``record``: requests
+    (indices) whose logits at the generated positions are kept."""
+    from repro_torch.kernels import probe
+    from repro_torch.serving import engine as eng_mod
+    from repro_torch.serving import kvcache
+    eng = eng_mod.ServingEngine(params, cfg, sc)
+    kv = eng.kv
+    tables = [kv.table] + ([kv.prefix.table, kv.prefix.rev]
+                           if kv.prefix is not None else [])
+    check(all(t.fused for t in tables), f"{name}: a table of the engine "
+                                        f"does not run the kernels")
+    ids = [eng.submit(r) for r in requests]
+    times, rb_active = [], [0]
+    inner = eng._run_slots
+    first_gen = {ids[i]: len(requests[i]) - 1 for i in record}
+    logits_at = {ids[i]: {} for i in record}
+
+    def keep(logits):
+        for slot in np.where(eng.active)[0]:
+            sid, pos = int(eng.seq_ids[slot]), int(eng.lengths[slot])
+            if sid in first_gen and pos >= first_gen[sid]:
+                logits_at[sid][pos] = logits[slot].clone()
+
+    def timed(sample=True):
+        t0 = time.perf_counter()
+        out = inner(sample)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if check_pages:
+            check_page_table(eng, f"{name} step {len(times)}")
+            rb_active[0] += bool(eng.kv.table.rebuilding) and \
+                int(eng.active.sum()) > 0
+        return out
+    eng._run_slots = timed
+    torch.cuda.synchronize()
+    probe.reset_launches()
+    kvcache.COUNTS["resolve_blocks"] = 0
+    t0 = time.perf_counter()
+    steps = 0
+    with strict_steps(keep if record else None) as strict:
+        while eng.queue or eng.active.any():
+            eng.step()
+            steps += 1
+            if steps == prefix_rehash_at:
+                eng.prefix_rehash(seed=17)
+            check(steps < 4000, f"{name}: the engine did not finish")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = probe.launch_counts()
+    resolves = kvcache.COUNTS["resolve_blocks"]
+    check(strict.calls == 2 * len(times), f"{name}: steps not all checked")
+    outs = [eng.finished.get(i) for i in ids]
+    check(all(o is not None and len(o) == sc.max_new_tokens for o in outs),
+          f"{name}: a request did not finish with {sc.max_new_tokens} "
+          f"tokens")
+    check(eng.alloc_fails == 0, f"{name}: {eng.alloc_fails} failed "
+                                f"allocations")
+    ms = sorted(t * 1e3 for t in times)
+    res = dict(outs=outs, engine=eng, counts=counts, steps=len(times),
+               engine_steps=steps, wall_s=wall,
+               step_ms=dict(median=statistics.median(ms),
+                            p99=ms[min(len(ms) - 1, int(0.99 * len(ms)))],
+                            max=ms[-1]),
+               tokens_per_s=sum(len(o) for o in outs) / wall,
+               resolves_per_step=resolves / len(times),
+               host_reads_per_step=eng.host_reads / steps,
+               rehashes=eng.rehashes, rebuilding_steps=rb_active[0],
+               logits=[[logits_at[ids[i]][p] for p in sorted(
+                   logits_at[ids[i]])] for i in record])
+    return res
+
+
+def serve_empty(eng, where: str) -> None:
+    """Every page back on the free stack and no entry left in the table."""
+    from repro_torch.core import dhash
+    kv = eng.kv
+    check(int(kv.free_top) == kv.n_pages, f"{where}: {kv.n_pages - int(kv.free_top)} "
+                                          f"pages leaked")
+    n = (dhash.stack_count_items(kv.table).sum() if kv.n_tenants > 1
+         else dhash.count_items(kv.table))
+    check(int(n) == 0, f"{where}: {int(n)} page-table entries left")
+
+
+def serve_profile(params, cfg, requests) -> dict:
+    """Steady decode steps of 8 sequences: the launches their steps credit
+    held to the kernels the profiler saw (the padded window of 3f), then
+    4 steps under the profiler for device busy, the idle share and the
+    page-table ops' share of the device time, by op."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.serving import engine as eng_mod
+    from repro_torch.serving import kvcache
+    eng = eng_mod.ServingEngine(params, cfg, eng_mod.ServeConfig(**SERVE_BASE))
+    for r in requests[:8]:
+        eng.submit(r[:2])          # short prompts: one prefill step each
+    eng._admit()                   # every slot active
+
+    def steps(n):
+        for _ in range(n):
+            eng._run_slots(sample=False)
+    # wall time of 4 steps, before any profiler session
+    steps(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps(4)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 4
+    credited, m = credited_against_profiler(lambda: steps(3), 3, "6 serve")
+    saved = {n: getattr(kvcache, n) for n in SERVE_TABLE_OPS}
+
+    def annotated(n, fn):
+        def run(*a, **k):
+            with record_function(f"pt.{n}"):
+                return fn(*a, **k)
+        return run
+    for n, fn in saved.items():
+        setattr(kvcache, n, annotated(n, fn))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            steps(4)
+            torch.cuda.synchronize()
+    finally:
+        for n, fn in saved.items():
+            setattr(kvcache, n, fn)
+    def dev_us(e):
+        return (e.device_time_total if hasattr(e, "device_time_total")
+                else e.cuda_time_total)
+    # device work: kernels, copies and fills (not the annotations' spans,
+    # which the profiler also records on the device)
+    work = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.name.startswith("pt.")]
+    busy_us = sum(dev_us(e) for e in work)
+    check(busy_us > 0, "6 serve: the profiler saw no device time")
+    by_op = {}
+    for e in prof.events():      # an op's kernels: those of its host range
+        if e.device_type == DeviceType.CPU and e.name.startswith("pt."):
+            by_op[e.name[3:]] = by_op.get(e.name[3:], 0.0) + dev_us(e)
+    sources = port_kernel_sources()
+    kern = {}
+    for e in work:
+        mm = re.match(r"(?:void )?(\w+)", e.name)
+        if mm and mm.group(1) in sources:
+            k = sources[mm.group(1)]
+            kern[k] = kern.get(k, 0.0) + dev_us(e)
+    busy_ms = busy_us / 4e3
+    return dict(credited_per_step={k: v // 3 for k, v in credited.items()},
+                profiled_replays=m, step_ms_unprofiled=wall_ms,
+                device_busy_ms=busy_ms,
+                idle_share=max(0.0, 1 - busy_ms / wall_ms),
+                table_share={k: v / busy_us for k, v in by_op.items()},
+                table_ms={k: v / 4e3 for k, v in by_op.items()},
+                dhash_kernel_ms={k: v / 4e3 for k, v in kern.items()})
+
+
+def paged_against_dense(params, cfg, prompt, outs, paged_logits,
+                        device) -> dict:
+    """The engine's own logits at the generated positions (its batched
+    paged step) against the port's dense decode (``model.decode_logits``
+    over ``init_cache``) teacher-forced over prompt + ``outs``: the largest
+    |logit difference|, whether the dense argmax gives ``outs`` (then dense
+    greedy decode gives the same tokens), and whether the argmax agrees
+    wherever the dense top-2 margin exceeds that difference."""
+    from repro_torch.models import model as tmodel
+    from repro_torch.models import transformer
+    seq = list(prompt) + list(outs)
+    cache = transformer.init_cache(cfg, 1, len(seq), device=device)
+    dense = []
+    for pos in range(len(seq) - 1):
+        t = torch.tensor([[seq[pos]]], dtype=torch.int32, device=device)
+        ld, cache = tmodel.decode_logits(params, cfg, t, cache)
+        if pos >= len(prompt) - 1:
+            dense.append(ld[0])
+    check(len(dense) == len(paged_logits) == len(outs),
+          f"{len(paged_logits)} recorded positions for {len(outs)} tokens")
+    pairs = list(zip(paged_logits, dense))
+    check([int(a.argmax()) for a, _ in pairs] == list(outs),
+          "the recorded logits are not the ones the engine sampled")
+    delta = max(float((a - b).abs().max()) for a, b in pairs)
+    scale = max(float(b.abs().max()) for b in dense)
+    agree = checked = 0
+    for a, b in pairs:
+        top = torch.topk(b, 2).values
+        if float(top[0] - top[1]) > delta:
+            checked += 1
+            agree += int(a.argmax()) == int(b.argmax())
+    return dict(max_abs_logit_diff=delta, max_abs_logit=scale,
+                positions=len(pairs),
+                dense_greedy_equal=[int(b.argmax()) for b in dense]
+                == list(outs),
+                margin_above_diff=checked, argmax_equal_there=agree)
+
+
+def logits_diff(got: list, want: list, where: str) -> float:
+    """The largest |difference| between two runs' recorded logits (per
+    request, per generated position)."""
+    check([len(g) for g in got] == [len(w) for w in want],
+          f"{where}: recorded positions differ")
+    return max(float((a - b).abs().max()) for g, w in zip(got, want)
+               for a, b in zip(g, w))
+
+
+# f32 at full width and 4 layers: the engine's logits against dense
+# decode's, relative to the largest |logit| (the CPU tests' 1e-5 relative;
+# with tied std-1 embeddings the current token's own logit is ~d_model, so
+# the two reduction orders' rounding shows at 1e-3 abs)
+SERVE_F32_RTOL = 1e-5
+
+
+def phase_serve(device, card: str, seed: int = 0) -> dict:
+    """Phase 6: the port's serving path at the full width and depth of
+    ``qwen3-8b`` in bf16, random weights from ``seed``.  The engine's DHash
+    tables run the kernels because they lie on the card (``kvcache.make``,
+    ``eviction.make``); no variable is set for it.  A, B and D serve the
+    16 requests (B's trigger fires once the first wave has drained, D
+    adopts the prefix and runs its index's epoch through the second
+    wave's admissions); C the first 8 of them (4 with the shared prefix),
+    which keeps the phase short.  Every run records the logits of
+    requests 0 and 1, held to A's."""
+    from repro_torch import configs
+    from repro_torch.kernels import probe
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import ServeConfig
+    t_phase = time.perf_counter()
+    cfg = configs.get_config("qwen3-8b")
+    check(cfg.dtype == "bfloat16" and cfg.n_layers == 36, "qwen3-8b")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, gen)
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for v in itertools.chain(
+        [params["embed"], params["final_norm"]],
+        params["attn_stack"].values()))
+    wbytes = n_params * 2
+    log(f"  {cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B "
+        f"parameters ({wbytes / 1e9:.2f} GB bf16), random from seed "
+        f"{seed} on the card in {time.perf_counter() - t0:.1f} s")
+    requests = serve_requests(np.random.default_rng(seed), cfg.vocab_size)
+    runs = {
+        "A": dict(sc=ServeConfig(**SERVE_BASE), requests=requests),
+        "B": dict(sc=ServeConfig(**SERVE_BASE, rehash_load_factor=0.002),
+                  requests=requests, check_pages=True),
+        "C": dict(sc=ServeConfig(**SERVE_BASE, n_tenants=4, cap_factor=2.0),
+                  requests=requests[:8]),
+        "D": dict(sc=ServeConfig(**SERVE_BASE, n_tenants=4, cap_factor=2.0,
+                                 prefix_cache=True, prefix_backend="chain",
+                                 prefix_capacity=4096,
+                                 prefix_kw=SERVE_PREFIX_KW),
+                  requests=requests, prefix_rehash_at=3),
+    }
+    res, counts, logits = {}, {}, {}
+    for name, kw in runs.items():
+        r = serve_run(name, params, cfg, record=(0, 1), **kw)
+        eng = r.pop("engine")
+        logits[name] = r.pop("logits")
+        counts[name] = r.pop("counts")
+        if name in "ABC":
+            serve_empty(eng, name)
+        if name == "B":
+            check(r["rehashes"] >= 1 and r["rebuilding_steps"] > 0,
+                  "B: no page-table rehash started and finished while "
+                  "sequences decoded")
+        if name == "D":
+            r.update(cache_hits=eng.cache_hits,
+                     cache_lookups=eng.cache_lookups,
+                     publishes=eng.publishes,
+                     prefix_epoch=eng.prefix_epoch,
+                     evictions=eng.evictions)
+            check(eng.cache_hits > 0, "D: the shared prefix was never "
+                                      "adopted")
+            check(eng.prefix_epoch == 1, "D: the fingerprint index did "
+                                         "not finish its epoch")
+        if name in "CD":
+            r.update(router_spills=eng.router_spills,
+                     router_drops=eng.router_drops)
+        del eng
+        torch.cuda.empty_cache()
+        res[name] = r
+        per = {k: v / r["steps"] for k, v in counts[name].items() if v}
+        log(f"  {name}: {len(kw['requests'])} requests x "
+            f"{SERVE_BASE['max_new_tokens']} tokens in {r['steps']} steps "
+            f"({r['engine_steps']} engine steps), {r['wall_s']:.1f} s, "
+            f"{r['tokens_per_s']:.1f} tokens/s; step ms median "
+            f"{r['step_ms']['median']:.2f} p99 {r['step_ms']['p99']:.2f} "
+            f"max {r['step_ms']['max']:.2f}; page-table rehashes "
+            f"{r['rehashes']}; resolve_blocks {r['resolves_per_step']:.1f} "
+            f"a step; host reads {r['host_reads_per_step']:.2f} an engine "
+            f"step; launches a step " + json.dumps(
+                {k: round(v, 2) for k, v in per.items()}))
+    outs = res["A"]["outs"]
+    # only page ids (and, in D, which request prefilled the shared blocks)
+    # differ between the runs, and every step has the same shapes: the
+    # logits are equal bit for bit
+    for name in "BCD":
+        n = len(res[name]["outs"])
+        check(res[name]["outs"] == outs[:n],
+              f"{name}: tokens differ from A's")
+        res[name]["logits_diff_to_A"] = d = logits_diff(
+            logits[name], logits["A"], name)
+        check(d == 0, f"{name}: the logits of requests 0 and 1 differ from "
+                      f"A's by up to {d}")
+    # one table: the steady lookup, the ordered one, the inserts, the
+    # transition (its epoch swaps on the host); a stack: the ordered
+    # lookup with the table axis, the exchange on the device; D's
+    # fingerprint index: the chain pair
+    base = {"probe2", "probe_insert", "extract"}
+    want = {"A": base | {"probe_lookup"}, "B": base | {"probe_lookup"},
+            "C": base | {"epoch_swap"},
+            "D": base | {"epoch_swap", "chain_probe", "chain_probe2"}}
+    for name, need in want.items():
+        got = {k for k, v in counts[name].items() if v}
+        check(need <= got, f"{name}: {sorted(need - got)} never launched")
+    log(f"  B, C and D give A's tokens ({len(outs)} x {len(outs[0])} in A, "
+        f"B and D, the first 8 in C) and A's logits for requests 0 and "
+        f"1 bit for bit (max |diff| " + json.dumps(
+            {k: res[k]["logits_diff_to_A"] for k in "BCD"}) + f"); D "
+        f"adopted {res['D']['cache_hits']} of {res['D']['cache_lookups']} "
+        f"prefix blocks; B rehashed the page table {res['B']['rehashes']} "
+        f"times, {res['B']['rebuilding_steps']} steps mid-rebuild, the "
+        f"table right after every step")
+    prof = serve_profile(params, cfg, requests)
+    log(f"  {card}; steady step of 8 sequences: "
+        f"{prof['step_ms_unprofiled']:.2f} ms, device busy "
+        f"{prof['device_busy_ms']:.2f} ms, idle share "
+        f"{prof['idle_share']:.3f}; weight bytes alone bound a step at "
+        f"{wbytes / HBM_BYTES_PER_S * 1e3:.2f} ms ({wbytes / 1e9:.2f} GB "
+        f"/ {HBM_TB_S:.2f} TB/s); page-table ops' share of the device "
+        f"time " + json.dumps({k: round(v, 4) for k, v in
+                               prof["table_share"].items()}) +
+        "; DHash kernels ms a step " + json.dumps(
+            {k: round(v, 4) for k, v in prof["dhash_kernel_ms"].items()}) +
+        f"; launches a step held to the profiler "
+        f"({prof['profiled_replays']} of 3 steps seen) " +
+        json.dumps(prof["credited_per_step"]))
+    # paged against dense at bf16 and full depth, teacher-forced
+    dense = {}
+    for i in (0, 1):
+        dense[i] = d = paged_against_dense(params, cfg, requests[i], outs[i],
+                                           logits["A"][i], device)
+        check(d["margin_above_diff"] == d["argmax_equal_there"],
+              f"request {i}: bf16 paged and dense argmax differ where "
+              f"the top-2 margin exceeds {d['max_abs_logit_diff']}")
+    del logits
+    log("  bf16, 36 layers, the engine's logits (run A) against dense "
+        "decode over the same tokens, requests 0 and 1: " +
+        json.dumps(dense))
+    del params
+    torch.cuda.empty_cache()
+    # float32, full width, 4 layers: the engine's logits held to dense
+    # decode's at SERVE_F32_RTOL of the largest |logit|, its greedy tokens
+    # equal
+    cfg4 = cfg.scaled(n_layers=4, dtype="float32")
+    params4 = transformer.init_params(cfg4, torch.Generator(
+        device=device).manual_seed(seed + 1))
+    r4 = serve_run("f32", params4, cfg4, ServeConfig(**SERVE_BASE),
+                   requests[:2], record=(0, 1))
+    dense4 = {}
+    for i in (0, 1):
+        dense4[i] = d = paged_against_dense(params4, cfg4, requests[i],
+                                            r4["outs"][i], r4["logits"][i],
+                                            device)
+        check(d["dense_greedy_equal"],
+              f"f32 request {i}: dense decode's greedy tokens differ from "
+              f"the engine's {r4['outs'][i]}")
+        bound = SERVE_F32_RTOL * d["max_abs_logit"]
+        check(d["max_abs_logit_diff"] <= bound,
+              f"f32 request {i}: the engine's logits differ from dense "
+              f"decode's by {d['max_abs_logit_diff']} (> {bound})")
+    del r4
+    log(f"  float32, full width, 4 layers: the engine's logits against "
+        f"dense decode's within {SERVE_F32_RTOL} of the largest |logit|, "
+        f"greedy tokens equal "
+        f"({SERVE_BASE['max_new_tokens']} each), requests 0 and 1: "
+        + json.dumps(dense4))
+    del params4
+    torch.cuda.empty_cache()
+    total = {k: sum(c[k] for c in counts.values()) for k in probe.KERNELS}
+    summary = {k: {f: v for f, v in r.items() if f != "outs"}
+               for k, r in res.items()}
+    log(f"  {card}; phase 6 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=total, runs=summary, profile=prof, dense=dense,
+                dense_f32=dense4)
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -6337,6 +6837,14 @@ def main() -> int:
     elapsed()
     log("== 5. a table larger than L2 (linear, capacity 2^24, 2^25 slots)")
     phase_big(device, CONFIG, args.big_steps, args.reps)
+    elapsed()
+    log("== 6. serving: paged decode of qwen3-8b at full width and depth "
+        "(bf16) over DHash page tables, 16 requests, runs A (one table), B "
+        "(one table, live rehashes), C (4 tenants; the first 8 requests), "
+        "D (4 tenants, prefix cache on chain, a fingerprint-index "
+        "rehash)")
+    serve = phase_serve(device, card)
+    by_path["serve"] = serve.pop("launches")
 
     kernels = []
     for name in probe.KERNELS:
@@ -6352,11 +6860,11 @@ def main() -> int:
         f"bounded walk, a cuckoo kick-out, a guarded two-table exchange, a "
         f"guarded arena compaction), "
         f"so library_ms is null; times are medians of {args.reps} launches, "
-        f"tables warm in L2; launches are summed over the eight main paths "
+        f"tables warm in L2; launches are summed over the nine main paths "
         f"(launches_by_path: each path's own count: the four backends, the "
-        f"table stack and its policy arm, the routed service step and the "
-        f"grid); \"stack\" gives the six kernels with the table axis at "
-        f"T = {STACK_T}")
+        f"table stack and its policy arm, the routed service step, the "
+        f"grid and the serving path's runs A-D); \"stack\" gives the six "
+        f"kernels with the table axis at T = {STACK_T}")
     log(f"  total {time.perf_counter() - t_start:.0f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

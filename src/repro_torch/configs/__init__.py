@@ -1,2 +1,40 @@
 """Configurations of the port (own copies; nothing is imported from the
-reference package)."""
+reference package) and the ``--arch <id>`` registry.
+
+The registry lists only the configurations the port can run: the
+``dhash-paper`` service and ``qwen3-8b`` (attention blocks only).  The
+reference's other nine architectures need block types that are not ported
+yet (ROADMAP A7); asking for one raises ``KeyError`` saying so.
+"""
+from __future__ import annotations
+
+import importlib
+
+_MODULES = {
+    "qwen3-8b": "qwen3_8b",
+    "dhash-paper": "dhash_paper",
+}
+# the reference's architectures whose block types wait (ROADMAP A7)
+WAITING = ("zamba2-1.2b", "gemma3-27b", "deepseek-67b", "gemma2-2b",
+           "qwen2-vl-2b", "rwkv6-3b", "arctic-480b", "llama4-scout-17b-a16e",
+           "hubert-xlarge")
+
+ARCH_IDS = tuple(k for k in _MODULES if k != "dhash-paper")
+ALL_IDS = tuple(_MODULES)
+
+
+def _mod(arch_id: str):
+    if arch_id in WAITING:
+        raise KeyError(f"arch {arch_id!r} is not ported yet (ROADMAP A7); "
+                       f"the port runs {ALL_IDS}")
+    if arch_id not in _MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; choose from {ALL_IDS}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+
+
+def get_config(arch_id: str):
+    return _mod(arch_id).CONFIG
+
+
+def get_smoke(arch_id: str):
+    return _mod(arch_id).smoke()

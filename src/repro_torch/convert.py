@@ -44,6 +44,12 @@ seeds are ``uint32`` in the tree and int64 words in ``[0, 2**32)`` in
 the port.  The two-row insert kernel's claim scratch (twochoice and cuckoo
 tables only) is not part of a table's contents: it is made anew on the way
 in and left out on the way back.
+
+Model weights (``params_from_numpy`` / ``params_to_numpy``) are the
+reference's ``transformer.init_params`` tree as nested dicts of numpy
+arrays (``{"embed": [V, D], "final_norm": [D], "attn_stack": {"wq": [L, D,
+Hq, hd], ...}}``), the same nesting of tensors in the port.  A bfloat16
+array (numpy's ``ml_dtypes.bfloat16``) travels as its 16-bit words.
 """
 from __future__ import annotations
 
@@ -178,3 +184,35 @@ def policy_to_numpy(pol: ElasticPolicy) -> dict:
     for name, dt in _POLICY_STATE:
         tree[name] = np.asarray(getattr(pol, name).cpu().numpy(), dtype=dt)
     return tree
+
+
+def _param_to_dev(a, device) -> torch.Tensor:
+    a = np.array(a)             # a writable copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_numpy(tree: dict, device: torch.device | str = "cuda"
+                      ) -> dict:
+    """Model weights on ``device`` from a nested dict of numpy arrays (the
+    reference's ``init_params`` tree, ``np.asarray`` of each leaf)."""
+    return {k: params_from_numpy(v, device) if isinstance(v, dict)
+            else _param_to_dev(v, device) for k, v in tree.items()}
+
+
+def params_to_numpy(params: dict) -> dict:
+    """Inverse of ``params_from_numpy`` (synchronises).  A bfloat16 tensor
+    comes back as an ``ml_dtypes.bfloat16`` array."""
+    out = {}
+    for k, v in params.items():
+        if isinstance(v, dict):
+            out[k] = params_to_numpy(v)
+        elif v.dtype == torch.bfloat16:
+            import ml_dtypes
+            out[k] = v.cpu().view(torch.int16).numpy().view(
+                ml_dtypes.bfloat16)
+        else:
+            out[k] = v.cpu().numpy()
+    return out

@@ -242,6 +242,14 @@ def new_claim(rows, device) -> torch.Tensor:
 # probe_lookup
 # ---------------------------------------------------------------------------
 
+def _settled(live: torch.Tensor) -> bool:
+    """On the CPU, whether a plain version's lock-step rounds can stop:
+    no query is left in them, so the remaining rounds would change nothing
+    (a read that costs nothing there).  On the card the rounds all run, so
+    a plain version's time there is that of its full round count."""
+    return live.device.type == "cpu" and not bool(live.any())
+
+
 def probe_lookup_plain(tkey, tval, tstate, h0, qkey, max_probes: int):
     """Plain version of ``probe_lookup``: lock-step probe rounds over the
     whole batch.  Returns (found[Q] bool, val[Q] i32, loc[Q] i32)."""
@@ -259,6 +267,8 @@ def probe_lookup_plain(tkey, tval, tstate, h0, qkey, max_probes: int):
         found |= hit
         active &= ~hit & (st != EMPTY)
         pos = (pos + 1) % c
+        if _settled(active):
+            break
     return found, val, loc
 
 
@@ -482,6 +492,8 @@ def probe_insert_plain(tkey, tval, tstate, h0, keys, vals, mask,
         ok |= won
         pending &= ~won
         pos = (pos + 1) % c
+        if _settled(pending):
+            break
     return ok, present
 
 

@@ -1,0 +1,77 @@
+"""Shared neural layers: norms, rotary embeddings, the SwiGLU MLP and token
+embeddings.  Each casts where the reference casts: norms and the SiLU gate
+compute in float32 and return the input's dtype."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+F32 = torch.float32
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm with the ``1 + scale`` gain, in float32."""
+    dt = x.dtype
+    x = x.to(F32)
+    var = (x * x).mean(-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps) * (1.0 + scale.to(F32))
+    return y.to(dt)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    g = x @ w_gate
+    u = x @ w_up
+    h = F.silu(g.to(F32)).to(x.dtype) * u
+    return h @ w_down
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32)
+                            / head_dim))
+
+
+def rope_angles(positions: torch.Tensor, theta: float, head_dim: int):
+    """(sin, cos) [..., S, 1, hd/2] of the rotary angles at ``positions``
+    [..., S] for ``theta`` (a float: the layer's, from
+    ``transformer._attn_flags``), in float32.  Layers that share a theta
+    share them within a step."""
+    exp = torch.arange(0, head_dim, 2, dtype=F32,
+                       device=positions.device) / head_dim
+    freqs = 1.0 / torch.pow(torch.full((), theta, dtype=F32,
+                                       device=positions.device), exp)
+    ang = positions[..., None].to(F32) * freqs              # [..., S, hd/2]
+    return torch.sin(ang)[..., None, :], torch.cos(ang)[..., None, :]
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               angles=None) -> torch.Tensor:
+    """x: [..., S, H, hd]; positions: [..., S] (ints).  ``angles`` is
+    ``rope_angles(positions, theta, hd)`` when the caller has it."""
+    hd = x.shape[-1]
+    sin, cos = angles or rope_angles(positions, theta, hd)
+    x1, x2 = x[..., : hd // 2], x[..., hd // 2:]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# embeddings
+# ---------------------------------------------------------------------------
+
+def embed(tokens: torch.Tensor, table: torch.Tensor, *,
+          scale: bool) -> torch.Tensor:
+    x = table[tokens.long()]
+    if scale:
+        # sqrt(d) rounded to the table's dtype first, as the reference's
+        # jnp.asarray(np.sqrt(d), x.dtype)
+        s = torch.tensor(np.sqrt(table.shape[1]), dtype=F32).to(x.dtype)
+        x = x * s.item()
+    return x

@@ -1,0 +1,251 @@
+"""Model assembly, the decode half: attention blocks (``attn`` / ``local``)
+whose weights are stacked on a leading layer axis, as in the reference.
+
+The reference scans the stack with ``lax.scan`` and carries per-layer
+window / rope-theta arrays as scanned flags; here the layer loop runs on
+the host, so ``_attn_flags`` gives those per-layer values as Python lists
+and no step creates a tensor from host data.  ``forward_decode`` writes the
+new token's K/V into the caller's cache IN PLACE (the returned cache shares
+its tensors) and returns the hidden state before the unembedding.
+
+Random initialisation takes an explicit ``torch.Generator`` and fills each
+weight stack a block of layers at a time in float32 before the cast, so no
+float32 copy of a whole bf16 model is ever made.  Its random streams are
+the port's own: a test that compares the two packages converts the
+reference's weights (``convert.params_from_numpy``).
+
+Not ported yet (ROADMAP A7): ``mamba2`` / ``rwkv6`` blocks, experts,
+M-RoPE, the weight-shared attention block and the training forward.  A
+configuration that needs one raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.layers import (apply_rope, embed, rms_norm,
+                                      rope_angles, swiglu)
+
+F32 = torch.float32
+I32 = torch.int32
+# float32 elements drawn at once by ``_init`` (1 GiB)
+_INIT_CHUNK = 1 << 28
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+            "float16": torch.float16}[name]
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for a configuration whose blocks the
+    port does not have yet; never take another path."""
+    waits = []
+    if any(k not in ("attn", "local") for k in cfg.blocks):
+        waits.append(f"blocks {sorted(set(cfg.blocks) - {'attn', 'local'})}"
+                     " (models/ssm.py, models/rwkv.py)")
+    if cfg.n_experts:
+        waits.append("experts (models/moe.py)")
+    if cfg.mrope_sections is not None:
+        waits.append("M-RoPE (layers.apply_mrope)")
+    if cfg.shared_attn_every:
+        waits.append("the weight-shared attention block")
+    if waits:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: {', '.join(waits)} not ported yet (ROADMAP A7)")
+
+
+# ---------------------------------------------------------------------------
+# initialization
+# ---------------------------------------------------------------------------
+
+def _init(gen: torch.Generator, shape: tuple, scale: float,
+          dtype: torch.dtype) -> torch.Tensor:
+    """N(0, scale^2) weights of ``shape`` in ``dtype``, drawn in float32 a
+    block of leading rows at a time."""
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    per = max(1, _INIT_CHUNK // max(1, math.prod(shape[1:])))
+    for i in range(0, shape[0], per):
+        blk = out[i:i + per]
+        blk.copy_(torch.randn(blk.shape, generator=gen, dtype=F32,
+                              device=gen.device) * scale)
+    return out
+
+
+def _zeros(shape: tuple, dtype, gen: torch.Generator) -> torch.Tensor:
+    return torch.zeros(shape, dtype=dtype, device=gen.device)
+
+
+def _attn_block_init(gen, cfg: ArchConfig, n: int, dtype) -> dict:
+    """n stacked attention + MLP blocks."""
+    d, hd = cfg.d_model, cfg.head_dim
+    hq, hkv, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    s = d ** -0.5
+    p = {
+        "ln1": _zeros((n, d), dtype, gen),
+        "wo": _init(gen, (n, hq, hd, d), (hq * hd) ** -0.5, dtype),
+        "ln2": _zeros((n, d), dtype, gen),
+    }
+    if cfg.fused_qkv:
+        p["wqkv"] = _init(gen, (n, d, hq + 2 * hkv, hd), s, dtype)
+    else:
+        p["wq"] = _init(gen, (n, d, hq, hd), s, dtype)
+        p["wk"] = _init(gen, (n, d, hkv, hd), s, dtype)
+        p["wv"] = _init(gen, (n, d, hkv, hd), s, dtype)
+    if cfg.qk_norm:
+        p["q_norm"] = _zeros((n, hd), dtype, gen)
+        p["k_norm"] = _zeros((n, hd), dtype, gen)
+    p |= _mlp_init(gen, cfg, n, d, f, s, dtype)
+    return p
+
+
+def _mlp_init(gen, cfg: ArchConfig, n, d, f, s, dtype) -> dict:
+    if cfg.fused_gate_up:
+        # [2, d, f] stacked, the reference's layout
+        return {"wgu": _init(gen, (n, 2, d, f), s, dtype),
+                "wd": _init(gen, (n, f, d), f ** -0.5, dtype)}
+    return {"wg": _init(gen, (n, d, f), s, dtype),
+            "wu": _init(gen, (n, d, f), s, dtype),
+            "wd": _init(gen, (n, f, d), f ** -0.5, dtype)}
+
+
+def _attn_flags(cfg: ArchConfig) -> dict:
+    """Per-layer window (int) and rope theta (float32-rounded float) lists
+    for the attention stack."""
+    kinds = [k for k in cfg.blocks if k in ("attn", "local")]
+    tg = cfg.rope_theta_global or cfg.rope_theta
+    return {"window": [cfg.window if k == "local" else 0 for k in kinds],
+            "theta": [float(np.float32(cfg.rope_theta if k == "local"
+                                       else tg)) for k in kinds]}
+
+
+def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
+    """Random weights on ``gen``'s device (the reference's tree: ``embed``,
+    ``final_norm``, ``unembed`` when untied, ``attn_stack``)."""
+    check_supported(cfg)
+    dtype = dtype_of(cfg.dtype)
+    d, v = cfg.d_model, cfg.vocab_size
+    params: dict[str, Any] = {
+        "embed": _init(gen, (v, d), 1.0, dtype),
+        "final_norm": _zeros((d,), dtype, gen),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = _init(gen, (d, v), d ** -0.5, dtype)
+    params["attn_stack"] = _attn_block_init(gen, cfg, cfg.n_layers, dtype)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# block bodies
+# ---------------------------------------------------------------------------
+
+def _mlp_fwd(h: torch.Tensor, p: dict) -> torch.Tensor:
+    if "wgu" in p:
+        gu = torch.einsum("bsd,kdf->bskf", h, p["wgu"])
+        g, u = gu[:, :, 0], gu[:, :, 1]
+        act = F.silu(g.to(F32)).to(h.dtype) * u
+        return torch.einsum("bsf,fd->bsd", act, p["wd"])
+    return swiglu(h, p["wg"], p["wu"], p["wd"])
+
+
+def _project_qkv_cfg(h: torch.Tensor, p: dict, cfg: ArchConfig):
+    if "wqkv" in p:
+        qkv = attn_lib._proj(h, p["wqkv"])
+        q, k, v = torch.split(qkv, [cfg.n_heads, cfg.n_kv_heads,
+                                    cfg.n_kv_heads], dim=2)
+        if cfg.qk_norm:
+            q, k = rms_norm(q, p["q_norm"]), rms_norm(k, p["k_norm"])
+        return q, k, v
+    qkn = (p["q_norm"], p["k_norm"]) if cfg.qk_norm else None
+    return attn_lib.project_qkv(h, p["wq"], p["wk"], p["wv"],
+                                qk_norm_scale=qkn)
+
+
+def _attn_body(x, p, window: int, theta: float, cfg: ArchConfig, positions,
+               decode_cache, cache_len, angles=None):
+    """One attention block on its decode branch: the new token's K/V
+    written at ``cache_len`` (in place), then attention over the first
+    ``cache_len + 1`` positions.  ``angles``: the step's
+    ``rope_angles(positions, theta, hd)`` when the caller has them.
+    Returns (x', (k_cache, v_cache))."""
+    h = rms_norm(x, p["ln1"])
+    q, k, v = _project_qkv_cfg(h, p, cfg)
+    q = apply_rope(q, positions, theta, angles)
+    k = apply_rope(k, positions, theta, angles)
+    kc, vc = decode_cache
+    idx = cache_len.long()
+    bidx = torch.arange(kc.shape[0], device=kc.device)
+    kc[bidx, idx] = k[:, 0]
+    vc[bidx, idx] = v[:, 0]
+    o = attn_lib.decode_attention(q, kc, vc, cache_len + 1, window=window,
+                                  softcap=cfg.attn_softcap)
+    x = x + out_proj(o, p["wo"])
+    h2 = rms_norm(x, p["ln2"])
+    return x + _mlp_fwd(h2, p), (kc, vc)
+
+
+def layer_params(stack: dict) -> list:
+    """Every layer's weights as a dict of views into the stacked tensors
+    (one ``unbind`` a stacked tensor)."""
+    names = list(stack)
+    return [dict(zip(names, views)) for views in
+            zip(*(stack[k].unbind(0) for k in names))]
+
+
+def out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """o [..., H, hd] @ wo [H, hd, D] -> [..., D] (the reference's einsum
+    ``"bshk,hkd->bsd"``, as one matmul)."""
+    return o.flatten(-2) @ wo.flatten(0, 1)
+
+
+def unembed_matrix(params: dict, cfg: ArchConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return params["embed"].T
+    return params["unembed"]
+
+
+# ---------------------------------------------------------------------------
+# decode (single new token against caches)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, *,
+               device: torch.device | str = "cuda") -> dict:
+    check_supported(cfg)
+    dtype = dtype or dtype_of(cfg.dtype)
+    shp = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"len": torch.zeros((batch,), dtype=I32, device=device),
+            "k": torch.zeros(shp, dtype=dtype, device=device),
+            "v": torch.zeros(shp, dtype=dtype, device=device)}
+
+
+@torch.inference_mode()
+def forward_decode(params: dict, cfg: ArchConfig, tokens1: torch.Tensor,
+                   cache: dict):
+    """tokens1: [B,1] (or embeds [B,1,D] for stub frontends).
+    Returns (hidden [B,1,D], cache'); cache' shares ``cache``'s K/V, which
+    are written in place."""
+    check_supported(cfg)
+    if cfg.frontend == "stub_embed" and tokens1.dim() == 3:
+        x = tokens1.to(dtype_of(cfg.dtype))
+    else:
+        x = embed(tokens1, params["embed"], scale=cfg.embed_scale)
+    clen = cache["len"]
+    positions = clen[:, None]
+    flags = _attn_flags(cfg)
+    angles = {th: rope_angles(positions, th, cfg.head_dim)
+              for th in set(flags["theta"])}
+    layers = layer_params(params["attn_stack"])
+    for i, (window, theta) in enumerate(zip(flags["window"],
+                                            flags["theta"])):
+        x, _ = _attn_body(x, layers[i], window, theta, cfg, positions,
+                          (cache["k"][i], cache["v"][i]), clen,
+                          angles[theta])
+    new_cache = dict(cache, len=clen + 1)
+    x = rms_norm(x, params["final_norm"])
+    return x, new_cache

@@ -23,8 +23,16 @@ FORBIDDEN = {"jax", "jaxlib", "repro", "flax", "optax"}
 MODULES = ["repro_torch", "repro_torch.convert",
            "repro_torch.configs.dhash_paper"] + [
     f"repro_torch.core.{m}" for m in
-    ("struct_utils", "hashing", "buckets", "backend", "dhash", "engine")] + [
-    f"repro_torch.kernels.{m}" for m in ("ref", "probe", "ops", "build")]
+    ("struct_utils", "hashing", "buckets", "backend", "dhash", "engine",
+     "policy", "distributed")] + [
+    f"repro_torch.kernels.{m}" for m in ("ref", "probe", "ops", "build")] + [
+    "repro_torch.configs", "repro_torch.configs.base",
+    "repro_torch.configs.qwen3_8b"] + [
+    f"repro_torch.models.{m}" for m in
+    ("layers", "attention", "transformer", "model")] + [
+    f"repro_torch.serving.{m}" for m in
+    ("prefix_cache", "eviction", "kvcache", "engine")] + [
+    "repro_torch.launch.serve"]
 
 
 def _sources():

@@ -277,6 +277,32 @@ def test_probe_insert_slot_for_slot_vs_oracle(kind, c, p):
     assert torch.equal(present, f & T(win)) and torch.equal(ok2, tok)
 
 
+@pytest.mark.parametrize("kind,c,p", INSERT_CASES)
+def test_plain_early_exit_equals_every_round(kind, c, p, monkeypatch):
+    """On the CPU the plain ``probe_lookup`` and ``probe_insert`` stop their
+    lock-step rounds once no query is left (``probe._settled``); on the
+    card they run every round.  Both give the same answers and tables."""
+    tab, h0, k, v, win = insert_batch(kind, c, p, seed=c + p)
+
+    def run():
+        tt = [T(x) for x in tab]
+        f, val, loc = tprobe.probe_lookup_plain(*tt, T(h0), T(k), p)
+        ok, present = tprobe.probe_insert_plain(*tt, T(h0), T(k), T(v),
+                                                T(win), p)
+        return [f, val, loc, ok, present, *tt]
+    settled, fired = tprobe._settled, []
+
+    def seen(live):
+        fired.append(settled(live))
+        return fired[-1]
+    monkeypatch.setattr(tprobe, "_settled", seen)
+    early = run()
+    monkeypatch.setattr(tprobe, "_settled", lambda live: False)
+    full = run()
+    assert all(torch.equal(a, b) for a, b in zip(early, full)), kind
+    assert any(fired) or kind == "hot", "no plain version stopped early"
+
+
 @pytest.mark.parametrize("c,p,kind", [(64, 8, "mix32"), (1000, 16, "mix32"),
                                       (1000, 16, "tabulation"),
                                       (4096, 32, "multiply_shift")])
