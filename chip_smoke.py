@@ -132,7 +132,27 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
    profiler and its device time split by page-table op; the paged step is
    held to the dense decode (``model.decode_logits``): at bf16 and 36
    layers the argmax wherever the top-2 margin exceeds the largest logit
-   difference, at float32 and 4 layers the greedy tokens.
+   difference, at float32 and 4 layers the greedy tokens;
+7. runs the paper's comparison (``core/baselines.py``: HT-Xu, HT-RHT,
+   HT-Split, against DHash-chain): (7a) holds the two walks the baselines
+   run, ``chain_walk`` and ``chain_tail``, against their plain versions
+   (tolerance 0) on a load-factor-20 table (2^16 buckets, 1310720 keys)
+   and a load-factor-200 one (2^13 buckets, 1638400 keys), each with
+   bucket 0 flooded past max_chain and a tenth of the nodes tombstoned,
+   and a sparse one (empty and one-node buckets): hits, misses, Q = 1,
+   ragged Q, Q = 65536, the flooded bucket; tail windows from bucket 0
+   and wrapping; times both, and one dependent load by a one-thread
+   chase; (7b) Figure 2 (``benchmarks/bench_throughput.py::run`` and the
+   drivers of ``benchmarks/common.py``): DHash-chain fused and plain,
+   HT-Xu, HT-RHT and HT-Split, each under its continuous rebuild or
+   resize, at load factors 20 and 200 on 7a's geometry (Q = 4096 and
+   65536) and the reference's (512 and 64 buckets, Q = 4096), the
+   90/5/5 and 80/10/10 mixes, every step's answers against a numpy
+   oracle; ops/s, the DHash ratios, host reads a step, launches a step,
+   lock rounds an op; (7c) the section-1 attack
+   (``benchmarks/bench_attack.py::run``): lookup rates of DHash before,
+   under, in the middle of and after a live rehash, and of HT-Split
+   before, under and after its doubling, every answer checked.
 
 Any failed check raises, so the process exits non-zero and prints no result
 line.  The last line of a good run is
@@ -186,6 +206,12 @@ KERNEL_INFO = {
                    "src/repro/core/dhash.py:433"),
     "chain_compact": ("src/repro_torch/kernels/csrc/chain_compact.cu",
                       "src/repro/core/backend.py:624"),
+    # no pallas_call: the reference's XLA loops of the plain chain walk and
+    # of HT-RHT's tail walk
+    "chain_walk": ("src/repro_torch/kernels/csrc/chain_walk.cu",
+                   "src/repro/core/buckets.py:512"),
+    "chain_tail": ("src/repro_torch/kernels/csrc/chain_walk.cu",
+                   "src/repro/core/baselines.py:258"),
 }
 BACKENDS = ("linear", "twochoice", "cuckoo", "chain")
 # the kernels each backend's main path runs: (lookup, insert, rebuild-epoch
@@ -660,13 +686,21 @@ def time_ms(fn, reps: int, setup=None, queue_ahead: bool = True) -> float:
 
 
 def port_kernel_sources() -> dict:
-    """``__global__`` function name -> the source whose wrapper launches
-    it (each ``csrc/<name>.cu`` belongs to the wrapper ``probe.<name>``)."""
+    """``__global__`` function name -> the wrapper that launches it: the
+    wrapper ``probe.<name>`` of ``csrc/<name>.cu``, or another wrapper of
+    that source (``build.KERNELS``) whose name the function's starts with
+    (``chain_tail_kernel`` in ``chain_walk.cu``)."""
     from repro_torch.kernels import build
     pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
                      r"(\w+)")
-    return {m.group(1): p.stem for p in build.CSRC.glob("*.cu")
-            for m in pat.finditer(p.read_text())}
+    out = {}
+    for p in build.CSRC.glob("*.cu"):
+        more = [k for k, (src, _) in build.KERNELS.items()
+                if src == p.stem and k != p.stem]
+        for m in pat.finditer(p.read_text()):
+            out[m.group(1)] = next((k for k in more
+                                    if m.group(1).startswith(k)), p.stem)
+    return out
 
 
 def port_kernel_names() -> set:
@@ -6643,6 +6677,666 @@ def phase_serve(device, card: str, seed: int = 0) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the paper's comparison — HT-Xu, HT-RHT and HT-Split
+# (core/baselines.py) against DHash-chain: the two walks, Figure 2, the §1
+# attack
+# ---------------------------------------------------------------------------
+
+UNIVERSE = 10_000_000       # key range U of the paper's §6.1
+# Figure 2 (benchmarks/bench_throughput.py::run): (alpha, buckets, batch
+# widths): 7a's two tables, then the reference's own geometry
+FIG2_GEOMETRY = ((20, 1 << 16, (4096, 65536)), (200, 1 << 13, (4096, 65536)),
+                 (20, 512, (4096,)), (200, 64, (4096,)))
+FIG2_MIXES = ((90, 5, 5), (80, 10, 10))
+FIG2_WARMUP, FIG2_STEPS = 3, 16
+CONTENDERS = ("DHash-chain-fused", "DHash-chain", "HT-Xu", "HT-RHT",
+              "HT-Split")
+BASELINE_KIND = {"HT-Xu": "xu", "HT-RHT": "rht", "HT-Split": "split"}
+SECTOR = 32                 # bytes of one L2 sector
+# nodes an arena a key: the reference's drivers take 1.3, where HT-Xu's
+# active set runs out of nodes at step 7 of the 80/10/10 mix at its own
+# geometry (deletes leave tombstones only the next rebuild reclaims) and
+# refuses inserts its passive set takes
+FIG2_ARENA = 2
+
+
+def sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def flood_keys(hfn, nb: int, bucket: int, n: int, device,
+               seed: int) -> torch.Tensor:
+    """``n`` distinct keys in [UNIVERSE, 2^31) that ``hfn`` sends to
+    ``bucket`` of ``nb`` (drawn on the device)."""
+    from repro_torch.core import hashing
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    got = torch.empty(0, dtype=torch.int32, device=device)
+    while got.numel() < n:
+        cand = torch.randint(UNIVERSE, (1 << 31) - 1, (1 << 24,),
+                             generator=gen, device=device, dtype=torch.int32)
+        got = torch.unique(torch.cat([
+            got, cand[hashing.bucket_of(hfn, cand, nb) == bucket]]))
+    return got[torch.randperm(got.numel(), generator=gen,
+                              device=device)[:n]]
+
+
+def walk_table(device, nb: int, n_keys: int, max_chain: int, seed: int,
+               flood: int = 0, tomb: float = 0.1):
+    """A chain table of ``nb`` buckets and an arena of 1.3 x its keys
+    holding ``n_keys`` distinct keys of the universe and ``flood`` more in
+    bucket 0 (values 3k + 1), linked by ONE plain insert
+    (``ref.chain_insert_ref``: no kernel builds the inputs of the kernels
+    held to their plain versions), then ``tomb`` of the nodes tombstoned.
+    Returns (table, keys, flood keys)."""
+    from repro_torch.core import buckets, hashing
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(seed)
+    arena = int(1.3 * (n_keys + flood))
+    t = buckets.chain_make(nb, arena, hashing.fresh("mix32", seed, device),
+                           max_chain, device=device)
+    keys = torch.as_tensor(rng.choice(UNIVERSE, n_keys, replace=False)
+                           .astype(np.int32), device=device)
+    fk = flood_keys(t.hfn, nb, 0, flood, device, seed) if flood else \
+        keys[:0]
+    allk = torch.cat([keys, fk])
+    ones = torch.ones_like(allk, dtype=torch.bool)
+    akey, aval, astate, anext, heads, free_top, ok = ref.chain_insert_ref(
+        t.akey, t.aval, t.astate, t.anext, t.heads, t.free_stack, t.free_top,
+        hashing.bucket_of(t.hfn, allk, nb), allk, allk * 3 + 1, ones,
+        max_chain, present=~ones)
+    check(bool(ok.all()), "walk_table: the arena refused a key")
+    dead = torch.as_tensor(rng.choice(allk.numel(), int(tomb * allk.numel()),
+                                      replace=False), device=device)
+    astate[dead] = buckets.TOMB
+    t = dataclasses.replace(t, akey=akey, aval=aval, astate=astate,
+                            anext=anext, heads=heads, free_top=free_top)
+    return t, keys, fk
+
+
+def walk_hops(t, bq, qk) -> tuple:
+    """What the bounded walk reads for the queries (counted as
+    ``ref.chain_lookup_ref`` walks): (hops in all, the longest walk's
+    hops, distinct nodes visited, hits, distinct buckets)."""
+    from repro_torch.core import buckets
+    cur = t.heads[bq.long()].long()
+    hops = torch.zeros_like(cur)
+    seen = torch.zeros(t.arena, dtype=torch.bool, device=cur.device)
+    hits = 0
+    for _ in range(t.max_chain):
+        valid = cur >= 0
+        if not bool(valid.any()):
+            break
+        c = torch.where(valid, cur, 0)
+        hops += valid
+        seen[c[valid]] = True
+        hit = valid & (t.astate[c] == buckets.LIVE) & (t.akey[c] == qk)
+        hits += int(hit.sum())
+        cur = torch.where(valid & ~hit, t.anext[c].long(), -1)
+    return (int(hops.sum()), int(hops.max()), int(seen.sum()), hits,
+            int(torch.unique(bq).numel()))
+
+
+def tail_hops(t, cursor: int, bchunk: int) -> tuple:
+    """The nodes the tail walk reads (the head and each node it advances
+    to): (total, longest)."""
+    b = (cursor + torch.arange(bchunk, device=t.heads.device)) % t.nbuckets
+    cur = t.heads[b].long()
+    hops = (cur >= 0).long()
+    for _ in range(t.max_chain):
+        valid = cur >= 0
+        nxt = t.anext[torch.where(valid, cur, 0)].long()
+        step = valid & (nxt >= 0)
+        if not bool(step.any()):
+            break
+        hops += step
+        cur = torch.where(step, nxt, cur)
+    return int(hops.sum()), int(hops.max())
+
+
+def chain_lengths(t, b) -> torch.Tensor:
+    """The nodes on the chains of buckets ``b``, to their real ends."""
+    cur = t.heads[b.long()].long()
+    n = torch.zeros_like(cur)
+    while bool((cur >= 0).any()):
+        valid = cur >= 0
+        n += valid
+        cur = torch.where(valid, t.anext[torch.where(valid, cur, 0)].long(),
+                          -1)
+    return n
+
+
+def chase_ns(device, reps: int) -> tuple:
+    """One dependent load's latency on the card, and one hop of the walk:
+    one chain of 2^20 nodes linked in a random order, walked by one
+    thread at two bounds, by ``chain_tail`` (bchunk 1: a hop is one load
+    of ``next``) and by ``chain_walk`` (Q = 1, a miss: a hop reads a
+    node's state, key and next); each the time difference over the hop
+    difference, so the launch and fixed costs cancel.  Returns (load ns,
+    walk hop ns)."""
+    from repro_torch.kernels import probe
+    n = 1 << 20
+    order = torch.randperm(n, device=device)
+    anext = torch.full((n,), -1, dtype=torch.int32, device=device)
+    anext[order[:-1]] = order[1:].to(torch.int32)
+    arena = (torch.arange(n, dtype=torch.int32, device=device),
+             torch.zeros(n, dtype=torch.int32, device=device),
+             torch.ones(n, dtype=torch.int32, device=device))
+    heads = order[:1].to(torch.int32)
+    q = torch.full((1,), -5, dtype=torch.int32, device=device)
+    zero = torch.zeros(1, dtype=torch.int32, device=device)
+    c = zero[0]
+    runs = {"load": lambda h: probe.chain_tail(heads, anext, c, 1, h),
+            "walk": lambda h: probe.chain_walk(arena, (anext, heads), zero,
+                                               q, h)}
+    out = []
+    for fn in runs.values():
+        ms = {h: time_ms(lambda: fn(h), reps) for h in (2048, 32768)}
+        out.append((ms[32768] - ms[2048]) * 1e6 / (32768 - 2048))
+    return tuple(out)
+
+
+def walk_cases(device, rng) -> tuple:
+    """7a's inputs: the load-factor-20 and -200 tables (each with bucket 0
+    flooded past max_chain and a tenth of the nodes tombstoned), a sparse
+    table (half the buckets empty, a third of one node, bucket 0 flooded)
+    and, on each, the query batches (hits, misses, Q = 1, ragged Q, Q =
+    65536 half hits and half misses, the flooded bucket's keys) and two
+    tail windows of 256 buckets (from bucket 0, and one that wraps)."""
+    from repro_torch.core import hashing
+    tables = {}
+    for alpha, nb in ((20, 1 << 16), (200, 1 << 13)):
+        mc = 2 * alpha + 32
+        tables[f"alpha{alpha}"] = walk_table(device, nb, alpha * nb, mc,
+                                             seed=alpha, flood=mc + 64)
+    tables["sparse"] = walk_table(device, 1 << 16, 1 << 15, 72, seed=3,
+                                  flood=72 + 64)
+    walks, tails = {}, {}
+    for name, (t, keys, fk) in tables.items():
+        miss = torch.as_tensor(rng.integers(UNIVERSE, 2 * UNIVERSE, 65536)
+                               .astype(np.int32), device=device)
+        hit = keys[torch.as_tensor(rng.integers(0, keys.numel(), 65536),
+                                   device=device)]
+        half = torch.cat([hit[:32768], miss[:32768]])
+        half = half[torch.randperm(65536, device=device)]
+        sets = {"hits": hit, "misses": miss, "Q=1": hit[:1],
+                "ragged Q=12345": half[:12345], "Q=65536": half,
+                "flooded bucket": fk}
+        for label, qk in sets.items():
+            walks[f"{name} {label}"] = (
+                t, hashing.bucket_of(t.hfn, qk, t.nbuckets), qk)
+        for cur in (0, t.nbuckets - 100):
+            tails[f"{name} cursor {cur}"] = (t, cur, 256)
+    return tables, walks, tails
+
+
+def phase_walk_kernels(device, reps: int) -> dict:
+    """7a: ``chain_walk`` and ``chain_tail`` against their plain versions
+    (tolerance 0 on found, val, loc, tail and prev) on every input of
+    ``walk_cases``, then each timed on both tables (Q = 65536, bchunk 256)
+    beside its plain version, with its bounds: ``bound_ms`` (each input
+    the walks need read once, over the memory rate), ``latency_bound_ms``
+    (the longest walk's hops x one dependent load, ``chase_ns``: a hop
+    needs at least the load of its ``next``) and, for
+    comparison, ``sector_bound_ms`` (3 sectors a hop of the walk, 1 of the
+    tail walk, and one a head, all from HBM)."""
+    from repro_torch.kernels import probe
+    rng = np.random.default_rng(71)
+    tables, walks, tails = walk_cases(device, rng)
+    for label, (t, bq, qk) in walks.items():
+        args = ((t.akey, t.aval, t.astate), (t.anext, t.heads), bq, qk,
+                t.max_chain)
+        got = probe.chain_walk(*args)
+        want = probe.chain_walk_plain(*args)
+        for x, y, n in zip(got, want, ("found", "val", "loc")):
+            same(x, y, f"chain_walk {label} {n}")
+        if label.endswith("flooded bucket"):
+            check(not bool(got[0][t.max_chain:].any()),
+                  f"chain_walk {label}: a key past max_chain was found")
+    log(f"  chain_walk: {len(walks)} cases equal to the plain walk (found, "
+        f"val, loc; tolerance 0); the flooded bucket's keys past max_chain "
+        f"reported absent")
+    for label, (t, cur, bchunk) in tails.items():
+        c = torch.tensor(cur, dtype=torch.int32, device=device)
+        got = probe.chain_tail(t.heads, t.anext, c, bchunk, t.max_chain)
+        want = probe.chain_tail_plain(t.heads, t.anext, c, bchunk,
+                                      t.max_chain)
+        for x, y, n in zip(got, want, ("tail", "prev")):
+            same(x, y, f"chain_tail {label} {n}")
+    t = tables["sparse"][0]
+    lens = chain_lengths(t, (torch.arange(256, device=device)
+                             + t.nbuckets - 100) % t.nbuckets)
+    check(bool((lens == 0).any()) and bool((lens == 1).any())
+          and int(lens.max()) > t.max_chain,
+          "chain_tail: the sparse window lacks empty, one-node or flooded "
+          "buckets")
+    log(f"  chain_tail: {len(tails)} windows equal to the plain loop (tail, "
+        f"prev; tolerance 0); the sparse table's wrapping window holds "
+        f"{int((lens == 0).sum())} empty and {int((lens == 1).sum())} "
+        f"one-node buckets and one of {int(lens.max())} nodes")
+
+    lat_ns, hop_ns = chase_ns(device, max(reps // 2, 10))
+    log(f"  a one-thread chase of 2^20 nodes: one dependent load "
+        f"(chain_tail) {lat_ns:.1f} ns, one hop of the walk (chain_walk) "
+        f"{hop_ns:.1f} ns")
+    out = {"chain_walk": {}, "chain_tail": {}}
+    slow = max(reps // 10, 3)
+    for name in ("alpha20", "alpha200"):
+        t = tables[name][0]
+        _, bq, qk = walks[f"{name} Q=65536"]
+        args = ((t.akey, t.aval, t.astate), (t.anext, t.heads), bq, qk,
+                t.max_chain)
+        hops, longest, nodes, hits, nbq = walk_hops(t, bq, qk)
+        q = qk.numel()
+        out["chain_walk"][name] = dict(
+            ms=time_ms(lambda: probe.chain_walk(*args), reps),
+            plain_ms=time_ms(lambda: probe.chain_walk_plain(*args), slow,
+                             queue_ahead=False),
+            # each input read once: state, key and next of every node the
+            # walks visit, a hit's value, the head of each bucket asked;
+            # bucket and key in, found, val and loc out
+            **bound(12 * nodes + 4 * hits + 4 * nbq + 17 * q, 4 * hops),
+            # 3 sectors a hop (state, key, next) and one a head, from HBM
+            sector_bound_ms=(3 * hops + q) * SECTOR / HBM_BYTES_PER_S * 1e3,
+            latency_bound_ms=longest * lat_ns * 1e-6, hops=hops,
+            longest=longest, nodes=nodes, q=q)
+        c = torch.zeros((), dtype=torch.int32, device=device)
+        targs = (t.heads, t.anext, c, 256, t.max_chain)
+        hops, longest = tail_hops(t, 0, 256)
+        out["chain_tail"][name] = dict(
+            ms=time_ms(lambda: probe.chain_tail(*targs), reps),
+            plain_ms=time_ms(lambda: probe.chain_tail_plain(*targs), slow,
+                             queue_ahead=False),
+            # each input read once: the next of every node on the walks
+            # (the window's chains are distinct), the heads and the cursor;
+            # tail and prev out
+            **bound(4 * hops + 4 * 256 + 4 + 8 * 256, 2 * hops),
+            sector_bound_ms=(hops + 256) * SECTOR / HBM_BYTES_PER_S * 1e3,
+            latency_bound_ms=longest * lat_ns * 1e-6, hops=hops,
+            longest=longest, nodes=hops, bchunk=256)
+    res = {}
+    for k, by in out.items():
+        for name, r in by.items():
+            r["binding"] = "latency" if r["latency_bound_ms"] > \
+                r["bound_ms"] else r["bound_by"]
+            log(f"    {k} {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}"
+                f" ms); bound {r['bound_ms']:.5f} ms by {r['bound_by']} "
+                f"({r['nodes']} nodes once), latency "
+                f"{r['latency_bound_ms']:.4f} ms ({r['longest']} hops x "
+                f"{lat_ns:.1f} ns): {r['binding']} binds; sectors from HBM "
+                f"{r['sector_bound_ms']:.4f} ms ({r['hops']} hops)")
+        top = by["alpha200"]
+        res[k] = dict(ms=top["ms"], plain_ms=top["plain_ms"],
+                      bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+                      latency_bound_ms=top["latency_bound_ms"],
+                      sector_bound_ms=top["sector_bound_ms"],
+                      binding=top["binding"], max_abs_err=0, by_table=by,
+                      load_ns=lat_ns, walk_hop_ns=hop_ns)
+    return res
+
+
+# -------- 7b: Figure 2 --------
+
+class Fig2Contender:
+    """One contender as ``benchmarks/common.py``'s drivers run it: ``step``
+    (a lookup, an insert and a delete batch, and the rebuild chunk where
+    one runs) and ``drive`` (the host's continuous rebuild or resize)."""
+
+    def __init__(self, name: str, device, nb: int, n: int, state=None):
+        from repro_torch.core import baselines as bl
+        from repro_torch.core import dhash
+        self.name, self.device, self.seed = name, device, 1
+        self.grow, self.eng = True, None
+        if state is not None:
+            self.s = state
+            return
+        mc, arena = int(n / nb * 2 + 32), FIG2_ARENA * n
+        if name.startswith("DHash"):
+            self.s = dhash.make("chain", capacity=arena, nbuckets=nb,
+                                chunk=1024, seed=1, max_chain=mc,
+                                fused=name.endswith("fused"), device=device)
+        elif name == "HT-Xu":
+            self.s = bl.xu_make(nb, arena, seed=1, max_chain=mc, chunk=1024,
+                                device=device)
+        elif name == "HT-RHT":
+            self.s = bl.rht_make(nb, arena, seed=1, max_chain=mc, bchunk=256,
+                                 device=device)
+        else:
+            self.s = bl.split_make(max(nb * 4, 64), arena, init_buckets=nb,
+                                   seed=1, max_chain=mc, device=device)
+
+    def _op(self, op: str):
+        from repro_torch.core import baselines as bl
+        return getattr(bl, f"{BASELINE_KIND[self.name]}_{op}")
+
+    def populate(self, keys: torch.Tensor) -> None:
+        from repro_torch.core import dhash
+        for i in range(0, keys.numel(), 65536):
+            k = keys[i:i + 65536]
+            if self.name.startswith("DHash"):
+                self.s, ok = dhash.insert(self.s, k, k, rebuilding=False)
+            else:
+                self.s, ok = self._op("insert")(self.s, k, k)
+            check(bool(ok.all()), f"{self.name}: the populate refused a key")
+
+    def copy(self) -> "Fig2Contender":
+        """A contender on a copy of this one's state (DHash: an engine with
+        the continuous rebuild)."""
+        from repro_torch.core.engine import DHashEngine
+        from repro_torch.core.struct_utils import map_tensors
+        c = Fig2Contender(self.name, self.device, 0, 0,
+                          state=map_tensors(torch.clone, self.s))
+        if self.name.startswith("DHash"):
+            c.eng = DHashEngine(c.s, continuous_rebuild=True)
+        return c
+
+    def step(self, lk, ik, im, dk):
+        from repro_torch.core import engine as eng_mod
+        if self.eng is not None:
+            if self.name.endswith("fused"):
+                return self.eng.step(lk, ik, ik, dk, ins_mask=im)
+            with eng_mod._eager():      # the plain path eager, as phase 4
+                return self.eng.step(lk, ik, ik, dk, ins_mask=im)
+        f, v = self._op("lookup")(self.s, lk)
+        self.s, ok_i = self._op("insert")(self.s, ik, ik, im)
+        self.s, ok_d = self._op("delete")(self.s, dk)
+        if self.name != "HT-Split" and self.s.rebuilding:
+            self.s = self._op("rebuild_chunk")(self.s)
+        return f, v, ok_i, ok_d
+
+    def drive(self) -> None:
+        """The drivers' ``drive_rebuild``: poll ``done``, finish and start
+        the next rebuild; Split grows and shrinks on alternate steps.  The
+        DHash engine runs its continuous rebuild itself."""
+        if self.eng is not None:
+            return
+        if self.name == "HT-Split":
+            self.s = self._op("resize")(self.s, self.grow)
+            self.grow = not self.grow
+        elif self.s.rebuilding and bool(self._op("rebuild_done")(self.s)):
+            self.s = self._op("rebuild_finish")(self.s)
+            self.seed += 1
+            self.s = self._op("rebuild_start")(self.s, seed=self.seed)
+        elif not self.s.rebuilding:
+            self.s = self._op("rebuild_start")(self.s, seed=self.seed)
+
+
+def fig2_plan(present: np.ndarray, q: int, mix, rng, live: np.ndarray):
+    """The steps of ``run_throughput`` (``Workload.batches``: lookups and
+    deletes drawn from the populated keys, inserts from the universe), each
+    with what a set must answer (``live``, the live set, advances).
+    Inserts of live keys are masked out, as phase 3's oracle masks them:
+    DHash acknowledges such an insert mid-rebuild (a transient duplicate in
+    its new table).  Returns [(lk, ik, im, dk, found, ok_i, ok_d)]."""
+    nl, ni, nd = (max(q * m // 100, 1) for m in mix)
+    plan = []
+    for _ in range(FIG2_WARMUP + FIG2_STEPS + 1):
+        lk = rng.choice(present, nl)
+        dk = rng.choice(present, nd)
+        ik = rng.integers(1, UNIVERSE, ni).astype(np.int32)
+        found = live[lk]
+        im = ~live[ik]
+        ok_i = Oracle._first(ik, im)
+        live[ik[ok_i]] = True
+        ok_d = Oracle._first(dk, live[dk])
+        live[dk[ok_d]] = False
+        plan.append((lk, ik, im, dk, found, ok_i, ok_d))
+    return plan
+
+
+def host_reads(fn) -> int:
+    """The synchronising device-to-host reads ``fn`` makes on the card
+    (``torch.cuda.set_sync_debug_mode("warn")`` warns at each)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(x.message) for x in w)
+
+
+def fig2_run(c: Fig2Contender, plan, device, where: str) -> dict:
+    """``run_throughput``: ``drive``, the warm-up steps, then the timed
+    steps (each followed by ``drive``); ops/s over the timed steps; then
+    one more step whose host reads are counted (``drive``'s poll not
+    included: the DHash engine's first steps of a shape capture a CUDA
+    graph, which synchronises); then every step's answers against the
+    plan, exactly.  The timed steps count the launches a step by kernel
+    and the lock rounds of a locked op."""
+    from repro_torch.core import baselines as bl
+    from repro_torch.kernels import probe
+    dev = [tuple(torch.as_tensor(x, device=device) for x in p[:4])
+           for p in plan]
+    outs = []
+    c.drive()
+    for lk, ik, im, dk in dev[:FIG2_WARMUP]:
+        outs.append(c.step(lk, ik, im, dk))
+        c.drive()
+    lock = {"calls": 0, "rounds": 0}
+    locked = bl.lock_serialized
+
+    def counted(*a, **k):
+        t, ok, r = locked(*a, **k)
+        lock["calls"] += 1
+        lock["rounds"] += r
+        return t, ok, r
+    sync(device)
+    before = probe.launch_counts()
+    bl.lock_serialized = counted
+    try:
+        t0 = time.perf_counter()
+        for lk, ik, im, dk in dev[FIG2_WARMUP:-1]:
+            outs.append(c.step(lk, ik, im, dk))
+            c.drive()
+        sync(device)
+        dt = time.perf_counter() - t0
+    finally:
+        bl.lock_serialized = locked
+    after = probe.launch_counts()
+    reads = host_reads(lambda: outs.append(c.step(*dev[-1])))
+    c.drive()
+    for s, (p, out) in enumerate(zip(plan, outs)):
+        lk, found = p[0], p[4]
+        f, v, ok_i, ok_d = (np.asarray(x.cpu()) for x in out)
+        check(np.array_equal(f, found), f"{where} step {s}: {c.name} found "
+              f"differs from the oracle in {int((f != found).sum())} places")
+        check(np.array_equal(v[f], lk[f]), f"{where} step {s}: {c.name} "
+              f"values differ from the oracle")
+        for got, want, n in ((ok_i, p[5], "insert"), (ok_d, p[6], "delete")):
+            check(np.array_equal(got, want), f"{where} step {s}: {c.name} "
+                  f"{n} ok differs from the oracle in "
+                  f"{int((got != want).sum())} places")
+    ops = sum(p[0].size + p[1].size + p[3].size
+              for p in plan[FIG2_WARMUP:-1])
+    return dict(ops_s=ops / dt, host_reads=reads,
+                launches={k: (after[k] - before[k]) / FIG2_STEPS
+                          for k in after if after[k] > before[k]},
+                lock_rounds=lock["rounds"] / lock["calls"]
+                if lock["calls"] else None)
+
+
+def phase_fig2(device, geometry=FIG2_GEOMETRY) -> dict:
+    """7b: Figure 2 on the card (``bench_throughput.py::run``) — every
+    contender under its continuous rebuild or resize, the 90/5/5 and
+    80/10/10 mixes, each geometry's batch widths on one table in turn;
+    the populated table copied for each mix.  Returns the rows by
+    (contender, alpha, buckets, mix, Q)."""
+    rows = {}
+    for alpha, nb, qs in geometry:
+        n = alpha * nb
+        rng = np.random.default_rng(0)
+        present = rng.choice(UNIVERSE, size=n, replace=False).astype(np.int32)
+        keys = torch.as_tensor(present, device=device)
+        built = {}
+        for name in CONTENDERS:
+            built[name] = Fig2Contender(name, device, nb, n)
+            built[name].populate(keys)
+        for mix in FIG2_MIXES:
+            live0 = np.zeros(UNIVERSE, bool)
+            live0[present] = True
+            for name in CONTENDERS:
+                c, live = built[name].copy(), live0.copy()
+                for q in qs:
+                    plan = fig2_plan(present, q, mix,
+                                     np.random.default_rng(q), live)
+                    r = fig2_run(c, plan, device, f"fig2 alpha={alpha} "
+                                 f"buckets={nb} mix={mix[0]} Q={q}")
+                    rows[(name, alpha, nb, mix[0], q)] = r
+                    log(f"    {name:17s} alpha={alpha:<3d} buckets={nb:<5d} "
+                        f"mix={mix[0]}% Q={q:<5d} {r['ops_s'] / 1e6:9.3f} "
+                        f"Mops/s; host reads a step {r['host_reads']}; lock "
+                        f"rounds an op {r['lock_rounds']}; launches a step "
+                        + json.dumps({k: round(v, 2) for k, v in
+                                      r["launches"].items()}))
+            q = max(qs)
+            for ref in ("DHash-chain-fused", "DHash-chain"):
+                base = rows[(ref, alpha, nb, mix[0], q)]["ops_s"]
+                log(f"  [summary] alpha={alpha} buckets={nb} mix={mix[0]}% "
+                    f"Q={q}: {ref} speedup " + ", ".join(
+                        f"{k}: "
+                        f"{base / rows[(k, alpha, nb, mix[0], q)]['ops_s']:.2f}x"
+                        for k in CONTENDERS if not k.startswith("DHash")))
+    return rows
+
+
+# -------- 7c: the §1 attack --------
+
+def phase_attack(device, reps: int, nb: int = 1 << 16,
+                 n_normal: int = 1 << 20, n_attack: int = 2048,
+                 q: int = 65536) -> dict:
+    """7c: ``benchmarks/bench_attack.py::run``, DHash and HT-Split arms:
+    lookups of ``q`` keys (normal keys before the attack; then half normal
+    and half attack keys) before the attack, under it, in the middle of
+    DHash's live rehash to a fresh seed and after it, and for Split after
+    its one defence, a doubling of its buckets.  The attack keys hash to
+    bucket 0 under the table's known seed (DHash; drawn from [U, 2^31): the
+    universe holds too few for 2^16 buckets) or are ``m * buckets * 4``
+    (Split).  Every answer is checked.  Returns the M lookups/s of each
+    phase and the ratios."""
+    from repro_torch.core import baselines as bl
+    from repro_torch.core import dhash
+    from repro_torch.core.engine import DHashEngine
+    rng = np.random.default_rng(0)
+    normal = torch.as_tensor(rng.choice(UNIVERSE, n_normal, replace=False)
+                             .astype(np.int32), device=device)
+    pick = torch.as_tensor(rng.integers(0, n_normal, q), device=device)
+    rows = {}
+
+    def rate(name, fn, keys):
+        f, v = fn(keys)
+        check(bool(f.all()) and torch.equal(v, keys),
+              f"attack {name}: {int((~f).sum())} of {keys.numel()} lookups "
+              f"missed, or a value was wrong")
+        rows[name] = keys.numel() / time_ms(lambda: fn(keys), reps) / 1e3
+
+    cap = n_normal + n_attack + 1024
+    eng = DHashEngine(dhash.make("chain", capacity=cap, nbuckets=nb,
+                                 chunk=1024, seed=1,
+                                 max_chain=n_attack + 64, fused=True,
+                                 device=device), continuous_rebuild=False)
+    empty = torch.zeros(0, dtype=torch.int32, device=device)
+    for i in range(0, n_normal, q):
+        k = normal[i:i + q]
+        check(bool(eng.step(empty, k, k, empty)[2].all()),
+              "attack: DHash refused a normal key")
+    qk = normal[pick]
+    rate("dhash_before", eng.lookup, qk)
+    atk = flood_keys(eng.state.old.hfn, nb, 0, n_attack, device, 11)
+    check(bool(eng.step(empty, atk, atk, empty)[2].all()),
+          "attack: DHash refused an attack key")
+    mixed = torch.cat([normal[pick[:q // 2]], atk[torch.as_tensor(
+        rng.integers(0, n_attack, q - q // 2), device=device)]])
+    rate("dhash_under_attack", eng.lookup, mixed)
+    eng.request_rebuild(seed=20260714)
+    steps = 0
+    while eng.stats.rebuilds_completed == 0:
+        f, v, _, _ = eng.step(mixed, empty, empty, empty)
+        check(bool(f.all()) and torch.equal(v, mixed),
+              f"attack: lookups lost during the rehash at step {steps}")
+        steps += 1
+        if "dhash_mid_rebuild" not in rows and \
+                int(eng.state.cursor) >= cap // 2:
+            rate("dhash_mid_rebuild", eng.lookup, mixed)
+        check(steps < 4 * cap // 1024, "attack: the rehash did not finish")
+    rate("dhash_after_rebuild", eng.lookup, mixed)
+    check(eng.count() == n_normal + n_attack, "attack: DHash's count")
+    del eng
+
+    s = bl.split_make(nb * 4, cap, init_buckets=nb, seed=1,
+                      max_chain=n_attack + 64, device=device)
+    for i in range(0, n_normal, q):
+        s, ok = bl.split_insert(s, normal[i:i + q], normal[i:i + q])
+        check(bool(ok.all()), "attack: Split refused a normal key")
+
+    def split_lookup(keys):
+        return bl.split_lookup(s, keys)
+    rate("split_before", split_lookup, qk)
+    # m * buckets * 4 for the first n_attack m whose key is not a normal key
+    # (m * 2^18 lies in the universe for m < 39)
+    atk_s = torch.arange(1, 2 * n_attack, dtype=torch.int32,
+                         device=device) * (nb * 4)
+    atk_s = atk_s[~torch.isin(atk_s, normal)][:n_attack]
+    s, ok = bl.split_insert(s, atk_s, atk_s)
+    check(bool(ok.all()), "attack: Split refused an attack key")
+    mixed_s = torch.cat([normal[pick[:q // 2]], atk_s[torch.as_tensor(
+        rng.integers(0, n_attack, q - q // 2), device=device)]])
+    rate("split_under_attack", split_lookup, mixed_s)
+    s = bl.split_resize(s, True)
+    rate("split_after_resize", split_lookup, mixed_s)
+    rows["dhash_recover_x"] = rows["dhash_after_rebuild"] / \
+        rows["dhash_under_attack"]
+    rows["dhash_mid_rebuild_x"] = rows["dhash_mid_rebuild"] / \
+        rows["dhash_under_attack"]
+    rows["split_stuck_x"] = rows["split_after_resize"] / \
+        rows["split_under_attack"]
+    rows["dhash_rehash_steps"] = steps
+    return rows
+
+
+def phase_compare(device, card: str, reps: int) -> tuple:
+    """Phase 7: 7a on its own inputs, then 7b and 7c with the launch counts
+    set to 0 just before and read just after (the comparison's path).
+    Returns (7a's kernel entries, the path's launches)."""
+    from repro_torch.kernels import probe
+    t_phase = time.perf_counter()
+    log("  7a. the two walks against their plain versions: alpha 20 (2^16 "
+        "buckets, 1310720 keys, max_chain 72), alpha 200 (2^13 buckets, "
+        "1638400 keys, max_chain 432), a sparse table; bucket 0 flooded "
+        "past max_chain on each, a tenth of the nodes tombstoned")
+    kres = phase_walk_kernels(device, reps)
+    t_walk = time.perf_counter() - t_phase
+    # -------- the comparison's path: counts set to 0 here, read after ------
+    probe.reset_launches()
+    log(f"  7b. Figure 2: {', '.join(CONTENDERS)}; chunk 1024 (DHash, Xu), "
+        f"bchunk 256 (RHT), Split grown and shrunk on alternate steps; "
+        f"{FIG2_WARMUP} warm-up steps, {FIG2_STEPS} timed ones and one "
+        f"whose host reads are counted, a run; every answer against a "
+        f"numpy oracle")
+    fig2 = phase_fig2(device)
+    t_fig2 = time.perf_counter() - t_phase - t_walk
+    log("  7c. the section-1 attack: 2^16 buckets, 2^20 normal keys, 2048 "
+        "attack keys, max_chain 2112, 65536 lookups")
+    attack = phase_attack(device, reps)
+    launches = probe.launch_counts()
+    # ------------------------------------------------------------------------
+    for k in ("chain_walk", "chain_tail", "chain_probe", "chain_probe2",
+              "extract", "epoch_swap", "chain_compact"):
+        check(launches[k] > 0, f"the comparison did not launch {k}: "
+                               f"{launches}")
+    log("  attack, M lookups/s: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in attack.items()))
+    total = time.perf_counter() - t_phase
+    log(f"  {card}; phase 7 took {total:.1f} s (7a {t_walk:.1f} s, 7b "
+        f"{t_fig2:.1f} s, 7c {total - t_walk - t_fig2:.1f} s; its budget "
+        f"is 90 s)")
+    return kres, launches, fig2, attack
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -6845,6 +7539,13 @@ def main() -> int:
         "rehash)")
     serve = phase_serve(device, card)
     by_path["serve"] = serve.pop("launches")
+    elapsed()
+    log("== 7. the paper's comparison: HT-Xu, HT-RHT and HT-Split "
+        "(core/baselines.py) against DHash-chain — the two walks, Figure 2, "
+        "the section-1 attack")
+    walk_res, by_path["compare"], _, _ = phase_compare(device, card,
+                                                       args.reps)
+    kres.update(walk_res)
 
     kernels = []
     for name in probe.KERNELS:
@@ -6854,17 +7555,20 @@ def main() -> int:
                         "replaces": rep, "launches": sum(paths.values()),
                         "launches_by_path": paths, **kres[name],
                         "library_ms": None})
-    log(f"  no single PyTorch call computes any of these twelve functions "
+    log(f"  no single PyTorch call computes any of these fourteen functions "
         f"(a probe sequence, a two-row lane match, a lock-step claim, an "
         f"ordered three-way check, a compacting scan, a segment scan with a "
         f"bounded walk, a cuckoo kick-out, a guarded two-table exchange, a "
-        f"guarded arena compaction), "
+        f"guarded arena compaction, a linked-list walk), "
         f"so library_ms is null; times are medians of {args.reps} launches, "
-        f"tables warm in L2; launches are summed over the nine main paths "
+        f"tables warm in L2; launches are summed over the ten main paths "
         f"(launches_by_path: each path's own count: the four backends, the "
         f"table stack and its policy arm, the routed service step, the "
-        f"grid and the serving path's runs A-D); \"stack\" gives the six "
-        f"kernels with the table axis at T = {STACK_T}")
+        f"grid, the serving path's runs A-D and the comparison's 7b and "
+        f"7c); \"stack\" gives the six kernels with the table axis at T = "
+        f"{STACK_T}; chain_walk and chain_tail give latency_bound_ms (the "
+        f"longest walk's hops x one dependent load) beside bound_ms, and "
+        f"binding, the larger of the two")
     log(f"  total {time.perf_counter() - t_start:.0f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

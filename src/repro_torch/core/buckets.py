@@ -462,41 +462,47 @@ def chain_dirty(t: ChainTable) -> torch.Tensor:
 
 def chain_lookup(t: ChainTable, keys: torch.Tensor,
                  bucket: torch.Tensor | None = None):
-    """Lock-step batched walk from ``heads[b]`` along ``anext``, at most
-    ``max_chain`` hops (``ref.chain_lookup_ref``).
+    """Batched walk from ``heads[b]`` along ``anext``, at most ``max_chain``
+    nodes a query (the ``chain_walk`` kernel on a CUDA arena, its plain
+    version ``ref.chain_lookup_ref`` on the CPU).
     Returns (found, val, loc node index or -1)."""
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import probe
     b = hashing.bucket_of(t.hfn, keys, t.nbuckets) if bucket is None \
         else bucket
-    return ref.chain_lookup_ref(t.akey, t.aval, t.astate, t.anext, t.heads,
-                                b, keys, t.max_chain)
+    return probe.chain_walk((t.akey, t.aval, t.astate), (t.anext, t.heads),
+                            b, keys, t.max_chain)
 
 
 def chain_insert(t: ChainTable, keys: torch.Tensor, vals: torch.Tensor,
                  mask: torch.Tensor, bucket: torch.Tensor | None = None):
-    """Set-semantic insert: winners absent from their chains take nodes
-    from the free-stack tail in want-rank order and are linked at their
-    buckets' heads in batch order (``ref.chain_insert_ref``, which also
-    holds the reference's ``_chain_link``).  ok=False iff present or the
-    arena has no free node.  New nodes extend the dirty tail."""
+    """Set-semantic insert: winners absent from their chains (the walk of
+    ``chain_lookup``) take nodes from the free-stack tail in want-rank order
+    and are linked at their buckets' heads in batch order
+    (``ref.chain_insert_ref``, which also holds the reference's
+    ``_chain_link``).  ok=False iff present or the arena has no free node.
+    New nodes extend the dirty tail.  No host read."""
     from repro_torch.kernels import ref
     winner = batch_winners(keys, mask)
     b = hashing.bucket_of(t.hfn, keys, t.nbuckets) if bucket is None \
         else bucket
+    present, _, _ = chain_lookup(t, keys, b)
     akey, aval, astate, anext, heads, free_top, can = ref.chain_insert_ref(
         t.akey, t.aval, t.astate, t.anext, t.heads, t.free_stack, t.free_top,
-        b, keys, vals, winner, t.max_chain)
+        b, keys, vals, winner, t.max_chain, present=present)
     return replace(t, akey=akey, aval=aval, astate=astate, anext=anext,
                    heads=heads, free_top=free_top), can
 
 
 def chain_delete(t: ChainTable, keys: torch.Tensor, mask: torch.Tensor,
                  bucket: torch.Tensor | None = None):
+    """Tombstone the node of each winning masked key the walk finds (a
+    masked scatter: no host read)."""
     winner = batch_winners(keys, mask)
     found, _, loc = chain_lookup(t, keys, bucket)
     ok = winner & found
-    astate = t.astate.clone()
-    astate[loc[ok].long()] = TOMB
+    # TOMB outranks LIVE, so a max over the hit nodes tombstones exactly them
+    astate = t.astate.scatter_reduce(0, torch.where(ok, loc, 0).long(),
+                                     torch.where(ok, TOMB, 0).to(I32), "amax")
     return replace(t, astate=astate), ok
 
 

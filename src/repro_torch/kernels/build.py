@@ -2,9 +2,11 @@
 
 Each source is compiled by its own ``nvcc`` process — all started together —
 for ``sm_90a`` into a shared library with a plain C interface, and loaded
-with ``ctypes``.  Libraries are cached in a build directory (``build/`` at
-the root of the checkout unless ``REPRO_TORCH_BUILD_DIR`` names another) under
-a name that carries a hash of ALL sources, so an edit rebuilds.  Nothing here
+with ``ctypes``.  A source holds the entry point of the kernel wrapper of
+``probe.py`` named after it, or of several (``KERNELS``).  Libraries are
+cached in a build directory (``build/`` at the root of the checkout unless
+``REPRO_TORCH_BUILD_DIR`` names another) under a name that carries a hash
+of ALL sources, so an edit rebuilds.  Nothing here
 runs when the module is imported; a machine without ``nvcc`` can import it and
 gets a ``RuntimeError`` only when a kernel is actually needed.
 """
@@ -21,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("probe_lookup", "probe2", "probe_insert", "extract", "tc_lookup",
            "tc_insert", "tc_probe2", "chain_probe", "chain_probe2",
-           "cuckoo_kick", "epoch_swap", "chain_compact")
+           "cuckoo_kick", "epoch_swap", "chain_compact", "chain_walk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,8 +53,13 @@ _ARGTYPES = {
     "dhash_epoch_swap": [_P, _I, _P, _I] + [_P] * 5 + [_L, _I, _I, _P, _I,
                                                       _P],
     "dhash_chain_compact": [_P] * 10 + [_I] * 3 + [_P, _P, _I, _P, _P],
+    "dhash_chain_walk": [_P] * 5 + [_I, _P, _P, _I, _I, _P, _P, _P, _P],
+    "dhash_chain_tail": [_P, _I, _P, _P, _I, _I, _P, _P, _P],
 }
-_ENTRY = {s: f"dhash_{s}" for s in SOURCES}
+# each kernel wrapper's (source, C entry point), in the order of probe.KERNELS
+KERNELS = {**{s: (s, f"dhash_{s}") for s in SOURCES},
+           "chain_tail": ("chain_walk", "dhash_chain_tail")}
+_ENTRY = {k: entry for k, (_, entry) in KERNELS.items()}
 
 _LIB: dict | None = None
 build_seconds: float | None = None    # wall time of the last build (0 = cached)
@@ -125,11 +132,12 @@ def load() -> dict:
     if _LIB is None:
         out, tag = build_dir(), source_hash()
         _compile_missing(out, tag)
+        libs = {s: ctypes.CDLL(str(out / f"{s}-{tag}.so")) for s in SOURCES}
         lib = {}
-        for s in SOURCES:
-            fn = getattr(ctypes.CDLL(str(out / f"{s}-{tag}.so")), _ENTRY[s])
-            fn.argtypes = _ARGTYPES[_ENTRY[s]]
+        for name, (src, entry) in KERNELS.items():
+            fn = getattr(libs[src], entry)
+            fn.argtypes = _ARGTYPES[entry]
             fn.restype = ctypes.c_int
-            lib[s] = fn
+            lib[name] = fn
         _LIB = lib
     return _LIB

@@ -33,6 +33,12 @@ wrapper               replaces (src/repro/kernels/probe.py)      source
                       ``chain_compact_fused`` behind
                       ``lax.cond`` (``chain_maybe_compact``,
                       the freeze at a start)
+``chain_walk``        no Pallas kernel: the reference's XLA      chain_walk.cu
+                      ``buckets.chain_lookup`` (its
+                      ``while_loop`` walk)
+``chain_tail``        no Pallas kernel: the tail walk of the     chain_walk.cu
+                      reference's ``baselines.rht_rebuild_chunk``
+                      (a ``fori_loop``)
 ====================  =========================================  ============
 
 The first four serve the linear backend; the three ``tc_*`` kernels serve
@@ -42,10 +48,15 @@ the flat node arena.  ``cuckoo_kick`` is the cuckoo insert's bounded
 kick-out, ``epoch_swap`` the engine step's epoch swap and rebuild start and
 ``chain_compact`` the chain arena's compaction, each guarded by flags
 computed on the device, so that a step inside a rebuild epoch never asks
-the host (``extract`` takes two such flags too).  An engine's rebuild step
-launches ``extract`` as its one transition (``transition``: the landing's
-bookkeeping, the guarded scan and the epoch decision) and ``epoch_swap``
-as the exchange on that decision.  Three more entries launch a kernel of
+the host (``extract`` takes two such flags too).  ``chain_walk`` is the
+bounded walk of the plain chain ops (``buckets.chain_lookup``, the
+presence walk of ``chain_insert``, ``chain_delete``) on a CUDA arena, the
+hop that the paper's comparison tables (``core/baselines.py``) and DHash's
+own plain chain path share, and ``chain_tail`` HT-RHT's walk to its
+buckets' tails.  An engine's rebuild step launches ``extract`` as its one
+transition (``transition``: the landing's bookkeeping, the guarded scan
+and the epoch decision) and ``epoch_swap`` as the exchange on that
+decision.  Three more entries launch a kernel of
 the table and are counted on it: ``probe_lookup_hashed`` is
 ``probe_lookup`` with the start slots hashed in the kernel (the linear
 steady state's lookup and delete), ``tc_lookup_hashed`` is ``tc_lookup``
@@ -85,7 +96,8 @@ latency on every other step (one launch that reads go); ``chain_compact``
 nodes their place, a bucket's thread ranks its few tail nodes, the block
 of its tile a flooded bucket's; the bucket totals scanned a tile a block),
 launch latency where its guard is off (three launches that read the guard
-and return).
+and return).  ``chain_walk`` and ``chain_tail`` — latency (a thread
+a query or a bucket, one dependent load a hop).
 
 What the TPU design needed and these kernels do not have: a padded copy of
 the table (a thread wraps its own probe), a query sort, query tiles, a
@@ -115,7 +127,7 @@ tensors it launches the kernel or raises.  ``<wrapper>.launches`` counts the
 kernel launches (and nothing else; ``transition`` counts on ``extract``,
 whose kernel it launches, and ``epoch_swap`` adds one more where it
 launches its decision kernel too); ``reset_launches`` / ``launch_counts``
-set and read all twelve.  ``kick_tally`` reads a device counter the kick-out adds
+set and read all fourteen.  ``kick_tally`` reads a device counter the kick-out adds
 to, in ``tc_insert``'s resolve or in its own kernel (launches that found
 pending keys, iterations, keys taken), for a harness; it is zeroed with the
 launch counts.
@@ -140,7 +152,8 @@ EXTRACT_MAX_CHUNK = 4096
 
 KERNELS = ("probe_lookup", "probe2", "probe_insert", "extract", "tc_lookup",
            "tc_insert", "tc_probe2", "chain_probe", "chain_probe2",
-           "cuckoo_kick", "epoch_swap", "chain_compact")
+           "cuckoo_kick", "epoch_swap", "chain_compact", "chain_walk",
+           "chain_tail")
 MAX_WIDTH = 32              # widest row the tc_* kernels take
 MAX_DIRTY = 512             # widest dirty-tail window the chain_* kernels stage
 
@@ -1189,6 +1202,70 @@ def chain_probe(arena, links, seg, bq, qkey, max_chain: int,
                 arena[0].shape[0], *seg, bq, qkey, q, max_chain, wsize,
                 found, val, loc)
     return found, val, loc
+
+
+# ---------------------------------------------------------------------------
+# chain_walk and chain_tail
+# ---------------------------------------------------------------------------
+
+def chain_walk_plain(arena, links, bq, qkey, max_chain: int):
+    """Plain version of ``chain_walk``: the lock-step walk of
+    ``ref.chain_lookup_ref``."""
+    return ref.chain_lookup_ref(*arena, *links, bq, qkey, max_chain)
+
+
+def chain_walk(arena, links, bq, qkey, max_chain: int):
+    """Batched bounded walk: from ``heads[bq]`` along ``anext``, at most
+    ``max_chain`` nodes a query, to the first LIVE node holding the key —
+    the reference's ``buckets.chain_lookup`` on any arena (no sorted
+    layout needed).  ``arena`` is (akey, aval, astate), ``links`` (anext,
+    heads).  Returns (found[Q] bool, val[Q] i32 — 0 on a miss, loc[Q] i32
+    — the hit's node index, -1 on a miss)."""
+    if qkey.device.type == "cpu":
+        return chain_walk_plain(arena, links, bq, qkey, max_chain)
+    _check(*[(t, I32) for t in (*arena, *links, bq, qkey)])
+    q, dev = qkey.shape[0], qkey.device
+    found = torch.empty(q, dtype=torch.bool, device=dev)
+    val = torch.empty(q, dtype=I32, device=dev)
+    loc = torch.empty(q, dtype=I32, device=dev)
+    if q:
+        _launch("chain_walk", chain_walk, dev, *arena, *links,
+                arena[0].shape[0], bq, qkey, q, max_chain, found, val, loc)
+    return found, val, loc
+
+
+def chain_tail_plain(heads, anext, cursor, bchunk: int, max_chain: int):
+    """Plain version of ``chain_tail``: the reference's ``fori_loop`` of
+    ``max_chain`` lock-step hops over the ``bchunk`` buckets."""
+    nb = heads.shape[0]
+    b = (cursor.long() + torch.arange(bchunk, device=heads.device)) % nb
+    cur = heads[b].long()
+    prev = torch.full_like(cur, -1)
+    for _ in range(max_chain):
+        valid = cur >= 0
+        nxt = anext[torch.where(valid, cur, 0)].long()
+        step = valid & (nxt >= 0)
+        prev = torch.where(step, cur, prev)
+        cur = torch.where(step, nxt, cur)
+    return cur.to(I32), prev.to(I32)
+
+
+def chain_tail(heads, anext, cursor, bchunk: int, max_chain: int):
+    """For each of the ``bchunk`` buckets from ``cursor`` (a 0-dim i32 on
+    the device) on, wrapping at the bucket count: the node its walk from
+    the head reaches after at most ``max_chain`` hops — the tail of any
+    shorter chain — and the node before it.  Returns (tail[bchunk],
+    prev[bchunk]) i32, -1 where there is none."""
+    if heads.device.type == "cpu":
+        return chain_tail_plain(heads, anext, cursor, bchunk, max_chain)
+    _check((heads, I32), (anext, I32), (cursor, I32))
+    dev = heads.device
+    tail = torch.empty(bchunk, dtype=I32, device=dev)
+    prev = torch.empty(bchunk, dtype=I32, device=dev)
+    if bchunk:
+        _launch("chain_tail", chain_tail, dev, heads, heads.shape[0], anext,
+                cursor, bchunk, max_chain, tail, prev)
+    return tail, prev
 
 
 # ---------------------------------------------------------------------------

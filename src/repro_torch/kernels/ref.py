@@ -364,26 +364,36 @@ def chain_delete_ref(akey: torch.Tensor, aval: torch.Tensor,
 
 
 def chain_insert_ref(akey, aval, astate, anext, heads, free_stack, free_top,
-                     b, keys, vals, mask, max_chain: int):
+                     b, keys, vals, mask, max_chain: int, present=None):
     """Pointer-chasing chain insert oracle on raw arena arrays: presence by
-    the bounded walk, want-rank allocation from the free-stack tail,
-    insert-at-head linking in original-index order — the linearisation,
-    node placement and pointer structure of ``buckets.chain_insert``.
+    the bounded walk (or ``present``, where the caller walked), want-rank
+    allocation from the free-stack tail, insert-at-head linking in
+    original-index order — the linearisation, node placement and pointer
+    structure of ``buckets.chain_insert``.  It reads nothing on the host:
+    the writes of queries that do not act go to a spare slot past the end
+    of each array.
 
     Caller contract: ``mask`` is winner-filtered.  Returns
     (akey', aval', astate', anext', heads', free_top', ok[Q]).
     """
     q, dev = keys.shape[0], keys.device
-    nb = heads.shape[0]
-    present, _, _ = chain_lookup_ref(akey, aval, astate, anext, heads, b,
-                                     keys, max_chain)
+    n, nb = akey.shape[0], heads.shape[0]
+    if present is None:
+        present, _, _ = chain_lookup_ref(akey, aval, astate, anext, heads, b,
+                                         keys, max_chain)
     want = mask & ~present
     rank = torch.cumsum(want.to(I32), 0) - 1
     can = want & (rank < free_top)
     node = free_stack[torch.where(can, free_top - 1 - rank, 0).long()]
-    akey, aval, astate = akey.clone(), aval.clone(), astate.clone()
-    w = node[can].long()
-    akey[w], aval[w], astate[w] = keys[can], vals[can], LIVE
+    pad = torch.zeros(1, dtype=I32, device=dev)
+
+    def put(x, size, where, idx, v):
+        out = torch.cat([x, pad])
+        out[torch.where(where, idx, size).long()] = v
+        return out[:size]
+
+    akey, aval = put(akey, n, can, node, keys), put(aval, n, can, node, vals)
+    astate = put(astate, n, can, node, torch.full_like(keys, LIVE))
     sortkey = torch.where(can, b, nb)
     order = torch.sort(sortkey, stable=True).indices    # (bucket, index)
     sb, snode, scan = sortkey[order], node[order], can[order]
@@ -393,12 +403,10 @@ def chain_insert_ref(akey, aval, astate, anext, heads, free_stack, free_top,
     nxt_same[:-1] = snode[1:]
     old_head = heads[torch.where(scan, sb, 0).long()]
     nxt = torch.where(same, nxt_same, torch.where(scan, old_head, -1))
-    anext = anext.clone()
-    anext[snode[scan].long()] = nxt[scan].to(I32)
+    anext = put(anext, n, scan, snode, nxt.to(I32))
     first = scan.clone()
     first[1:] &= sb[1:] != sb[:-1]
-    heads = heads.clone()
-    heads[sb[first].long()] = snode[first]
+    heads = put(heads, nb, first, sb, snode)
     return akey, aval, astate, anext, heads, \
         (free_top - can.sum()).to(I32), can
 

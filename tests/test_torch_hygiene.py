@@ -24,7 +24,7 @@ MODULES = ["repro_torch", "repro_torch.convert",
            "repro_torch.configs.dhash_paper"] + [
     f"repro_torch.core.{m}" for m in
     ("struct_utils", "hashing", "buckets", "backend", "dhash", "engine",
-     "policy", "distributed")] + [
+     "policy", "distributed", "baselines")] + [
     f"repro_torch.kernels.{m}" for m in ("ref", "probe", "ops", "build")] + [
     "repro_torch.configs", "repro_torch.configs.base",
     "repro_torch.configs.qwen3_8b"] + [
@@ -100,7 +100,8 @@ def test_the_two_row_kernel_sources_exist_and_share_the_hazard_stage():
                  "probe_insert_write<<<"):
         assert kern in src, kern
     from repro_torch.kernels import build, probe
-    assert set(probe.KERNELS) == set(build.SOURCES)
+    assert probe.KERNELS == tuple(build.KERNELS)
+    assert set(build.SOURCES) == {s for s, _ in build.KERNELS.values()}
 
 
 def test_the_nine_kernels_and_the_chain_sources():
@@ -114,9 +115,16 @@ def test_the_nine_kernels_and_the_chain_sources():
     chain_probe2 the hazard buffer) as hashed sets, as tc_probe2 stages its
     hazard buffer, and the dense tail stage is gone."""
     from repro_torch.kernels import build, probe
-    assert len(probe.KERNELS) == len(set(probe.KERNELS)) == 12
-    assert probe.KERNELS == build.SOURCES
+    assert len(probe.KERNELS) == len(set(probe.KERNELS)) == 14
+    assert probe.KERNELS == tuple(build.KERNELS)
     assert set(build._ENTRY.values()) == set(build._ARGTYPES)
+    # the two walks of the comparison tables: one source, two entry points
+    assert build.KERNELS["chain_walk"][0] == build.KERNELS["chain_tail"][0] \
+        == "chain_walk"
+    src = (CSRC / "chain_walk.cu").read_text()
+    for entry in ('extern "C" int dhash_chain_walk(',
+                  'extern "C" int dhash_chain_tail(', "dhash_chain_walk(a,"):
+        assert entry in src, entry
     src = (CSRC / "chain_compact.cu").read_text()
     assert 'extern "C" int dhash_chain_compact(' in src
     assert src.count("if (!ctl[CC_GO]) return;") == 2
