@@ -82,12 +82,13 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
    keep every acknowledged key through the next swap; (e) runs the chain
    arm of the collision-flood benchmark (2048 keys into one bucket, then a
    live swap) and reports its four lookup rates; (f) holds each backend's
-   engine, replaying its step from a CUDA graph, to the same engine in the
-   eager mode across a live swap (tolerance 0, one key held), with the
+   engine (f and g at half the shard, capacity 2^19), replaying its step
+   from a CUDA graph, to the same engine in the eager mode across a live
+   swap (tolerance 0, one key held), with the
    oracle checking every step, and the launches its replays credit to the
    kernels the profiler sees; (g) runs linear under the elastic policy: a
-   burst that grows the table to 2^22 slots, a drain during which a
-   tombstone reclaim fires on the device, and the shrink to 2^20, every
+   burst that grows the table to 2^21 slots, a drain during which a
+   tombstone reclaim fires on the device, and the shrink to 2^19, every
    answer checked by the oracle and a stretch held to an eager twin;
    (h) drives a linear table stack (``DHashStackEngine``, 8 tables of the
    unreduced shard, each its shard's traffic a step) through staggered
@@ -116,8 +117,8 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
 5. repeats a short stretch of the linear main path on a table far larger
    than the L2 cache (2**25 slots);
 6. serves through the port's serving path (``ServingEngine``, the paged
-   KV cache over DHash page tables on the fused kernels,
-   ``DHASH_FUSED=on``) a full-width, full-depth ``qwen3-8b`` in bf16 with
+   KV cache over DHash page tables, which run the kernels because they
+   lie on the card) a full-width and full-depth ``qwen3-8b`` in bf16 with
    random weights from a seed: 16 requests (8 sharing a 32-token prefix),
    ``launch/serve.py``'s ``ServeConfig``, four times: (A) one page table,
    (B) one table with a trigger low enough that it rehashes live while
@@ -130,9 +131,10 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
    run under ``torch.cuda.set_sync_debug_mode("error")``; the DHash
    kernels are launched on every run; the step's launches are held to the
    profiler and its device time split by page-table op; the paged step is
-   held to the dense decode (``model.decode_logits``): at bf16 and 36
-   layers the argmax wherever the top-2 margin exceeds the largest logit
-   difference, at float32 and 4 layers the greedy tokens;
+   held to the dense decode (``model.decode_logits``): at bf16 the greedy
+   tokens and the argmax wherever the top-2 margin exceeds the largest
+   logit difference, at float32 and 4 layers the greedy tokens and the
+   logits;
 7. runs the paper's comparison (``core/baselines.py``: HT-Xu, HT-RHT,
    HT-Split, against DHash-chain): (7a) holds the two walks the baselines
    run, ``chain_walk`` and ``chain_tail``, against their plain versions
@@ -152,7 +154,32 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
    lock rounds an op; (7c) the section-1 attack
    (``benchmarks/bench_attack.py::run``): lookup rates of DHash before,
    under, in the middle of and after a live rehash, and of HT-Split
-   before, under and after its doubling, every answer checked.
+   before, under and after its doubling, every answer checked;
+8. runs the models and their DHash clients: (8a) gemma2-2b and
+   gemma3-27b at full width and depth and deepseek-67b at full width and
+   40 of its 95 layers, in bf16 with random weights from a seed, through
+   the paged ``ServingEngine`` one after another (4 requests of 8-16
+   prompt tokens, 8 new tokens each), each held to dense decode
+   teacher-forced (its greedy tokens, and phase 6's bf16 margin rule),
+   then gemma3-27b (6 layers) and gemma2-2b (4 layers) at full width with
+   a window of 16 in float32 over a 40-token request, each held to dense
+   decode within 1e-5 of the largest |logit|; (8b) hash-routed MoE
+   decode (``models/moe.py``) of arctic-480b (2 of 35 layers) and
+   llama4-scout-17b-a16e (12 of 48) at full width in bf16: 8 sequences of
+   the port's ``synth_batch`` zipf stream, 32 teacher-forced
+   ``decode_logits`` steps with no override table, with overrides for the
+   256 hottest tokens steered to the least-loaded experts, and with those
+   overrides while the table is rebuilt live from step 8 to its epoch swap
+   (started by ``rebalance_router`` where run (i)'s load skew trips it,
+   else by ``rebuild_start``): the last equal to the second bit for bit at every
+   step, every step's expert ids equal to a numpy mix32 % E (or the
+   override), ``moe_ffn`` of one layer held to a per-pair float32 loop,
+   the load imbalance, step times and weight bytes a step reported;
+   (8c) ``dedup_batch`` of the data pipeline at 64 x 4096 tokens a batch
+   (2048 fingerprints) over a fused linear table of capacity 2^20 on the
+   card, 192 fresh batches and the first 64 again, rebuilt live from
+   batch 100: every keep mask against a host set of numpy fingerprints,
+   the table's count against the set's.
 
 Any failed check raises, so the process exits non-zero and prints no result
 line.  The last line of a good run is
@@ -3976,6 +4003,12 @@ def credited_against_profiler(run, n: int, where: str,
         log(f"  {what}: the profiler lost kernels; traced again")
 
 
+# 3f and 3g run on tables of half the dhash-paper shard (capacity 2^19):
+# a cut of scale, which halves their rebuild epochs and keeps the whole
+# check inside its time limit with phase 6 at full depth
+SIDE_CAPACITY = 1 << 19
+
+
 def phase_graph(device, cfg, margin: int = 16, max_steps: int = 1500,
                 lead: int = 48) -> dict:
     """The engine's own replay held to its eager mode: a second engine,
@@ -4131,19 +4164,19 @@ def phase_graph(device, cfg, margin: int = 16, max_steps: int = 1500,
 
 def phase_policy(device, cfg, tomb_load: float = 0.1, max_steps: int = 9000
                  ) -> dict:
-    """The elastic policy on the card: linear, fused, ``cfg`` unreduced
-    (2^21 slots), under ``DHashEngine(policy=policy.make(tomb_load=...))``,
+    """The elastic policy on the card: linear, fused, ``cfg``'s shard (S
+    slots), under ``DHashEngine(policy=policy.make(tomb_load=...))``,
     populated as the main path's.  A burst (fresh inserts, deletes masked
     off) past the high watermark; quiet steps (lookups only) while the poll
-    applies the grow and the migration to 2^22 slots runs; a drain
+    applies the grow and the migration to 2 S slots runs; a drain
     (deletes, inserts masked off) below the low watermark, during which
     tombstones past ``tomb_load`` fire a reclaim rehash on the device; quiet
     steps through it, the shrink the poll applies, and its migration back to
-    2^20 slots.  Every step's answers are checked against the dict oracle.
+    S / 2 slots.  Every step's answers are checked against the dict oracle.
     A twin engine cloned at the poll before the grow steps in the eager mode
     on the same batches until the grow has finished: answers equal every
     step, every state and policy tensor equal at the end.  Checked: one
-    grow, one shrink, at least one fire; slot counts 2^21 -> 2^22 -> 2^20;
+    grow, one shrink, at least one fire; slot counts S -> 2 S -> S / 2;
     the engine's host reads are its polls; no key captured twice; the
     credited launches of 16 replayed steady steps against the profiler."""
     from repro_torch.core import backend
@@ -6445,42 +6478,60 @@ def serve_profile(params, cfg, requests) -> dict:
                 dhash_kernel_ms={k: v / 4e3 for k, v in kern.items()})
 
 
-def paged_against_dense(params, cfg, prompt, outs, paged_logits,
-                        device) -> dict:
-    """The engine's own logits at the generated positions (its batched
-    paged step) against the port's dense decode (``model.decode_logits``
-    over ``init_cache``) teacher-forced over prompt + ``outs``: the largest
-    |logit difference|, whether the dense argmax gives ``outs`` (then dense
-    greedy decode gives the same tokens), and whether the argmax agrees
-    wherever the dense top-2 margin exceeds that difference."""
+def dense_logits(params, cfg, seqs, device) -> list:
+    """The port's dense decode (``model.decode_logits`` over
+    ``init_cache``) teacher-forced over each of ``seqs`` at once, a row a
+    sequence: for each, the logits after each of its positions but the
+    last (a row past its end decodes a 0 that is not kept)."""
     from repro_torch.models import model as tmodel
     from repro_torch.models import transformer
-    seq = list(prompt) + list(outs)
-    cache = transformer.init_cache(cfg, 1, len(seq), device=device)
-    dense = []
-    for pos in range(len(seq) - 1):
-        t = torch.tensor([[seq[pos]]], dtype=torch.int32, device=device)
+    n = max(len(q) for q in seqs)
+    cache = transformer.init_cache(cfg, len(seqs), n, device=device)
+    out = [[] for _ in seqs]
+    for pos in range(n - 1):
+        t = torch.tensor([[q[pos] if pos < len(q) else 0] for q in seqs],
+                         dtype=torch.int32, device=device)
         ld, cache = tmodel.decode_logits(params, cfg, t, cache)
-        if pos >= len(prompt) - 1:
-            dense.append(ld[0])
-    check(len(dense) == len(paged_logits) == len(outs),
-          f"{len(paged_logits)} recorded positions for {len(outs)} tokens")
-    pairs = list(zip(paged_logits, dense))
-    check([int(a.argmax()) for a, _ in pairs] == list(outs),
-          "the recorded logits are not the ones the engine sampled")
-    delta = max(float((a - b).abs().max()) for a, b in pairs)
-    scale = max(float(b.abs().max()) for b in dense)
-    agree = checked = 0
-    for a, b in pairs:
-        top = torch.topk(b, 2).values
-        if float(top[0] - top[1]) > delta:
-            checked += 1
-            agree += int(a.argmax()) == int(b.argmax())
-    return dict(max_abs_logit_diff=delta, max_abs_logit=scale,
-                positions=len(pairs),
-                dense_greedy_equal=[int(b.argmax()) for b in dense]
-                == list(outs),
-                margin_above_diff=checked, argmax_equal_there=agree)
+        for i, q in enumerate(seqs):
+            if pos < len(q) - 1:
+                out[i].append(ld[i])
+    return out
+
+
+def paged_against_dense(params, cfg, prompts, outs, paged_logits,
+                        device) -> list:
+    """For each request, the engine's own logits at the generated positions
+    (its batched paged step) against the port's dense decode teacher-forced
+    over prompt + outs (all requests in one batch): the largest |logit
+    difference|, whether the dense argmax gives the outs (then dense greedy
+    decode gives the same tokens), and whether the argmax agrees wherever
+    the dense top-2 margin exceeds that difference."""
+    seqs = [list(p) + list(o) for p, o in zip(prompts, outs)]
+    res = []
+    for prompt, out, paged, every in zip(
+            prompts, outs, paged_logits,
+            dense_logits(params, cfg, seqs, device)):
+        dense = every[len(prompt) - 1:]
+        check(len(dense) == len(paged) == len(out),
+              f"{len(paged)} recorded positions for {len(out)} tokens")
+        pairs = list(zip(paged, dense))
+        check([int(a.argmax()) for a, _ in pairs] == list(out),
+              "the recorded logits are not the ones the engine sampled")
+        delta = max(float((a - b).abs().max()) for a, b in pairs)
+        scale = max(float(b.abs().max()) for b in dense)
+        agree = checked = 0
+        for a, b in pairs:
+            top = torch.topk(b, 2).values
+            if float(top[0] - top[1]) > delta:
+                checked += 1
+                agree += int(a.argmax()) == int(b.argmax())
+        res.append(dict(max_abs_logit_diff=delta, max_abs_logit=scale,
+                        positions=len(pairs),
+                        dense_greedy_equal=[int(b.argmax()) for b in dense]
+                        == list(out),
+                        margin_above_diff=checked,
+                        argmax_equal_there=agree))
+    return res
 
 
 def logits_diff(got: list, want: list, where: str) -> float:
@@ -6497,13 +6548,16 @@ def logits_diff(got: list, want: list, where: str) -> float:
 # with tied std-1 embeddings the current token's own logit is ~d_model, so
 # the two reduction orders' rounding shows at 1e-3 abs)
 SERVE_F32_RTOL = 1e-5
+# phase 6's depth: qwen3-8b whole
+SERVE_LAYERS = 36
 
 
 def phase_serve(device, card: str, seed: int = 0) -> dict:
-    """Phase 6: the port's serving path at the full width and depth of
-    ``qwen3-8b`` in bf16, random weights from ``seed``.  The engine's DHash
-    tables run the kernels because they lie on the card (``kvcache.make``,
-    ``eviction.make``); no variable is set for it.  A, B and D serve the
+    """Phase 6: the port's serving path at the full width of ``qwen3-8b``
+    and ``SERVE_LAYERS`` of its 36 layers in bf16, random weights from
+    ``seed``.  The engine's DHash tables run the kernels because they lie
+    on the card (``kvcache.make``, ``eviction.make``); no variable is set
+    for it.  A, B and D serve the
     16 requests (B's trigger fires once the first wave has drained, D
     adopts the prefix and runs its index's epoch through the second
     wave's admissions); C the first 8 of them (4 with the shared prefix),
@@ -6514,8 +6568,9 @@ def phase_serve(device, card: str, seed: int = 0) -> dict:
     from repro_torch.models import transformer
     from repro_torch.serving.engine import ServeConfig
     t_phase = time.perf_counter()
-    cfg = configs.get_config("qwen3-8b")
-    check(cfg.dtype == "bfloat16" and cfg.n_layers == 36, "qwen3-8b")
+    full = configs.get_config("qwen3-8b")
+    check(full.dtype == "bfloat16" and full.n_layers == 36, "qwen3-8b")
+    cfg = full.scaled(n_layers=SERVE_LAYERS)
     gen = torch.Generator(device=device).manual_seed(seed)
     t0 = time.perf_counter()
     params = transformer.init_params(cfg, gen)
@@ -6524,7 +6579,8 @@ def phase_serve(device, card: str, seed: int = 0) -> dict:
         [params["embed"], params["final_norm"]],
         params["attn_stack"].values()))
     wbytes = n_params * 2
-    log(f"  {cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    log(f"  {cfg.arch_id}: {cfg.n_layers} of {full.n_layers} layers, "
+        f"d_model {cfg.d_model}, "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
         f"{cfg.d_ff}, vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B "
         f"parameters ({wbytes / 1e9:.2f} GB bf16), random from seed "
@@ -6626,16 +6682,20 @@ def phase_serve(device, card: str, seed: int = 0) -> dict:
         f"; launches a step held to the profiler "
         f"({prof['profiled_replays']} of 3 steps seen) " +
         json.dumps(prof["credited_per_step"]))
-    # paged against dense at bf16 and full depth, teacher-forced
-    dense = {}
-    for i in (0, 1):
-        dense[i] = d = paged_against_dense(params, cfg, requests[i], outs[i],
-                                           logits["A"][i], device)
+    # paged against dense at bf16, teacher-forced, requests 0 and 1 in one
+    # batch
+    dense = dict(enumerate(paged_against_dense(
+        params, cfg, requests[:2], outs[:2], logits["A"], device)))
+    for i, d in dense.items():
         check(d["margin_above_diff"] == d["argmax_equal_there"],
               f"request {i}: bf16 paged and dense argmax differ where "
               f"the top-2 margin exceeds {d['max_abs_logit_diff']}")
+        check(d["dense_greedy_equal"], f"request {i}: bf16 dense decode's "
+                                       f"greedy tokens differ from the "
+                                       f"engine's {outs[i]}")
     del logits
-    log("  bf16, 36 layers, the engine's logits (run A) against dense "
+    log(f"  bf16, {cfg.n_layers} layers, the engine's logits (run A) "
+        f"against dense "
         "decode over the same tokens, requests 0 and 1: " +
         json.dumps(dense))
     del params
@@ -6648,11 +6708,9 @@ def phase_serve(device, card: str, seed: int = 0) -> dict:
         device=device).manual_seed(seed + 1))
     r4 = serve_run("f32", params4, cfg4, ServeConfig(**SERVE_BASE),
                    requests[:2], record=(0, 1))
-    dense4 = {}
-    for i in (0, 1):
-        dense4[i] = d = paged_against_dense(params4, cfg4, requests[i],
-                                            r4["outs"][i], r4["logits"][i],
-                                            device)
+    dense4 = dict(enumerate(paged_against_dense(
+        params4, cfg4, requests[:2], r4["outs"], r4["logits"], device)))
+    for i, d in dense4.items():
         check(d["dense_greedy_equal"],
               f"f32 request {i}: dense decode's greedy tokens differ from "
               f"the engine's {r4['outs'][i]}")
@@ -7338,6 +7396,591 @@ def phase_compare(device, card: str, reps: int) -> tuple:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 8: the models and their DHash clients — three dense configurations
+# through the paged engine, hash-routed MoE decode over a live DHash
+# override table, the data pipeline's streaming dedup
+# ---------------------------------------------------------------------------
+
+# 8a: 4 requests of 8-16 prompt tokens, 8 new tokens each
+MODELS_SERVE = dict(max_seqs=4, page_size=16, n_pages=64, max_blocks=4,
+                    max_new_tokens=8)
+# (arch, depth): None is the configuration's own; deepseek-67b's 95 layers
+# (1.38 GB each in bf16) do not fit one card
+DENSE_RUNS = (("gemma2-2b", None), ("gemma3-27b", None),
+              ("deepseek-67b", 40))
+# float32 at full width, a few layers, window 16: (arch, depth)
+F32_RUNS = (("gemma3-27b", 6), ("gemma2-2b", 4))
+# 8b: arctic-480b's layer is 27.2 GB in bf16 (128 experts), llama4-scout's
+# 4.15 GB
+MOE_RUNS = (("arctic-480b", 2), ("llama4-scout-17b-a16e", 12))
+MOE_SEQS, MOE_STEPS, MOE_HOT = 8, 32, 256
+# the override table's rebuild: started after this many steps, then this
+# many device-flag transitions after every decode step until its epoch
+# swaps (8192 slots in chunks of 256; a chunk that holds entries takes two
+# transitions, its scan and its landing: up to 65)
+ROUTER_REBUILD_AT, ROUTER_REBUILD_STEPS, ROUTER_REBUILD_SEED = 8, 4, 29
+# moe_ffn in bf16 against a per-pair float32 loop: the largest |difference|
+# over the largest |output| (bf16 rounds h, u, their product and the
+# output, 2^-9 each)
+MOE_FFN_RTOL = 2.0 ** -6
+# 8c: llama4-scout's vocabulary, a 4096-token context, 64 sequences a
+# batch, fingerprints of 128-token blocks: 2048 a batch
+DEDUP_DATA = dict(vocab_size=202048, seq_len=4096, global_batch=64, seed=0)
+DEDUP_BLOCK, DEDUP_FRESH, DEDUP_REPLAY = 128, 192, 64
+# 2^21 slots in chunks of 4096, each chunk two transitions: 1025 at most
+DEDUP_REBUILD_AT, DEDUP_REBUILD_STEPS = 100, 16
+MASK32 = 0xFFFFFFFF
+
+
+def np_mix32(x: np.ndarray, s0: int, s1: int) -> np.ndarray:
+    """``hashing._mix32`` in numpy on u32 words held in uint64."""
+    m = np.uint64(MASK32)
+    x = x.astype(np.uint64) ^ np.uint64(s0)
+    x ^= x >> np.uint64(16)
+    x = (x * np.uint64(0x85EBCA6B)) & m
+    x ^= x >> np.uint64(13)
+    x = (x * np.uint64(0xC2B2AE35)) & m
+    x ^= x >> np.uint64(16)
+    return x ^ np.uint64(s1)
+
+
+def np_fingerprints(tokens: np.ndarray, block: int) -> np.ndarray:
+    """``pipeline.doc_fingerprints`` in numpy (``hash_combine`` over each
+    block, the sign bit cleared): the dedup oracle's own fingerprints."""
+    b, s = tokens.shape
+    n = s // block
+    blocks = (tokens[:, :n * block].reshape(b * n, block).astype(np.int64)
+              & MASK32).astype(np.uint64)
+    h = np.full((b * n,), 0x811C9DC5, np.uint64)
+    for i in range(block):
+        salt = (h * np.uint64(0x9E3779B1) + np.uint64(0x85EBCA77)) \
+            & np.uint64(MASK32)
+        # hash_combine: _mix32(x ^ salt, 0x27D4EB2F, h)
+        h = np_mix32(blocks[:, i] ^ salt, 0x27D4EB2F, 0) ^ h
+    return (h & np.uint64(0x7FFFFFFF)).astype(np.int32).reshape(b, n)
+
+
+def weight_bytes(params: dict, skip=()) -> int:
+    """Bytes of the floating-point weights in ``params`` (hash seeds are
+    not weights), leaves named in ``skip`` left out."""
+    n = 0
+    for k, v in params.items():
+        if isinstance(v, dict):
+            n += weight_bytes(v, skip)
+        elif k not in skip and v.is_floating_point():
+            n += v.numel() * v.element_size()
+    return n
+
+
+def free_card() -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def per_step(counts: dict, n: int) -> dict:
+    return {k: round(v / n, 2) for k, v in counts.items() if v}
+
+
+def models_dense(device) -> tuple:
+    """8a: gemma2-2b, gemma3-27b (full width and depth) and deepseek-67b
+    (full width, 40 layers) in bf16 with random weights from seed 0
+    through the paged ``ServingEngine``, one after another, each held to
+    dense decode teacher-forced; then ``F32_RUNS`` at full width, window
+    16, in float32 over a 40-token request.
+    Returns (launch counts a run, summary)."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import ServeConfig
+    counts, out = {}, {}
+    for arch, depth in DENSE_RUNS:
+        t0 = time.perf_counter()
+        full = configs.get_config(arch)
+        cfg = full if depth is None else full.scaled(n_layers=depth)
+        check(cfg.dtype == "bfloat16", arch)
+        params = transformer.init_params(cfg, torch.Generator(
+            device=device).manual_seed(0))
+        wb = weight_bytes(params)
+        rng = np.random.default_rng(8)
+        reqs = [rng.integers(1, cfg.vocab_size - 1, size=int(
+            rng.integers(8, 17))).astype(np.int32).tolist()
+            for _ in range(4)]
+        r = serve_run(f"8a {arch}", params, cfg, ServeConfig(**MODELS_SERVE),
+                      reqs, record=(0, 1, 2, 3))
+        serve_empty(r.pop("engine"), f"8a {arch}")
+        counts[arch] = r.pop("counts")
+        dense = paged_against_dense(params, cfg, reqs, r["outs"],
+                                    r.pop("logits"), device)
+        for i, d in enumerate(dense):
+            check(d["margin_above_diff"] == d["argmax_equal_there"],
+                  f"8a {arch} request {i}: bf16 paged and dense argmax "
+                  f"differ where the top-2 margin exceeds "
+                  f"{d['max_abs_logit_diff']}")
+            check(d["dense_greedy_equal"],
+                  f"8a {arch} request {i}: dense decode's greedy tokens "
+                  f"differ from the engine's {r['outs'][i]}")
+        del params
+        free_card()
+        out[arch] = dict(
+            layers=cfg.n_layers, of=full.n_layers, weight_gb=wb / 1e9,
+            step_ms_median=r["step_ms"]["median"], steps=r["steps"],
+            host_reads_per_engine_step=r["host_reads_per_step"],
+            launches_per_step=per_step(counts[arch], r["steps"]),
+            positions=sum(d["positions"] for d in dense),
+            argmax_checked=sum(d["margin_above_diff"] for d in dense),
+            dense_greedy_equal=sum(d["dense_greedy_equal"] for d in dense),
+            max_abs_logit_diff=max(d["max_abs_logit_diff"] for d in dense),
+            seconds=time.perf_counter() - t0)
+        o = out[arch]
+        log(f"  {arch}: {cfg.n_layers} of {full.n_layers} layers, d_model "
+            f"{cfg.d_model}, {o['weight_gb']:.2f} GB bf16; 4 requests x "
+            f"{MODELS_SERVE['max_new_tokens']} tokens in {o['steps']} steps, "
+            f"step ms median {o['step_ms_median']:.2f}; host reads "
+            f"{o['host_reads_per_engine_step']:.2f} an engine step; "
+            f"launches a step {json.dumps(o['launches_per_step'])}; bf16 "
+            f"paged against dense: argmax equal at all "
+            f"{o['argmax_checked']} of {o['positions']} positions where the "
+            f"top-2 margin exceeds the largest |logit diff| "
+            f"({o['max_abs_logit_diff']}); dense greedy decode gives the "
+            f"engine's tokens for {o['dense_greedy_equal']} of 4 requests; "
+            f"{o['seconds']:.1f} s")
+    # float32, full width, a window that bites: gemma3-27b's one 5:1
+    # period, gemma2-2b's local/global pair twice (its attention and logit
+    # softcaps: every logit lies within +-30)
+    for arch, depth in F32_RUNS:
+        cfg = configs.get_config(arch).scaled(n_layers=depth, window=16,
+                                              dtype="float32")
+        params = transformer.init_params(cfg, torch.Generator(
+            device=device).manual_seed(1))
+        prompt = np.random.default_rng(9).integers(
+            1, cfg.vocab_size - 1, size=32).astype(np.int32).tolist()
+        r = serve_run(f"8a {arch} f32", params, cfg,
+                      ServeConfig(**MODELS_SERVE), [prompt], record=(0,))
+        serve_empty(r.pop("engine"), f"8a {arch} f32")
+        counts[f"{arch} f32"] = c = r.pop("counts")
+        (d,) = paged_against_dense(params, cfg, [prompt], r["outs"],
+                                   r.pop("logits"), device)
+        check(d["dense_greedy_equal"], f"8a {arch} f32: dense decode's "
+                                       f"greedy tokens differ from the "
+                                       f"engine's")
+        lim = SERVE_F32_RTOL * d["max_abs_logit"]
+        check(d["max_abs_logit_diff"] <= lim,
+              f"8a {arch} f32: the engine's logits differ from dense "
+              f"decode's by {d['max_abs_logit_diff']} (> {lim})")
+        del params
+        free_card()
+        out[f"{arch} f32 window 16"] = o = dict(
+            d, layers=depth, step_ms_median=r["step_ms"]["median"],
+            host_reads_per_engine_step=r["host_reads_per_step"],
+            launches_per_step=per_step(c, r["steps"]))
+        log(f"  {arch} float32, full width, {depth} layers, window 16, a "
+            f"{len(prompt)}-token prompt + "
+            f"{MODELS_SERVE['max_new_tokens']}: the engine's logits within "
+            f"{SERVE_F32_RTOL} of the largest |logit| of dense decode's, "
+            f"greedy tokens equal ({json.dumps(d)}); step ms median "
+            f"{o['step_ms_median']:.2f}, host reads "
+            f"{o['host_reads_per_engine_step']:.2f} an engine step, "
+            f"launches a step {json.dumps(o['launches_per_step'])}")
+    return counts, out
+
+
+class record_moe:
+    """Keeps every ``moe.moe_ffn`` call's expert ids and load (and the
+    first call's inputs and output) while it is entered."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.mod, self.calls, self.first = moe, [], None
+
+    def __enter__(self):
+        self.saved = self.mod.moe_ffn
+
+        def run(x, eid, gate, wg, wu, wd, **kw):
+            y, load = self.saved(x, eid, gate, wg, wu, wd, **kw)
+            if self.first is None:
+                self.first = (x.clone(), eid.clone(), gate.clone(),
+                              y.clone())
+            self.calls.append((eid.clone(), load.clone()))
+            return y, load
+        self.mod.moe_ffn = run
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.moe_ffn = self.saved
+
+
+def moe_pairs_f32(x, eid, gate, wg, wu, wd) -> torch.Tensor:
+    """``moe_ffn``'s output by a per-pair loop in float32: each kept (token,
+    expert) pair's SwiGLU alone from that expert's weights, times its gate,
+    summed over the token's pairs.  A row keeps the first ``cap`` pairs of
+    each expert in (position, k) order (cap = 1 at decode)."""
+    b, s, k = eid.shape
+    cap = int(np.ceil(s * k / wg.shape[0] * 1.25))
+    ids = eid.cpu().numpy()
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for bi in range(b):
+        taken = {}
+        for si in range(s):
+            for j in range(k):
+                ex = int(ids[bi, si, j])
+                taken[ex] = taken.get(ex, 0) + 1
+                if taken[ex] > cap:
+                    continue
+                h = x[bi, si].float()
+                g = h @ wg[ex].float()
+                y = (torch.nn.functional.silu(g) * (h @ wu[ex].float())) \
+                    @ wd[ex].float()
+                out[bi, si] += y * gate[bi, si, j].float()
+    return out
+
+
+def expected_ids(tokens: np.ndarray, seeds: np.ndarray, n_experts: int,
+                 over: dict) -> np.ndarray:
+    """[L, T, k] expert ids of ``tokens`` [T]: mix32 % E with each layer's
+    seeds, or the override where the token has one."""
+    n, k, _ = seeds.shape
+    out = np.zeros((n, len(tokens), k), np.int64)
+    for li in range(n):
+        for j in range(k):
+            out[li, :, j] = np_mix32(tokens.astype(np.int64) & MASK32,
+                                     int(seeds[li, j, 0]),
+                                     int(seeds[li, j, 1])) % n_experts
+    for i, t in enumerate(tokens.tolist()):
+        if t in over:
+            out[:, i, :] = over[t][:k]
+    return out
+
+
+def greedy_overrides(tokens: np.ndarray, k: int, n_experts: int,
+                     n_hot: int) -> dict:
+    """The ``n_hot`` most frequent tokens of the stream, each in turn given
+    the ``k`` least-loaded distinct experts (frequency order, loads from
+    zero; a token outside them keeps its hash)."""
+    ids, freq = np.unique(tokens, return_counts=True)
+    load = np.zeros(n_experts, np.int64)
+    over = {}
+    for i in np.argsort(-freq, kind="stable")[:n_hot]:
+        pick = np.argsort(load, kind="stable")[:k]
+        load[pick] += freq[i]
+        over[int(ids[i])] = [int(p) for p in pick] + [0] * (2 - k)
+    return over
+
+
+def moe_run(params, cfg, stream, router, rebuild, device) -> dict:
+    """``MOE_STEPS`` teacher-forced ``decode_logits`` steps of the stream's
+    sequences with the dense cache, the launch counters set to 0 just
+    before: each step's logits, expert ids and loads (every layer) and its
+    time; ``rebuild(step, router)`` drives the override table after each
+    step."""
+    from repro_torch.kernels import probe
+    from repro_torch.models import model as tmodel
+    from repro_torch.models import transformer
+    cache = transformer.init_cache(cfg, MOE_SEQS, MOE_STEPS + 1,
+                                   device=device)
+    logits, times, epochs = [], [], []
+    torch.cuda.synchronize()
+    probe.reset_launches()
+    with record_moe() as rec:
+        for step in range(MOE_STEPS):
+            t0 = time.perf_counter()
+            lg, cache = tmodel.decode_logits(
+                params, cfg, stream[:, step:step + 1], cache,
+                router_table=router)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            logits.append(lg)
+            if rebuild is not None:
+                router = rebuild(step, router)
+                epochs.append(int(router.epoch))
+    counts = probe.launch_counts()
+    n = cfg.n_layers
+    check(len(rec.calls) == n * MOE_STEPS, "a layer ran no moe_ffn")
+    eids = torch.stack([c[0] for c in rec.calls]).reshape(
+        MOE_STEPS, n, MOE_SEQS, cfg.top_k).cpu().numpy()
+    loads = torch.stack([c[1] for c in rec.calls]).reshape(
+        MOE_STEPS, n, -1).cpu().numpy()
+    return dict(logits=logits, eids=eids, loads=loads, first=rec.first,
+                counts=counts, epochs=epochs,
+                step_ms=statistics.median(t * 1e3 for t in times))
+
+
+def models_moe(device) -> tuple:
+    """8b: arctic-480b (2 layers) and llama4-scout-17b-a16e (12 layers),
+    full width, bf16, random weights and hash seeds from seed 0: three runs
+    of 32 teacher-forced decode steps over the pipeline's zipf stream —
+    (i) no override table, (ii) overrides for the 256 hottest tokens of
+    the stream, (iii) (ii) with the table rebuilt live from step 8 to its
+    epoch swap, the rebuild started by ``rebalance_router`` where run (i)'s
+    loads so far trip it (else by ``rebuild_start`` with a fixed seed).
+    Returns (launch counts a model, summary)."""
+    from repro_torch import configs
+    from repro_torch.core import dhash
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import probe
+    from repro_torch.models import moe
+    from repro_torch.models import transformer
+    from repro_torch.train import train_step
+    counts, out = {}, {}
+    for arch, depth in MOE_RUNS:
+        t0 = time.perf_counter()
+        full = configs.get_config(arch)
+        cfg = full.scaled(n_layers=depth)
+        check(cfg.use_hash_router and cfg.dtype == "bfloat16", arch)
+        params = transformer.init_params(cfg, torch.Generator(
+            device=device).manual_seed(0))
+        wb = weight_bytes(params)
+        # a step reads every weight but the router's: the embeddings are
+        # tied, so the unembedding reads the whole table (the lookup, 8
+        # rows of it, adds nothing)
+        check(cfg.tie_embeddings, f"{arch}: untied embeddings")
+        read = weight_bytes(params, skip=("router",))
+        seeds = params["hash_seeds"].cpu().numpy()
+        e, k = cfg.n_experts, cfg.top_k
+        stream = pipeline.synth_batch(pipeline.DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=40, global_batch=MOE_SEQS),
+            0, device=device)["tokens"]
+        host = stream.cpu().numpy()[:, :MOE_STEPS]
+        over = greedy_overrides(host.ravel(), k, e, MOE_HOT)
+
+        def table():
+            rt = train_step.make_router_table(cfg, device=device)
+            check(rt is not None and rt.fused, f"{arch}: the router table "
+                                               f"does not run the kernels")
+            keys = sorted(over)
+            ev = torch.tensor([over[t] for t in keys], dtype=torch.int32,
+                              device=device)
+            rt, ok = dhash.insert(
+                rt, torch.tensor(keys, dtype=torch.int32, device=device),
+                moe.pack_assignment(ev[:, 0].contiguous(),
+                                    ev[:, 1] if k == 2 else None))
+            check(bool(ok.all()), f"{arch}: an override was refused")
+            return rt
+
+        runs = {"i": moe_run(params, cfg, stream, None, None, device)}
+        skew = runs["i"]["loads"][:ROUTER_REBUILD_AT].sum((0, 1))
+        fired = []
+
+        def rebuild(step, rt):
+            if step + 1 == ROUTER_REBUILD_AT:
+                # rebalance_router's verdict on run (i)'s loads so far; a
+                # fresh seed all the same where it holds the skew too small
+                st = train_step.rebalance_router({"router_table": rt}, skew,
+                                                 cfg)
+                fired.append(st["router_table"] is not rt)
+                rt = st["router_table"] if fired[0] else \
+                    dhash.rebuild_start(rt, seed=ROUTER_REBUILD_SEED)
+                check(bool(rt.rebuilding), f"{arch}: no rebuild started")
+            elif step + 1 > ROUTER_REBUILD_AT and bool(rt.rebuilding):
+                for _ in range(ROUTER_REBUILD_STEPS):
+                    dhash.finish_same_shape_(rt, go=dhash.rebuild_step_(
+                        rt, swap=True))
+            return rt
+
+        # the counters of (ii) and (iii) include their override inserts
+        for name, rb in (("ii", None), ("iii", rebuild)):
+            probe.reset_launches()
+            rt = table()
+            ins = probe.launch_counts()
+            runs[name] = moe_run(params, cfg, stream, rt, rb, device)
+            runs[name]["counts"] = {kk: v + ins[kk] for kk, v in
+                                    runs[name]["counts"].items()}
+        ep = runs["iii"]["epochs"]
+        check(ep[ROUTER_REBUILD_AT - 1] == 0 and ep[-1] == 1,
+              f"{arch}: the override table's rebuild did not reach its "
+              f"epoch swap (epochs {ep})")
+        for s_, (a, b) in enumerate(zip(runs["iii"]["logits"],
+                                        runs["ii"]["logits"])):
+            check(torch.equal(a, b), f"{arch} step {s_}: the logits with "
+                                     f"the table mid-rebuild differ from "
+                                     f"those with it at rest")
+        for name, ov in (("i", {}), ("ii", over), ("iii", over)):
+            for s_ in range(MOE_STEPS):
+                want = expected_ids(host[:, s_], seeds, e, ov)
+                check(np.array_equal(runs[name]["eids"][s_], want),
+                      f"{arch} run ({name}) step {s_}: expert ids differ "
+                      f"from mix32 % E or the overrides")
+        # moe_ffn of layer 0 at full width against a per-pair float32
+        # loop: run (i)'s first call, and the same tokens with every
+        # second id set to the first (each second pair dropped)
+        st = params["attn_stack"]
+        w0 = (st["we_g"][0], st["we_u"][0], st["we_d"][0])
+        x, eid, gate, y = runs["i"]["first"]
+        cases = {"(i) step 0": (eid, y)}
+        if k == 2:
+            same = eid.clone()
+            same[..., 1] = same[..., 0]
+            cases["second pair dropped"] = (same, moe.moe_ffn(
+                x, same, gate, *w0)[0])
+        ffn = {}
+        for label, (ids, got) in cases.items():
+            ref = moe_pairs_f32(x, ids, gate, *w0)
+            err, scale = float((got.float() - ref).abs().max()), \
+                float(ref.abs().max())
+            check(err <= MOE_FFN_RTOL * scale,
+                  f"{arch} {label}: moe_ffn differs from the per-pair "
+                  f"float32 loop by {err} (> {MOE_FFN_RTOL} x {scale})")
+            ffn[label] = dict(max_abs_err=err, max_abs=scale)
+        # a layer's expert loads over the 32 steps: max / mean, averaged
+        # over the layers (each layer routes by its own seeds)
+        imb = {n: float(np.mean([v.max() / max(v.mean(), 1e-9) for v in
+                                 r["loads"].sum(0)]))
+               for n, r in runs.items()}
+        per = {n: per_step(r["counts"], MOE_STEPS) for n, r in runs.items()}
+        check(not per["i"], f"{arch}: run (i) launched {per['i']}")
+        check({"probe_lookup", "probe_insert"} <= set(per["ii"])
+              and "probe2" not in per["ii"],
+              f"{arch}: run (ii) launched {per['ii']}")
+        check({"probe_lookup", "probe2", "probe_insert", "extract",
+               "epoch_swap"} <= set(per["iii"]),
+              f"{arch}: run (iii) launched {per['iii']}")
+        counts[arch] = {kk: sum(r["counts"][kk] for r in runs.values())
+                        for kk in probe.KERNELS}
+        out[arch] = o = dict(
+            layers=cfg.n_layers, of=full.n_layers, weight_gb=wb / 1e9,
+            weight_gb_read_a_step=read / 1e9,
+            bytes_bound_ms=read / HBM_BYTES_PER_S * 1e3,
+            step_ms_median={n: r["step_ms"] for n, r in runs.items()},
+            imbalance_max_over_mean=imb, launches_per_step=per,
+            overrides=len(over), rebuild_epochs=ep, moe_ffn=ffn,
+            rebalance_fired=fired[0],
+            skew_max_over_mean=float(skew.max() / max(skew.mean(), 1)),
+            seconds=time.perf_counter() - t0)
+        del params, runs, st, w0, x, eid, gate, y, cases
+        free_card()
+        log(f"  {arch}: {cfg.n_layers} of {full.n_layers} layers at full "
+            f"width (d_model {cfg.d_model}, {e} experts top-{k}, expert "
+            f"d_ff {cfg.moe_dff}), {o['weight_gb']:.2f} GB bf16; a step "
+            f"reads {o['weight_gb_read_a_step']:.2f} GB of weights (every "
+            f"expert's, the reference's form), {o['bytes_bound_ms']:.2f} ms "
+            f"at {HBM_TB_S:.2f} TB/s; step ms median " + json.dumps(
+                {n: round(v, 2) for n, v in o["step_ms_median"].items()})
+            + f"; expert-load max/mean a layer (i) {imb['i']:.3f}, (ii) "
+            f"{imb['ii']:.3f} with {len(over)} overrides; (iii) equals "
+            f"(ii) bit for bit at all {MOE_STEPS} steps, the table rebuilt "
+            f"from step {ROUTER_REBUILD_AT} (rebalance_router "
+            f"{'fired' if fired[0] else 'did not fire'} at max/mean "
+            f"{o['skew_max_over_mean']:.2f} of run (i)'s loads so far; "
+            f"epoch after each step "
+            f"{''.join(map(str, ep))}); expert ids equal numpy's mix32 % E "
+            f"or the overrides in every run, step and layer; moe_ffn of "
+            f"layer 0 against a per-pair float32 loop " + json.dumps(ffn)
+            + "; DHash launches a step " + json.dumps(per)
+            + f"; {o['seconds']:.1f} s")
+    return counts, out
+
+
+def models_dedup(device, card: str) -> tuple:
+    """8c: ``pipeline.dedup_batch`` over a fused linear table of capacity
+    2^20 (chunk 4096) on the card: 192 fresh batches, then the first 64
+    again, the table rebuilt live from batch 100 to its epoch swap; every
+    keep mask against a host set of fingerprints computed in numpy.
+    Returns ({"dedup": launch counts}, summary)."""
+    from repro_torch.core import dhash
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import probe
+    cfg = pipeline.DataConfig(**DEDUP_DATA)
+    table = dhash.make("linear", capacity=1 << 20, chunk=4096, seed=5,
+                       device=device, fused=True)
+    seen: set = set()
+    order = list(range(DEDUP_FRESH)) + list(range(DEDUP_REPLAY))
+    n_fp = cfg.global_batch * (cfg.seq_len // DEDUP_BLOCK)
+    spent, swap_at, fp_checked = 0.0, None, 0
+    torch.cuda.synchronize()
+    probe.reset_launches()
+    for i, step in enumerate(order):
+        t0 = time.perf_counter()
+        if i == DEDUP_REBUILD_AT:
+            table = dhash.rebuild_start(table, seed=101)
+        tokens = pipeline.synth_batch(cfg, step, device=device)["tokens"]
+        table, keep = pipeline.dedup_batch(table, tokens, block=DEDUP_BLOCK)
+        if i >= DEDUP_REBUILD_AT and swap_at is None:
+            for _ in range(DEDUP_REBUILD_STEPS):
+                dhash.finish_same_shape_(table, go=dhash.rebuild_step_(
+                    table, swap=True))
+        torch.cuda.synchronize()
+        spent += time.perf_counter() - t0
+        if swap_at is None and int(table.epoch) == 1:
+            swap_at = i
+        fps = np_fingerprints(tokens.cpu().numpy(), DEDUP_BLOCK)
+        want = np.array([[f not in seen for f in row] for row in
+                         fps.tolist()])
+        seen.update(fps.ravel().tolist())
+        got = keep.cpu().numpy()
+        check(np.array_equal(got, np.repeat(want, DEDUP_BLOCK, axis=1)),
+              f"8c batch {i} (step {step}): "
+              f"{int((got[:, ::DEDUP_BLOCK] != want).sum())} blocks kept "
+              f"or dropped against the oracle")
+        check(i < DEDUP_FRESH or not got.any(),
+              f"8c batch {i}: a replayed block was kept")
+        if i in (0, DEDUP_REBUILD_AT, DEDUP_FRESH - 1, len(order) - 1):
+            cpu_fp = pipeline.doc_fingerprints(tokens.cpu(),
+                                               block=DEDUP_BLOCK).numpy()
+            card_fp = pipeline.doc_fingerprints(
+                tokens, block=DEDUP_BLOCK).cpu().numpy()
+            check(np.array_equal(card_fp, cpu_fp)
+                  and np.array_equal(card_fp, fps),
+                  f"8c batch {i}: the card's fingerprints differ from the "
+                  f"CPU's or numpy's")
+            fp_checked += 1
+    counts = probe.launch_counts()
+    check(swap_at is not None and swap_at < DEDUP_FRESH,
+          f"8c: the rebuild from batch {DEDUP_REBUILD_AT} did not swap "
+          f"before the replay ({swap_at})")
+    n_items = int(dhash.count_items(table))
+    check(n_items == len(seen), f"8c: the table holds {n_items} "
+                                f"fingerprints, the oracle {len(seen)}")
+    per = per_step(counts, len(order))
+    check({"probe_lookup", "probe2", "probe_insert", "extract",
+           "epoch_swap"} <= set(per), f"8c launched {per}")
+    res = dict(batches=len(order), fingerprints_a_batch=n_fp,
+               batches_per_s=len(order) / spent,
+               fingerprints_per_s=len(order) * n_fp / spent,
+               table_count=n_items, oracle_count=len(seen),
+               rebuild=[DEDUP_REBUILD_AT, swap_at],
+               launches_per_batch=per,
+               fingerprint_batches_checked=fp_checked)
+    del table
+    free_card()
+    log(f"  {card}; dedup over a fused linear table of capacity 2^20 "
+        f"(chunk 4096): {len(order)} batches of {n_fp} fingerprints "
+        f"({DEDUP_FRESH} fresh, then the first {DEDUP_REPLAY} again, each "
+        f"dropped whole), every keep mask equal to the host oracle's; "
+        f"rebuilt live from batch {DEDUP_REBUILD_AT}, swapped after batch "
+        f"{swap_at}; {res['batches_per_s']:.2f} batches/s "
+        f"({res['fingerprints_per_s']:.0f} fingerprints/s: synth_batch + "
+        f"dedup_batch + the rebuild's transitions, the oracle excluded); "
+        f"table count {n_items} = oracle {len(seen)}; the card's "
+        f"fingerprints equal the CPU's and numpy's on {fp_checked} "
+        f"batches; launches a batch {json.dumps(per)}")
+    return {"dedup": counts}, res
+
+
+def phase_models(device, card: str) -> dict:
+    """Phase 8: 8a (dense configurations through the paged engine), 8b
+    (hash-routed MoE decode over a live DHash override table), 8c (the
+    data pipeline's dedup).  ``launches`` sums the three."""
+    from repro_torch.kernels import probe
+    t_phase = time.perf_counter()
+    free_card()
+    log(f"  {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated on the "
+        f"card at the start")
+    res, counts, took = {}, [], {}
+    for name, fn in (("8a", lambda: models_dense(device)),
+                     ("8b", lambda: models_moe(device)),
+                     ("8c", lambda: models_dedup(device, card))):
+        t0 = time.perf_counter()
+        log(f"  -- {name}")
+        c, res[name] = fn()
+        counts += list(c.values())
+        took[name] = time.perf_counter() - t0
+    total = {k: sum(c[k] for c in counts) for k in probe.KERNELS}
+    log(f"  {card}; phase 8 took {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in took.items())
+        + "; its budget is 90 s)")
+    return dict(launches=total, seconds=took, **res)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=1200,
@@ -7471,21 +8114,23 @@ def main() -> int:
         f"max_chain 2112")
     phase_chain_flood(device, CONFIG, args.reps)
     elapsed()
+    side = dataclasses.replace(CONFIG, capacity_per_shard=SIDE_CAPACITY)
     log(f"== 3f. one rebuild-epoch step in a CUDA graph, replayed across a "
-        f"live swap against the eager engine ({CONFIG.arch_id} unreduced)")
+        f"live swap against the eager engine ({CONFIG.arch_id} at capacity "
+        f"{SIDE_CAPACITY}, half the shard)")
     graphs = {}
     for name in BACKENDS:
         graphs[name] = phase_graph(
-            device, dataclasses.replace(CONFIG, backend=name))
+            device, dataclasses.replace(side, backend=name))
     log(f"  {card}; replayed step against eager, ms: " + "; ".join(
         f"{k} {v['replay_ms']:.3f} / {v['eager_ms']:.3f} (busy "
         f"{v['replay_busy_ms']:.3f})" for k, v in graphs.items()))
     elapsed()
     log(f"== 3g. the elastic policy on the card: linear, {CONFIG.arch_id} "
-        f"unreduced, a burst past the high watermark (grow to 2^22 slots), "
-        f"a drain below the low one (a reclaim rehash fired on the device, "
-        f"then the shrink to 2^20)")
-    policy_run = phase_policy(device, CONFIG)
+        f"at capacity {SIDE_CAPACITY} (2^20 slots), a burst past the high "
+        f"watermark (grow to 2^21 slots), a drain below the low one (a "
+        f"reclaim rehash fired on the device, then the shrink to 2^19)")
+    policy_run = phase_policy(device, side)
     log(f"  {card}; " + json.dumps(policy_run))
     elapsed()
     log(f"== 3h. a linear table stack on the card: DHashStackEngine, "
@@ -7532,7 +8177,8 @@ def main() -> int:
     log("== 5. a table larger than L2 (linear, capacity 2^24, 2^25 slots)")
     phase_big(device, CONFIG, args.big_steps, args.reps)
     elapsed()
-    log("== 6. serving: paged decode of qwen3-8b at full width and depth "
+    log(f"== 6. serving: paged decode of qwen3-8b at full width, "
+        f"{SERVE_LAYERS} of 36 layers "
         "(bf16) over DHash page tables, 16 requests, runs A (one table), B "
         "(one table, live rehashes), C (4 tenants; the first 8 requests), "
         "D (4 tenants, prefix cache on chain, a fingerprint-index "
@@ -7546,6 +8192,15 @@ def main() -> int:
     walk_res, by_path["compare"], _, _ = phase_compare(device, card,
                                                        args.reps)
     kres.update(walk_res)
+    elapsed()
+    log("== 8. the models: gemma2-2b, gemma3-27b and deepseek-67b (40 of "
+        "95 layers) through the paged engine at full width in bf16; "
+        "hash-routed MoE decode of arctic-480b (2 of 35 layers) and "
+        "llama4-scout-17b-a16e (12 of 48) at full width over a live DHash "
+        "override table; the data pipeline's dedup over a fused table of "
+        "capacity 2^20")
+    models = phase_models(device, card)
+    by_path["models"] = models.pop("launches")
 
     kernels = []
     for name in probe.KERNELS:
@@ -7561,11 +8216,11 @@ def main() -> int:
         f"bounded walk, a cuckoo kick-out, a guarded two-table exchange, a "
         f"guarded arena compaction, a linked-list walk), "
         f"so library_ms is null; times are medians of {args.reps} launches, "
-        f"tables warm in L2; launches are summed over the ten main paths "
+        f"tables warm in L2; launches are summed over the eleven main paths "
         f"(launches_by_path: each path's own count: the four backends, the "
         f"table stack and its policy arm, the routed service step, the "
-        f"grid, the serving path's runs A-D and the comparison's 7b and "
-        f"7c); \"stack\" gives the six kernels with the table axis at T = "
+        f"grid, the serving path's runs A-D, the comparison's 7b and 7c, "
+        f"and the models of phase 8, 8a-8c); \"stack\" gives the six kernels with the table axis at T = "
         f"{STACK_T}; chain_walk and chain_tail give latency_bound_ms (the "
         f"longest walk's hops x one dependent load) beside bound_ms, and "
         f"binding, the larger of the two")

@@ -2,8 +2,10 @@
 reference package) and the ``--arch <id>`` registry.
 
 The registry lists only the configurations the port can run: the
-``dhash-paper`` service and ``qwen3-8b`` (attention blocks only).  The
-reference's other nine architectures need block types that are not ported
+``dhash-paper`` service, the dense attention models (``qwen3-8b``,
+``deepseek-67b``, ``gemma2-2b``, ``gemma3-27b``) and the hash-routed
+mixtures of experts (``arctic-480b``, ``llama4-scout-17b-a16e``).  The
+reference's other four architectures need block types that are not ported
 yet (ROADMAP A7); asking for one raises ``KeyError`` saying so.
 """
 from __future__ import annotations
@@ -12,12 +14,15 @@ import importlib
 
 _MODULES = {
     "qwen3-8b": "qwen3_8b",
+    "deepseek-67b": "deepseek_67b",
+    "gemma2-2b": "gemma2_2b",
+    "gemma3-27b": "gemma3_27b",
+    "arctic-480b": "arctic_480b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b",
     "dhash-paper": "dhash_paper",
 }
 # the reference's architectures whose block types wait (ROADMAP A7)
-WAITING = ("zamba2-1.2b", "gemma3-27b", "deepseek-67b", "gemma2-2b",
-           "qwen2-vl-2b", "rwkv6-3b", "arctic-480b", "llama4-scout-17b-a16e",
-           "hubert-xlarge")
+WAITING = ("zamba2-1.2b", "qwen2-vl-2b", "rwkv6-3b", "hubert-xlarge")
 
 ARCH_IDS = tuple(k for k in _MODULES if k != "dhash-paper")
 ALL_IDS = tuple(_MODULES)

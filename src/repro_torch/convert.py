@@ -49,7 +49,13 @@ Model weights (``params_from_numpy`` / ``params_to_numpy``) are the
 reference's ``transformer.init_params`` tree as nested dicts of numpy
 arrays (``{"embed": [V, D], "final_norm": [D], "attn_stack": {"wq": [L, D,
 Hq, hd], ...}}``), the same nesting of tensors in the port.  A bfloat16
-array (numpy's ``ml_dtypes.bfloat16``) travels as its 16-bit words.
+array (numpy's ``ml_dtypes.bfloat16``) travels as its 16-bit words.  A
+hash router's per-layer seeds travel with the weights as
+``"hash_seeds"``: ``uint32 [n_layers, top_k, 2]`` in the tree, int64 words
+in ``[0, 2**32)`` in the port.  The reference draws them inside its step
+(``jax.random.randint(PRNGKey(0), (n, top_k, 2), 0, 2**31 - 1)``), which
+the port does not re-implement: a caller that holds the port to the
+reference adds that array to the reference's tree before converting it.
 """
 from __future__ import annotations
 
@@ -188,6 +194,8 @@ def policy_to_numpy(pol: ElasticPolicy) -> dict:
 
 def _param_to_dev(a, device) -> torch.Tensor:
     a = np.array(a)             # a writable copy
+    if a.dtype == np.uint32:    # hash seeds: u32 words as int64
+        a = a.astype(np.int64)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(
             torch.bfloat16).to(device)
@@ -204,11 +212,14 @@ def params_from_numpy(tree: dict, device: torch.device | str = "cuda"
 
 def params_to_numpy(params: dict) -> dict:
     """Inverse of ``params_from_numpy`` (synchronises).  A bfloat16 tensor
-    comes back as an ``ml_dtypes.bfloat16`` array."""
+    comes back as an ``ml_dtypes.bfloat16`` array, the hash seeds as
+    ``uint32``."""
     out = {}
     for k, v in params.items():
         if isinstance(v, dict):
             out[k] = params_to_numpy(v)
+        elif v.dtype == torch.int64:      # hash seeds: u32 words
+            out[k] = v.cpu().numpy().astype(np.uint32)
         elif v.dtype == torch.bfloat16:
             import ml_dtypes
             out[k] = v.cpu().view(torch.int16).numpy().view(

@@ -17,10 +17,15 @@ from repro_torch import configs
 from repro_torch.models import transformer
 from repro_torch.serving.engine import ServeConfig, ServingEngine
 
+# the configurations the paged engine serves: the dense ones (it refuses
+# experts)
+SERVED = tuple(a for a in configs.ARCH_IDS
+               if not configs.get_config(a).n_experts)
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-8b", choices=configs.ARCH_IDS)
+    ap.add_argument("--arch", default="qwen3-8b", choices=SERVED)
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=16)

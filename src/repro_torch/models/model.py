@@ -12,9 +12,13 @@ F32 = torch.float32
 
 
 @torch.inference_mode()
-def decode_logits(params: dict, cfg: ArchConfig, tokens1, cache: dict):
-    """One decode step -> (logits [B,V] float32, cache')."""
-    hidden, cache = transformer.forward_decode(params, cfg, tokens1, cache)
+def decode_logits(params: dict, cfg: ArchConfig, tokens1, cache: dict,
+                  router_table=None):
+    """One decode step -> (logits [B,V] float32, cache').  ``router_table``:
+    a hash router's DHash override table (``train_step.make_router_table``),
+    looked up once a step."""
+    hidden, cache = transformer.forward_decode(params, cfg, tokens1, cache,
+                                               router_table)
     w = transformer.unembed_matrix(params, cfg)
     logits = (hidden @ w).to(F32)
     if cfg.logit_softcap > 0:

@@ -1,5 +1,6 @@
 """Model assembly, the decode half: attention blocks (``attn`` / ``local``)
-whose weights are stacked on a leading layer axis, as in the reference.
+with a SwiGLU MLP or experts (``models/moe.py``), whose weights are
+stacked on a leading layer axis, as in the reference.
 
 The reference scans the stack with ``lax.scan`` and carries per-layer
 window / rope-theta arrays as scanned flags; here the layer loop runs on
@@ -14,9 +15,19 @@ float32 copy of a whole bf16 model is ever made.  Its random streams are
 the port's own: a test that compares the two packages converts the
 reference's weights (``convert.params_from_numpy``).
 
-Not ported yet (ROADMAP A7): ``mamba2`` / ``rwkv6`` blocks, experts,
-M-RoPE, the weight-shared attention block and the training forward.  A
-configuration that needs one raises ``NotImplementedError``.
+Hash-routed experts (``use_hash_router``): the reference draws each
+layer's hash seeds inside the step, ``jax.random.randint(PRNGKey(0),
+(n_attn, top_k, 2), 0, 2**31 - 1)``.  The port carries them as data
+instead, like weights: ``init_params`` draws them from its generator into
+``params["hash_seeds"]`` ([n_attn, top_k, 2] u32 words held as int64), and
+a test that compares the two packages passes the reference's seeds across
+with its weights (``convert.params_from_numpy``).  The override table
+(``router_table``) is looked up ONCE a step for the step's token ids and
+applied in every layer.
+
+Not ported yet (ROADMAP A7): ``mamba2`` / ``rwkv6`` blocks, M-RoPE, the
+weight-shared attention block and the training forward.  A configuration
+that needs one raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,7 +39,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import dhash
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (apply_rope, embed, rms_norm,
                                       rope_angles, swiglu)
 
@@ -50,8 +63,6 @@ def check_supported(cfg: ArchConfig) -> None:
     if any(k not in ("attn", "local") for k in cfg.blocks):
         waits.append(f"blocks {sorted(set(cfg.blocks) - {'attn', 'local'})}"
                      " (models/ssm.py, models/rwkv.py)")
-    if cfg.n_experts:
-        waits.append("experts (models/moe.py)")
     if cfg.mrope_sections is not None:
         waits.append("M-RoPE (layers.apply_mrope)")
     if cfg.shared_attn_every:
@@ -70,12 +81,24 @@ def _init(gen: torch.Generator, shape: tuple, scale: float,
     """N(0, scale^2) weights of ``shape`` in ``dtype``, drawn in float32 a
     block of leading rows at a time."""
     out = torch.empty(shape, dtype=dtype, device=gen.device)
-    per = max(1, _INIT_CHUNK // max(1, math.prod(shape[1:])))
-    for i in range(0, shape[0], per):
+    _fill(out, gen, scale)
+    return out
+
+
+def _fill(out: torch.Tensor, gen: torch.Generator, scale: float) -> None:
+    """Fill ``out`` a block of leading rows at a time, each block at most
+    ``_INIT_CHUNK`` elements where a row allows it; a row larger than that
+    (one layer's experts) is filled row by row of its own."""
+    row = math.prod(out.shape[1:])
+    if row > _INIT_CHUNK and out.dim() > 2:
+        for r in out:
+            _fill(r, gen, scale)
+        return
+    per = max(1, _INIT_CHUNK // max(1, row))
+    for i in range(0, out.shape[0], per):
         blk = out[i:i + per]
         blk.copy_(torch.randn(blk.shape, generator=gen, dtype=F32,
                               device=gen.device) * scale)
-    return out
 
 
 def _zeros(shape: tuple, dtype, gen: torch.Generator) -> torch.Tensor:
@@ -83,7 +106,7 @@ def _zeros(shape: tuple, dtype, gen: torch.Generator) -> torch.Tensor:
 
 
 def _attn_block_init(gen, cfg: ArchConfig, n: int, dtype) -> dict:
-    """n stacked attention + MLP blocks."""
+    """n stacked attention + MLP (or experts) blocks."""
     d, hd = cfg.d_model, cfg.head_dim
     hq, hkv, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
     s = d ** -0.5
@@ -101,7 +124,16 @@ def _attn_block_init(gen, cfg: ArchConfig, n: int, dtype) -> dict:
     if cfg.qk_norm:
         p["q_norm"] = _zeros((n, hd), dtype, gen)
         p["k_norm"] = _zeros((n, hd), dtype, gen)
-    p |= _mlp_init(gen, cfg, n, d, f, s, dtype)
+    if cfg.n_experts:
+        e, fe = cfg.n_experts, cfg.moe_dff
+        p["router"] = _init(gen, (n, d, e), s, dtype)
+        p["we_g"] = _init(gen, (n, e, d, fe), s, dtype)
+        p["we_u"] = _init(gen, (n, e, d, fe), s, dtype)
+        p["we_d"] = _init(gen, (n, e, fe, d), fe ** -0.5, dtype)
+        if cfg.dense_ff_residual:
+            p |= _mlp_init(gen, cfg, n, d, f, s, dtype)
+    else:
+        p |= _mlp_init(gen, cfg, n, d, f, s, dtype)
     return p
 
 
@@ -127,7 +159,8 @@ def _attn_flags(cfg: ArchConfig) -> dict:
 
 def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
     """Random weights on ``gen``'s device (the reference's tree: ``embed``,
-    ``final_norm``, ``unembed`` when untied, ``attn_stack``)."""
+    ``final_norm``, ``unembed`` when untied, ``attn_stack``), and for a
+    hash router the layers' seeds, ``hash_seeds``."""
     check_supported(cfg)
     dtype = dtype_of(cfg.dtype)
     d, v = cfg.d_model, cfg.vocab_size
@@ -138,6 +171,11 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
     if not cfg.tie_embeddings:
         params["unembed"] = _init(gen, (d, v), d ** -0.5, dtype)
     params["attn_stack"] = _attn_block_init(gen, cfg, cfg.n_layers, dtype)
+    if cfg.n_experts and cfg.use_hash_router:
+        # the reference's range, randint(0, 2**31 - 1)
+        params["hash_seeds"] = torch.randint(
+            0, 2 ** 31 - 1, (cfg.n_layers, cfg.top_k, 2), generator=gen,
+            dtype=torch.int64, device=gen.device)
     return params
 
 
@@ -167,13 +205,41 @@ def _project_qkv_cfg(h: torch.Tensor, p: dict, cfg: ArchConfig):
                                 qk_norm_scale=qkn)
 
 
+def _ffn_or_moe(h: torch.Tensor, p: dict, cfg: ArchConfig, token_ids,
+                router_override, hash_seeds):
+    """Feed-forward half of an attention block: the MLP, or the experts
+    (plus the MLP where ``dense_ff_residual``).  The decode uses neither
+    the router's aux loss nor the experts' load, which the reference's
+    training forward sums (ROADMAP A7 f)."""
+    b, s, d = h.shape
+    if not cfg.n_experts:
+        return _mlp_fwd(h, p)
+    if cfg.use_hash_router:
+        eid, gate, _ = moe_lib.hash_route(token_ids.reshape(-1), None,
+                                          hash_seeds, cfg.n_experts,
+                                          cfg.top_k)
+        if router_override is not None:
+            eid = moe_lib.apply_override(eid, *router_override)
+    else:
+        eid, gate, _ = moe_lib.topk_route(h.reshape(b * s, d), p["router"],
+                                          cfg.top_k)
+    y, _ = moe_lib.moe_ffn(h, eid.reshape(b, s, -1), gate.reshape(b, s, -1),
+                           p["we_g"], p["we_u"], p["we_d"])
+    if cfg.dense_ff_residual:
+        y = y + _mlp_fwd(h, p)
+    return y
+
+
 def _attn_body(x, p, window: int, theta: float, cfg: ArchConfig, positions,
-               decode_cache, cache_len, angles=None):
+               decode_cache, cache_len, angles=None, token_ids=None,
+               router_override=None, hash_seeds=None):
     """One attention block on its decode branch: the new token's K/V
     written at ``cache_len`` (in place), then attention over the first
     ``cache_len + 1`` positions.  ``angles``: the step's
     ``rope_angles(positions, theta, hd)`` when the caller has them.
-    Returns (x', (k_cache, v_cache))."""
+    ``token_ids``, ``router_override`` (found, packed) and the layer's
+    ``hash_seeds`` route an expert block.  Returns (x', (k_cache,
+    v_cache))."""
     h = rms_norm(x, p["ln1"])
     q, k, v = _project_qkv_cfg(h, p, cfg)
     q = apply_rope(q, positions, theta, angles)
@@ -187,7 +253,8 @@ def _attn_body(x, p, window: int, theta: float, cfg: ArchConfig, positions,
                                   softcap=cfg.attn_softcap)
     x = x + out_proj(o, p["wo"])
     h2 = rms_norm(x, p["ln2"])
-    return x + _mlp_fwd(h2, p), (kc, vc)
+    return x + _ffn_or_moe(h2, p, cfg, token_ids, router_override,
+                           hash_seeds), (kc, vc)
 
 
 def layer_params(stack: dict) -> list:
@@ -224,17 +291,36 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, *,
             "v": torch.zeros(shp, dtype=dtype, device=device)}
 
 
+def hash_seeds_of(params: dict, cfg: ArchConfig) -> list:
+    """Each layer's [top_k, 2] hash seeds (a hash router), else Nones."""
+    if not (cfg.n_experts and cfg.use_hash_router):
+        return [None] * cfg.n_layers
+    if "hash_seeds" not in params:
+        raise KeyError(f"{cfg.arch_id}: a hash router needs "
+                       f"params['hash_seeds'] [n_layers, top_k, 2] (drawn "
+                       f"by init_params; the reference's through "
+                       f"convert.params_from_numpy)")
+    return list(params["hash_seeds"].unbind(0))
+
+
 @torch.inference_mode()
 def forward_decode(params: dict, cfg: ArchConfig, tokens1: torch.Tensor,
-                   cache: dict):
+                   cache: dict, router_table=None):
     """tokens1: [B,1] (or embeds [B,1,D] for stub frontends).
-    Returns (hidden [B,1,D], cache'); cache' shares ``cache``'s K/V, which
-    are written in place."""
+    ``router_table``: the DHash override table of a hash router, looked up
+    once for the step's token ids.  Returns (hidden [B,1,D], cache');
+    cache' shares ``cache``'s K/V, which are written in place."""
     check_supported(cfg)
     if cfg.frontend == "stub_embed" and tokens1.dim() == 3:
         x = tokens1.to(dtype_of(cfg.dtype))
+        token_ids = torch.zeros(x.shape[:2], dtype=I32, device=x.device)
     else:
+        token_ids = tokens1.to(I32).contiguous()
         x = embed(tokens1, params["embed"], scale=cfg.embed_scale)
+    router_override = None
+    if cfg.use_hash_router and router_table is not None:
+        router_override = dhash.lookup(router_table, token_ids.reshape(-1))
+    seeds = hash_seeds_of(params, cfg)
     clen = cache["len"]
     positions = clen[:, None]
     flags = _attn_flags(cfg)
@@ -245,7 +331,8 @@ def forward_decode(params: dict, cfg: ArchConfig, tokens1: torch.Tensor,
                                             flags["theta"])):
         x, _ = _attn_body(x, layers[i], window, theta, cfg, positions,
                           (cache["k"][i], cache["v"][i]), clen,
-                          angles[theta])
+                          angles[theta], token_ids, router_override,
+                          seeds[i])
     new_cache = dict(cache, len=clen + 1)
     x = rms_norm(x, params["final_norm"])
     return x, new_cache

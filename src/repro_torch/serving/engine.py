@@ -135,6 +135,12 @@ class ServingEngine:
     def __post_init__(self):
         c, s = self.cfg, self.sc
         transformer.check_supported(c)
+        if c.n_experts:
+            # the reference's paged step applies the dense MLP in every
+            # layer and so serves no experts (ROADMAP C)
+            raise NotImplementedError(
+                f"{c.arch_id}: the paged decode step has no expert block; "
+                f"decode it with model.decode_logits (ROADMAP C)")
         self.device = self.params["embed"].device
         self.kv = kvcache.make(c.n_layers, s.page_size, s.n_pages,
                                c.n_kv_heads, c.head_dim,

@@ -26,13 +26,17 @@ MODULES = ["repro_torch", "repro_torch.convert",
     ("struct_utils", "hashing", "buckets", "backend", "dhash", "engine",
      "policy", "distributed", "baselines")] + [
     f"repro_torch.kernels.{m}" for m in ("ref", "probe", "ops", "build")] + [
-    "repro_torch.configs", "repro_torch.configs.base",
-    "repro_torch.configs.qwen3_8b"] + [
+    "repro_torch.configs", "repro_torch.configs.base"] + [
+    f"repro_torch.configs.{m}" for m in
+    ("qwen3_8b", "deepseek_67b", "gemma2_2b", "gemma3_27b", "arctic_480b",
+     "llama4_scout_17b")] + [
     f"repro_torch.models.{m}" for m in
-    ("layers", "attention", "transformer", "model")] + [
+    ("layers", "attention", "moe", "transformer", "model")] + [
     f"repro_torch.serving.{m}" for m in
     ("prefix_cache", "eviction", "kvcache", "engine")] + [
-    "repro_torch.launch.serve"]
+    "repro_torch.launch.serve", "repro_torch.train",
+    "repro_torch.train.train_step", "repro_torch.data",
+    "repro_torch.data.pipeline"]
 
 
 def _sources():

@@ -6,11 +6,19 @@ The same inputs, made from a seed with numpy (weights: the reference's
 ``transformer.init_params`` through ``convert.params_from_numpy``), go
 through the JAX function and its counterpart in the port on the CPU.
 Tolerance 1e-5 absolute and relative on float32 hidden states, logits and
-attention outputs; configurations, flags and shapes exactly equal.  Four
-configurations: the reference serving tests' ``small``, the ``qwen3-8b``
-smoke config, one with a logit and an attention softcap, ``local`` windows,
-a scaled and untied embedding, and one with the fused QKV / gate-up
-layouts.
+attention outputs; configurations, flags and shapes exactly equal.  Seven
+configurations: the reference serving tests' ``small``, the smoke configs
+of ``qwen3-8b``, ``deepseek-67b``, ``gemma2-2b`` (local / global
+alternation, both softcaps, a scaled embedding) and ``gemma3-27b`` (5:1
+local / global, two rope thetas), one with a logit and an attention
+softcap, ``local`` windows that bite, a scaled and untied embedding, and
+one with the fused QKV / gate-up layouts.  Every configuration the port
+registers, the five of this slice's included, equals the reference's
+field for field.  The logits of the three smoke configs added with them
+(``deepseek``, ``gemma2``, ``gemma3``) are held within 1e-6 of the step's
+largest |logit| instead of elementwise: their float32 roundoff reaches
+1.02e-5 on a logit of 0.0056 (largest ~10), where an elementwise 1e-5
+fails; their hidden states and caches keep the elementwise tolerance.
 """
 from __future__ import annotations
 
@@ -41,9 +49,13 @@ from repro_torch.models import transformer as ttr  # noqa: E402
 TOL = dict(rtol=1e-5, atol=1e-5)
 SMALL = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
              vocab_size=256, dtype="float32", attn_chunk=32, loss_chunk=32)
+# a str: the smoke config of that architecture
 CONFIGS = {
     "small": ("t-serve", SMALL),
-    "qwen3-smoke": None,
+    "qwen3-smoke": "qwen3-8b",
+    "deepseek-smoke": "deepseek-67b",
+    "gemma2-smoke": "gemma2-2b",
+    "gemma3-smoke": "gemma3-27b",
     "softcap-local": ("t-softcap", dict(
         SMALL, n_layers=3, block_pattern=("local", "attn"), window=3,
         attn_softcap=20.0, logit_softcap=30.0, embed_scale=True,
@@ -55,8 +67,9 @@ CONFIGS = {
 
 
 def cfg_pair(name: str):
-    if CONFIGS[name] is None:
-        return jconfigs.get_smoke("qwen3-8b"), tconfigs.get_smoke("qwen3-8b")
+    if isinstance(CONFIGS[name], str):
+        arch = CONFIGS[name]
+        return jconfigs.get_smoke(arch), tconfigs.get_smoke(arch)
     arch, kw = CONFIGS[name]
     return JCfg(arch, "dense", **kw), TCfg(arch, "dense", **kw)
 
@@ -71,32 +84,62 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x))
 
 
+# smoke configs whose logits are held relative to the step's largest
+SCALED_LOGITS = ("deepseek-smoke", "gemma2-smoke", "gemma3-smoke")
+
+
+def close_scaled(port: torch.Tensor, ref, what: str, frac: float = 1e-6):
+    ref = np.asarray(ref, np.float32)
+    diff = float(np.abs(port.numpy() - ref).max())
+    assert diff <= frac * float(np.abs(ref).max()), (what, diff)
+
+
 def close(port: torch.Tensor, ref, what: str):
     np.testing.assert_allclose(port.float().numpy(),
                                np.asarray(ref, np.float32), err_msg=what,
                                **TOL)
 
 
+PORTED = ("qwen3-8b", "deepseek-67b", "gemma2-2b", "gemma3-27b",
+          "arctic-480b", "llama4-scout-17b-a16e")
+
+
 def test_arch_config_and_registry_are_the_reference_s():
-    for getter in ("get_config", "get_smoke"):
-        j = getattr(jconfigs, getter)("qwen3-8b")
-        t = getattr(tconfigs, getter)("qwen3-8b")
-        assert dataclasses.asdict(j) == dataclasses.asdict(t), getter
-        assert j.blocks == t.blocks and j.param_count() == t.param_count()
-        assert j.head_dim == t.head_dim
+    for arch in PORTED:
+        for getter in ("get_config", "get_smoke"):
+            j = getattr(jconfigs, getter)(arch)
+            t = getattr(tconfigs, getter)(arch)
+            assert dataclasses.asdict(j) == dataclasses.asdict(t), \
+                (arch, getter)
+            assert j.blocks == t.blocks
+            assert j.param_count() == t.param_count()
+            assert j.param_count(True) == t.param_count(True)
+            assert j.head_dim == t.head_dim
     for name in CONFIGS:
         j, t = cfg_pair(name)
         assert dataclasses.asdict(j) == dataclasses.asdict(t), name
         assert j.param_count() == t.param_count(), name
         assert dataclasses.asdict(j.scaled(n_layers=5)) == \
             dataclasses.asdict(t.scaled(n_layers=5))
-    assert tconfigs.ARCH_IDS == ("qwen3-8b",)
+    assert tconfigs.ARCH_IDS == PORTED
     assert tconfigs.get_config("dhash-paper").arch_id == "dhash-paper"
-    assert set(tconfigs.WAITING) | {"qwen3-8b"} == set(jconfigs.ARCH_IDS)
+    assert set(tconfigs.WAITING) | set(PORTED) == set(jconfigs.ARCH_IDS)
     with pytest.raises(KeyError, match="ROADMAP A7"):
-        tconfigs.get_config("gemma2-2b")
+        tconfigs.get_config("rwkv6-3b")
     with pytest.raises(KeyError, match="unknown arch"):
         tconfigs.get_smoke("no-such-arch")
+
+
+def test_the_configurations_that_still_wait():
+    """Four of the reference's architectures need blocks the port lacks
+    (M-RoPE, mamba2 with the shared block, rwkv6, the encoder-only
+    training forward); each id raises naming the roadmap."""
+    assert set(tconfigs.WAITING) == {"zamba2-1.2b", "qwen2-vl-2b",
+                                     "rwkv6-3b", "hubert-xlarge"}
+    for arch in tconfigs.WAITING:
+        for getter in (tconfigs.get_config, tconfigs.get_smoke):
+            with pytest.raises(KeyError, match="ROADMAP A7"):
+                getter(arch)
 
 
 def test_layers_against_the_reference():
@@ -220,7 +263,8 @@ def test_forward_decode_and_decode_logits_step_by_step(name):
         jl, jc = logits_fn(jp, jcfg, jnp.asarray(toks[s]), jc)
         tl, tc2 = tmodel.decode_logits(tp, tcfg, _t(toks[s]), tc2)
         assert tl.dtype == torch.float32 and tl.shape == (b, jcfg.vocab_size)
-        close(tl, jl, f"{name} logits step {s}")
+        (close_scaled if name in SCALED_LOGITS else close)(
+            tl, jl, f"{name} logits step {s}")
         for k in ("k", "v"):
             close(tc[k], jc_next[k], f"{name} cache {k} step {s}")
             close(tc2[k], jc[k], f"{name} cache {k} step {s}")
@@ -236,8 +280,26 @@ def test_forward_decode_and_decode_logits_step_by_step(name):
     (dict(shared_attn_every=2, block_pattern=("mamba2",)), "shared"),
 ])
 def test_blocks_that_wait_raise_naming_the_roadmap(override, what):
+    """A block the port lacks raises naming the roadmap.  Experts no longer
+    wait: the top-k routed case inits and decodes as the reference does
+    (three steps, logits and caches within the module's tolerance)."""
     cfg = TCfg("t-wait", "dense", **dict(SMALL, **override))
     gen = torch.Generator().manual_seed(0)
+    if what == "moe":
+        jcfg = JCfg("t-wait", "dense", **dict(SMALL, **override))
+        mine = ttr.init_params(cfg, gen)
+        assert mine["attn_stack"]["we_g"].shape == (2, 4, 64, 32)
+        assert "wg" not in mine["attn_stack"] and "hash_seeds" not in mine
+        jp, tp = params_pair(jcfg, seed=1)
+        jc = jtr.init_cache(jcfg, 2, 4)
+        tc = ttr.init_cache(cfg, 2, 4, device="cpu")
+        for s, tok in enumerate(([[3], [7]], [[7], [1]], [[250], [3]])):
+            tok = np.asarray(tok, np.int32)
+            jl, jc = jmodel.decode_logits(jp, jcfg, jnp.asarray(tok), jc)
+            tl, tc = tmodel.decode_logits(tp, cfg, _t(tok), tc)
+            close(tl, jl, f"top-k moe logits step {s}")
+            close(tc["k"], jc["k"], f"top-k moe cache step {s}")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP A7") as e:
         ttr.init_params(cfg, gen)
     assert what in str(e.value)
