@@ -179,7 +179,17 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
    (2048 fingerprints) over a fused linear table of capacity 2^20 on the
    card, 192 fresh batches and the first 64 again, rebuilt live from
    batch 100: every keep mask against a host set of numpy fingerprints,
-   the table's count against the set's.
+   the table's count against the set's; (8d) the remaining decoder
+   families at full width and depth in bf16: qwen2-vl-2b (M-RoPE) through
+   the paged engine at rest and through a live page-table rehash (the
+   same tokens and logits, and dense greedy decode's tokens), then 16
+   stub patch embeddings and 8 text tokens through ``decode_logits``
+   (finite logits); zamba2-1.2b (mamba2 and the shared attention block)
+   and rwkv6-3b through 32 eager ``decode_logits`` steps of 8 sequences
+   (step time against the weight bytes, device busy time); and one layer
+   of each recurrent family at full width in float32, its decode stepped
+   over 64 tokens against the parallel form (mamba2's chunked SSD scan,
+   RWKV6's call over the tokens), within 1e-4 of the largest |value|.
 
 Any failed check raises, so the process exits non-zero and prints no result
 line.  The last line of a good run is
@@ -4003,6 +4013,42 @@ def credited_against_profiler(run, n: int, where: str,
         log(f"  {what}: the profiler lost kernels; traced again")
 
 
+def profiled_port_kernels(run, traces: int = 3) -> dict:
+    """The port's kernels the profiler sees in one call of ``run()``, by
+    wrapper, in a window padded as ``credited_against_profiler``'s (a wait
+    and a warm-up round, a ~20 ms spin kernel at each end of the traced
+    call).  A trace that saw none of them is the profiler's loss (an
+    unpadded one-kernel window lost its kernel on an H100, run 2 of PR 27)
+    and is taken again, up to ``traces`` times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    sources = port_kernel_sources()
+    for _ in range(traces):
+        sched = schedule(wait=1, warmup=1, active=1, repeat=1)
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=sched) as prof:
+            for _ in range(2):
+                run()
+                torch.cuda.synchronize()
+                prof.step()
+            torch.cuda._sleep(int(4e7))
+            run()
+            torch.cuda._sleep(int(4e7))
+            torch.cuda.synchronize()
+            prof.step()
+        seen: dict = {}
+        for e in prof.events():
+            m = re.match(r"(?:void )?(\w+)", e.name)
+            if e.device_type == DeviceType.CUDA and m \
+                    and m.group(1) in sources:
+                k = sources[m.group(1)]
+                seen[k] = seen.get(k, 0) + 1
+        if seen:
+            return seen
+        log("  the profiler saw no kernel of the port; traced again")
+    return seen
+
+
 # 3f and 3g run on tables of half the dhash-paper shard (capacity 2^19):
 # a cut of scale, which halves their rebuild epochs and keeps the whole
 # check inside its time limit with phase 6 at full depth
@@ -5948,8 +5994,6 @@ def phase_grid(device, cfg, later: int = 40, max_steps: int = 300) -> dict:
     lookup's (arms with a cap in force), and ONE launch of the lookup
     kernel a routed stack lookup (``probe2`` / ``tc_probe2``) whatever
     S·T, held to the profiler once."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import dhash, hashing
     from repro_torch.core import distributed as tdd
@@ -6072,19 +6116,8 @@ def phase_grid(device, cfg, later: int = 40, max_steps: int = 300) -> dict:
         check(counts == live.tolist(), f"grid {name}: the tables hold "
               f"{counts}, the oracle {live.tolist()}")
         # one routed stack lookup under the profiler: one kernel of the port
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            tdd.routed_stack_lookup(g, kl, tl, axis, owner_fn,
-                                    cap_factor=2.0)
-            torch.cuda.synchronize()
-        sources = port_kernel_sources()
-        seen = {}
-        for e in prof.events():
-            m = re.match(r"(?:void )?(\w+)", e.name)
-            if e.device_type == DeviceType.CUDA and m \
-                    and m.group(1) in sources:
-                seen[sources[m.group(1)]] = seen.get(sources[m.group(1)],
-                                                     0) + 1
+        seen = profiled_port_kernels(lambda: tdd.routed_stack_lookup(
+            g, kl, tl, axis, owner_fn, cap_factor=2.0))
         check(seen == {kern: 1}, f"grid {name}: the profiler saw {seen} in "
               f"one routed stack lookup")
         refused = int(orc.refused)
@@ -7956,10 +7989,351 @@ def models_dedup(device, card: str) -> tuple:
     return {"dedup": counts}, res
 
 
+# 8d: the remaining decoder families.  qwen2-vl-2b (M-RoPE) through the
+# paged engine at rest and through a live page-table rehash (4 requests as
+# 8a's; the trigger fires after the first engine step), then a dense decode
+# of 16 stub patch embeddings and 8 text tokens for 4 sequences
+FAMILY_PATCHES, FAMILY_TEXT = 16, 8
+# zamba2-1.2b and rwkv6-3b through model.decode_logits: 8 sequences, 32
+# eager steps, whole (no layer cut)
+RECURRENT_ARCHS = ("zamba2-1.2b", "rwkv6-3b")
+RECURRENT_SEQS, RECURRENT_STEPS, RECURRENT_PROFILED = 8, 32, 4
+# one layer of each family at full width in float32, one sequence of 64
+# tokens: the recurrent decode stepped against the parallel form (mamba2's
+# chunked SSD scan, chunk 64; RWKV6's call over the 64 tokens).  Both are
+# the same exact recurrence, so they differ only by float32 summation
+# order (and the decode's one-row products): each output and final state
+# within this fraction of its largest |value|
+RECURRENT_TOKENS = 64
+RECURRENT_RTOL = 1e-4
+
+
+def device_busy_ms(run, n: int) -> float:
+    """Device time (kernels, copies, fills) a call of ``run`` over ``n``
+    calls under ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    busy = sum(getattr(e, "device_time_total", None) or e.cuda_time_total
+               for e in prof.events() if e.device_type == DeviceType.CUDA)
+    check(busy > 0, "the profiler saw no device time")
+    return busy / n / 1e3
+
+
+def within(got: torch.Tensor, want: torch.Tensor, rtol: float,
+           what: str) -> dict:
+    """The largest |got - want| held to ``rtol`` of the largest
+    |want|."""
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    check(torch.isfinite(got).all() and err <= rtol * scale,
+          f"{what}: differs by {err} (> {rtol} x {scale})")
+    return dict(max_abs_err=err, max_abs=scale)
+
+
+def family_mrope(device, card: str) -> tuple:
+    """qwen2-vl-2b, full width and depth in bf16, random weights from seed
+    0: the paged engine at rest (A) and through a live page-table rehash
+    (B), tokens and logits equal, A's held to dense greedy decode through
+    ``decode_logits`` (M-RoPE, the three streams equal for text); then
+    stub patch embeddings and text tokens through ``decode_logits``.
+    Returns (launch counts, summary)."""
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.models import model as tmodel
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import ServeConfig
+    t0 = time.perf_counter()
+    cfg = configs.get_config("qwen2-vl-2b")
+    check(cfg.dtype == "bfloat16" and cfg.n_layers == 28
+          and cfg.mrope_sections == (16, 24, 24)
+          and cfg.frontend == "stub_embed", "qwen2-vl-2b")
+    params = transformer.init_params(cfg, torch.Generator(
+        device=device).manual_seed(0))
+    wb = weight_bytes(params)
+    rng = np.random.default_rng(8)
+    reqs = [rng.integers(1, cfg.vocab_size - 1, size=int(
+        rng.integers(8, 17))).astype(np.int32).tolist() for _ in range(4)]
+    runs = {"A": serve_run("8d qwen2-vl-2b A", params, cfg,
+                           ServeConfig(**MODELS_SERVE), reqs,
+                           record=(0, 1, 2, 3)),
+            "B": serve_run("8d qwen2-vl-2b B", params, cfg,
+                           ServeConfig(**MODELS_SERVE,
+                                       rehash_load_factor=0.002),
+                           reqs, check_pages=True, record=(0, 1, 2, 3))}
+    counts = {}
+    for name, r in runs.items():
+        serve_empty(r.pop("engine"), f"8d qwen2-vl-2b {name}")
+        counts[name] = r.pop("counts")
+    a, b = runs["A"], runs["B"]
+    check(b["rehashes"] >= 1 and b["rebuilding_steps"] > 0,
+          "8d qwen2-vl-2b B: no page-table rehash started and finished "
+          "while sequences decoded")
+    check(b["outs"] == a["outs"], "8d qwen2-vl-2b: the tokens through a "
+                                  "live rehash differ from those at rest")
+    diff = logits_diff(b["logits"], a["logits"], "8d qwen2-vl-2b B")
+    check(diff == 0, f"8d qwen2-vl-2b: B's logits differ from A's by "
+                     f"{diff}")
+    dense = paged_against_dense(params, cfg, reqs, a["outs"], a["logits"],
+                                device)
+    for i, d in enumerate(dense):
+        check(d["margin_above_diff"] == d["argmax_equal_there"],
+              f"8d qwen2-vl-2b request {i}: bf16 paged and dense argmax "
+              f"differ where the top-2 margin exceeds "
+              f"{d['max_abs_logit_diff']}")
+        check(d["dense_greedy_equal"],
+              f"8d qwen2-vl-2b request {i}: dense decode's greedy tokens "
+              f"differ from the engine's {a['outs'][i]}")
+    want = {"probe_lookup", "probe2", "probe_insert"}
+    check(want <= {k for k, v in counts["A"].items() if v},
+          f"8d qwen2-vl-2b A launched {counts['A']}")
+    check(want | {"extract"} <= {k for k, v in counts["B"].items() if v},
+          f"8d qwen2-vl-2b B launched {counts['B']}")
+    # the frontend's stub: patch embeddings [B, 1, D] a step, then text
+    embeds = pipeline.synth_embeds(pipeline.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=FAMILY_PATCHES, global_batch=4),
+        0, cfg.d_model, device=device)
+    cache = transformer.init_cache(cfg, 4, FAMILY_PATCHES + FAMILY_TEXT,
+                                   device=device)
+    tok, finite = None, 0
+    for i in range(FAMILY_PATCHES + FAMILY_TEXT):
+        inp = embeds[:, i:i + 1] if i < FAMILY_PATCHES else tok
+        logits, cache = tmodel.decode_logits(params, cfg, inp, cache)
+        check(logits.shape == (4, cfg.vocab_size), "8d patch logits shape")
+        finite += bool(torch.isfinite(logits).all())
+        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+    check(finite == FAMILY_PATCHES + FAMILY_TEXT,
+          f"8d qwen2-vl-2b: {FAMILY_PATCHES + FAMILY_TEXT - finite} "
+          f"patch / text steps gave a logit that is not finite")
+    del params, cache, embeds
+    free_card()
+    out = dict(
+        layers=cfg.n_layers, weight_gb=wb / 1e9,
+        step_ms_median={n: r["step_ms"]["median"] for n, r in runs.items()},
+        steps=a["steps"], rehashes=b["rehashes"],
+        rebuilding_steps=b["rebuilding_steps"], logits_diff_b_to_a=diff,
+        launches_per_step={n: per_step(counts[n], runs[n]["steps"])
+                           for n in runs},
+        positions=sum(d["positions"] for d in dense),
+        argmax_checked=sum(d["margin_above_diff"] for d in dense),
+        dense_greedy_equal=sum(d["dense_greedy_equal"] for d in dense),
+        max_abs_logit_diff=max(d["max_abs_logit_diff"] for d in dense),
+        patch_text_steps_finite=finite, seconds=time.perf_counter() - t0)
+    log(f"  {card}; qwen2-vl-2b: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, "
+        f"M-RoPE sections {cfg.mrope_sections}, {out['weight_gb']:.2f} GB "
+        f"bf16; 4 requests x {MODELS_SERVE['max_new_tokens']} tokens in "
+        f"{a['steps']} steps; step ms median A {a['step_ms']['median']:.2f} "
+        f"B {b['step_ms']['median']:.2f}; B rehashed the page table "
+        f"{b['rehashes']} times, {b['rebuilding_steps']} steps "
+        f"mid-rebuild, the table right after every step; B's tokens equal "
+        f"A's, logits bit for bit (max |diff| {diff}); dense greedy decode "
+        f"gives the engine's tokens for {out['dense_greedy_equal']} of 4 "
+        f"requests, argmax equal at all {out['argmax_checked']} of "
+        f"{out['positions']} positions where the top-2 margin exceeds the "
+        f"largest |logit diff| ({out['max_abs_logit_diff']}); "
+        f"{FAMILY_PATCHES} stub patch embeddings + {FAMILY_TEXT} text "
+        f"tokens for 4 sequences: every logit finite; launches a step "
+        + json.dumps(out["launches_per_step"])
+        + f"; {out['seconds']:.1f} s")
+    total = {k: counts["A"][k] + counts["B"][k] for k in counts["A"]}
+    return total, out
+
+
+def family_recurrent(device, card: str) -> dict:
+    """zamba2-1.2b (38 mamba2 layers, the shared block applied 7 times)
+    and rwkv6-3b (32 layers), full width and depth in bf16, random weights
+    from seed 0: ``RECURRENT_STEPS`` eager ``decode_logits`` steps of
+    ``RECURRENT_SEQS`` sequences, each timed to a synchronise, then
+    ``RECURRENT_PROFILED`` more under the profiler for the device busy
+    time.  They launch no DHash kernel."""
+    from repro_torch import configs
+    from repro_torch.kernels import probe
+    from repro_torch.models import model as tmodel
+    from repro_torch.models import transformer
+    out = {}
+    for arch in RECURRENT_ARCHS:
+        t0 = time.perf_counter()
+        cfg = configs.get_config(arch)
+        check(cfg.dtype == "bfloat16", arch)
+        params = transformer.init_params(cfg, torch.Generator(
+            device=device).manual_seed(0))
+        wb = weight_bytes(params)
+        # a step reads every weight but the embedding table, of which it
+        # gathers 8 rows, unless the unembedding is the table itself
+        read = weight_bytes(params, skip=() if cfg.tie_embeddings
+                            else ("embed",))
+        n = RECURRENT_STEPS + 2 + RECURRENT_PROFILED
+        cache = transformer.init_cache(cfg, RECURRENT_SEQS, n,
+                                       device=device)
+        # the recurrent states a step reads and writes (float32 SSD / WKV
+        # states, the conv windows and previous tokens)
+        state = sum(v.numel() * v.element_size() for k, v in cache.items()
+                    if k not in ("len", "k", "v"))
+        toks = torch.randint(1, cfg.vocab_size - 1, (n, RECURRENT_SEQS, 1),
+                             generator=torch.Generator(device=device)
+                             .manual_seed(1), device=device,
+                             dtype=torch.int32)
+        it = iter(toks)
+
+        def step():
+            nonlocal cache
+            lg, cache = tmodel.decode_logits(params, cfg, next(it), cache)
+            return lg
+        for _ in range(2):          # warm-up
+            step()
+        torch.cuda.synchronize()
+        probe.reset_launches()
+        times, finite = [], 0
+        for _ in range(RECURRENT_STEPS):
+            t1 = time.perf_counter()
+            lg = step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+            finite += bool(torch.isfinite(lg).all())
+        launched = per_step(probe.launch_counts(), RECURRENT_STEPS)
+        check(finite == RECURRENT_STEPS, f"8d {arch}: a logit is not finite")
+        check(not launched, f"8d {arch} launched {launched}")
+        busy = device_busy_ms(step, RECURRENT_PROFILED)
+        med = statistics.median(times)
+        del params, cache, toks
+        free_card()
+        out[arch] = o = dict(
+            layers=cfg.n_layers, blocks=sorted(set(cfg.blocks)),
+            shared_block_applications=(-(-cfg.blocks.count("mamba2")
+                                         // cfg.shared_attn_every)
+                                       if cfg.shared_attn_every else 0),
+            weight_gb=wb / 1e9, weight_gb_read_a_step=read / 1e9,
+            state_gb=state / 1e9,
+            weight_bytes_ms=read / HBM_BYTES_PER_S * 1e3,
+            bytes_bound_ms=(read + 2 * state) / HBM_BYTES_PER_S * 1e3,
+            step_ms_median=med, step_ms_max=max(times),
+            device_busy_ms=busy, idle_share=max(0.0, 1 - busy / med),
+            seconds=time.perf_counter() - t0)
+        log(f"  {card}; {arch}: {cfg.n_layers} layers "
+            f"({'/'.join(o['blocks'])}"
+            + (f", the shared block applied "
+               f"{o['shared_block_applications']} times"
+               if o["shared_block_applications"] else "")
+            + f"), d_model {cfg.d_model}, {o['weight_gb']:.2f} GB bf16; "
+            f"{RECURRENT_SEQS} sequences x {RECURRENT_STEPS} eager steps: "
+            f"step ms median {med:.2f} (max {o['step_ms_max']:.2f}) against "
+            f"{o['weight_bytes_ms']:.2f} ms of weight bytes "
+            f"({o['weight_gb_read_a_step']:.2f} GB a step at "
+            f"{HBM_TB_S:.2f} TB/s; {o['bytes_bound_ms']:.2f} ms with the "
+            f"{o['state_gb']:.3f} GB of recurrent state read and written); "
+            f"device busy {busy:.2f} ms a step ({RECURRENT_PROFILED} steps "
+            f"profiled), idle share {o['idle_share']:.3f}; every logit "
+            f"finite; no DHash launch; {o['seconds']:.1f} s")
+    return out
+
+
+def family_recurrence_checks(device, card: str) -> dict:
+    """One layer of each recurrent family at full width in float32 (random
+    weights from seed 2, the constant leaves redrawn so that they bite),
+    one sequence of ``RECURRENT_TOKENS`` tokens: the decode stepped token
+    by token against the parallel form, outputs and final states within
+    ``RECURRENT_RTOL`` of their largest |value|."""
+    from repro_torch import configs
+    from repro_torch.models import rwkv, ssm
+    from repro_torch.models import transformer
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(2)
+    f32 = torch.float32
+
+    def init(shape, scale):
+        return transformer._init(gen, shape, scale, f32)
+
+    def draw(shape, lo, hi):
+        return torch.rand(shape, generator=gen, device=device) * (hi - lo) \
+            + lo
+    res = {}
+    # mamba2 (zamba2-1.2b's widths)
+    z = configs.get_config("zamba2-1.2b")
+    kw = transformer._mamba_kw(z)
+    p = {k: v[0] for k, v in ssm.mamba2_init(
+        init, 1, z.d_model, dtype=f32, device=device,
+        **{k: v for k, v in kw.items() if k != "headdim"}).items()}
+    p["dt_bias"] = draw(p["dt_bias"].shape, -1.0, 1.0)
+    p["norm"] = draw(p["norm"].shape, -0.1, 0.1)
+    x = torch.randn((1, RECURRENT_TOKENS, z.d_model), generator=gen,
+                    device=device)
+    y, st = ssm.mamba2_forward(x, p, chunk=RECURRENT_TOKENS,
+                               final_state=True, **kw)
+    dec = {"h": torch.zeros_like(st["h"]), "conv": torch.zeros_like(
+        st["conv"])}
+    ys = []
+    for t in range(RECURRENT_TOKENS):
+        y1, dec = ssm.mamba2_decode(x[:, t:t + 1], dec, p, **kw)
+        ys.append(y1)
+    res["mamba2"] = {
+        "y": within(torch.cat(ys, 1), y, RECURRENT_RTOL, "8d mamba2 y"),
+        "h": within(dec["h"], st["h"], RECURRENT_RTOL, "8d mamba2 state"),
+        "conv": within(dec["conv"], st["conv"], RECURRENT_RTOL,
+                       "8d mamba2 conv window")}
+    # RWKV6 (rwkv6-3b's widths)
+    r = configs.get_config("rwkv6-3b")
+    mix = dict(n_heads=r.d_model // r.rwkv_head_size,
+               head_size=r.rwkv_head_size)
+    p = {k: v[0] for k, v in rwkv.rwkv6_init(
+        init, 1, r.d_model, r.d_ff, dtype=f32, device=device,
+        **mix).items()}
+    for k in [k for k in p if "mu_" in k]:
+        p[k] = draw(p[k].shape, 0.0, 1.0)
+    p["w0"] = draw(p["w0"].shape, -3.0, 0.5)
+    p["u"] = draw(p["u"].shape, -0.5, 0.5)
+    p["ln_x"] = draw(p["ln_x"].shape, -0.1, 0.1)
+    x = torch.randn((1, RECURRENT_TOKENS, r.d_model), generator=gen,
+                    device=device)
+    y, s = rwkv.rwkv6_time_mix(x, p, **mix)
+    c = rwkv.rwkv6_channel_mix(x, p)
+    ys, cs, st = [], [], None
+    for t in range(RECURRENT_TOKENS):
+        prev = x[:, t - 1:t] if t else None
+        y1, st = rwkv.rwkv6_time_mix(x[:, t:t + 1], p, prev_token=prev, s0=st,
+                                     **mix)
+        ys.append(y1)
+        cs.append(rwkv.rwkv6_channel_mix(x[:, t:t + 1], p, prev))
+    res["rwkv6"] = {
+        "time_mix": within(torch.cat(ys, 1), y, RECURRENT_RTOL,
+                           "8d rwkv6 time mix"),
+        "state": within(st, s, RECURRENT_RTOL, "8d rwkv6 state"),
+        "channel_mix": within(torch.cat(cs, 1), c, RECURRENT_RTOL,
+                              "8d rwkv6 channel mix")}
+    del p, x, y, s, c, ys, cs, st
+    free_card()
+    res["seconds"] = time.perf_counter() - t0
+    log(f"  {card}; one layer at full width in float32, {RECURRENT_TOKENS} "
+        f"tokens of one sequence, the decode stepped against the parallel "
+        f"form (mamba2: ssd_chunked, chunk {RECURRENT_TOKENS}; RWKV6: one "
+        f"call over the tokens), each within {RECURRENT_RTOL} of its "
+        f"largest |value| (float32 summation order only): "
+        + json.dumps(res))
+    return res
+
+
+def models_families(device, card: str) -> tuple:
+    """8d: the remaining decoder families — qwen2-vl-2b through the paged
+    engine, zamba2-1.2b and rwkv6-3b through ``decode_logits``, and each
+    recurrence held to its parallel form.  Returns (launch counts, summary)."""
+    counts, mrope = family_mrope(device, card)
+    res = dict(mrope=mrope, recurrent=family_recurrent(device, card),
+               recurrence_checks=family_recurrence_checks(device, card))
+    log(f"  {card}; 8d's DHash launches (qwen2-vl-2b's runs A and B; "
+        f"zamba2 and rwkv6 launch none): " + json.dumps(
+            {k: v for k, v in counts.items() if v}))
+    return {"qwen2-vl-2b": counts}, res
+
+
 def phase_models(device, card: str) -> dict:
     """Phase 8: 8a (dense configurations through the paged engine), 8b
     (hash-routed MoE decode over a live DHash override table), 8c (the
-    data pipeline's dedup).  ``launches`` sums the three."""
+    data pipeline's dedup), 8d (the remaining decoder families).
+    ``launches`` sums the four."""
     from repro_torch.kernels import probe
     t_phase = time.perf_counter()
     free_card()
@@ -7968,7 +8342,8 @@ def phase_models(device, card: str) -> dict:
     res, counts, took = {}, [], {}
     for name, fn in (("8a", lambda: models_dense(device)),
                      ("8b", lambda: models_moe(device)),
-                     ("8c", lambda: models_dedup(device, card))):
+                     ("8c", lambda: models_dedup(device, card)),
+                     ("8d", lambda: models_families(device, card))):
         t0 = time.perf_counter()
         log(f"  -- {name}")
         c, res[name] = fn()
@@ -7977,7 +8352,7 @@ def phase_models(device, card: str) -> dict:
     total = {k: sum(c[k] for c in counts) for k in probe.KERNELS}
     log(f"  {card}; phase 8 took {time.perf_counter() - t_phase:.1f} s ("
         + ", ".join(f"{k} {v:.1f} s" for k, v in took.items())
-        + "; its budget is 90 s)")
+        + "; its budget is 150 s, 8d's 60 s)")
     return dict(launches=total, seconds=took, **res)
 
 
@@ -8198,7 +8573,9 @@ def main() -> int:
         "hash-routed MoE decode of arctic-480b (2 of 35 layers) and "
         "llama4-scout-17b-a16e (12 of 48) at full width over a live DHash "
         "override table; the data pipeline's dedup over a fused table of "
-        "capacity 2^20")
+        "capacity 2^20; the remaining decoder families, whole: qwen2-vl-2b "
+        "(M-RoPE) through the paged engine, zamba2-1.2b and rwkv6-3b "
+        "through decode_logits, each recurrence against its parallel form")
     models = phase_models(device, card)
     by_path["models"] = models.pop("launches")
 
@@ -8220,7 +8597,7 @@ def main() -> int:
         f"(launches_by_path: each path's own count: the four backends, the "
         f"table stack and its policy arm, the routed service step, the "
         f"grid, the serving path's runs A-D, the comparison's 7b and 7c, "
-        f"and the models of phase 8, 8a-8c); \"stack\" gives the six kernels with the table axis at T = "
+        f"and the models of phase 8, 8a-8d); \"stack\" gives the six kernels with the table axis at T = "
         f"{STACK_T}; chain_walk and chain_tail give latency_bound_ms (the "
         f"longest walk's hops x one dependent load) beside bound_ms, and "
         f"binding, the larger of the two")

@@ -17,8 +17,9 @@ from repro_torch import configs
 from repro_torch.models import transformer
 from repro_torch.serving.engine import ServeConfig, ServingEngine
 
-# the configurations the paged engine serves: the dense ones (it refuses
-# experts)
+# the configurations the paged engine may serve: not the experts (ROADMAP
+# C); of these, one without an attention block is refused below, with the
+# reference's message
 SERVED = tuple(a for a in configs.ARCH_IDS
                if not configs.get_config(a).n_experts)
 
@@ -36,6 +37,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = configs.get_smoke(args.arch)
+    if not any(k in ("attn", "local") for k in cfg.blocks):
+        raise SystemExit(f"{args.arch}: paged-KV serving engine targets "
+                         "attention archs; decode SSM / RWKV models with "
+                         "model.decode_logits")
     device = torch.device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = transformer.init_params(cfg, gen)

@@ -1,6 +1,7 @@
-"""Shared neural layers: norms, rotary embeddings, the SwiGLU MLP and token
-embeddings.  Each casts where the reference casts: norms and the SiLU gate
-compute in float32 and return the input's dtype."""
+"""Shared neural layers: norms, rotary embeddings (M-RoPE too), the
+SwiGLU MLP and token embeddings.  Each casts where the reference casts:
+norms and the SiLU gate compute in float32 and return the input's
+dtype."""
 from __future__ import annotations
 
 import numpy as np
@@ -37,16 +38,38 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
                             / head_dim))
 
 
+def _rope_angle(positions: torch.Tensor, theta: float,
+                head_dim: int) -> torch.Tensor:
+    """positions [...] (ints) -> rotary angles [..., hd/2] in float32."""
+    exp = torch.arange(0, head_dim, 2, dtype=F32,
+                       device=positions.device) / head_dim
+    freqs = 1.0 / torch.pow(torch.full((), theta, dtype=F32,
+                                       device=positions.device), exp)
+    return positions[..., None].to(F32) * freqs
+
+
 def rope_angles(positions: torch.Tensor, theta: float, head_dim: int):
     """(sin, cos) [..., S, 1, hd/2] of the rotary angles at ``positions``
     [..., S] for ``theta`` (a float: the layer's, from
     ``transformer._attn_flags``), in float32.  Layers that share a theta
     share them within a step."""
-    exp = torch.arange(0, head_dim, 2, dtype=F32,
-                       device=positions.device) / head_dim
-    freqs = 1.0 / torch.pow(torch.full((), theta, dtype=F32,
-                                       device=positions.device), exp)
-    ang = positions[..., None].to(F32) * freqs              # [..., S, hd/2]
+    ang = _rope_angle(positions, theta, head_dim)           # [..., S, hd/2]
+    return torch.sin(ang)[..., None, :], torch.cos(ang)[..., None, :]
+
+
+def mrope_angles(positions: torch.Tensor, theta: float, head_dim: int,
+                 sections: tuple[int, int, int]):
+    """Qwen2-VL's multimodal rotary angles: ``positions`` [3, ..., S] (the
+    t / h / w streams); ``sections`` split the hd/2 frequency pairs among
+    the three streams, in order.  Returns (sin, cos) [..., S, 1, hd/2] as
+    ``rope_angles``: with three equal streams, the same values."""
+    ang = _rope_angle(positions, theta, head_dim)       # [3, ..., S, hd/2]
+    s0, s1, _ = sections
+    sec = torch.full((head_dim // 2,), 2, dtype=torch.int64,
+                     device=positions.device)
+    sec[:s0 + s1] = 1
+    sec[:s0] = 0
+    ang = torch.gather(ang, 0, sec.expand(1, *ang.shape[1:]))[0]
     return torch.sin(ang)[..., None, :], torch.cos(ang)[..., None, :]
 
 
@@ -60,6 +83,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: tuple[int, int, int], angles=None) -> torch.Tensor:
+    """M-RoPE: x [..., S, H, hd]; positions [3, ..., S].  ``angles`` is
+    ``mrope_angles(positions, theta, hd, sections)`` when the caller has
+    it."""
+    return apply_rope(x, positions, theta, angles or mrope_angles(
+        positions, theta, x.shape[-1], sections))
 
 
 # ---------------------------------------------------------------------------

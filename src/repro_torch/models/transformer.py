@@ -1,19 +1,31 @@
-"""Model assembly, the decode half: attention blocks (``attn`` / ``local``)
-with a SwiGLU MLP or experts (``models/moe.py``), whose weights are
-stacked on a leading layer axis, as in the reference.
+"""Model assembly, the decode half, for every decoder family of the
+reference: attention blocks (``attn`` / ``local``, rotary or M-RoPE) with
+a SwiGLU MLP or experts (``models/moe.py``); mamba2 blocks
+(``models/ssm.py``) with zamba2's weight-SHARED attention block between
+groups of them; RWKV6 blocks (``models/rwkv.py``).  Weights are stacked on
+a leading layer axis, as in the reference.
 
-The reference scans the stack with ``lax.scan`` and carries per-layer
+The reference scans each stack with ``lax.scan`` and carries per-layer
 window / rope-theta arrays as scanned flags; here the layer loop runs on
 the host, so ``_attn_flags`` gives those per-layer values as Python lists
-and no step creates a tensor from host data.  ``forward_decode`` writes the
-new token's K/V into the caller's cache IN PLACE (the returned cache shares
-its tensors) and returns the hidden state before the unembedding.
+and no step creates a tensor from host data.  ``forward_decode`` writes
+the new token's K/V and every recurrent state (``ssm_h``, ``ssm_conv``,
+``wkv``, ``tm_prev``, ``cm_prev``) into the caller's cache IN PLACE (the
+returned cache shares its tensors) and returns the hidden state before
+the unembedding.  It takes the reference's branches in the reference's
+order: a shared block (groups of mamba2 layers, then the shared block
+with its own K/V cache each time it is applied), else mamba2, else RWKV6,
+else attention.  So a pattern that mixes ``attn`` with ``mamba2`` or
+``rwkv6`` and has no shared block decodes its recurrent stack only, as
+the reference's does (ROADMAP C).
 
 Random initialisation takes an explicit ``torch.Generator`` and fills each
 weight stack a block of layers at a time in float32 before the cast, so no
 float32 copy of a whole bf16 model is ever made.  Its random streams are
 the port's own: a test that compares the two packages converts the
-reference's weights (``convert.params_from_numpy``).
+reference's weights (``convert.params_from_numpy``).  The constant leaves
+(``a_log``, ``d_skip``, ``dt_bias``, ``mu_*``, ``cmu_*``, ``w0``, ``u``)
+are the reference's values.
 
 Hash-routed experts (``use_hash_router``): the reference draws each
 layer's hash seeds inside the step, ``jax.random.randint(PRNGKey(0),
@@ -25,9 +37,9 @@ with its weights (``convert.params_from_numpy``).  The override table
 (``router_table``) is looked up ONCE a step for the step's token ids and
 applied in every layer.
 
-Not ported yet (ROADMAP A7): ``mamba2`` / ``rwkv6`` blocks, M-RoPE, the
-weight-shared attention block and the training forward.  A configuration
-that needs one raises ``NotImplementedError``.
+Not ported yet: the training forward (ROADMAP A7 f), and with it the
+encoder-only ``hubert-xlarge``, which has no decode step; such a
+configuration raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -42,8 +54,10 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import dhash
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.layers import (apply_rope, embed, rms_norm,
-                                      rope_angles, swiglu)
+from repro_torch.models import rwkv as rwkv_lib
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.layers import (apply_rope, embed, mrope_angles,
+                                      rms_norm, rope_angles, swiglu)
 
 F32 = torch.float32
 I32 = torch.int32
@@ -57,19 +71,34 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a configuration whose blocks the
-    port does not have yet; never take another path."""
-    waits = []
-    if any(k not in ("attn", "local") for k in cfg.blocks):
-        waits.append(f"blocks {sorted(set(cfg.blocks) - {'attn', 'local'})}"
-                     " (models/ssm.py, models/rwkv.py)")
-    if cfg.mrope_sections is not None:
-        waits.append("M-RoPE (layers.apply_mrope)")
-    if cfg.shared_attn_every:
-        waits.append("the weight-shared attention block")
-    if waits:
+    """Raise ``NotImplementedError`` for a configuration the port cannot
+    decode yet; never take another path."""
+    if cfg.encoder_only:
         raise NotImplementedError(
-            f"{cfg.arch_id}: {', '.join(waits)} not ported yet (ROADMAP A7)")
+            f"{cfg.arch_id}: an encoder-only model has no decode step; it "
+            f"waits for the training forward (ROADMAP A7 f)")
+    unknown = set(cfg.blocks) - {"attn", "local", "mamba2", "rwkv6"}
+    if unknown:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: blocks {sorted(unknown)} unknown (ROADMAP A7)")
+
+
+def _counts(cfg: ArchConfig) -> tuple[int, int, int]:
+    """Layers of each stack: (attention, mamba2, RWKV6)."""
+    kinds = cfg.blocks
+    return (sum(k in ("attn", "local") for k in kinds),
+            kinds.count("mamba2"), kinds.count("rwkv6"))
+
+
+def d_inner(cfg: ArchConfig) -> int:
+    return cfg.ssm_expand * cfg.d_model
+
+
+def _mamba_kw(cfg: ArchConfig) -> dict:
+    di = d_inner(cfg)
+    return dict(d_inner=di, n_heads=di // cfg.ssm_headdim,
+                headdim=cfg.ssm_headdim, d_state=cfg.ssm_state,
+                conv_k=cfg.ssm_conv)
 
 
 # ---------------------------------------------------------------------------
@@ -158,9 +187,11 @@ def _attn_flags(cfg: ArchConfig) -> dict:
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
-    """Random weights on ``gen``'s device (the reference's tree: ``embed``,
-    ``final_norm``, ``unembed`` when untied, ``attn_stack``), and for a
-    hash router the layers' seeds, ``hash_seeds``."""
+    """Random weights on ``gen``'s device, the reference's tree:
+    ``embed``, ``final_norm``, ``unembed`` when untied, and the stacks the
+    block pattern has (``attn_stack``, ``mamba_stack``, ``rwkv_stack``,
+    ``shared_attn``); for a hash router the layers' seeds,
+    ``hash_seeds``."""
     check_supported(cfg)
     dtype = dtype_of(cfg.dtype)
     d, v = cfg.d_model, cfg.vocab_size
@@ -170,11 +201,36 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
     }
     if not cfg.tie_embeddings:
         params["unembed"] = _init(gen, (d, v), d ** -0.5, dtype)
-    params["attn_stack"] = _attn_block_init(gen, cfg, cfg.n_layers, dtype)
+    n_attn, n_mamba, n_rwkv = _counts(cfg)
+
+    def init(shape, scale):
+        return _init(gen, shape, scale, dtype)
+    if n_attn:
+        params["attn_stack"] = _attn_block_init(gen, cfg, n_attn, dtype)
+    if n_mamba:
+        kw = _mamba_kw(cfg)
+        kw.pop("headdim")
+        params["mamba_stack"] = dict(
+            ssm_lib.mamba2_init(init, n_mamba, d, dtype=dtype,
+                                device=gen.device, **kw),
+            ln=_zeros((n_mamba, d), dtype, gen))
+    if n_rwkv:
+        params["rwkv_stack"] = dict(
+            rwkv_lib.rwkv6_init(init, n_rwkv, d, cfg.d_ff,
+                                n_heads=d // cfg.rwkv_head_size,
+                                head_size=cfg.rwkv_head_size, dtype=dtype,
+                                device=gen.device,
+                                fused_rkvg=cfg.rwkv_fused_rkvg),
+            ln1=_zeros((n_rwkv, d), dtype, gen),
+            ln2=_zeros((n_rwkv, d), dtype, gen))
+    if cfg.shared_attn_every:
+        shared = cfg.scaled(n_experts=0, block_pattern=("attn",))
+        params["shared_attn"] = {k: t[0] for k, t in _attn_block_init(
+            gen, shared, 1, dtype).items()}
     if cfg.n_experts and cfg.use_hash_router:
         # the reference's range, randint(0, 2**31 - 1)
         params["hash_seeds"] = torch.randint(
-            0, 2 ** 31 - 1, (cfg.n_layers, cfg.top_k, 2), generator=gen,
+            0, 2 ** 31 - 1, (n_attn, cfg.top_k, 2), generator=gen,
             dtype=torch.int64, device=gen.device)
     return params
 
@@ -235,13 +291,14 @@ def _attn_body(x, p, window: int, theta: float, cfg: ArchConfig, positions,
                router_override=None, hash_seeds=None):
     """One attention block on its decode branch: the new token's K/V
     written at ``cache_len`` (in place), then attention over the first
-    ``cache_len + 1`` positions.  ``angles``: the step's
-    ``rope_angles(positions, theta, hd)`` when the caller has them.
-    ``token_ids``, ``router_override`` (found, packed) and the layer's
-    ``hash_seeds`` route an expert block.  Returns (x', (k_cache,
-    v_cache))."""
+    ``cache_len + 1`` positions.  ``positions``: [B, 1], or [3, B, 1] with
+    M-RoPE.  ``angles``: the step's ``_step_angles`` entry for ``theta``
+    when the caller has it.  ``token_ids``, ``router_override`` (found,
+    packed) and the layer's ``hash_seeds`` route an expert block.  Returns
+    (x', (k_cache, v_cache))."""
     h = rms_norm(x, p["ln1"])
     q, k, v = _project_qkv_cfg(h, p, cfg)
+    angles = angles or _step_angles(cfg, positions, [theta])[theta]
     q = apply_rope(q, positions, theta, angles)
     k = apply_rope(k, positions, theta, angles)
     kc, vc = decode_cache
@@ -255,6 +312,47 @@ def _attn_body(x, p, window: int, theta: float, cfg: ArchConfig, positions,
     h2 = rms_norm(x, p["ln2"])
     return x + _ffn_or_moe(h2, p, cfg, token_ids, router_override,
                            hash_seeds), (kc, vc)
+
+
+def _step_angles(cfg: ArchConfig, positions: torch.Tensor,
+                 thetas) -> dict:
+    """The step's rotary (sin, cos) for each theta of ``thetas``.  M-RoPE
+    (``mrope_sections``) rotates every attention layer by
+    ``cfg.rope_theta`` over the three position streams, as the reference
+    does, whatever the layer's theta."""
+    if cfg.mrope_sections is not None:
+        a = mrope_angles(positions, float(np.float32(cfg.rope_theta)),
+                         cfg.head_dim, cfg.mrope_sections)
+        return dict.fromkeys(thetas, a)
+    return {th: rope_angles(positions, th, cfg.head_dim) for th in thetas}
+
+
+def _mamba_body(x, p, cfg: ArchConfig, h_cache, conv_cache):
+    """One mamba2 block on its decode branch; its state written into
+    ``h_cache`` / ``conv_cache`` in place."""
+    y, st = ssm_lib.mamba2_decode(
+        rms_norm(x, p["ln"]), {"h": h_cache, "conv": conv_cache}, p,
+        **_mamba_kw(cfg))
+    h_cache.copy_(st["h"])
+    conv_cache.copy_(st["conv"])
+    return x + y
+
+
+def _rwkv_body(x, p, cfg: ArchConfig, wkv, tm_prev, cm_prev):
+    """One RWKV6 block (time mix, then channel mix) on its decode branch;
+    its states written into ``wkv`` / ``tm_prev`` / ``cm_prev`` in
+    place."""
+    h = rms_norm(x, p["ln1"])
+    y, s1 = rwkv_lib.rwkv6_time_mix(
+        h, p, n_heads=cfg.d_model // cfg.rwkv_head_size,
+        head_size=cfg.rwkv_head_size, prev_token=tm_prev, s0=wkv)
+    x = x + y
+    h2 = rms_norm(x, p["ln2"])
+    y2 = rwkv_lib.rwkv6_channel_mix(h2, p, prev_token=cm_prev)
+    wkv.copy_(s1)
+    tm_prev.copy_(h)
+    cm_prev.copy_(h2)
+    return x + y2
 
 
 def layer_params(stack: dict) -> list:
@@ -283,21 +381,44 @@ def unembed_matrix(params: dict, cfg: ArchConfig) -> torch.Tensor:
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, *,
                device: torch.device | str = "cuda") -> dict:
+    """The reference's decode cache: ``len``; ``k`` / ``v`` [n, B, max_len,
+    Hkv, hd] for the attention stack, or for a shared block one pair each
+    time it is applied (``ceil(n_mamba / shared_attn_every)``); ``ssm_h``
+    (float32) and ``ssm_conv`` for mamba2; ``wkv`` (float32), ``tm_prev``
+    and ``cm_prev`` for RWKV6."""
     check_supported(cfg)
     dtype = dtype or dtype_of(cfg.dtype)
-    shp = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"len": torch.zeros((batch,), dtype=I32, device=device),
-            "k": torch.zeros(shp, dtype=dtype, device=device),
-            "v": torch.zeros(shp, dtype=dtype, device=device)}
+
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+    n_attn, n_mamba, n_rwkv = _counts(cfg)
+    cache = {"len": zeros((batch,), I32)}
+    kv = (n_attn, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.shared_attn_every:
+        kv = (-(-n_mamba // cfg.shared_attn_every),) + kv[1:]
+    if n_attn or cfg.shared_attn_every:
+        cache["k"], cache["v"] = zeros(kv), zeros(kv)
+    if n_mamba:
+        di = d_inner(cfg)
+        cache["ssm_h"] = zeros((n_mamba, batch, di // cfg.ssm_headdim,
+                                cfg.ssm_state, cfg.ssm_headdim), F32)
+        cache["ssm_conv"] = zeros((n_mamba, batch, cfg.ssm_conv - 1,
+                                   di + 2 * cfg.ssm_state))
+    if n_rwkv:
+        hs = cfg.rwkv_head_size
+        cache["wkv"] = zeros((n_rwkv, batch, cfg.d_model // hs, hs, hs), F32)
+        cache["tm_prev"] = zeros((n_rwkv, batch, 1, cfg.d_model))
+        cache["cm_prev"] = zeros((n_rwkv, batch, 1, cfg.d_model))
+    return cache
 
 
 def hash_seeds_of(params: dict, cfg: ArchConfig) -> list:
     """Each layer's [top_k, 2] hash seeds (a hash router), else Nones."""
     if not (cfg.n_experts and cfg.use_hash_router):
-        return [None] * cfg.n_layers
+        return [None] * _counts(cfg)[0]
     if "hash_seeds" not in params:
         raise KeyError(f"{cfg.arch_id}: a hash router needs "
-                       f"params['hash_seeds'] [n_layers, top_k, 2] (drawn "
+                       f"params['hash_seeds'] [n_attn, top_k, 2] (drawn "
                        f"by init_params; the reference's through "
                        f"convert.params_from_numpy)")
     return list(params["hash_seeds"].unbind(0))
@@ -309,7 +430,7 @@ def forward_decode(params: dict, cfg: ArchConfig, tokens1: torch.Tensor,
     """tokens1: [B,1] (or embeds [B,1,D] for stub frontends).
     ``router_table``: the DHash override table of a hash router, looked up
     once for the step's token ids.  Returns (hidden [B,1,D], cache');
-    cache' shares ``cache``'s K/V, which are written in place."""
+    cache' shares ``cache``'s tensors, which are written in place."""
     check_supported(cfg)
     if cfg.frontend == "stub_embed" and tokens1.dim() == 3:
         x = tokens1.to(dtype_of(cfg.dtype))
@@ -320,19 +441,53 @@ def forward_decode(params: dict, cfg: ArchConfig, tokens1: torch.Tensor,
     router_override = None
     if cfg.use_hash_router and router_table is not None:
         router_override = dhash.lookup(router_table, token_ids.reshape(-1))
-    seeds = hash_seeds_of(params, cfg)
     clen = cache["len"]
     positions = clen[:, None]
-    flags = _attn_flags(cfg)
-    angles = {th: rope_angles(positions, th, cfg.head_dim)
-              for th in set(flags["theta"])}
-    layers = layer_params(params["attn_stack"])
-    for i, (window, theta) in enumerate(zip(flags["window"],
-                                            flags["theta"])):
-        x, _ = _attn_body(x, layers[i], window, theta, cfg, positions,
-                          (cache["k"][i], cache["v"][i]), clen,
-                          angles[theta], token_ids, router_override,
-                          seeds[i])
+    if cfg.mrope_sections is not None:
+        # a text token: the same position on the t / h / w streams
+        positions = positions.expand(3, *positions.shape)
+    kinds = cfg.blocks
+    if cfg.shared_attn_every:
+        x = _decode_shared(x, params, cfg, cache, positions)
+    elif "mamba2" in kinds:
+        for i, p in enumerate(layer_params(params["mamba_stack"])):
+            x = _mamba_body(x, p, cfg, cache["ssm_h"][i],
+                            cache["ssm_conv"][i])
+    elif "rwkv6" in kinds:
+        for i, p in enumerate(layer_params(params["rwkv_stack"])):
+            x = _rwkv_body(x, p, cfg, cache["wkv"][i], cache["tm_prev"][i],
+                           cache["cm_prev"][i])
+    else:
+        seeds = hash_seeds_of(params, cfg)
+        flags = _attn_flags(cfg)
+        angles = _step_angles(cfg, positions, set(flags["theta"]))
+        layers = layer_params(params["attn_stack"])
+        for i, (window, theta) in enumerate(zip(flags["window"],
+                                                flags["theta"])):
+            x, _ = _attn_body(x, layers[i], window, theta, cfg, positions,
+                              (cache["k"][i], cache["v"][i]), clen,
+                              angles[theta], token_ids, router_override,
+                              seeds[i])
     new_cache = dict(cache, len=clen + 1)
     x = rms_norm(x, params["final_norm"])
     return x, new_cache
+
+
+def _decode_shared(x, params: dict, cfg: ArchConfig, cache: dict,
+                   positions):
+    """zamba2: groups of ``shared_attn_every`` mamba2 layers, each group
+    followed by the weight-shared attention block (no window, the
+    configuration's rope theta) with its own K/V cache."""
+    shared_cfg = cfg.scaled(n_experts=0)
+    theta = float(np.float32(cfg.rope_theta))
+    angles = _step_angles(cfg, positions, [theta])[theta]
+    mamba = layer_params(params["mamba_stack"])
+    g = cfg.shared_attn_every
+    for app, start in enumerate(range(0, len(mamba), g)):
+        for i in range(start, min(start + g, len(mamba))):
+            x = _mamba_body(x, mamba[i], cfg, cache["ssm_h"][i],
+                            cache["ssm_conv"][i])
+        x, _ = _attn_body(x, params["shared_attn"], 0, theta, shared_cfg,
+                          positions, (cache["k"][app], cache["v"][app]),
+                          cache["len"], angles)
+    return x

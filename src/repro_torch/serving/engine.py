@@ -14,7 +14,12 @@ Host-side driver, as the reference's:
 
 The step is eager (the reference jits it): ``paged_decode_step`` runs the
 layers in a host loop, writes each layer's K/V into the page pool and
-attends over DHash-resolved pages.  The engine's work runs under
+attends over DHash-resolved pages.  It rotates with ``apply_rope`` where
+the reference's does, on an M-RoPE configuration (qwen2-vl) too: a text
+token's three position streams are equal, so this is ``apply_mrope``
+exactly (ROADMAP C).  The engine serves attention stacks only: mamba2,
+RWKV6 and zamba2's shared block raise ``NotImplementedError``, as do
+experts (ROADMAP C).  The engine's work runs under
 ``torch.inference_mode`` (no autograd bookkeeping: a host-bound step's
 dispatch cost falls by about a quarter); tensors it makes are inference
 tensors, which a caller may read but not write in place outside that
@@ -135,6 +140,15 @@ class ServingEngine:
     def __post_init__(self):
         c, s = self.cfg, self.sc
         transformer.check_supported(c)
+        if set(c.blocks) - {"attn", "local"} or c.shared_attn_every:
+            # mamba2 / RWKV6 states are not paged, and a shared block's
+            # caches follow the mamba groups: no attention stack to page
+            raise NotImplementedError(
+                f"{c.arch_id}: the paged engine pages an attention stack; "
+                f"blocks {sorted(set(c.blocks))}"
+                + (" with a shared attention block" if c.shared_attn_every
+                   else "")
+                + "; decode them with model.decode_logits")
         if c.n_experts:
             # the reference's paged step applies the dense MLP in every
             # layer and so serves no experts (ROADMAP C)

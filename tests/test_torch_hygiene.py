@@ -29,9 +29,10 @@ MODULES = ["repro_torch", "repro_torch.convert",
     "repro_torch.configs", "repro_torch.configs.base"] + [
     f"repro_torch.configs.{m}" for m in
     ("qwen3_8b", "deepseek_67b", "gemma2_2b", "gemma3_27b", "arctic_480b",
-     "llama4_scout_17b")] + [
+     "llama4_scout_17b", "qwen2_vl_2b", "zamba2_1p2b", "rwkv6_3b")] + [
     f"repro_torch.models.{m}" for m in
-    ("layers", "attention", "moe", "transformer", "model")] + [
+    ("layers", "attention", "moe", "ssm", "rwkv", "transformer",
+     "model")] + [
     f"repro_torch.serving.{m}" for m in
     ("prefix_cache", "eviction", "kvcache", "engine")] + [
     "repro_torch.launch.serve", "repro_torch.train",

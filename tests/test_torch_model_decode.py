@@ -13,8 +13,10 @@ alternation, both softcaps, a scaled embedding) and ``gemma3-27b`` (5:1
 local / global, two rope thetas), one with a logit and an attention
 softcap, ``local`` windows that bite, a scaled and untied embedding, and
 one with the fused QKV / gate-up layouts.  Every configuration the port
-registers, the five of this slice's included, equals the reference's
-field for field.  The logits of the three smoke configs added with them
+registers equals the reference's field for field.  Each block family
+(mamba2, RWKV6, experts, M-RoPE, the shared block, and attention mixed
+with a recurrent block) decodes as the reference's on the ``small``
+widths.  The logits of the three smoke configs added with them
 (``deepseek``, ``gemma2``, ``gemma3``) are held within 1e-6 of the step's
 largest |logit| instead of elementwise: their float32 roundoff reaches
 1.02e-5 on a logit of 0.0056 (largest ~10), where an elementwise 1e-5
@@ -101,7 +103,8 @@ def close(port: torch.Tensor, ref, what: str):
 
 
 PORTED = ("qwen3-8b", "deepseek-67b", "gemma2-2b", "gemma3-27b",
-          "arctic-480b", "llama4-scout-17b-a16e")
+          "arctic-480b", "llama4-scout-17b-a16e", "qwen2-vl-2b",
+          "zamba2-1.2b", "rwkv6-3b")
 
 
 def test_arch_config_and_registry_are_the_reference_s():
@@ -125,17 +128,16 @@ def test_arch_config_and_registry_are_the_reference_s():
     assert tconfigs.get_config("dhash-paper").arch_id == "dhash-paper"
     assert set(tconfigs.WAITING) | set(PORTED) == set(jconfigs.ARCH_IDS)
     with pytest.raises(KeyError, match="ROADMAP A7"):
-        tconfigs.get_config("rwkv6-3b")
+        tconfigs.get_config("hubert-xlarge")
     with pytest.raises(KeyError, match="unknown arch"):
         tconfigs.get_smoke("no-such-arch")
 
 
 def test_the_configurations_that_still_wait():
-    """Four of the reference's architectures need blocks the port lacks
-    (M-RoPE, mamba2 with the shared block, rwkv6, the encoder-only
-    training forward); each id raises naming the roadmap."""
-    assert set(tconfigs.WAITING) == {"zamba2-1.2b", "qwen2-vl-2b",
-                                     "rwkv6-3b", "hubert-xlarge"}
+    """One of the reference's architectures waits: the encoder-only
+    ``hubert-xlarge``, which has no decode step, for the training forward
+    (ROADMAP A7 f); its id raises naming the roadmap."""
+    assert set(tconfigs.WAITING) == {"hubert-xlarge"}
     for arch in tconfigs.WAITING:
         for getter in (tconfigs.get_config, tconfigs.get_smoke):
             with pytest.raises(KeyError, match="ROADMAP A7"):
@@ -278,33 +280,56 @@ def test_forward_decode_and_decode_logits_step_by_step(name):
     (dict(n_experts=4, top_k=2, moe_dff=32), "moe"),
     (dict(mrope_sections=(2, 3, 3)), "M-RoPE"),
     (dict(shared_attn_every=2, block_pattern=("mamba2",)), "shared"),
+    (dict(block_pattern=("attn", "mamba2")), "attn+ssm"),
 ])
-def test_blocks_that_wait_raise_naming_the_roadmap(override, what):
-    """A block the port lacks raises naming the roadmap.  Experts no longer
-    wait: the top-k routed case inits and decodes as the reference does
-    (three steps, logits and caches within the module's tolerance)."""
-    cfg = TCfg("t-wait", "dense", **dict(SMALL, **override))
-    gen = torch.Generator().manual_seed(0)
+def test_block_families_decode_as_the_reference(override, what):
+    """Every block family the port decodes, on the ``small`` widths: the
+    port's own init has the reference's tree and shapes, and three steps
+    of two sequences give the reference's logits and every cache entry
+    within the module's tolerance.  ``rwkv`` and ``attn+ssm`` mix
+    attention with a recurrent block and no shared block: the reference
+    decodes only the recurrent stack there (its attention K/V stay zero),
+    and so does the port (ROADMAP C)."""
+    cfg = TCfg("t-family", "dense", **dict(SMALL, **override))
+    jcfg = JCfg("t-family", "dense", **dict(SMALL, **override))
+    mine = ttr.init_params(cfg, torch.Generator().manual_seed(0))
+    jp, tp = params_pair(jcfg, seed=1)
+    flat = jax.tree_util.tree_flatten_with_path(jp)[0]
+    assert len(flat) == sum(len(v) if isinstance(v, dict) else 1
+                            for v in mine.values())
+    for path, leaf in flat:
+        node = mine
+        for k in path:
+            node = node[k.key]
+        assert tuple(node.shape) == leaf.shape, (what, path)
     if what == "moe":
-        jcfg = JCfg("t-wait", "dense", **dict(SMALL, **override))
-        mine = ttr.init_params(cfg, gen)
         assert mine["attn_stack"]["we_g"].shape == (2, 4, 64, 32)
         assert "wg" not in mine["attn_stack"] and "hash_seeds" not in mine
-        jp, tp = params_pair(jcfg, seed=1)
-        jc = jtr.init_cache(jcfg, 2, 4)
-        tc = ttr.init_cache(cfg, 2, 4, device="cpu")
-        for s, tok in enumerate(([[3], [7]], [[7], [1]], [[250], [3]])):
-            tok = np.asarray(tok, np.int32)
-            jl, jc = jmodel.decode_logits(jp, jcfg, jnp.asarray(tok), jc)
-            tl, tc = tmodel.decode_logits(tp, cfg, _t(tok), tc)
-            close(tl, jl, f"top-k moe logits step {s}")
-            close(tc["k"], jc["k"], f"top-k moe cache step {s}")
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP A7") as e:
-        ttr.init_params(cfg, gen)
-    assert what in str(e.value)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        ttr.init_cache(cfg, 1, 4, device="cpu")
+    jc = jtr.init_cache(jcfg, 2, 4)
+    tc = ttr.init_cache(cfg, 2, 4, device="cpu")
+    assert {k: tuple(v.shape) for k, v in tc.items()} == \
+        {k: v.shape for k, v in jc.items()}
+    fn = jax.jit(jmodel.decode_logits, static_argnums=1)
+    for s, tok in enumerate(([[3], [7]], [[7], [1]], [[250], [3]])):
+        tok = np.asarray(tok, np.int32)
+        jl, jc = fn(jp, jcfg, jnp.asarray(tok), jc)
+        tl, tc = tmodel.decode_logits(tp, cfg, _t(tok), tc)
+        close(tl, jl, f"{what} logits step {s}")
+        for k in jc:
+            close(tc[k], jc[k], f"{what} cache {k} step {s}")
+    if what in ("rwkv", "attn+ssm"):
+        assert not tc["k"].any() and not np.asarray(jc["k"]).any()
+
+
+def test_encoder_only_waits_naming_the_roadmap():
+    """The encoder-only configuration has no decode step: init and cache
+    raise naming the training forward's roadmap item."""
+    cfg = tconfigs.get_smoke("qwen3-8b").scaled(encoder_only=True,
+                                                causal=False)
+    for fn in (lambda: ttr.init_params(cfg, torch.Generator()),
+               lambda: ttr.init_cache(cfg, 1, 4, device="cpu")):
+        with pytest.raises(NotImplementedError, match="ROADMAP A7 f"):
+            fn()
 
 
 def test_random_init_is_seeded_and_fills_in_blocks(monkeypatch):
